@@ -6,14 +6,20 @@ and keeps its public layouts: NHWC images in, raw heads
 ``[B, S, S, 3*(5+C)]`` float32 out in the order stride 32/16/8, and the
 planar ``[B, H, C, Wl]`` rows of ``ops.planar_conv.to_planar``.
 
-- ``data``   class names, anchor groups, printable colors; image loading.
+- ``data``   class names, anchor groups, printable colors; image loading,
+             label files, the training dataset and loader.
 - ``models`` darknet cfg parsing, the ``Darknet`` module (BN-folded,
              channels_last), darknet ``.weights`` I/O.
 - ``ops``    the hand-written Hopper kernels (``csrc/``) behind their
              wrappers, each beside its plain PyTorch version; box decode
              and NMS.
 - ``evals``  the ``Detector`` and the micro-batching ``DetectionService``.
-- ``cli``    ``python -m <package>.cli.serve``.
+- ``attack`` the EOT patch pipeline (draws apart from transforms) and the
+             creation losses.
+- ``train``  experiment configs, the amsgrad patch optimizer and the
+             ``PatchTrainer``.
+- ``utils``  patch PNGs and training checkpoints.
+- ``cli``    ``python -m <package>.cli.serve``, ``...cli.train_patch``.
 
 Every entry point takes ``device=`` (default ``"cuda"``) and raises when
 that device is missing; it never falls back to the CPU. A kernel wrapper
@@ -22,4 +28,4 @@ runs its plain version only for tensors that lie on the CPU.
 
 __version__ = "0.1.0"
 
-from . import data, evals, models, ops  # noqa: E402,F401
+from . import attack, data, evals, models, ops, train, utils  # noqa: E402,F401

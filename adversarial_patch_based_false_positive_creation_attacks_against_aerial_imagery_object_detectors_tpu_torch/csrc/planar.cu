@@ -16,9 +16,14 @@
 //
 // to_planar: one thread per output element, lanes fastest, so a warp
 // writes 32 neighbouring lanes and every border and padding lane is
-// written explicitly. from_planar: a 32x32 shared-memory tile transpose
-// per image row, so both the lane-major read and the channel-major write
-// are coalesced.
+// written explicitly. Its reads stride by C elements, which is harmless
+// for the stem's 3-channel input but uncoalesced for a wide tensor (the
+// 128-channel cotangent g5 of the stem's backward: a warp touches 32
+// sectors for 64 bytes), so C >= 32 takes to_planar_tiled: a 32x32
+// shared-memory tile transpose per image row, channel-major read and
+// lane-major write both coalesced, border, padding lanes and channels
+// past C written as zero by the same tiles. from_planar is the mirror
+// transpose.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -42,6 +47,31 @@ __global__ void to_planar_kernel(const U* __restrict__ x, U* __restrict__ out,
     v = x[(r * W + w) * C + c];
   }
   out[idx] = v;
+}
+
+// grid (ceil(wl/32), ceil(cp/32), rows), block (32, 8): the tile of lanes
+// [l0, l0+32) x channels [c0, c0+32) of one planar row
+template <typename U>
+__global__ void to_planar_tiled_kernel(const U* __restrict__ x,
+                                       U* __restrict__ out, int W, int C,
+                                       int cp, int wl, int step, int offset,
+                                       int w_out) {
+  __shared__ U tile[32][33];
+  const long long row = blockIdx.z;  // b * H + h
+  const int l0 = blockIdx.x * 32, c0 = blockIdx.y * 32;
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  for (int k = ty; k < 32; k += 8) {
+    const int j = l0 + k - 1, cc = c0 + tx;
+    U v = 0;
+    if (cc < C && j >= 0 && j < w_out)
+      v = x[(row * W + step * j + offset) * C + cc];
+    tile[k][tx] = v;
+  }
+  __syncthreads();
+  for (int k = ty; k < 32; k += 8) {
+    const int cc = c0 + k, l = l0 + tx;
+    if (cc < cp && l < wl) out[(row * cp + cc) * wl + l] = tile[tx][k];
+  }
 }
 
 template <typename U>
@@ -77,6 +107,26 @@ int launch_to_planar(const void* x, void* out, int B, int H, int W, int C,
 }
 
 template <typename U>
+int launch_to_planar_tiled(const void* x, void* out, int B, int H, int W,
+                           int C, int cp, int wl, int step, int offset,
+                           int w_out, cudaStream_t s) {
+  // the grid's z limit is 65535 rows: a larger batch is launched in
+  // slices of rows, each on its own offset of x and out (a row loop inside
+  // the kernel ran slower at the g5 shape)
+  const long long rows = (long long)B * H;
+  for (long long r0 = 0; r0 < rows; r0 += 65535) {
+    const long long n = rows - r0 < 65535 ? rows - r0 : 65535;
+    dim3 grid((wl + 31) / 32, (cp + 31) / 32, (unsigned)n);
+    dim3 block(32, 8);
+    to_planar_tiled_kernel<U><<<grid, block, 0, s>>>(
+        static_cast<const U*>(x) + r0 * W * C,
+        static_cast<U*>(out) + r0 * cp * wl, W, C, cp, wl, step, offset,
+        w_out);
+  }
+  return (int)cudaGetLastError();
+}
+
+template <typename U>
 int launch_from_planar(const void* xp, void* out, int B, int H, int cp,
                        int wl, int w_img, int c, cudaStream_t s) {
   dim3 grid((w_img + 31) / 32, (c + 31) / 32, B * H);
@@ -98,6 +148,19 @@ extern "C" int apfp_to_planar(const void* x, void* out, int dtype, int B,
                                       offset, w_out, s);
   return launch_to_planar<uint32_t>(x, out, B, H, W, C, cp, wl, step, offset,
                                     w_out, s);
+}
+
+// the same contract as apfp_to_planar, as the tiled transpose (C >= 32)
+extern "C" int apfp_to_planar_tiled(const void* x, void* out, int dtype,
+                                    int B, int H, int W, int C, int cp,
+                                    int wl, int step, int offset, int w_out,
+                                    void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1)
+    return launch_to_planar_tiled<uint16_t>(x, out, B, H, W, C, cp, wl, step,
+                                            offset, w_out, s);
+  return launch_to_planar_tiled<uint32_t>(x, out, B, H, W, C, cp, wl, step,
+                                          offset, w_out, s);
 }
 
 extern "C" int apfp_from_planar(const void* xp, void* out, int dtype, int B,

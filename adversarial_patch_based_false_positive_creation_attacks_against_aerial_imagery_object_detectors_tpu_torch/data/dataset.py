@@ -1,7 +1,7 @@
-"""Image loading and the square-pad + resize preprocessing that the serve
-handler applies to every request (the JAX package's ``data/dataset.py``
-``load_image_rgb`` and ``pad_and_scale``; the dataset and batch loader
-belong to the training slice).
+"""DOTA tiles and YOLO labels for training, and the square-pad + resize
+preprocessing that the serve handler also applies (the JAX package's
+``data/dataset.py``: ``load_image_rgb``, ``pad_and_scale``,
+``DotaDataset``, ``BatchLoader``, ``epoch_plan``, ``SyntheticData``).
 
 Preprocessing parity with the reference's ``DotaDataset``: non-square
 images are squared by gray-127 padding with label coordinate fixup, then
@@ -11,10 +11,18 @@ NHWC.
 
 from __future__ import annotations
 
-from typing import Tuple
+import os
+import queue
+import threading
+from concurrent.futures import ThreadPoolExecutor
+from typing import Iterator, Tuple
 
 import numpy as np
 from PIL import Image, ImageOps
+
+from .labels import pad_labels, read_label_file
+
+IMG_EXTENSIONS = (".png", ".jpg")
 
 
 def load_image_rgb(path: str) -> Image.Image:
@@ -50,3 +58,149 @@ def pad_and_scale(img: Image.Image, labels: np.ndarray, img_size: int
         img = img.resize((img_size, img_size), Image.BILINEAR)
     arr = np.asarray(img, dtype=np.float32) / 255.0
     return arr, labels
+
+
+class DotaDataset:
+    """Indexable image+label dataset: ``*.png``/``*.jpg`` tiles paired with
+    same-stem ``.txt`` labels, squared, resized, labels padded."""
+
+    def __init__(self, img_dir: str, lab_dir: str, max_labels: int = 252,
+                 img_size: int = 608, label_cols: int = 5):
+        self.img_dir = img_dir
+        self.lab_dir = lab_dir
+        self.max_labels = max_labels
+        self.img_size = img_size
+        self.label_cols = label_cols
+        names = sorted(
+            n for n in os.listdir(img_dir)
+            if n.lower().endswith(IMG_EXTENSIONS))
+        self.names = names
+        n_labels = sum(1 for n in os.listdir(lab_dir) if n.endswith(".txt"))
+        if len(names) != n_labels:
+            raise ValueError(
+                f"image/label count mismatch: {len(names)} images vs "
+                f"{n_labels} label files")
+
+    def __len__(self) -> int:
+        return len(self.names)
+
+    def label_path(self, name: str) -> str:
+        stem = os.path.splitext(name)[0]
+        return os.path.join(self.lab_dir, stem + ".txt")
+
+    def __getitem__(self, idx: int) -> Tuple[np.ndarray, np.ndarray]:
+        name = self.names[idx]
+        img = load_image_rgb(os.path.join(self.img_dir, name))
+        labels = read_label_file(self.label_path(name), self.label_cols)
+        arr, labels = pad_and_scale(img, labels, self.img_size)
+        return arr, pad_labels(labels, self.max_labels, self.label_cols)
+
+
+class BatchLoader:
+    """Shuffling batch iterator with threaded decode and one-batch
+    prefetch, so the card does not wait on PIL."""
+
+    def __init__(self, dataset: DotaDataset, batch_size: int,
+                 shuffle: bool = True, num_workers: int = 8,
+                 seed: int = 0, drop_last: bool = False):
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.drop_last = drop_last
+        self.rng = np.random.default_rng(seed)
+        self.pool = ThreadPoolExecutor(max_workers=num_workers)
+
+    def __len__(self) -> int:
+        n = len(self.dataset)
+        return (n // self.batch_size if self.drop_last
+                else -(-n // self.batch_size))
+
+    def _make_batch(self, idxs) -> Tuple[np.ndarray, np.ndarray]:
+        items = list(self.pool.map(self.dataset.__getitem__, idxs))
+        imgs = np.stack([it[0] for it in items])
+        labs = np.stack([it[1] for it in items])
+        return imgs, labs
+
+    def __iter__(self) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
+        order = np.arange(len(self.dataset))
+        if self.shuffle:
+            self.rng.shuffle(order)
+        n = len(self) * self.batch_size if self.drop_last else len(order)
+        batches = [order[i:i + self.batch_size]
+                   for i in range(0, n, self.batch_size)]
+        if not batches:
+            return
+        q: "queue.Queue" = queue.Queue(maxsize=2)
+        stop = threading.Event()
+
+        def producer():
+            for idxs in batches:
+                if stop.is_set():
+                    return
+                q.put(self._make_batch(idxs))
+            q.put(None)
+
+        t = threading.Thread(target=producer, daemon=True)
+        t.start()
+        try:
+            while True:
+                batch = q.get()
+                if batch is None:
+                    return
+                yield batch
+        finally:
+            stop.set()
+
+
+def epoch_plan(n: int, batch_size: int, epoch: int, seed: int = 0,
+               shuffle: bool = True, drop_last: bool = False
+               ) -> Tuple[np.ndarray, np.ndarray]:
+    """Index plan for one epoch: ``(idx [K, B] int32, weights [K, B]
+    float32)``. A partial final batch is padded by tiling its real rows
+    with zero weights; shuffling is seeded per ``(seed, epoch)``."""
+    order = np.arange(n)
+    if shuffle:
+        np.random.default_rng((seed, epoch)).shuffle(order)
+    if drop_last:
+        order = order[: (n // batch_size) * batch_size]
+    if len(order) == 0:
+        raise ValueError(
+            f"no batches: n={n}, batch_size={batch_size}, "
+            f"drop_last={drop_last}")
+    k = -(-len(order) // batch_size)
+    idx = np.empty((k, batch_size), np.int32)
+    weights = np.ones((k, batch_size), np.float32)
+    for b in range(k):
+        rows = order[b * batch_size: (b + 1) * batch_size]
+        n_real = len(rows)
+        if n_real < batch_size:
+            fill = rows[np.arange(batch_size - n_real) % n_real]
+            rows = np.concatenate([rows, fill])
+            weights[b, n_real:] = 0.0
+        idx[b] = rows
+    return idx, weights
+
+
+class SyntheticData:
+    """Deterministic random tiles + labels (the JAX package's numpy
+    streams), for benchmarks and tests."""
+
+    def __init__(self, n: int, img_size: int = 608, max_labels: int = 252,
+                 seed: int = 0):
+        self.n = n
+        self.img_size = img_size
+        self.max_labels = max_labels
+        self.seed = seed
+
+    def batch(self, batch_size: int, idx: int = 0
+              ) -> Tuple[np.ndarray, np.ndarray]:
+        rng = np.random.default_rng(self.seed + idx)
+        imgs = rng.random((batch_size, self.img_size, self.img_size, 3),
+                          dtype=np.float32)
+        labs = np.full((batch_size, self.max_labels, 5), 1e-6, np.float32)
+        n_real = rng.integers(1, min(6, self.max_labels + 1), batch_size)
+        for i, k in enumerate(n_real):
+            labs[i, :k, 0] = rng.integers(0, 15, k)
+            labs[i, :k, 1:3] = rng.uniform(0.2, 0.8, (k, 2))
+            labs[i, :k, 3:5] = rng.uniform(0.02, 0.2, (k, 2))
+        return imgs, labs

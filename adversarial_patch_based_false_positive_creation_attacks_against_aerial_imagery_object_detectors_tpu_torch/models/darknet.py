@@ -14,12 +14,14 @@
 - Numerics match the JAX package's ``_conv_layer``: in the compute dtype
   the conv output, the bias add and the leaky are all in that dtype; the
   float32 path runs with TF32 off.
-- ``fused_stem=True`` routes layers 0-5 through the fused stem kernel
+- ``fused_stem=True`` routes layers 0-5 through the fused stem kernels
   (``ops/stem_fused.py``) when ``fused_applicable`` holds; the Detector
-  asks for it on CUDA. Where the network allows the fused stem, the
-  module also holds the stem's weights in the kernel's layout, prepared
-  once at build. ``last_routes()`` reports which route the last forward
-  on this thread took.
+  and the trainer ask for it on CUDA. An input that requires grad goes
+  through ``FusedStem``, whose backward is the K2 kernel. Where the
+  network allows the fused stem, the module also holds the stem's
+  weights in both kernels' layouts, prepared once at build.
+  ``last_routes()`` reports which route the last forward on this thread
+  took.
 """
 
 from __future__ import annotations
@@ -271,7 +273,8 @@ class Darknet(nn.Module):
     """The detector, holding BN-folded weights as buffers on ``device``
     (kernels in the compute dtype and ``channels_last``, biases in
     float32 and in the compute dtype; where ``fused_net_applicable``
-    holds, the stem convs' kernels also as contiguous HWIO ``sw{i}``)."""
+    holds, the stem convs' kernels also as contiguous HWIO ``sw{i}`` and,
+    for the backward kernel, channel-swapped ``sbw{i}``)."""
 
     def __init__(self, net: Network, params: Params,
                  compute_dtype: torch.dtype = torch.float32,
@@ -294,8 +297,10 @@ class Darknet(nn.Module):
         self.has_fused_stem = stem_fused.fused_net_applicable(net, params)
         if self.has_fused_stem:
             sp = _stem_params(self.folded_params(), compute_dtype)
-            for i, (w, _) in zip(STEM_CONVS, sp):
+            sbp = stem_fused.stem_bwd_params(sp)
+            for i, (w, _), v in zip(STEM_CONVS, sp, sbp):
                 self.register_buffer(f"sw{i}", w)
+                self.register_buffer(f"sbw{i}", v)
 
     def folded_params(self) -> Params:
         """The held weights as a params tree (kernels in the compute
@@ -310,15 +315,16 @@ class Darknet(nn.Module):
         return [(getattr(self, f"sw{i}"), getattr(self, f"b{i}"))
                 for i in STEM_CONVS]
 
+    def stem_bwd_params(self):
+        """The fused stem backward kernel's weights for convs 0,1,2,3,5
+        (``stem_fused.stem_bwd_params``; ``has_fused_stem`` only)."""
+        return [getattr(self, f"sbw{i}") for i in STEM_CONVS]
+
     def forward(self, x: torch.Tensor, fused_stem: bool = False
                 ) -> List[torch.Tensor]:
         """``x``: [B, H, W, 3] float in [0, 1] (NHWC) on the module's
         device. Returns the three raw heads [B, S, S, 3*(5+C)] float32."""
         dt = self.compute_dtype
-        if fused_stem and x.requires_grad:
-            raise RuntimeError(
-                "fused_stem=True on an input that requires grad: the fused "
-                "stem's backward belongs to the training slice")
         routes = _last_routes()
         routes["stem"] = "conv"
         tf32 = (_cuda.no_tf32() if dt == torch.float32
@@ -329,7 +335,8 @@ class Darknet(nn.Module):
             if (fused_stem and self.has_fused_stem
                     and stem_shape_ok(tuple(x.shape))):
                 prev = stem_fused.fused_stem(xc.contiguous(),
-                                             self.stem_params())
+                                             self.stem_params(),
+                                             self.stem_bwd_params())
                 prev = prev.permute(0, 3, 1, 2)
                 outputs[5] = prev
                 routes["stem"] = "fused"

@@ -4,4 +4,5 @@ from .nms import (iou_xywh_matrix, greedy_nms_host, greedy_nms_device,
 from .planar_conv import (to_planar, from_planar, to_planar_plain,
     from_planar_plain)
 from .stem_fused import (split_phases, merge_phases, fused_applicable,
-    fused_stem_fwd, fused_stem_fwd_plain, fused_stem)
+    fused_stem_fwd, fused_stem_fwd_plain, fused_stem, FusedStem,
+    fused_stem_bwd_saved, fused_stem_bwd_saved_plain, stem_bwd_params)

@@ -46,13 +46,22 @@ SIGNATURES = {
         # x, out, dtype, B, H, W, C, cp, wl, step, offset, w_out, stream
         "apfp_to_planar": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                            _P],
+        # the same arguments
+        "apfp_to_planar_tiled": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                                 _I, _P],
         # xp, out, dtype, B, H, cp, wl, w_img, c, stream
         "apfp_from_planar": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     },
     "stem_fused": {
-        # xe, xo, w0, w1, w2, w3, w5, b0, b1, b2, b3, b5, y5, dtype,
+        # xe, xo, w0, w1, w2, w3, w5, b0, b1, b2, b3, b5, y5,
+        # m0e, m0o, m1, m2, m3 (save_acts masks or null), dtype,
         # B, H, wlh, wl5, stream
-        "apfp_fused_stem_fwd": [_P] * 13 + [_I] * 5 + [_P],
+        "apfp_fused_stem_fwd": [_P] * 18 + [_I] * 5 + [_P],
+    },
+    "stem_bwd": {
+        # m0e, m0o, m1, m2, m3, y5, g5, v0, v1, v2, v3, v5, gxe, gxo,
+        # dtype, B, H, wlh, wl5, stream
+        "apfp_fused_stem_bwd": [_P] * 14 + [_I] * 5 + [_P],
     },
 }
 
@@ -197,3 +206,14 @@ def require_cuda(name: str, *tensors: torch.Tensor) -> None:
     if tensors[0].dtype not in DTYPE_CODES:
         raise TypeError(f"{name}: dtype {tensors[0].dtype} not supported "
                         f"(float32 or bfloat16)")
+
+
+def require_cuda_int8(name: str, device: torch.device,
+                      *tensors: torch.Tensor) -> None:
+    """A kernel wrapper's check of its int8 inputs (sign masks):
+    contiguous, int8, on ``device``."""
+    for t in tensors:
+        if (t.device != device or t.dtype != torch.int8
+                or not t.is_contiguous()):
+            raise ValueError(f"{name}: masks must be contiguous int8 on "
+                             f"{device}, got {t.dtype} on {t.device}")

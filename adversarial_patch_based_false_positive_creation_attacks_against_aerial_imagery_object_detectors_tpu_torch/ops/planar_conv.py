@@ -58,18 +58,30 @@ def from_planar_plain(xp: torch.Tensor, w_img: Optional[int] = None,
 
 def to_planar(x: torch.Tensor, c_pad: Optional[int] = None,
               step: int = 1, offset: int = 0) -> torch.Tensor:
-    """``to_planar_plain`` as the K3a kernel on a CUDA tensor."""
+    """``to_planar_plain`` as the K3a kernel on a CUDA tensor: the tiled
+    transpose for C >= 32 (coalesced reads of wide rows), one thread per
+    output element otherwise. Each variant counts its own launches:
+    ``to_planar.launches`` and ``to_planar.tiled_launches``."""
     if x.device.type == "cpu":
         return to_planar_plain(x, c_pad, step, offset)
+    return _to_planar_launch(x, c_pad, step, offset, tiled=x.shape[3] >= 32)
+
+
+def _to_planar_launch(x: torch.Tensor, c_pad: Optional[int], step: int,
+                      offset: int, tiled: bool) -> torch.Tensor:
     _cuda.require_cuda("to_planar", x)
     b, h, w_in, c = x.shape
     w_out, wl, cp = _planar_geometry(w_in, c, c_pad, step, offset)
     out = torch.empty((b, h, cp, wl), dtype=x.dtype, device=x.device)
-    err = _cuda.lib("planar").apfp_to_planar(
-        x.data_ptr(), out.data_ptr(), _cuda.DTYPE_CODES[x.dtype], b, h,
-        w_in, c, cp, wl, step, offset, w_out, _cuda.stream_ptr(x))
+    fn = (_cuda.lib("planar").apfp_to_planar_tiled if tiled
+          else _cuda.lib("planar").apfp_to_planar)
+    err = fn(x.data_ptr(), out.data_ptr(), _cuda.DTYPE_CODES[x.dtype], b, h,
+             w_in, c, cp, wl, step, offset, w_out, _cuda.stream_ptr(x))
     _cuda.check(err, "to_planar")
-    to_planar.launches += 1
+    if tiled:
+        to_planar.tiled_launches += 1
+    else:
+        to_planar.launches += 1
     return out
 
 
@@ -95,4 +107,5 @@ def from_planar(xp: torch.Tensor, w_img: Optional[int] = None,
 
 
 to_planar.launches = 0
+to_planar.tiled_launches = 0
 from_planar.launches = 0

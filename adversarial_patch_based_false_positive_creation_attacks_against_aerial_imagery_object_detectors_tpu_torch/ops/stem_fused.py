@@ -1,20 +1,25 @@
-"""The fused YOLOv3 stem forward (K1): layers 0-5 in one kernel.
+"""The fused YOLOv3 stem: layers 0-5 forward (K1) and input backward (K2).
 
 ``fused_stem_fwd`` takes the even/odd column phases of the input in the
 planar layout (``split_phases``) and returns y5 planar
 ``[B, H/4, 128, Wl5]``, exactly as the JAX package's Pallas
-``ops/stem_fused.py: fused_stem_fwd`` does. On a CUDA tensor it launches
-the hand-written kernel of ``csrc/stem_fused.cu``; on a CPU tensor it
-runs ``fused_stem_fwd_plain``, the same function as ``F.conv2d`` chains
-with the kernel's rounding points (float32 accumulation; the compute
-dtype after each leaky and on the shortcut sum). The kernel is bound by
-operations on the H100 (11.2 GFLOP per 608^2 image against ~17.5 MB of
-planar I/O); see the source for its design.
+``ops/stem_fused.py: fused_stem_fwd`` does; with ``save_acts=True`` it
+also returns the int8 sign masks of y0 (both column phases), y1, y2 and
+y3 that the backward needs. ``fused_stem_bwd_saved`` (K2) turns those
+masks, y5 and a planar cotangent g5 into the phase-split planar input
+cotangent, as the Pallas ``fused_stem_bwd_saved`` does. On a CUDA tensor
+each wrapper launches its hand-written kernel (``csrc/stem_fused.cu``,
+``csrc/stem_bwd.cu``); on a CPU tensor it runs its plain version, the
+same function as ``F.conv2d`` / ``F.conv_transpose2d`` chains with the
+kernel's rounding points (float32 accumulation; the compute dtype where
+the Pallas kernel stores). Both kernels are bound by operations on the
+H100 (11.2 GFLOP per 608^2 image each way); see the sources.
 
-``fused_stem`` is the NHWC-in, NHWC-out forward the detector calls:
-``split_phases`` (K3a twice) -> K1 -> ``from_planar`` (K3b). Its backward
-(the Pallas ``fused_stem_bwd_saved`` and the ``save_acts`` masks) belongs
-to the training slice, so an input that requires grad is refused.
+``fused_stem`` is the NHWC-in, NHWC-out stem the detector calls:
+``split_phases`` (K3a twice) -> K1 -> ``from_planar`` (K3b). For an input
+that requires grad it runs ``FusedStem``, whose forward saves the masks
+and whose backward is K3a (g5 -> planar) -> K2 -> ``merge_phases``; it
+returns the input cotangent only (the victim's weights are frozen).
 """
 
 from __future__ import annotations
@@ -33,8 +38,13 @@ LEAKY = 0.1
 STEM_FILTERS = (32, 64, 32, 64, 128)
 STEM_IN = (3, 32, 64, 32, 64)
 STEM_KSIZE = (3, 3, 1, 3, 3)
+# K2's weights per conv: HWIO with the channel axes swapped,
+# [kh, kw, cout, cin]; conv0's cin padded 3 -> 8
+STEM_BWD_SHAPES = ((3, 3, 32, 8), (3, 3, 64, 32), (1, 1, 32, 64),
+                   (3, 3, 64, 32), (3, 3, 128, 64))
 
 StemParams = Sequence[Tuple[torch.Tensor, torch.Tensor]]
+StemBwdParams = Sequence[torch.Tensor]
 
 
 def split_phases(x: torch.Tensor):
@@ -71,11 +81,33 @@ def fused_net_applicable(net, params) -> bool:
     return filters == STEM_FILTERS
 
 
+def stem_bwd_params(sp: StemParams) -> list:
+    """K2's weights from the forward's HWIO weights: each with its channel
+    axes swapped (``[kh, kw, cout, cin]``, contiguous, the compute dtype),
+    conv0's padded from 3 to 8 input channels with zeros."""
+    out = []
+    for w, _ in sp:
+        v = w.permute(0, 1, 3, 2)
+        if v.shape[-1] < 8:
+            v = F.pad(v, (0, 8 - v.shape[-1]))
+        out.append(v.contiguous())
+    return out
+
+
+def _sign_mask(v: torch.Tensor) -> torch.Tensor:
+    return (v > 0).to(torch.int8)
+
+
 def fused_stem_fwd_plain(xe: torch.Tensor, xo: torch.Tensor,
-                         sp: StemParams) -> torch.Tensor:
+                         sp: StemParams, save_acts: bool = False):
     """K1's plain version: phase-split planar x -> planar y5. ``sp`` holds
     (HWIO weight in the compute dtype, float32 bias) for convs 0,1,2,3,5
-    (``models/stem_planar._stem_params``)."""
+    (``models/stem_planar._stem_params``). ``save_acts`` also returns
+    the int8 sign masks ``(y5, y0e, y0o, y1, y2, y3)``, planar as the
+    Pallas kernel's: y0's even/odd column phases [B, H, 32, Wlh], y1 and
+    y3 [B, H/2, 64, Wlh], y2 [B, H/2, 32, Wlh]; the sign is that of the
+    value rounded to the compute dtype, and y3's is taken before the
+    shortcut sum."""
     dt = xe.dtype
     x = merge_phases(xe, xo, xe.shape[1] // 2, 3)
 
@@ -93,7 +125,14 @@ def fused_stem_fwd_plain(xe: torch.Tensor, xo: torch.Tensor,
         y3 = conv(y2, *sp[3], 1)
         s4 = (y3 + y1).to(dt).float()
         y5 = conv(s4, *sp[4], 2).to(dt)
-    return to_planar_plain(y5.permute(0, 2, 3, 1))
+    y5p = to_planar_plain(y5.permute(0, 2, 3, 1))
+    if not save_acts:
+        return y5p
+    m0 = _sign_mask(y0).permute(0, 2, 3, 1)
+    return (y5p, to_planar_plain(m0, step=2, offset=0),
+            to_planar_plain(m0, step=2, offset=1),
+            *[to_planar_plain(_sign_mask(y).permute(0, 2, 3, 1))
+              for y in (y1, y2, y3)])
 
 
 def _check_stem_params(sp: StemParams, dt: torch.dtype,
@@ -117,12 +156,30 @@ def _check_stem_params(sp: StemParams, dt: torch.dtype,
                              f"float32 ({cout},) on {device}")
 
 
-def fused_stem_fwd(xe: torch.Tensor, xo: torch.Tensor,
-                   sp: StemParams) -> torch.Tensor:
+def _check_stem_bwd_params(sbp: StemBwdParams, dt: torch.dtype,
+                           device: torch.device) -> None:
+    """K2 reads ``sbp`` as it is: contiguous ``stem_bwd_params`` weights
+    in the compute dtype, on the input's device."""
+    if len(sbp) != 5:
+        raise ValueError("fused_stem_bwd_saved: expected 5 weights")
+    for v, shape in zip(sbp, STEM_BWD_SHAPES):
+        if (tuple(v.shape) != shape or v.dtype != dt or v.device != device
+                or not v.is_contiguous()):
+            raise ValueError(
+                f"fused_stem_bwd_saved: weight {tuple(v.shape)} {v.dtype} "
+                f"on {v.device}, expected contiguous {shape} {dt} on "
+                f"{device}")
+
+
+def fused_stem_fwd(xe: torch.Tensor, xo: torch.Tensor, sp: StemParams,
+                   save_acts: bool = False):
     """Phase-split planar x [B, H, 8, Wlh] -> planar y5
-    [B, H/4, 128, Wl5] (square images, H % 4 == 0)."""
+    [B, H/4, 128, Wl5] (square images, H % 4 == 0); with ``save_acts``
+    the tuple ``(y5, y0e, y0o, y1, y2, y3)`` of ``fused_stem_fwd_plain``.
+    The two instantiations count their own launches:
+    ``fused_stem_fwd.launches`` and ``fused_stem_fwd.save_acts_launches``."""
     if xe.device.type == "cpu":
-        return fused_stem_fwd_plain(xe, xo, sp)
+        return fused_stem_fwd_plain(xe, xo, sp, save_acts)
     _cuda.require_cuda("fused_stem_fwd", xe, xo)
     bsz, h, cp, wlh = xe.shape
     dt = xe.dtype
@@ -130,29 +187,151 @@ def fused_stem_fwd(xe: torch.Tensor, xo: torch.Tensor,
             or wlh != _round_up(h // 2 + 2, 128)):
         raise ValueError(f"fused_stem_fwd: bad phase geometry {xe.shape}")
     _check_stem_params(sp, dt, xe.device)
-    h5 = h // 4
+    h1, h5 = h // 2, h // 4
     wl5 = _round_up(h5 + 2, 128)
     # the kernel writes every lane, borders and padding included
     y5 = torch.empty((bsz, h5, 128, wl5), dtype=dt, device=xe.device)
+    masks = []
+    if save_acts:
+        masks = [torch.empty((bsz, rows, c, wlh), dtype=torch.int8,
+                             device=xe.device)
+                 for rows, c in ((h, 32), (h, 32), (h1, 64), (h1, 32),
+                                 (h1, 64))]
+    mask_ptrs = [m.data_ptr() for m in masks] or [None] * 5
     err = _cuda.lib("stem_fused").apfp_fused_stem_fwd(
         xe.data_ptr(), xo.data_ptr(), *[w.data_ptr() for w, _ in sp],
-        *[bias.data_ptr() for _, bias in sp], y5.data_ptr(),
+        *[bias.data_ptr() for _, bias in sp], y5.data_ptr(), *mask_ptrs,
         _cuda.DTYPE_CODES[dt], bsz, h, wlh, wl5, _cuda.stream_ptr(xe))
     _cuda.check(err, "fused_stem_fwd")
+    if save_acts:
+        fused_stem_fwd.save_acts_launches += 1
+        return (y5, *masks)
     fused_stem_fwd.launches += 1
     return y5
 
 
 fused_stem_fwd.launches = 0
+fused_stem_fwd.save_acts_launches = 0
 
 
-def fused_stem(x: torch.Tensor, sp: StemParams) -> torch.Tensor:
+def fused_stem_bwd_saved_plain(acts, g5p: torch.Tensor,
+                               sbp: StemBwdParams):
+    """K2's plain version: ``(y5, y0e, y0o, y1, y2, y3)`` of
+    ``fused_stem_fwd(..., save_acts=True)`` and a planar cotangent g5
+    [B, H/4, 128, Wl5] (y5's dtype) -> the phase-split planar input
+    cotangent (gxe, gxo), each [B, H, 8, Wlh]. ``F.conv_transpose2d``
+    chains in float32 that round to the compute dtype where the Pallas
+    ``_grad_chain`` stores, gated by the same masks."""
+    y5p, y0e, y0o, y1m, y2m, y3m = acts
+    dt = y5p.dtype
+    h = y0e.shape[1]
+    h1, h5 = h // 2, h // 4
+
+    def nchw(p, w, c):
+        return from_planar_plain(p, w, c).permute(0, 3, 1, 2)
+
+    def gate(m):
+        return torch.where(m > 0, 1.0, LEAKY)
+
+    def rnd(v):
+        return v.to(dt).float()
+
+    # [cout, cin, kh, kw]: conv_transpose2d's weight is the forward's
+    wt = [v.permute(2, 3, 0, 1).float() for v in sbp]
+    with _cuda.no_tf32():
+        gp5 = rnd(nchw(g5p, h5, 128).float()
+                  * gate(nchw(y5p, h5, 128).float()))
+        gs4 = rnd(F.conv_transpose2d(gp5, wt[4], stride=2, padding=1,
+                                     output_padding=1))
+        gp3 = rnd(gs4 * gate(nchw(y3m, h1, 64)))
+        gp2 = rnd(F.conv_transpose2d(gp3, wt[3], padding=1)
+                  * gate(nchw(y2m, h1, 32)))
+        gp1 = rnd((F.conv_transpose2d(gp2, wt[2]) + gs4)
+                  * gate(nchw(y1m, h1, 64)))
+        m0 = merge_phases(y0e, y0o, h1, 32).permute(0, 3, 1, 2)
+        gp0 = rnd(F.conv_transpose2d(gp1, wt[1], stride=2, padding=1,
+                                     output_padding=1) * gate(m0))
+        gx = F.conv_transpose2d(gp0, wt[0], padding=1).to(dt)
+    gx = gx.permute(0, 2, 3, 1)
+    return (to_planar_plain(gx, 8, 2, 0), to_planar_plain(gx, 8, 2, 1))
+
+
+def fused_stem_bwd_saved(acts, g5p: torch.Tensor, sbp: StemBwdParams):
+    """``fused_stem_bwd_saved_plain`` as the K2 kernel on CUDA tensors
+    (H % 16 == 0)."""
+    y5p, y0e, y0o, y1m, y2m, y3m = acts
+    if y5p.device.type == "cpu":
+        return fused_stem_bwd_saved_plain(acts, g5p, sbp)
+    _cuda.require_cuda("fused_stem_bwd_saved", y5p, g5p)
+    _cuda.require_cuda_int8("fused_stem_bwd_saved", y5p.device, y0e, y0o,
+                            y1m, y2m, y3m)
+    dt = y5p.dtype
+    bsz, h, _, wlh = y0e.shape
+    h1, h5 = h // 2, h // 4
+    wl5 = _round_up(h5 + 2, 128)
+    want = {"y5": (y5p, (bsz, h5, 128, wl5)), "g5": (g5p, (bsz, h5, 128,
+                                                           wl5)),
+            "y0e": (y0e, (bsz, h, 32, wlh)), "y0o": (y0o, (bsz, h, 32, wlh)),
+            "y1": (y1m, (bsz, h1, 64, wlh)), "y2": (y2m, (bsz, h1, 32, wlh)),
+            "y3": (y3m, (bsz, h1, 64, wlh))}
+    bad = [k for k, (t, s) in want.items() if tuple(t.shape) != s]
+    if (bad or g5p.dtype != dt or h % 16
+            or wlh != _round_up(h1 + 2, 128)):
+        raise ValueError(f"fused_stem_bwd_saved: bad geometry {bad} for "
+                         f"y0e {tuple(y0e.shape)}, or g5 {g5p.dtype} vs "
+                         f"y5 {dt}")
+    _check_stem_bwd_params(sbp, dt, y5p.device)
+    # the kernel writes every lane, borders and padding included
+    gxe = torch.empty((bsz, h, 8, wlh), dtype=dt, device=y5p.device)
+    gxo = torch.empty_like(gxe)
+    err = _cuda.lib("stem_bwd").apfp_fused_stem_bwd(
+        y0e.data_ptr(), y0o.data_ptr(), y1m.data_ptr(), y2m.data_ptr(),
+        y3m.data_ptr(), y5p.data_ptr(), g5p.data_ptr(),
+        *[v.data_ptr() for v in sbp], gxe.data_ptr(), gxo.data_ptr(),
+        _cuda.DTYPE_CODES[dt], bsz, h, wlh, wl5, _cuda.stream_ptr(y5p))
+    _cuda.check(err, "fused_stem_bwd_saved")
+    fused_stem_bwd_saved.launches += 1
+    return gxe, gxo
+
+
+fused_stem_bwd_saved.launches = 0
+
+
+class FusedStem(torch.autograd.Function):
+    """The stem with its saved-sign backward: forward split_phases -> K1
+    (save_acts) -> K3b; backward K3a (g5 in the compute dtype) -> K2 ->
+    merge_phases. Only the input cotangent is returned (the JAX
+    package's ``fused_stem`` custom VJP returns zeros for the weights)."""
+
+    @staticmethod
+    def forward(ctx, x, sp, sbp):
+        xe, xo = split_phases(x)
+        acts = fused_stem_fwd(xe, xo, sp, save_acts=True)
+        ctx.save_for_backward(*acts)
+        ctx.sbp = sbp
+        return from_planar(acts[0], x.shape[1] // 4, 128)
+
+    @staticmethod
+    def backward(ctx, g5):
+        acts = ctx.saved_tensors
+        h = acts[1].shape[1]
+        g5p = to_planar(g5.to(acts[0].dtype).contiguous())
+        gxe, gxo = fused_stem_bwd_saved(acts, g5p, ctx.sbp)
+        return merge_phases(gxe, gxo, h // 2, 3), None, None
+
+
+def fused_stem(x: torch.Tensor, sp: StemParams,
+               sbp: StemBwdParams = None) -> torch.Tensor:
     """NHWC [B, H, W, 3] (compute dtype) -> NHWC [B, H/4, W/4, 128]:
-    split_phases -> fused_stem_fwd -> from_planar. Forward only."""
-    if x.requires_grad:
-        raise RuntimeError(
-            "fused_stem has no backward yet (it belongs to the training "
-            "slice); run the conv walk for inputs that require grad")
+    split_phases -> fused_stem_fwd -> from_planar. Where autograd records
+    (``x.requires_grad``), ``FusedStem`` with K2's weights ``sbp``
+    (``stem_bwd_params``, built once by the model); otherwise forward
+    only, saving no masks."""
+    if x.requires_grad and torch.is_grad_enabled():
+        if sbp is None:
+            raise ValueError("fused_stem: an input that requires grad "
+                             "needs the backward weights (sbp)")
+        return FusedStem.apply(x, sp, sbp)
     xe, xo = split_phases(x)
     y5p = fused_stem_fwd(xe, xo, sp)
     return from_planar(y5p, x.shape[1] // 4, 128)

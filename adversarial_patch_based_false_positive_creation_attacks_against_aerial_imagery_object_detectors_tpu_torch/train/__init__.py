@@ -1,0 +1,9 @@
+from .config import (
+    ExperimentConfig, EXPERIMENTS, LOSS_RECIPES, get_experiment,
+    combine_loss_target,
+)
+from .optim import make_optimizer, amsgrad_step
+from .trainer import (
+    PatchTrainer, ReduceLROnPlateau, make_loss_fn, make_train_step,
+    init_patch, build_victim, eot_config, compute_dtype, LOSS_KEYS,
+)

@@ -20,6 +20,15 @@ from adversarial_patch_based_false_positive_creation_attacks_against_aerial_imag
 from adversarial_patch_based_false_positive_creation_attacks_against_aerial_imagery_object_detectors_tpu.models import weights as JW
 from adversarial_patch_based_false_positive_creation_attacks_against_aerial_imagery_object_detectors_tpu_torch import models as PM
 
+
+@pytest.fixture(autouse=True)
+def _grad_enabled():
+    """Autograd on for every test here, whatever grad mode an earlier
+    test in the same process left behind."""
+    with torch.enable_grad():
+        yield
+
+
 MINI_CFG = os.path.join(os.path.dirname(__file__), "fixtures", "refparity",
                         "mini_yolov3_dota.cfg")
 
@@ -135,8 +144,19 @@ def test_bf16_conv_walk_close_to_jax():
 
 
 def test_fused_stem_refuses_input_that_requires_grad():
+    """The fused route no longer refuses an input that requires grad: it
+    takes ``FusedStem`` (K1 with masks, K2; plain versions on the CPU)
+    and its input gradient equals the conv walk's (float32, relative L2
+    1e-5)."""
     net = PM.build_network(PM.yolov3_blocks(width=64, height=64))
-    params = PM.init_params(net, 0)
-    x = torch.rand(1, 64, 64, 3, requires_grad=True)
-    with pytest.raises(RuntimeError, match="grad"):
-        PM.apply(net, params, x, fused_stem=True)
+    model = PM.Darknet(net, PM.init_params(net, 0), device="cpu")
+    x = torch.rand(2, 64, 64, 3, generator=torch.Generator().manual_seed(0))
+    grads = []
+    for fused in (True, False):
+        xr = x.clone().requires_grad_(True)
+        heads = model(xr, fused_stem=fused)
+        assert PM.last_routes()["stem"] == ("fused" if fused else "conv")
+        sum(h.square().mean() for h in heads).backward()
+        grads.append(xr.grad)
+    rel = ((grads[0] - grads[1]).norm() / grads[1].norm()).item()
+    assert rel <= 1e-5, rel

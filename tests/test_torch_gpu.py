@@ -22,7 +22,16 @@ from adversarial_patch_based_false_positive_creation_attacks_against_aerial_imag
 from adversarial_patch_based_false_positive_creation_attacks_against_aerial_imagery_object_detectors_tpu_torch.ops import planar_conv as PC
 from adversarial_patch_based_false_positive_creation_attacks_against_aerial_imagery_object_detectors_tpu_torch.ops import stem_fused as SF
 
+
 pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture(autouse=True)
+def _grad_enabled():
+    """Autograd on for every test here, whatever grad mode an earlier
+    test in the same process left behind."""
+    with torch.enable_grad():
+        yield
 
 
 @pytest.fixture
@@ -54,7 +63,10 @@ def test_layout_kernels_exact(cuda, dtype):
     assert PC.to_planar.launches == n + 2
     y = torch.randn(2, 16, 16, 128, generator=g).to(cuda, dtype)
     yp = PC.to_planar_plain(y)
+    n = (PC.to_planar.launches, PC.to_planar.tiled_launches)
     assert torch.equal(PC.to_planar(y), yp)
+    assert (PC.to_planar.launches, PC.to_planar.tiled_launches) == (
+        n[0], n[1] + 1)
     assert torch.equal(PC.from_planar(yp, 16, 128), y)
 
 
@@ -107,3 +119,106 @@ def test_serve_cli_builds_a_cuda_detector(cuda):
     assert det.compute_dtype == torch.bfloat16
     rows = det.detect_batch(np.zeros((1, 64, 64, 3), np.float32), 0.4, 0.4)
     assert rows[0].shape[1] == 7
+
+
+def _masks_equal_on_image(got, want, frac=1e-5):
+    """Masks agree except for a few sign flips at |pre-activation| ~ 0
+    (summation order), and every border and padding lane is zero."""
+    n = int((got != want).sum().item())
+    assert n <= max(2, frac * got.numel()), n
+    return n
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h", [(2, 32), (1, 96)])
+def test_fused_stem_save_acts_masks_match_plain(cuda, dtype, b, h):
+    sp = _stem_params(dtype, cuda)
+    x = torch.rand(b, h, h, 3, generator=torch.Generator().manual_seed(2)
+                   ).to(cuda, dtype)
+    xe, xo = SF.split_phases(x)
+    for shape in ((b, h, 32, 128), (b, h // 2, 64, 128)):
+        torch.full(shape, 7, dtype=torch.int8, device=cuda)
+    n = (SF.fused_stem_fwd.launches, SF.fused_stem_fwd.save_acts_launches)
+    got = SF.fused_stem_fwd(xe, xo, sp, save_acts=True)
+    torch.cuda.synchronize()
+    assert (SF.fused_stem_fwd.launches,
+            SF.fused_stem_fwd.save_acts_launches) == (n[0], n[1] + 1)
+    want = SF.fused_stem_fwd_plain(xe, xo, sp, save_acts=True)
+    # y5 as the forward alone
+    assert torch.equal(got[0], SF.fused_stem_fwd(xe, xo, sp))
+    for g, w in zip(got[1:], want[1:]):
+        assert g.dtype == torch.int8 and g.shape == w.shape
+        _masks_equal_on_image(g, w)
+        assert not g[..., 0].any() and not g[..., h // 2 + 1:].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h", [(2, 32), (1, 96)])
+def test_fused_stem_bwd_kernel_matches_plain(cuda, dtype, b, h):
+    sp = _stem_params(dtype, cuda)
+    sbp = SF.stem_bwd_params(sp)
+    g = torch.Generator().manual_seed(3)
+    x = torch.rand(b, h, h, 3, generator=g).to(cuda, dtype)
+    xe, xo = SF.split_phases(x)
+    acts = SF.fused_stem_fwd(xe, xo, sp, save_acts=True)
+    g5 = torch.randn(b, h // 4, h // 4, 128, generator=g).to(cuda, dtype)
+    g5p = PC.to_planar(g5)
+    n = SF.fused_stem_bwd_saved.launches
+    got = SF.fused_stem_bwd_saved(acts, g5p, sbp)
+    torch.cuda.synchronize()
+    assert SF.fused_stem_bwd_saved.launches == n + 1
+    want = SF.fused_stem_bwd_saved_plain(acts, g5p, sbp)
+    for gk, wk in zip(got, want):
+        scale = wk.float().abs().max().item()
+        err = (gk.float() - wk.float()).abs().max().item()
+        if dtype == torch.float32:
+            assert err <= 2e-5 * scale, (err, scale)
+        else:
+            assert err <= scale * 2.0 ** -6, (err, scale)
+        assert not gk[..., 0].any() and not gk[..., h // 2 + 1:].any()
+        assert not gk[:, :, 3:].any()
+
+
+def test_to_planar_g5_geometry_exact(cuda):
+    """K3a at the cotangent's width (C = 128, the tiled transpose) and on
+    a wide input with a column decimation and channel padding; both K3a
+    variants agree with the plain version bit for bit."""
+    g = torch.Generator().manual_seed(4)
+    g5 = torch.randn(2, 24, 24, 128, generator=g).to(cuda, torch.bfloat16)
+    want = PC.to_planar_plain(g5)
+    n = PC.to_planar.tiled_launches
+    assert torch.equal(PC.to_planar(g5), want)
+    assert PC.to_planar.tiled_launches == n + 1
+    for tiled in (False, True):
+        assert torch.equal(PC._to_planar_launch(g5, None, 1, 0, tiled), want)
+    x = torch.randn(3, 5, 70, 40, generator=g).to(cuda)
+    for off in (0, 1):
+        want = PC.to_planar_plain(x, 48, 2, off)
+        for tiled in (False, True):
+            assert torch.equal(PC._to_planar_launch(x, 48, 2, off, tiled),
+                               want)
+    # more rows than the grid's z limit (65535): the tiled kernel's blocks
+    # loop over rows
+    x = torch.randn(1, 65537, 3, 32, generator=g).to(cuda, torch.bfloat16)
+    assert torch.equal(PC.to_planar(x), PC.to_planar_plain(x))
+
+
+def test_fused_stem_grad_matches_conv_walk_on_card(cuda):
+    """float32, TF32 off: the input gradient through K1 (save_acts) + K2
+    equals the conv walk's (summation order only)."""
+    from adversarial_patch_based_false_positive_creation_attacks_against_aerial_imagery_object_detectors_tpu_torch.ops import _cuda
+    net = PM.build_network(PM.yolov3_blocks(width=64, height=64))
+    model = PM.Darknet(net, PM.init_params(net, 0), torch.float32,
+                       device=cuda)
+    x = torch.rand(2, 64, 64, 3, generator=torch.Generator().manual_seed(5)
+                   ).to(cuda)
+    grads = []
+    for fused in (True, False):
+        xr = x.clone().requires_grad_(True)
+        with _cuda.no_tf32():
+            heads = model(xr, fused_stem=fused)
+            sum(h.square().mean() for h in heads).backward()
+        assert PM.last_routes()["stem"] == ("fused" if fused else "conv")
+        grads.append(xr.grad)
+    rel = ((grads[0] - grads[1]).norm() / grads[1].norm()).item()
+    assert rel <= 1e-4, rel

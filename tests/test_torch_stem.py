@@ -16,6 +16,14 @@ from adversarial_patch_based_false_positive_creation_attacks_against_aerial_imag
 from adversarial_patch_based_false_positive_creation_attacks_against_aerial_imagery_object_detectors_tpu_torch.ops import stem_fused as SF
 
 
+@pytest.fixture(autouse=True)
+def _grad_enabled():
+    """Autograd on for every test here, whatever grad mode an earlier
+    test in the same process left behind."""
+    with torch.enable_grad():
+        yield
+
+
 def make_sp(rng):
     """(HWIO numpy weight, bias) pairs for convs 0,1,2,3,5."""
     sp = []
@@ -108,7 +116,28 @@ def test_fused_stem_plain_bf16_rounds_like_the_kernel():
 
 
 def test_fused_stem_refuses_grad():
+    """An input that requires grad is refused without the backward
+    kernel's weights; with them, ``FusedStem``'s input gradient (plain K1
+    with masks, plain K2) equals the conv walk's autograd gradient."""
     rng = np.random.default_rng(1)
-    x = torch.rand(1, 32, 32, 3, requires_grad=True)
-    with pytest.raises(RuntimeError, match="backward"):
-        SF.fused_stem(x, to_port(make_sp(rng)))
+    sp = to_port(make_sp(rng))
+    x = torch.rand(2, 32, 32, 3, generator=torch.Generator().manual_seed(1))
+    with pytest.raises(ValueError, match="backward weights"):
+        SF.fused_stem(x.clone().requires_grad_(True), sp)
+    g5 = torch.randn(2, 8, 8, 128, generator=torch.Generator().manual_seed(2))
+    xf = x.clone().requires_grad_(True)
+    (SF.fused_stem(xf, sp, SF.stem_bwd_params(sp)) * g5).sum().backward()
+
+    def conv(u, w, b, s):
+        y = torch.nn.functional.conv2d(u, w.permute(3, 2, 0, 1), b, s,
+                                       (w.shape[0] - 1) // 2)
+        return torch.where(y > 0, y, 0.1 * y)
+    xw = x.clone().requires_grad_(True)
+    v = xw.permute(0, 3, 1, 2)
+    y1 = conv(conv(v, *sp[0], 1), *sp[1], 2)
+    y3 = conv(conv(y1, *sp[2], 1), *sp[3], 1)
+    y5 = conv(y3 + y1, *sp[4], 2).permute(0, 2, 3, 1)
+    (y5 * g5).sum().backward()
+    scale = xw.grad.abs().max().item()
+    torch.testing.assert_close(xf.grad, xw.grad, rtol=2e-5,
+                               atol=2e-5 * scale)

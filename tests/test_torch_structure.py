@@ -92,20 +92,47 @@ def test_entry_points_refuse_missing_cuda(monkeypatch):
     assert det.device.type == "cpu" and not det.fused_stem
 
 
+def test_training_entry_points_refuse_missing_cuda(monkeypatch, tmp_path):
+    """With no visible card, the ``PatchTrainer`` (default ``device``) and
+    the training CLI (default ``--device cuda``) raise before training."""
+    import importlib
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    models = importlib.import_module(f"{PORT}.models")
+    train = importlib.import_module(f"{PORT}.train")
+    cli = importlib.import_module(f"{PORT}.cli.train_patch")
+    net = models.build_network(models.tiny_test_blocks())
+    params = models.init_params(net, 0)
+    exp = train.get_experiment("paper_obj", img_size=64, patch_size=16)
+    with pytest.raises(RuntimeError, match="cuda"):
+        train.PatchTrainer(exp, net, params)
+    assert cli.build_parser().parse_args([]).device == "cuda"
+    cfg = tmp_path / "tiny.cfg"
+    models.write_darknet_cfg(models.tiny_test_blocks(), str(cfg))
+    with pytest.raises(RuntimeError, match="cuda"):
+        cli.main(["--cfgfile", str(cfg), "--img-size", "64",
+                  "--patch-size", "16", "--synthetic", "2",
+                  "--out-dir", str(tmp_path / "run")])
+    assert not (tmp_path / "run").exists()
+
+
 def test_kernel_wrappers_use_plain_versions_only_on_cpu():
     """On CPU tensors the kernel wrappers run their plain versions and
     count no launch."""
     import importlib
     pc = importlib.import_module(f"{PORT}.ops.planar_conv")
     sf = importlib.import_module(f"{PORT}.ops.stem_fused")
-    before = (pc.to_planar.launches, pc.from_planar.launches,
-              sf.fused_stem_fwd.launches)
-    x = torch.from_numpy(np.random.default_rng(0).random(
-        (1, 8, 8, 3), dtype=np.float32))
-    xp = pc.to_planar(x)
-    assert torch.equal(pc.from_planar(xp, 8, 3), x)
-    assert (pc.to_planar.launches, pc.from_planar.launches,
-            sf.fused_stem_fwd.launches) == before
+    def counts():
+        return (pc.to_planar.launches, pc.to_planar.tiled_launches,
+                pc.from_planar.launches, sf.fused_stem_fwd.launches,
+                sf.fused_stem_fwd.save_acts_launches,
+                sf.fused_stem_bwd_saved.launches)
+    before = counts()
+    rng = np.random.default_rng(0)
+    for c in (3, 40):   # both K3a variants' choice of C
+        x = torch.from_numpy(rng.random((1, 8, 8, c), dtype=np.float32))
+        xp = pc.to_planar(x)
+        assert torch.equal(pc.from_planar(xp, 8, c), x)
+    assert counts() == before
 
 
 def test_no_tf32_nests_and_restores_across_threads():
