@@ -12,7 +12,12 @@ Every experiment mode is available via --mode, and config fields can be
 overridden by flag. The training state (patch, optimizer, EOT generator,
 plateau schedule) checkpoints every ``checkpoint_every`` epochs and
 resumes with --resume. Runs on ``--device`` (default cuda; raises if
-missing).
+missing). The victim's kernel routes stand in for the JAX package's
+environment variables: the fused stem is on, ``--planar-stem`` tries the
+per-layer planar stem after it (``ADV_PATCH_PLANAR_STEM=1``; a stem of
+other widths than YOLOv3's takes it), ``--res152 fused|planar``
+runs layers 6-11 on the whole-stage or the per-layer kernels after a
+kernel stem (``ADV_PATCH_RES152=fused|1``).
 """
 
 from __future__ import annotations
@@ -59,6 +64,12 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--num-workers", type=int, default=8)
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; raises if missing)")
+    ap.add_argument("--planar-stem", action="store_true",
+                    help="layers 0-5 on the per-layer planar kernels where "
+                         "the fused stem does not apply")
+    ap.add_argument("--res152", default=None, choices=("fused", "planar"),
+                    help="layers 6-11 on the whole-stage kernels or the "
+                         "per-layer planar kernels (after a kernel stem)")
     return ap
 
 
@@ -80,7 +91,9 @@ def main(argv=None):
     exp = T.get_experiment(args.mode, **overrides)
 
     trainer = T.PatchTrainer(exp, seed=args.seed,
-                             checkpoint_dir=args.out_dir, device=args.device)
+                             checkpoint_dir=args.out_dir, device=args.device,
+                             planar_stem=args.planar_stem,
+                             res152=args.res152)
     dev = trainer.device
     print(f"mode={exp.name} recipe={exp.loss_recipe} "
           f"batch={exp.batch_size} patch={exp.patch_size} "

@@ -9,8 +9,11 @@ detection is the 7-tuple ``[x, y, w, h, obj, cls_conf, cls_id]``
 Decode and the top-k prune run on the device as one batched pass over
 all candidates. ``detect_batch`` brings the pruned set to the host for
 the exact greedy NMS; ``detect_batch_device`` (the serving path) runs
-the NMS on the device too. On CUDA the detector routes layers 0-5
-through the fused stem kernel.
+the NMS on the device too. On CUDA the detector asks for both stem
+kernels, as the JAX package's does on the TPU: the fused stem where the
+YOLOv3 widths allow it, else the per-layer planar stem (K4, e.g. the slim
+victim's narrow stem), else the conv walk; ``res152`` picks a kernel
+route for layers 6-11 after a kernel stem.
 """
 
 from __future__ import annotations
@@ -45,7 +48,8 @@ class Detector:
                  anchor_groups: Optional[np.ndarray] = None,
                  img_size: int = 608, num_classes: int = 15,
                  compute_dtype: torch.dtype = torch.bfloat16,
-                 max_candidates: int = MAX_CANDIDATES, device="cuda"):
+                 max_candidates: int = MAX_CANDIDATES, device="cuda",
+                 res152: Optional[str] = None):
         self.device = _cuda.resolve_device(device)
         self.net = net
         self.img_size = img_size
@@ -56,10 +60,15 @@ class Detector:
         self.max_candidates = max_candidates
         self.model = Darknet(net, params, compute_dtype,
                              device=self.device).eval()
-        # inference is forward-only: the fused stem kernel is taken on
-        # the card (the model falls back to the conv walk where the stem
-        # geometry does not match)
-        self.fused_stem = self.device.type == "cuda"
+        # inference is forward-only: the stem kernels are taken on the
+        # card, fused first, then planar (the model takes the conv walk
+        # where neither geometry matches)
+        self.fused_stem = self.planar_stem = self.device.type == "cuda"
+        self.res152 = res152
+
+    def _heads(self, x: torch.Tensor) -> List[torch.Tensor]:
+        return self.model(x, fused_stem=self.fused_stem,
+                          planar_stem=self.planar_stem, res152=self.res152)
 
     def _to_device(self, images) -> torch.Tensor:
         if isinstance(images, torch.Tensor):
@@ -68,7 +77,7 @@ class Detector:
             self.device)
 
     def _fields(self, x: torch.Tensor):
-        heads = self.model(x, fused_stem=self.fused_stem)
+        heads = self._heads(x)
         boxes, obj, cls = decode_all_heads(
             heads, self.anchor_groups, (self.img_size, self.img_size),
             self.num_classes)
@@ -100,8 +109,7 @@ class Detector:
     @torch.inference_mode()
     def forward_heads(self, images) -> List[torch.Tensor]:
         """Raw heads (NHWC, float32) for a [B, S, S, 3] batch."""
-        return self.model(self._to_device(images),
-                          fused_stem=self.fused_stem)
+        return self._heads(self._to_device(images))
 
     def detect_batch(self, images, conf_thresh: float,
                      nms_thresh: float) -> List[np.ndarray]:

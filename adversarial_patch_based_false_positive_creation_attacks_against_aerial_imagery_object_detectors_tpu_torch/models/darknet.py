@@ -14,13 +14,19 @@
 - Numerics match the JAX package's ``_conv_layer``: in the compute dtype
   the conv output, the bias add and the leaky are all in that dtype; the
   float32 path runs with TF32 off.
-- ``fused_stem=True`` routes layers 0-5 through the fused stem kernels
-  (``ops/stem_fused.py``) when ``fused_applicable`` holds; the Detector
-  and the trainer ask for it on CUDA. An input that requires grad goes
-  through ``FusedStem``, whose backward is the K2 kernel. Where the
-  network allows the fused stem, the module also holds the stem's
-  weights in both kernels' layouts, prepared once at build.
-  ``last_routes()`` reports which route the last forward on this thread
+- Kernel routes, as the JAX package's ``darknet.apply`` tries them:
+  layers 0-5 on the fused stem kernels (``fused_stem=True``, K1/K2,
+  ``ops/stem_fused.py``) where ``fused_applicable`` holds, else on the
+  per-layer planar stem (``planar_stem=True``, K4,
+  ``models/stem_planar.py``) where ``stem_applicable`` holds, else on the
+  conv walk. Only after a kernel stem, ``res152="fused"`` runs layers
+  6-11 on the whole-stage kernels (K6a/K6b) and ``res152="planar"`` on
+  K4 (``models/res_planar.py``), each where its own test holds. Inputs
+  that require grad take each route's autograd Function (input
+  cotangent only). The Detector asks for both stems on CUDA; the trainer
+  for the fused stem. Each route's weights, in its kernels' layouts, are
+  prepared once at build where the network allows the route.
+  ``last_routes()`` reports which routes the last forward on this thread
   took.
 """
 
@@ -37,7 +43,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops import _cuda, stem_fused
+from ..ops import _cuda, res_fused, stem_fused
+from . import res_planar, stem_planar
 from .darknet_cfg import Block, parse_darknet_cfg
 from .stem_planar import STEM_CONVS, _stem_params, stem_shape_ok
 
@@ -249,32 +256,37 @@ def _upsample(x: torch.Tensor, scale: int) -> torch.Tensor:
     return F.interpolate(x, scale_factor=scale, mode="nearest")
 
 
-# Per-thread route breadcrumb: which stem route the most recent forward
-# on this thread took, so a test or benchmark can tell the kernel path
-# from the conv walk.
+# Per-thread route breadcrumb: which routes the most recent forward on
+# this thread took, so a test or benchmark can tell the kernel paths from
+# the conv walk.
 _routes_tls = threading.local()
+
+RES152_ROUTES = (None, "fused", "planar")
 
 
 def _last_routes() -> Dict[str, str]:
     d = getattr(_routes_tls, "d", None)
     if d is None:
-        d = {"stem": "conv"}
+        d = {"stem": "conv", "res152": "conv"}
         _routes_tls.d = d
     return d
 
 
 def last_routes() -> Dict[str, str]:
     """Routes taken by the most recent forward on this thread:
-    ``{"stem": "fused" | "conv"}``."""
+    ``{"stem": "fused" | "planar" | "conv",
+    "res152": "fused" | "planar" | "conv"}``."""
     return dict(_last_routes())
 
 
 class Darknet(nn.Module):
     """The detector, holding BN-folded weights as buffers on ``device``
     (kernels in the compute dtype and ``channels_last``, biases in
-    float32 and in the compute dtype; where ``fused_net_applicable``
-    holds, the stem convs' kernels also as contiguous HWIO ``sw{i}`` and,
-    for the backward kernel, channel-swapped ``sbw{i}``)."""
+    float32 and in the compute dtype) and, for each kernel route the
+    network allows, that route's weights in its kernels' layouts: the
+    fused stem's contiguous HWIO ``sw{i}`` and channel-swapped ``sbw{i}``,
+    the planar stem's ``pw{i}`` and flipped ``pwt{i}``, the 152^2 stage's
+    HWIO ``rw{i}`` and flipped ``rwt{i}`` (K4 and K6 read the same)."""
 
     def __init__(self, net: Network, params: Params,
                  compute_dtype: torch.dtype = torch.float32,
@@ -295,12 +307,34 @@ class Darknet(nn.Module):
             self.register_buffer(f"b{spec.index}", b)
             self.register_buffer(f"bc{spec.index}", b.to(compute_dtype))
         self.has_fused_stem = stem_fused.fused_net_applicable(net, params)
+        self.has_planar_stem = stem_planar.stem_net_applicable(net, params)
+        self.has_res152 = (self.has_planar_stem
+                           and res_planar.res152_applicable(net, params))
+        self.has_fused_res = (self.has_res152 and
+                              res_planar.fused_res_net_applicable(net, params))
+        folded = self.folded_params()
         if self.has_fused_stem:
-            sp = _stem_params(self.folded_params(), compute_dtype)
+            sp = _stem_params(folded, compute_dtype)
             sbp = stem_fused.stem_bwd_params(sp)
             for i, (w, _), v in zip(STEM_CONVS, sp, sbp):
                 self.register_buffer(f"sw{i}", w)
                 self.register_buffer(f"sbw{i}", v)
+        if self.has_planar_stem:
+            fwd, bwd = stem_planar.planar_stem_params(
+                _stem_params(folded, compute_dtype))
+            for i, (w, _), (wt, z) in zip(STEM_CONVS, fwd, bwd):
+                self.register_buffer(f"pw{i}", w)
+                self.register_buffer(f"pwt{i}", wt)
+                self.register_buffer(f"pzb{i}", z)
+        if self.has_res152:
+            fwd, bwd = res_fused.res_weights(
+                _stem_params(folded, compute_dtype,
+                             res_planar.RES152_CONVS))
+            for i, (w, _), wt in zip(res_planar.RES152_CONVS, fwd, bwd):
+                self.register_buffer(f"rw{i}", w)
+                self.register_buffer(f"rwt{i}", wt)
+                self.register_buffer(f"rzb{i}", torch.zeros(
+                    wt.shape[-1], dtype=torch.float32, device=dev))
 
     def folded_params(self) -> Params:
         """The held weights as a params tree (kernels in the compute
@@ -320,28 +354,72 @@ class Darknet(nn.Module):
         (``stem_fused.stem_bwd_params``; ``has_fused_stem`` only)."""
         return [getattr(self, f"sbw{i}") for i in STEM_CONVS]
 
-    def forward(self, x: torch.Tensor, fused_stem: bool = False
+    def planar_stem_params(self):
+        """``stem_planar.planar_stem_params``'s (forward, backward) pairs
+        for convs 0,1,2,3,5 (``has_planar_stem`` only)."""
+        return ([(getattr(self, f"pw{i}"), getattr(self, f"b{i}"))
+                 for i in STEM_CONVS],
+                [(getattr(self, f"pwt{i}"), getattr(self, f"pzb{i}"))
+                 for i in STEM_CONVS])
+
+    def res_params(self):
+        """The 152^2 stage's weights for convs 6, 7, 9, 10
+        (``has_res152`` only): ``res_fused.res_weights``'s forward pairs
+        and flipped kernels (K6's), and the flipped kernels with zero
+        biases (K4's backward)."""
+        convs = res_planar.RES152_CONVS
+        return ([(getattr(self, f"rw{i}"), getattr(self, f"b{i}"))
+                 for i in convs],
+                [getattr(self, f"rwt{i}") for i in convs],
+                [(getattr(self, f"rwt{i}"), getattr(self, f"rzb{i}"))
+                 for i in convs])
+
+    def forward(self, x: torch.Tensor, fused_stem: bool = False,
+                planar_stem: bool = False, res152: Optional[str] = None
                 ) -> List[torch.Tensor]:
         """``x``: [B, H, W, 3] float in [0, 1] (NHWC) on the module's
-        device. Returns the three raw heads [B, S, S, 3*(5+C)] float32."""
+        device. Returns the three raw heads [B, S, S, 3*(5+C)] float32.
+        ``fused_stem`` / ``planar_stem`` ask for the stem kernels (tried in
+        that order), ``res152`` (None, "fused" or "planar") for the 152^2
+        stage's after a kernel stem; each is taken where it applies."""
+        if res152 not in RES152_ROUTES:
+            raise ValueError(f"res152={res152!r}, expected one of "
+                             f"{RES152_ROUTES}")
         dt = self.compute_dtype
         routes = _last_routes()
-        routes["stem"] = "conv"
+        routes.update(stem="conv", res152="conv")
         tf32 = (_cuda.no_tf32() if dt == torch.float32
                 else contextlib.nullcontext())
         with tf32:
             outputs: Dict[int, torch.Tensor] = {}
             xc = x.to(dt)
-            if (fused_stem and self.has_fused_stem
-                    and stem_shape_ok(tuple(x.shape))):
+            shape_ok = stem_shape_ok(tuple(x.shape))
+            if fused_stem and self.has_fused_stem and shape_ok:
                 prev = stem_fused.fused_stem(xc.contiguous(),
                                              self.stem_params(),
                                              self.stem_bwd_params())
-                prev = prev.permute(0, 3, 1, 2)
-                outputs[5] = prev
                 routes["stem"] = "fused"
-                return self.walk(prev, 6, outputs)
-            return self.walk(xc.permute(0, 3, 1, 2), 0, outputs)
+            elif planar_stem and self.has_planar_stem and shape_ok:
+                prev = stem_planar.planar_stem(xc.contiguous(),
+                                               *self.planar_stem_params())
+                routes["stem"] = "planar"
+            else:
+                return self.walk(xc.permute(0, 3, 1, 2), 0, outputs)
+            # prev: the stem's NHWC output; the res152 routes follow a
+            # kernel stem only (the JAX package's start == 6)
+            start = 6
+            if res152 == "fused" and self.has_fused_res \
+                    and res_planar.fused_res_shape_ok(tuple(x.shape)):
+                fwd, bwd, _ = self.res_params()
+                prev = res_planar.res152_fused_stage(prev, fwd, bwd)
+                routes["res152"], start = "fused", 12
+            elif res152 == "planar" and self.has_res152:
+                fwd, _, bwd = self.res_params()
+                prev = res_planar.res152_planar(prev, fwd, bwd)
+                routes["res152"], start = "planar", 12
+            prev = prev.permute(0, 3, 1, 2)
+            outputs[start - 1] = prev
+            return self.walk(prev, start, outputs)
 
     def walk(self, prev: torch.Tensor, start: int,
              outputs: Dict[int, torch.Tensor]) -> List[torch.Tensor]:
@@ -377,10 +455,13 @@ class Darknet(nn.Module):
 
 def apply(net: Network, params: Params, x: torch.Tensor,
           compute_dtype: torch.dtype = torch.float32,
-          fused_stem: Optional[bool] = None) -> List[torch.Tensor]:
+          fused_stem: Optional[bool] = None,
+          planar_stem: Optional[bool] = None,
+          res152: Optional[str] = None) -> List[torch.Tensor]:
     """Run the detector once on ``x`` ([B, H, W, 3] NHWC, on its device):
-    builds a ``Darknet`` on ``x.device`` and calls it. ``fused_stem``
-    routes layers 0-5 through the fused stem kernel where applicable
-    (default off)."""
+    builds a ``Darknet`` on ``x.device`` and calls it. ``fused_stem``,
+    ``planar_stem`` and ``res152`` pick the kernel routes where they apply
+    (default: the conv walk)."""
     model = Darknet(net, params, compute_dtype, device=x.device)
-    return model(x, fused_stem=bool(fused_stem))
+    return model(x, fused_stem=bool(fused_stem),
+                 planar_stem=bool(planar_stem), res152=res152)

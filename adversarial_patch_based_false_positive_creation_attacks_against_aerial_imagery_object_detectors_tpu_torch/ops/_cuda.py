@@ -40,6 +40,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # C signatures, by library: every pointer and the stream are c_void_p
 SIGNATURES = {
     "planar": {
@@ -62,6 +63,19 @@ SIGNATURES = {
         # m0e, m0o, m1, m2, m3, y5, g5, v0, v1, v2, v3, v5, gxe, gxo,
         # dtype, B, H, wlh, wl5, stream
         "apfp_fused_stem_bwd": [_P] * 14 + [_I] * 5 + [_P],
+    },
+    "planar_conv": {
+        # x, w, bias, res, gate, out, dtype, B, H, cin, wl_in, w_img, cout,
+        # cout_pad, k, stride, has_slope, slope, gate_slope, stream
+        "apfp_planar_conv": [_P] * 6 + [_I] * 11 + [_F, _F, _P],
+    },
+    "res_fused": {
+        # x, w6, w7, w9, w10, b6, b7, b9, b10, y11, am, p7m, cm, p10m
+        # (masks null without save), dtype, B, H, W, wl, stream
+        "apfp_res152_fused": [_P] * 14 + [_I] * 5 + [_P],
+        # g11, am, p7m, cm, p10m, w6t, w7t, w9t, w10t, g5, dtype, B, H, W,
+        # wl, stream
+        "apfp_res152_fused_grad": [_P] * 10 + [_I] * 5 + [_P],
     },
 }
 

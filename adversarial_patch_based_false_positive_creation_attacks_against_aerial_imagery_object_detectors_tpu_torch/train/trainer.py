@@ -10,7 +10,10 @@ One training step, as the reference's loop body:
 The victim runs in the compute dtype (bfloat16 by default) with its stem
 on the fused kernels (``Darknet(fused_stem=True)``: K1 with saved masks
 forward, K2 backward on a card, their plain versions on the CPU); its
-weights are buffers, so autograd differentiates the patch alone. Host-side
+weights are buffers, so autograd differentiates the patch alone. The other
+kernel routes are options, off by default as in the JAX package:
+``planar_stem`` (the per-layer planar stem, tried after the fused one) and
+``res152`` ("fused" or "planar": layers 6-11 after a kernel stem). Host-side
 epoch logic (plateau LR schedule, JSONL log, checkpoints) mirrors the JAX
 package's; a padded final batch carries zero weights, so its loss and
 gradient equal the unpadded batch's.
@@ -123,9 +126,11 @@ def build_victim(exp: ExperimentConfig, seed: int = 1
 
 def make_loss_fn(model: darknet.Darknet, exp: ExperimentConfig,
                  printable_colors: Optional[np.ndarray] = None,
-                 fused_stem: bool = True) -> Callable:
+                 fused_stem: bool = True, planar_stem: bool = False,
+                 res152: Optional[str] = None) -> Callable:
     """``loss_fn(patch, images, labels, weights, draws) -> (total, aux)``
-    for the recipe ``exp.loss_recipe``; ``aux`` holds the LOSS_KEYS."""
+    for the recipe ``exp.loss_recipe``; ``aux`` holds the LOSS_KEYS. The
+    route flags go to the victim's forward (``Darknet.forward``)."""
     if printable_colors is None:
         printable_colors = load_printable_colors()
     cfg = eot_config(exp)
@@ -137,7 +142,8 @@ def make_loss_fn(model: darknet.Darknet, exp: ExperimentConfig,
     def loss_fn(patch, images, labels, weights, draws):
         patched, centers = apply_eot_patch(patch, images, labels, draws,
                                            cfg)
-        heads = model(patched, fused_stem=fused_stem)
+        heads = model(patched, fused_stem=fused_stem,
+                      planar_stem=planar_stem, res152=res152)
         cell_obj, cell_cls = extract_cell_scores(
             heads, centers, exp.img_size, exp.num_classes,
             swap_xy=exp.cell_swap_xy)
@@ -178,12 +184,14 @@ def make_loss_fn(model: darknet.Darknet, exp: ExperimentConfig,
 
 def make_train_step(model: darknet.Darknet, exp: ExperimentConfig,
                     printable_colors: Optional[np.ndarray] = None,
-                    fused_stem: bool = True) -> Callable:
+                    fused_stem: bool = True, planar_stem: bool = False,
+                    res152: Optional[str] = None) -> Callable:
     """``step(patch, optimizer, images, labels, lr, draws, weights=None)
     -> aux``: the gradient of the loss w.r.t. the patch alone, the
     amsgrad update at ``lr``, the clip to [0, 1] (in place on ``patch``).
     ``weights`` [B] (1 real / 0 padding) makes a padded batch exact."""
-    loss_fn = make_loss_fn(model, exp, printable_colors, fused_stem)
+    loss_fn = make_loss_fn(model, exp, printable_colors, fused_stem,
+                           planar_stem, res152)
 
     def step(patch, optimizer, images, labels, lr, draws, weights=None):
         optimizer.zero_grad(set_to_none=True)
@@ -202,13 +210,18 @@ class PatchTrainer:
 
         trainer = PatchTrainer(get_experiment("paper_obj"))
         patch, history = trainer.train(make_batches)
+
+    ``fused_stem``, ``planar_stem`` and ``res152`` pick the victim's
+    kernel routes (``make_train_step``).
     """
 
     def __init__(self, exp: ExperimentConfig,
                  net: Optional[darknet.Network] = None,
                  params: Optional[darknet.Params] = None, seed: int = 0,
                  checkpoint_dir: Optional[str] = None,
-                 log: Callable[[str], None] = print, device="cuda"):
+                 log: Callable[[str], None] = print, device="cuda",
+                 fused_stem: bool = True, planar_stem: bool = False,
+                 res152: Optional[str] = None):
         self.device = _cuda.resolve_device(device)
         self.exp = exp
         if exp.debug_nans:
@@ -225,7 +238,10 @@ class PatchTrainer:
         self.scheduler = ReduceLROnPlateau(
             exp.learning_rate, factor=exp.plateau_factor,
             patience=exp.plateau_patience)
-        self.step_fn = make_train_step(self.model, exp)
+        self.step_fn = make_train_step(self.model, exp,
+                                       fused_stem=fused_stem,
+                                       planar_stem=planar_stem,
+                                       res152=res152)
         self.eot_cfg = eot_config(exp)
         self.checkpoint_dir = checkpoint_dir
         self.log = log

@@ -36,6 +36,29 @@ Phases, each fatal on failure:
    against the walk carrying the kernels' own y5 forward (both at 1e-4
    relative L2); bfloat16 kernels against the bfloat16 plain-stem route,
    within twice that route's own distance from float32.
+7. Planar-route and stage kernels at full width (b24 608^2 unless said):
+   K4 (the generic planar conv) at the five stem convs' forward (b8,
+   bfloat16 and float32), the five backward convs of the planar stem
+   (expand2_planar, gate, res) and the 152^2 stage's four convs forward
+   and backward; K6a with and without its masks and K6b, bfloat16 and
+   float32. Each against its plain version, timed beside its bound and a
+   cuDNN yardstick (K4: the conv alone; K6: the stage's four convs on
+   the conv walk, forward and forward + backward).
+8. Training on the other routes (counted launches): ``PatchTrainer`` with
+   ``res152="fused"`` (routes fused/fused: one K6a ``save`` and one K6b a
+   step) and a train step with ``fused_stem=False, planar_stem=True,
+   res152="planar"`` (only K4 in layers 0-11), each with warm-up and timed
+   steps; then float32 patch-gradient checks at batch 4 (the planar stem
+   and each stage route against cuDNN convs, and each whole route against
+   the walk carrying that route's own y11 forward, all at 1e-4 relative
+   L2) and the bfloat16 readings against the plain route. Then one
+   serving batch (b8) with ``res152="fused"``: K6a without masks, the
+   forward alone, which training never launches.
+
+Phase 4 also holds the slim victim (stem widths 8/16/8/16/32) on the
+planar stem (K4), and once more with ``res152="planar"``. The default
+routes stay: serving and training take the fused stem and the conv walk
+for layers 6-11, and launch no K4 or K6.
 
 The last two lines are the kernels JSON object and
 ``{"ok": true, "device": {...}}``; the card's name and power limit are
@@ -71,6 +94,9 @@ TRAIN_BATCH, PATCH, TIMED_STEPS = 24, 224, 20
 SERVE_PATH = ("to_planar", "fused_stem_fwd", "from_planar")
 TRAIN_PATH = ("to_planar", "fused_stem_fwd_save_acts", "from_planar",
               "to_planar_g5", "fused_stem_bwd_saved")
+K4_VARIANTS = ("planar_conv_k1", "planar_conv_k3", "planar_conv_k3s2")
+K6_KERNELS = ("res152_fused", "res152_fused_save", "res152_fused_grad")
+ROUTE_STEPS = 20   # timed steps of each of the other routes
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and dense FLOP/s by type
 PEAK_BYTES = 3.35e12
@@ -120,13 +146,20 @@ def counters() -> dict:
     and nowhere else."""
     PC = import_port("ops.planar_conv")
     SF = import_port("ops.stem_fused")
+    RF = import_port("ops.res_fused")
     return {"to_planar": (PC.to_planar, "launches"),
             "to_planar_g5": (PC.to_planar, "tiled_launches"),
             "fused_stem_fwd": (SF.fused_stem_fwd, "launches"),
             "fused_stem_fwd_save_acts": (SF.fused_stem_fwd,
                                          "save_acts_launches"),
             "from_planar": (PC.from_planar, "launches"),
-            "fused_stem_bwd_saved": (SF.fused_stem_bwd_saved, "launches")}
+            "fused_stem_bwd_saved": (SF.fused_stem_bwd_saved, "launches"),
+            "planar_conv_k1": (PC.planar_conv, "launches_k1"),
+            "planar_conv_k3": (PC.planar_conv, "launches_k3"),
+            "planar_conv_k3s2": (PC.planar_conv, "launches_k3s2"),
+            "res152_fused": (RF.res152_fused, "launches"),
+            "res152_fused_save": (RF.res152_fused, "save_launches"),
+            "res152_fused_grad": (RF.res152_fused_grad, "launches")}
 
 
 def reset_counts() -> None:
@@ -455,6 +488,10 @@ def training(dev, card) -> dict:
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
             "loss": {k: float(v) for k, v in aux.items()}})
         assert route == "fused", route
+        # the default training route is unchanged: no K4 or K6
+        assert darknet.last_routes()["res152"] == "conv"
+        assert all(launches[k] == 0 for k in K4_VARIANTS + K6_KERNELS), \
+            launches
         for k in TRAIN_PATH:
             assert launches[k] > 0, f"kernel {k} did not launch in training"
         assert all(np.isfinite(v) for v in rec["loss"].values()), rec["loss"]
@@ -657,6 +694,597 @@ def training(dev, card) -> dict:
     return rec
 
 
+def stage_conv_walk(y5, fwd):
+    """Layers 6-11 as cuDNN convs on NHWC y5 (the caller turns TF32 off
+    for float32): the stage-level gradient checks' reference and the K6
+    yardstick. ``fwd``: the stage's (HWIO weight, float32 bias) pairs."""
+    def conv(u, w, b):
+        y = torch.nn.functional.conv2d(u, w.permute(3, 2, 0, 1),
+                                       b.to(u.dtype), 1, (w.shape[0] - 1) // 2)
+        return torch.where(y > 0, y, 0.1 * y)
+    (w6, b6), (w7, b7), (w9, b9), (w10, b10) = fwd
+    v = y5.permute(0, 3, 1, 2)
+    y8 = conv(conv(v, w6, b6), w7, b7) + v
+    return (conv(conv(y8, w9, b9), w10, b10) + y8).permute(0, 2, 3, 1)
+
+
+def check_k4(conv, xp, w, b, res=None, *, k, stride=1, slope=0.1, w_img,
+             gate=None, cin_real=None, expanded=False, iters=5):
+    """One K4 geometry of the planar routes: the kernel against
+    ``planar_conv_plain`` on the same inputs (float32: 2e-5 of the output
+    scale, summation order; bfloat16: two bf16 ulps of it, a rounding
+    flipped by the order, and a mean below 1e-4 of it), its zero lanes,
+    its time beside its bound, the plain version's and the cuDNN conv
+    alone of the same geometry (channels_last). Returns (record, output).
+    An expanded (zero-interleaved) input holds data at one position in
+    four, so the bound counts the stride-2 adjoint's bytes and FLOPs."""
+    PC = import_port("ops.planar_conv")
+    _cuda = import_port("ops._cuda")
+    dt = xp.dtype
+    bsz, h, _, _ = xp.shape
+    cin_real = cin_real or w.shape[2]
+    cout = w.shape[-1]
+    kw = dict(k=k, stride=stride, slope=slope, w_img=w_img, gate=gate)
+    got = PC.planar_conv(xp, w, b, res, **kw)
+    torch.cuda.synchronize()
+    want = PC.planar_conv_plain(xp, w, b, res, **kw)
+    scale = max(want.float().abs().max().item(), 1e-30)
+    e = (got.float() - want.float()).abs()
+    err, mean_err = e.max().item(), e.mean().item()
+    del want, e
+    tol = (2e-5 if dt == torch.float32 else 2.0 ** -6) * scale
+    assert err <= tol and mean_err <= 1e-4 * scale, (conv, err, mean_err,
+                                                     scale)
+    ho, wo = h // stride, w_img // stride
+    assert not got[..., 0].any() and not got[..., wo + 1:].any(), conv
+    share = 4 if expanded else 1
+    read = bsz * h * w_img * cin_real * xp.element_size() // share
+    read += sum(image_bytes(t, wo, cout) for t in (res, gate)
+                if t is not None)
+    flops = 2.0 * bsz * ho * wo * cout * k * k * cin_real / share
+    b_ms, b_by = bound(read + nbytes(got), flops, dt)
+    x_cl = torch.randn(bsz, cin_real, h, w_img, device=xp.device).to(
+        dt).contiguous(memory_format=torch.channels_last)
+    w_cl = w[:, :, :cin_real].permute(3, 2, 0, 1).contiguous(
+        memory_format=torch.channels_last)
+    with _cuda.no_tf32():
+        lib = time_ms(lambda: torch.nn.functional.conv2d(
+            x_cl, w_cl, None, stride, (k - 1) // 2), iters)
+        plain = time_ms(lambda: PC.planar_conv_plain(xp, w, b, res, **kw),
+                        max(2, iters // 2), 1)
+    rec = {"conv": conv, "k": k, "stride": stride, "cin": cin_real,
+           "cout": cout, "shape": list(xp.shape), "w_img": w_img,
+           "dtype": str(dt).replace("torch.", ""), "res": res is not None,
+           "gate": gate is not None, "slope": slope, "expanded": expanded,
+           "max_abs_err": err, "tol": tol, "mean_abs_err": mean_err,
+           "ms": time_ms(lambda: PC.planar_conv(xp, w, b, res, **kw), iters),
+           "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+           "gflop": flops / 1e9, "library_ms": lib}
+    del x_cl
+    return rec, got
+
+
+def planar_kernels(dev, model, card) -> list:
+    """Phase 7, K4: every geometry the planar routes launch at full width,
+    on the bfloat16 model's route weights: the stem forward at b8
+    (bfloat16 and float32), the planar stem's backward convs at b24 (with
+    expand2_planar, gate and res), the 152^2 stage's convs forward and
+    backward at b24. Returns the per-geometry records."""
+    PC = import_port("ops.planar_conv")
+    PSP = import_port("models.stem_planar")
+    bf16, f32 = torch.bfloat16, torch.float32
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    recs = []
+
+    def run(name, *a, **kw):
+        rec, out = check_k4(name, *a, **kw)
+        recs.append(rec)
+        log(f"[k4] {name} {rec['dtype']}: err {rec['max_abs_err']:.3g} "
+            f"(tol {rec['tol']:.3g}), {rec['ms']:.4f} ms vs plain "
+            f"{rec['plain_ms']:.4f}, conv alone {rec['library_ms']:.4f}, "
+            f"bound {rec['bound_ms']:.4f} ({rec['bound_by']}) ({card})")
+        return out
+
+    fwd, bwd = model.planar_stem_params()
+    x8 = torch.rand(BATCH, SIZE, SIZE, 3, generator=gen, device=dev)
+    h1 = SIZE // 2
+    for dt in (bf16, f32):
+        f = fwd if dt == bf16 else [(w.float(), b) for w, b in fwd]
+        xp = PC.to_planar(x8.to(dt), c_pad=8)
+        y0 = run("stem_fwd_conv0", xp, *f[0], k=3, w_img=SIZE, cin_real=3)
+        y1 = run("stem_fwd_conv1", y0, *f[1], k=3, stride=2, w_img=SIZE)
+        y2 = run("stem_fwd_conv2", y1, *f[2], k=1, w_img=h1)
+        y3 = run("stem_fwd_conv3", y2, *f[3], k=3, w_img=h1)
+        run("stem_fwd_conv5", y3 + y1, *f[4], k=3, stride=2, w_img=h1)
+        del xp, y0, y1, y2, y3
+    # the backward at b24 on the kernels' own forward activations
+    x24 = torch.rand(TRAIN_BATCH, SIZE, SIZE, 3, generator=gen,
+                     device=dev).to(bf16)
+    y0, y1, y2, y3, y5 = PSP._forward(x24, fwd)
+    g5 = torch.randn(TRAIN_BATCH, SIZE // 4, SIZE // 4, 128, generator=gen,
+                     device=dev).to(bf16)
+    gp5 = PC.leaky_bwd_planar(PC.to_planar(g5), y5)
+    del g5, y5
+    g_sc = run("stem_bwd_conv5", PC.expand2_planar(gp5, SIZE // 4),
+               *bwd[4], k=3, slope=None, w_img=h1, expanded=True, iters=3)
+    gp3 = PC.leaky_bwd_planar(g_sc, y3)
+    gp2 = run("stem_bwd_conv3", gp3, *bwd[3], k=3, slope=None, gate=y2,
+              w_img=h1, iters=3)
+    gp1 = run("stem_bwd_conv2", gp2, *bwd[2], g_sc, k=1, slope=None,
+              gate=y1, w_img=h1, iters=3)
+    del gp3, gp2, g_sc, y1, y2, y3
+    gp0 = run("stem_bwd_conv1", PC.expand2_planar(gp1, h1), *bwd[1], k=3,
+              slope=None, gate=y0, w_img=SIZE, expanded=True, iters=3)
+    del gp1, y0
+    run("stem_bwd_conv0", gp0, *bwd[0], k=3, slope=None, w_img=SIZE,
+        iters=3)
+    del gp0
+    # the 152^2 stage, forward then backward (its K4 route's weights)
+    h5 = SIZE // 4
+    rfwd, _, rbwd = model.res_params()
+    x5 = PC.to_planar(torch.randn(TRAIN_BATCH, h5, h5, 128, generator=gen,
+                                  device=dev).to(bf16))
+    a = run("stage_fwd_conv6", x5, *rfwd[0], k=1, w_img=h5)
+    post7 = run("stage_fwd_conv7", a, *rfwd[1], k=3, w_img=h5)
+    c = run("stage_fwd_conv9", post7 + x5, *rfwd[2], k=1, w_img=h5)
+    post10 = run("stage_fwd_conv10", c, *rfwd[3], k=3, w_img=h5)
+    g11 = PC.to_planar(torch.randn(TRAIN_BATCH, h5, h5, 128, generator=gen,
+                                   device=dev).to(bf16))
+    gp9 = run("stage_bwd_conv10", PC.leaky_bwd_planar(g11, post10), *rbwd[3], k=3,
+              slope=None, gate=c, w_img=h5)
+    g8 = run("stage_bwd_conv9", gp9, *rbwd[2], g11, k=1, slope=None,
+             w_img=h5)
+    gp6 = run("stage_bwd_conv7", PC.leaky_bwd_planar(g8, post7), *rbwd[1], k=3,
+              slope=None, gate=a, w_img=h5)
+    run("stage_bwd_conv6", gp6, *rbwd[0], g8, k=1, slope=None, w_img=h5)
+    return recs
+
+
+def k4_entries(recs) -> list:
+    """The kernels line's K4 entries, one per variant (1x1, 3x3 s1, 3x3
+    s2): ms, plain_ms, bound_ms and library_ms are sums over the variant's
+    bfloat16 geometries (one planar-route training step launches each of
+    them once per batch, the stem forward at b8 here), bound_by is that of
+    the largest bound, max_abs_err and tol are those of the geometry
+    nearest its tolerance; every geometry's record rides along."""
+    out = []
+    for name, rep in (("planar_conv_k1", 494), ("planar_conv_k3", 533),
+                      ("planar_conv_k3s2", 533)):
+        mine = [r for r in recs if (r["k"] == 1) == (name.endswith("k1"))
+                and (r["stride"] == 2) == name.endswith("s2")]
+        bf = [r for r in mine if r["dtype"] == "bfloat16"]
+        worst = max(mine, key=lambda r: r["max_abs_err"] / r["tol"])
+        out.append({
+            "name": name, "route": "cuda",
+            "source": f"{PORT}/csrc/planar_conv.cu",
+            "replaces": f"{JAX_PKG}/ops/planar_conv.py:{rep}",
+            "launches": 0, "max_abs_err": worst["max_abs_err"],
+            "tol": worst["tol"],
+            "ms": sum(r["ms"] for r in bf),
+            "plain_ms": sum(r["plain_ms"] for r in bf),
+            "bound_ms": sum(r["bound_ms"] for r in bf),
+            "bound_by": max(bf, key=lambda r: r["bound_ms"])["bound_by"],
+            "library_ms": sum(r["library_ms"] for r in bf),
+            "library": "cuDNN F.conv2d of the same geometries, channels_last "
+                       "(conv alone)",
+            "geometries": mine})
+    return out
+
+
+def stage_kernels(dev, model, card) -> list:
+    """Phase 7, K6: K6a with and without its masks and K6b at b24 608^2
+    (the 152^2 stage), bfloat16 and float32, against their plain versions
+    (K6b on the kernel's own masks), timed beside their bounds and the
+    stage's four convs on the cuDNN walk (forward, forward + backward).
+    Returns the three entries of the kernels line."""
+    PC = import_port("ops.planar_conv")
+    RF = import_port("ops.res_fused")
+    _cuda = import_port("ops._cuda")
+    bf16 = torch.bfloat16
+    b, h = TRAIN_BATCH, SIZE // 4
+    gen = torch.Generator(device=dev).manual_seed(SEED + 12)
+    rfwd, rbwd, _ = model.res_params()
+    x5 = torch.randn(b, h, h, 128, generator=gen, device=dev).to(bf16)
+    g11 = torch.randn(b, h, h, 128, generator=gen, device=dev).to(bf16)
+    flops = 2.0 * b * h * h * (128 * 64 + 9 * 64 * 128) * 2
+    entries = {n: {"name": n, "route": "cuda",
+                   "source": f"{PORT}/csrc/res_fused.cu", "launches": 0,
+                   "library_ms": None}
+               for n in K6_KERNELS}
+    entries["res152_fused"]["replaces"] = f"{JAX_PKG}/ops/res_fused.py:449"
+    entries["res152_fused_save"]["replaces"] = \
+        f"{JAX_PKG}/ops/res_fused.py:449"
+    entries["res152_fused_grad"]["replaces"] = \
+        f"{JAX_PKG}/ops/res_fused.py:484"
+    for dt in (bf16, torch.float32):
+        fwd = rfwd if dt == bf16 else [(w.float(), bb) for w, bb in rfwd]
+        bwd = rbwd if dt == bf16 else [w.float() for w in rbwd]
+        xp, gp = PC.to_planar(x5.to(dt)), PC.to_planar(g11.to(dt))
+        wl = xp.shape[-1]
+        # yardstick: the stage's four convs on the cuDNN walk
+        xn = x5.to(dt).requires_grad_(True)
+        gn = g11.to(dt)
+        with _cuda.no_tf32():
+            walk_fwd = time_ms(lambda: stage_conv_walk(xn.detach(), fwd), 5)
+            walk_fb = time_ms(lambda: torch.autograd.grad(
+                (stage_conv_walk(xn, fwd) * gn).sum(), xn), 5)
+        del xn
+        # dirty the blocks the outputs will reuse: the kernels write every
+        # lane
+        torch.full(xp.shape, float("nan"), dtype=dt, device=dev)
+        for c in (64, 128, 64, 128):
+            torch.full((b, h, c, wl), 7, dtype=torch.int8, device=dev)
+        y11 = RF.res152_fused(xp, fwd)
+        y11s, *masks = RF.res152_fused(xp, fwd, save=True)
+        torch.cuda.synchronize()
+        assert torch.equal(y11, y11s), "save changed y11"
+        want, *wmasks = RF.res152_fused_plain(xp, fwd, save=True)
+        scale = want.float().abs().max().item()
+        e = (y11.float() - want.float()).abs()
+        err, mean_err = e.max().item(), e.mean().item()
+        del want, e
+        tol = (2e-5 if dt != bf16 else 2.0 ** -6) * scale
+        assert err <= tol and mean_err <= 1e-4 * scale, (err, mean_err,
+                                                         scale)
+        n_mask = sum(m.numel() for m in masks)
+        flips = [int((m != w).sum().item()) for m, w in zip(masks, wmasks)]
+        del wmasks
+        assert sum(flips) <= 1e-5 * n_mask, (flips, n_mask)
+        for t in (y11, *masks):
+            assert not t[..., 0].any() and not t[..., h + 1:].any()
+        torch.full(xp.shape, float("nan"), dtype=dt, device=dev)
+        g5 = RF.res152_fused_grad(gp, masks, bwd)
+        torch.cuda.synchronize()
+        want = RF.res152_fused_grad_plain(gp, masks, bwd)
+        gscale = want.float().abs().max().item()
+        e = (g5.float() - want.float()).abs()
+        gerr, gmean = e.max().item(), e.mean().item()
+        del want, e
+        gtol = (2e-5 if dt != bf16 else 2.0 ** -6) * gscale
+        assert gerr <= gtol and gmean <= 1e-4 * gscale, (gerr, gmean,
+                                                         gscale)
+        assert not g5[..., 0].any() and not g5[..., h + 1:].any()
+        x_read = image_bytes(xp, h, 128)
+        m_read = sum(image_bytes(m, h, m.shape[2]) for m in masks)
+        readings = {
+            "res152_fused": dict(
+                max_abs_err=err, tol=tol, mean_abs_err=mean_err,
+                ms=time_ms(lambda: RF.res152_fused(xp, fwd), 5),
+                plain_ms=time_ms(lambda: RF.res152_fused_plain(xp, fwd), 3),
+                bound=bound(x_read + nbytes(y11), flops, dt)),
+            "res152_fused_save": dict(
+                max_abs_err=err, tol=tol, mean_abs_err=mean_err,
+                mask_flips=flips, mask_elements=n_mask,
+                ms=time_ms(lambda: RF.res152_fused(xp, fwd, save=True), 5),
+                plain_ms=time_ms(lambda: RF.res152_fused_plain(
+                    xp, fwd, save=True), 3),
+                bound=bound(x_read + nbytes(y11, *masks), flops, dt)),
+            "res152_fused_grad": dict(
+                max_abs_err=gerr, tol=gtol, mean_abs_err=gmean,
+                ms=time_ms(lambda: RF.res152_fused_grad(gp, masks, bwd), 5),
+                plain_ms=time_ms(lambda: RF.res152_fused_grad_plain(
+                    gp, masks, bwd), 3),
+                bound=bound(image_bytes(gp, h, 128) + m_read + nbytes(g5),
+                            flops, dt))}
+        for n, r in readings.items():
+            r["bound_ms"], r["bound_by"] = r.pop("bound")
+            r["walk_fwd_ms"], r["walk_fwd_bwd_ms"] = walk_fwd, walk_fb
+            ent = entries[n]
+            if dt == bf16:
+                ent.update(r, shape=list(xp.shape), dtype="bfloat16",
+                           gflop=flops / 1e9)
+            else:
+                ent["f32"] = r
+            log(f"[k6] {n} {dt}: err {r['max_abs_err']:.3g} (tol "
+                f"{r['tol']:.3g}), {r['ms']:.4f} ms vs plain "
+                f"{r['plain_ms']:.4f}, bound {r['bound_ms']:.4f} "
+                f"({r['bound_by']}); cuDNN walk of the four convs fwd "
+                f"{walk_fwd:.4f} ms, fwd+bwd {walk_fb:.4f} ms ({card})")
+        del y11, y11s, masks, g5, xp, gp
+    return [entries[n] for n in K6_KERNELS]
+
+
+def route_forward(x, kw, sp, pf, rf):
+    """A route's own forward through layers 0-11 on its kernels (no
+    grad): y11 NHWC and the gates of its leaky layers (NCHW float32, 1
+    where the route's value or mask is > 0, else 0.1), in the order of
+    ``gated_walk_y11``'s convs. The fused route's gates are its kernels'
+    masks (K1 ``save_acts``, K6a ``save``), the planar route's its K4
+    activations."""
+    PC = import_port("ops.planar_conv")
+    SF = import_port("ops.stem_fused")
+    RF = import_port("ops.res_fused")
+    PSP = import_port("models.stem_planar")
+    PRP = import_port("models.res_planar")
+
+    def gate(p, w, c):
+        v = PC.from_planar_plain(p, w, c).permute(0, 3, 1, 2)
+        return torch.where(v > 0, 1.0, 0.1)
+
+    h = x.shape[1]
+    h1, h5 = h // 2, h // 4
+    with torch.no_grad():
+        if kw.get("fused_stem"):
+            xe, xo = SF.split_phases(x.contiguous())
+            y5p, m0e, m0o, m1, m2, m3 = SF.fused_stem_fwd(xe, xo, sp,
+                                                          save_acts=True)
+            m0 = SF.merge_phases(m0e, m0o, h1, 32).permute(0, 3, 1, 2)
+            gates = [torch.where(m0 > 0, 1.0, 0.1), gate(m1, h1, 64),
+                     gate(m2, h1, 32), gate(m3, h1, 64)]
+        else:
+            y0, y1, y2, y3, y5p = PSP._forward(x.contiguous(), pf)
+            gates = [gate(y0, h, 32), gate(y1, h1, 64), gate(y2, h1, 32),
+                     gate(y3, h1, 64)]
+        gates.append(gate(y5p, h5, 128))
+        xp = PC.to_planar(PC.from_planar(y5p, h5, 128))
+        if kw["res152"] == "fused":
+            y11p, *acts = RF.res152_fused(xp, rf, save=True)
+        else:
+            y11p, *acts = PRP._forward(xp, rf)
+        gates += [gate(a, h5, a.shape[2]) for a in acts]
+        return PC.from_planar(y11p, h5, 128), gates
+
+
+def gated_walk_y11(x, sp, rf, gates):
+    """Layers 0-11 as cuDNN convs (float32; the caller turns TF32 off)
+    whose leaky gates are the given ones (``route_forward``'s): NHWC x ->
+    NHWC y11."""
+    def conv(u, w, b, s, g):
+        return torch.nn.functional.conv2d(u, w.permute(3, 2, 0, 1), b, s,
+                                          (w.shape[0] - 1) // 2) * g
+    g0, g1, g2, g3, g5, g6, g7, g9, g10 = gates
+    v = x.permute(0, 3, 1, 2)
+    y1 = conv(conv(v, *sp[0], 1, g0), *sp[1], 2, g1)
+    y3 = conv(conv(y1, *sp[2], 1, g2), *sp[3], 1, g3)
+    y5 = conv(y3 + y1, *sp[4], 2, g5)
+    (w6, b6), (w7, b7), (w9, b9), (w10, b10) = rf
+    y8 = conv(conv(y5, w6, b6, 1, g6), w7, b7, 1, g7) + y5
+    y11 = conv(conv(y8, w9, b9, 1, g9), w10, b10, 1, g10) + y8
+    return y11.permute(0, 2, 3, 1)
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """Route K4 and K6 through their plain versions while inside (the
+    layout kernels stay: they are exact), for the bfloat16 gradient
+    readings against the plain route."""
+    PC = import_port("ops.planar_conv")
+    RF = import_port("ops.res_fused")
+    PSP = import_port("models.stem_planar")
+    PRP = import_port("models.res_planar")
+    saved = (PSP.planar_conv, PRP.planar_conv, RF.res152_fused,
+             RF.res152_fused_grad)
+    PSP.planar_conv = PRP.planar_conv = PC.planar_conv_plain
+    RF.res152_fused = (lambda xp, fwd, *, save=False, w_img=None:
+                       RF.res152_fused_plain(xp, fwd, save, w_img))
+    RF.res152_fused_grad = (lambda g, m, bwd, *, w_img=None:
+                            RF.res152_fused_grad_plain(g, m, bwd, w_img))
+    try:
+        yield
+    finally:
+        (PSP.planar_conv, PRP.planar_conv, RF.res152_fused,
+         RF.res152_fused_grad) = saved
+
+
+ROUTES = {"fused_fused": (dict(fused_stem=True, res152="fused"),
+                          ("fused", "fused")),
+          "planar_planar": (dict(fused_stem=False, planar_stem=True,
+                                 res152="planar"), ("planar", "planar"))}
+
+
+def route_training(dev, card) -> dict:
+    """Phase 8: ``paper_obj`` at b24 on the full-width YOLOv3 (the CLI's
+    victim, seed 1) on the other routes, with counted launches: a
+    ``PatchTrainer`` with ``res152="fused"`` and a train step with only K4
+    in layers 0-11, each 3 warm-up and ROUTE_STEPS timed steps; the
+    victim's forward and forward + backward on each route; then the
+    float32 gradient checks at batch 4 and the bfloat16 readings."""
+    T = import_port("train")
+    PT = import_port("train.trainer")
+    PE = import_port("attack.eot")
+    PO = import_port("train.optim")
+    SF = import_port("ops.stem_fused")
+    PSP = import_port("models.stem_planar")
+    PRP = import_port("models.res_planar")
+    _cuda = import_port("ops._cuda")
+    darknet = import_port("models.darknet")
+    flops = import_port("models.flops")
+    SyntheticData = import_port("data").SyntheticData
+    exp = T.get_experiment("paper_obj", batch_size=TRAIN_BATCH,
+                           img_size=SIZE, patch_size=PATCH)
+    net, params = PT.build_victim(exp, 1)
+    trainer = PT.PatchTrainer(exp, net, params, device=dev,
+                              log=lambda m: None, res152="fused")
+    data = SyntheticData(48, SIZE, exp.max_labels, seed=SEED + 7)
+    staged = [tuple(torch.from_numpy(a).to(dev) for a in
+                    data.batch(TRAIN_BATCH, i)) for i in range(2)]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+    planar_step = PT.make_train_step(trainer.model, exp,
+                                     **ROUTES["planar_planar"][0])
+    pw = trainer.patch.detach().clone().requires_grad_(True)
+    popt = PO.make_optimizer(pw, exp.learning_rate)
+
+    def step_of(name):
+        if name == "fused_fused":
+            return lambda i: trainer.step(*staged[i % 2])
+        return lambda i: planar_step(
+            pw, popt, *staged[i % 2], exp.learning_rate,
+            PE.draw_eot(gen, TRAIN_BATCH, exp.patch_size, trainer.eot_cfg))
+
+    rec = {}
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    for name, (kw, want) in ROUTES.items():
+        step = step_of(name)
+        p0 = (trainer.patch if name == "fused_fused" else pw).detach().clone()
+        reset_counts()
+        for i in range(3):
+            step(i)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start.record()
+        for i in range(ROUTE_STEPS):
+            aux = step(i)
+        end.record()
+        torch.cuda.synchronize()
+        launches = read_counts()
+        routes = tuple(darknet.last_routes().values())
+        n = 3 + ROUTE_STEPS
+        ms = start.elapsed_time(end) / ROUTE_STEPS
+        r = rec[name] = {
+            "routes": routes, "steps_counted": n, "launches": launches,
+            "launches_per_step": {k: v / n for k, v in launches.items()},
+            "ms_per_step": ms, "steps_per_min": 60e3 / ms,
+            "mfu": flops.mfu(ms / 1e3, TRAIN_BATCH, net,
+                             torch.cuda.get_device_name(0)),
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "loss": {k: float(v) for k, v in aux.items()}}
+        assert routes == want, (name, routes)
+        assert all(np.isfinite(v) for v in r["loss"].values()), r["loss"]
+        patch = (trainer.patch if name == "fused_fused" else pw).detach()
+        assert not torch.equal(patch, p0), "the patch did not move"
+        if name == "fused_fused":
+            # one K6a with masks and one K6b a step; the stage adds a K3a
+            # (tiled) and a K3b each way to the stem's
+            assert launches["res152_fused_save"] == n, launches
+            assert launches["res152_fused_grad"] == n, launches
+            assert launches["res152_fused"] == 0, launches
+            assert launches["to_planar_g5"] == 3 * n, launches
+            assert launches["from_planar"] == 3 * n, launches
+            assert launches["fused_stem_fwd_save_acts"] == n, launches
+            assert all(launches[k] == 0 for k in K4_VARIANTS), launches
+        else:
+            # only K4 in layers 0-11: per step 6 1x1, 10 3x3 s1 and
+            # 2 3x3 s2 convs (forward and backward)
+            assert [launches[k] for k in K4_VARIANTS] == [6 * n, 10 * n,
+                                                           2 * n], launches
+            assert all(launches[k] == 0 for k in K6_KERNELS), launches
+            assert launches["fused_stem_fwd_save_acts"] == 0, launches
+            assert launches["fused_stem_bwd_saved"] == 0, launches
+
+    # where a step's victim time goes on each route (CUDA events)
+    images, labels = staged[0]
+    draws = PE.draw_eot(gen, TRAIN_BATCH, exp.patch_size, trainer.eot_cfg)
+    with torch.no_grad():
+        x_in, _ = PE.apply_eot_patch(trainer.patch.detach(), images, labels,
+                                     draws, trainer.eot_cfg)
+    x_req = x_in.detach().requires_grad_(True)
+    rec["breakdown_ms"] = {}
+    for name, (kw, _) in ROUTES.items():
+        def fwd():
+            with torch.no_grad():
+                return trainer.model(x_in, **kw)
+
+        def fwd_bwd():
+            heads = trainer.model(x_req, **kw)
+            return torch.autograd.grad(sum(hd.sum() for hd in heads), x_req)
+        rec["breakdown_ms"][name] = {"victim_fwd": time_ms(fwd, 5, 2),
+                                     "victim_fwd_bwd": time_ms(fwd_bwd, 5, 2)}
+    del x_in, x_req
+
+    # patch gradients at batch 4, float32, TF32 off: fixed random
+    # projections (the random victim's saturated losses would not reach
+    # the stem), as phase 6's checks
+    exp32 = dataclasses.replace(exp, compute_dtype="float32")
+    cfg32 = PT.eot_config(exp32)
+    m32 = darknet.Darknet(net, params, torch.float32, device=dev).eval()
+    imgs, labs = staged[0][0][:4], staged[0][1][:4]
+    draws32 = PE.draw_eot(torch.Generator(device=dev).manual_seed(9), 4,
+                          exp.patch_size, cfg32)
+    draws16 = PE.draw_eot(torch.Generator(device=dev).manual_seed(9), 4,
+                          exp.patch_size, trainer.eot_cfg)
+    rgen = torch.Generator(device=dev).manual_seed(10)
+    projs = {}
+    patch = trainer.patch.detach()
+
+    def grad(fwd, cfg, d, key):
+        p = patch.clone().requires_grad_(True)
+        with _cuda.no_tf32():
+            patched, _ = PE.apply_eot_patch(p, imgs, labs, d, cfg)
+            outs = fwd(patched)
+            if key not in projs:
+                projs[key] = [torch.randn(o.shape, generator=rgen,
+                                          device=dev)
+                              / o.detach().abs().max() for o in outs]
+            loss = sum((o * q).sum() for o, q in zip(outs, projs[key]))
+            return torch.autograd.grad(loss, p)[0]
+
+    def rel(a, b):
+        return ((a - b).norm() / b.norm()).item()
+
+    sp32 = m32.stem_params()
+    pf32, pb32 = m32.planar_stem_params()
+    rf32, rb32, rb4_32 = m32.res_params()
+    gc = {}
+    # (1) the planar stem alone against cuDNN convs of the same weights
+    gc["f32_planar_stem_rel_l2"] = rel(
+        grad(lambda x: [PSP.planar_stem(x.contiguous(), pf32, pb32)], cfg32,
+             draws32, "y5"),
+        grad(lambda x: [stem_conv_walk(x, sp32)], cfg32, draws32, "y5"))
+
+    # (2) each stage route alone, on the cuDNN stem
+    def stage(route):
+        def fwd(x):
+            y5 = stem_conv_walk(x, sp32).contiguous()
+            if route == "fused":
+                return [PRP.res152_fused_stage(y5, rf32, rb32)]
+            if route == "planar":
+                return [PRP.res152_planar(y5, rf32, rb4_32)]
+            return [stage_conv_walk(y5, rf32)]
+        return fwd
+    g_walk = grad(stage("walk"), cfg32, draws32, "y11")
+    for r in ("fused", "planar"):
+        gc[f"f32_stage_{r}_rel_l2"] = rel(grad(stage(r), cfg32, draws32,
+                                               "y11"), g_walk)
+
+    # (3) the whole victim on each route, against the walk carrying that
+    # route's own forward: its y11 (straight through, so layers 12- see
+    # the route's values) and its leaky gates in layers 0-11 (so a
+    # pre-activation within summation order of 0 gates both alike); and,
+    # recorded beside it, against the walk itself
+    def heads(model, kw, want):
+        def fwd(x):
+            out = model(x, **kw)
+            assert tuple(darknet.last_routes().values()) == want
+            return out
+        return fwd
+
+    def witness(kw):
+        def fwd(x):
+            y11k, gates = route_forward(x, kw, sp32, pf32, rf32)
+            y11g = gated_walk_y11(x, sp32, rf32, gates)
+            v = (y11k + (y11g - y11g.detach())).permute(0, 3, 1, 2)
+            return m32.walk(v, 12, {11: v})
+        return fwd
+
+    g32w = grad(heads(m32, {}, ("conv", "conv")), cfg32, draws32, "heads")
+    for name, (kw, want) in ROUTES.items():
+        gk = grad(heads(m32, kw, want), cfg32, draws32, "heads")
+        gc[f"f32_heads_{name}_vs_walk_on_route_forward_rel_l2"] = rel(
+            gk, grad(witness(kw), cfg32, draws32, "heads"))
+        gc[f"f32_heads_{name}_vs_walk_rel_l2"] = rel(gk, g32w)
+    del m32
+    # (4) bfloat16: each route's kernels against its plain versions, both
+    # against the float32 walk (recorded)
+    for name, (kw, want) in ROUTES.items():
+        g16k = grad(heads(trainer.model, kw, want), trainer.eot_cfg, draws16,
+                    "heads")
+        with plain_kernels():
+            g16p = grad(heads(trainer.model, kw, want), trainer.eot_cfg,
+                        draws16, "heads")
+        gc[f"bf16_{name}_kernel_vs_plain_l2"] = (g16k - g16p).norm().item()
+        gc[f"bf16_{name}_plain_vs_f32_walk_l2"] = (g16p - g32w).norm().item()
+    gc["grad_l2"] = g32w.norm().item()
+    gc["tol"] = 1e-4
+    rec["grad_check"] = gc
+    log(f"[routes] grad check {json.dumps(gc)}")
+    for k, v in gc.items():
+        if k.endswith("_rel_l2") and "_vs_walk_rel" not in k:
+            assert v <= 1e-4, (k, v)
+    log(f"[routes] {json.dumps(rec)} ({card})")
+    return rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -853,6 +1481,9 @@ def main() -> int:
             server.server_close()
             th.join(timeout=30)
     launches = read_counts()
+    # the default serving route is unchanged: fused stem, conv-walk stage
+    assert darknet.last_routes() == {"stem": "fused", "res152": "conv"}
+    assert all(launches[k] == 0 for k in K4_VARIANTS + K6_KERNELS), launches
     log(f"[serve] 16 service answers (rows {[len(a) for a in answers]}), "
         f"HTTP counts {http_counts}, batches {svc.stats.batches}, "
         f"saturated {svc.stats.saturated}; launches {launches}")
@@ -942,9 +1573,15 @@ def main() -> int:
     log(f"[serve] {json.dumps(serving)} ({card})")
 
     # -- 4. reference goldens through the float32 Detector -------------
+    # the slim victim's narrow stem takes the planar stem (K4), and with
+    # res152="planar" its 32-wide stage too; launches counted per run
     fixtures = os.path.join(ROOT, "tests", "fixtures")
-    for d, name in (("refparity", "mini_yolov3_dota"),
-                    ("refparity_slim", "yolov3_dota_slim")):
+    golden_k4 = {}
+    for d, name, res152, routes in (
+            ("refparity", "mini_yolov3_dota", None, ("conv", "conv")),
+            ("refparity_slim", "yolov3_dota_slim", None, ("planar", "conv")),
+            ("refparity_slim", "yolov3_dota_slim", "planar",
+             ("planar", "planar"))):
         with open(os.path.join(fixtures, d, "golden_boxes.json")) as f:
             golden = json.load(f)
         gnet = M.network_from_cfg(os.path.join(fixtures, d, f"{name}.cfg"))
@@ -952,7 +1589,9 @@ def main() -> int:
             gnet, os.path.join(fixtures, d, f"{name}.weights"))
         gdet = E.Detector(gnet, gparams, img_size=golden["img_size"],
                           num_classes=golden["num_classes"],
-                          compute_dtype=torch.float32, device=dev)
+                          compute_dtype=torch.float32, device=dev,
+                          res152=res152)
+        reset_counts()
         for key, conf in (("conf04", 0.4), ("conf02", 0.2)):
             n = 0
             for tile, entry in golden["tiles"].items():
@@ -964,7 +1603,17 @@ def main() -> int:
                                                len(ref))
                 assert match_count(ours, ref) == len(ref), (d, tile, key)
                 n += len(ref)
-            log(f"[golden] {d} {key}: {n} boxes match 1-1 within 1e-3")
+            got = tuple(darknet.last_routes().values())
+            assert got == routes, (d, res152, got)
+            log(f"[golden] {d} (routes {got}) {key}: {n} boxes match 1-1 "
+                f"within 1e-3")
+        launches = read_counts()
+        if routes[0] == "planar":
+            k4 = {k: launches[k] for k in K4_VARIANTS}
+            assert all(v > 0 for v in k4.values()), k4
+            golden_k4[f"slim_res152_{res152 or 'conv'}"] = k4
+            log(f"[golden] {d} res152={res152}: K4 launches {k4}")
+        del gdet
 
     # -- 5. training kernels at the training shapes --------------------
     train_kernels = training_kernels(dev, sp, det.model.stem_bwd_params(),
@@ -979,6 +1628,52 @@ def main() -> int:
     kernels += train_kernels
     for k in kernels:
         k["train_launches_per_step"] = rec["launches_per_step"][k["name"]]
+
+    # -- 7. planar-route and stage kernels at full width --------------
+    model16 = darknet.Darknet(net, params, torch.bfloat16, device=dev)
+    k4 = k4_entries(planar_kernels(dev, model16, card))
+    k6 = stage_kernels(dev, model16, card)
+    del model16
+    torch.cuda.empty_cache()
+
+    # -- 8. training on the other routes (counted launches) ------------
+    rrec = route_training(dev, card)
+    for k, run in [(k, "planar_planar") for k in k4] + [
+            (k, "fused_fused") for k in k6]:
+        k["launches"] = rrec[run]["launches"][k["name"]]
+        k["train_launches_per_step"] = \
+            rrec[run]["launches_per_step"][k["name"]]
+        k["launches_on"] = f"paper_obj b24, routes {run}"
+    # serving on the fused stage: K6a without masks (the forward alone),
+    # which a training step never launches
+    fdet = E.Detector(net, params, img_size=SIZE,
+                      compute_dtype=torch.bfloat16, device=dev,
+                      res152="fused")
+    reset_counts()
+    dets, _, _ = fdet.detect_batch_device(tiles[:BATCH], 0.4, 0.4)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    assert darknet.last_routes() == {"stem": "fused", "res152": "fused"}
+    assert tuple(dets.shape) == (BATCH, 300, 7)
+    assert launches["res152_fused"] == 1, launches
+    assert launches["res152_fused_save"] == 0, launches
+    with torch.inference_mode():
+        rrec["serve_fused_stage"] = {
+            "forward_ms": time_ms(lambda: fdet.model(
+                x8, fused_stem=True, res152="fused"), 10),
+            "forward_default_ms": time_ms(lambda: fdet.model(
+                x8, fused_stem=True), 10)}
+    log(f"[routes] serving b8 on the fused stage: launches {launches}, "
+        f"{json.dumps(rrec['serve_fused_stage'])} ({card})")
+    k6[0]["launches"] = launches["res152_fused"]
+    k6[0]["launches_on"] = "serving b8, routes fused/fused"
+    del fdet
+    for k in k4 + k6:
+        assert k["launches"] > 0, k["name"]
+    for k in k4:
+        k["golden_launches"] = {run: v[k["name"]]
+                                for run, v in golden_k4.items()}
+    kernels += k4 + k6
 
     log(json.dumps({"kernels": kernels}))
     log(card)

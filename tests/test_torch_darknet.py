@@ -80,7 +80,7 @@ def test_apply_matches_jax_conv_walk(name):
     got = PM.apply(pnet, PM.params_from_jax(jparams), torch.from_numpy(x),
                    torch.float32, fused_stem=True)
     # the fused stem is taken exactly where the geometry allows it
-    assert PM.last_routes() == {"stem": route}
+    assert PM.last_routes() == {"stem": route, "res152": "conv"}
     assert len(got) == len(want) == len(pnet.yolo_indices)
     for g, w in zip(got, want):
         assert g.dtype == torch.float32 and tuple(g.shape) == w.shape
@@ -160,3 +160,106 @@ def test_fused_stem_refuses_input_that_requires_grad():
         grads.append(xr.grad)
     rel = ((grads[0] - grads[1]).norm() / grads[1].norm()).item()
     assert rel <= 1e-5, rel
+
+
+SLIM_CFG = os.path.join(os.path.dirname(__file__), "fixtures",
+                        "refparity_slim", "yolov3_dota_slim.cfg")
+# the route combinations each network takes: (stem, res152) asked and
+# expected (a route that does not apply leaves the conv walk in place)
+ROUTE_CASES = {
+    "yolov3_full_width": [("fused", None), ("fused", "fused"),
+                          ("fused", "planar"), ("planar", None),
+                          ("planar", "planar"), ("planar", "fused")],
+    "slim": [("planar", None), ("planar", "planar"), ("planar", "fused")],
+}
+
+
+@pytest.fixture(scope="module")
+def jax_reference():
+    """Per network: (blocks, JAX folded params, x, the JAX XLA walk's
+    heads, the projections R, and jax.grad of sum(heads * R) w.r.t. x),
+    at 64^2, batch 1, float32."""
+    cache = {}
+
+    def get(name):
+        if name not in cache:
+            if name == "slim":
+                blocks = JM.parse_darknet_cfg(SLIM_CFG)
+                net = JM.build_network(blocks)
+                params, _ = JW.load_darknet_weights(
+                    net, SLIM_CFG.replace(".cfg", ".weights"))
+                params = JM.fold_bn(net, params)
+            else:
+                blocks = JM.yolov3_blocks(width=64, height=64)
+                net = JM.build_network(blocks)
+                params = JM.fold_bn(net, JM.init_params(
+                    net, jax.random.PRNGKey(1)))
+            # an input whose leaky gates all lie clear of float32
+            # summation order: at seed 7 one pre-activation of the
+            # full-width stage sits so close to 0 that the planar stem's
+            # rounding flips its gate (1.5e-3 relative L2 against the
+            # walk, every route else ~2e-6)
+            rng = np.random.default_rng(8)
+            x = rng.random((1, 64, 64, 3), dtype=np.float32)
+            heads = [np.asarray(h) for h in JD.apply(
+                net, params, jnp.asarray(x), jnp.float32, fused_stem=False,
+                planar_stem=False)]
+            projs = [(rng.standard_normal(h.shape) / np.abs(h).max())
+                     .astype(np.float32) for h in heads]
+
+            def loss(v):
+                out = JD.apply(net, params, v, jnp.float32, fused_stem=False,
+                               planar_stem=False)
+                return sum(jnp.sum(h * r) for h, r in zip(out, projs))
+
+            grad = np.asarray(jax.grad(loss)(jnp.asarray(x)))
+            cache[name] = (blocks, params, x, heads, projs, grad)
+        return cache[name]
+    return get
+
+
+@pytest.mark.parametrize("name,stem,res152", [
+    (n, s, r) for n, cases in ROUTE_CASES.items() for s, r in cases])
+def test_kernel_routes_match_jax_walk(jax_reference, name, stem, res152):
+    """Every kernel route (the plain versions here) against the JAX
+    package's XLA walk: heads within 1e-4 of their scale, and the input
+    gradient of a fixed random projection of the heads within 1e-4
+    relative L2 of ``jax.grad``'s. The full-width YOLOv3 takes every
+    route; the slim victim (stem widths 8/16/8/16/32) only the planar
+    ones, its stage being 32 wide."""
+    blocks, jparams, x, want, projs, want_g = jax_reference(name)
+    model = PM.Darknet(PM.build_network(blocks), PM.params_from_jax(jparams),
+                       torch.float32, device="cpu")
+    xr = torch.from_numpy(x).requires_grad_(True)
+    heads = model(xr, fused_stem=stem == "fused",
+                  planar_stem=stem == "planar", res152=res152)
+    fused_ok = name == "yolov3_full_width" or res152 != "fused"
+    assert PM.last_routes() == {
+        "stem": stem, "res152": res152 if res152 and fused_ok else "conv"}
+    for g, w in zip(heads, want):
+        np.testing.assert_allclose(g.detach().numpy(), w, rtol=1e-4,
+                                   atol=1e-4 * float(np.abs(w).max()))
+    loss = sum((h * torch.from_numpy(r)).sum() for h, r in zip(heads, projs))
+    got_g = torch.autograd.grad(loss, xr)[0].numpy()
+    rel = np.linalg.norm(got_g - want_g) / np.linalg.norm(want_g)
+    assert rel <= 1e-4, rel
+
+
+def test_module_prepares_route_weights_once():
+    """The slim victim holds the planar stem's and the stage's K4 weights
+    (no fused-stem or K6 width); an unknown res152 route is refused."""
+    net = PM.network_from_cfg(SLIM_CFG)
+    model = PM.Darknet(net, PM.init_params(net, 0), torch.bfloat16,
+                       device="cpu")
+    assert (model.has_fused_stem, model.has_planar_stem, model.has_res152,
+            model.has_fused_res) == (False, True, True, False)
+    fwd, bwd = model.planar_stem_params()
+    assert tuple(fwd[0][0].shape) == (3, 3, 8, 8)
+    assert all(w.dtype == torch.bfloat16 and z.dtype == torch.float32
+               for w, z in bwd)
+    rfwd, rbwd, rbwd4 = model.res_params()
+    assert [tuple(w.shape) for w, _ in rfwd] == [(1, 1, 32, 16),
+                                                 (3, 3, 16, 32)] * 2
+    assert [w is v for w, (v, _) in zip(rbwd, rbwd4)] == [True] * 4
+    with pytest.raises(ValueError, match="res152"):
+        model(torch.zeros(1, 64, 64, 3), planar_stem=True, res152="c12")

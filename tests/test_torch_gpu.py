@@ -222,3 +222,160 @@ def test_fused_stem_grad_matches_conv_walk_on_card(cuda):
         grads.append(xr.grad)
     rel = ((grads[0] - grads[1]).norm() / grads[1].norm()).item()
     assert rel <= 1e-4, rel
+
+
+def _close(got, want, dtype, what):
+    """float32: summation order (2e-5 of the scale); bfloat16: two bf16
+    ulps of the scale (an intermediate's rounding may flip), mean far
+    below."""
+    scale = max(want.float().abs().max().item(), 1e-30)
+    err = (got.float() - want.float()).abs()
+    if dtype == torch.float32:
+        assert err.max().item() <= 2e-5 * scale, (what, err.max(), scale)
+    else:
+        assert err.max().item() <= 2.0 ** -6 * scale, (what, err.max(),
+                                                       scale)
+        assert err.mean().item() <= 1e-3 * scale, (what, err.mean(), scale)
+
+
+K4_VARIANTS = [
+    # (k, stride, cin, cout, res, gate, slope)
+    (3, 1, 8, 32, False, False, 0.1), (3, 2, 32, 64, False, False, 0.1),
+    (1, 1, 64, 32, False, False, 0.1), (3, 1, 64, 128, False, True, None),
+    (1, 1, 32, 64, True, True, None), (1, 1, 64, 128, True, False, None),
+    (3, 1, 32, 8, False, False, None), (3, 1, 20, 12, True, True, 0.1),
+    (3, 2, 16, 24, True, True, 0.1), (1, 1, 40, 16, False, True, 0.1)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k,s,cin,cout,res,gate,slope", K4_VARIANTS)
+def test_planar_conv_kernel_matches_plain(cuda, dtype, k, s, cin, cout, res,
+                                          gate, slope):
+    """K4 in every geometry (1x1, 3x3 s1, 3x3 s2), with and without res,
+    gate and leaky, channel blocks of 32, 16 and 8 and a cout that is no
+    multiple of 8, against ``planar_conv_plain``; the border and padding
+    lanes are zero though the output block was dirty."""
+    g = torch.Generator().manual_seed(11)
+    b, h, w_img = 2, 40, 72  # tiles past the image on both axes
+    x = torch.randn(b, h, w_img, cin, generator=g).to(cuda, dtype)
+    xp = PC.to_planar(x)
+    wt = (torch.randn(k, k, cin, cout, generator=g) * 0.2).to(cuda, dtype)
+    bias = (torch.randn(cout, generator=g) * 0.1).to(cuda)
+    ho, wo = h // s, w_img // s
+    wl = (wo + 2 + 127) // 128 * 128
+    rp = gp = None
+    if res:
+        rp = PC.to_planar(torch.randn(b, ho, wo, cout, generator=g).to(
+            cuda, dtype))
+    if gate:
+        gp = PC.to_planar(torch.randn(b, ho, wo, cout, generator=g).to(
+            cuda, dtype))
+    torch.full((b, ho, cout, wl), float("nan"), dtype=dtype, device=cuda)
+    name = ("launches_k1" if k == 1 else "launches_k3" if s == 1
+            else "launches_k3s2")
+    n = getattr(PC.planar_conv, name)
+    got = PC.planar_conv(xp, wt, bias, rp, k=k, stride=s, slope=slope,
+                         w_img=w_img, gate=gp)
+    torch.cuda.synchronize()
+    assert getattr(PC.planar_conv, name) == n + 1
+    want = PC.planar_conv_plain(xp, wt, bias, rp, k=k, stride=s, slope=slope,
+                                w_img=w_img, gate=gp)
+    assert got.shape == want.shape == (b, ho, cout, wl)
+    _close(got, want, dtype, "planar_conv")
+    assert not got[..., 0].any() and not got[..., wo + 1:].any()
+
+
+def _stage_weights(dtype, device, seed=12):
+    from adversarial_patch_based_false_positive_creation_attacks_against_aerial_imagery_object_detectors_tpu_torch.ops import res_fused as RF
+    g = torch.Generator().manual_seed(seed)
+    sp = [((torch.randn(*shape, generator=g) * (2.0 / (shape[0] ** 2 *
+                                                       shape[2])) ** 0.5)
+           .to(device, dtype), (torch.randn(shape[-1], generator=g) * 0.1)
+           .to(device)) for shape in RF.FWD_SHAPES]
+    return RF.res_weights(sp)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h", [(2, 16), (1, 40)])
+def test_res152_kernels_match_plain(cuda, dtype, b, h):
+    """K6a with and without its masks and K6b against their plain
+    versions; the masks agree but for sign flips of values within a
+    rounding of 0 (at most 1e-5 of them, or 2), every border and padding
+    lane of every output is zero though the blocks were dirty."""
+    from adversarial_patch_based_false_positive_creation_attacks_against_aerial_imagery_object_detectors_tpu_torch.ops import res_fused as RF
+    fwd, bwd = _stage_weights(dtype, cuda)
+    g = torch.Generator().manual_seed(13)
+    xp = PC.to_planar(torch.randn(b, h, h, 128, generator=g).to(cuda, dtype))
+    wl = xp.shape[-1]
+    torch.full(xp.shape, float("nan"), dtype=dtype, device=cuda)
+    for c in (64, 128, 64, 128):
+        torch.full((b, h, c, wl), 7, dtype=torch.int8, device=cuda)
+    n = (RF.res152_fused.launches, RF.res152_fused.save_launches,
+         RF.res152_fused_grad.launches)
+    y11 = RF.res152_fused(xp, fwd)
+    y11s, *masks = RF.res152_fused(xp, fwd, save=True)
+    torch.cuda.synchronize()
+    assert torch.equal(y11, y11s)
+    want, *wmasks = RF.res152_fused_plain(xp, fwd, save=True)
+    _close(y11, want, dtype, "res152_fused")
+    for t in (y11, *masks):
+        assert not t[..., 0].any() and not t[..., h + 1:].any()
+    flips = sum(int((m != w).sum().item()) for m, w in zip(masks, wmasks))
+    assert flips <= max(2, 1e-5 * sum(m.numel() for m in masks)), flips
+    g11 = PC.to_planar(torch.randn(b, h, h, 128, generator=g).to(cuda, dtype))
+    torch.full(xp.shape, float("nan"), dtype=dtype, device=cuda)
+    g5 = RF.res152_fused_grad(g11, masks, bwd)
+    torch.cuda.synchronize()
+    _close(g5, RF.res152_fused_grad_plain(g11, masks, bwd), dtype,
+           "res152_fused_grad")
+    assert not g5[..., 0].any() and not g5[..., h + 1:].any()
+    assert (RF.res152_fused.launches, RF.res152_fused.save_launches,
+            RF.res152_fused_grad.launches) == (n[0] + 1, n[1] + 1, n[2] + 1)
+
+
+@pytest.mark.parametrize("stem,res152", [("fused", "fused"),
+                                         ("planar", "planar"),
+                                         ("planar", "fused")])
+def test_kernel_routes_grad_match_conv_walk_on_card(cuda, stem, res152):
+    """float32, TF32 off: heads and the input gradient through each kernel
+    route equal the conv walk's (summation order only)."""
+    from adversarial_patch_based_false_positive_creation_attacks_against_aerial_imagery_object_detectors_tpu_torch.ops import _cuda
+    net = PM.build_network(PM.yolov3_blocks(width=64, height=64))
+    model = PM.Darknet(net, PM.init_params(net, 0), torch.float32,
+                       device=cuda)
+    x = torch.rand(2, 64, 64, 3, generator=torch.Generator().manual_seed(5)
+                   ).to(cuda)
+    out = []
+    for kw in ({"fused_stem": stem == "fused", "planar_stem": stem ==
+                "planar", "res152": res152}, {}):
+        xr = x.clone().requires_grad_(True)
+        with _cuda.no_tf32():
+            heads = model(xr, **kw)
+            routes = tuple(PM.last_routes().values())
+            sum(h.square().mean() for h in heads).backward()
+        out.append(([h.detach() for h in heads], xr.grad, routes))
+    assert out[0][2] == (stem, res152) and out[1][2] == ("conv", "conv")
+    for hk, hw in zip(out[0][0], out[1][0]):
+        assert (hk - hw).abs().max().item() <= 1e-4 * hw.abs().max().item()
+    rel = ((out[0][1] - out[1][1]).norm() / out[1][1].norm()).item()
+    assert rel <= 1e-4, rel
+
+
+def test_detector_takes_planar_stem_for_the_slim_victim(cuda):
+    """The slim victim's narrow stem takes the planar route (K4) on the
+    card, and with ``res152="planar"`` its stage too."""
+    import os
+    cfg = os.path.join(os.path.dirname(__file__), "fixtures",
+                       "refparity_slim", "yolov3_dota_slim.cfg")
+    net = PM.network_from_cfg(cfg)
+    params = PM.init_params(net, 0)
+    images = np.random.default_rng(3).integers(0, 256, (1, 64, 64, 3),
+                                               dtype=np.uint8)
+    for res152, routes in ((None, ("planar", "conv")),
+                           ("planar", ("planar", "planar"))):
+        det = PE.Detector(net, params, img_size=64, device=cuda,
+                          compute_dtype=torch.float32, res152=res152)
+        n = PC.planar_conv.launches_k3
+        det.detect_batch_device(images, 0.4, 0.4)
+        assert tuple(PM.last_routes().values()) == routes
+        assert PC.planar_conv.launches_k3 > n

@@ -164,3 +164,47 @@ def test_no_tf32_nests_and_restores_across_threads():
         assert torch.backends.cudnn.allow_tf32
     finally:
         torch.backends.cudnn.allow_tf32 = prev
+
+
+def test_planar_and_stage_wrappers_plain_on_cpu_raise_elsewhere():
+    """K4's and K6's wrappers (``planar_conv``, ``res152_fused``,
+    ``res152_fused_grad``) run their plain versions on CPU tensors and
+    count no launch; a tensor on any other device that is not a card
+    raises instead of falling back. Their modules and the route modules
+    are among the sources the no-JAX scans read."""
+    import importlib
+    pc = importlib.import_module(f"{PORT}.ops.planar_conv")
+    rf = importlib.import_module(f"{PORT}.ops.res_fused")
+    names = {os.path.relpath(p, ROOT) for p in _port_sources()}
+    for mod in ("ops/planar_conv.py", "ops/res_fused.py",
+                "models/stem_planar.py", "models/res_planar.py"):
+        assert os.path.join(PORT, mod) in names
+
+    def counts():
+        return (pc.planar_conv.launches_k1, pc.planar_conv.launches_k3,
+                pc.planar_conv.launches_k3s2, rf.res152_fused.launches,
+                rf.res152_fused.save_launches,
+                rf.res152_fused_grad.launches)
+    before = counts()
+    g = torch.Generator().manual_seed(0)
+    xp = pc.to_planar(torch.rand(1, 8, 8, 128, generator=g))
+    for k, s in ((1, 1), (3, 1), (3, 2)):
+        y = pc.planar_conv(xp, torch.rand(k, k, 128, 8, generator=g),
+                           torch.zeros(8), k=k, stride=s)
+        assert y.shape == (1, 8 // s, 8, 128)
+    fwd, bwd = rf.res_weights(
+        [(torch.rand(k, k, ci, co, generator=g) * 0.1, torch.zeros(co))
+         for k, ci, co in ((1, 128, 64), (3, 64, 128)) * 2])
+    y11, *masks = rf.res152_fused(xp, fwd, save=True)
+    assert tuple(rf.res152_fused_grad(y11, masks, bwd).shape) == tuple(
+        xp.shape)
+    assert counts() == before
+    meta = torch.empty(xp.shape, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        pc.planar_conv(meta, torch.empty(3, 3, 128, 8, device="meta"),
+                       torch.empty(8, device="meta"), k=3)
+    with pytest.raises(ValueError, match="CUDA"):
+        rf.res152_fused(meta, fwd)
+    with pytest.raises(ValueError, match="CUDA"):
+        rf.res152_fused_grad(meta, masks, bwd)
+    assert counts() == before

@@ -77,38 +77,77 @@ def yolov3():
     return _victim(PM.yolov3_blocks(width=IMG, height=IMG))
 
 
-@pytest.mark.parametrize("padded", [False, True])
-def test_train_step_matches_jax(yolov3, padded):
-    jnet, jparams, model = yolov3
-    jexp, pexp = _exp(JC), _exp(PC)
-    rng = np.random.default_rng(0)
-    p0 = rng.random((PATCH, PATCH, 3), dtype=np.float32)
-    images, labels = _batch(rng, 2)
-    weights = None
-    if padded:
-        # a third sample repeats the first with weight 0
-        images = np.concatenate([images, images[:1]])
-        labels = np.concatenate([labels, labels[:1]])
-        weights = np.array([1, 1, 0], np.float32)
-    b = images.shape[0]
-    jw = None if weights is None else jnp.asarray(weights)
-    pw = None if weights is None else torch.from_numpy(weights)
+@pytest.fixture(scope="module")
+def jax_steps(yolov3):
+    """The JAX step per ``padded``, computed once: (inputs, the JAX step's
+    loss parts and updated patch, jax.grad of the loss w.r.t. the patch,
+    and the port's draws rebuilt from the step's EOT key)."""
+    jnet, jparams, _ = yolov3
+    cache = {}
 
-    # JAX: one jitted step; its EOT key is the first split of the state's
-    state = JT.init_train_state(jexp, jax.random.PRNGKey(3),
-                                patch=jnp.asarray(p0))
-    sub = jax.random.split(state.key)[1]
-    jstep = JT.make_train_step(jnet, jexp)
-    new_state, jaux = jstep(state, jparams, jnp.asarray(images),
-                            jnp.asarray(labels), jnp.float32(0.03), jw)
-    jloss = JT.make_loss_fn(jnet, jexp, load_printable_colors())
-    jgrad = np.asarray(jax.grad(lambda p: jloss(
-        p, jparams, jnp.asarray(images), jnp.asarray(labels), jw,
-        sub)[0])(jnp.asarray(p0)))
+    def get(padded):
+        if padded in cache:
+            return cache[padded]
+        jexp = _exp(JC)
+        rng = np.random.default_rng(0)
+        p0 = rng.random((PATCH, PATCH, 3), dtype=np.float32)
+        images, labels = _batch(rng, 2)
+        weights = None
+        if padded:
+            # a third sample repeats the first with weight 0
+            images = np.concatenate([images, images[:1]])
+            labels = np.concatenate([labels, labels[:1]])
+            weights = np.array([1, 1, 0], np.float32)
+        b = images.shape[0]
+        jw = None if weights is None else jnp.asarray(weights)
+        # JAX: one jitted step; its EOT key is the first split of the
+        # state's
+        state = JT.init_train_state(jexp, jax.random.PRNGKey(3),
+                                    patch=jnp.asarray(p0))
+        sub = jax.random.split(state.key)[1]
+        jstep = JT.make_train_step(jnet, jexp)
+        new_state, jaux = jstep(state, jparams, jnp.asarray(images),
+                                jnp.asarray(labels), jnp.float32(0.03), jw)
+        jloss = JT.make_loss_fn(jnet, jexp, load_printable_colors())
+        jgrad = np.asarray(jax.grad(lambda p: jloss(
+            p, jparams, jnp.asarray(images), jnp.asarray(labels), jw,
+            sub)[0])(jnp.asarray(p0)))
+        draws = jax_draws(sub, b, PATCH, JE.EOTConfig(img_size=IMG))
+        cache[padded] = dict(p0=p0, images=images, labels=labels,
+                             weights=weights, jaux=jaux,
+                             patch=np.asarray(new_state.patch), jgrad=jgrad,
+                             draws=draws)
+        return cache[padded]
+    return get
+
+
+def _check_against_jax(ref, paux, pgrad, patch):
+    for k in KEYS:
+        np.testing.assert_allclose(float(paux[k]), float(ref["jaux"][k]),
+                                   rtol=1e-5, atol=1e-7, err_msg=k)
+    jgrad = ref["jgrad"]
+    rel = np.linalg.norm(pgrad - jgrad) / np.linalg.norm(jgrad)
+    assert rel <= 1e-4, rel
+    got = patch.detach().numpy()
+    assert got.min() >= 0.0 and got.max() <= 1.0
+    big = np.abs(jgrad) > 1e-3 * np.abs(jgrad).max()
+    assert big.mean() > 0.5
+    np.testing.assert_allclose(got[big], ref["patch"][big], rtol=0,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("padded", [False, True])
+def test_train_step_matches_jax(yolov3, jax_steps, padded):
+    _, _, model = yolov3
+    pexp = _exp(PC)
+    ref = jax_steps(padded)
+    images, labels = ref["images"], ref["labels"]
+    pw = (None if ref["weights"] is None
+          else torch.from_numpy(ref["weights"]))
 
     # the port, fed the same draws
-    draws = jax_draws(sub, b, PATCH, JE.EOTConfig(img_size=IMG))
-    patch = torch.from_numpy(p0.copy()).requires_grad_(True)
+    draws = ref["draws"]
+    patch = torch.from_numpy(ref["p0"].copy()).requires_grad_(True)
     opt = PO.make_optimizer(patch, 0.03)
     n = (SF.fused_stem_fwd.launches, SF.fused_stem_fwd.save_acts_launches)
     loss_fn = PT.make_loss_fn(model, pexp)
@@ -122,18 +161,36 @@ def test_train_step_matches_jax(yolov3, padded):
     step = PT.make_train_step(model, pexp)
     paux = step(patch, opt, torch.from_numpy(images),
                 torch.from_numpy(labels), 0.03, draws, pw)
+    _check_against_jax(ref, paux, pgrad, patch)
 
-    for k in KEYS:
-        np.testing.assert_allclose(float(paux[k]), float(jaux[k]),
-                                   rtol=1e-5, atol=1e-7, err_msg=k)
-    rel = np.linalg.norm(pgrad - jgrad) / np.linalg.norm(jgrad)
-    assert rel <= 1e-4, rel
-    got = patch.detach().numpy()
-    want = np.asarray(new_state.patch)
-    assert got.min() >= 0.0 and got.max() <= 1.0
-    big = np.abs(jgrad) > 1e-3 * np.abs(jgrad).max()
-    assert big.mean() > 0.5
-    np.testing.assert_allclose(got[big], want[big], rtol=0, atol=1e-5)
+
+@pytest.mark.parametrize("fused_stem,planar_stem,res152,routes", [
+    (True, False, "fused", ("fused", "fused")),
+    (False, True, "planar", ("planar", "planar"))])
+def test_patch_trainer_kernel_routes_match_jax(yolov3, jax_steps, fused_stem,
+                                               planar_stem, res152, routes):
+    """One ``PatchTrainer`` step (its step function, fed the JAX step's
+    draws) with the 152^2 stage on its kernel routes (the plain versions
+    here) against the JAX step on the XLA walk: the same loss parts,
+    patch gradient and update as the fused-stem route."""
+    jnet, jparams, _ = yolov3
+    ref = jax_steps(False)
+    pexp = _exp(PC)
+    tr = PT.PatchTrainer(pexp, PM.build_network(PM.yolov3_blocks(
+        width=IMG, height=IMG)), PM.params_from_jax(jparams), device="cpu",
+        log=lambda s: None, fused_stem=fused_stem, planar_stem=planar_stem,
+        res152=res152)
+    with torch.no_grad():
+        tr.patch.copy_(torch.from_numpy(ref["p0"]))
+    images, labels = (torch.from_numpy(ref[k]) for k in ("images", "labels"))
+    loss_fn = PT.make_loss_fn(tr.model, pexp, fused_stem=fused_stem,
+                              planar_stem=planar_stem, res152=res152)
+    total, _ = loss_fn(tr.patch, images, labels, None, ref["draws"])
+    pgrad = torch.autograd.grad(total, tr.patch)[0].numpy()
+    paux = tr.step_fn(tr.patch, tr.optimizer, images, labels, 0.03,
+                      ref["draws"])
+    assert tuple(PM.last_routes().values()) == routes
+    _check_against_jax(ref, paux, pgrad, tr.patch)
 
 
 def test_padded_batch_changes_nothing(yolov3):
