@@ -17,7 +17,11 @@ environment variables: the fused stem is on, ``--planar-stem`` tries the
 per-layer planar stem after it (``ADV_PATCH_PLANAR_STEM=1``; a stem of
 other widths than YOLOv3's takes it), ``--res152 fused|planar``
 runs layers 6-11 on the whole-stage or the per-layer kernels after a
-kernel stem (``ADV_PATCH_RES152=fused|1``).
+kernel stem (``ADV_PATCH_RES152=fused|1``), ``--res152 c12`` layers 0-12
+on the planar-out stem and the conv12-widened stage
+(``ADV_PATCH_RES152=c12``), and ``--stem-remat`` recomputes the fused
+stem's masks in its backward instead of keeping them
+(``ADV_PATCH_STEM_REMAT=1``).
 """
 
 from __future__ import annotations
@@ -67,9 +71,15 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--planar-stem", action="store_true",
                     help="layers 0-5 on the per-layer planar kernels where "
                          "the fused stem does not apply")
-    ap.add_argument("--res152", default=None, choices=("fused", "planar"),
+    ap.add_argument("--res152", default=None,
+                    choices=("fused", "planar", "c12"),
                     help="layers 6-11 on the whole-stage kernels or the "
-                         "per-layer planar kernels (after a kernel stem)")
+                         "per-layer planar kernels (after a kernel stem); "
+                         "c12: layers 0-12 on the planar-out fused stem and "
+                         "the conv12-widened stage kernels")
+    ap.add_argument("--stem-remat", action="store_true",
+                    help="the fused stem's backward recomputes its masks "
+                         "(less memory, more time)")
     return ap
 
 
@@ -93,7 +103,7 @@ def main(argv=None):
     trainer = T.PatchTrainer(exp, seed=args.seed,
                              checkpoint_dir=args.out_dir, device=args.device,
                              planar_stem=args.planar_stem,
-                             res152=args.res152)
+                             res152=args.res152, stem_remat=args.stem_remat)
     dev = trainer.device
     print(f"mode={exp.name} recipe={exp.loss_recipe} "
           f"batch={exp.batch_size} patch={exp.patch_size} "

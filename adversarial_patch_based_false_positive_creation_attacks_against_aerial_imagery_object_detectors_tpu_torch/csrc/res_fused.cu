@@ -1,9 +1,11 @@
 // The 152^2 residual stage (YOLOv3 layers 6-11) in one kernel each way:
-// K6a forward, K6b saved-mask input backward.
+// K6a forward, K6b saved-mask input backward, and K6c, K6b widened by
+// conv12's input cotangent.
 //
 // Replaces the JAX package's Pallas kernels ops/res_fused.py res152_fused
-// (body _fwd_kernel, with and without save) and res152_fused_grad (body
-// _bwd_kernel, then _stage_chain). With T the rounding to the compute
+// (body _fwd_kernel, with and without save), res152_fused_grad (body
+// _bwd_kernel, then _stage_chain) and res152_fused_grad12 (body
+// _bwd12_kernel, then _stage_chain). With T the rounding to the compute
 // dtype, leaky(v) = max(v, 0.1 v) and m(v) = 1 if v > 0 else 0.1, K6a
 // computes, in _fwd_kernel's order and at its rounding points,
 //   a      = T(leaky(W6 x + b6))            1x1 128 -> 64
@@ -21,7 +23,13 @@
 //   gp6  = T((W7^T * gp7) m(a))
 //   g5   = T(W6^T gp6 + g8)
 // where W^T is the flipped, channel-swapped kernel (a stride-1 conv's
-// input cotangent is the correlation with it). Every value at a row or
+// input cotangent is the correlation with it). K6c (K6b's kernel with its
+// W12 flag) takes conv12's pre-gated cotangent gp12 [B, H/2, 256, wl12]
+// instead of g11 and first computes
+//   g11  = T(conv12^T gp12)                 3x3 s2 256 -> 128
+// over the tile's 12^2 in a prologue (conv12_adjoint, per 2x2 super
+// position by parity, as K2's stride-2 adjoints), then runs the same chain;
+// g11 never touches device memory. Every value at a row or
 // column outside the image is zero (conv padding). All convs accumulate
 // in float32. Planar tensors are [B, H, C, Wl], column c at lane c + 1;
 // each block writes its own 8 x 8 positions of every output, and the
@@ -47,8 +55,14 @@
 // from the epilogues, and K6b reads them as bytes. Tensor cores are later
 // work.
 //
-// Shared memory, bfloat16 / float32: K6a 98,832 / 196,112 bytes, K6b
-// 93,024 / 184,672 bytes (two blocks a multiprocessor in bfloat16).
+// Shared memory, bfloat16 / float32: K6a 98,832 / 196,112 bytes, K6b and
+// K6c 93,024 / 184,672 bytes (two blocks a multiprocessor in bfloat16):
+// K6c's gp12 tile (7^2 x 256) lies over gp9's and g8's regions, dead until
+// conv10^T's epilogue, g11 in gp10's (computed in place), its inner 10^2
+// kept in g8's. Its prologue adds 9 taps x 256 x 128 multiply-adds at 36
+// super positions a block: 2.25x conv12's dgrad (3.41 GFLOP a 608^2
+// image) for the 12^2 halo; conv12's weights (590 KB in bfloat16) are
+// staged tap by tap, 64 input channels at a time.
 
 #include "stem_common.cuh"
 
@@ -134,7 +148,6 @@ __device__ void conv_tile(const T* __restrict__ in, const T* __restrict__ w,
 }
 
 __device__ __forceinline__ float leaky(float v) { return fmaxf(v, v * LEAKY); }
-__device__ __forceinline__ float gate(int8_t m) { return m ? 1.f : LEAKY; }
 
 // Where a tile of side n starting at image (r0, c0) lies: its position
 // (oy, ox) in the image, and the planar offset of (row, channel 0) lane.
@@ -325,8 +338,11 @@ struct EpiGp9 {
   }
 };
 
-// g8 = T(acc + g11) and gp7 = T(g8 m(post7)), zero outside the image
-template <typename T>
+// g8 = T(acc + g11) and gp7 = T(g8 m(post7)), zero outside the image;
+// g11 from device memory (K6b) or, with W12, from the g8 tile itself, where
+// K6c's prologue left it (each element read, then overwritten, by the one
+// thread that owns it)
+template <typename T, bool W12>
 struct EpiG8 {
   T* g8;
   T* gp7;
@@ -341,7 +357,7 @@ struct EpiG8 {
       float g = 0.f, p = 0.f;
       if (in) {
         const long long q = pl.at(oy, ox, co0 + c, C);
-        g = round_t<T>(v[c] + to_f(g11[q]));
+        g = round_t<T>(v[c] + to_f(W12 ? g8[o + c] : g11[q]));
         p = g * gate(p7m[q]);
       }
       g8[o + c] = from_f<T>(g);
@@ -382,7 +398,9 @@ struct EpiG5 {
 
 template <typename T>
 struct BwdArgs {
-  const T* g11;
+  const T* g11;   // K6b
+  const T* gp12;  // K6c: the pre-gated conv12 cotangent [B, H/2, 256, wl12]
+  const T* w12t;  // K6c: conv12's weight, channels swapped [3][3][256][128]
   const int8_t* am;
   const int8_t* p7m;
   const int8_t* cm;
@@ -394,9 +412,87 @@ struct BwdArgs {
   T* g5;
 };
 
+// K6c's prologue: g11 = T(conv12^T gp12) over the 12^2 tile of origin
+// (R0 - 2, C0 - 2) into out ([pos][pitch(C)]), zero outside the image. The
+// stride-2 adjoint is computed per 2x2 super position (a, b), a = R0/2 - 1
+// + la for la in [0, 6): output rows 2a (tap dy = 1 at input row a) and
+// 2a + 1 (dy = 0 at a + 1, dy = 2 at a), columns alike, so every tap is a
+// dense product and no multiply-add meets a zero. in is the gp12 tile of
+// origin (R0/2 - 1, C0/2 - 1), 7^2 positions [pos][pitch(256)]. Parity by
+// parity, each thread holds PT super positions x 8 output channels; each
+// tap's weights are staged in shared memory 64 input channels at a time
+// (64 x 128, one K6b tap's size).
 template <typename T>
+__device__ void conv12_adjoint(const T* __restrict__ in,
+                               const T* __restrict__ w12t, T* __restrict__ wsm,
+                               T* __restrict__ out, const Place& pl) {
+  constexpr int CIN = 2 * C, NS = N12 / 2, NIN = NS + 1, PT = 3;
+  constexpr int NCG = C / CT;
+  constexpr int NPG = NT / NCG;
+  constexpr int CP = pitch<T>(CIN);
+  constexpr int CH = Smem<T>::WTAP / C;  // input channels a staging
+  static_assert(NPG * PT >= NS * NS && CIN % CH == 0, "thread mapping");
+  const int cg = threadIdx.x % NCG;
+  const int pg = threadIdx.x / NCG;
+  const int co0 = cg * CT;
+  int sa[PT], sb[PT];
+#pragma unroll
+  for (int i = 0; i < PT; ++i) {
+    const int sp = min(pg * PT + i, NS * NS - 1);
+    sa[i] = sp / NS;
+    sb[i] = sp % NS;
+  }
+  for (int q = 0; q < 4; ++q) {
+    const int py = q >> 1, px = q & 1;
+    float acc[PT][CT];
+#pragma unroll
+    for (int i = 0; i < PT; ++i)
+#pragma unroll
+      for (int c = 0; c < CT; ++c) acc[i][c] = 0.f;
+    for (int ty = 0; ty <= py; ++ty) {
+      for (int tx = 0; tx <= px; ++tx) {
+        // even output: tap 1 at offset 0; odd: tap 0 at +1, tap 2 at 0
+        const int dy = py ? 2 * ty : 1, ay = py ? 1 - ty : 0;
+        const int dx = px ? 2 * tx : 1, ax = px ? 1 - tx : 0;
+        const T* wt = w12t + (dy * 3 + dx) * CIN * C;
+        int base[PT];
+#pragma unroll
+        for (int i = 0; i < PT; ++i)
+          base[i] = ((sa[i] + ay) * NIN + sb[i] + ax) * CP;
+        for (int c0 = 0; c0 < CIN; c0 += CH) {
+          __syncthreads();
+          copy_to_shared(wsm, wt + c0 * C, CH * C);
+          __syncthreads();
+#pragma unroll 4
+          for (int ci = 0; ci < CH; ++ci) {
+            float wv[CT];
+            load8s(wsm + ci * C + co0, wv);
+#pragma unroll
+            for (int i = 0; i < PT; ++i) {
+              const float a = to_f(in[base[i] + c0 + ci]);
+#pragma unroll
+              for (int c = 0; c < CT; ++c)
+                acc[i][c] = fmaf(a, wv[c], acc[i][c]);
+            }
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < PT; ++i) {
+      if (pg * PT + i >= NS * NS) break;
+      const int oy = 2 * sa[i] + py, ox = 2 * sb[i] + px;
+      const bool inside = pl.inside(oy, ox);
+      T* o = out + (oy * N12 + ox) * pitch<T>(C) + co0;
+#pragma unroll
+      for (int c = 0; c < CT; ++c) o[c] = from_f<T>(inside ? acc[i][c] : 0.f);
+    }
+  }
+}
+
+template <typename T, bool W12>
 __global__ void __launch_bounds__(NT, 2)
-    res152_bwd_kernel(BwdArgs<T> g, int H, int W, int wl) {
+    res152_bwd_kernel(BwdArgs<T> g, int H, int W, int wl, int wl12) {
   using S = Smem<T>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* wsm = reinterpret_cast<T*>(smem_raw);
@@ -410,21 +506,49 @@ __global__ void __launch_bounds__(NT, 2)
   const Place p10 = {b, H, W, wl, R0 - 1, C0 - 1};
   const Place p8 = {b, H, W, wl, R0, C0};
 
-  // gp10 = T(g11 m(post10)) over 12^2, columns fastest
+  if constexpr (W12) {
+    // K6c: the gp12 tile over B and G8 (dead until conv10^T's epilogue),
+    // then g11 over 12^2 into A
+    constexpr int N = N12 / 2 + 1, CIN = 2 * C;
+    static_assert(N * N * pitch<T>(CIN) <= S::R10M + S::R10, "gp12 tile");
+    const int H12 = H / 2, W12c = W / 2;
+    const int r0 = R0 / 2 - 1, c0 = C0 / 2 - 1;
+    for (int idx = threadIdx.x; idx < N * CIN * N; idx += NT) {
+      const int k = idx % N;
+      const int rest = idx / N;
+      const int ch = rest % CIN, r = rest / CIN;
+      const int gr = r0 + r, gc = c0 + k;
+      T v = from_f<T>(0.f);
+      if (gr >= 0 && gr < H12 && gc >= 0 && gc < W12c)
+        v = g.gp12[(((long long)b * H12 + gr) * CIN + ch) * wl12 + gc + 1];
+      B[(r * N + k) * pitch<T>(CIN) + ch] = v;
+    }
+    conv12_adjoint<T>(B, g.w12t, wsm, A, p12);
+    __syncthreads();
+  }
+  // gp10 = T(g11 m(post10)) over 12^2, columns fastest; with W12, g11 is
+  // read from A and its inner 10^2 kept in G8 for EpiG8
   for (int idx = threadIdx.x; idx < N12 * C * N12; idx += NT) {
     const int k = idx % N12;
     const int rest = idx / N12;
     const int ch = rest % C, r = rest / C;
+    const int o = (r * N12 + k) * pitch<T>(C) + ch;
     float v = 0.f;
-    if (p12.inside(r, k)) {
+    if constexpr (W12) {
+      const T g11 = A[o];
+      if (r >= 1 && r <= N10 && k >= 1 && k <= N10)
+        G8[((r - 1) * N10 + k - 1) * pitch<T>(C) + ch] = g11;
+      if (p12.inside(r, k))
+        v = to_f(g11) * gate(g.p10m[p12.at(r, k, ch, C)]);
+    } else if (p12.inside(r, k)) {
       const long long q = p12.at(r, k, ch, C);
       v = to_f(g.g11[q]) * gate(g.p10m[q]);
     }
-    A[(r * N12 + k) * pitch<T>(C) + ch] = from_f<T>(v);
+    A[o] = from_f<T>(v);
   }
   conv_tile<T, C, M, 3, N10, 4>(A, g.w10t, wsm, EpiGp9<T>{B, p10, g.cm});
   conv_tile<T, M, C, 1, N10, 7>(B, g.w9t, wsm,
-                                EpiG8<T>{G8, A, p10, g.g11, g.p7m});
+                                EpiG8<T, W12>{G8, A, p10, g.g11, g.p7m});
   conv_tile<T, C, M, 3, TS, 2>(A, g.w7t, wsm, EpiGp6<T>{B, p8, g.am});
   conv_tile<T, M, C, 1, TS, 4>(B, g.w6t, wsm, EpiG5<T>{g.g5, G8, p8});
   zero_edges(g.g5, from_f<T>(0.f), C, b, H, W, wl, R0, blockIdx.x == 0,
@@ -444,16 +568,16 @@ int launch_fwd(const FwdArgs<T>& a, int B, int H, int W, int wl,
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_bwd(const BwdArgs<T>& a, int B, int H, int W, int wl,
+template <typename T, bool W12>
+int launch_bwd(const BwdArgs<T>& a, int B, int H, int W, int wl, int wl12,
                cudaStream_t s) {
   const size_t smem = sizeof(T) * (size_t)Smem<T>::BWD;
   cudaError_t e = cudaFuncSetAttribute(
-      res152_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      res152_bwd_kernel<T, W12>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return (int)e;
   dim3 grid((W + TS - 1) / TS, (H + TS - 1) / TS, B);
-  res152_bwd_kernel<T><<<grid, NT, smem, s>>>(a, H, W, wl);
+  res152_bwd_kernel<T, W12><<<grid, NT, smem, s>>>(a, H, W, wl, wl12);
   return (int)cudaGetLastError();
 }
 
@@ -474,15 +598,18 @@ int fwd_any(const void* x, const void* const* w, const void* const* bias,
 }
 
 template <typename T>
-int bwd_any(const void* g11, const void* const* m, const void* const* wt,
-            void* g5, int B, int H, int W, int wl, cudaStream_t s) {
+int bwd_any(const void* g11, const void* gp12, const void* w12t,
+            const void* const* m, const void* const* wt, void* g5, int B,
+            int H, int W, int wl, int wl12, cudaStream_t s) {
   const BwdArgs<T> a = {
-      static_cast<const T*>(g11),       static_cast<const int8_t*>(m[0]),
+      static_cast<const T*>(g11),       static_cast<const T*>(gp12),
+      static_cast<const T*>(w12t),      static_cast<const int8_t*>(m[0]),
       static_cast<const int8_t*>(m[1]), static_cast<const int8_t*>(m[2]),
       static_cast<const int8_t*>(m[3]), static_cast<const T*>(wt[0]),
       static_cast<const T*>(wt[1]),     static_cast<const T*>(wt[2]),
       static_cast<const T*>(wt[3]),     static_cast<T*>(g5)};
-  return launch_bwd<T>(a, B, H, W, wl, s);
+  if (gp12 != nullptr) return launch_bwd<T, true>(a, B, H, W, wl, wl12, s);
+  return launch_bwd<T, false>(a, B, H, W, wl, wl12, s);
 }
 
 }  // namespace
@@ -522,6 +649,27 @@ extern "C" int apfp_res152_fused_grad(const void* g11, const void* am,
   const void* wt[4] = {w6t, w7t, w9t, w10t};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1)
-    return bwd_any<__nv_bfloat16>(g11, m, wt, g5, B, H, W, wl, s);
-  return bwd_any<float>(g11, m, wt, g5, B, H, W, wl, s);
+    return bwd_any<__nv_bfloat16>(g11, nullptr, nullptr, m, wt, g5, B, H, W,
+                                  wl, 0, s);
+  return bwd_any<float>(g11, nullptr, nullptr, m, wt, g5, B, H, W, wl, 0, s);
+}
+
+// K6c. gp12 the pre-gated conv12 cotangent, planar [B, H/2, 256, wl12]
+// (H and W even); w12t conv12's HWIO weight with its channel axes swapped,
+// contiguous [3][3][256][128]; the rest as K6b's. g5 [B, H, 128, wl].
+extern "C" int apfp_res152_fused_grad12(const void* gp12, const void* am,
+                                        const void* p7m, const void* cm,
+                                        const void* p10m, const void* w12t,
+                                        const void* w6t, const void* w7t,
+                                        const void* w9t, const void* w10t,
+                                        void* g5, int dtype, int B, int H,
+                                        int W, int wl, int wl12,
+                                        void* stream) {
+  const void* m[4] = {am, p7m, cm, p10m};
+  const void* wt[4] = {w6t, w7t, w9t, w10t};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1)
+    return bwd_any<__nv_bfloat16>(nullptr, gp12, w12t, m, wt, g5, B, H, W,
+                                  wl, wl12, s);
+  return bwd_any<float>(nullptr, gp12, w12t, m, wt, g5, B, H, W, wl, wl12, s);
 }

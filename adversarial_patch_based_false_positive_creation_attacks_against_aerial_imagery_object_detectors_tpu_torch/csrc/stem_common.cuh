@@ -1,7 +1,9 @@
 // Helpers shared by the hand-written kernels (stem_fused.cu, stem_bwd.cu,
-// planar_conv.cu, res_fused.cu): float conversion of the compute dtype,
-// an 8-wide weight load through the read-only cache (load8) and the same
-// from shared memory (load8s).
+// stem_remat.cu, planar_conv.cu, res_fused.cu): float conversion of the
+// compute dtype, an 8-wide weight load through the read-only cache (load8)
+// and the same from shared memory (load8s); the stem's forward conv stage
+// (K1, and K5's recompute) and its input-cotangent chain (K2 and K5) live
+// in stem_chain.cuh.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -81,6 +83,420 @@ __device__ __forceinline__ void copy_to_shared(T* __restrict__ dst,
   const uint4* s = reinterpret_cast<const uint4*>(src);
   uint4* d = reinterpret_cast<uint4*>(dst);
   for (int i = threadIdx.x; i < nv; i += blockDim.x) d[i] = __ldg(s + i);
+}
+
+// ---------------------------------------------------------------------------
+// The stem's forward conv stage (K1, and K5's recompute)
+// ---------------------------------------------------------------------------
+
+// One conv layer between two shared-memory buffers laid out [pos][C].
+// Output position (oy, ox) of the OH x OW tile reads the input at
+// (S*oy + ky, S*ox + kx). (org_r, org_c) is the tile's first position in
+// image coordinates; positions outside [0, img)^2 are stored as zero.
+// With res, the stored value is T(T(leaky) + res) (the shortcut sum);
+// res is [pos][COUT] with row pitch res_w, read at (oy+1, ox+1). With SG,
+// sg[pos][COUT] receives the sign (1 if > 0) of T(leaky), before the
+// shortcut sum: the layer's own activation, for the saved-sign backward.
+template <typename T, int CIN, int COUT, int KS, int S, int PT,
+          bool SG = false>
+__device__ void conv_stage(const T* __restrict__ in, int IW,
+                           T* __restrict__ out, int OH, int OW,
+                           const T* __restrict__ w,
+                           const float* __restrict__ bias, int org_r,
+                           int org_c, int img, const T* __restrict__ res,
+                           int res_w, unsigned char* __restrict__ sg = nullptr) {
+  constexpr int NCG = COUT / CT;
+  constexpr int NPG = NT / NCG;
+  static_assert(COUT % CT == 0 && NT % NCG == 0, "thread mapping");
+  const int cg = threadIdx.x % NCG;
+  const int pg = threadIdx.x / NCG;
+  const int npos = OH * OW;
+  const int co0 = cg * CT;
+  float b[CT];
+#pragma unroll
+  for (int c = 0; c < CT; ++c) b[c] = bias[co0 + c];
+
+  for (int p0 = pg * PT; p0 < npos; p0 += NPG * PT) {
+    float acc[PT][CT];
+    int base[PT];
+#pragma unroll
+    for (int i = 0; i < PT; ++i) {
+      const int p = min(p0 + i, npos - 1);
+      const int oy = p / OW, ox = p - oy * OW;
+      base[i] = ((S * oy) * IW + S * ox) * CIN;
+#pragma unroll
+      for (int c = 0; c < CT; ++c) acc[i][c] = 0.f;
+    }
+    for (int ky = 0; ky < KS; ++ky) {
+      for (int kx = 0; kx < KS; ++kx) {
+        const T* wp = w + (ky * KS + kx) * CIN * COUT + co0;
+        const int toff = (ky * IW + kx) * CIN;
+#pragma unroll 4
+        for (int ci = 0; ci < CIN; ++ci) {
+          float wv[CT];
+          load8(wp + ci * COUT, wv);
+#pragma unroll
+          for (int i = 0; i < PT; ++i) {
+            const float a = to_f(in[base[i] + toff + ci]);
+#pragma unroll
+            for (int c = 0; c < CT; ++c) acc[i][c] = fmaf(a, wv[c], acc[i][c]);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < PT; ++i) {
+      const int p = p0 + i;
+      if (p >= npos) break;
+      const int oy = p / OW, ox = p - oy * OW;
+      const int gr = org_r + oy, gc = org_c + ox;
+      const bool inside = gr >= 0 && gr < img && gc >= 0 && gc < img;
+#pragma unroll
+      for (int c = 0; c < CT; ++c) {
+        const float y = acc[i][c] + b[c];
+        T yt = from_f<T>(fmaxf(y, y * LEAKY));
+        if (SG) sg[p * COUT + co0 + c] = to_f(yt) > 0.f ? 1 : 0;
+        if (res != nullptr) {
+          const T r = res[((oy + 1) * res_w + ox + 1) * COUT + co0 + c];
+          yt = from_f<T>(to_f(yt) + to_f(r));
+        }
+        out[p * COUT + co0 + c] = inside ? yt : from_f<T>(0.f);
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The transposed convs of the input-cotangent chain
+// ---------------------------------------------------------------------------
+
+// Stride-2 adjoint over NS x NS super positions: in [pos][CIN] with row
+// pitch IW, super position (a, b) reads in at (a, b), (a, b+1), (a+1, b)
+// and (a+1, b+1) and yields the outputs (2a+py, 2b+px).
+template <typename T, int CIN, int COUT, class Epi>
+__device__ void convt_s2(const T* __restrict__ in, int IW, int NS,
+                         const T* __restrict__ w, const Epi& epi) {
+  constexpr int NCG = COUT / CT;
+  constexpr int NPG = NT / NCG;
+  static_assert(COUT % CT == 0 && NT % NCG == 0, "thread mapping");
+  const int cg = threadIdx.x % NCG;
+  const int co0 = cg * CT;
+  const T* wp = w + co0;
+  constexpr int TS = CIN * COUT;  // one tap's weights
+  for (int s = threadIdx.x / NCG; s < NS * NS; s += NPG) {
+    const int a = s / NS, b = s - a * NS;
+    float acc[4][CT];
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+#pragma unroll
+      for (int c = 0; c < CT; ++c) acc[q][c] = 0.f;
+    const T* i00 = in + (a * IW + b) * CIN;
+    const T* i01 = i00 + CIN;
+    const T* i10 = i00 + IW * CIN;
+    const T* i11 = i10 + CIN;
+#pragma unroll 2
+    for (int ci = 0; ci < CIN; ++ci) {
+      const float a00 = to_f(i00[ci]), a01 = to_f(i01[ci]);
+      const float a10 = to_f(i10[ci]), a11 = to_f(i11[ci]);
+      const T* wc = wp + ci * COUT;
+      float wv[CT];
+      // out (even, even): tap (1, 1) at (a, b)
+      load8(wc + 4 * TS, wv);
+#pragma unroll
+      for (int c = 0; c < CT; ++c) acc[0][c] = fmaf(a00, wv[c], acc[0][c]);
+      // out (even, odd): (1, 0) at (a, b+1), (1, 2) at (a, b)
+      load8(wc + 3 * TS, wv);
+#pragma unroll
+      for (int c = 0; c < CT; ++c) acc[1][c] = fmaf(a01, wv[c], acc[1][c]);
+      load8(wc + 5 * TS, wv);
+#pragma unroll
+      for (int c = 0; c < CT; ++c) acc[1][c] = fmaf(a00, wv[c], acc[1][c]);
+      // out (odd, even): (0, 1) at (a+1, b), (2, 1) at (a, b)
+      load8(wc + 1 * TS, wv);
+#pragma unroll
+      for (int c = 0; c < CT; ++c) acc[2][c] = fmaf(a10, wv[c], acc[2][c]);
+      load8(wc + 7 * TS, wv);
+#pragma unroll
+      for (int c = 0; c < CT; ++c) acc[2][c] = fmaf(a00, wv[c], acc[2][c]);
+      // out (odd, odd): (0, 0) at (a+1, b+1), (0, 2) at (a+1, b),
+      // (2, 0) at (a, b+1), (2, 2) at (a, b)
+      load8(wc + 0 * TS, wv);
+#pragma unroll
+      for (int c = 0; c < CT; ++c) acc[3][c] = fmaf(a11, wv[c], acc[3][c]);
+      load8(wc + 2 * TS, wv);
+#pragma unroll
+      for (int c = 0; c < CT; ++c) acc[3][c] = fmaf(a10, wv[c], acc[3][c]);
+      load8(wc + 6 * TS, wv);
+#pragma unroll
+      for (int c = 0; c < CT; ++c) acc[3][c] = fmaf(a01, wv[c], acc[3][c]);
+      load8(wc + 8 * TS, wv);
+#pragma unroll
+      for (int c = 0; c < CT; ++c) acc[3][c] = fmaf(a00, wv[c], acc[3][c]);
+    }
+    epi(2 * a, 2 * b, co0, acc[0]);
+    epi(2 * a, 2 * b + 1, co0, acc[1]);
+    epi(2 * a + 1, 2 * b, co0, acc[2]);
+    epi(2 * a + 1, 2 * b + 1, co0, acc[3]);
+  }
+}
+
+// Stride-1 adjoint: output (oy, ox) of the OH x OW tile sums
+// in[(oy + OFF - dy, ox + OFF - dx)][ci] w^T[dy][dx][ci][co].
+template <typename T, int CIN, int COUT, int KS, int OFF, int PT, class Epi>
+__device__ void convt_s1(const T* __restrict__ in, int IW, int OH, int OW,
+                         const T* __restrict__ w, const Epi& epi) {
+  constexpr int NCG = COUT / CT;
+  constexpr int NPG = NT / NCG;
+  static_assert(COUT % CT == 0 && NT % NCG == 0, "thread mapping");
+  const int cg = threadIdx.x % NCG;
+  const int npos = OH * OW;
+  const int co0 = cg * CT;
+  for (int p0 = (threadIdx.x / NCG) * PT; p0 < npos; p0 += NPG * PT) {
+    float acc[PT][CT];
+    int base[PT];
+#pragma unroll
+    for (int i = 0; i < PT; ++i) {
+      const int p = min(p0 + i, npos - 1);
+      const int oy = p / OW, ox = p - oy * OW;
+      base[i] = ((oy + OFF) * IW + ox + OFF) * CIN;
+#pragma unroll
+      for (int c = 0; c < CT; ++c) acc[i][c] = 0.f;
+    }
+    for (int dy = 0; dy < KS; ++dy) {
+      for (int dx = 0; dx < KS; ++dx) {
+        const T* wp = w + (dy * KS + dx) * CIN * COUT + co0;
+        const int toff = -(dy * IW + dx) * CIN;
+#pragma unroll 4
+        for (int ci = 0; ci < CIN; ++ci) {
+          float wv[CT];
+          load8(wp + ci * COUT, wv);
+#pragma unroll
+          for (int i = 0; i < PT; ++i) {
+            const float v = to_f(in[base[i] + toff + ci]);
+#pragma unroll
+            for (int c = 0; c < CT; ++c) acc[i][c] = fmaf(v, wv[c], acc[i][c]);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < PT; ++i) {
+      const int p = p0 + i;
+      if (p >= npos) break;
+      const int oy = p / OW;
+      epi(oy, p - oy * OW, co0, acc[i]);
+    }
+  }
+}
+
+
+__device__ __forceinline__ float gate(int8_t m) { return m ? 1.f : LEAKY; }
+
+// ---------------------------------------------------------------------------
+// The stem's input-cotangent chain (K2, K5): the JAX package's _grad_chain.
+// With m(v) = 1 if v > 0 else 0.1 and T the rounding to the compute dtype,
+//   gp5 = T(g5 m(y5))
+//   gs4 = T(conv5^T gp5)                  (stride 2, 128 -> 64)
+//   gp3 = T(gs4 m3)
+//   gp2 = T(conv3^T(gp3) m2)
+//   gp1 = T((conv2^T(gp2) + gs4) m1)      (the shortcut's two paths)
+//   gp0 = T(conv1^T(gp1) m0)              (stride 2, 64 -> 32)
+//   gx  = T(conv0^T gp0)                  (32 -> 3, padded to 8)
+// with float32 accumulation; every cotangent at a row or column outside
+// the image is zero. Each block owns a TX x TX tile of gx and works
+// backwards over its receptive field in shared memory (gp5 8^2x128 ->
+// gs4/gp3 14^2x64 -> gp2/gp1 11^2 -> gp0 20^2x32 -> gx 16^2). The gates
+// m0..m3 come from a mask reader: the saved planar int8 masks (K2) or the
+// signs K5 recomputed into shared memory.
+// ---------------------------------------------------------------------------
+
+struct Chain {
+  static constexpr int TX = 16;  // gx tile side
+  static constexpr int N5 = 8;   // gp5 tile side
+  static constexpr int N4 = 14;  // gs4 / gp3 tile side (7 x 7 super positions)
+  static constexpr int N1 = 11;  // gp2 / gp1 tile side
+  static constexpr int N0 = 20;  // gp0 tile side (10 x 10 super positions)
+  static constexpr int SZ_X = N4 * N4 * 64;
+  static constexpr int SZ_Y = N4 * N4 * 64;
+  static constexpr int SZ_Z = N0 * N0 * 32;
+  static constexpr int ELEMS = SZ_X + SZ_Y + SZ_Z;  // shared elements of T
+};
+static_assert(Chain::N5 * Chain::N5 * 128 <= Chain::SZ_Z &&
+                  Chain::N1 * Chain::N1 * 32 <= Chain::SZ_Z &&
+                  Chain::N1 * Chain::N1 * 64 <= Chain::SZ_Y,
+              "shared-memory regions");
+
+// A gate's sign from a planar int8 mask [img, C, wl] of one image, at image
+// position (gr, gc); PHASE: y0's even/odd column phases m / mo
+template <int C, bool PHASE>
+struct PlanarMask {
+  const int8_t* m;
+  const int8_t* mo;
+  int wl;
+  __device__ int8_t operator()(int, int, int gr, int gc, int ch) const {
+    const int8_t* mp = (PHASE && (gc & 1)) ? mo : m;
+    const int lane = PHASE ? (gc >> 1) + 1 : gc + 1;
+    return mp[((long long)gr * C + ch) * wl + lane];
+  }
+};
+
+// A gate's sign from a [pos][C] byte tile in shared memory of side TW, whose
+// position (off, off) is the epilogue's tile position (0, 0)
+template <int C>
+struct TileMask {
+  const unsigned char* s;
+  int TW, off;
+  __device__ int8_t operator()(int oy, int ox, int, int, int ch) const {
+    return s[((oy + off) * TW + ox + off) * C + ch];
+  }
+};
+
+// gs4 = T(v) and gp3 = T(gs4 m3), zero outside the image
+template <typename T, class M>
+struct EpiGs4 {
+  T* gs4;
+  T* gp3;
+  M m3;
+  int org_r, org_c, img;
+  __device__ void operator()(int oy, int ox, int co0, const float* v) const {
+    const int gr = org_r + oy, gc = org_c + ox;
+    const bool in = gr >= 0 && gr < img && gc >= 0 && gc < img;
+    const int o = (oy * Chain::N4 + ox) * 64 + co0;
+#pragma unroll
+    for (int c = 0; c < CT; ++c) {
+      float g = 0.f, p = 0.f;
+      if (in) {
+        g = round_t<T>(v[c]);
+        p = g * gate(m3(oy, ox, gr, gc, co0 + c));
+      }
+      gs4[o + c] = from_f<T>(g);
+      gp3[o + c] = from_f<T>(p);
+    }
+  }
+};
+
+// out = T((v [+ res]) m), zero outside the image
+template <typename T, int C, bool RES, class M>
+struct EpiGate {
+  T* out;
+  int OW;
+  M m;
+  int org_r, org_c, img;
+  const T* res;  // RES: [pos][C] with pitch N4, read at (oy+1, ox+1)
+  __device__ void operator()(int oy, int ox, int co0, const float* v) const {
+    const int gr = org_r + oy, gc = org_c + ox;
+    const bool in = gr >= 0 && gr < img && gc >= 0 && gc < img;
+    const int o = (oy * OW + ox) * C + co0;
+#pragma unroll
+    for (int c = 0; c < CT; ++c) {
+      float y = 0.f;
+      if (in) {
+        float s = v[c];
+        if (RES) s += to_f(res[((oy + 1) * Chain::N4 + ox + 1) * C + co0 + c]);
+        y = s * gate(m(oy, ox, gr, gc, co0 + c));
+      }
+      out[o + c] = from_f<T>(y);
+    }
+  }
+};
+
+// gx = T(v), 8 channels, into the even/odd column phases
+template <typename T>
+struct EpiGx {
+  T* gxe;  // this image's [H, 8, wl]
+  T* gxo;
+  int org_r, org_c, wl;
+  __device__ void operator()(int oy, int ox, int co0, const float* v) const {
+    const int gr = org_r + oy, gc = org_c + ox;
+    T* d = (gc & 1) ? gxo : gxe;
+    const long long o = (long long)gr * 8 * wl + (gc >> 1) + 1;
+#pragma unroll
+    for (int c = 0; c < CT; ++c) d[o + (long long)c * wl] = from_f<T>(v[c]);
+  }
+};
+
+// The whole chain for the block's gx tile (blockIdx.y, blockIdx.x) of image
+// blockIdx.z: sm holds Chain::ELEMS elements of T (three regions: gs4; gp3
+// then gp1; gp5 then gp2 then gp0); y5 and g5 planar [B, H/4, 128, wl5];
+// v0..v5 the swapped-channel weights; gxe, gxo planar [B, H, 8, wlh], every
+// lane of the tile's rows written (borders and padding zero). The mask
+// readers m0 (y0), m1 (y1), m2 (y2), m3 (y3) index this image.
+template <typename T, class M0, class M1, class M2, class M3>
+__device__ void grad_chain(T* sm, const T* __restrict__ y5,
+                           const T* __restrict__ g5, const T* __restrict__ v0,
+                           const T* __restrict__ v1, const T* __restrict__ v2,
+                           const T* __restrict__ v3, const T* __restrict__ v5,
+                           T* __restrict__ gxe, T* __restrict__ gxo,
+                           const M0& m0, const M1& m1, const M2& m2,
+                           const M3& m3, int H, int wlh, int wl5) {
+  using K = Chain;
+  T* X = sm;           // gs4
+  T* Y = X + K::SZ_X;  // gp3, then gp1
+  T* Z = Y + K::SZ_Y;  // gp5, then gp2, then gp0
+  const int b = blockIdx.z;
+  const int R0 = blockIdx.y * K::TX, C0 = blockIdx.x * K::TX;
+  const int H1 = H / 2, H5 = H / 4;
+  // tile origins in image coordinates (rows; columns alike)
+  const int o5r = R0 / 4 - 1, o5c = C0 / 4 - 1;  // gp5, N5
+  const int o4r = R0 / 2 - 2, o4c = C0 / 2 - 2;  // gs4 / gp3, N4
+  const int o1r = R0 / 2 - 1, o1c = C0 / 2 - 1;  // gp2 / gp1, N1
+  const int o0r = R0 - 2, o0c = C0 - 2;          // gp0, N0
+
+  // gp5 = T(g5 m(y5)), lanes fastest
+  for (int idx = threadIdx.x; idx < K::N5 * K::N5 * 128; idx += NT) {
+    const int k = idx % K::N5;
+    const int rest = idx / K::N5;
+    const int co = rest % 128, r = rest / 128;
+    const int gr = o5r + r, gc = o5c + k;
+    float v = 0.f;
+    if (gr >= 0 && gr < H5 && gc >= 0 && gc < H5) {
+      const long long o = (((long long)b * H5 + gr) * 128 + co) * wl5 + gc + 1;
+      const float y = to_f(y5[o]);
+      v = to_f(g5[o]) * (y > 0.f ? 1.f : LEAKY);
+    }
+    Z[(r * K::N5 + k) * 128 + co] = from_f<T>(v);
+  }
+  __syncthreads();
+  // gs4 (X) and gp3 (Y) from gp5 (Z)
+  convt_s2<T, 128, 64>(Z, K::N5, K::N4 / 2, v5,
+                       EpiGs4<T, M3>{X, Y, m3, o4r, o4c, H1});
+  __syncthreads();
+  // gp2 (Z) from gp3 (Y)
+  convt_s1<T, 64, 32, 3, 2, 2>(
+      Y, K::N4, K::N1, K::N1, v3,
+      EpiGate<T, 32, false, M2>{Z, K::N1, m2, o1r, o1c, H1, nullptr});
+  __syncthreads();
+  // gp1 (Y) from gp2 (Z) and gs4 (X)
+  convt_s1<T, 32, 64, 1, 0, 4>(
+      Z, K::N1, K::N1, K::N1, v2,
+      EpiGate<T, 64, true, M1>{Y, K::N1, m1, o1r, o1c, H1, X});
+  __syncthreads();
+  // gp0 (Z) from gp1 (Y)
+  convt_s2<T, 64, 32>(Y, K::N1, K::N0 / 2, v1,
+                      EpiGate<T, 32, false, M0>{Z, K::N0, m0, o0r, o0c, H,
+                                                nullptr});
+  __syncthreads();
+  // gx from gp0 (Z)
+  const long long gb = (long long)b * H * 8 * wlh;
+  convt_s1<T, 32, 8, 3, 3, 1>(Z, K::N0, K::TX, K::TX, v0,
+                              EpiGx<T>{gxe + gb, gxo + gb, R0, C0, wlh});
+  // zero border and padding lanes of this tile's rows in both phases:
+  // lane 0 (first tile column), lanes H/2+1 .. wlh-1 (last tile column)
+  const bool first = blockIdx.x == 0, last = blockIdx.x == gridDim.x - 1;
+  if (first || last) {
+    const int nr = last ? wlh - H1 - 1 : 0;
+    const int n = nr + (first ? 1 : 0);
+    for (int idx = threadIdx.x; idx < 2 * K::TX * 8 * n; idx += NT) {
+      const int k = idx % n;
+      int rest = idx / n;
+      const int c = rest % 8;
+      rest /= 8;
+      const int r = rest % K::TX, ph = rest / K::TX;
+      const int lane = k < nr ? H1 + 1 + k : 0;
+      (ph ? gxo : gxe)[gb + ((long long)(R0 + r) * 8 + c) * wlh + lane] =
+          from_f<T>(0.f);
+    }
+  }
 }
 
 }  // namespace stem

@@ -42,83 +42,6 @@ namespace {
 
 using namespace stem;
 
-// One conv layer between two shared-memory buffers laid out [pos][C].
-// Output position (oy, ox) of the OH x OW tile reads the input at
-// (S*oy + ky, S*ox + kx). (org_r, org_c) is the tile's first position in
-// image coordinates; positions outside [0, img)^2 are stored as zero.
-// With res, the stored value is T(T(leaky) + res) (the shortcut sum);
-// res is [pos][COUT] with row pitch res_w, read at (oy+1, ox+1). With SG,
-// sg[pos][COUT] receives the sign (1 if > 0) of T(leaky), before the
-// shortcut sum: the layer's own activation, for the saved-sign backward.
-template <typename T, int CIN, int COUT, int KS, int S, int PT,
-          bool SG = false>
-__device__ void conv_stage(const T* __restrict__ in, int IW,
-                           T* __restrict__ out, int OH, int OW,
-                           const T* __restrict__ w,
-                           const float* __restrict__ bias, int org_r,
-                           int org_c, int img, const T* __restrict__ res,
-                           int res_w, unsigned char* __restrict__ sg = nullptr) {
-  constexpr int NCG = COUT / CT;
-  constexpr int NPG = NT / NCG;
-  static_assert(COUT % CT == 0 && NT % NCG == 0, "thread mapping");
-  const int cg = threadIdx.x % NCG;
-  const int pg = threadIdx.x / NCG;
-  const int npos = OH * OW;
-  const int co0 = cg * CT;
-  float b[CT];
-#pragma unroll
-  for (int c = 0; c < CT; ++c) b[c] = bias[co0 + c];
-
-  for (int p0 = pg * PT; p0 < npos; p0 += NPG * PT) {
-    float acc[PT][CT];
-    int base[PT];
-#pragma unroll
-    for (int i = 0; i < PT; ++i) {
-      const int p = min(p0 + i, npos - 1);
-      const int oy = p / OW, ox = p - oy * OW;
-      base[i] = ((S * oy) * IW + S * ox) * CIN;
-#pragma unroll
-      for (int c = 0; c < CT; ++c) acc[i][c] = 0.f;
-    }
-    for (int ky = 0; ky < KS; ++ky) {
-      for (int kx = 0; kx < KS; ++kx) {
-        const T* wp = w + (ky * KS + kx) * CIN * COUT + co0;
-        const int toff = (ky * IW + kx) * CIN;
-#pragma unroll 4
-        for (int ci = 0; ci < CIN; ++ci) {
-          float wv[CT];
-          load8(wp + ci * COUT, wv);
-#pragma unroll
-          for (int i = 0; i < PT; ++i) {
-            const float a = to_f(in[base[i] + toff + ci]);
-#pragma unroll
-            for (int c = 0; c < CT; ++c) acc[i][c] = fmaf(a, wv[c], acc[i][c]);
-          }
-        }
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < PT; ++i) {
-      const int p = p0 + i;
-      if (p >= npos) break;
-      const int oy = p / OW, ox = p - oy * OW;
-      const int gr = org_r + oy, gc = org_c + ox;
-      const bool inside = gr >= 0 && gr < img && gc >= 0 && gc < img;
-#pragma unroll
-      for (int c = 0; c < CT; ++c) {
-        const float y = acc[i][c] + b[c];
-        T yt = from_f<T>(fmaxf(y, y * LEAKY));
-        if (SG) sg[p * COUT + co0 + c] = to_f(yt) > 0.f ? 1 : 0;
-        if (res != nullptr) {
-          const T r = res[((oy + 1) * res_w + ox + 1) * COUT + co0 + c];
-          yt = from_f<T>(to_f(yt) + to_f(r));
-        }
-        out[p * COUT + co0 + c] = inside ? yt : from_f<T>(0.f);
-      }
-    }
-  }
-}
-
 // Sign masks of one own (non-halo) n x n region of a [pos][C] tile of
 // side TW, whose first own position is (off, off) in the tile and
 // (r0, c0) in the image, into a planar int8 tensor [B, rows, C, wl]:

@@ -13,7 +13,8 @@ the NMS on the device too. On CUDA the detector asks for both stem
 kernels, as the JAX package's does on the TPU: the fused stem where the
 YOLOv3 widths allow it, else the per-layer planar stem (K4, e.g. the slim
 victim's narrow stem), else the conv walk; ``res152`` picks a kernel
-route for layers 6-11 after a kernel stem.
+route for layers 6-11 after a kernel stem ("c12": layers 0-12 on the
+planar-out fused stem, K6a and conv12, where it applies).
 """
 
 from __future__ import annotations

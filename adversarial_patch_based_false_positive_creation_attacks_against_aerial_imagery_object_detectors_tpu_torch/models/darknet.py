@@ -21,13 +21,20 @@
   ``models/stem_planar.py``) where ``stem_applicable`` holds, else on the
   conv walk. Only after a kernel stem, ``res152="fused"`` runs layers
   6-11 on the whole-stage kernels (K6a/K6b) and ``res152="planar"`` on
-  K4 (``models/res_planar.py``), each where its own test holds. Inputs
-  that require grad take each route's autograd Function (input
-  cotangent only). The Detector asks for both stems on CUDA; the trainer
-  for the fused stem. Each route's weights, in its kernels' layouts, are
-  prepared once at build where the network allows the route.
-  ``last_routes()`` reports which routes the last forward on this thread
-  took.
+  K4 (``models/res_planar.py``), each where its own test holds; with the
+  fused stem, ``res152="c12"`` runs layers 0-12 as the planar-out stem
+  (``fused_stem_planar``) handing y5 to the conv12-widened unit
+  (``res152_c12_fused``: K6a, conv12, and K6c in the backward) where
+  ``c12_applicable`` holds, else the fused stem and the conv walk.
+  ``stem_remat=True`` swaps the fused stem's saved-mask backward (K2) for
+  the recomputing one (K5) wherever the fused stem is taken, except on
+  the c12 route, whose stem is the planar-out one (as in the JAX
+  package). Inputs that require grad take each route's autograd Function
+  (input cotangent only). The Detector asks for both stems on CUDA; the
+  trainer for the fused stem. Each route's weights, in its kernels'
+  layouts, are prepared once at build where the network allows the
+  route. ``last_routes()`` reports which routes the last forward on this
+  thread took.
 """
 
 from __future__ import annotations
@@ -261,7 +268,7 @@ def _upsample(x: torch.Tensor, scale: int) -> torch.Tensor:
 # the conv walk.
 _routes_tls = threading.local()
 
-RES152_ROUTES = (None, "fused", "planar")
+RES152_ROUTES = (None, "fused", "planar", "c12")
 
 
 def _last_routes() -> Dict[str, str]:
@@ -274,8 +281,8 @@ def _last_routes() -> Dict[str, str]:
 
 def last_routes() -> Dict[str, str]:
     """Routes taken by the most recent forward on this thread:
-    ``{"stem": "fused" | "planar" | "conv",
-    "res152": "fused" | "planar" | "conv"}``."""
+    ``{"stem": "c12" | "fused" | "planar" | "conv",
+    "res152": "c12" | "fused" | "planar" | "conv"}``."""
     return dict(_last_routes())
 
 
@@ -286,7 +293,8 @@ class Darknet(nn.Module):
     network allows, that route's weights in its kernels' layouts: the
     fused stem's contiguous HWIO ``sw{i}`` and channel-swapped ``sbw{i}``,
     the planar stem's ``pw{i}`` and flipped ``pwt{i}``, the 152^2 stage's
-    HWIO ``rw{i}`` and flipped ``rwt{i}`` (K4 and K6 read the same)."""
+    HWIO ``rw{i}`` and flipped ``rwt{i}`` (K4 and K6 read the same), and
+    conv12's channel-swapped ``w12t`` (K6c)."""
 
     def __init__(self, net: Network, params: Params,
                  compute_dtype: torch.dtype = torch.float32,
@@ -312,6 +320,8 @@ class Darknet(nn.Module):
                            and res_planar.res152_applicable(net, params))
         self.has_fused_res = (self.has_res152 and
                               res_planar.fused_res_net_applicable(net, params))
+        self.has_c12 = (self.has_fused_stem and self.has_fused_res
+                        and res_planar.c12_net_applicable(net, params))
         folded = self.folded_params()
         if self.has_fused_stem:
             sp = _stem_params(folded, compute_dtype)
@@ -335,6 +345,9 @@ class Darknet(nn.Module):
                 self.register_buffer(f"rwt{i}", wt)
                 self.register_buffer(f"rzb{i}", torch.zeros(
                     wt.shape[-1], dtype=torch.float32, device=dev))
+        if self.has_c12:
+            w12 = _stem_params(folded, compute_dtype, (res_planar.C12,))[0][0]
+            self.register_buffer("w12t", res_fused.res12_weights(w12))
 
     def folded_params(self) -> Params:
         """The held weights as a params tree (kernels in the compute
@@ -375,13 +388,15 @@ class Darknet(nn.Module):
                  for i in convs])
 
     def forward(self, x: torch.Tensor, fused_stem: bool = False,
-                planar_stem: bool = False, res152: Optional[str] = None
-                ) -> List[torch.Tensor]:
+                planar_stem: bool = False, res152: Optional[str] = None,
+                stem_remat: bool = False) -> List[torch.Tensor]:
         """``x``: [B, H, W, 3] float in [0, 1] (NHWC) on the module's
         device. Returns the three raw heads [B, S, S, 3*(5+C)] float32.
         ``fused_stem`` / ``planar_stem`` ask for the stem kernels (tried in
-        that order), ``res152`` (None, "fused" or "planar") for the 152^2
-        stage's after a kernel stem; each is taken where it applies."""
+        that order), ``res152`` (None, "fused", "planar" or "c12") for the
+        152^2 stage's after a kernel stem ("c12": after the fused stem,
+        through conv12), ``stem_remat`` for the fused stem's recomputing
+        backward; each is taken where it applies."""
         if res152 not in RES152_ROUTES:
             raise ValueError(f"res152={res152!r}, expected one of "
                              f"{RES152_ROUTES}")
@@ -395,9 +410,13 @@ class Darknet(nn.Module):
             xc = x.to(dt)
             shape_ok = stem_shape_ok(tuple(x.shape))
             if fused_stem and self.has_fused_stem and shape_ok:
-                prev = stem_fused.fused_stem(xc.contiguous(),
-                                             self.stem_params(),
-                                             self.stem_bwd_params())
+                if (res152 == "c12" and self.has_c12
+                        and res_planar.c12_shape_ok(tuple(x.shape))):
+                    return self._c12(xc.contiguous(), outputs)
+                stem_fn = (stem_fused.fused_stem_remat if stem_remat
+                           else stem_fused.fused_stem)
+                prev = stem_fn(xc.contiguous(), self.stem_params(),
+                               self.stem_bwd_params())
                 routes["stem"] = "fused"
             elif planar_stem and self.has_planar_stem and shape_ok:
                 prev = stem_planar.planar_stem(xc.contiguous(),
@@ -420,6 +439,22 @@ class Darknet(nn.Module):
             prev = prev.permute(0, 3, 1, 2)
             outputs[start - 1] = prev
             return self.walk(prev, start, outputs)
+
+    def _c12(self, xc: torch.Tensor, outputs) -> List[torch.Tensor]:
+        """Layers 0-12 on the c12 route, then the walk from layer 13: the
+        planar-out stem (K1; K2 back) hands its planar y5 to the
+        conv12-widened unit (K6a and conv12; K6c back)."""
+        y5p = stem_fused.fused_stem_planar(xc, self.stem_params(),
+                                           self.stem_bwd_params())
+        fwd, bwd, _ = self.res_params()
+        c12 = res_planar.C12
+        y12 = res_planar.res152_c12_fused(
+            y5p, fwd, bwd, getattr(self, f"w{c12}"), getattr(self, f"bc{c12}"),
+            self.w12t)
+        _last_routes().update(stem="c12", res152="c12")
+        prev = y12.permute(0, 3, 1, 2)
+        outputs[c12] = prev
+        return self.walk(prev, c12 + 1, outputs)
 
     def walk(self, prev: torch.Tensor, start: int,
              outputs: Dict[int, torch.Tensor]) -> List[torch.Tensor]:
@@ -457,11 +492,13 @@ def apply(net: Network, params: Params, x: torch.Tensor,
           compute_dtype: torch.dtype = torch.float32,
           fused_stem: Optional[bool] = None,
           planar_stem: Optional[bool] = None,
-          res152: Optional[str] = None) -> List[torch.Tensor]:
+          res152: Optional[str] = None,
+          stem_remat: bool = False) -> List[torch.Tensor]:
     """Run the detector once on ``x`` ([B, H, W, 3] NHWC, on its device):
     builds a ``Darknet`` on ``x.device`` and calls it. ``fused_stem``,
-    ``planar_stem`` and ``res152`` pick the kernel routes where they apply
-    (default: the conv walk)."""
+    ``planar_stem``, ``res152`` and ``stem_remat`` pick the kernel routes
+    where they apply (default: the conv walk)."""
     model = Darknet(net, params, compute_dtype, device=x.device)
     return model(x, fused_stem=bool(fused_stem),
-                 planar_stem=bool(planar_stem), res152=res152)
+                 planar_stem=bool(planar_stem), res152=res152,
+                 stem_remat=stem_remat)

@@ -14,6 +14,13 @@ returns the input cotangent only (the victim's weights are frozen):
   -> K3b. Width 128 only (the kernels' stage width).
 
 Both take and give NHWC [B, H, W, C] in the compute dtype.
+
+- ``res152_c12_fused``: the conv12-widened unit (layers 6-12). It takes
+  the stem's planar y5 (``ops/stem_fused.fused_stem_planar``) and gives
+  NHWC y12: K6a on the planar y5 (no K3a), K3b of y11, conv12 + bias +
+  leaky on cuDNN (the JAX package leaves conv12's forward to XLA). Its
+  backward gates g12 by conv12's leaky, K3a (256 channels) -> K6c, which
+  computes conv12's dgrad itself, and returns a planar g5 (no K3b).
 """
 
 from __future__ import annotations
@@ -70,6 +77,14 @@ def fused_res_net_applicable(net, params) -> bool:
 def fused_res_shape_ok(x_shape) -> bool:
     """The input half: a square image whose stage height (H/4) is even."""
     return x_shape[1] == x_shape[2] and (x_shape[1] // 4) % 2 == 0
+
+
+def _pick_s(h: int) -> int:
+    """The JAX package's stripe height for a stage of height h."""
+    for s in (8, 4, 2):
+        if h % s == 0:
+            return s
+    raise ValueError(f"stage height {h} not even")
 
 
 def fused_res_applicable(net, params, x_shape) -> bool:
@@ -158,3 +173,98 @@ def res152_fused_stage(x: torch.Tensor, fwd, bwd=None) -> torch.Tensor:
         return Res152FusedStage.apply(x, fwd, bwd)
     y11p = RF.res152_fused(to_planar(x), fwd, w_img=x.shape[2])
     return from_planar(y11p, x.shape[2], x.shape[3])
+
+
+# ---------------------------------------------------------------------------
+# The conv12-widened unit: planar y5 in, conv12 inside the backward kernel
+# ---------------------------------------------------------------------------
+
+C12 = 12   # conv12's layer index
+
+
+def c12_net_applicable(net, params) -> bool:
+    """The network half of ``c12_applicable``: ``fused_res_net_applicable``
+    plus layer 12 the stride-2 3x3 leaky conv 128 -> 256 over BN-folded
+    params, with nothing after it consuming the stage's internals or
+    layer 11 (which the unit keeps inside)."""
+    if not fused_res_net_applicable(net, params):
+        return False
+    if len(net.layers) <= C12 or net.layers[C12].kind != "convolutional":
+        return False
+    c12 = net.layers[C12].conv
+    if ((c12.size, c12.stride, c12.filters) != (3, 2, 2 * RF.CIN)
+            or c12.activation != "leaky"):
+        return False
+    if "gamma" in params.get(f"conv_{C12}", {}):
+        return False
+    for l in net.layers[C12 + 1:]:
+        if any(5 <= s < C12 for s in l.route_from) or \
+                5 <= l.shortcut_from < C12:
+            return False
+    return True
+
+
+def c12_shape_ok(x_shape) -> bool:
+    """The input half: ``fused_res_shape_ok`` and a JAX stripe height
+    (``_pick_s`` of the stage height) that halves into a multi-row conv12
+    stripe, as the JAX package requires, so that both take the route on
+    the same inputs."""
+    return (fused_res_shape_ok(x_shape)
+            and _pick_s(x_shape[1] // 4) % 4 == 0)
+
+
+def c12_applicable(net, params, x_shape) -> bool:
+    """The JAX package's ``c12_applicable``."""
+    return c12_net_applicable(net, params) and c12_shape_ok(x_shape)
+
+
+def _conv12(y11: torch.Tensor, w12: torch.Tensor, b12: torch.Tensor):
+    """conv12 + bias + leaky on NHWC y11 in the compute dtype, as the conv
+    walk runs it (``w12`` OIHW channels_last, ``b12`` in the compute
+    dtype): NHWC y12 and the int8 mask of z12 > 0, NHWC too."""
+    from .darknet import _activate
+    z = torch.nn.functional.conv2d(y11.permute(0, 3, 1, 2), w12, None, 2, 1)
+    z = z + b12.view(1, -1, 1, 1)
+    y12 = _activate(z, "leaky")
+    return (y12.permute(0, 2, 3, 1),
+            (z > 0).to(torch.int8).permute(0, 2, 3, 1))
+
+
+class Res152C12(torch.autograd.Function):
+    """The JAX package's ``res152_c12_fused`` custom VJP."""
+
+    @staticmethod
+    def forward(ctx, y5p, fwd, bwd, w12, b12, w12t):
+        y11p, *masks = RF.res152_fused(y5p, fwd, save=True)
+        y12, m12 = _conv12(from_planar(y11p, y5p.shape[1], RF.CIN), w12,
+                           b12)
+        ctx.save_for_backward(*masks, m12)
+        ctx.bwd, ctx.w12t = bwd, w12t
+        return y12
+
+    @staticmethod
+    def backward(ctx, g12):
+        *masks, m12 = ctx.saved_tensors
+        dt = ctx.w12t.dtype
+        gp12 = g12.to(dt) * torch.where(m12 > 0, 1.0, 0.1).to(dt)
+        g5p = RF.res152_fused_grad12(to_planar(gp12.contiguous()), masks,
+                                     ctx.bwd, ctx.w12t)
+        return g5p, None, None, None, None, None
+
+
+def res152_c12_fused(y5p: torch.Tensor, fwd, bwd, w12: torch.Tensor,
+                     b12: torch.Tensor, w12t: torch.Tensor = None
+                     ) -> torch.Tensor:
+    """Planar y5 [B, H, 128, Wl] -> NHWC y12 [B, H/2, W/2, 256] (layers
+    6-12). ``fwd``, ``bwd``: ``ops/res_fused.res_weights``'s halves;
+    ``w12`` OIHW channels_last and ``b12`` in the compute dtype (the
+    walk's); ``w12t``: ``res12_weights``'s. Where autograd records,
+    ``Res152C12`` (K6a with masks; the backward K3a -> K6c returns a
+    planar g5); otherwise K6a -> K3b -> conv12."""
+    if y5p.requires_grad and torch.is_grad_enabled():
+        if bwd is None or w12t is None:
+            raise ValueError("res152_c12_fused: an input that requires grad "
+                             "needs the backward weights (bwd, w12t)")
+        return Res152C12.apply(y5p, fwd, bwd, w12, b12, w12t)
+    y11p = RF.res152_fused(y5p, fwd)
+    return _conv12(from_planar(y11p, y5p.shape[1], RF.CIN), w12, b12)[0]

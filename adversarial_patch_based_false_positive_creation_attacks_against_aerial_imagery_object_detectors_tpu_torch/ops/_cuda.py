@@ -64,6 +64,11 @@ SIGNATURES = {
         # dtype, B, H, wlh, wl5, stream
         "apfp_fused_stem_bwd": [_P] * 14 + [_I] * 5 + [_P],
     },
+    "stem_remat": {
+        # xe, xo, w0, w1, w2, w3, b0, b1, b2, b3, y5, g5, v0, v1, v2, v3,
+        # v5, gxe, gxo, dtype, B, H, wlh, wl5, stream
+        "apfp_fused_stem_remat": [_P] * 19 + [_I] * 5 + [_P],
+    },
     "planar_conv": {
         # x, w, bias, res, gate, out, dtype, B, H, cin, wl_in, w_img, cout,
         # cout_pad, k, stride, has_slope, slope, gate_slope, stream
@@ -76,6 +81,9 @@ SIGNATURES = {
         # g11, am, p7m, cm, p10m, w6t, w7t, w9t, w10t, g5, dtype, B, H, W,
         # wl, stream
         "apfp_res152_fused_grad": [_P] * 10 + [_I] * 5 + [_P],
+        # gp12, am, p7m, cm, p10m, w12t, w6t, w7t, w9t, w10t, g5, dtype, B,
+        # H, W, wl, wl12, stream
+        "apfp_res152_fused_grad12": [_P] * 11 + [_I] * 6 + [_P],
     },
 }
 

@@ -1,7 +1,10 @@
 """The 152^2 residual stage (YOLOv3 layers 6-11: conv 1x1 128->64, conv
 3x3 64->128, shortcut, twice) in one kernel each way: K6a forward
 (``res152_fused``) and K6b saved-mask input backward
-(``res152_fused_grad``), the JAX package's Pallas ``ops/res_fused.py``.
+(``res152_fused_grad``), the JAX package's Pallas ``ops/res_fused.py``;
+and K6c (``res152_fused_grad12``), K6b widened by conv12's stride-2 input
+cotangent, which it computes from conv12's pre-gated cotangent before the
+stage's chain.
 
 Both take and give planar ``[B, H, 128, Wl]`` tensors (``to_planar``'s
 layout). ``res152_fused(save=True)`` also returns the int8 signs of the
@@ -36,6 +39,8 @@ FWD_SHAPES = ((1, 1, CIN, MID), (3, 3, MID, CIN), (1, 1, CIN, MID),
               (3, 3, MID, CIN))
 BWD_SHAPES = ((1, 1, MID, CIN), (3, 3, CIN, MID), (1, 1, MID, CIN),
               (3, 3, CIN, MID))
+# K6c's conv12 weight: HWIO [3, 3, 128, 256] with its channel axes swapped
+W12T_SHAPE = (3, 3, 2 * CIN, CIN)
 
 ResFwd = Sequence[Tuple[torch.Tensor, torch.Tensor]]
 ResBwd = Sequence[torch.Tensor]
@@ -49,6 +54,16 @@ def res_weights(sp) -> Tuple[list, list]:
     fwd = [(w.contiguous(), b.to(torch.float32).contiguous())
            for w, b in sp]
     return fwd, [flip_t(w) for w, _ in fwd]
+
+
+def res12_weights(w12: torch.Tensor) -> torch.Tensor:
+    """K6c's conv12 weight from conv12's HWIO kernel [3, 3, 128, 256] (the
+    compute dtype, BN-folded): its two channel axes swapped,
+    [3, 3, 256, 128] contiguous, so each tap's [cin][cout] block is the
+    adjoint's. Built once by the model. (The JAX package's
+    ``res12_weights`` also builds a parity pair matrix: TPU blocking, not
+    ported; the kernel splits the taps by parity itself.)"""
+    return w12.permute(0, 1, 3, 2).contiguous()
 
 
 def _body(xp: torch.Tensor, w_img: int) -> torch.Tensor:
@@ -218,3 +233,65 @@ def res152_fused_grad(g11p: torch.Tensor, masks, bwd: ResBwd, *,
 
 
 res152_fused_grad.launches = 0
+
+
+def res152_fused_grad12_plain(gp12p: torch.Tensor, masks, bwd: ResBwd,
+                              w12t: torch.Tensor, w_img=None) -> torch.Tensor:
+    """K6c's plain version: g11 = T(conv12^T gp12) (``F.conv_transpose2d``
+    with stride 2, padding 1, output_padding 1, float32; stored in the
+    compute dtype once, as ``_bwd12_kernel`` stores it: its one-hot lane
+    interleave is exact), zero outside the image, then
+    ``res152_fused_grad_plain``. gp12p: the pre-gated conv12 cotangent,
+    planar [B, H/2, 256, Wl12]."""
+    dt = gp12p.dtype
+    w_img = w_img if w_img is not None else 2 * gp12p.shape[1]
+    # conv_transpose2d's weight [cin, cout, kh, kw] is the forward conv's
+    # OIHW: conv12's [256, 128, 3, 3]
+    w12 = w12t.permute(2, 3, 0, 1).float()
+    with _cuda.no_tf32():
+        g11 = F.conv_transpose2d(_body(gp12p, w_img // 2), w12, stride=2,
+                                 padding=1, output_padding=1).to(dt)
+    return res152_fused_grad_plain(_planar(g11), masks, bwd, w_img)
+
+
+def res152_fused_grad12(gp12p: torch.Tensor, masks, bwd: ResBwd,
+                        w12t: torch.Tensor, *, w_img=None) -> torch.Tensor:
+    """The conv12-widened saved-mask input cotangent: (gp12 planar
+    [B, H/2, 256, Wl12], the masks of ``res152_fused(save=True)``) ->
+    planar g5 [B, H, 128, Wl] (H and the image width even). conv12's
+    stride-2 dgrad runs inside the kernel. ``bwd``: ``res_weights``'s
+    second half; ``w12t``: ``res12_weights``'s. Counted in
+    ``res152_fused_grad12.launches``."""
+    if gp12p.device.type == "cpu":
+        return res152_fused_grad12_plain(gp12p, masks, bwd, w12t, w_img)
+    _cuda.require_cuda("res152_fused_grad12", gp12p)
+    _cuda.require_cuda_int8("res152_fused_grad12", gp12p.device, *masks)
+    dt = gp12p.dtype
+    bsz, h12, c12, wl12 = gp12p.shape
+    h = 2 * h12
+    w_img = w_img if w_img is not None else h
+    wl = _round_up(w_img + 2, 128)
+    if (c12 != 2 * CIN or w_img % 2
+            or wl12 != _round_up(w_img // 2 + 2, 128)):
+        raise ValueError(f"res152_fused_grad12: gp12 {tuple(gp12p.shape)} "
+                         f"for w_img={w_img}, expected [B, H/2, {2 * CIN}, "
+                         f"{_round_up(w_img // 2 + 2, 128)}]")
+    want = [(bsz, h, c, wl) for c in (MID, CIN, MID, CIN)]
+    if len(masks) != 4 or [tuple(m.shape) for m in masks] != want:
+        raise ValueError(f"res152_fused_grad12: masks "
+                         f"{[tuple(m.shape) for m in masks]}, expected "
+                         f"{want}")
+    _check_weights("res152_fused_grad12", [*bwd, w12t],
+                   [*BWD_SHAPES, W12T_SHAPE], dt, gp12p.device)
+    # the kernel writes every lane, borders and padding included
+    g5 = torch.empty((bsz, h, CIN, wl), dtype=dt, device=gp12p.device)
+    err = _cuda.lib("res_fused").apfp_res152_fused_grad12(
+        gp12p.data_ptr(), *[m.data_ptr() for m in masks], w12t.data_ptr(),
+        *[w.data_ptr() for w in bwd], g5.data_ptr(), _cuda.DTYPE_CODES[dt],
+        bsz, h, w_img, wl, wl12, _cuda.stream_ptr(gp12p))
+    _cuda.check(err, "res152_fused_grad12")
+    res152_fused_grad12.launches += 1
+    return g5
+
+
+res152_fused_grad12.launches = 0

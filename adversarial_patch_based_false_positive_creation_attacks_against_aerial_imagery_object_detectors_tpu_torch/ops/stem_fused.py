@@ -1,4 +1,5 @@
-"""The fused YOLOv3 stem: layers 0-5 forward (K1) and input backward (K2).
+"""The fused YOLOv3 stem: layers 0-5 forward (K1) and input backward from
+saved masks (K2) or from recomputed ones (K5).
 
 ``fused_stem_fwd`` takes the even/odd column phases of the input in the
 planar layout (``split_phases``) and returns y5 planar
@@ -7,19 +8,29 @@ planar layout (``split_phases``) and returns y5 planar
 also returns the int8 sign masks of y0 (both column phases), y1, y2 and
 y3 that the backward needs. ``fused_stem_bwd_saved`` (K2) turns those
 masks, y5 and a planar cotangent g5 into the phase-split planar input
-cotangent, as the Pallas ``fused_stem_bwd_saved`` does. On a CUDA tensor
-each wrapper launches its hand-written kernel (``csrc/stem_fused.cu``,
-``csrc/stem_bwd.cu``); on a CPU tensor it runs its plain version, the
-same function as ``F.conv2d`` / ``F.conv_transpose2d`` chains with the
-kernel's rounding points (float32 accumulation; the compute dtype where
-the Pallas kernel stores). Both kernels are bound by operations on the
-H100 (11.2 GFLOP per 608^2 image each way); see the sources.
+cotangent, as the Pallas ``fused_stem_bwd_saved`` does;
+``fused_stem_bwd`` (K5) does the same from x, y5 and g5 alone,
+recomputing the masks on chip, as the Pallas ``fused_stem_bwd`` does. On
+a CUDA tensor each wrapper launches its hand-written kernel
+(``csrc/stem_fused.cu``, ``csrc/stem_bwd.cu``, ``csrc/stem_remat.cu``);
+on a CPU tensor it runs its plain version, the same function as
+``F.conv2d`` / ``F.conv_transpose2d`` chains with the kernel's rounding
+points (float32 accumulation; the compute dtype where the Pallas kernel
+stores). The kernels are bound by operations on the H100 (11.2 GFLOP per
+608^2 image each way); see the sources.
 
-``fused_stem`` is the NHWC-in, NHWC-out stem the detector calls:
-``split_phases`` (K3a twice) -> K1 -> ``from_planar`` (K3b). For an input
-that requires grad it runs ``FusedStem``, whose forward saves the masks
-and whose backward is K3a (g5 -> planar) -> K2 -> ``merge_phases``; it
-returns the input cotangent only (the victim's weights are frozen).
+Three autograd Functions around them, the JAX package's three custom
+VJPs of the stem; each returns the input cotangent only (the victim's
+weights are frozen):
+
+- ``fused_stem`` / ``FusedStem``: NHWC in, NHWC out: ``split_phases``
+  (K3a twice) -> K1 (``save_acts``) -> ``from_planar`` (K3b); backward
+  K3a (g5 -> planar) -> K2 -> ``merge_phases``.
+- ``fused_stem_remat`` / ``FusedStemRemat``: the same forward without
+  masks, saving only x's phases and y5; backward K3a -> K5.
+- ``fused_stem_planar`` / ``FusedStemPlanar``: stops at the planar y5
+  (no K3b) and takes a planar g5 back (no K3a): the conv12-widened
+  stage's handoff (``models/res_planar.res152_c12_fused``).
 """
 
 from __future__ import annotations
@@ -297,6 +308,69 @@ def fused_stem_bwd_saved(acts, g5p: torch.Tensor, sbp: StemBwdParams):
 fused_stem_bwd_saved.launches = 0
 
 
+def fused_stem_bwd_plain(xe: torch.Tensor, xo: torch.Tensor,
+                         y5p: torch.Tensor, g5p: torch.Tensor,
+                         sp: StemParams, sbp: StemBwdParams):
+    """K5's plain version: the masks recomputed by K1's plain forward with
+    ``save_acts`` from the phase-split x, then K2's plain chain on them
+    with gp5 gated by the *given* y5 (as the Pallas ``_grad_chain`` gates
+    by its y5 input). The same function as the Pallas remat
+    ``_bwd_kernel``, whose recompute rounds where K1 stores."""
+    acts = fused_stem_fwd_plain(xe, xo, sp, save_acts=True)
+    return fused_stem_bwd_saved_plain((y5p, *acts[1:]), g5p, sbp)
+
+
+def fused_stem_bwd(xe: torch.Tensor, xo: torch.Tensor, y5p: torch.Tensor,
+                   g5p: torch.Tensor, sp: StemParams, sbp: StemBwdParams):
+    """Phase-split planar x [B, H, 8, Wlh], planar y5 and g5
+    [B, H/4, 128, Wl5] -> the phase-split planar input cotangent (gxe,
+    gxo), recomputing the stem's masks instead of reading saved ones
+    (H % 16 == 0): ``fused_stem_bwd_plain`` as the K5 kernel on CUDA
+    tensors, counted in ``fused_stem_bwd.launches``. ``sp``: K1's
+    weights (convs 0-3 are read); ``sbp``: K2's."""
+    if xe.device.type == "cpu":
+        return fused_stem_bwd_plain(xe, xo, y5p, g5p, sp, sbp)
+    _cuda.require_cuda("fused_stem_bwd", xe, xo, y5p, g5p)
+    bsz, h, cp, wlh = xe.shape
+    dt = xe.dtype
+    h5 = h // 4
+    wl5 = _round_up(h5 + 2, 128)
+    if (xo.shape != xe.shape or cp != 8 or h % 16
+            or wlh != _round_up(h // 2 + 2, 128)
+            or any(t.dtype != dt for t in (xo, y5p, g5p))
+            or tuple(y5p.shape) != (bsz, h5, 128, wl5)
+            or g5p.shape != y5p.shape):
+        raise ValueError(f"fused_stem_bwd: bad geometry x {tuple(xe.shape)} "
+                         f"y5 {tuple(y5p.shape)} g5 {tuple(g5p.shape)} or "
+                         f"dtypes")
+    _check_stem_params(sp, dt, xe.device)
+    _check_stem_bwd_params(sbp, dt, xe.device)
+    # the kernel writes every lane, borders and padding included
+    gxe = torch.empty((bsz, h, 8, wlh), dtype=dt, device=xe.device)
+    gxo = torch.empty_like(gxe)
+    err = _cuda.lib("stem_remat").apfp_fused_stem_remat(
+        xe.data_ptr(), xo.data_ptr(), *[w.data_ptr() for w, _ in sp[:4]],
+        *[bias.data_ptr() for _, bias in sp[:4]], y5p.data_ptr(),
+        g5p.data_ptr(), *[v.data_ptr() for v in sbp], gxe.data_ptr(),
+        gxo.data_ptr(), _cuda.DTYPE_CODES[dt], bsz, h, wlh, wl5,
+        _cuda.stream_ptr(xe))
+    _cuda.check(err, "fused_stem_bwd")
+    fused_stem_bwd.launches += 1
+    return gxe, gxo
+
+
+fused_stem_bwd.launches = 0
+
+
+def _needs_grad(x: torch.Tensor, sbp, name: str) -> bool:
+    if not (x.requires_grad and torch.is_grad_enabled()):
+        return False
+    if sbp is None:
+        raise ValueError(f"{name}: an input that requires grad needs the "
+                         f"backward weights (sbp)")
+    return True
+
+
 class FusedStem(torch.autograd.Function):
     """The stem with its saved-sign backward: forward split_phases -> K1
     (save_acts) -> K3b; backward K3a (g5 in the compute dtype) -> K2 ->
@@ -327,11 +401,74 @@ def fused_stem(x: torch.Tensor, sp: StemParams,
     (``x.requires_grad``), ``FusedStem`` with K2's weights ``sbp``
     (``stem_bwd_params``, built once by the model); otherwise forward
     only, saving no masks."""
-    if x.requires_grad and torch.is_grad_enabled():
-        if sbp is None:
-            raise ValueError("fused_stem: an input that requires grad "
-                             "needs the backward weights (sbp)")
+    if _needs_grad(x, sbp, "fused_stem"):
         return FusedStem.apply(x, sp, sbp)
     xe, xo = split_phases(x)
     y5p = fused_stem_fwd(xe, xo, sp)
     return from_planar(y5p, x.shape[1] // 4, 128)
+
+
+class FusedStemRemat(torch.autograd.Function):
+    """The stem with the recomputing backward (the JAX package's
+    ``fused_stem_remat``): forward split_phases -> K1 (no masks) -> K3b,
+    saving only x's phases and y5; backward K3a (g5) -> K5 ->
+    merge_phases. Residual memory: xe, xo and y5, no masks."""
+
+    @staticmethod
+    def forward(ctx, x, sp, sbp):
+        xe, xo = split_phases(x)
+        y5p = fused_stem_fwd(xe, xo, sp)
+        ctx.save_for_backward(xe, xo, y5p)
+        ctx.sp, ctx.sbp = sp, sbp
+        return from_planar(y5p, x.shape[1] // 4, 128)
+
+    @staticmethod
+    def backward(ctx, g5):
+        xe, xo, y5p = ctx.saved_tensors
+        g5p = to_planar(g5.to(y5p.dtype).contiguous())
+        gxe, gxo = fused_stem_bwd(xe, xo, y5p, g5p, ctx.sp, ctx.sbp)
+        return merge_phases(gxe, gxo, xe.shape[1] // 2, 3), None, None
+
+
+class FusedStemPlanar(torch.autograd.Function):
+    """The stem that stops at the planar y5 (the JAX package's
+    ``fused_stem_planar``): forward split_phases -> K1 (``save_acts``),
+    no K3b; backward from a planar g5 straight to K2 -> merge_phases, no
+    K3a."""
+
+    @staticmethod
+    def forward(ctx, x, sp, sbp):
+        xe, xo = split_phases(x)
+        acts = fused_stem_fwd(xe, xo, sp, save_acts=True)
+        ctx.save_for_backward(*acts)
+        ctx.sbp = sbp
+        return acts[0]
+
+    @staticmethod
+    def backward(ctx, g5p):
+        acts = ctx.saved_tensors
+        gxe, gxo = fused_stem_bwd_saved(
+            acts, g5p.to(acts[0].dtype).contiguous(), ctx.sbp)
+        return merge_phases(gxe, gxo, acts[1].shape[1] // 2, 3), None, None
+
+
+def fused_stem_remat(x: torch.Tensor, sp: StemParams,
+                     sbp: StemBwdParams = None) -> torch.Tensor:
+    """``fused_stem`` whose backward recomputes the masks (K5) instead of
+    saving them: where autograd records, ``FusedStemRemat``; otherwise
+    the forward alone, as ``fused_stem``'s."""
+    if _needs_grad(x, sbp, "fused_stem_remat"):
+        return FusedStemRemat.apply(x, sp, sbp)
+    return fused_stem(x, sp)
+
+
+def fused_stem_planar(x: torch.Tensor, sp: StemParams,
+                      sbp: StemBwdParams = None) -> torch.Tensor:
+    """NHWC [B, H, W, 3] (compute dtype) -> planar y5 [B, H/4, 128, Wl5]:
+    split_phases -> fused_stem_fwd. Where autograd records,
+    ``FusedStemPlanar`` (K1 with masks; a planar g5 back through K2);
+    otherwise forward only."""
+    if _needs_grad(x, sbp, "fused_stem_planar"):
+        return FusedStemPlanar.apply(x, sp, sbp)
+    xe, xo = split_phases(x)
+    return fused_stem_fwd(xe, xo, sp)

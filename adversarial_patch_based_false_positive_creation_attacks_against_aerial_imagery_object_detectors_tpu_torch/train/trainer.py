@@ -12,8 +12,11 @@ on the fused kernels (``Darknet(fused_stem=True)``: K1 with saved masks
 forward, K2 backward on a card, their plain versions on the CPU); its
 weights are buffers, so autograd differentiates the patch alone. The other
 kernel routes are options, off by default as in the JAX package:
-``planar_stem`` (the per-layer planar stem, tried after the fused one) and
-``res152`` ("fused" or "planar": layers 6-11 after a kernel stem). Host-side
+``planar_stem`` (the per-layer planar stem, tried after the fused one),
+``res152`` ("fused" or "planar": layers 6-11 after a kernel stem; "c12":
+layers 0-12 on the planar-out stem and the conv12-widened unit, K6c) and
+``stem_remat`` (the fused stem's backward recomputes its masks, K5,
+instead of keeping them across the step). Host-side
 epoch logic (plateau LR schedule, JSONL log, checkpoints) mirrors the JAX
 package's; a padded final batch carries zero weights, so its loss and
 gradient equal the unpadded batch's.
@@ -127,7 +130,8 @@ def build_victim(exp: ExperimentConfig, seed: int = 1
 def make_loss_fn(model: darknet.Darknet, exp: ExperimentConfig,
                  printable_colors: Optional[np.ndarray] = None,
                  fused_stem: bool = True, planar_stem: bool = False,
-                 res152: Optional[str] = None) -> Callable:
+                 res152: Optional[str] = None,
+                 stem_remat: bool = False) -> Callable:
     """``loss_fn(patch, images, labels, weights, draws) -> (total, aux)``
     for the recipe ``exp.loss_recipe``; ``aux`` holds the LOSS_KEYS. The
     route flags go to the victim's forward (``Darknet.forward``)."""
@@ -143,7 +147,8 @@ def make_loss_fn(model: darknet.Darknet, exp: ExperimentConfig,
         patched, centers = apply_eot_patch(patch, images, labels, draws,
                                            cfg)
         heads = model(patched, fused_stem=fused_stem,
-                      planar_stem=planar_stem, res152=res152)
+                      planar_stem=planar_stem, res152=res152,
+                      stem_remat=stem_remat)
         cell_obj, cell_cls = extract_cell_scores(
             heads, centers, exp.img_size, exp.num_classes,
             swap_xy=exp.cell_swap_xy)
@@ -185,13 +190,14 @@ def make_loss_fn(model: darknet.Darknet, exp: ExperimentConfig,
 def make_train_step(model: darknet.Darknet, exp: ExperimentConfig,
                     printable_colors: Optional[np.ndarray] = None,
                     fused_stem: bool = True, planar_stem: bool = False,
-                    res152: Optional[str] = None) -> Callable:
+                    res152: Optional[str] = None,
+                    stem_remat: bool = False) -> Callable:
     """``step(patch, optimizer, images, labels, lr, draws, weights=None)
     -> aux``: the gradient of the loss w.r.t. the patch alone, the
     amsgrad update at ``lr``, the clip to [0, 1] (in place on ``patch``).
     ``weights`` [B] (1 real / 0 padding) makes a padded batch exact."""
     loss_fn = make_loss_fn(model, exp, printable_colors, fused_stem,
-                           planar_stem, res152)
+                           planar_stem, res152, stem_remat)
 
     def step(patch, optimizer, images, labels, lr, draws, weights=None):
         optimizer.zero_grad(set_to_none=True)
@@ -211,8 +217,8 @@ class PatchTrainer:
         trainer = PatchTrainer(get_experiment("paper_obj"))
         patch, history = trainer.train(make_batches)
 
-    ``fused_stem``, ``planar_stem`` and ``res152`` pick the victim's
-    kernel routes (``make_train_step``).
+    ``fused_stem``, ``planar_stem``, ``res152`` and ``stem_remat`` pick
+    the victim's kernel routes (``make_train_step``).
     """
 
     def __init__(self, exp: ExperimentConfig,
@@ -221,7 +227,7 @@ class PatchTrainer:
                  checkpoint_dir: Optional[str] = None,
                  log: Callable[[str], None] = print, device="cuda",
                  fused_stem: bool = True, planar_stem: bool = False,
-                 res152: Optional[str] = None):
+                 res152: Optional[str] = None, stem_remat: bool = False):
         self.device = _cuda.resolve_device(device)
         self.exp = exp
         if exp.debug_nans:
@@ -241,7 +247,7 @@ class PatchTrainer:
         self.step_fn = make_train_step(self.model, exp,
                                        fused_stem=fused_stem,
                                        planar_stem=planar_stem,
-                                       res152=res152)
+                                       res152=res152, stem_remat=stem_remat)
         self.eot_cfg = eot_config(exp)
         self.checkpoint_dir = checkpoint_dir
         self.log = log

@@ -24,7 +24,11 @@ Phases, each fatal on failure:
 5. Training kernels at the training shapes (batch 24, 608^2, bfloat16):
    K1 with ``save_acts`` (y5 and the int8 sign masks), K2 on the same
    masks (also float32) and K3a at the cotangent g5's shape (both of its
-   variants), each against its plain version and timed as in phase 2.
+   variants), each against its plain version and timed as in phase 2;
+   then K5, the recomputing stem backward (bfloat16 and float32), against
+   K2 on K1's masks of the same x (expected equal), the plain chain on
+   those masks, and its own plain version (which recomputes the masks in
+   cuDNN's order: checked where no gate flipped).
 6. Training (the second main path; counted launches): the training CLI
    in-process, ``paper_obj`` on the full-width YOLOv3 with random weights
    over 48 synthetic tiles (one epoch of 2 steps at batch 24), then warm-up
@@ -41,9 +45,11 @@ Phases, each fatal on failure:
    bfloat16 and float32), the five backward convs of the planar stem
    (expand2_planar, gate, res) and the 152^2 stage's four convs forward
    and backward; K6a with and without its masks and K6b, bfloat16 and
-   float32. Each against its plain version, timed beside its bound and a
+   float32; K6c (the stage backward widened by conv12's dgrad), bfloat16
+   and float32. Each against its plain version, timed beside its bound and a
    cuDNN yardstick (K4: the conv alone; K6: the stage's four convs on
-   the conv walk, forward and forward + backward).
+   the conv walk, forward and forward + backward; K6c: that plus conv12's
+   dgrad on cuDNN).
 8. Training on the other routes (counted launches): ``PatchTrainer`` with
    ``res152="fused"`` (routes fused/fused: one K6a ``save`` and one K6b a
    step) and a train step with ``fused_stem=False, planar_stem=True,
@@ -51,14 +57,20 @@ Phases, each fatal on failure:
    steps; then float32 patch-gradient checks at batch 4 (the planar stem
    and each stage route against cuDNN convs, and each whole route against
    the walk carrying that route's own y11 forward, all at 1e-4 relative
-   L2) and the bfloat16 readings against the plain route. Then one
-   serving batch (b8) with ``res152="fused"``: K6a without masks, the
-   forward alone, which training never launches.
+   L2) and the bfloat16 readings against the plain route. Then the same
+   for ``PatchTrainer(stem_remat=True)`` (K1 without masks and K5 a step)
+   and ``PatchTrainer(res152="c12")`` (K1 ``save_acts``, K6a ``save``,
+   K6c and K2 a step), with peak memory, beside the default route's
+   under the same conditions; their float32 checks: remat against the
+   default fused route, c12 against the walk carrying the route's
+   forward and gates through layer 12. Then one serving batch
+   (b8) with ``res152="fused"`` (K6a without masks, the forward alone,
+   which training never launches) and one with ``res152="c12"``.
 
 Phase 4 also holds the slim victim (stem widths 8/16/8/16/32) on the
 planar stem (K4), and once more with ``res152="planar"``. The default
 routes stay: serving and training take the fused stem and the conv walk
-for layers 6-11, and launch no K4 or K6.
+for layers 6-11, and launch no K4, K5 or K6; PR 3's routes no K5 or K6c.
 
 The last two lines are the kernels JSON object and
 ``{"ok": true, "device": {...}}``; the card's name and power limit are
@@ -96,6 +108,8 @@ TRAIN_PATH = ("to_planar", "fused_stem_fwd_save_acts", "from_planar",
               "to_planar_g5", "fused_stem_bwd_saved")
 K4_VARIANTS = ("planar_conv_k1", "planar_conv_k3", "planar_conv_k3s2")
 K6_KERNELS = ("res152_fused", "res152_fused_save", "res152_fused_grad")
+# the remat route's and the c12 route's own kernels (K5, K6c)
+NEW_KERNELS = ("fused_stem_bwd", "res152_fused_grad12")
 ROUTE_STEPS = 20   # timed steps of each of the other routes
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and dense FLOP/s by type
@@ -103,8 +117,15 @@ PEAK_BYTES = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 
 
+T_START = time.perf_counter()
+
+
 def log(*a):
     print(*a, flush=True)
+
+
+def phase(name: str) -> None:
+    log(f"[phase] {name} at {time.perf_counter() - T_START:.1f} s")
 
 
 def card_line() -> str:
@@ -159,7 +180,9 @@ def counters() -> dict:
             "planar_conv_k3s2": (PC.planar_conv, "launches_k3s2"),
             "res152_fused": (RF.res152_fused, "launches"),
             "res152_fused_save": (RF.res152_fused, "save_launches"),
-            "res152_fused_grad": (RF.res152_fused_grad, "launches")}
+            "res152_fused_grad": (RF.res152_fused_grad, "launches"),
+            "fused_stem_bwd": (SF.fused_stem_bwd, "launches"),
+            "res152_fused_grad12": (RF.res152_fused_grad12, "launches")}
 
 
 def reset_counts() -> None:
@@ -177,11 +200,12 @@ def bound(bytes_moved: int, flops: float, dtype) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def stem_flops(b: int, h: int) -> float:
-    """Multiply-adds x 2 of stem convs 0,1,2,3,5 on their real outputs."""
+def stem_flops(b: int, h: int, conv5: bool = True) -> float:
+    """Multiply-adds x 2 of stem convs 0,1,2,3 and (``conv5``) 5 on their
+    real outputs."""
     h1, h5 = h // 2, h // 4
     macs = (h * h * 32 * 27 + h1 * h1 * 64 * 288 + h1 * h1 * 32 * 64
-            + h1 * h1 * 64 * 288 + h5 * h5 * 128 * 576)
+            + h1 * h1 * 64 * 288 + (h5 * h5 * 128 * 576 if conv5 else 0))
     return 2.0 * b * macs
 
 
@@ -365,6 +389,125 @@ def training_kernels(dev, sp, sbp, card) -> list:
     return out
 
 
+def flip_zone(acts, plain_acts, h: int, radius: int = 12):
+    """[B, H, H] bool: the input pixels within ``radius`` of a position
+    where the kernel's masks and the plain forward's differ in any channel
+    (a gate flipped by summation order; the JAX tests' sign-safe mask),
+    and the number of flipped mask elements."""
+    SF = import_port("ops.stem_fused")
+    PC = import_port("ops.planar_conv")
+    h1 = h // 2
+    flips = sum(int((k != p).sum().item())
+                for k, p in zip(acts[1:], plain_acts[1:]))
+    zone = (SF.merge_phases(acts[1], acts[2], h1, 32)
+            != SF.merge_phases(plain_acts[1], plain_acts[2], h1, 32)).any(-1)
+    for k, p in zip(acts[3:], plain_acts[3:]):
+        c = k.shape[2]
+        d = (PC.from_planar_plain(k, h1, c)
+             != PC.from_planar_plain(p, h1, c)).any(-1)
+        zone = zone | d.repeat_interleave(2, 1).repeat_interleave(2, 2)
+    zone = torch.nn.functional.max_pool2d(
+        zone[:, None].float(), 2 * radius + 1, 1, radius)[:, 0] > 0
+    return zone, flips
+
+
+def remat_kernel(dev, sp, sbp, card) -> dict:
+    """Phase 5, K5 at batch 24, 608^2, bfloat16 and float32: against K2 on
+    K1's save_acts masks of the same x (the recompute is K1's code, so
+    expected equal), against the plain chain on those masks (K2's
+    tolerances), and against its own plain version, which recomputes the
+    masks in cuDNN's order: K2's tolerances outside the input pixels
+    within 12 of a flipped gate, flips at most 1e-5 of the mask elements.
+    Returns K5's entry of the kernels line."""
+    PC = import_port("ops.planar_conv")
+    SF = import_port("ops.stem_fused")
+    bf16 = torch.bfloat16
+    b, h, h1, h5 = TRAIN_BATCH, SIZE, SIZE // 2, SIZE // 4
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    x = torch.rand(b, h, h, 3, generator=gen, device=dev).to(bf16)
+    g5 = torch.randn(b, h5, h5, 128, generator=gen, device=dev).to(bf16)
+    ent = {"name": "fused_stem_bwd", "route": "cuda",
+           "source": f"{PORT}/csrc/stem_remat.cu",
+           "replaces": f"{JAX_PKG}/ops/stem_fused.py:965", "launches": 0,
+           "library_ms": None, "dtype": "bfloat16"}
+    for dt in (bf16, torch.float32):
+        spd = sp if dt == bf16 else [(w.float(), bb) for w, bb in sp]
+        sbpd = sbp if dt == bf16 else SF.stem_bwd_params(spd)
+        xe, xo = SF.split_phases(x.to(dt))
+        g5p = PC.to_planar(g5.to(dt))
+        acts = SF.fused_stem_fwd(xe, xo, spd, save_acts=True)
+        k2 = SF.fused_stem_bwd_saved(acts, g5p, sbpd)
+        torch.full(xe.shape, float("nan"), dtype=dt, device=dev)
+        got = SF.fused_stem_bwd(xe, xo, acts[0], g5p, spd, sbpd)
+        torch.cuda.synchronize()
+        chain = SF.fused_stem_bwd_saved_plain(acts, g5p, sbpd)
+        rel_tol = 2e-5 if dt == torch.float32 else 2.0 ** -6
+        r = {"vs_k2_max_abs_diff": max(
+            (gk.float() - kk.float()).abs().max().item()
+            for gk, kk in zip(got, k2))}
+        errs, means, scale = [], [], 0.0
+        for gk, ck in zip(got, chain):
+            sc = ck.float().abs().max().item()
+            e = (gk.float() - ck.float()).abs()
+            errs.append(e.max().item())
+            means.append(e.mean().item())
+            scale = max(scale, sc)
+            assert errs[-1] <= rel_tol * sc and means[-1] <= 1e-4 * sc, \
+                (dt, errs[-1], means[-1], sc)
+            assert not gk[..., 0].any() and not gk[..., h1 + 1:].any()
+            assert not gk[:, :, 3:].any()
+        tol = rel_tol * scale
+        assert r["vs_k2_max_abs_diff"] <= tol, r
+        r.update(same_masks_max_abs_err=max(errs),
+                 same_masks_mean_abs_err=max(means), tol=tol)
+        del chain, k2
+        # its own plain version: the masks recomputed by cuDNN
+        own = SF.fused_stem_bwd_plain(xe, xo, acts[0], g5p, spd, sbpd)
+        plain_acts = SF.fused_stem_fwd_plain(xe, xo, spd, save_acts=True)
+        zone, flips = flip_zone(acts, plain_acts, h)
+        n_mask = sum(m.numel() for m in acts[1:])
+        del plain_acts
+        e = (SF.merge_phases(*got, h1, 3).float()
+             - SF.merge_phases(*own, h1, 3).float()).abs().amax(-1)
+        err_out = e[~zone].max().item() if (~zone).any() else 0.0
+        r.update(max_abs_err=e.max().item(), mean_abs_err=e.mean().item(),
+                 max_abs_err_outside_flips=err_out, mask_flips=flips,
+                 mask_elements=n_mask,
+                 flip_zone_frac=zone.float().mean().item(),
+                 tol_applies_to="vs_k2_max_abs_diff, same_masks_max_abs_err "
+                                "and max_abs_err_outside_flips")
+        assert flips <= 1e-5 * n_mask, (flips, n_mask)
+        assert err_out <= tol, r
+        del own, e, zone
+        in_bytes = (2 * image_bytes(xe, h1, 3) + image_bytes(acts[0], h5, 128)
+                    + image_bytes(g5p, h5, 128))
+        b_ms, b_by = bound(in_bytes + nbytes(*got),
+                           stem_flops(b, h, conv5=False) + stem_flops(b, h),
+                           dt)
+        r.update(ms=time_ms(lambda: SF.fused_stem_bwd(
+                     xe, xo, acts[0], g5p, spd, sbpd), 5),
+                 plain_ms=time_ms(lambda: SF.fused_stem_bwd_plain(
+                     xe, xo, acts[0], g5p, spd, sbpd), 3),
+                 k2_ms=time_ms(lambda: SF.fused_stem_bwd_saved(
+                     acts, g5p, sbpd), 5),
+                 bound_ms=b_ms, bound_by=b_by)
+        del got, acts
+        log(f"[k5] {dt}: vs K2 on K1's masks {r['vs_k2_max_abs_diff']:.3g}, "
+            f"vs plain chain {r['same_masks_max_abs_err']:.3g} (tol "
+            f"{tol:.3g}), vs own plain {r['max_abs_err']:.3g} "
+            f"({flips} mask flips, outside their zone "
+            f"{err_out:.3g}); {r['ms']:.4f} ms vs plain "
+            f"{r['plain_ms']:.4f}, K2 {r['k2_ms']:.4f}, bound "
+            f"{b_ms:.4f} ({b_by}) ({card})")
+        if dt == bf16:
+            ent.update(r, shape=list(xe.shape),
+                       gflop=(stem_flops(b, h, conv5=False)
+                              + stem_flops(b, h)) / 1e9)
+        else:
+            ent["f32"] = r
+    return ent
+
+
 class PlainStem(torch.autograd.Function):
     """The fused stem on its plain versions (K1 with masks, K2), for the
     bfloat16 gradient check: the route the kernels must reproduce."""
@@ -488,10 +631,10 @@ def training(dev, card) -> dict:
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
             "loss": {k: float(v) for k, v in aux.items()}})
         assert route == "fused", route
-        # the default training route is unchanged: no K4 or K6
+        # the default training route is unchanged: no K4, K5, K6 or K6c
         assert darknet.last_routes()["res152"] == "conv"
-        assert all(launches[k] == 0 for k in K4_VARIANTS + K6_KERNELS), \
-            launches
+        assert all(launches[k] == 0 for k in
+                   K4_VARIANTS + K6_KERNELS + NEW_KERNELS), launches
         for k in TRAIN_PATH:
             assert launches[k] > 0, f"kernel {k} did not launch in training"
         assert all(np.isfinite(v) for v in rec["loss"].values()), rec["loss"]
@@ -984,13 +1127,97 @@ def stage_kernels(dev, model, card) -> list:
     return [entries[n] for n in K6_KERNELS]
 
 
-def route_forward(x, kw, sp, pf, rf):
-    """A route's own forward through layers 0-11 on its kernels (no
-    grad): y11 NHWC and the gates of its leaky layers (NCHW float32, 1
-    where the route's value or mask is > 0, else 0.1), in the order of
-    ``gated_walk_y11``'s convs. The fused route's gates are its kernels'
-    masks (K1 ``save_acts``, K6a ``save``), the planar route's its K4
-    activations."""
+def grad12_kernel(dev, model, card) -> dict:
+    """Phase 7, K6c at b24 608^2 (gp12 [24, 76, 256, *], the stage's masks
+    from K6a on a random x), bfloat16 and float32, against its plain
+    version at K6b's tolerances, timed beside its bound (the stage's four
+    convs and conv12's dgrad) and its cuDNN yardstick: conv12's dgrad
+    (``torch.nn.grad.conv2d_input``) plus the stage's four convs forward
+    and backward on the conv walk. Returns K6c's entry of the kernels
+    line."""
+    PC = import_port("ops.planar_conv")
+    RF = import_port("ops.res_fused")
+    _cuda = import_port("ops._cuda")
+    bf16 = torch.bfloat16
+    b, h = TRAIN_BATCH, SIZE // 4
+    gen = torch.Generator(device=dev).manual_seed(SEED + 14)
+    rfwd, rbwd, _ = model.res_params()
+    x5 = torch.randn(b, h, h, 128, generator=gen, device=dev).to(bf16)
+    g12 = torch.randn(b, h // 2, h // 2, 256, generator=gen,
+                      device=dev).to(bf16)
+    g11 = torch.randn(b, h, h, 128, generator=gen, device=dev).to(bf16)
+    flops = (2.0 * b * h * h * (128 * 64 + 9 * 64 * 128) * 2
+             + 2.0 * b * (h // 2) ** 2 * 256 * 128 * 9)
+    ent = {"name": "res152_fused_grad12", "route": "cuda",
+           "source": f"{PORT}/csrc/res_fused.cu",
+           "replaces": f"{JAX_PKG}/ops/res_fused.py:538", "launches": 0,
+           "dtype": "bfloat16", "gflop": flops / 1e9,
+           "library": "cuDNN conv12 dgrad (torch.nn.grad.conv2d_input) + "
+                      "the stage's four convs fwd + bwd on the conv walk"}
+    for dt in (bf16, torch.float32):
+        fwd = rfwd if dt == bf16 else [(w.float(), bb) for w, bb in rfwd]
+        bwd = rbwd if dt == bf16 else [w.float() for w in rbwd]
+        w12t = model.w12t if dt == bf16 else model.w12t.float()
+        xp = PC.to_planar(x5.to(dt))
+        _, *masks = RF.res152_fused(xp, fwd, save=True)
+        gp12 = PC.to_planar(g12.to(dt))
+        torch.full(xp.shape, float("nan"), dtype=dt, device=dev)
+        g5 = RF.res152_fused_grad12(gp12, masks, bwd, w12t)
+        torch.cuda.synchronize()
+        want = RF.res152_fused_grad12_plain(gp12, masks, bwd, w12t)
+        scale = want.float().abs().max().item()
+        e = (g5.float() - want.float()).abs()
+        err, mean = e.max().item(), e.mean().item()
+        del want, e
+        tol = (2e-5 if dt != bf16 else 2.0 ** -6) * scale
+        assert err <= tol and mean <= 1e-4 * scale, (dt, err, mean, scale)
+        assert not g5[..., 0].any() and not g5[..., h + 1:].any()
+        # the yardstick: conv12's dgrad and the stage's walk, on cuDNN
+        w12 = w12t.permute(2, 3, 0, 1).contiguous(
+            memory_format=torch.channels_last)       # OIHW [256, 128, 3, 3]
+        g12n = g12.to(dt).permute(0, 3, 1, 2)
+        xn = x5.to(dt).requires_grad_(True)
+        gn = g11.to(dt)
+        with _cuda.no_tf32():
+            dgrad_ms = time_ms(lambda: torch.nn.grad.conv2d_input(
+                (b, 128, h, h), w12, g12n, 2, 1), 5)
+            walk_fb = time_ms(lambda: torch.autograd.grad(
+                (stage_conv_walk(xn, fwd) * gn).sum(), xn), 5)
+        del xn
+        g11p = PC.to_planar(g11.to(dt))
+        m_read = sum(image_bytes(m, h, m.shape[2]) for m in masks)
+        b_ms, b_by = bound(image_bytes(gp12, h // 2, 256) + m_read
+                           + nbytes(g5), flops, dt)
+        r = dict(max_abs_err=err, tol=tol, mean_abs_err=mean,
+                 ms=time_ms(lambda: RF.res152_fused_grad12(
+                     gp12, masks, bwd, w12t), 5),
+                 plain_ms=time_ms(lambda: RF.res152_fused_grad12_plain(
+                     gp12, masks, bwd, w12t), 3),
+                 k6b_ms=time_ms(lambda: RF.res152_fused_grad(
+                     g11p, masks, bwd), 5),
+                 bound_ms=b_ms, bound_by=b_by,
+                 library_ms=dgrad_ms + walk_fb, conv12_dgrad_ms=dgrad_ms,
+                 walk_fwd_bwd_ms=walk_fb)
+        log(f"[k6c] {dt}: err {err:.3g} (tol {tol:.3g}), {r['ms']:.4f} ms "
+            f"vs plain {r['plain_ms']:.4f}, K6b {r['k6b_ms']:.4f}, bound "
+            f"{b_ms:.4f} ({b_by}); cuDNN conv12 dgrad {dgrad_ms:.4f} + "
+            f"stage walk fwd+bwd {walk_fb:.4f} ms ({card})")
+        if dt == bf16:
+            ent.update(r, shape=list(gp12.shape))
+        else:
+            ent["f32"] = r
+        del g5, masks, xp, gp12, g11p
+    return ent
+
+
+def route_forward(x, kw, sp, pf, rf, c12=None):
+    """A route's own forward through layers 0-11 (0-12 on the c12 route,
+    ``c12`` = conv12's OIHW weight and bias) on its kernels (no grad): y11
+    (y12) NHWC and the gates of its leaky layers (NCHW float32, 1 where the
+    route's value or mask is > 0, else 0.1), in the order of
+    ``gated_walk_y11``'s convs. The fused and c12 routes' gates are their
+    kernels' masks (K1 ``save_acts``, K6a ``save``; conv12's its own
+    pre-activation's sign), the planar route's its K4 activations."""
     PC = import_port("ops.planar_conv")
     SF = import_port("ops.stem_fused")
     RF = import_port("ops.res_fused")
@@ -1016,23 +1243,32 @@ def route_forward(x, kw, sp, pf, rf):
             gates = [gate(y0, h, 32), gate(y1, h1, 64), gate(y2, h1, 32),
                      gate(y3, h1, 64)]
         gates.append(gate(y5p, h5, 128))
-        xp = PC.to_planar(PC.from_planar(y5p, h5, 128))
-        if kw["res152"] == "fused":
-            y11p, *acts = RF.res152_fused(xp, rf, save=True)
+        if kw["res152"] == "c12":
+            # K6a on the stem's planar y5 itself, as the route runs it
+            y11p, *acts = RF.res152_fused(y5p, rf, save=True)
         else:
-            y11p, *acts = PRP._forward(xp, rf)
+            xp = PC.to_planar(PC.from_planar(y5p, h5, 128))
+            if kw["res152"] == "fused":
+                y11p, *acts = RF.res152_fused(xp, rf, save=True)
+            else:
+                y11p, *acts = PRP._forward(xp, rf)
         gates += [gate(a, h5, a.shape[2]) for a in acts]
-        return PC.from_planar(y11p, h5, 128), gates
+        y11 = PC.from_planar(y11p, h5, 128)
+        if kw["res152"] != "c12":
+            return y11, gates
+        y12, m12 = PRP._conv12(y11, *c12)
+        gates.append(torch.where(m12.permute(0, 3, 1, 2) > 0, 1.0, 0.1))
+        return y12, gates
 
 
-def gated_walk_y11(x, sp, rf, gates):
-    """Layers 0-11 as cuDNN convs (float32; the caller turns TF32 off)
-    whose leaky gates are the given ones (``route_forward``'s): NHWC x ->
-    NHWC y11."""
+def gated_walk_y11(x, sp, rf, gates, c12=None):
+    """Layers 0-11 (0-12 with ``c12`` = conv12's OIHW weight and bias) as
+    cuDNN convs (float32; the caller turns TF32 off) whose leaky gates are
+    the given ones (``route_forward``'s): NHWC x -> NHWC y11 (y12)."""
     def conv(u, w, b, s, g):
         return torch.nn.functional.conv2d(u, w.permute(3, 2, 0, 1), b, s,
                                           (w.shape[0] - 1) // 2) * g
-    g0, g1, g2, g3, g5, g6, g7, g9, g10 = gates
+    g0, g1, g2, g3, g5, g6, g7, g9, g10 = gates[:9]
     v = x.permute(0, 3, 1, 2)
     y1 = conv(conv(v, *sp[0], 1, g0), *sp[1], 2, g1)
     y3 = conv(conv(y1, *sp[2], 1, g2), *sp[3], 1, g3)
@@ -1040,50 +1276,63 @@ def gated_walk_y11(x, sp, rf, gates):
     (w6, b6), (w7, b7), (w9, b9), (w10, b10) = rf
     y8 = conv(conv(y5, w6, b6, 1, g6), w7, b7, 1, g7) + y5
     y11 = conv(conv(y8, w9, b9, 1, g9), w10, b10, 1, g10) + y8
+    if c12 is not None:
+        w12, b12 = c12
+        y11 = torch.nn.functional.conv2d(y11, w12, b12, 2, 1) * gates[9]
     return y11.permute(0, 2, 3, 1)
 
 
 @contextlib.contextmanager
 def plain_kernels():
-    """Route K4 and K6 through their plain versions while inside (the
-    layout kernels stay: they are exact), for the bfloat16 gradient
+    """Route K4, K5, K6 and K6c through their plain versions while inside
+    (the layout kernels stay: they are exact), for the bfloat16 gradient
     readings against the plain route."""
     PC = import_port("ops.planar_conv")
+    SF = import_port("ops.stem_fused")
     RF = import_port("ops.res_fused")
     PSP = import_port("models.stem_planar")
     PRP = import_port("models.res_planar")
     saved = (PSP.planar_conv, PRP.planar_conv, RF.res152_fused,
-             RF.res152_fused_grad)
+             RF.res152_fused_grad, RF.res152_fused_grad12, SF.fused_stem_bwd)
     PSP.planar_conv = PRP.planar_conv = PC.planar_conv_plain
     RF.res152_fused = (lambda xp, fwd, *, save=False, w_img=None:
                        RF.res152_fused_plain(xp, fwd, save, w_img))
     RF.res152_fused_grad = (lambda g, m, bwd, *, w_img=None:
                             RF.res152_fused_grad_plain(g, m, bwd, w_img))
+    RF.res152_fused_grad12 = (
+        lambda g, m, bwd, w12t, *, w_img=None:
+        RF.res152_fused_grad12_plain(g, m, bwd, w12t, w_img))
+    SF.fused_stem_bwd = SF.fused_stem_bwd_plain
     try:
         yield
     finally:
         (PSP.planar_conv, PRP.planar_conv, RF.res152_fused,
-         RF.res152_fused_grad) = saved
+         RF.res152_fused_grad, RF.res152_fused_grad12,
+         SF.fused_stem_bwd) = saved
 
 
 ROUTES = {"fused_fused": (dict(fused_stem=True, res152="fused"),
                           ("fused", "fused")),
           "planar_planar": (dict(fused_stem=False, planar_stem=True,
-                                 res152="planar"), ("planar", "planar"))}
+                                 res152="planar"), ("planar", "planar")),
+          "remat": (dict(fused_stem=True, res152=None, stem_remat=True),
+                    ("fused", "conv")),
+          "c12": (dict(fused_stem=True, res152="c12"), ("c12", "c12"))}
 
 
 def route_training(dev, card) -> dict:
     """Phase 8: ``paper_obj`` at b24 on the full-width YOLOv3 (the CLI's
     victim, seed 1) on the other routes, with counted launches: a
-    ``PatchTrainer`` with ``res152="fused"`` and a train step with only K4
-    in layers 0-11, each 3 warm-up and ROUTE_STEPS timed steps; the
-    victim's forward and forward + backward on each route; then the
-    float32 gradient checks at batch 4 and the bfloat16 readings."""
+    ``PatchTrainer`` each with ``res152="fused"``, ``stem_remat=True`` and
+    ``res152="c12"``, and a train step with only K4 in layers 0-11, each 3
+    warm-up and ROUTE_STEPS timed steps; the victim's forward and forward
+    + backward on each route; then the float32 gradient checks at batch 4
+    and the bfloat16 readings."""
     T = import_port("train")
     PT = import_port("train.trainer")
     PE = import_port("attack.eot")
     PO = import_port("train.optim")
-    SF = import_port("ops.stem_fused")
+    PC = import_port("ops.planar_conv")
     PSP = import_port("models.stem_planar")
     PRP = import_port("models.res_planar")
     _cuda = import_port("ops._cuda")
@@ -1093,8 +1342,14 @@ def route_training(dev, card) -> dict:
     exp = T.get_experiment("paper_obj", batch_size=TRAIN_BATCH,
                            img_size=SIZE, patch_size=PATCH)
     net, params = PT.build_victim(exp, 1)
-    trainer = PT.PatchTrainer(exp, net, params, device=dev,
-                              log=lambda m: None, res152="fused")
+
+    def make_trainer(name):
+        kw = {k: v for k, v in ROUTES.get(name, ({},))[0].items()
+              if k != "fused_stem"}
+        return PT.PatchTrainer(exp, net, params, device=dev,
+                               log=lambda m: None, **kw)
+
+    trainer = make_trainer("fused_fused")
     data = SyntheticData(48, SIZE, exp.max_labels, seed=SEED + 7)
     staged = [tuple(torch.from_numpy(a).to(dev) for a in
                     data.batch(TRAIN_BATCH, i)) for i in range(2)]
@@ -1104,19 +1359,26 @@ def route_training(dev, card) -> dict:
     pw = trainer.patch.detach().clone().requires_grad_(True)
     popt = PO.make_optimizer(pw, exp.learning_rate)
 
-    def step_of(name):
-        if name == "fused_fused":
-            return lambda i: trainer.step(*staged[i % 2])
-        return lambda i: planar_step(
-            pw, popt, *staged[i % 2], exp.learning_rate,
-            PE.draw_eot(gen, TRAIN_BATCH, exp.patch_size, trainer.eot_cfg))
-
     rec = {}
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     for name, (kw, want) in ROUTES.items():
-        step = step_of(name)
-        p0 = (trainer.patch if name == "fused_fused" else pw).detach().clone()
+        # the remat and c12 trainers hold their own model (0.13 GB of
+        # bfloat16 weights beside the fused trainer's) for their run only
+        tr = (trainer if name == "fused_fused" else make_trainer(name)
+              if name in ("remat", "c12") else None)
+        if tr is not None:
+            def step(i, tr=tr):
+                return tr.step(*staged[i % 2])
+            patch_of = tr.patch
+        else:
+            def step(i):
+                return planar_step(
+                    pw, popt, *staged[i % 2], exp.learning_rate,
+                    PE.draw_eot(gen, TRAIN_BATCH, exp.patch_size,
+                                trainer.eot_cfg))
+            patch_of = pw
+        p0 = patch_of.detach().clone()
         reset_counts()
         for i in range(3):
             step(i)
@@ -1139,10 +1401,13 @@ def route_training(dev, card) -> dict:
                              torch.cuda.get_device_name(0)),
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
             "loss": {k: float(v) for k, v in aux.items()}}
+        log(f"[routes] {name}: {ms:.2f} ms/step, peak "
+            f"{r['peak_mem_gb']:.2f} GB ({card})")
         assert routes == want, (name, routes)
         assert all(np.isfinite(v) for v in r["loss"].values()), r["loss"]
-        patch = (trainer.patch if name == "fused_fused" else pw).detach()
-        assert not torch.equal(patch, p0), "the patch did not move"
+        assert not torch.equal(patch_of.detach(), p0), \
+            "the patch did not move"
+        per_step = {k: v / n for k, v in launches.items()}
         if name == "fused_fused":
             # one K6a with masks and one K6b a step; the stage adds a K3a
             # (tiled) and a K3b each way to the stem's
@@ -1152,15 +1417,63 @@ def route_training(dev, card) -> dict:
             assert launches["to_planar_g5"] == 3 * n, launches
             assert launches["from_planar"] == 3 * n, launches
             assert launches["fused_stem_fwd_save_acts"] == n, launches
-            assert all(launches[k] == 0 for k in K4_VARIANTS), launches
-        else:
+            assert all(launches[k] == 0 for k in K4_VARIANTS + NEW_KERNELS), \
+                launches
+        elif name == "planar_planar":
             # only K4 in layers 0-11: per step 6 1x1, 10 3x3 s1 and
             # 2 3x3 s2 convs (forward and backward)
             assert [launches[k] for k in K4_VARIANTS] == [6 * n, 10 * n,
                                                            2 * n], launches
-            assert all(launches[k] == 0 for k in K6_KERNELS), launches
+            assert all(launches[k] == 0 for k in K6_KERNELS + NEW_KERNELS), \
+                launches
             assert launches["fused_stem_fwd_save_acts"] == 0, launches
             assert launches["fused_stem_bwd_saved"] == 0, launches
+        elif name == "remat":
+            # K1 without masks and K5 a step; no K2, no masks
+            want_ps = {"fused_stem_fwd": 1, "fused_stem_fwd_save_acts": 0,
+                       "fused_stem_bwd": 1, "fused_stem_bwd_saved": 0,
+                       "to_planar": 2, "to_planar_g5": 1, "from_planar": 1}
+            assert all(per_step[k] == v for k, v in want_ps.items()), \
+                launches
+            assert all(launches[k] == 0 for k in
+                       K4_VARIANTS + K6_KERNELS + ("res152_fused_grad12",)), \
+                launches
+        else:
+            # K1 save_acts, K6a save, K6c and K2 a step; K3a for the two x
+            # phases (per element) and gp12 (tiled), K3b for y11 only
+            want_ps = {"fused_stem_fwd": 0, "fused_stem_fwd_save_acts": 1,
+                       "res152_fused": 0, "res152_fused_save": 1,
+                       "res152_fused_grad": 0, "res152_fused_grad12": 1,
+                       "fused_stem_bwd_saved": 1, "fused_stem_bwd": 0,
+                       "to_planar": 2, "to_planar_g5": 1, "from_planar": 1}
+            assert all(per_step[k] == v for k, v in want_ps.items()), \
+                launches
+            assert all(launches[k] == 0 for k in K4_VARIANTS), launches
+        if name in ("remat", "c12"):
+            del tr, step, patch_of
+            torch.cuda.empty_cache()
+
+    # the default route (fused stem, K2) under the same conditions, two
+    # models held: the yardstick of the remat and c12 routes' peaks
+    tr = make_trainer("default")
+    for i in range(3):
+        tr.step(*staged[i % 2])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start.record()
+    for i in range(ROUTE_STEPS):
+        tr.step(*staged[i % 2])
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / ROUTE_STEPS
+    rec["default"] = {"routes": tuple(darknet.last_routes().values()),
+                      "ms_per_step": ms, "steps_per_min": 60e3 / ms,
+                      "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    assert rec["default"]["routes"] == ("fused", "conv"), rec["default"]
+    log(f"[routes] default: {ms:.2f} ms/step, peak "
+        f"{rec['default']['peak_mem_gb']:.2f} GB ({card})")
+    del tr
+    torch.cuda.empty_cache()
 
     # where a step's victim time goes on each route (CUDA events)
     images, labels = staged[0]
@@ -1215,6 +1528,7 @@ def route_training(dev, card) -> dict:
     sp32 = m32.stem_params()
     pf32, pb32 = m32.planar_stem_params()
     rf32, rb32, rb4_32 = m32.res_params()
+    c12_32 = (m32.w12, m32.bc12)
     gc = {}
     # (1) the planar stem alone against cuDNN convs of the same weights
     gc["f32_planar_stem_rel_l2"] = rel(
@@ -1222,7 +1536,7 @@ def route_training(dev, card) -> dict:
              draws32, "y5"),
         grad(lambda x: [stem_conv_walk(x, sp32)], cfg32, draws32, "y5"))
 
-    # (2) each stage route alone, on the cuDNN stem
+    # (2) each stage route alone, on the cuDNN stem (c12 through conv12)
     def stage(route):
         def fwd(x):
             y5 = stem_conv_walk(x, sp32).contiguous()
@@ -1230,18 +1544,31 @@ def route_training(dev, card) -> dict:
                 return [PRP.res152_fused_stage(y5, rf32, rb32)]
             if route == "planar":
                 return [PRP.res152_planar(y5, rf32, rb4_32)]
-            return [stage_conv_walk(y5, rf32)]
+            if route == "c12":
+                # the planar y5 through the differentiable plain layout
+                # (the K3a wrapper records no graph)
+                return [PRP.res152_c12_fused(PC.to_planar_plain(y5), rf32,
+                                             rb32, *c12_32, m32.w12t)]
+            y11 = stage_conv_walk(y5, rf32)
+            if route == "walk12":
+                return [PRP._conv12(y11, *c12_32)[0]]
+            return [y11]
         return fwd
     g_walk = grad(stage("walk"), cfg32, draws32, "y11")
     for r in ("fused", "planar"):
         gc[f"f32_stage_{r}_rel_l2"] = rel(grad(stage(r), cfg32, draws32,
                                                "y11"), g_walk)
+    gc["f32_stage_c12_rel_l2"] = rel(
+        grad(stage("c12"), cfg32, draws32, "y12"),
+        grad(stage("walk12"), cfg32, draws32, "y12"))
 
     # (3) the whole victim on each route, against the walk carrying that
-    # route's own forward: its y11 (straight through, so layers 12- see
-    # the route's values) and its leaky gates in layers 0-11 (so a
-    # pre-activation within summation order of 0 gates both alike); and,
-    # recorded beside it, against the walk itself
+    # route's own forward: its y11 (y12 on the c12 route; straight
+    # through, so the later layers see the route's values) and its leaky
+    # gates in layers 0-11 (0-12), so a pre-activation within summation
+    # order of 0 gates both alike; and, recorded beside it, against the
+    # walk itself. The remat route against the default fused route: the
+    # same forward, and K5's gradient is K2's
     def heads(model, kw, want):
         def fwd(x):
             out = model(x, **kw)
@@ -1250,18 +1577,26 @@ def route_training(dev, card) -> dict:
         return fwd
 
     def witness(kw):
+        c12 = c12_32 if kw["res152"] == "c12" else None
+        last = 12 if c12 is not None else 11
+
         def fwd(x):
-            y11k, gates = route_forward(x, kw, sp32, pf32, rf32)
-            y11g = gated_walk_y11(x, sp32, rf32, gates)
-            v = (y11k + (y11g - y11g.detach())).permute(0, 3, 1, 2)
-            return m32.walk(v, 12, {11: v})
+            yk, gates = route_forward(x, kw, sp32, pf32, rf32, c12)
+            yg = gated_walk_y11(x, sp32, rf32, gates, c12)
+            v = (yk + (yg - yg.detach())).permute(0, 3, 1, 2)
+            return m32.walk(v, last + 1, {last: v})
         return fwd
 
     g32w = grad(heads(m32, {}, ("conv", "conv")), cfg32, draws32, "heads")
     for name, (kw, want) in ROUTES.items():
         gk = grad(heads(m32, kw, want), cfg32, draws32, "heads")
-        gc[f"f32_heads_{name}_vs_walk_on_route_forward_rel_l2"] = rel(
-            gk, grad(witness(kw), cfg32, draws32, "heads"))
+        if name == "remat":
+            gc["f32_heads_remat_vs_fused_rel_l2"] = rel(gk, grad(heads(
+                m32, {"fused_stem": True}, ("fused", "conv")), cfg32,
+                draws32, "heads"))
+        else:
+            gc[f"f32_heads_{name}_vs_walk_on_route_forward_rel_l2"] = rel(
+                gk, grad(witness(kw), cfg32, draws32, "heads"))
         gc[f"f32_heads_{name}_vs_walk_rel_l2"] = rel(gk, g32w)
     del m32
     # (4) bfloat16: each route's kernels against its plain versions, both
@@ -1307,6 +1642,7 @@ def main() -> int:
         f"{torch.version.cuda}")
 
     # -- 1. build -------------------------------------------------------
+    phase("1 build")
     t0 = time.perf_counter()
     info = _cuda.build_all()
     log(f"[build] {time.perf_counter() - t0:.1f} s wall")
@@ -1329,6 +1665,7 @@ def main() -> int:
     sp = det.model.stem_params()
 
     # -- 2. kernels vs plain versions at the serving shapes ------------
+    phase("2 serving kernels")
     kernels = []
     x8c = x8.contiguous()
     # K3a to_planar (one phase of split_phases)
@@ -1434,6 +1771,7 @@ def main() -> int:
             f"({k['bound_by']}) ({card})")
 
     # -- 3. serving (the main path; counted launches) ------------------
+    phase("3 serving")
     reset_counts()
     t0 = time.perf_counter()
     dets, valid, sat = det.detect_batch_device(tiles[:BATCH], 0.4, 0.4)
@@ -1483,7 +1821,8 @@ def main() -> int:
     launches = read_counts()
     # the default serving route is unchanged: fused stem, conv-walk stage
     assert darknet.last_routes() == {"stem": "fused", "res152": "conv"}
-    assert all(launches[k] == 0 for k in K4_VARIANTS + K6_KERNELS), launches
+    assert all(launches[k] == 0 for k in
+               K4_VARIANTS + K6_KERNELS + NEW_KERNELS), launches
     log(f"[serve] 16 service answers (rows {[len(a) for a in answers]}), "
         f"HTTP counts {http_counts}, batches {svc.stats.batches}, "
         f"saturated {svc.stats.saturated}; launches {launches}")
@@ -1573,6 +1912,7 @@ def main() -> int:
     log(f"[serve] {json.dumps(serving)} ({card})")
 
     # -- 4. reference goldens through the float32 Detector -------------
+    phase("4 goldens")
     # the slim victim's narrow stem takes the planar stem (K4), and with
     # res152="planar" its 32-wide stage too; launches counted per run
     fixtures = os.path.join(ROOT, "tests", "fixtures")
@@ -1616,12 +1956,15 @@ def main() -> int:
         del gdet
 
     # -- 5. training kernels at the training shapes --------------------
+    phase("5 training kernels")
     train_kernels = training_kernels(dev, sp, det.model.stem_bwd_params(),
                                      card)
+    k5 = remat_kernel(dev, sp, det.model.stem_bwd_params(), card)
     del det, svc
     torch.cuda.empty_cache()
 
     # -- 6. training (the second main path; counted launches) ----------
+    phase("6 training")
     rec = training(dev, card)
     for k in train_kernels:
         k["launches"] = rec["launches"][k["name"]]
@@ -1630,16 +1973,19 @@ def main() -> int:
         k["train_launches_per_step"] = rec["launches_per_step"][k["name"]]
 
     # -- 7. planar-route and stage kernels at full width --------------
+    phase("7 planar-route and stage kernels")
     model16 = darknet.Darknet(net, params, torch.bfloat16, device=dev)
     k4 = k4_entries(planar_kernels(dev, model16, card))
     k6 = stage_kernels(dev, model16, card)
+    k6c = grad12_kernel(dev, model16, card)
     del model16
     torch.cuda.empty_cache()
 
     # -- 8. training on the other routes (counted launches) ------------
+    phase("8 training on the other routes")
     rrec = route_training(dev, card)
     for k, run in [(k, "planar_planar") for k in k4] + [
-            (k, "fused_fused") for k in k6]:
+            (k, "fused_fused") for k in k6] + [(k5, "remat"), (k6c, "c12")]:
         k["launches"] = rrec[run]["launches"][k["name"]]
         k["train_launches_per_step"] = \
             rrec[run]["launches_per_step"][k["name"]]
@@ -1668,12 +2014,34 @@ def main() -> int:
     k6[0]["launches"] = launches["res152_fused"]
     k6[0]["launches_on"] = "serving b8, routes fused/fused"
     del fdet
-    for k in k4 + k6:
+    # serving on the c12 route: K1 and K6a without masks, K3b of y11 and
+    # conv12 on cuDNN; no backward kernel
+    cdet = E.Detector(net, params, img_size=SIZE,
+                      compute_dtype=torch.bfloat16, device=dev, res152="c12")
+    reset_counts()
+    dets, _, _ = cdet.detect_batch_device(tiles[:BATCH], 0.4, 0.4)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    assert darknet.last_routes() == {"stem": "c12", "res152": "c12"}
+    assert tuple(dets.shape) == (BATCH, 300, 7)
+    want = {"to_planar": 2, "fused_stem_fwd": 1, "res152_fused": 1,
+            "from_planar": 1}
+    assert all(launches[k] == want.get(k, 0) for k in launches), launches
+    with torch.inference_mode():
+        rrec["serve_c12"] = {
+            "launches": launches,
+            "forward_ms": time_ms(lambda: cdet.model(
+                x8, fused_stem=True, res152="c12"), 10)}
+    log(f"[routes] serving b8 on the c12 route: "
+        f"{json.dumps(rrec['serve_c12'])} ({card})")
+    del cdet
+    for k in k4 + k6 + [k5, k6c]:
         assert k["launches"] > 0, k["name"]
     for k in k4:
         k["golden_launches"] = {run: v[k["name"]]
                                 for run, v in golden_k4.items()}
-    kernels += k4 + k6
+    kernels += k4 + k6 + [k5, k6c]
+    phase("done")
 
     log(json.dumps({"kernels": kernels}))
     log(card)

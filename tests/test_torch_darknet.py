@@ -218,6 +218,26 @@ def jax_reference():
     return get
 
 
+def _check_route_against_jax_walk(jax_reference, name, routes, **kw):
+    """The model's heads on route ``kw`` within 1e-4 of the JAX walk's
+    scale, ``last_routes()`` equal to ``routes``, and the input gradient of
+    a fixed random projection of the heads within 1e-4 relative L2 of
+    ``jax.grad``'s."""
+    blocks, jparams, x, want, projs, want_g = jax_reference(name)
+    model = PM.Darknet(PM.build_network(blocks), PM.params_from_jax(jparams),
+                       torch.float32, device="cpu")
+    xr = torch.from_numpy(x).requires_grad_(True)
+    heads = model(xr, **kw)
+    assert PM.last_routes() == routes
+    for g, w in zip(heads, want):
+        np.testing.assert_allclose(g.detach().numpy(), w, rtol=1e-4,
+                                   atol=1e-4 * float(np.abs(w).max()))
+    loss = sum((h * torch.from_numpy(r)).sum() for h, r in zip(heads, projs))
+    got_g = torch.autograd.grad(loss, xr)[0].numpy()
+    rel = np.linalg.norm(got_g - want_g) / np.linalg.norm(want_g)
+    assert rel <= 1e-4, rel
+
+
 @pytest.mark.parametrize("name,stem,res152", [
     (n, s, r) for n, cases in ROUTE_CASES.items() for s, r in cases])
 def test_kernel_routes_match_jax_walk(jax_reference, name, stem, res152):
@@ -227,22 +247,12 @@ def test_kernel_routes_match_jax_walk(jax_reference, name, stem, res152):
     relative L2 of ``jax.grad``'s. The full-width YOLOv3 takes every
     route; the slim victim (stem widths 8/16/8/16/32) only the planar
     ones, its stage being 32 wide."""
-    blocks, jparams, x, want, projs, want_g = jax_reference(name)
-    model = PM.Darknet(PM.build_network(blocks), PM.params_from_jax(jparams),
-                       torch.float32, device="cpu")
-    xr = torch.from_numpy(x).requires_grad_(True)
-    heads = model(xr, fused_stem=stem == "fused",
-                  planar_stem=stem == "planar", res152=res152)
     fused_ok = name == "yolov3_full_width" or res152 != "fused"
-    assert PM.last_routes() == {
-        "stem": stem, "res152": res152 if res152 and fused_ok else "conv"}
-    for g, w in zip(heads, want):
-        np.testing.assert_allclose(g.detach().numpy(), w, rtol=1e-4,
-                                   atol=1e-4 * float(np.abs(w).max()))
-    loss = sum((h * torch.from_numpy(r)).sum() for h, r in zip(heads, projs))
-    got_g = torch.autograd.grad(loss, xr)[0].numpy()
-    rel = np.linalg.norm(got_g - want_g) / np.linalg.norm(want_g)
-    assert rel <= 1e-4, rel
+    _check_route_against_jax_walk(
+        jax_reference, name,
+        {"stem": stem, "res152": res152 if res152 and fused_ok else "conv"},
+        fused_stem=stem == "fused", planar_stem=stem == "planar",
+        res152=res152)
 
 
 def test_module_prepares_route_weights_once():
@@ -262,4 +272,44 @@ def test_module_prepares_route_weights_once():
                                                  (3, 3, 16, 32)] * 2
     assert [w is v for w, (v, _) in zip(rbwd, rbwd4)] == [True] * 4
     with pytest.raises(ValueError, match="res152"):
-        model(torch.zeros(1, 64, 64, 3), planar_stem=True, res152="c12")
+        model(torch.zeros(1, 64, 64, 3), planar_stem=True, res152="c13")
+
+
+# (res152, stem_remat) asked of the full-width YOLOv3 with the fused stem,
+# and the routes the JAX package's ``apply`` reports for them under
+# ADV_PATCH_RES152 / ADV_PATCH_STEM_REMAT: the remat stem reports "fused";
+# the c12 route takes the planar-out stem whether or not remat is asked
+REMAT_C12_CASES = [
+    (None, True, ("fused", "conv")), ("fused", True, ("fused", "fused")),
+    ("planar", True, ("fused", "planar")), ("c12", False, ("c12", "c12")),
+    ("c12", True, ("c12", "c12"))]
+
+
+@pytest.mark.parametrize("res152,stem_remat,routes", REMAT_C12_CASES)
+def test_remat_and_c12_routes_match_jax_walk(jax_reference, res152,
+                                             stem_remat, routes):
+    """The recomputing stem backward with each stage route, and the
+    conv12-widened route (the plain versions of K5, K6c and their
+    neighbours here), against the JAX package's XLA walk on the full-width
+    YOLOv3 at 64^2, as ``test_kernel_routes_match_jax_walk``."""
+    _check_route_against_jax_walk(
+        jax_reference, "yolov3_full_width",
+        {"stem": routes[0], "res152": routes[1]}, fused_stem=True,
+        res152=res152, stem_remat=stem_remat)
+
+
+def test_c12_falls_back_where_it_does_not_apply():
+    """res152="c12" takes the c12 route only after the fused stem and where
+    ``c12_applicable`` holds: with the planar stem, or on the slim victim,
+    layers 6-11 stay on the conv walk (the JAX package's mode "0")."""
+    net = PM.build_network(PM.yolov3_blocks(width=64, height=64))
+    model = PM.Darknet(net, PM.init_params(net, 0), device="cpu")
+    x = torch.rand(1, 64, 64, 3, generator=torch.Generator().manual_seed(1))
+    model(x, planar_stem=True, res152="c12")
+    assert PM.last_routes() == {"stem": "planar", "res152": "conv"}
+    model(x, fused_stem=True, res152="c12")
+    assert PM.last_routes() == {"stem": "c12", "res152": "c12"}
+    slim = PM.network_from_cfg(SLIM_CFG)
+    PM.Darknet(slim, PM.init_params(slim, 0), device="cpu")(
+        x, fused_stem=True, planar_stem=True, res152="c12")
+    assert PM.last_routes() == {"stem": "planar", "res152": "conv"}

@@ -179,6 +179,45 @@ def test_fused_stem_bwd_kernel_matches_plain(cuda, dtype, b, h):
         assert not gk[:, :, 3:].any()
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h", [(2, 32), (1, 96)])
+def test_fused_stem_remat_kernel_matches_plain_and_k2(cuda, dtype, b, h):
+    """K5 against K2 on K1's save_acts masks of the same x: the recompute
+    runs K1's own code, so the two agree bit for bit; hence K5 against
+    the plain chain on those masks at K2's tolerances. Against its own
+    plain version, whose recompute sums in cuDNN's order, K5 differs only
+    where that order flips a gate: at K2's tolerances where the masks
+    agree, else flips of at most 1e-5 of the mask elements (or 2). Every
+    border, padding lane and padding channel is zero though the output
+    blocks were dirty."""
+    sp = _stem_params(dtype, cuda)
+    sbp = SF.stem_bwd_params(sp)
+    g = torch.Generator().manual_seed(6)
+    x = torch.rand(b, h, h, 3, generator=g).to(cuda, dtype)
+    xe, xo = SF.split_phases(x)
+    acts = SF.fused_stem_fwd(xe, xo, sp, save_acts=True)
+    g5p = PC.to_planar(torch.randn(b, h // 4, h // 4, 128, generator=g).to(
+        cuda, dtype))
+    k2 = SF.fused_stem_bwd_saved(acts, g5p, sbp)
+    torch.full(xe.shape, float("nan"), dtype=dtype, device=cuda)
+    n = SF.fused_stem_bwd.launches
+    got = SF.fused_stem_bwd(xe, xo, acts[0], g5p, sp, sbp)
+    torch.cuda.synchronize()
+    assert SF.fused_stem_bwd.launches == n + 1
+    chain = SF.fused_stem_bwd_saved_plain(acts, g5p, sbp)
+    own = SF.fused_stem_bwd_plain(xe, xo, acts[0], g5p, sp, sbp)
+    plain_masks = SF.fused_stem_fwd_plain(xe, xo, sp, save_acts=True)[1:]
+    flips = sum(_masks_equal_on_image(m, w)
+                for m, w in zip(acts[1:], plain_masks))
+    for gk, k2k, ck, ok in zip(got, k2, chain, own):
+        assert torch.equal(gk, k2k)
+        _close(gk, ck, dtype, "fused_stem_bwd on K1's masks")
+        if flips == 0:
+            _close(gk, ok, dtype, "fused_stem_bwd")
+        assert not gk[..., 0].any() and not gk[..., h // 2 + 1:].any()
+        assert not gk[:, :, 3:].any()
+
+
 def test_to_planar_g5_geometry_exact(cuda):
     """K3a at the cotangent's width (C = 128, the tiled transpose) and on
     a wide input with a column decimation and channel padding; both K3a
@@ -333,12 +372,36 @@ def test_res152_kernels_match_plain(cuda, dtype, b, h):
             RF.res152_fused_grad.launches) == (n[0] + 1, n[1] + 1, n[2] + 1)
 
 
-@pytest.mark.parametrize("stem,res152", [("fused", "fused"),
-                                         ("planar", "planar"),
-                                         ("planar", "fused")])
-def test_kernel_routes_grad_match_conv_walk_on_card(cuda, stem, res152):
-    """float32, TF32 off: heads and the input gradient through each kernel
-    route equal the conv walk's (summation order only)."""
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h", [(2, 16), (1, 40)])
+def test_res152_grad12_kernel_matches_plain(cuda, dtype, b, h):
+    """K6c against its plain version on K6a's own masks (K6b's
+    tolerances); g5's border and padding lanes are zero though the block
+    was dirty."""
+    from adversarial_patch_based_false_positive_creation_attacks_against_aerial_imagery_object_detectors_tpu_torch.ops import res_fused as RF
+    fwd, bwd = _stage_weights(dtype, cuda)
+    g = torch.Generator().manual_seed(14)
+    w12t = RF.res12_weights((torch.randn(3, 3, 128, 256, generator=g)
+                             * (2.0 / 1152) ** 0.5).to(cuda, dtype))
+    xp = PC.to_planar(torch.randn(b, h, h, 128, generator=g).to(cuda, dtype))
+    _, *masks = RF.res152_fused(xp, fwd, save=True)
+    gp12 = PC.to_planar(torch.randn(b, h // 2, h // 2, 256, generator=g).to(
+        cuda, dtype))
+    torch.full(xp.shape, float("nan"), dtype=dtype, device=cuda)
+    n = RF.res152_fused_grad12.launches
+    g5 = RF.res152_fused_grad12(gp12, masks, bwd, w12t)
+    torch.cuda.synchronize()
+    assert RF.res152_fused_grad12.launches == n + 1
+    _close(g5, RF.res152_fused_grad12_plain(gp12, masks, bwd, w12t), dtype,
+           "res152_fused_grad12")
+    assert not g5[..., 0].any() and not g5[..., h + 1:].any()
+
+
+def _route_grad_vs_walk(cuda, kw):
+    """float32, TF32 off: heads and the input gradient of the full-width
+    YOLOv3 at 64^2 on route ``kw`` and on the conv walk. Returns (routes
+    taken, largest head error over the head's scale, relative L2 of the
+    gradients)."""
     from adversarial_patch_based_false_positive_creation_attacks_against_aerial_imagery_object_detectors_tpu_torch.ops import _cuda
     net = PM.build_network(PM.yolov3_blocks(width=64, height=64))
     model = PM.Darknet(net, PM.init_params(net, 0), torch.float32,
@@ -346,19 +409,31 @@ def test_kernel_routes_grad_match_conv_walk_on_card(cuda, stem, res152):
     x = torch.rand(2, 64, 64, 3, generator=torch.Generator().manual_seed(5)
                    ).to(cuda)
     out = []
-    for kw in ({"fused_stem": stem == "fused", "planar_stem": stem ==
-                "planar", "res152": res152}, {}):
+    for k in (kw, {}):
         xr = x.clone().requires_grad_(True)
         with _cuda.no_tf32():
-            heads = model(xr, **kw)
+            heads = model(xr, **k)
             routes = tuple(PM.last_routes().values())
             sum(h.square().mean() for h in heads).backward()
         out.append(([h.detach() for h in heads], xr.grad, routes))
-    assert out[0][2] == (stem, res152) and out[1][2] == ("conv", "conv")
-    for hk, hw in zip(out[0][0], out[1][0]):
-        assert (hk - hw).abs().max().item() <= 1e-4 * hw.abs().max().item()
+    assert out[1][2] == ("conv", "conv")
+    err = max(((hk - hw).abs().max() / hw.abs().max()).item()
+              for hk, hw in zip(out[0][0], out[1][0]))
     rel = ((out[0][1] - out[1][1]).norm() / out[1][1].norm()).item()
-    assert rel <= 1e-4, rel
+    return out[0][2], err, rel
+
+
+@pytest.mark.parametrize("stem,res152", [("fused", "fused"),
+                                         ("planar", "planar"),
+                                         ("planar", "fused")])
+def test_kernel_routes_grad_match_conv_walk_on_card(cuda, stem, res152):
+    """float32, TF32 off: heads and the input gradient through each kernel
+    route equal the conv walk's (summation order only)."""
+    routes, err, rel = _route_grad_vs_walk(
+        cuda, {"fused_stem": stem == "fused", "planar_stem": stem == "planar",
+               "res152": res152})
+    assert routes == (stem, res152)
+    assert err <= 1e-4 and rel <= 1e-4, (err, rel)
 
 
 def test_detector_takes_planar_stem_for_the_slim_victim(cuda):
@@ -379,3 +454,23 @@ def test_detector_takes_planar_stem_for_the_slim_victim(cuda):
         det.detect_batch_device(images, 0.4, 0.4)
         assert tuple(PM.last_routes().values()) == routes
         assert PC.planar_conv.launches_k3 > n
+
+
+@pytest.mark.parametrize("res152,stem_remat,routes", [
+    (None, True, ("fused", "conv")), ("fused", True, ("fused", "fused")),
+    ("c12", False, ("c12", "c12"))])
+def test_remat_and_c12_routes_grad_match_conv_walk_on_card(
+        cuda, res152, stem_remat, routes):
+    """As ``test_kernel_routes_grad_match_conv_walk_on_card`` through the
+    recomputing stem backward (K5) and the conv12-widened route (K6c),
+    each of which launched."""
+    from adversarial_patch_based_false_positive_creation_attacks_against_aerial_imagery_object_detectors_tpu_torch.ops import res_fused as RF
+    n = (SF.fused_stem_bwd.launches, RF.res152_fused_grad12.launches)
+    got, err, rel = _route_grad_vs_walk(
+        cuda, {"fused_stem": True, "res152": res152,
+               "stem_remat": stem_remat})
+    assert got == routes
+    assert (SF.fused_stem_bwd.launches - n[0],
+            RF.res152_fused_grad12.launches - n[1]) == (
+        (0, 1) if res152 == "c12" else (1, 0))
+    assert err <= 1e-4 and rel <= 1e-4, (err, rel)

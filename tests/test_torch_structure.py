@@ -208,3 +208,44 @@ def test_planar_and_stage_wrappers_plain_on_cpu_raise_elsewhere():
     with pytest.raises(ValueError, match="CUDA"):
         rf.res152_fused_grad(meta, masks, bwd)
     assert counts() == before
+
+
+def test_remat_and_c12_wrappers_plain_on_cpu_raise_elsewhere():
+    """K5's and K6c's wrappers (``fused_stem_bwd``,
+    ``res152_fused_grad12``) run their plain versions on CPU tensors and
+    count no launch; a tensor on a device that is not a card raises
+    instead of falling back. Their sources are among those the no-JAX
+    scans read."""
+    import importlib
+    pc = importlib.import_module(f"{PORT}.ops.planar_conv")
+    sf = importlib.import_module(f"{PORT}.ops.stem_fused")
+    rf = importlib.import_module(f"{PORT}.ops.res_fused")
+    names = {os.path.relpath(p, ROOT) for p in _port_sources()}
+    assert os.path.join(PORT, "ops/stem_fused.py") in names
+
+    def counts():
+        return (sf.fused_stem_bwd.launches, rf.res152_fused_grad12.launches)
+    before = counts()
+    g = torch.Generator().manual_seed(0)
+    sp = [(torch.rand(k, k, ci, co, generator=g) * 0.1, torch.zeros(co))
+          for ci, co, k in zip(sf.STEM_IN, sf.STEM_FILTERS, sf.STEM_KSIZE)]
+    sbp = sf.stem_bwd_params(sp)
+    xe, xo = sf.split_phases(torch.rand(1, 32, 32, 3, generator=g))
+    y5p = sf.fused_stem_fwd(xe, xo, sp)
+    gxe, gxo = sf.fused_stem_bwd(xe, xo, y5p, y5p, sp, sbp)
+    assert gxe.shape == gxo.shape == xe.shape
+    fwd, bwd = rf.res_weights(
+        [(torch.rand(k, k, ci, co, generator=g) * 0.1, torch.zeros(co))
+         for k, ci, co in ((1, 128, 64), (3, 64, 128)) * 2])
+    w12t = rf.res12_weights(torch.rand(3, 3, 128, 256, generator=g) * 0.1)
+    xp = pc.to_planar(torch.rand(1, 8, 8, 128, generator=g))
+    _, *masks = rf.res152_fused(xp, fwd, save=True)
+    gp12 = pc.to_planar(torch.rand(1, 4, 4, 256, generator=g))
+    assert rf.res152_fused_grad12(gp12, masks, bwd, w12t).shape == xp.shape
+    assert counts() == before
+    meta = [torch.empty(t.shape, device="meta") for t in (xe, xo, y5p, gp12)]
+    with pytest.raises(ValueError, match="CUDA"):
+        sf.fused_stem_bwd(meta[0], meta[1], meta[2], meta[2], sp, sbp)
+    with pytest.raises(ValueError, match="CUDA"):
+        rf.res152_fused_grad12(meta[3], masks, bwd, w12t)
+    assert counts() == before

@@ -164,6 +164,27 @@ def test_train_step_matches_jax(yolov3, jax_steps, padded):
     _check_against_jax(ref, paux, pgrad, patch)
 
 
+def _check_trainer_route(yolov3, jax_steps, routes, **kw):
+    """One ``PatchTrainer`` step on the route ``kw`` (its step function,
+    fed the JAX step's draws) against the JAX step on the XLA walk."""
+    jnet, jparams, _ = yolov3
+    ref = jax_steps(False)
+    pexp = _exp(PC)
+    tr = PT.PatchTrainer(pexp, PM.build_network(PM.yolov3_blocks(
+        width=IMG, height=IMG)), PM.params_from_jax(jparams), device="cpu",
+        log=lambda s: None, **kw)
+    with torch.no_grad():
+        tr.patch.copy_(torch.from_numpy(ref["p0"]))
+    images, labels = (torch.from_numpy(ref[k]) for k in ("images", "labels"))
+    loss_fn = PT.make_loss_fn(tr.model, pexp, **kw)
+    total, _ = loss_fn(tr.patch, images, labels, None, ref["draws"])
+    pgrad = torch.autograd.grad(total, tr.patch)[0].numpy()
+    paux = tr.step_fn(tr.patch, tr.optimizer, images, labels, 0.03,
+                      ref["draws"])
+    assert tuple(PM.last_routes().values()) == routes
+    _check_against_jax(ref, paux, pgrad, tr.patch)
+
+
 @pytest.mark.parametrize("fused_stem,planar_stem,res152,routes", [
     (True, False, "fused", ("fused", "fused")),
     (False, True, "planar", ("planar", "planar"))])
@@ -173,24 +194,20 @@ def test_patch_trainer_kernel_routes_match_jax(yolov3, jax_steps, fused_stem,
     draws) with the 152^2 stage on its kernel routes (the plain versions
     here) against the JAX step on the XLA walk: the same loss parts,
     patch gradient and update as the fused-stem route."""
-    jnet, jparams, _ = yolov3
-    ref = jax_steps(False)
-    pexp = _exp(PC)
-    tr = PT.PatchTrainer(pexp, PM.build_network(PM.yolov3_blocks(
-        width=IMG, height=IMG)), PM.params_from_jax(jparams), device="cpu",
-        log=lambda s: None, fused_stem=fused_stem, planar_stem=planar_stem,
-        res152=res152)
-    with torch.no_grad():
-        tr.patch.copy_(torch.from_numpy(ref["p0"]))
-    images, labels = (torch.from_numpy(ref[k]) for k in ("images", "labels"))
-    loss_fn = PT.make_loss_fn(tr.model, pexp, fused_stem=fused_stem,
-                              planar_stem=planar_stem, res152=res152)
-    total, _ = loss_fn(tr.patch, images, labels, None, ref["draws"])
-    pgrad = torch.autograd.grad(total, tr.patch)[0].numpy()
-    paux = tr.step_fn(tr.patch, tr.optimizer, images, labels, 0.03,
-                      ref["draws"])
-    assert tuple(PM.last_routes().values()) == routes
-    _check_against_jax(ref, paux, pgrad, tr.patch)
+    _check_trainer_route(yolov3, jax_steps, routes, fused_stem=fused_stem,
+                         planar_stem=planar_stem, res152=res152)
+
+
+@pytest.mark.parametrize("stem_remat,res152,routes", [
+    (True, None, ("fused", "conv")), (False, "c12", ("c12", "c12"))])
+def test_patch_trainer_remat_and_c12_routes_match_jax(yolov3, jax_steps,
+                                                      stem_remat, res152,
+                                                      routes):
+    """One ``PatchTrainer`` step on the recomputing stem backward (K5) and
+    on the conv12-widened route (K6c), the plain versions here, against
+    the JAX step on the XLA walk, as the other kernel routes."""
+    _check_trainer_route(yolov3, jax_steps, routes, res152=res152,
+                         stem_remat=stem_remat)
 
 
 def test_padded_batch_changes_nothing(yolov3):
