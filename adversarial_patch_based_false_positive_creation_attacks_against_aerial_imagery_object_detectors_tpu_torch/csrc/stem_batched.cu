@@ -1,0 +1,433 @@
+// Batch-on-lanes fused YOLOv3 stem: the forward (K8a) and the input
+// backward from saved activations (K8b).
+//
+// Replace the JAX package's Pallas kernels experimental/stem_batched.py
+// fused_stem_fwd_b (body _fwd_kernel_b) and fused_stem_bwd_b (body
+// _bwd_kernel_b). The layout is that module's: a row of a tensor is
+// [C, B * seg], image b's column j at lane b * seg + j + 1 with
+// seg = round_up(H/2 + 2, 128), lane 0 and the slack past the values zero.
+// Both kernels write every lane of their outputs, so no output needs a
+// memset. The batch lives on the lanes only in device memory: each block
+// works on one image's tile, as K1, K2 and K5 do.
+//
+// K8a computes K1's stem (stem_fused.cu) from the even/odd column phases
+// of x, [H, 8, B*seg] each, with conv5 at stride (2, 1): y5 lane-dense,
+// [H/4, 128, B*seg], value lane j + 1 of a row holding conv5 centred on s4
+// column j for every j < H/2, so the even columns are K1's y5 and the odd
+// ones the 2x conv5 work the Pallas kernel does by design. With save_acts it
+// also writes the activations themselves in the compute dtype T: y0 as
+// even/odd column phases [H, 32, B*seg], y1 [H/2, 64, .], y2 [H/2, 32, .]
+// and y3 [H/2, 64, .], y3 before the shortcut sum. Rounding points are
+// _fwd_kernel_b's: float32 accumulation, each activation rounded to T when
+// stored, s4 = T(y3 + y1). The convs are stem_common.cuh's conv_stage, the
+// code K1 runs (conv5 with its column stride set to 1), so every value equals
+// K1's bit for bit and the even lanes of y5 are K1's y5.
+//
+// K8b takes the conv5 cotangent gp5dd [H/2, 128, B*seg], already gated by
+// y5's sign and zero-interleaved in rows and lanes, and K8a's saved
+// activations, and returns the phase-split input cotangent (gxe, gxo),
+// [H, 8, B*seg] each. With m(v) = 1 if the stored v > 0 else 0.1:
+//   gs4 = T(conv5-dx gp5dd)    stride-1 transposed 3x3, 128 -> 64, over
+//                              every position of whatever gp5dd it is given
+//   gp3 = T(gs4 m(y3)), gp2 = T(conv3^T(gp3) m(y2)),
+//   gp1 = T((conv2^T(gp2) + gs4) m(y1)), gp0 = T(conv1^T(gp1) m(y0)),
+//   gx  = T(conv0^T gp0)
+// with float32 accumulation; past gs4 this is stem_common.cuh's chain_tail,
+// the code K2 and K5 run, its gates read from the saved values (ActMask).
+//
+// What bounds them on the H100. K8a: with save_acts, bytes (~1.6 GB of
+// activations written at b24 608^2 bf16, 0.48 ms); without, operations
+// (14.6 GFLOP an image: 7.8 for y0-y3 and 2 x 3.4 for the dense conv5).
+// K8b: bytes (~1.9 GB read), its real work 11.2 GFLOP an image with conv5's
+// adjoint at the quarter its zero-interleaved input needs. What this first
+// design does about it: nothing clever yet. Each block owns a tile of one
+// image and computes over its receptive field in shared memory (K8a an 8 x 8
+// y5 tile, 8 x 16 dense, in bfloat16 and 4 x 4 in float32, with K1's halos;
+// K8b K2's 16 x 16 gx tile), with CUDA-core FMAs, so no intermediate
+// touches device memory. K8b's conv5-dx runs over all of its 16^2 x 128
+// gp5dd tile, zeros included (4x the multiply-adds its zero-interleaved
+// input needs, and ~3x halo): ~42 GFLOP an image. Tensor cores and the
+// quarter-work formulation of the adjoint are later work.
+//
+// Shared memory: K8a bfloat16 161,568 bytes (x; y0, then y2 and s4; y1,
+// then the dense y5 tile), float32 115,520; K8b 57,856 elements (gs4; gp3
+// then gp1; the gp5dd tile, then gp2, then gp0): 115,712 bytes in bfloat16,
+// 231,424 in float32.
+
+#include "stem_common.cuh"
+
+namespace {
+
+using namespace stem;
+
+// K8a's tile geometry: TILE x TILE sparse y5 positions (TILE x 2 TILE dense)
+template <int TILE>
+struct GeomB {
+  static constexpr int S4N = 2 * TILE + 1;  // s4 / y3 tile rows
+  static constexpr int S4W = S4N + 1;       // s4 / y3 tile columns
+  static constexpr int Y1N = S4N + 2;       // y1 / y2 tile rows
+  static constexpr int Y1W = S4W + 2;       // y1 / y2 tile columns
+  static constexpr int Y0N = 2 * Y1N + 1;   // y0 tile rows
+  static constexpr int Y0W = 2 * Y1W + 1;   // y0 tile columns
+  static constexpr int XN = Y0N + 2;        // x tile rows
+  static constexpr int XW = Y0W + 2;        // x tile columns
+  static constexpr int A = (XN * XW * 3 + 7) / 8 * 8;
+  static constexpr int Y2 = Y1N * Y1W * 32;
+  static constexpr int B0 = Y0N * Y0W * 32;
+  static constexpr int B1 = Y2 + S4N * S4W * 64;
+  static constexpr int B = B0 > B1 ? B0 : B1;
+  static constexpr int C0 = Y1N * Y1W * 64;
+  static constexpr int C1 = TILE * 2 * TILE * 128;
+  static constexpr int C = C0 > C1 ? C0 : C1;
+  static constexpr int ELEMS = A + B + C;
+};
+
+// The own nr x nc region of a [pos][C] tile of row pitch TW, whose position
+// (rr + off, k + off) is image position (r0 + rr, c0 + k), into a
+// batch-on-lanes tensor [rows, C, pitch] whose image segment starts at lane
+// lb: column c at lane lb + c + 1 of d0, or with PHASE the even columns into
+// d0 and the odd ones into d1, column c at lane lb + c/2 + 1. Lanes run
+// fastest. Positions past the image (rows x cols) are skipped. The block of
+// the first tile column also zeroes lane 0 of its rows, the block of the last
+// tile column the lanes past the values (wq + 1 .. seg - 1).
+template <typename T, int C, bool PHASE>
+__device__ void store_own(const T* __restrict__ tile, int TW, int off, int nr,
+                          int nc, int r0, int c0, T* __restrict__ d0,
+                          T* __restrict__ d1, int rows, int cols,
+                          long long pitch, long long lb, int seg, bool first,
+                          bool last) {
+  const int half = PHASE ? nc / 2 : nc;
+  const int wq = PHASE ? cols / 2 : cols;  // value lanes per segment
+  for (int idx = threadIdx.x; idx < nr * C * nc; idx += NT) {
+    const int k = idx % nc;
+    const int rest = idx / nc;
+    const int ch = rest % C, rr = rest / C;
+    const int ph = k / half, j = k - ph * half;
+    const int col = PHASE ? 2 * j + ph : k;
+    if (r0 + rr >= rows || c0 + col >= cols) continue;
+    const int lane = PHASE ? c0 / 2 + j + 1 : c0 + k + 1;
+    (ph ? d1 : d0)[((long long)(r0 + rr) * C + ch) * pitch + lb + lane] =
+        tile[((rr + off) * TW + col + off) * C + ch];
+  }
+  if (first || last) {
+    const int nz_r = last ? seg - wq - 1 : 0;
+    const int nz = nz_r + (first ? 1 : 0);
+    const int nd = PHASE ? 2 : 1;
+    for (int idx = threadIdx.x; idx < nr * C * nz * nd; idx += NT) {
+      const int k = idx % nz;
+      int rest = idx / nz;
+      const int ch = rest % C;
+      rest /= C;
+      const int rr = rest % nr, ph = rest / nr;
+      const int lane = k < nz_r ? wq + 1 + k : 0;
+      if (r0 + rr < rows)
+        (ph ? d1 : d0)[((long long)(r0 + rr) * C + ch) * pitch + lb + lane] =
+            from_f<T>(0.f);
+    }
+  }
+}
+
+// save_acts' outputs; all null for the forward alone
+template <typename T>
+struct Acts {
+  T* y0e;
+  T* y0o;
+  T* y1;
+  T* y2;
+  T* y3;
+};
+
+template <typename T, int TILE, bool SAVE>
+__global__ void __launch_bounds__(NT, 1)
+    fused_stem_fwd_b_kernel(const T* __restrict__ xe, const T* __restrict__ xo,
+                            const T* __restrict__ w0, const T* __restrict__ w1,
+                            const T* __restrict__ w2, const T* __restrict__ w3,
+                            const T* __restrict__ w5,
+                            const float* __restrict__ b0,
+                            const float* __restrict__ b1,
+                            const float* __restrict__ b2,
+                            const float* __restrict__ b3,
+                            const float* __restrict__ b5, T* __restrict__ y5,
+                            Acts<T> ac, int H, int seg, long long pitch) {
+  using G = GeomB<TILE>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* xs = reinterpret_cast<T*>(smem_raw);  // [XN][XW][3]
+  T* y0 = xs + G::A;                       // [Y0N][Y0W][32]
+  T* y2 = y0;                              // [Y1N][Y1W][32], after conv1
+  T* s4 = y0 + G::Y2;                      // [S4N][S4W][64]: y3, then s4
+  T* y1 = y0 + G::B;                       // [Y1N][Y1W][64]
+  T* ys = y1;                              // [TILE][2 TILE][128], after s4
+
+  const long long lb = (long long)blockIdx.z * seg;
+  const int R5 = blockIdx.y * TILE, C5 = blockIdx.x * TILE;
+  const int H1 = H / 2, H5 = H / 4;
+  const bool first = blockIdx.x == 0, last = blockIdx.x == gridDim.x - 1;
+
+  // x tile from image row 4 R5 - 6 and column 4 C5 - 6; column c of x is
+  // lane c/2 + 1 of the even (c even) or odd phase
+  const int xr0 = 4 * R5 - 6, xc0 = 4 * C5 - 6;
+  for (int idx = threadIdx.x; idx < G::XN * G::XW * 3; idx += NT) {
+    const int ci = idx % 3;
+    const int p = idx / 3;
+    const int gr = xr0 + p / G::XW, gc = xc0 + p % G::XW;
+    T v = from_f<T>(0.f);
+    if (gr >= 0 && gr < H && gc >= 0 && gc < H) {
+      const T* src = (gc & 1) ? xo : xe;
+      v = src[((long long)gr * 8 + ci) * pitch + lb + (gc >> 1) + 1];
+    }
+    xs[idx] = v;
+  }
+  __syncthreads();
+  conv_stage<T, 3, 32, 3, 1, 4>(xs, G::XW, y0, G::Y0N, G::Y0W, w0, b0,
+                                4 * R5 - 5, 4 * C5 - 5, H, nullptr, 0);
+  __syncthreads();
+  // own regions: y0 rows/columns [4 R5, 4 R5 + 4 TILE) at tile offset 5, y1
+  // and y2 [2 R5, 2 R5 + 2 TILE) at offset 2, y3 at offset 1; the tiles of
+  // all blocks partition the image
+  if (SAVE)
+    store_own<T, 32, true>(y0, G::Y0W, 5, 4 * TILE, 4 * TILE, 4 * R5, 4 * C5,
+                           ac.y0e, ac.y0o, H, H, pitch, lb, seg, first, last);
+  conv_stage<T, 32, 64, 3, 2, 4>(y0, G::Y0W, y1, G::Y1N, G::Y1W, w1, b1,
+                                 2 * R5 - 2, 2 * C5 - 2, H1, nullptr, 0);
+  __syncthreads();
+  if (SAVE)
+    store_own<T, 64, false>(y1, G::Y1W, 2, 2 * TILE, 2 * TILE, 2 * R5, 2 * C5,
+                            ac.y1, nullptr, H1, H1, pitch, lb, seg, first,
+                            last);
+  conv_stage<T, 64, 32, 1, 1, 4>(y1, G::Y1W, y2, G::Y1N, G::Y1W, w2, b2,
+                                 2 * R5 - 2, 2 * C5 - 2, H1, nullptr, 0);
+  __syncthreads();
+  if (SAVE)
+    store_own<T, 32, false>(y2, G::Y1W, 2, 2 * TILE, 2 * TILE, 2 * R5, 2 * C5,
+                            ac.y2, nullptr, H1, H1, pitch, lb, seg, first,
+                            last);
+  conv_stage<T, 32, 64, 3, 1, 4>(y2, G::Y1W, s4, G::S4N, G::S4W, w3, b3,
+                                 2 * R5 - 1, 2 * C5 - 1, H1, nullptr, 0);
+  __syncthreads();
+  if (SAVE) {
+    store_own<T, 64, false>(s4, G::S4W, 1, 2 * TILE, 2 * TILE, 2 * R5, 2 * C5,
+                            ac.y3, nullptr, H1, H1, pitch, lb, seg, first,
+                            last);
+    __syncthreads();
+  }
+  // s4 = T(y3 + y1) in place, y1 at its tile position (oy + 1, ox + 1): K1's
+  // shortcut sum (zero outside the image, where both are zero)
+  for (int idx = threadIdx.x; idx < G::S4N * G::S4W * 64; idx += NT) {
+    const int ch = idx % 64;
+    const int p = idx / 64;
+    const int oy = p / G::S4W, ox = p - oy * G::S4W;
+    s4[idx] = from_f<T>(to_f(s4[idx]) +
+                        to_f(y1[((oy + 1) * G::Y1W + ox + 1) * 64 + ch]));
+  }
+  __syncthreads();
+  // conv5 at stride (2, 1): dense y5 (R5 + oy, 2 C5 + ox) reads s4 at tile
+  // (2 oy + ky, ox + kx)
+  conv_stage<T, 64, 128, 3, 2, 4, false, 1>(s4, G::S4W, ys, TILE, 2 * TILE,
+                                            w5, b5, 0, 0, 0x7fffffff,
+                                            nullptr, 0);
+  __syncthreads();
+  store_own<T, 128, false>(ys, 2 * TILE, 0, TILE, 2 * TILE, R5, 2 * C5, y5,
+                           nullptr, H5, H1, pitch, lb, seg, first, last);
+}
+
+template <typename T, int TILE, bool SAVE>
+int launch_fwd(const void* xe, const void* xo, const void* const* w,
+               const float* const* bias, void* y5, Acts<T> ac, int B, int H,
+               int seg, cudaStream_t s) {
+  const size_t smem = sizeof(T) * (size_t)GeomB<TILE>::ELEMS;
+  cudaError_t e = cudaFuncSetAttribute(
+      fused_stem_fwd_b_kernel<T, TILE, SAVE>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const int nt = (H / 4 + TILE - 1) / TILE;
+  dim3 grid(nt, nt, B);
+  fused_stem_fwd_b_kernel<T, TILE, SAVE><<<grid, NT, smem, s>>>(
+      static_cast<const T*>(xe), static_cast<const T*>(xo),
+      static_cast<const T*>(w[0]), static_cast<const T*>(w[1]),
+      static_cast<const T*>(w[2]), static_cast<const T*>(w[3]),
+      static_cast<const T*>(w[4]), bias[0], bias[1], bias[2], bias[3],
+      bias[4], static_cast<T*>(y5), ac, H, seg, (long long)B * seg);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int TILE>
+int launch_fwd_any(const void* xe, const void* xo, const void* const* w,
+                   const float* const* bias, void* y5, void* const* a, int B,
+                   int H, int seg, cudaStream_t s) {
+  const Acts<T> ac = {static_cast<T*>(a[0]), static_cast<T*>(a[1]),
+                      static_cast<T*>(a[2]), static_cast<T*>(a[3]),
+                      static_cast<T*>(a[4])};
+  if (ac.y0e != nullptr)
+    return launch_fwd<T, TILE, true>(xe, xo, w, bias, y5, ac, B, H, seg, s);
+  return launch_fwd<T, TILE, false>(xe, xo, w, bias, y5, ac, B, H, seg, s);
+}
+
+// ---------------------------------------------------------------------------
+// K8b
+// ---------------------------------------------------------------------------
+
+struct ChainB {
+  static constexpr int N5D = Chain::N4 + 2;  // gp5dd tile side (16)
+  static constexpr int SZ_G = N5D * N5D * 128;
+  static constexpr int SZ_Z = SZ_G > Chain::SZ_Z ? SZ_G : Chain::SZ_Z;
+  static constexpr int ELEMS = Chain::SZ_X + Chain::SZ_Y + SZ_Z;
+};
+
+// gx = T(v), 8 channels, into the even/odd column phases of one image's
+// batch-on-lanes segment; positions past the image (H not a multiple of the
+// tile) are dropped
+template <typename T>
+struct EpiGxB {
+  T* gxe;
+  T* gxo;
+  int org_r, org_c, H;
+  long long pitch, lb;
+  __device__ void operator()(int oy, int ox, int, const float* v) const {
+    const int gr = org_r + oy, gc = org_c + ox;
+    if (gr >= H || gc >= H) return;
+    T* d = (gc & 1) ? gxo : gxe;
+    const long long o = (long long)gr * 8 * pitch + lb + (gc >> 1) + 1;
+#pragma unroll
+    for (int c = 0; c < CT; ++c) d[o + (long long)c * pitch] = from_f<T>(v[c]);
+  }
+};
+
+template <typename T>
+__global__ void __launch_bounds__(NT, 1)
+    fused_stem_bwd_b_kernel(const T* __restrict__ gp5dd,
+                            const T* __restrict__ y0e,
+                            const T* __restrict__ y0o,
+                            const T* __restrict__ y1,
+                            const T* __restrict__ y2,
+                            const T* __restrict__ y3,
+                            const T* __restrict__ v0, const T* __restrict__ v1,
+                            const T* __restrict__ v2, const T* __restrict__ v3,
+                            const T* __restrict__ v5, T* __restrict__ gxe,
+                            T* __restrict__ gxo, int H, int seg,
+                            long long pitch) {
+  using K = Chain;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* X = reinterpret_cast<T*>(smem_raw);  // gs4
+  T* Y = X + K::SZ_X;                      // gp3, then gp1
+  T* Z = Y + K::SZ_Y;                      // gp5dd, then gp2, then gp0
+  const long long lb = (long long)blockIdx.z * seg;
+  const int R0 = blockIdx.y * K::TX, C0 = blockIdx.x * K::TX;
+  const int H1 = H / 2;
+  const int o4r = R0 / 2 - 2, o4c = C0 / 2 - 2;  // gs4 / gp3 tile origin
+
+  // the gp5dd tile over gs4's receptive field, from (o4r - 1, o4c - 1),
+  // lanes fastest; zero outside the image
+  constexpr int N = ChainB::N5D;
+  for (int idx = threadIdx.x; idx < N * N * 128; idx += NT) {
+    const int k = idx % N;
+    const int rest = idx / N;
+    const int co = rest % 128, r = rest / 128;
+    const int gr = o4r - 1 + r, gc = o4c - 1 + k;
+    T v = from_f<T>(0.f);
+    if (gr >= 0 && gr < H1 && gc >= 0 && gc < H1)
+      v = gp5dd[((long long)gr * 128 + co) * pitch + lb + gc + 1];
+    Z[(r * N + k) * 128 + co] = v;
+  }
+  __syncthreads();
+  // gs4 (X) and gp3 (Y): the stride-1 adjoint of conv5 over the whole tile,
+  // gs4 (oy, ox) reading gp5dd at tile (oy + 2 - dy, ox + 2 - dx)
+  convt_s1<T, 128, 64, 3, 2, 7>(
+      Z, N, K::N4, K::N4, v5,
+      EpiGs4<T, ActMask<T, 64, false>>{
+          X, Y, ActMask<T, 64, false>{y3, nullptr, pitch, lb}, o4r, o4c,
+          H1});
+  __syncthreads();
+  chain_tail<T>(X, Y, Z, v0, v1, v2, v3,
+                ActMask<T, 32, true>{y0e, y0o, pitch, lb},
+                ActMask<T, 64, false>{y1, nullptr, pitch, lb},
+                ActMask<T, 32, false>{y2, nullptr, pitch, lb}, H,
+                EpiGxB<T>{gxe, gxo, R0, C0, H, pitch, lb});
+  // zero border and slack lanes of this tile's rows in both phases: lane 0
+  // (first tile column), lanes H/2 + 1 .. seg - 1 (last tile column)
+  const bool first = blockIdx.x == 0, last = blockIdx.x == gridDim.x - 1;
+  if (first || last) {
+    const int nr = last ? seg - H1 - 1 : 0;
+    const int n = nr + (first ? 1 : 0);
+    for (int idx = threadIdx.x; idx < 2 * K::TX * 8 * n; idx += NT) {
+      const int k = idx % n;
+      int rest = idx / n;
+      const int c = rest % 8;
+      rest /= 8;
+      const int r = rest % K::TX, ph = rest / K::TX;
+      const int lane = k < nr ? H1 + 1 + k : 0;
+      if (R0 + r < H)
+        (ph ? gxo : gxe)[((long long)(R0 + r) * 8 + c) * pitch + lb + lane] =
+            from_f<T>(0.f);
+    }
+  }
+}
+
+template <typename T>
+int launch_bwd(const void* gp5dd, const void* const* a, const void* const* v,
+               void* gxe, void* gxo, int B, int H, int seg, cudaStream_t s) {
+  const size_t smem = sizeof(T) * (size_t)ChainB::ELEMS;
+  cudaError_t e = cudaFuncSetAttribute(
+      fused_stem_bwd_b_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const int nt = (H + Chain::TX - 1) / Chain::TX;
+  dim3 grid(nt, nt, B);
+  fused_stem_bwd_b_kernel<T><<<grid, NT, smem, s>>>(
+      static_cast<const T*>(gp5dd), static_cast<const T*>(a[0]),
+      static_cast<const T*>(a[1]), static_cast<const T*>(a[2]),
+      static_cast<const T*>(a[3]), static_cast<const T*>(a[4]),
+      static_cast<const T*>(v[0]), static_cast<const T*>(v[1]),
+      static_cast<const T*>(v[2]), static_cast<const T*>(v[3]),
+      static_cast<const T*>(v[4]), static_cast<T*>(gxe), static_cast<T*>(gxo),
+      H, seg, (long long)B * seg);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// K8a. dtype: 0 = float32 (TILE 4), 1 = bfloat16 (TILE 8). xe, xo the
+// batch-on-lanes phases [H, 8, B*seg]; weights HWIO in the compute dtype,
+// biases float32; y5 dense [H/4, 128, B*seg]; a0e .. a3 save_acts' outputs,
+// all null for the forward alone. H a multiple of 8. Returns
+// cudaGetLastError().
+extern "C" int apfp_fused_stem_fwd_b(const void* xe, const void* xo,
+                                     const void* w0, const void* w1,
+                                     const void* w2, const void* w3,
+                                     const void* w5, const void* b0,
+                                     const void* b1, const void* b2,
+                                     const void* b3, const void* b5, void* y5,
+                                     void* a0e, void* a0o, void* a1, void* a2,
+                                     void* a3, int dtype, int B, int H,
+                                     int seg, void* stream) {
+  const void* w[5] = {w0, w1, w2, w3, w5};
+  const float* bias[5] = {
+      static_cast<const float*>(b0), static_cast<const float*>(b1),
+      static_cast<const float*>(b2), static_cast<const float*>(b3),
+      static_cast<const float*>(b5)};
+  void* const a[5] = {a0e, a0o, a1, a2, a3};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1)
+    return launch_fwd_any<__nv_bfloat16, 8>(xe, xo, w, bias, y5, a, B, H, seg,
+                                            s);
+  return launch_fwd_any<float, 4>(xe, xo, w, bias, y5, a, B, H, seg, s);
+}
+
+// K8b. dtype: 0 = float32, 1 = bfloat16. gp5dd [H/2, 128, B*seg]; y0e, y0o
+// [H, 32, B*seg], y1, y3 [H/2, 64, .], y2 [H/2, 32, .]; v0 .. v5 K2's
+// swapped-channel weights of convs 0, 1, 2, 3, 5; gxe, gxo [H, 8, B*seg].
+// H a multiple of 8. Returns cudaGetLastError().
+extern "C" int apfp_fused_stem_bwd_b(const void* gp5dd, const void* y0e,
+                                     const void* y0o, const void* y1,
+                                     const void* y2, const void* y3,
+                                     const void* v0, const void* v1,
+                                     const void* v2, const void* v3,
+                                     const void* v5, void* gxe, void* gxo,
+                                     int dtype, int B, int H, int seg,
+                                     void* stream) {
+  const void* a[5] = {y0e, y0o, y1, y2, y3};
+  const void* v[5] = {v0, v1, v2, v3, v5};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1)
+    return launch_bwd<__nv_bfloat16>(gp5dd, a, v, gxe, gxo, B, H, seg, s);
+  return launch_bwd<float>(gp5dd, a, v, gxe, gxo, B, H, seg, s);
+}

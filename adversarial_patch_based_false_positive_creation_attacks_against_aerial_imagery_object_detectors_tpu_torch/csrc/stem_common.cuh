@@ -1,9 +1,10 @@
 // Helpers shared by the hand-written kernels (stem_fused.cu, stem_bwd.cu,
-// stem_remat.cu, planar_conv.cu, res_fused.cu): float conversion of the
-// compute dtype, an 8-wide weight load through the read-only cache (load8)
-// and the same from shared memory (load8s); the stem's forward conv stage
-// (K1, and K5's recompute) and its input-cotangent chain (K2 and K5) live
-// in stem_chain.cuh.
+// stem_remat.cu, stem_batched.cu, planar_conv.cu, res_fused.cu): float
+// conversion of the compute dtype, an 8-wide weight load through the
+// read-only cache (load8) and the same from shared memory (load8s); the
+// stem's forward conv stage (K1, K5's recompute and the batch-on-lanes
+// forward) and its input-cotangent chain (K2, K5 and, past its first
+// stage, the batch-on-lanes backward).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -91,14 +92,16 @@ __device__ __forceinline__ void copy_to_shared(T* __restrict__ dst,
 
 // One conv layer between two shared-memory buffers laid out [pos][C].
 // Output position (oy, ox) of the OH x OW tile reads the input at
-// (S*oy + ky, S*ox + kx). (org_r, org_c) is the tile's first position in
-// image coordinates; positions outside [0, img)^2 are stored as zero.
-// With res, the stored value is T(T(leaky) + res) (the shortcut sum);
-// res is [pos][COUT] with row pitch res_w, read at (oy+1, ox+1). With SG,
-// sg[pos][COUT] receives the sign (1 if > 0) of T(leaky), before the
-// shortcut sum: the layer's own activation, for the saved-sign backward.
+// (S*oy + ky, SC*ox + kx): row stride S, column stride SC (S unless
+// given; the batch-on-lanes stem's conv5 runs at (2, 1)). (org_r, org_c)
+// is the tile's first position in image coordinates; positions outside
+// [0, img)^2 are stored as zero. With res, the stored value is
+// T(T(leaky) + res) (the shortcut sum); res is [pos][COUT] with row pitch
+// res_w, read at (oy+1, ox+1). With SG, sg[pos][COUT] receives the sign
+// (1 if > 0) of T(leaky), before the shortcut sum: the layer's own
+// activation, for the saved-sign backward.
 template <typename T, int CIN, int COUT, int KS, int S, int PT,
-          bool SG = false>
+          bool SG = false, int SC = S>
 __device__ void conv_stage(const T* __restrict__ in, int IW,
                            T* __restrict__ out, int OH, int OW,
                            const T* __restrict__ w,
@@ -123,7 +126,7 @@ __device__ void conv_stage(const T* __restrict__ in, int IW,
     for (int i = 0; i < PT; ++i) {
       const int p = min(p0 + i, npos - 1);
       const int oy = p / OW, ox = p - oy * OW;
-      base[i] = ((S * oy) * IW + S * ox) * CIN;
+      base[i] = ((S * oy) * IW + SC * ox) * CIN;
 #pragma unroll
       for (int c = 0; c < CT; ++c) acc[i][c] = 0.f;
     }
@@ -351,6 +354,22 @@ struct TileMask {
   }
 };
 
+// A gate's sign from a saved activation of one image in the batch-on-lanes
+// layout [img, C, pitch] (the image's segment starting at lane lb; column
+// c at lane lb + c + 1), at image position (gr, gc); PHASE: y0's even/odd
+// column phases a / ao. 1 where the stored value is > 0.
+template <typename T, int C, bool PHASE>
+struct ActMask {
+  const T* a;
+  const T* ao;
+  long long pitch, lb;
+  __device__ int8_t operator()(int, int, int gr, int gc, int ch) const {
+    const T* ap = (PHASE && (gc & 1)) ? ao : a;
+    const int lane = PHASE ? (gc >> 1) + 1 : gc + 1;
+    return to_f(ap[((long long)gr * C + ch) * pitch + lb + lane]) > 0.f;
+  }
+};
+
 // gs4 = T(v) and gp3 = T(gs4 m3), zero outside the image
 template <typename T, class M>
 struct EpiGs4 {
@@ -415,6 +434,40 @@ struct EpiGx {
   }
 };
 
+// The chain past gs4 for the block's gx tile (blockIdx.y, blockIdx.x): from
+// gs4 (X) and gp3 (Y), N4^2 x 64 at origin (R0/2 - 2, C0/2 - 2), to gp2 (Z),
+// gp1 (Y), gp0 (Z) and gx, each gx value handed to epi_gx. Shared by K2, K5
+// (through grad_chain) and the batch-on-lanes backward, whose gs4 stage
+// differs.
+template <typename T, class M0, class M1, class M2, class EpiX>
+__device__ __forceinline__ void chain_tail(
+    T* X, T* Y, T* Z, const T* __restrict__ v0, const T* __restrict__ v1,
+    const T* __restrict__ v2, const T* __restrict__ v3, const M0& m0,
+    const M1& m1, const M2& m2, int H, const EpiX& epi_gx) {
+  using K = Chain;
+  const int R0 = blockIdx.y * K::TX, C0 = blockIdx.x * K::TX;
+  const int H1 = H / 2;
+  const int o1r = R0 / 2 - 1, o1c = C0 / 2 - 1;  // gp2 / gp1, N1
+  const int o0r = R0 - 2, o0c = C0 - 2;          // gp0, N0
+  // gp2 (Z) from gp3 (Y)
+  convt_s1<T, 64, 32, 3, 2, 2>(
+      Y, K::N4, K::N1, K::N1, v3,
+      EpiGate<T, 32, false, M2>{Z, K::N1, m2, o1r, o1c, H1, nullptr});
+  __syncthreads();
+  // gp1 (Y) from gp2 (Z) and gs4 (X)
+  convt_s1<T, 32, 64, 1, 0, 4>(
+      Z, K::N1, K::N1, K::N1, v2,
+      EpiGate<T, 64, true, M1>{Y, K::N1, m1, o1r, o1c, H1, X});
+  __syncthreads();
+  // gp0 (Z) from gp1 (Y)
+  convt_s2<T, 64, 32>(Y, K::N1, K::N0 / 2, v1,
+                      EpiGate<T, 32, false, M0>{Z, K::N0, m0, o0r, o0c, H,
+                                                nullptr});
+  __syncthreads();
+  // gx from gp0 (Z)
+  convt_s1<T, 32, 8, 3, 3, 1>(Z, K::N0, K::TX, K::TX, v0, epi_gx);
+}
+
 // The whole chain for the block's gx tile (blockIdx.y, blockIdx.x) of image
 // blockIdx.z: sm holds Chain::ELEMS elements of T (three regions: gs4; gp3
 // then gp1; gp5 then gp2 then gp0); y5 and g5 planar [B, H/4, 128, wl5];
@@ -439,8 +492,6 @@ __device__ void grad_chain(T* sm, const T* __restrict__ y5,
   // tile origins in image coordinates (rows; columns alike)
   const int o5r = R0 / 4 - 1, o5c = C0 / 4 - 1;  // gp5, N5
   const int o4r = R0 / 2 - 2, o4c = C0 / 2 - 2;  // gs4 / gp3, N4
-  const int o1r = R0 / 2 - 1, o1c = C0 / 2 - 1;  // gp2 / gp1, N1
-  const int o0r = R0 - 2, o0c = C0 - 2;          // gp0, N0
 
   // gp5 = T(g5 m(y5)), lanes fastest
   for (int idx = threadIdx.x; idx < K::N5 * K::N5 * 128; idx += NT) {
@@ -461,25 +512,9 @@ __device__ void grad_chain(T* sm, const T* __restrict__ y5,
   convt_s2<T, 128, 64>(Z, K::N5, K::N4 / 2, v5,
                        EpiGs4<T, M3>{X, Y, m3, o4r, o4c, H1});
   __syncthreads();
-  // gp2 (Z) from gp3 (Y)
-  convt_s1<T, 64, 32, 3, 2, 2>(
-      Y, K::N4, K::N1, K::N1, v3,
-      EpiGate<T, 32, false, M2>{Z, K::N1, m2, o1r, o1c, H1, nullptr});
-  __syncthreads();
-  // gp1 (Y) from gp2 (Z) and gs4 (X)
-  convt_s1<T, 32, 64, 1, 0, 4>(
-      Z, K::N1, K::N1, K::N1, v2,
-      EpiGate<T, 64, true, M1>{Y, K::N1, m1, o1r, o1c, H1, X});
-  __syncthreads();
-  // gp0 (Z) from gp1 (Y)
-  convt_s2<T, 64, 32>(Y, K::N1, K::N0 / 2, v1,
-                      EpiGate<T, 32, false, M0>{Z, K::N0, m0, o0r, o0c, H,
-                                                nullptr});
-  __syncthreads();
-  // gx from gp0 (Z)
   const long long gb = (long long)b * H * 8 * wlh;
-  convt_s1<T, 32, 8, 3, 3, 1>(Z, K::N0, K::TX, K::TX, v0,
-                              EpiGx<T>{gxe + gb, gxo + gb, R0, C0, wlh});
+  chain_tail<T>(X, Y, Z, v0, v1, v2, v3, m0, m1, m2, H,
+                EpiGx<T>{gxe + gb, gxo + gb, R0, C0, wlh});
   // zero border and padding lanes of this tile's rows in both phases:
   // lane 0 (first tile column), lanes H/2+1 .. wlh-1 (last tile column)
   const bool first = blockIdx.x == 0, last = blockIdx.x == gridDim.x - 1;

@@ -29,12 +29,16 @@
   ``stem_remat=True`` swaps the fused stem's saved-mask backward (K2) for
   the recomputing one (K5) wherever the fused stem is taken, except on
   the c12 route, whose stem is the planar-out one (as in the JAX
-  package). Inputs that require grad take each route's autograd Function
-  (input cotangent only). The Detector asks for both stems on CUDA; the
-  trainer for the fused stem. Each route's weights, in its kernels'
-  layouts, are prepared once at build where the network allows the
-  route. ``last_routes()`` reports which routes the last forward on this
-  thread took.
+  package). Where neither kernel stem is taken, ``packed_stem=True`` runs
+  layers 0-1 as the space-to-depth rewrite of
+  ``experimental/packed_stem.py`` (plain convs; the params as passed must
+  be BN-folded, as in the JAX package). Inputs that require grad take each
+  route's autograd Function (input cotangent only). The Detector asks for
+  both stems on CUDA; the trainer for the fused stem. Each route's
+  weights, in its kernels' layouts, are prepared once at build where the
+  network allows the route (the packed stem's at its first use).
+  ``last_routes()`` reports which routes the last forward on this thread
+  took.
 """
 
 from __future__ import annotations
@@ -281,7 +285,7 @@ def _last_routes() -> Dict[str, str]:
 
 def last_routes() -> Dict[str, str]:
     """Routes taken by the most recent forward on this thread:
-    ``{"stem": "c12" | "fused" | "planar" | "conv",
+    ``{"stem": "c12" | "fused" | "planar" | "packed" | "conv",
     "res152": "c12" | "fused" | "planar" | "conv"}``."""
     return dict(_last_routes())
 
@@ -303,6 +307,10 @@ class Darknet(nn.Module):
         dev = _cuda.resolve_device(device)
         self.net = net
         self.compute_dtype = compute_dtype
+        # the packed stem's half of the JAX predicate, on the params as
+        # passed: it takes BN-folded params only
+        self._packed_folded = "b" in params.get("conv_0", {})
+        self._packed_kernels = None
         if any("gamma" in p for p in params.values()):
             params = fold_bn(net, params)
         for spec in conv_specs(net):
@@ -387,16 +395,29 @@ class Darknet(nn.Module):
                 [(getattr(self, f"rwt{i}"), getattr(self, f"rzb{i}"))
                  for i in convs])
 
+    @property
+    def has_packed_stem(self) -> bool:
+        """The JAX package's packed-stem predicate: the params as passed
+        were BN-folded and ``experimental/packed_stem.stem_applicable``
+        holds (imported only for folded params)."""
+        if not self._packed_folded:
+            return False
+        from ..experimental.packed_stem import stem_applicable
+        return stem_applicable(self.net)
+
     def forward(self, x: torch.Tensor, fused_stem: bool = False,
                 planar_stem: bool = False, res152: Optional[str] = None,
-                stem_remat: bool = False) -> List[torch.Tensor]:
+                stem_remat: bool = False,
+                packed_stem: bool = False) -> List[torch.Tensor]:
         """``x``: [B, H, W, 3] float in [0, 1] (NHWC) on the module's
         device. Returns the three raw heads [B, S, S, 3*(5+C)] float32.
         ``fused_stem`` / ``planar_stem`` ask for the stem kernels (tried in
         that order), ``res152`` (None, "fused", "planar" or "c12") for the
         152^2 stage's after a kernel stem ("c12": after the fused stem,
         through conv12), ``stem_remat`` for the fused stem's recomputing
-        backward; each is taken where it applies."""
+        backward, ``packed_stem`` for the space-to-depth rewrite of layers
+        0-1 (``experimental/packed_stem.py``) where no kernel stem was
+        taken; each is taken where it applies."""
         if res152 not in RES152_ROUTES:
             raise ValueError(f"res152={res152!r}, expected one of "
                              f"{RES152_ROUTES}")
@@ -422,6 +443,8 @@ class Darknet(nn.Module):
                 prev = stem_planar.planar_stem(xc.contiguous(),
                                                *self.planar_stem_params())
                 routes["stem"] = "planar"
+            elif packed_stem and self.has_packed_stem:
+                return self._packed(xc, outputs)
             else:
                 return self.walk(xc.permute(0, 3, 1, 2), 0, outputs)
             # prev: the stem's NHWC output; the res152 routes follow a
@@ -455,6 +478,23 @@ class Darknet(nn.Module):
         prev = y12.permute(0, 3, 1, 2)
         outputs[c12] = prev
         return self.walk(prev, c12 + 1, outputs)
+
+    def _packed(self, xc: torch.Tensor, outputs) -> List[torch.Tensor]:
+        """Layers 0-1 on the packed stem (plain PyTorch convs), then the
+        walk from layer 2; the packed kernels are built from the held
+        weights at the first call."""
+        from ..experimental import packed_stem as PS
+        if self._packed_kernels is None:
+            self._packed_kernels = PS.packed_weights(self.w0, self.w1,
+                                                     self.compute_dtype)
+        layers = self.net.layers
+        prev = PS.packed_stem_conv(xc, self._packed_kernels, self.bc0,
+                                   layers[0].conv.activation, self.bc1,
+                                   layers[1].conv.activation)
+        if 1 in self.net.saved_outputs:
+            outputs[1] = prev
+        _last_routes()["stem"] = "packed"
+        return self.walk(prev, 2, outputs)
 
     def walk(self, prev: torch.Tensor, start: int,
              outputs: Dict[int, torch.Tensor]) -> List[torch.Tensor]:
@@ -493,12 +533,13 @@ def apply(net: Network, params: Params, x: torch.Tensor,
           fused_stem: Optional[bool] = None,
           planar_stem: Optional[bool] = None,
           res152: Optional[str] = None,
-          stem_remat: bool = False) -> List[torch.Tensor]:
+          stem_remat: bool = False,
+          packed_stem: bool = False) -> List[torch.Tensor]:
     """Run the detector once on ``x`` ([B, H, W, 3] NHWC, on its device):
     builds a ``Darknet`` on ``x.device`` and calls it. ``fused_stem``,
-    ``planar_stem``, ``res152`` and ``stem_remat`` pick the kernel routes
-    where they apply (default: the conv walk)."""
+    ``planar_stem``, ``res152``, ``stem_remat`` and ``packed_stem`` pick
+    the routes where they apply (default: the conv walk)."""
     model = Darknet(net, params, compute_dtype, device=x.device)
     return model(x, fused_stem=bool(fused_stem),
                  planar_stem=bool(planar_stem), res152=res152,
-                 stem_remat=stem_remat)
+                 stem_remat=stem_remat, packed_stem=packed_stem)

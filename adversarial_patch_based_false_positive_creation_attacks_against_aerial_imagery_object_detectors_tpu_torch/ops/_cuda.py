@@ -85,6 +85,18 @@ SIGNATURES = {
         # H, W, wl, wl12, stream
         "apfp_res152_fused_grad12": [_P] * 11 + [_I] * 6 + [_P],
     },
+    "median_pool": {
+        # x, out, dtype, C, H, W, k, pt, pl, stream
+        "apfp_median_pool": [_P, _P] + [_I] * 7 + [_P],
+    },
+    "stem_batched": {
+        # xe, xo, w0, w1, w2, w3, w5, b0, b1, b2, b3, b5, y5, a0e, a0o, a1,
+        # a2, a3 (save_acts outputs or null), dtype, B, H, seg, stream
+        "apfp_fused_stem_fwd_b": [_P] * 18 + [_I] * 4 + [_P],
+        # gp5dd, y0e, y0o, y1, y2, y3, v0, v1, v2, v3, v5, gxe, gxo, dtype,
+        # B, H, seg, stream
+        "apfp_fused_stem_bwd_b": [_P] * 13 + [_I] * 4 + [_P],
+    },
 }
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}

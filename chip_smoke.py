@@ -67,10 +67,26 @@ Phases, each fatal on failure:
    (b8) with ``res152="fused"`` (K6a without masks, the forward alone,
    which training never launches) and one with ``res152="c12"``.
 
+9. The experimental package (``<port>/experimental/``; counted launches):
+   K7, the rank-counting median, at the EOT smoother's shape (float32 and
+   bfloat16) against its plain version, the shipped sort-free forward and
+   a ``kthvalue`` yardstick (all exact); K8a (with and without
+   ``save_acts``) and K8b, the batch-on-lanes stem, at b24 608^2 bfloat16
+   and float32 against their plain versions and against K1 / K2 on the
+   same x; then the package's entry points at full width: K7 on the patch,
+   b24 victim forward + input backward steps with layers 0-5 on
+   ``fused_stem_batched`` (one K8a ``save_acts`` and one K8b a step, no K1
+   or K2), a forward without grad (K8a alone) and a b8 packed-stem forward;
+   the A/B against the shipped fused stem (layout glue apart), the float32
+   b4 patch-gradient check against the walk carrying the route's own y5
+   forward and gates (1e-4 relative L2), and the packed route's float32
+   heads against the conv walk (1e-4 of the head scale).
+
 Phase 4 also holds the slim victim (stem widths 8/16/8/16/32) on the
 planar stem (K4), and once more with ``res152="planar"``. The default
 routes stay: serving and training take the fused stem and the conv walk
-for layers 6-11, and launch no K4, K5 or K6; PR 3's routes no K5 or K6c.
+for layers 6-11, and launch no K4, K5, K6 or experimental kernel (K7, K8);
+the fused-stage and all-planar routes launch no K5 or K6c.
 
 The last two lines are the kernels JSON object and
 ``{"ok": true, "device": {...}}``; the card's name and power limit are
@@ -110,6 +126,9 @@ K4_VARIANTS = ("planar_conv_k1", "planar_conv_k3", "planar_conv_k3s2")
 K6_KERNELS = ("res152_fused", "res152_fused_save", "res152_fused_grad")
 # the remat route's and the c12 route's own kernels (K5, K6c)
 NEW_KERNELS = ("fused_stem_bwd", "res152_fused_grad12")
+# the experimental package's kernels (K7, K8a alone and with save_acts, K8b)
+EXP_KERNELS = ("median_pool_2d_pallas", "fused_stem_fwd_b",
+               "fused_stem_fwd_b_save_acts", "fused_stem_bwd_b")
 ROUTE_STEPS = 20   # timed steps of each of the other routes
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and dense FLOP/s by type
@@ -168,6 +187,8 @@ def counters() -> dict:
     PC = import_port("ops.planar_conv")
     SF = import_port("ops.stem_fused")
     RF = import_port("ops.res_fused")
+    MPL = import_port("experimental.median_pallas")
+    SB = import_port("experimental.stem_batched")
     return {"to_planar": (PC.to_planar, "launches"),
             "to_planar_g5": (PC.to_planar, "tiled_launches"),
             "fused_stem_fwd": (SF.fused_stem_fwd, "launches"),
@@ -182,7 +203,12 @@ def counters() -> dict:
             "res152_fused_save": (RF.res152_fused, "save_launches"),
             "res152_fused_grad": (RF.res152_fused_grad, "launches"),
             "fused_stem_bwd": (SF.fused_stem_bwd, "launches"),
-            "res152_fused_grad12": (RF.res152_fused_grad12, "launches")}
+            "res152_fused_grad12": (RF.res152_fused_grad12, "launches"),
+            "median_pool_2d_pallas": (MPL.median_pool_2d_pallas, "launches"),
+            "fused_stem_fwd_b": (SB.fused_stem_fwd_b, "launches"),
+            "fused_stem_fwd_b_save_acts": (SB.fused_stem_fwd_b,
+                                           "save_acts_launches"),
+            "fused_stem_bwd_b": (SB.fused_stem_bwd_b, "launches")}
 
 
 def reset_counts() -> None:
@@ -633,8 +659,8 @@ def training(dev, card) -> dict:
         assert route == "fused", route
         # the default training route is unchanged: no K4, K5, K6 or K6c
         assert darknet.last_routes()["res152"] == "conv"
-        assert all(launches[k] == 0 for k in
-                   K4_VARIANTS + K6_KERNELS + NEW_KERNELS), launches
+        assert all(launches[k] == 0 for k in K4_VARIANTS + K6_KERNELS
+                   + NEW_KERNELS + EXP_KERNELS), launches
         for k in TRAIN_PATH:
             assert launches[k] > 0, f"kernel {k} did not launch in training"
         assert all(np.isfinite(v) for v in rec["loss"].values()), rec["loss"]
@@ -1261,18 +1287,30 @@ def route_forward(x, kw, sp, pf, rf, c12=None):
         return y12, gates
 
 
+def _gated_conv(u, w, b, s, g):
+    return torch.nn.functional.conv2d(u, w.permute(3, 2, 0, 1), b, s,
+                                      (w.shape[0] - 1) // 2) * g
+
+
+def gated_stem_walk(x, sp, gates):
+    """Layers 0-5 as cuDNN convs (float32; the caller turns TF32 off) whose
+    leaky gates are the given ones (NCHW, layers 0, 1, 2, 3, 5): NHWC x ->
+    NCHW y5."""
+    conv = _gated_conv
+    g0, g1, g2, g3, g5 = gates[:5]
+    v = x.permute(0, 3, 1, 2)
+    y1 = conv(conv(v, *sp[0], 1, g0), *sp[1], 2, g1)
+    y3 = conv(conv(y1, *sp[2], 1, g2), *sp[3], 1, g3)
+    return conv(y3 + y1, *sp[4], 2, g5)
+
+
 def gated_walk_y11(x, sp, rf, gates, c12=None):
     """Layers 0-11 (0-12 with ``c12`` = conv12's OIHW weight and bias) as
     cuDNN convs (float32; the caller turns TF32 off) whose leaky gates are
     the given ones (``route_forward``'s): NHWC x -> NHWC y11 (y12)."""
-    def conv(u, w, b, s, g):
-        return torch.nn.functional.conv2d(u, w.permute(3, 2, 0, 1), b, s,
-                                          (w.shape[0] - 1) // 2) * g
-    g0, g1, g2, g3, g5, g6, g7, g9, g10 = gates[:9]
-    v = x.permute(0, 3, 1, 2)
-    y1 = conv(conv(v, *sp[0], 1, g0), *sp[1], 2, g1)
-    y3 = conv(conv(y1, *sp[2], 1, g2), *sp[3], 1, g3)
-    y5 = conv(y3 + y1, *sp[4], 2, g5)
+    conv = _gated_conv
+    g6, g7, g9, g10 = gates[5:9]
+    y5 = gated_stem_walk(x, sp, gates)
     (w6, b6), (w7, b7), (w9, b9), (w10, b10) = rf
     y8 = conv(conv(y5, w6, b6, 1, g6), w7, b7, 1, g7) + y5
     y11 = conv(conv(y8, w9, b9, 1, g9), w10, b10, 1, g10) + y8
@@ -1620,6 +1658,472 @@ def route_training(dev, card) -> dict:
     return rec
 
 
+def close_check(got, want, dt, what) -> tuple:
+    """A kernel against its plain version: float32 2e-5 of the output scale
+    (summation order); bfloat16 two bf16 ulps of it (a rounding flipped by
+    the order) and a mean below 1e-4 of it. Returns (max, mean, tol)."""
+    scale = max(want.float().abs().max().item(), 1e-30)
+    e = (got.float() - want.float()).abs()
+    err, mean = e.max().item(), e.mean().item()
+    tol = (2e-5 if dt == torch.float32 else 2.0 ** -6) * scale
+    assert err <= tol and (dt == torch.float32 or mean <= 1e-4 * scale), \
+        (what, err, mean, scale)
+    return err, mean, tol
+
+
+def median_kernel(dev, card) -> dict:
+    """Phase 9, K7 at the EOT smoother's shape ([3, 224, 224] float32, k 7,
+    with a tied block; also a bfloat16 copy): equal to its plain version
+    and to the shipped ``median_pool_nhwc_fast`` forward, timed beside its
+    bound, one ``kthvalue`` over the unfolded reflect-padded windows and
+    the shipped forward. Returns K7's entry of the kernels line."""
+    MPL = import_port("experimental.median_pallas")
+    MP = import_port("ops.median_pool")
+    F = torch.nn.functional
+    gen = torch.Generator(device=dev).manual_seed(SEED + 20)
+    x = torch.rand(3, PATCH, PATCH, generator=gen, device=dev)
+    x[:, 40:60, 70:90] = 0.5
+    torch.full(x.shape, float("nan"), device=dev)
+    got = MPL.median_pool_2d_pallas(x, 7)
+    torch.cuda.synchronize()
+    assert torch.equal(got, MPL.median_pool_2d_pallas_plain(x, 7)), "K7"
+    with torch.no_grad():
+        shipped = MP.median_pool_nhwc_fast(x.permute(1, 2, 0), 7)
+    assert torch.equal(got, shipped.permute(2, 0, 1)), "K7 vs shipped"
+    xb = x.to(torch.bfloat16)
+    assert torch.equal(MPL.median_pool_2d_pallas(xb, 7),
+                       MPL.median_pool_2d_pallas_plain(xb, 7)), "K7 bf16"
+
+    def library():
+        xp = F.pad(x[None], (3, 3, 3, 3), mode="reflect")
+        return F.unfold(xp, 7).view(3, 49, -1).kthvalue(25, 1).values.view(
+            x.shape)
+    assert torch.equal(library(), got), "kthvalue yardstick"
+    b_ms, b_by = bound(nbytes(x, got), 0.0, torch.float32)
+    with torch.no_grad():
+        ent = {"name": "median_pool_2d_pallas", "route": "cuda",
+               "source": f"{PORT}/csrc/median_pool.cu",
+               "replaces": f"{JAX_PKG}/experimental/median_pallas.py:54",
+               "launches": 0, "max_abs_err": 0.0, "tol": 0.0,
+               "shape": list(x.shape), "k": 7, "dtype": "float32",
+               "ms": time_ms(lambda: MPL.median_pool_2d_pallas(x, 7)),
+               "bf16_ms": time_ms(lambda: MPL.median_pool_2d_pallas(xb, 7)),
+               "plain_ms": time_ms(
+                   lambda: MPL.median_pool_2d_pallas_plain(x, 7), 5),
+               "bound_ms": b_ms, "bound_by": b_by,
+               "library_ms": time_ms(library),
+               "library": "F.pad (reflect) + F.unfold + torch.kthvalue",
+               "shipped_fwd_ms": time_ms(
+                   lambda: MP.median_pool_2d_fast(x, 7)),
+               "rank_count_compares": 2.0 * x.numel() * 49 ** 2}
+    log(f"[k7] equal to plain, shipped forward and kthvalue; "
+        f"{ent['ms']:.4f} ms (bf16 {ent['bf16_ms']:.4f}) vs plain "
+        f"{ent['plain_ms']:.4f}, kthvalue {ent['library_ms']:.4f}, shipped "
+        f"forward {ent['shipped_fwd_ms']:.4f}, bound {b_ms:.6f} ({card})")
+    return ent
+
+
+def lanes_bytes(t, bsz: int, w: int, c: int) -> int:
+    """Bytes of a batch-on-lanes [rows, C', B*seg] tensor's first ``c``
+    channels at its ``w`` value lanes per image (what a kernel must read of
+    an input)."""
+    return t.shape[0] * c * bsz * w * t.element_size()
+
+
+def batched_kernels(dev, sp, sbp, card) -> list:
+    """Phase 9, K8a (with and without ``save_acts``) and K8b at b24 608^2,
+    bfloat16 and float32, on the full-width victim's stem weights: each
+    against its plain version (K8b on K8a's own activations) with K1's and
+    K2's tolerances, every border and slack lane zero though the blocks
+    were dirty; then against K1 / K2 on the same x: K8a's decimated y5
+    against K1's y5, K8b's gx against K2's on K1's masks outside the
+    12-pixel zone of any sign that differs. Timed beside their bounds and
+    K1 ``save_acts`` + K2 at the same shape. Returns the three entries."""
+    SB = import_port("experimental.stem_batched")
+    SF = import_port("ops.stem_fused")
+    PC = import_port("ops.planar_conv")
+    bf16 = torch.bfloat16
+    b, h, h1, h5 = TRAIN_BATCH, SIZE, SIZE // 2, SIZE // 4
+    seg = SB._seg(h1)
+    tot = b * seg
+    gen = torch.Generator(device=dev).manual_seed(SEED + 21)
+    x = torch.rand(b, h, h, 3, generator=gen, device=dev)
+    g5 = torch.randn(b, h5, h5, 128, generator=gen, device=dev)
+    names = ("fused_stem_fwd_b", "fused_stem_fwd_b_save_acts",
+             "fused_stem_bwd_b")
+    ents = {n: {"name": n, "route": "cuda",
+                "source": f"{PORT}/csrc/stem_batched.cu", "launches": 0,
+                "library_ms": None, "dtype": "bfloat16"} for n in names}
+    ents["fused_stem_fwd_b"]["replaces"] = \
+        f"{JAX_PKG}/experimental/stem_batched.py:402"
+    ents["fused_stem_fwd_b_save_acts"]["replaces"] = \
+        f"{JAX_PKG}/experimental/stem_batched.py:402"
+    ents["fused_stem_bwd_b"]["replaces"] = \
+        f"{JAX_PKG}/experimental/stem_batched.py:591"
+    conv5 = 2.0 * b * h5 * h5 * 128 * 576   # conv5's real multiply-adds x 2
+
+    def zero_lanes(t, what):
+        v = t.reshape(*t.shape[:2], b, seg)
+        assert not v[..., 0].any() and not v[..., h1 + 1:].any(), what
+
+    for dt in (bf16, torch.float32):
+        spd = sp if dt == bf16 else [(w.float(), bb) for w, bb in sp]
+        sbpd = sbp if dt == bf16 else SF.stem_bwd_params(spd)
+        xd = x.to(dt)
+        xe, xo = SB.split_phases_b(xd, seg)
+        r = {n: {} for n in names}
+        # K8a alone, then with save_acts: dirty the blocks first
+        torch.full((h5, 128, tot), float("nan"), dtype=dt, device=dev)
+        y5 = SB.fused_stem_fwd_b(xe, xo, spd, b)
+        torch.cuda.synchronize()
+        for rows, c in ((h, 32), (h, 32), (h1, 64), (h1, 32), (h1, 64)):
+            torch.full((rows, c, tot), float("nan"), dtype=dt, device=dev)
+        acts = SB.fused_stem_fwd_b(xe, xo, spd, b, save_acts=True)
+        torch.cuda.synchronize()
+        assert torch.equal(acts[0], y5), "save_acts changed y5"
+        want = SB.fused_stem_fwd_b_plain(xe, xo, spd, b, save_acts=True)
+        err, mean, tol = close_check(y5, want[0], dt, "K8a y5")
+        r["fused_stem_fwd_b"].update(max_abs_err=err, mean_abs_err=mean,
+                                     tol=tol)
+        act_errs = [close_check(a, w, dt, "K8a act") for a, w in
+                    zip(acts[1:], want[1:])]
+        worst = max(act_errs + [(err, mean, tol)], key=lambda e: e[0] / e[2])
+        r["fused_stem_fwd_b_save_acts"].update(
+            max_abs_err=worst[0], mean_abs_err=worst[1], tol=worst[2],
+            act_max_abs_err=[e[0] for e in act_errs])
+        for t in acts:
+            zero_lanes(t, "K8a")
+        del want
+        # K8b on K8a's own activations: g5 gated by K8a's y5, interleaved
+        y5n = SB.batched_to_nhwc(y5, b, h5, 128, lane0=1, stride=2)
+        gp5 = (g5 * torch.where(y5n > 0, 1.0, 0.1)).to(dt)
+        gp5dd = SB.nhwc_to_batched(SB.interleave_zero_rows(
+            SB.interleave_zero_cols(gp5)), seg)
+        torch.full((h, 8, tot), float("nan"), dtype=dt, device=dev)
+        gx = SB.fused_stem_bwd_b(gp5dd, acts, sbpd, b)
+        torch.cuda.synchronize()
+        wx = SB.fused_stem_bwd_b_plain(gp5dd, acts, sbpd, b)
+        errs = [close_check(gk, wk, dt, "K8b") for gk, wk in zip(gx, wx)]
+        worst = max(errs, key=lambda e: e[0] / e[2])
+        r["fused_stem_bwd_b"].update(max_abs_err=worst[0],
+                                     mean_abs_err=worst[1], tol=worst[2])
+        for t in gx:
+            zero_lanes(t, "K8b")
+            assert not t[:, 3:].any(), "K8b padding channels"
+        del wx
+        # against K1 / K2 on the same x (K1's masks; g5 through K3a)
+        k1 = SF.fused_stem_fwd(*SF.split_phases(xd), spd, save_acts=True)
+        k1y5 = PC.from_planar(k1[0], h5, 128)
+        d_y5 = (y5n.float() - k1y5.float()).abs().max().item()
+        _, _, tol5 = close_check(y5n, k1y5, dt, "K8a y5 vs K1")
+        k2 = SF.fused_stem_bwd_saved(k1, PC.to_planar(g5.to(dt)), sbpd)
+        # K8a's signs in K1's planar mask layout
+        m0 = (SB.merge_phases_b(acts[1], acts[2], b, h1, 32) > 0).to(
+            torch.int8)
+        k8m = (None, PC.to_planar_plain(m0, step=2, offset=0),
+               PC.to_planar_plain(m0, step=2, offset=1),
+               *[PC.to_planar_plain((SB.batched_to_nhwc(
+                   a, b, h1, a.shape[1]) > 0).to(torch.int8))
+                 for a in acts[3:]])
+        zone, flips = flip_zone(k1, k8m, h)
+        del m0, k8m
+        e = (SB.merge_phases_b(*gx, b, h1, 3).float()
+             - SF.merge_phases(*k2, h1, 3).float()).abs().amax(-1)
+        out = e[~zone] if (~zone).any() else e.new_zeros(1)
+        gscale = SF.merge_phases(*k2, h1, 3).float().abs().max().item()
+        gtol = (2e-5 if dt == torch.float32 else 2.0 ** -6) * gscale
+        assert out.max().item() <= gtol, ("K8b vs K2", out.max().item(),
+                                          gtol)
+        vs = {"y5_vs_k1_max_abs_diff": d_y5, "y5_tol": tol5,
+              "gx_vs_k2_max_abs_err_outside_flips": out.max().item(),
+              "gx_vs_k2_max_abs_err": e.max().item(), "gx_tol": gtol,
+              "sign_flips_vs_k1_masks": flips,
+              "flip_zone_frac": zone.float().mean().item()}
+        del k2, zone, e, out
+        # times: kernels, plain versions, K1 (save_acts) + K2 at this shape
+        x_read = 2 * lanes_bytes(xe, b, h1, 3)
+        in_acts = (2 * lanes_bytes(acts[1], b, h1, 32)
+                   + lanes_bytes(acts[3], b, h1, 64)
+                   + lanes_bytes(acts[4], b, h1, 32)
+                   + lanes_bytes(acts[5], b, h1, 64))
+        # gp5dd holds data at one position in four: the bound counts that
+        # quarter's bytes and the adjoint's real FLOPs (PERF.md's rule)
+        bounds = {
+            "fused_stem_fwd_b": bound(x_read + nbytes(y5),
+                                      stem_flops(b, h) + conv5, dt),
+            "fused_stem_fwd_b_save_acts": bound(
+                x_read + nbytes(*acts), stem_flops(b, h) + conv5, dt),
+            "fused_stem_bwd_b": bound(
+                lanes_bytes(gp5dd, b, h1, 128) // 4 + in_acts + nbytes(*gx),
+                stem_flops(b, h), dt)}
+        k1_ms = time_ms(lambda: SF.fused_stem_fwd(
+            *SF.split_phases(xd), spd, save_acts=True), 3)
+        g5p = PC.to_planar(g5.to(dt))
+        k2_ms = time_ms(lambda: SF.fused_stem_bwd_saved(k1, g5p, sbpd), 3)
+        fns = {"fused_stem_fwd_b": (
+                   lambda: SB.fused_stem_fwd_b(xe, xo, spd, b),
+                   lambda: SB.fused_stem_fwd_b_plain(xe, xo, spd, b)),
+               "fused_stem_fwd_b_save_acts": (
+                   lambda: SB.fused_stem_fwd_b(xe, xo, spd, b, True),
+                   lambda: SB.fused_stem_fwd_b_plain(xe, xo, spd, b, True)),
+               "fused_stem_bwd_b": (
+                   lambda: SB.fused_stem_bwd_b(gp5dd, acts, sbpd, b),
+                   lambda: SB.fused_stem_bwd_b_plain(gp5dd, acts, sbpd, b))}
+        for n in names:
+            kern, plain = fns[n]
+            r[n].update(ms=time_ms(kern, 3, 2), plain_ms=time_ms(plain, 2, 1),
+                        bound_ms=bounds[n][0], bound_by=bounds[n][1],
+                        k1_save_acts_plus_k2_ms=k1_ms + k2_ms,
+                        k1_save_acts_ms=k1_ms, k2_ms=k2_ms, **vs)
+            log(f"[k8] {n} {dt}: err {r[n]['max_abs_err']:.3g} (tol "
+                f"{r[n]['tol']:.3g}), {r[n]['ms']:.4f} ms vs plain "
+                f"{r[n]['plain_ms']:.4f}, bound {r[n]['bound_ms']:.4f} "
+                f"({r[n]['bound_by']}); K1 save_acts + K2 {k1_ms:.4f} + "
+                f"{k2_ms:.4f} ({card})")
+            if dt == bf16:
+                ents[n].update(r[n], shape=[h, 8, tot])
+            else:
+                ents[n]["f32"] = r[n]
+        log(f"[k8] {dt} against K1 / K2 on the same x: {json.dumps(vs)}")
+        del k1, acts, gx, gp5dd, xe, xo, y5
+        torch.cuda.empty_cache()
+    return [ents[n] for n in names]
+
+
+EXP_PATH_STEPS = 3   # victim fwd + input bwd steps of phase 9's counted run
+
+
+def experimental_path(dev, net, params, card, default_breakdown) -> dict:
+    """Phase 9, the experimental package's entry points at full width
+    (75 convs, 608^2) with counted launches: the EOT patch through K7, the
+    bfloat16 b24 victim forward + input backward with layers 0-5 on
+    ``fused_stem_batched`` (EXP_PATH_STEPS steps: one K8a ``save_acts`` and
+    one K8b each, no K1 or K2), one forward without grad (K8a alone), and
+    the b8 packed-stem forward. Then the A/B against the shipped fused stem
+    (layout glue timed apart), the victim fwd + bwd on both stems, the
+    float32 b4 patch-gradient check against the walk carrying the route's
+    own y5 forward and gates, and the packed route's f32 heads against the
+    conv walk. Returns the record (its ``launches`` from the counted
+    run)."""
+    SB = import_port("experimental.stem_batched")
+    MPL = import_port("experimental.median_pallas")
+    SF = import_port("ops.stem_fused")
+    PC = import_port("ops.planar_conv")
+    T = import_port("train")
+    PT = import_port("train.trainer")
+    PE = import_port("attack.eot")
+    _cuda = import_port("ops._cuda")
+    darknet = import_port("models.darknet")
+    SyntheticData = import_port("data").SyntheticData
+    bf16 = torch.bfloat16
+    b, h, h1, h5 = TRAIN_BATCH, SIZE, SIZE // 2, SIZE // 4
+    seg = SB._seg(h1)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 22)
+    model = darknet.Darknet(net, params, bf16, device=dev).eval()
+    packed = {dt: darknet.Darknet(net, darknet.fold_bn(net, params), dt,
+                                  device=dev).eval()
+              for dt in (bf16, torch.float32)}
+    sp, sbp = model.stem_params(), model.stem_bwd_params()
+    x = torch.rand(b, h, h, 3, generator=gen, device=dev).to(bf16)
+    x8 = x[:BATCH].contiguous()
+    patch = torch.rand(PATCH, PATCH, 3, generator=gen, device=dev)   # HWC
+    with torch.no_grad():
+        heads_shape = [hd.shape for hd in model(x[:1])]
+    projs = [torch.randn((b, *s[1:]), generator=gen, device=dev)
+             for s in heads_shape]
+
+    def batched_victim(xr):
+        y5 = SB.fused_stem_batched(xr, sp, sbp)
+        v = y5.permute(0, 3, 1, 2)
+        return model.walk(v, 6, {5: v})
+
+    def fwd_bwd(fwd):
+        xr = x.detach().requires_grad_(True)
+        heads = fwd(xr)
+        loss = sum((hd * p).sum() for hd, p in zip(heads, projs))
+        return torch.autograd.grad(loss, xr)[0]
+
+    # -- the counted run through the package's entry points ------------
+    rec = {}
+    reset_counts()
+    # the EOT smoother's median over the patch's H, W
+    smoothed = MPL.median_pool_2d_pallas(patch.permute(2, 0, 1).contiguous(),
+                                         7)
+    for _ in range(EXP_PATH_STEPS):
+        gxb = fwd_bwd(batched_victim)
+    with torch.no_grad():
+        heads_nograd = batched_victim(x)
+        heads_packed = packed[bf16](x8, packed_stem=True)
+        route_packed = darknet.last_routes()["stem"]
+    torch.cuda.synchronize()
+    launches = read_counts()
+    rec["launches"] = launches
+    log(f"[exp] counted run: {launches}")
+    assert route_packed == "packed", route_packed
+    assert launches["median_pool_2d_pallas"] == 1, launches
+    assert launches["fused_stem_fwd_b_save_acts"] == EXP_PATH_STEPS, launches
+    assert launches["fused_stem_bwd_b"] == EXP_PATH_STEPS, launches
+    assert launches["fused_stem_fwd_b"] == 1, launches
+    assert all(v == 0 for k, v in launches.items() if k not in
+               ("median_pool_2d_pallas", "fused_stem_fwd_b",
+                "fused_stem_fwd_b_save_acts", "fused_stem_bwd_b")), launches
+    assert smoothed.shape == (3, PATCH, PATCH) and bool(
+        torch.isfinite(smoothed).all())
+    assert bool(torch.isfinite(gxb).all()) and gxb.abs().max().item() > 0
+    assert all(bool(torch.isfinite(t).all())
+               for t in list(heads_nograd) + list(heads_packed))
+    del gxb, heads_nograd, heads_packed, smoothed
+
+    # -- A/B against the shipped fused stem, glue apart ----------------
+    g5 = torch.randn(b, h5, h5, 128, generator=gen, device=dev).to(bf16)
+    xr = x.detach().requires_grad_(True)
+    # each route's layout work around its kernels, on their real tensors:
+    # batched split_phases_b + the y5 decimation forward; gating, the two
+    # zero interleaves, nhwc_to_batched and merge_phases_b backward; the
+    # shipped K3a x 2 + K3b forward, K3a (g5) + merge_phases backward
+    acts = SB.fused_stem_fwd_b(*SB.split_phases_b(x, seg), sp, b, True)
+    y5n = SB.batched_to_nhwc(acts[0], b, h5, 128, 1, 2).contiguous()
+    gp5dd = SB.nhwc_to_batched(SB.interleave_zero_rows(
+        SB.interleave_zero_cols(g5)), seg)
+    gxb = SB.fused_stem_bwd_b(gp5dd, acts, sbp, b)
+    acts_k1 = SF.fused_stem_fwd(*SF.split_phases(x), sp, save_acts=True)
+    gxk = SF.fused_stem_bwd_saved(acts_k1, PC.to_planar(g5), sbp)
+    del gp5dd
+
+    def glue_fwd():
+        SB.split_phases_b(x, seg)
+        return SB.batched_to_nhwc(acts[0], b, h5, 128, 1, 2).contiguous()
+
+    def glue_bwd():
+        gp5 = g5.float() * torch.where(y5n > 0, 1.0, 0.1)
+        SB.nhwc_to_batched(SB.interleave_zero_rows(SB.interleave_zero_cols(
+            gp5.to(bf16))), seg)
+        return SB.merge_phases_b(*gxb, b, h1, 3)
+
+    def shipped_glue_fwd():
+        SF.split_phases(x)
+        return PC.from_planar(acts_k1[0], h5, 128)
+
+    def shipped_glue_bwd():
+        PC.to_planar(g5)
+        return SF.merge_phases(*gxk, h1, 3)
+
+    with torch.no_grad():
+        ab = {"batched_fwd_ms": time_ms(
+                  lambda: SB.fused_stem_batched(x, sp), 3, 2),
+              "fused_fwd_ms": time_ms(lambda: SF.fused_stem(x, sp), 3, 2),
+              "batched_glue_fwd_ms": time_ms(glue_fwd, 5, 2),
+              "batched_glue_bwd_ms": time_ms(glue_bwd, 5, 2),
+              "fused_glue_fwd_ms": time_ms(shipped_glue_fwd, 5, 2),
+              "fused_glue_bwd_ms": time_ms(shipped_glue_bwd, 5, 2)}
+    ab["batched_fwd_bwd_ms"] = time_ms(lambda: torch.autograd.grad(
+        SB.fused_stem_batched(xr, sp, sbp), xr, g5), 3, 1)
+    ab["fused_fwd_bwd_ms"] = time_ms(lambda: torch.autograd.grad(
+        SF.fused_stem(xr, sp, sbp), xr, g5), 3, 1)
+    del acts, acts_k1, y5n, gxb, gxk
+    torch.cuda.empty_cache()
+    # the victim forward + input backward on each stem (fixed projection)
+    ab["victim_fwd_bwd_batched_ms"] = time_ms(
+        lambda: fwd_bwd(batched_victim), 3, 1)
+    ab["victim_fwd_bwd_fused_ms"] = time_ms(
+        lambda: fwd_bwd(lambda v: model(v, fused_stem=True)), 3, 1)
+    ab["phase6_victim_fwd_bwd_fused_ms"] = default_breakdown[
+        "victim_fwd_bwd_fused"]
+    rec["ab"] = ab
+    log(f"[exp] A/B at b24 608^2 bf16: {json.dumps(ab)} ({card})")
+    del model, xr
+    torch.cuda.empty_cache()
+
+    # -- float32 patch gradient at b4 ----------------------------------
+    exp = T.get_experiment("paper_obj", batch_size=TRAIN_BATCH,
+                           img_size=SIZE, patch_size=PATCH)
+    exp32 = dataclasses.replace(exp, compute_dtype="float32")
+    cfg32 = PT.eot_config(exp32)
+    m32 = darknet.Darknet(net, params, torch.float32, device=dev).eval()
+    sp32, sbp32 = m32.stem_params(), m32.stem_bwd_params()
+    data = SyntheticData(8, SIZE, exp.max_labels, seed=SEED + 7)
+    imgs, labs = (torch.from_numpy(a).to(dev) for a in data.batch(4, 0))
+    draws32 = PE.draw_eot(torch.Generator(device=dev).manual_seed(9), 4,
+                          exp.patch_size, cfg32)
+    rgen = torch.Generator(device=dev).manual_seed(10)
+    gproj = []
+
+    def grad(fwd):
+        p = patch.clone().requires_grad_(True)
+        with _cuda.no_tf32():
+            patched, _ = PE.apply_eot_patch(p, imgs, labs, draws32, cfg32)
+            outs = fwd(patched)
+            if not gproj:
+                gproj.extend(torch.randn(o.shape, generator=rgen, device=dev)
+                             / o.detach().abs().max() for o in outs)
+            loss = sum((o * q).sum() for o, q in zip(outs, gproj))
+            return torch.autograd.grad(loss, p)[0]
+
+    def walk_from(y5):
+        v = y5.permute(0, 3, 1, 2)
+        return m32.walk(v, 6, {5: v})
+
+    def batched32(xp):
+        return walk_from(SB.fused_stem_batched(xp.contiguous(), sp32, sbp32))
+
+    def witness(xp):
+        with torch.no_grad():
+            ph = SB.split_phases_b(xp.contiguous(), SB._seg(h1))
+            a = SB.fused_stem_fwd_b(*ph, sp32, xp.shape[0], True)
+            nb = xp.shape[0]
+            # contiguous NHWC, as the route's own y5: the walk's convs then
+            # sum in the route's order
+            y5k = SB.batched_to_nhwc(a[0], nb, h5, 128, 1, 2).contiguous()
+
+            def gate(v):
+                return torch.where(v > 0, 1.0, 0.1).permute(0, 3, 1, 2)
+            gates = [gate(SB.merge_phases_b(a[1], a[2], nb, h1, 32))] + [
+                gate(SB.batched_to_nhwc(t, nb, h1, t.shape[1]))
+                for t in a[3:]] + [gate(y5k)]
+        yg = gated_stem_walk(xp, sp32, gates).permute(0, 2, 3, 1)
+        return walk_from(y5k + (yg - yg.detach()))
+
+    g_b = grad(batched32)
+    g_w = grad(witness)
+    g_f = grad(lambda xp: m32(xp, fused_stem=True))
+    g_c = grad(lambda xp: m32(xp))
+
+    def rel(a, bb):
+        return ((a - bb).norm() / bb.norm()).item()
+    gc = {"batch": 4, "tol": 1e-4,
+          "f32_heads_batched_vs_walk_on_route_forward_rel_l2": rel(g_b, g_w),
+          "f32_heads_batched_vs_fused_rel_l2": rel(g_b, g_f),
+          "f32_heads_batched_vs_walk_rel_l2": rel(g_b, g_c),
+          "grad_l2": g_c.norm().item()}
+    rec["grad_check"] = gc
+    log(f"[exp] grad check {json.dumps(gc)}")
+    assert g_c.norm().item() > 0
+    assert gc["f32_heads_batched_vs_walk_on_route_forward_rel_l2"] <= 1e-4, gc
+    del m32, g_b, g_w, g_f, g_c
+
+    # -- the packed stem, b8 forward -----------------------------------
+    pk = {}
+    with torch.no_grad():
+        for dt, m in packed.items():
+            name = "bf16" if dt == bf16 else "f32"
+            out = m(x8, packed_stem=True)
+            assert darknet.last_routes()["stem"] == "packed"
+            pk[f"{name}_packed_fwd_ms"] = time_ms(
+                lambda: m(x8, packed_stem=True), 5, 2)
+            pk[f"{name}_walk_fwd_ms"] = time_ms(lambda: m(x8), 5, 2)
+            pk[f"{name}_fused_fwd_ms"] = time_ms(
+                lambda: m(x8, fused_stem=True), 5, 2)
+            if dt == torch.float32:
+                walk = m(x8)
+                err = max(((o - w).abs().max() / w.abs().max()).item()
+                          for o, w in zip(out, walk))
+                pk["f32_heads_vs_walk_max_err_over_scale"] = err
+                assert err <= 1e-4, err
+    rec["packed"] = pk
+    log(f"[exp] packed stem b8: {json.dumps(pk)} ({card})")
+    return rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1821,8 +2325,8 @@ def main() -> int:
     launches = read_counts()
     # the default serving route is unchanged: fused stem, conv-walk stage
     assert darknet.last_routes() == {"stem": "fused", "res152": "conv"}
-    assert all(launches[k] == 0 for k in
-               K4_VARIANTS + K6_KERNELS + NEW_KERNELS), launches
+    assert all(launches[k] == 0 for k in K4_VARIANTS + K6_KERNELS
+               + NEW_KERNELS + EXP_KERNELS), launches
     log(f"[serve] 16 service answers (rows {[len(a) for a in answers]}), "
         f"HTTP counts {http_counts}, batches {svc.stats.batches}, "
         f"saturated {svc.stats.saturated}; launches {launches}")
@@ -1957,8 +2461,8 @@ def main() -> int:
 
     # -- 5. training kernels at the training shapes --------------------
     phase("5 training kernels")
-    train_kernels = training_kernels(dev, sp, det.model.stem_bwd_params(),
-                                     card)
+    model_sbp = det.model.stem_bwd_params()
+    train_kernels = training_kernels(dev, sp, model_sbp, card)
     k5 = remat_kernel(dev, sp, det.model.stem_bwd_params(), card)
     del det, svc
     torch.cuda.empty_cache()
@@ -2041,6 +2545,21 @@ def main() -> int:
         k["golden_launches"] = {run: v[k["name"]]
                                 for run, v in golden_k4.items()}
     kernels += k4 + k6 + [k5, k6c]
+
+    # -- 9. the experimental package (counted launches) -----------------
+    phase("9 experimental package")
+    k7 = median_kernel(dev, card)
+    k8 = batched_kernels(dev, sp, model_sbp, card)
+    erec = experimental_path(dev, net, params, card, rec["breakdown_ms"])
+    for k in [k7] + k8:
+        k["launches"] = erec["launches"][k["name"]]
+        k["launches_on"] = ("phase 9: K7 on the EOT patch once, "
+                            f"{EXP_PATH_STEPS} b24 victim fwd + bwd steps "
+                            "through fused_stem_batched, one forward "
+                            "without grad")
+        assert k["launches"] > 0, k["name"]
+    kernels += [k7] + k8
+    log(f"[exp] {json.dumps(erec)} ({card})")
     phase("done")
 
     log(json.dumps({"kernels": kernels}))

@@ -474,3 +474,126 @@ def test_remat_and_c12_routes_grad_match_conv_walk_on_card(
             RF.res152_fused_grad12.launches - n[1]) == (
         (0, 1) if res152 == "c12" else (1, 0))
     assert err <= 1e-4 and rel <= 1e-4, (err, rel)
+
+
+def _experimental(name):
+    import importlib
+    return importlib.import_module(
+        "adversarial_patch_based_false_positive_creation_attacks_against_"
+        f"aerial_imagery_object_detectors_tpu_torch.experimental.{name}")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,k", [((3, 40, 37), 7), ((2, 2, 17, 33), 3),
+                                     ((1, 9, 5), 8)])
+def test_median_pool_kernel_equals_plain(cuda, dtype, shape, k):
+    """K7 against its plain version bit for bit (the median is one of the
+    inputs), ties, leading dims, tiles past the image, an even k, and a
+    NaN window's -inf."""
+    MPL = _experimental("median_pallas")
+    g = torch.Generator().manual_seed(15)
+    x = torch.rand(*shape, generator=g)
+    x[..., 2:7, 1:4] = 0.5
+    x[..., 0, 0] = float("nan")
+    x = x.to(cuda, dtype)
+    n = MPL.median_pool_2d_pallas.launches
+    got = MPL.median_pool_2d_pallas(x, k)
+    torch.cuda.synchronize()
+    assert MPL.median_pool_2d_pallas.launches == n + 1
+    want = MPL.median_pool_2d_pallas_plain(x, k)
+    assert got.dtype == dtype and got.shape == x.shape
+    assert torch.equal(got.isnan(), want.isnan())
+    assert torch.equal(torch.nan_to_num(got), torch.nan_to_num(want))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h", [(2, 32), (3, 40)])
+def test_batched_stem_kernels_match_plain(cuda, dtype, b, h):
+    """K8a with and without save_acts and K8b (on K8a's own activations)
+    against their plain versions; every border and slack lane is zero
+    though the output blocks were dirty; K8a's even dense lanes equal K1's
+    y5 (the same conv code) and its activations' signs K1's masks."""
+    SB = _experimental("stem_batched")
+    sp = _stem_params(dtype, cuda)
+    sbp = SF.stem_bwd_params(sp)
+    g = torch.Generator().manual_seed(16)
+    x = torch.rand(b, h, h, 3, generator=g).to(cuda, dtype)
+    seg = SB._seg(h // 2)
+    xe, xo = SB.split_phases_b(x, seg)
+    for rows, c in ((h // 4, 128), (h, 32), (h // 2, 64)):
+        torch.full((rows, c, b * seg), float("nan"), dtype=dtype, device=cuda)
+    n = (SB.fused_stem_fwd_b.launches, SB.fused_stem_fwd_b.save_acts_launches,
+         SB.fused_stem_bwd_b.launches)
+    y5 = SB.fused_stem_fwd_b(xe, xo, sp, b)
+    acts = SB.fused_stem_fwd_b(xe, xo, sp, b, save_acts=True)
+    torch.cuda.synchronize()
+    assert torch.equal(y5, acts[0])
+    want = SB.fused_stem_fwd_b_plain(xe, xo, sp, b, save_acts=True)
+    for got, w in zip(acts, want):
+        assert got.shape == w.shape
+        _close(got, w, dtype, "fused_stem_fwd_b")
+        assert not got.reshape(*got.shape[:2], b, seg)[..., 0].any()
+        assert not got.reshape(*got.shape[:2], b, seg)[..., h // 2 + 1:].any()
+    k1 = SF.fused_stem_fwd(*SF.split_phases(x), sp, save_acts=True)
+    assert torch.equal(SB.batched_to_nhwc(y5, b, h // 4, 128, 1, 2),
+                       PC.from_planar(k1[0], h // 4, 128))
+    m0 = SF.merge_phases(k1[1], k1[2], h // 2, 32)
+    assert torch.equal(m0 > 0, SB.merge_phases_b(acts[1], acts[2], b,
+                                                 h // 2, 32) > 0)
+    g5 = torch.randn(b, h // 4, h // 4, 128, generator=g).to(cuda, dtype)
+    gp5dd = SB.nhwc_to_batched(SB.interleave_zero_rows(
+        SB.interleave_zero_cols(g5)), seg)
+    torch.full((h, 8, b * seg), float("nan"), dtype=dtype, device=cuda)
+    gx = SB.fused_stem_bwd_b(gp5dd, acts, sbp, b)
+    torch.cuda.synchronize()
+    for got, w in zip(gx, SB.fused_stem_bwd_b_plain(gp5dd, acts, sbp, b)):
+        _close(got, w, dtype, "fused_stem_bwd_b")
+        lanes = got.reshape(h, 8, b, seg)
+        assert not lanes[..., 0].any() and not lanes[..., h // 2 + 1:].any()
+        assert not lanes[:, 3:].any()
+    assert (SB.fused_stem_fwd_b.launches,
+            SB.fused_stem_fwd_b.save_acts_launches,
+            SB.fused_stem_bwd_b.launches) == (n[0] + 1, n[1] + 1, n[2] + 1)
+
+
+def test_batched_stem_grad_matches_fused_stem_on_card(cuda):
+    """float32, TF32 off: the batch-on-lanes route's y5 and input gradient
+    equal the fused stem's (K1 save_acts + K2) to summation order."""
+    from adversarial_patch_based_false_positive_creation_attacks_against_aerial_imagery_object_detectors_tpu_torch.ops import _cuda
+    SB = _experimental("stem_batched")
+    sp = _stem_params(torch.float32, cuda)
+    sbp = SF.stem_bwd_params(sp)
+    g = torch.Generator().manual_seed(17)
+    x = torch.rand(2, 64, 64, 3, generator=g).to(cuda)
+    g5 = torch.randn(2, 16, 16, 128, generator=g).to(cuda)
+    outs = []
+    for fn in (SB.fused_stem_batched, SF.fused_stem):
+        xr = x.clone().requires_grad_(True)
+        with _cuda.no_tf32():
+            y = fn(xr, sp, sbp)
+            y.backward(g5)
+        outs.append((y.detach(), xr.grad))
+    assert torch.equal(outs[0][0], outs[1][0])
+    rel = ((outs[0][1] - outs[1][1]).norm() / outs[1][1].norm()).item()
+    assert rel <= 1e-5, rel
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_packed_stem_route_on_card(cuda, dtype):
+    """The packed route on the card (cuDNN convs) against the conv walk:
+    float32 heads within 1e-4 of their scale, bfloat16 finite; the route
+    is reported."""
+    net = PM.build_network(PM.yolov3_blocks(width=64, height=64))
+    model = PM.Darknet(net, PM.fold_bn(net, PM.init_params(net, 0)), dtype,
+                       device=cuda)
+    x = torch.rand(2, 64, 64, 3, generator=torch.Generator().manual_seed(18)
+                   ).to(cuda)
+    with torch.no_grad():
+        packed = model(x, packed_stem=True)
+        assert PM.last_routes()["stem"] == "packed"
+        walk = model(x)
+    for hp, hw in zip(packed, walk):
+        assert bool(torch.isfinite(hp).all())
+        if dtype == torch.float32:
+            err = (hp - hw).abs().max().item()
+            assert err <= 1e-4 * hw.abs().max().item(), err

@@ -249,3 +249,79 @@ def test_remat_and_c12_wrappers_plain_on_cpu_raise_elsewhere():
     with pytest.raises(ValueError, match="CUDA"):
         rf.res152_fused_grad12(meta[3], masks, bwd, w12t)
     assert counts() == before
+
+
+def test_experimental_wrappers_plain_on_cpu_raise_elsewhere():
+    """The experimental package's kernel wrappers (K7
+    ``median_pool_2d_pallas``, K8a ``fused_stem_fwd_b`` with and without
+    ``save_acts``, K8b ``fused_stem_bwd_b``) run their plain versions on
+    CPU tensors and count no launch; a tensor on a device that is not a
+    card raises instead of falling back. Their modules are among the
+    sources the no-JAX scans read."""
+    import importlib
+    mp = importlib.import_module(f"{PORT}.experimental.median_pallas")
+    sb = importlib.import_module(f"{PORT}.experimental.stem_batched")
+    sf = importlib.import_module(f"{PORT}.ops.stem_fused")
+    names = {os.path.relpath(p, ROOT) for p in _port_sources()}
+    for mod in ("__init__", "median_pallas", "stem_batched", "packed_stem"):
+        assert os.path.join(PORT, "experimental", f"{mod}.py") in names
+
+    def counts():
+        return (mp.median_pool_2d_pallas.launches,
+                sb.fused_stem_fwd_b.launches,
+                sb.fused_stem_fwd_b.save_acts_launches,
+                sb.fused_stem_bwd_b.launches)
+    before = counts()
+    g = torch.Generator().manual_seed(0)
+    x = torch.rand(2, 9, 11, generator=g)
+    assert torch.equal(mp.median_pool_2d_pallas(x, 3),
+                       mp.median_pool_2d_pallas_plain(x, 3))
+    sp = [(torch.rand(k, k, ci, co, generator=g) * 0.1, torch.zeros(co))
+          for ci, co, k in zip(sf.STEM_IN, sf.STEM_FILTERS, sf.STEM_KSIZE)]
+    sbp = sf.stem_bwd_params(sp)
+    xe, xo = sb.split_phases_b(torch.rand(2, 32, 32, 3, generator=g), 128)
+    y5 = sb.fused_stem_fwd_b(xe, xo, sp, 2)
+    acts = sb.fused_stem_fwd_b(xe, xo, sp, 2, save_acts=True)
+    assert torch.equal(y5, acts[0])
+    gp5dd = torch.rand(16, 128, 256, generator=g)
+    gxe, gxo = sb.fused_stem_bwd_b(gp5dd, acts, sbp, 2)
+    assert gxe.shape == gxo.shape == xe.shape
+    assert counts() == before
+    with pytest.raises(ValueError, match="CUDA"):
+        mp.median_pool_2d_pallas(torch.empty(x.shape, device="meta"), 3)
+    meta = [torch.empty(t.shape, device="meta") for t in (xe, *acts)]
+    with pytest.raises(ValueError, match="CUDA"):
+        sb.fused_stem_fwd_b(meta[0], meta[0], sp, 2)
+    with pytest.raises(ValueError, match="CUDA"):
+        sb.fused_stem_fwd_b(meta[0], meta[0], sp, 2, save_acts=True)
+    with pytest.raises(ValueError, match="CUDA"):
+        sb.fused_stem_bwd_b(torch.empty(gp5dd.shape, device="meta"),
+                            meta[1:], sbp, 2)
+    assert counts() == before
+
+
+def test_port_import_leaves_experimental_unloaded():
+    """As in the JAX package, nothing on a default path imports the
+    experimental package: not ``import <port>``, not a ``Darknet`` built
+    from BN-folded params and run on its default routes; asking for the
+    packed stem loads it."""
+    code = (
+        "import sys, torch\n"
+        f"import {PORT} as p\n"
+        "exp = p.__name__ + '.experimental'\n"
+        "assert exp not in sys.modules\n"
+        "M = p.models\n"
+        "net = M.build_network(M.tiny_test_blocks())\n"
+        "params = M.fold_bn(net, M.init_params(net, 0))\n"
+        "model = M.Darknet(net, params, device='cpu')\n"
+        "with torch.no_grad():\n"
+        "    model(torch.zeros(1, 64, 64, 3))\n"
+        "assert exp not in sys.modules\n"
+        "with torch.no_grad():\n"
+        "    model(torch.zeros(1, 64, 64, 3), packed_stem=True)\n"
+        "assert exp in sys.modules and M.last_routes()['stem'] == 'packed'\n"
+        "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("ok")
