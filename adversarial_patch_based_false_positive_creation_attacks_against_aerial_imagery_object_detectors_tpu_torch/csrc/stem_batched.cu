@@ -20,8 +20,9 @@
 // and y3 [H/2, 64, .], y3 before the shortcut sum. Rounding points are
 // _fwd_kernel_b's: float32 accumulation, each activation rounded to T when
 // stored, s4 = T(y3 + y1). The convs are stem_common.cuh's conv_stage, the
-// code K1 runs (conv5 with its column stride set to 1), so every value equals
-// K1's bit for bit and the even lanes of y5 are K1's y5.
+// code the float32 K1 runs (conv5 with its column stride set to 1), so in
+// float32 every value equals K1's bit for bit and the even lanes of y5 are
+// K1's y5 (the bfloat16 K1 sums on the tensor cores, in another order).
 //
 // K8b takes the conv5 cotangent gp5dd [H/2, 128, B*seg], already gated by
 // y5's sign and zero-interleaved in rows and lanes, and K8a's saved

@@ -2,9 +2,11 @@
 // stem_remat.cu, stem_batched.cu, planar_conv.cu, res_fused.cu): float
 // conversion of the compute dtype, an 8-wide weight load through the
 // read-only cache (load8) and the same from shared memory (load8s); the
-// stem's forward conv stage (K1, K5's recompute and the batch-on-lanes
-// forward) and its input-cotangent chain (K2, K5 and, past its first
-// stage, the batch-on-lanes backward).
+// stem's forward conv stage on CUDA-core FMAs (conv_stage: float32 K1, K5's
+// recompute and the batch-on-lanes forward) and its input-cotangent chain
+// on CUDA-core FMAs (grad_chain, chain_tail: float32 K2, K5 and, past its
+// first stage, the batch-on-lanes backward); and the tensor-core implicit
+// GEMM (mma_conv, on mma.sync) that the bfloat16 K1 and K2 run instead.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -74,6 +76,25 @@ __device__ __forceinline__ void load8s(const __nv_bfloat16* p, float* w) {
   }
 }
 
+// Zero elements [l, wl) of n_lines consecutive lines of wl elements from p
+// (p 16-byte aligned, a line 16 bytes' multiple): single elements up to
+// the first 16-byte boundary, 16-byte stores past it
+template <typename T>
+__device__ void zero_tail(T* __restrict__ p, int n_lines, int l, int wl) {
+  constexpr int V = 16 / (int)sizeof(T);
+  const int a = min((l + V - 1) / V * V, wl);
+  for (int idx = threadIdx.x; idx < n_lines * (V - 1); idx += blockDim.x) {
+    const int k = idx % (V - 1), line = idx / (V - 1);
+    if (l + k < a) p[(long long)line * wl + l + k] = T(0.f);
+  }
+  const int nv = (wl - a) / V;
+  for (int idx = threadIdx.x; idx < n_lines * nv; idx += blockDim.x) {
+    const int line = idx / nv, k = idx - line * nv;
+    reinterpret_cast<uint4*>(p + (long long)line * wl + a)[k] =
+        make_uint4(0, 0, 0, 0);
+  }
+}
+
 // n elements (n * sizeof(T) a multiple of 16, both pointers 16-byte
 // aligned) from device memory into shared memory, 16 bytes a thread
 template <typename T>
@@ -87,7 +108,8 @@ __device__ __forceinline__ void copy_to_shared(T* __restrict__ dst,
 }
 
 // ---------------------------------------------------------------------------
-// The stem's forward conv stage (K1, and K5's recompute)
+// The stem's forward conv stage on CUDA-core FMAs (float32 K1, K5's
+// recompute, the batch-on-lanes forward)
 // ---------------------------------------------------------------------------
 
 // One conv layer between two shared-memory buffers laid out [pos][C].
@@ -296,7 +318,8 @@ __device__ void convt_s1(const T* __restrict__ in, int IW, int OH, int OW,
 __device__ __forceinline__ float gate(int8_t m) { return m ? 1.f : LEAKY; }
 
 // ---------------------------------------------------------------------------
-// The stem's input-cotangent chain (K2, K5): the JAX package's _grad_chain.
+// The stem's input-cotangent chain on CUDA-core FMAs (float32 K2, K5; the
+// batch-on-lanes backward past gs4): the JAX package's _grad_chain.
 // With m(v) = 1 if v > 0 else 0.1 and T the rounding to the compute dtype,
 //   gp5 = T(g5 m(y5))
 //   gs4 = T(conv5^T gp5)                  (stride 2, 128 -> 64)
@@ -531,6 +554,260 @@ __device__ void grad_chain(T* sm, const T* __restrict__ y5,
       (ph ? gxo : gxe)[gb + ((long long)(R0 + r) * 8 + c) * wlh + lane] =
           from_f<T>(0.f);
     }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Tensor-core convs (the bfloat16 K1 and K2): implicit GEMMs on mma.sync
+// ---------------------------------------------------------------------------
+// A conv (or an adjoint) between shared-memory tiles laid out [pos][pitch]
+// is the product D[m][n] = sum_i sum_k A_i[m][k] B_i[k][n]: m an output
+// position of the tile, n an output channel, i a tap, k an input channel.
+// mma_conv runs it as mma.sync.m16n8k16 (bfloat16 in, float32 accumulate):
+// each warp takes items of 16 positions x 8*NW channels in turn; per tap
+// and 16 input channels one ldmatrix.x4 loads the A fragment, each lane
+// giving the address of its own position's row (so a stride-2 gather needs
+// no im2col buffer), and one 8-byte __ldg per 8 channels loads the B
+// fragment from weights in fragment order ([tap][K/16][N/8][lane][4],
+// ops/stem_fused.py: mma_weights; L1/L2-resident, the same for every
+// block). Sums run over taps, then 16-channel steps, then the MMA's own
+// order: not conv_stage's, so a result may differ from it by a rounding.
+// Each result pair (channels n, n+1 of one position) goes to the epilogue
+// as epi(oy, ox, n, v0, v1).
+
+using bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4],
+                                         const uint32_t (&a)[4], uint2 b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b.x), "r"(b.y));
+}
+
+// 4 bytes device -> shared memory, asynchronously (both 4-byte aligned)
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// two channels (n even) rounded to bfloat16, one 4-byte store
+__device__ __forceinline__ void store2(bf16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// Row maps of mma_conv: for output row m, the input position its tap i
+// reads (and the tap's index in the weights), and the output position.
+// A forward conv: output (oy, ox) of an OW-wide tile reads the input of row
+// width IW at (S oy + ky, S ox + kx).
+template <int KS, int S>
+struct RowsConv {
+  static constexpr int NTAP = KS * KS;
+  int OW, IW;
+  __device__ int operator()(int m, int i, int& tap) const {
+    const int oy = m / OW, ox = m - oy * OW;
+    const int ky = i / KS, kx = i - ky * KS;
+    tap = i;
+    return (S * oy + ky) * IW + S * ox + kx;
+  }
+  __device__ void out(int m, int& oy, int& ox) const {
+    oy = m / OW;
+    ox = m - oy * OW;
+  }
+};
+
+// The stem's conv0 (3x3, 3 channels padded to 8) over an input of one
+// 16-byte row a position: each 16-deep step pairs the taps kx = 2 pair and
+// 2 pair + 1 of row ky (lanes 16-31, the upper 8 of k, read the next
+// position; tap kx = 3 has zero weights), 6 steps for the 9 taps.
+struct RowsConv0 {
+  static constexpr int NTAP = 6;
+  int OW, IW;
+  __device__ int operator()(int m, int i, int& tap) const {
+    const int oy = m / OW, ox = m - oy * OW;
+    tap = i;
+    return (oy + (i >> 1)) * IW + ox + 2 * (i & 1);
+  }
+  __device__ void out(int m, int& oy, int& ox) const {
+    oy = m / OW;
+    ox = m - oy * OW;
+  }
+};
+
+// A stride-1 adjoint (convt_s1's): (oy, ox) reads (oy + OFF - dy,
+// ox + OFF - dx) with the forward tap (dy, dx).
+template <int KS, int OFF>
+struct RowsT1 {
+  static constexpr int NTAP = KS * KS;
+  int OW, IW;
+  __device__ int operator()(int m, int i, int& tap) const {
+    const int oy = m / OW, ox = m - oy * OW;
+    const int dy = i / KS, dx = i - dy * KS;
+    tap = i;
+    return (oy + OFF - dy) * IW + ox + OFF - dx;
+  }
+  __device__ void out(int m, int& oy, int& ox) const {
+    oy = m / OW;
+    ox = m - oy * OW;
+  }
+};
+
+// One output parity (PY, PX) of a stride-2 adjoint (convt_s2's): super
+// position (a, b) of an NS-wide grid yields output (2a + PY, 2b + PX); an
+// even row takes tap dy = 1 at input row a, an odd one dy = 0 at a + 1 and
+// dy = 2 at a (columns alike), so the parities have 1, 2, 2 and 4 taps.
+template <int PY, int PX>
+struct RowsT2 {
+  static constexpr int NX = PX + 1;
+  static constexpr int NTAP = (PY + 1) * NX;
+  int NS, IW;
+  __device__ int operator()(int m, int i, int& tap) const {
+    const int a = m / NS, b = m - a * NS;
+    const int iy = i / NX, ix = i - iy * NX;
+    const int dy = PY ? 2 * iy : 1, ey = PY ? 1 - iy : 0;
+    const int dx = PX ? 2 * ix : 1, ex = PX ? 1 - ix : 0;
+    tap = dy * 3 + dx;
+    return (a + ey) * IW + b + ex;
+  }
+  __device__ void out(int m, int& oy, int& ox) const {
+    const int a = m / NS;
+    oy = 2 * a + PY;
+    ox = 2 * (m - a * NS) + PX;
+  }
+};
+
+// One tap's B fragments (KSTEPS x NW, from w = the tap's first), and its
+// products for MT row blocks (a[t]: block t's A rows at this tap): per
+// 16-deep step the MT A fragments, then MT x NW MMAs
+template <int KSTEPS, int NW, int NT8>
+__device__ __forceinline__ void load_b(uint2 (&b)[KSTEPS][NW],
+                                       const uint2* __restrict__ w) {
+#pragma unroll
+  for (int ks = 0; ks < KSTEPS; ++ks)
+#pragma unroll
+    for (int j = 0; j < NW; ++j) b[ks][j] = __ldg(w + (ks * NT8 + j) * 32);
+}
+template <int KSTEPS, int NW, int MT>
+__device__ __forceinline__ void mma_tap(float (&acc)[MT][NW][4],
+                                        const bf16* const (&a)[MT],
+                                        const uint2 (&b)[KSTEPS][NW]) {
+#pragma unroll
+  for (int ks = 0; ks < KSTEPS; ++ks) {
+    uint32_t af[MT][4];
+#pragma unroll
+    for (int t = 0; t < MT; ++t) ldsm_x4(af[t], a[t] + ks * 16);
+#pragma unroll
+    for (int t = 0; t < MT; ++t)
+#pragma unroll
+      for (int j = 0; j < NW; ++j) mma_bf16(acc[t][j], af[t], b[ks][j]);
+  }
+}
+
+// The implicit GEMM: in [pos][IP] bfloat16 (IP * 2 bytes a multiple of 16,
+// in 16-byte aligned), M output rows, CIN input and COUT output channels,
+// wf the fragment-ordered weights (uint2 per lane and 8 channels). A warp's
+// item is MT blocks of 16 rows x NW blocks of 8 channels: each B fragment
+// it loads serves MT MMAs, so the weights' traffic through L1/L2 (the same
+// weights for every block) falls as 1/MT. rot turns the items' assignment
+// to warps (a caller running several small GEMMs back to back spreads the
+// idle warps). PF loads the next tap's B fragments while the current tap's
+// MMAs run (the taps unrolled, twice the fragment registers: for a kernel
+// of one block a multiprocessor).
+template <int CIN, int IP, int COUT, int NW, int MT = 1, bool PF = false,
+          class Rows, class Epi>
+__device__ __forceinline__ void mma_conv(const bf16* __restrict__ in, int M,
+                                         const uint2* __restrict__ wf,
+                                         const Rows& rows, const Epi& epi,
+                                         int rot = 0) {
+  constexpr int KSTEPS = CIN / 16;
+  constexpr int NT8 = COUT / 8;
+  constexpr int NG = NT8 / NW;
+  constexpr int NWARP = NT / 32;
+  constexpr int TAPW = KSTEPS * NT8 * 32;  // one tap's uint2s
+  static_assert(CIN % 16 == 0 && NT8 % NW == 0 && IP % 8 == 0,
+                "mma tiling");
+  const int lane = threadIdx.x & 31;
+  const int items = ((M + 15) / 16 + MT - 1) / MT * NG;
+  for (int it = (threadIdx.x / 32 + rot) % NWARP; it < items; it += NWARP) {
+    const int mg = it / NG, ng = it - mg * NG;
+    // this lane's A row in each row block (rows past M repeat the last;
+    // their sums are dropped) and 8-channel half of each 16-channel step
+    int mrow[MT];
+#pragma unroll
+    for (int t = 0; t < MT; ++t)
+      mrow[t] = min((mg * MT + t) * 16 + (lane & 15), M - 1);
+    const bf16* ap = in + (lane >> 4) * 8;
+    const uint2* wg = wf + ng * NW * 32 + lane;
+    float acc[MT][NW][4];
+#pragma unroll
+    for (int t = 0; t < MT; ++t)
+#pragma unroll
+      for (int j = 0; j < NW; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[t][j][e] = 0.f;
+    if constexpr (PF) {
+      uint2 b[2][KSTEPS][NW];
+      int tap;
+      const bf16* a[MT];
+#pragma unroll
+      for (int t = 0; t < MT; ++t) a[t] = ap + rows(mrow[t], 0, tap) * IP;
+      load_b<KSTEPS, NW, NT8>(b[0], wg + tap * TAPW);
+#pragma unroll
+      for (int i = 0; i < Rows::NTAP; ++i) {
+        const bf16* an[MT];
+#pragma unroll
+        for (int t = 0; t < MT; ++t) an[t] = a[t];
+        if (i + 1 < Rows::NTAP) {
+#pragma unroll
+          for (int t = 0; t < MT; ++t)
+            an[t] = ap + rows(mrow[t], i + 1, tap) * IP;
+          load_b<KSTEPS, NW, NT8>(b[(i + 1) & 1], wg + tap * TAPW);
+        }
+        mma_tap<KSTEPS, NW, MT>(acc, a, b[i & 1]);
+#pragma unroll
+        for (int t = 0; t < MT; ++t) a[t] = an[t];
+      }
+    } else {
+#pragma unroll 1
+      for (int i = 0; i < Rows::NTAP; ++i) {
+        int tap;
+        const bf16* a[MT];
+#pragma unroll
+        for (int t = 0; t < MT; ++t) a[t] = ap + rows(mrow[t], i, tap) * IP;
+        uint2 b[KSTEPS][NW];
+        load_b<KSTEPS, NW, NT8>(b, wg + tap * TAPW);
+        mma_tap<KSTEPS, NW, MT>(acc, a, b);
+      }
+    }
+    // accumulator (t, j, e): row (mg MT + t) 16 + lane/4 (+8 for e >= 2),
+    // channels 8 (ng NW + j) + 2 (lane % 4) (+1)
+    const int g = lane >> 2, n0 = ng * NW * 8 + 2 * (lane & 3);
+#pragma unroll
+    for (int t = 0; t < MT; ++t)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = (mg * MT + t) * 16 + g + 8 * h;
+        if (m >= M) continue;
+        int oy, ox;
+        rows.out(m, oy, ox);
+#pragma unroll
+        for (int j = 0; j < NW; ++j)
+          epi(oy, ox, n0 + 8 * j, acc[t][j][2 * h], acc[t][j][2 * h + 1]);
+      }
   }
 }
 

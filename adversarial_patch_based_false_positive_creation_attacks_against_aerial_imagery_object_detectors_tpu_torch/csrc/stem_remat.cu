@@ -6,10 +6,12 @@
 // block owns the 16 x 16 gx tile of K2 (stem_bwd.cu) and first recomputes,
 // over that tile's receptive field, the activations whose signs the chain
 // gates with: y0, y1, y2 and y3, with stem_common.cuh's conv_stage, the
-// very code K1 (stem_fused.cu) runs. Each element is then the same sum in
-// the same order, rounded to the compute dtype before its sign is taken,
-// so the recomputed signs equal K1's save_acts masks bit for bit, and so
-// does gx equal K2's on those masks. Only the sign bytes are kept; then
+// very code the float32 K1 (stem_fused.cu) runs. In float32 each element is
+// then the same sum in the same order, rounded to the compute dtype before
+// its sign is taken, so the recomputed signs equal K1's save_acts masks bit
+// for bit, and so does gx equal K2's on those masks (the bfloat16 K1 and K2
+// sum on the tensor cores, in another order). Only the sign bytes are
+// kept; then
 // stem_common.cuh's grad_chain runs with its gates read from them (y5's
 // gate comes from the given y5, as the Pallas kernel's does).
 //
@@ -117,7 +119,7 @@ __global__ void __launch_bounds__(NT, 1)
   }
   __syncthreads();
   // y0 in two chunks of rows [16k, 16k + 17), each then feeding y1 rows
-  // [8k, 8k + 8); K1's conv_stage, so every sum is K1's
+  // [8k, 8k + 8); conv_stage, so every sum is the float32 K1's
   for (int k = 0; k < 2; ++k) {
     const int r0 = k * (Y0_ROWS - 1);
     conv_stage<T, 3, 32, 3, 1, 4, true>(xs + r0 * NX * 3, NX, y0, Y0_ROWS,

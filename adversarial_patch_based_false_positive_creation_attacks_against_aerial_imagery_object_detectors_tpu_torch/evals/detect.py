@@ -59,8 +59,11 @@ class Detector:
         self.anchor_groups = (anchor_groups if anchor_groups is not None
                               else load_anchor_groups())
         self.max_candidates = max_candidates
+        self.params = params
         self.model = Darknet(net, params, compute_dtype,
                              device=self.device).eval()
+        # forward_heads' float32 model, built at its first call
+        self._model32: Optional[Darknet] = None
         # inference is forward-only: the stem kernels are taken on the
         # card, fused first, then planar (the model takes the conv walk
         # where neither geometry matches)
@@ -109,8 +112,16 @@ class Detector:
 
     @torch.inference_mode()
     def forward_heads(self, images) -> List[torch.Tensor]:
-        """Raw heads (NHWC, float32) for a [B, S, S, 3] batch."""
-        return self._heads(self._to_device(images))
+        """Raw heads (NHWC) for a [B, S, S, 3] batch, computed in float32
+        whatever the detector's compute dtype, as the JAX package's
+        ``forward_heads`` (``darknet.apply`` at its float32 default): a
+        float32 copy of the model on the conv walk (whose float32 forward
+        runs with TF32 off, ``ops/_cuda.no_tf32``)."""
+        if self._model32 is None:
+            self._model32 = (self.model if self.compute_dtype == torch.float32
+                             else Darknet(self.net, self.params, torch.float32,
+                                          device=self.device).eval())
+        return self._model32(self._to_device(images).to(torch.float32))
 
     def detect_batch(self, images, conf_thresh: float,
                      nms_thresh: float) -> List[np.ndarray]:

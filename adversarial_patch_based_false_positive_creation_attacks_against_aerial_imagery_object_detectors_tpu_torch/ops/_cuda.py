@@ -54,15 +54,20 @@ SIGNATURES = {
         "apfp_from_planar": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     },
     "stem_fused": {
-        # xe, xo, w0, w1, w2, w3, w5, b0, b1, b2, b3, b5, y5,
-        # m0e, m0o, m1, m2, m3 (save_acts masks or null), dtype,
-        # B, H, wlh, wl5, stream
-        "apfp_fused_stem_fwd": [_P] * 18 + [_I] * 5 + [_P],
+        # xe, xo, w0, w1, w2, w3, w5, b0, b1, b2, b3, b5, f0, f1, f2, f3,
+        # f5 (bfloat16 fragment-order weights or null), y5, m0e, m0o, m1,
+        # m2, m3 (save_acts masks or null), dtype, B, H, wlh, wl5, stream
+        "apfp_fused_stem_fwd": [_P] * 23 + [_I] * 5 + [_P],
+        # dtype, save, info[3] (registers, dynamic shared bytes, blocks/SM)
+        "apfp_fused_stem_fwd_info": [_I, _I, _P],
     },
     "stem_bwd": {
-        # m0e, m0o, m1, m2, m3, y5, g5, v0, v1, v2, v3, v5, gxe, gxo,
-        # dtype, B, H, wlh, wl5, stream
-        "apfp_fused_stem_bwd": [_P] * 14 + [_I] * 5 + [_P],
+        # m0e, m0o, m1, m2, m3, y5, g5, v0, v1, v2, v3, v5, u0, u1, u2, u3,
+        # u5 (bfloat16 fragment-order weights or null), gxe, gxo, dtype, B,
+        # H, wlh, wl5, stream
+        "apfp_fused_stem_bwd": [_P] * 19 + [_I] * 5 + [_P],
+        # dtype, info[3]
+        "apfp_fused_stem_bwd_info": [_I, _P],
     },
     "stem_remat": {
         # xe, xo, w0, w1, w2, w3, b0, b1, b2, b3, y5, g5, v0, v1, v2, v3,

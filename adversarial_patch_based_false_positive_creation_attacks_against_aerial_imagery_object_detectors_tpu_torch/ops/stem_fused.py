@@ -17,7 +17,9 @@ on a CPU tensor it runs its plain version, the same function as
 ``F.conv2d`` / ``F.conv_transpose2d`` chains with the kernel's rounding
 points (float32 accumulation; the compute dtype where the Pallas kernel
 stores). The kernels are bound by operations on the H100 (11.2 GFLOP per
-608^2 image each way); see the sources.
+608^2 image each way); see the sources. In bfloat16, K1 and K2 run their
+convs on the tensor cores and read the weights in ``mma.sync``'s fragment
+order as well (``mma_weights``, built once per weight tensor).
 
 Three autograd Functions around them, the JAX package's three custom
 VJPs of the stem; each returns the input cotangent only (the victim's
@@ -39,6 +41,7 @@ from typing import Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.weak import WeakIdKeyDictionary
 
 from . import _cuda
 from .planar_conv import (_round_up, from_planar, from_planar_plain,
@@ -103,6 +106,43 @@ def stem_bwd_params(sp: StemParams) -> list:
             v = F.pad(v, (0, 8 - v.shape[-1]))
         out.append(v.contiguous())
     return out
+
+
+def mma_weights(w: torch.Tensor) -> torch.Tensor:
+    """A conv's weights ``[kh, kw, K, N]`` (tap, then the GEMM's depth K
+    and width N: HWIO for a forward conv, ``stem_bwd_params``' layout for
+    an adjoint) -> ``mma.sync.m16n8k16``'s B fragments in the order the
+    kernels load them, ``[kh*kw, K/16, N/8, 32, 4]``: lane ``4g + t`` of
+    the 16-deep step s and 8-wide block j holds ``B[k][8j + g]`` at
+    ``k = 16s + 2t + (0, 1, 8, 9)``."""
+    kh, kw, k, n = w.shape
+    v = w.reshape(kh * kw, k // 16, 2, 4, 2, n // 8, 8)
+    return v.permute(0, 1, 5, 6, 3, 2, 4).reshape(
+        kh * kw, k // 16, n // 8, 32, 4).contiguous()
+
+
+def mma_weights_conv0(w: torch.Tensor) -> torch.Tensor:
+    """conv0's HWIO ``[3, 3, 3, 32]`` as K1's tensor-core conv0 reads it
+    (``stem_common.cuh: RowsConv0``): input channels padded 3 -> 8 and a
+    zero fourth column, each 16-deep step the taps kx = 2 pair, 2 pair + 1
+    of one row: ``mma_weights`` of ``[3, 2, 16, 32]``."""
+    kh, kw, cin, cout = w.shape
+    v = F.pad(w, (0, 0, 0, 8 - cin, 0, 4 - kw))
+    return mma_weights(v.reshape(kh, 2, 16, cout))
+
+
+# fragment-order copies, one per weight tensor (and its version: an
+# inference tensor has none); they go when the weights go
+_MMA_CACHE = WeakIdKeyDictionary()
+
+
+def _mma_cached(w: torch.Tensor, build=mma_weights) -> torch.Tensor:
+    version = -1 if w.is_inference() else w._version
+    hit = _MMA_CACHE.get(w)
+    if hit is None or hit[0] != version:
+        hit = (version, build(w))
+        _MMA_CACHE[w] = hit
+    return hit[1]
 
 
 def _sign_mask(v: torch.Tensor) -> torch.Tensor:
@@ -209,10 +249,15 @@ def fused_stem_fwd(xe: torch.Tensor, xo: torch.Tensor, sp: StemParams,
                  for rows, c in ((h, 32), (h, 32), (h1, 64), (h1, 32),
                                  (h1, 64))]
     mask_ptrs = [m.data_ptr() for m in masks] or [None] * 5
+    # bfloat16 on the tensor cores (fragment order), float32 on sp
+    frags = ([_mma_cached(sp[0][0], mma_weights_conv0).data_ptr()]
+             + [_mma_cached(w).data_ptr() for w, _ in sp[1:]]
+             if dt == torch.bfloat16 else [None] * 5)
     err = _cuda.lib("stem_fused").apfp_fused_stem_fwd(
         xe.data_ptr(), xo.data_ptr(), *[w.data_ptr() for w, _ in sp],
-        *[bias.data_ptr() for _, bias in sp], y5.data_ptr(), *mask_ptrs,
-        _cuda.DTYPE_CODES[dt], bsz, h, wlh, wl5, _cuda.stream_ptr(xe))
+        *[bias.data_ptr() for _, bias in sp], *frags, y5.data_ptr(),
+        *mask_ptrs, _cuda.DTYPE_CODES[dt], bsz, h, wlh, wl5,
+        _cuda.stream_ptr(xe))
     _cuda.check(err, "fused_stem_fwd")
     if save_acts:
         fused_stem_fwd.save_acts_launches += 1
@@ -295,10 +340,13 @@ def fused_stem_bwd_saved(acts, g5p: torch.Tensor, sbp: StemBwdParams):
     # the kernel writes every lane, borders and padding included
     gxe = torch.empty((bsz, h, 8, wlh), dtype=dt, device=y5p.device)
     gxo = torch.empty_like(gxe)
+    # bfloat16 on the tensor cores (fragment order), float32 on sbp
+    frags = ([_mma_cached(v).data_ptr() for v in sbp]
+             if dt == torch.bfloat16 else [None] * 5)
     err = _cuda.lib("stem_bwd").apfp_fused_stem_bwd(
         y0e.data_ptr(), y0o.data_ptr(), y1m.data_ptr(), y2m.data_ptr(),
         y3m.data_ptr(), y5p.data_ptr(), g5p.data_ptr(),
-        *[v.data_ptr() for v in sbp], gxe.data_ptr(), gxo.data_ptr(),
+        *[v.data_ptr() for v in sbp], *frags, gxe.data_ptr(), gxo.data_ptr(),
         _cuda.DTYPE_CODES[dt], bsz, h, wlh, wl5, _cuda.stream_ptr(y5p))
     _cuda.check(err, "fused_stem_bwd_saved")
     fused_stem_bwd_saved.launches += 1

@@ -6,11 +6,15 @@
 Phases, each fatal on failure:
 
 1. Build the kernels of ``<port>/csrc`` (one nvcc per source, in
-   parallel) and print the build time and the ``-Xptxas -v`` lines.
+   parallel) and print the build time and the ``-Xptxas -v`` lines; then
+   count the tensor-core instructions (``cuobjdump -sass``: HMMA, HGMMA)
+   of each bfloat16 K1 and K2 kernel, with its registers, shared memory
+   and blocks per multiprocessor, and fail if one has none.
 2. Hold each kernel of the serving path against its plain PyTorch
    version on the card at the serving shapes (batch 8, 608^2, bfloat16;
    the fused stem also in float32) and time kernel, plain version and,
-   where one exists, a single PyTorch call computing the same function.
+   where one exists, a single PyTorch call computing the same function
+   (for K1, the stem on cuDNN: ``stem_conv_walk``).
 3. Serve: the full-width YOLOv3 (75 convs, 608^2, 15 classes, random
    weights from a seed) as a bfloat16 Detector on the card, driven
    through a DetectionService (16 requests from 4 threads) and its HTTP
@@ -24,11 +28,13 @@ Phases, each fatal on failure:
 5. Training kernels at the training shapes (batch 24, 608^2, bfloat16):
    K1 with ``save_acts`` (y5 and the int8 sign masks), K2 on the same
    masks (also float32) and K3a at the cotangent g5's shape (both of its
-   variants), each against its plain version and timed as in phase 2;
-   then K5, the recomputing stem backward (bfloat16 and float32), against
-   K2 on K1's masks of the same x (expected equal), the plain chain on
-   those masks, and its own plain version (which recomputes the masks in
-   cuDNN's order: checked where no gate flipped).
+   variants), each against its plain version and timed as in phase 2,
+   K1 and K2 beside the stem on cuDNN (forward; input backward); then
+   K5, the recomputing stem backward (bfloat16 and float32), against K2
+   on K1's masks of the same x and the plain chain on those masks (in
+   bfloat16 outside 12 pixels of a gate where K1's tensor-core masks and
+   K5's recomputed signs differ), and its own plain version (which
+   recomputes the masks in cuDNN's order: checked where no gate flipped).
 6. Training (the second main path; counted launches): the training CLI
    in-process, ``paper_obj`` on the full-width YOLOv3 with random weights
    over 48 synthetic tiles (one epoch of 2 steps at batch 24), then warm-up
@@ -55,14 +61,15 @@ Phases, each fatal on failure:
    step) and a train step with ``fused_stem=False, planar_stem=True,
    res152="planar"`` (only K4 in layers 0-11), each with warm-up and timed
    steps; then float32 patch-gradient checks at batch 4 (the planar stem
-   and each stage route against cuDNN convs, and each whole route against
-   the walk carrying that route's own y11 forward, all at 1e-4 relative
-   L2) and the bfloat16 readings against the plain route. Then the same
-   for ``PatchTrainer(stem_remat=True)`` (K1 without masks and K5 a step)
-   and ``PatchTrainer(res152="c12")`` (K1 ``save_acts``, K6a ``save``,
-   K6c and K2 a step), with peak memory, beside the default route's
-   under the same conditions; their float32 checks: remat against the
-   default fused route, c12 against the walk carrying the route's
+   and each stage route against cuDNN convs, the c12 stage against the
+   cuDNN walk carrying its leaky gates through layer 12, and each whole
+   route against the walk carrying that route's own y11 forward, all at
+   1e-4 relative L2) and the bfloat16 readings against the plain route.
+   Then the same for ``PatchTrainer(stem_remat=True)`` (K1 without masks
+   and K5 a step) and ``PatchTrainer(res152="c12")`` (K1 ``save_acts``,
+   K6a ``save``, K6c and K2 a step), with peak memory, beside the default
+   route's under the same conditions; their float32 checks: remat against
+   the default fused route, c12 against the walk carrying the route's
    forward and gates through layer 12. Then one serving batch
    (b8) with ``res152="fused"`` (K6a without masks, the forward alone,
    which training never launches) and one with ``res152="c12"``.
@@ -253,6 +260,72 @@ def match_count(ours, ref, atol=1e-3) -> int:
     return matched
 
 
+# the bfloat16 stem kernels that must run on the tensor cores: entry name
+# of the kernels line -> (library, its info function and arguments, a
+# substring of the kernel's mangled name)
+TC_KERNELS = {
+    "fused_stem_fwd": ("stem_fused", "apfp_fused_stem_fwd_info", (1, 0),
+                       "fused_stem_fwd_kernelI13__nv_bfloat16Li8ELb0E"),
+    "fused_stem_fwd_save_acts": (
+        "stem_fused", "apfp_fused_stem_fwd_info", (1, 1),
+        "fused_stem_fwd_kernelI13__nv_bfloat16Li8ELb1E"),
+    "fused_stem_bwd_saved": ("stem_bwd", "apfp_fused_stem_bwd_info", (1,),
+                             "fused_stem_bwd_tc_kernel")}
+
+
+def tensor_core_check(_cuda, info) -> dict:
+    """Phase 1: the tensor-core instructions (HMMA, HGMMA) that
+    ``cuobjdump -sass`` finds in each bfloat16 K1 and K2 kernel of the
+    built libraries, with ptxas' registers (``-Xptxas -v``) and the
+    card's own account of registers, dynamic shared memory and blocks per
+    multiprocessor (``apfp_*_info``). Fails if one has no tensor-core
+    instruction. Returns {entry name: record}."""
+    import ctypes
+    tool = os.path.join(os.path.dirname(_cuda._nvcc()), "cuobjdump")
+    counts, regs = {}, {}
+    for lib in {v[0] for v in TC_KERNELS.values()}:
+        sass = subprocess.run([tool, "-sass", info[lib]["path"]],
+                              capture_output=True, text=True, check=True,
+                              timeout=300).stdout
+        fn = None
+        for line in sass.splitlines():
+            s = line.strip()
+            if s.startswith("Function :"):
+                fn = s.split(":", 1)[1].strip()
+                counts[fn] = {"HMMA": 0, "HGMMA": 0}
+            elif fn is not None:
+                for op in ("HGMMA", "HMMA"):
+                    if f" {op}." in s or f" {op} " in s:
+                        counts[fn][op] += 1
+                        break
+        fn = None
+        for line in info[lib]["log"].splitlines():
+            if "Compiling entry function" in line:
+                fn = line.split("'")[1]
+            elif fn is not None and "Used" in line and "registers" in line:
+                regs[fn] = line.strip()
+    out = {}
+    for name, (lib, info_fn, args, key) in TC_KERNELS.items():
+        fns = [f for f in counts if key in f]
+        assert len(fns) == 1, (name, fns)
+        c = counts[fns[0]]
+        rec = {"hmma": c["HMMA"], "hgmma": c["HGMMA"],
+               "ptxas": regs.get(fns[0], "")}
+        buf = (ctypes.c_int * 3)()
+        _cuda.check(getattr(_cuda.lib(lib), info_fn)(*args, buf),
+                    f"{name} info")
+        rec.update(registers=buf[0], dynamic_smem_bytes=buf[1],
+                   blocks_per_sm=buf[2])
+        log(f"[sass] {name}: {rec['hmma']} HMMA, {rec['hgmma']} HGMMA; "
+            f"{rec['registers']} registers, {rec['dynamic_smem_bytes']} "
+            f"bytes of shared memory, {rec['blocks_per_sm']} block(s) a "
+            f"multiprocessor; ptxas: {rec['ptxas']}")
+        assert rec["hmma"] + rec["hgmma"] > 0, \
+            f"{name}: no tensor-core instruction in its SASS"
+        out[name] = rec
+    return out
+
+
 def import_port(name: str):
     import importlib
     return importlib.import_module(f"{PORT}.{name}")
@@ -267,10 +340,12 @@ def k2_read_bytes(acts, g5p) -> int:
             + image_bytes(y5, h5, 128) + image_bytes(g5p, h5, 128))
 
 
-def training_kernels(dev, sp, sbp, card) -> list:
+def training_kernels(dev, sp, sbp, card, tc_info) -> list:
     """Phase 5: K1 save_acts, K2 and K3a (g5) against their plain versions
-    at batch 24, 608^2, bfloat16 (K2 also float32); returns their entries
-    of the kernels line (launches filled in by the training phase)."""
+    at batch 24, 608^2, bfloat16 (K2 also float32), K1 and K2 beside the
+    stem on cuDNN (``stem_yardstick``); returns their entries of the
+    kernels line (launches filled in by the training phase), with phase
+    1's tensor-core records."""
     PC = import_port("ops.planar_conv")
     SF = import_port("ops.stem_fused")
     _cuda = import_port("ops._cuda")
@@ -281,6 +356,9 @@ def training_kernels(dev, sp, sbp, card) -> list:
     xe, xo = SF.split_phases(x)
     wlh, wl5 = xe.shape[-1], 256
     out = []
+    walk = stem_yardstick(x, sp)
+    log(f"[train-kernel] the stem on cuDNN, b24 bfloat16: {json.dumps(walk)} "
+        f"({card})")
 
     # K1 with save_acts: dirty the blocks its outputs will reuse first
     torch.full((b, h5, 128, wl5), float("nan"), dtype=bf16, device=dev)
@@ -318,7 +396,10 @@ def training_kernels(dev, sp, sbp, card) -> list:
                       5),
         "plain_ms": time_ms(lambda: SF.fused_stem_fwd_plain(
             xe, xo, sp, save_acts=True), 3),
-        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": walk["fwd_ms"],
+        "library_is": "the stem on cuDNN (stem_conv_walk), bfloat16, "
+                      "forward, b24 (no masks)",
+        **tc_info["fused_stem_fwd_save_acts"]})
     del want
 
     # K3a at the cotangent's shape: the tiled transpose (the wrapper's
@@ -375,7 +456,11 @@ def training_kernels(dev, sp, sbp, card) -> list:
         "ms": time_ms(lambda: SF.fused_stem_bwd_saved(acts, g5p, sbp), 5),
         "plain_ms": time_ms(
             lambda: SF.fused_stem_bwd_saved_plain(acts, g5p, sbp), 3),
-        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": walk["bwd_ms"],
+        "library_is": "the stem on cuDNN (stem_conv_walk), bfloat16, input "
+                      "backward alone on a retained graph, b24",
+        "library_fwd_bwd_ms": walk["fwd_bwd_ms"],
+        **tc_info["fused_stem_bwd_saved"]}
     del got, want
     # float32: its own masks from the float32 K1, tolerance 2e-5 of scale
     sp32 = [(w.float(), bias) for w, bias in sp]
@@ -415,11 +500,12 @@ def training_kernels(dev, sp, sbp, card) -> list:
     return out
 
 
-def flip_zone(acts, plain_acts, h: int, radius: int = 12):
+def flip_zone(acts, plain_acts, h: int, radius: int = 12, extra=None):
     """[B, H, H] bool: the input pixels within ``radius`` of a position
     where the kernel's masks and the plain forward's differ in any channel
-    (a gate flipped by summation order; the JAX tests' sign-safe mask),
-    and the number of flipped mask elements."""
+    (a gate flipped by summation order; the JAX tests' sign-safe mask), or
+    of a pixel set in ``extra`` ([B, H, H] bool), and the number of flipped
+    mask elements."""
     SF = import_port("ops.stem_fused")
     PC = import_port("ops.planar_conv")
     h1 = h // 2
@@ -432,19 +518,44 @@ def flip_zone(acts, plain_acts, h: int, radius: int = 12):
         d = (PC.from_planar_plain(k, h1, c)
              != PC.from_planar_plain(p, h1, c)).any(-1)
         zone = zone | d.repeat_interleave(2, 1).repeat_interleave(2, 2)
+    if extra is not None:
+        zone = zone | extra
     zone = torch.nn.functional.max_pool2d(
         zone[:, None].float(), 2 * radius + 1, 1, radius)[:, 0] > 0
     return zone, flips
 
 
-def remat_kernel(dev, sp, sbp, card) -> dict:
-    """Phase 5, K5 at batch 24, 608^2, bfloat16 and float32: against K2 on
-    K1's save_acts masks of the same x (the recompute is K1's code, so
-    expected equal), against the plain chain on those masks (K2's
-    tolerances), and against its own plain version, which recomputes the
-    masks in cuDNN's order: K2's tolerances outside the input pixels
-    within 12 of a flipped gate, flips at most 1e-5 of the mask elements.
-    Returns K5's entry of the kernels line."""
+def fma_signs(x, sp, b):
+    """K5's recomputed signs of y0..y3 for NHWC x, in K1's planar mask
+    layout (a tuple like save_acts' with no y5): the batch-on-lanes
+    forward's save_acts activations, which run the same CUDA-core
+    conv_stage code as K5's recompute."""
+    SB = import_port("experimental.stem_batched")
+    PC = import_port("ops.planar_conv")
+    h1 = x.shape[1] // 2
+    seg = SB._seg(h1)
+    acts = SB.fused_stem_fwd_b(*SB.split_phases_b(x, seg), sp, b,
+                               save_acts=True)
+    m0 = (SB.merge_phases_b(acts[1], acts[2], b, h1, 32) > 0).to(torch.int8)
+    return (None, PC.to_planar_plain(m0, step=2, offset=0),
+            PC.to_planar_plain(m0, step=2, offset=1),
+            *[PC.to_planar_plain((SB.batched_to_nhwc(
+                a, b, h1, a.shape[1]) > 0).to(torch.int8))
+              for a in acts[3:]])
+
+
+def remat_kernel(dev, sp, sbp, card, walk_fwd_bwd_ms) -> dict:
+    """Phase 5, K5 at batch 24, 608^2, bfloat16 and float32, against K2 on
+    K1's save_acts masks of the same x and against the plain chain on
+    those masks: K2's tolerances outside the input pixels within 12 of a
+    gate where K1's masks and K5's recomputed signs (``fma_signs``) differ,
+    at most 1e-5 of the mask elements (in float32 all three run the
+    CUDA-core code and agree everywhere; in bfloat16 K1 and K2 run on the
+    tensor cores); then against its own plain version, which recomputes
+    the masks in cuDNN's order: the same tolerances outside 12 of a flipped
+    gate, flips at most 1e-5 of the mask elements. Returns K5's entry of
+    the kernels line, beside the stem's cuDNN forward + input backward at
+    b24 bfloat16 (K5 recomputes the forward)."""
     PC = import_port("ops.planar_conv")
     SF = import_port("ops.stem_fused")
     bf16 = torch.bfloat16
@@ -455,7 +566,21 @@ def remat_kernel(dev, sp, sbp, card) -> dict:
     ent = {"name": "fused_stem_bwd", "route": "cuda",
            "source": f"{PORT}/csrc/stem_remat.cu",
            "replaces": f"{JAX_PKG}/ops/stem_fused.py:965", "launches": 0,
-           "library_ms": None, "dtype": "bfloat16"}
+           "library_ms": walk_fwd_bwd_ms,
+           "library_is": "the stem on cuDNN (stem_conv_walk), bfloat16, "
+                         "forward + input backward, b24",
+           "dtype": "bfloat16"}
+
+    def outside(got, want, zone):
+        """(max, mean) of |got - want| (merged phases, worst channel) over
+        the pixels outside zone, want's scale and the max over all."""
+        e = (SF.merge_phases(*got, h1, 3).float()
+             - SF.merge_phases(*want, h1, 3).float()).abs().amax(-1)
+        out = e[~zone] if (~zone).any() else e.new_zeros(1)
+        return (out.max().item(), out.mean().item(),
+                max(w.float().abs().max().item() for w in want),
+                e.max().item())
+
     for dt in (bf16, torch.float32):
         spd = sp if dt == bf16 else [(w.float(), bb) for w, bb in sp]
         sbpd = sbp if dt == bf16 else SF.stem_bwd_params(spd)
@@ -466,33 +591,33 @@ def remat_kernel(dev, sp, sbp, card) -> dict:
         torch.full(xe.shape, float("nan"), dtype=dt, device=dev)
         got = SF.fused_stem_bwd(xe, xo, acts[0], g5p, spd, sbpd)
         torch.cuda.synchronize()
-        chain = SF.fused_stem_bwd_saved_plain(acts, g5p, sbpd)
-        rel_tol = 2e-5 if dt == torch.float32 else 2.0 ** -6
-        r = {"vs_k2_max_abs_diff": max(
-            (gk.float() - kk.float()).abs().max().item()
-            for gk, kk in zip(got, k2))}
-        errs, means, scale = [], [], 0.0
-        for gk, ck in zip(got, chain):
-            sc = ck.float().abs().max().item()
-            e = (gk.float() - ck.float()).abs()
-            errs.append(e.max().item())
-            means.append(e.mean().item())
-            scale = max(scale, sc)
-            assert errs[-1] <= rel_tol * sc and means[-1] <= 1e-4 * sc, \
-                (dt, errs[-1], means[-1], sc)
+        for gk in got:
             assert not gk[..., 0].any() and not gk[..., h1 + 1:].any()
             assert not gk[:, :, 3:].any()
-        tol = rel_tol * scale
-        assert r["vs_k2_max_abs_diff"] <= tol, r
-        r.update(same_masks_max_abs_err=max(errs),
-                 same_masks_mean_abs_err=max(means), tol=tol)
-        del chain, k2
-        # its own plain version: the masks recomputed by cuDNN
+        chain = SF.fused_stem_bwd_saved_plain(acts, g5p, sbpd)
+        rel_tol = 2e-5 if dt == torch.float32 else 2.0 ** -6
+        n_mask = sum(m.numel() for m in acts[1:])
+        k5m = fma_signs(x.to(dt), spd, b)
+        zone5, flips5 = flip_zone(acts, k5m, h)
+        assert flips5 <= 1e-5 * n_mask, (dt, flips5, n_mask)
+        vs_k2, _, sc_k2, vs_k2_all = outside(got, k2, zone5)
+        err, mean, scale, err_all = outside(got, chain, zone5)
+        tol = rel_tol * max(scale, sc_k2)
+        r = {"vs_k2_max_abs_diff_outside_flips": vs_k2,
+             "vs_k2_max_abs_diff": vs_k2_all,
+             "same_masks_max_abs_err_outside_flips": err,
+             "same_masks_mean_abs_err_outside_flips": mean,
+             "same_masks_max_abs_err": err_all,
+             "k5_sign_flips_vs_k1_masks": flips5,
+             "k5_flip_zone_frac": zone5.float().mean().item(), "tol": tol}
+        assert vs_k2 <= tol and err <= tol and mean <= 1e-4 * scale, (dt, r)
+        del chain, k2, zone5
+        # its own plain version: the masks recomputed by cuDNN, against
+        # K5's own signs
         own = SF.fused_stem_bwd_plain(xe, xo, acts[0], g5p, spd, sbpd)
         plain_acts = SF.fused_stem_fwd_plain(xe, xo, spd, save_acts=True)
-        zone, flips = flip_zone(acts, plain_acts, h)
-        n_mask = sum(m.numel() for m in acts[1:])
-        del plain_acts
+        zone, flips = flip_zone(k5m, plain_acts, h)
+        del plain_acts, k5m
         e = (SF.merge_phases(*got, h1, 3).float()
              - SF.merge_phases(*own, h1, 3).float()).abs().amax(-1)
         err_out = e[~zone].max().item() if (~zone).any() else 0.0
@@ -500,8 +625,9 @@ def remat_kernel(dev, sp, sbp, card) -> dict:
                  max_abs_err_outside_flips=err_out, mask_flips=flips,
                  mask_elements=n_mask,
                  flip_zone_frac=zone.float().mean().item(),
-                 tol_applies_to="vs_k2_max_abs_diff, same_masks_max_abs_err "
-                                "and max_abs_err_outside_flips")
+                 tol_applies_to="vs_k2_max_abs_diff_outside_flips, "
+                                "same_masks_max_abs_err_outside_flips and "
+                                "max_abs_err_outside_flips")
         assert flips <= 1e-5 * n_mask, (flips, n_mask)
         assert err_out <= tol, r
         del own, e, zone
@@ -518,9 +644,10 @@ def remat_kernel(dev, sp, sbp, card) -> dict:
                      acts, g5p, sbpd), 5),
                  bound_ms=b_ms, bound_by=b_by)
         del got, acts
-        log(f"[k5] {dt}: vs K2 on K1's masks {r['vs_k2_max_abs_diff']:.3g}, "
-            f"vs plain chain {r['same_masks_max_abs_err']:.3g} (tol "
-            f"{tol:.3g}), vs own plain {r['max_abs_err']:.3g} "
+        log(f"[k5] {dt}: {flips5} of K5's signs differ from K1's masks; "
+            f"outside their zone vs K2 {vs_k2:.3g}, vs plain chain "
+            f"{err:.3g} (tol {tol:.3g}; everywhere {vs_k2_all:.3g}, "
+            f"{err_all:.3g}), vs own plain {r['max_abs_err']:.3g} "
             f"({flips} mask flips, outside their zone "
             f"{err_out:.3g}); {r['ms']:.4f} ms vs plain "
             f"{r['plain_ms']:.4f}, K2 {r['k2_ms']:.4f}, bound "
@@ -559,16 +686,39 @@ class PlainStem(torch.autograd.Function):
 
 
 def stem_conv_walk(x, sp):
-    """Layers 0-5 as cuDNN convs (float32, the caller turns TF32 off):
-    NHWC x -> NHWC y5, the reference of the stem-level gradient check."""
+    """Layers 0-5 as cuDNN convs (for float32 the caller turns TF32 off):
+    NHWC x -> NHWC y5, the reference of the stem-level gradient check and,
+    in bfloat16, the yardstick of K1, K2 and K5 (``stem_yardstick``)."""
     def conv(u, w, b, s):
-        y = torch.nn.functional.conv2d(u, w.permute(3, 2, 0, 1), b, s,
+        y = torch.nn.functional.conv2d(u, w.permute(3, 2, 0, 1),
+                                       b.to(u.dtype), s,
                                        (w.shape[0] - 1) // 2)
         return torch.where(y > 0, y, 0.1 * y)
     v = x.permute(0, 3, 1, 2)
     y1 = conv(conv(v, *sp[0], 1), *sp[1], 2)
     y3 = conv(conv(y1, *sp[2], 1), *sp[3], 1)
     return conv(y3 + y1, *sp[4], 2).permute(0, 2, 3, 1)
+
+
+def stem_yardstick(x, sp, backward=True) -> dict:
+    """The whole stem on cuDNN (``stem_conv_walk``, bfloat16) at x's shape,
+    timed as the yardstick of the stem kernels (the port never calls it):
+    the forward, and with ``backward`` the input backward alone (on a
+    retained graph) and forward + input backward."""
+    with torch.no_grad():
+        out = {"fwd_ms": time_ms(lambda: stem_conv_walk(x, sp), 5)}
+    if backward:
+        xr = x.detach().requires_grad_(True)
+        g5 = torch.randn(x.shape[0], x.shape[1] // 4, x.shape[2] // 4, 128,
+                         generator=torch.Generator(device=x.device)
+                         .manual_seed(SEED + 30), device=x.device).to(x.dtype)
+        y5 = stem_conv_walk(xr, sp)
+        out["bwd_ms"] = time_ms(lambda: torch.autograd.grad(
+            y5, xr, g5, retain_graph=True), 5)
+        del y5
+        out["fwd_bwd_ms"] = time_ms(lambda: torch.autograd.grad(
+            stem_conv_walk(xr, sp), xr, g5), 5)
+    return out
 
 
 @contextlib.contextmanager
@@ -1282,9 +1432,15 @@ def route_forward(x, kw, sp, pf, rf, c12=None):
         y11 = PC.from_planar(y11p, h5, 128)
         if kw["res152"] != "c12":
             return y11, gates
-        y12, m12 = PRP._conv12(y11, *c12)
-        gates.append(torch.where(m12.permute(0, 3, 1, 2) > 0, 1.0, 0.1))
-        return y12, gates
+        return conv12_gated(y11, c12, gates)
+
+
+def conv12_gated(y11, c12, gates):
+    """conv12 (cuDNN) on NHWC y11 as the c12 route runs it: its y12 and
+    ``gates`` with conv12's own leaky gate (NCHW) appended."""
+    PRP = import_port("models.res_planar")
+    y12, m12 = PRP._conv12(y11, *c12)
+    return y12, gates + [torch.where(m12.permute(0, 3, 1, 2) > 0, 1.0, 0.1)]
 
 
 def _gated_conv(u, w, b, s, g):
@@ -1308,15 +1464,21 @@ def gated_walk_y11(x, sp, rf, gates, c12=None):
     """Layers 0-11 (0-12 with ``c12`` = conv12's OIHW weight and bias) as
     cuDNN convs (float32; the caller turns TF32 off) whose leaky gates are
     the given ones (``route_forward``'s): NHWC x -> NHWC y11 (y12)."""
+    return gated_stage(gated_stem_walk(x, sp, gates), rf, gates[5:], c12)
+
+
+def gated_stage(y5, rf, gates, c12=None):
+    """Layers 6-11 (6-12 with ``c12``) as cuDNN convs (float32; the caller
+    turns TF32 off) on NCHW y5 whose leaky gates are the given ones (NCHW,
+    layers 6, 7, 9, 10 and 12): -> NHWC y11 (y12)."""
     conv = _gated_conv
-    g6, g7, g9, g10 = gates[5:9]
-    y5 = gated_stem_walk(x, sp, gates)
+    g6, g7, g9, g10 = gates[:4]
     (w6, b6), (w7, b7), (w9, b9), (w10, b10) = rf
     y8 = conv(conv(y5, w6, b6, 1, g6), w7, b7, 1, g7) + y5
     y11 = conv(conv(y8, w9, b9, 1, g9), w10, b10, 1, g10) + y8
     if c12 is not None:
         w12, b12 = c12
-        y11 = torch.nn.functional.conv2d(y11, w12, b12, 2, 1) * gates[9]
+        y11 = torch.nn.functional.conv2d(y11, w12, b12, 2, 1) * gates[4]
     return y11.permute(0, 2, 3, 1)
 
 
@@ -1371,6 +1533,7 @@ def route_training(dev, card) -> dict:
     PE = import_port("attack.eot")
     PO = import_port("train.optim")
     PC = import_port("ops.planar_conv")
+    RF = import_port("ops.res_fused")
     PSP = import_port("models.stem_planar")
     PRP = import_port("models.res_planar")
     _cuda = import_port("ops._cuda")
@@ -1587,6 +1750,20 @@ def route_training(dev, card) -> dict:
                 # (the K3a wrapper records no graph)
                 return [PRP.res152_c12_fused(PC.to_planar_plain(y5), rf32,
                                              rb32, *c12_32, m32.w12t)]
+            if route == "walk12_on_route_gates":
+                # the route's own leaky gates in layers 6-12 (K6a's masks,
+                # conv12's sign on K6a's y11): a pre-activation within
+                # summation order of 0 gates both alike
+                with torch.no_grad():
+                    y11p, *acts = RF.res152_fused(
+                        PC.to_planar_plain(y5), rf32, save=True)
+                    gates = [torch.where(PC.from_planar_plain(
+                        a, SIZE // 4, a.shape[2]).permute(0, 3, 1, 2) > 0,
+                        1.0, 0.1) for a in acts]
+                    _, gates = conv12_gated(PC.from_planar(
+                        y11p, SIZE // 4, 128), c12_32, gates)
+                return [gated_stage(y5.permute(0, 3, 1, 2), rf32, gates,
+                                    c12_32)]
             y11 = stage_conv_walk(y5, rf32)
             if route == "walk12":
                 return [PRP._conv12(y11, *c12_32)[0]]
@@ -1596,9 +1773,11 @@ def route_training(dev, card) -> dict:
     for r in ("fused", "planar"):
         gc[f"f32_stage_{r}_rel_l2"] = rel(grad(stage(r), cfg32, draws32,
                                                "y11"), g_walk)
-    gc["f32_stage_c12_rel_l2"] = rel(
-        grad(stage("c12"), cfg32, draws32, "y12"),
-        grad(stage("walk12"), cfg32, draws32, "y12"))
+    g_c12 = grad(stage("c12"), cfg32, draws32, "y12")
+    gc["f32_stage_c12_rel_l2"] = rel(g_c12, grad(
+        stage("walk12_on_route_gates"), cfg32, draws32, "y12"))
+    gc["f32_stage_c12_vs_walk_rel_l2"] = rel(
+        g_c12, grad(stage("walk12"), cfg32, draws32, "y12"))
 
     # (3) the whole victim on each route, against the walk carrying that
     # route's own forward: its y11 (y12 on the c12 route; straight
@@ -1825,8 +2004,13 @@ def batched_kernels(dev, sp, sbp, card) -> list:
                *[PC.to_planar_plain((SB.batched_to_nhwc(
                    a, b, h1, a.shape[1]) > 0).to(torch.int8))
                  for a in acts[3:]])
-        zone, flips = flip_zone(k1, k8m, h)
-        del m0, k8m
+        # K2 gates g5 by K1's y5, K8b's input by K8a's: a y5 sign that
+        # differs joins the zone too (at its 4 x 4 input pixels)
+        d5 = ((y5n > 0) != (k1y5 > 0)).any(-1)
+        zone, flips = flip_zone(k1, k8m, h, extra=d5.repeat_interleave(
+            4, 1).repeat_interleave(4, 2))
+        y5_flips = int(((y5n > 0) != (k1y5 > 0)).sum().item())
+        del m0, k8m, d5
         e = (SB.merge_phases_b(*gx, b, h1, 3).float()
              - SF.merge_phases(*k2, h1, 3).float()).abs().amax(-1)
         out = e[~zone] if (~zone).any() else e.new_zeros(1)
@@ -1838,6 +2022,7 @@ def batched_kernels(dev, sp, sbp, card) -> list:
               "gx_vs_k2_max_abs_err_outside_flips": out.max().item(),
               "gx_vs_k2_max_abs_err": e.max().item(), "gx_tol": gtol,
               "sign_flips_vs_k1_masks": flips,
+              "y5_sign_flips_vs_k1": y5_flips,
               "flip_zone_frac": zone.float().mean().item()}
         del k2, zone, e, out
         # times: kernels, plain versions, K1 (save_acts) + K2 at this shape
@@ -2155,6 +2340,7 @@ def main() -> int:
         for line in v["log"].splitlines():
             if "Compiling entry" in line or "Used" in line or "spill" in line:
                 log(f"    {line.strip()}")
+    tc_info = tensor_core_check(_cuda, info)
 
     # -- model and main-path inputs ------------------------------------
     net = M.build_network(M.yolov3_blocks(width=SIZE, height=SIZE))
@@ -2224,8 +2410,11 @@ def main() -> int:
         "ms": time_ms(lambda: SF.fused_stem_fwd(xe, xo, sp), 10),
         "plain_ms": time_ms(lambda: SF.fused_stem_fwd_plain(xe, xo, sp),
                             10),
-        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-        "gflop": stem_flops(BATCH, SIZE) / 1e9}
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": stem_yardstick(x8c, sp, backward=False)["fwd_ms"],
+        "library_is": "the stem on cuDNN (stem_conv_walk: five convs, the "
+                      "shortcut add and the leakys), bfloat16, forward, b8",
+        "gflop": stem_flops(BATCH, SIZE) / 1e9, **tc_info["fused_stem_fwd"]}
     sp32 = [(w.float(), b) for w, b in sp]
     xe32, xo32 = xe.float(), xo.float()
     torch.full(y5_shape, float("nan"), device=dev)
@@ -2462,8 +2651,9 @@ def main() -> int:
     # -- 5. training kernels at the training shapes --------------------
     phase("5 training kernels")
     model_sbp = det.model.stem_bwd_params()
-    train_kernels = training_kernels(dev, sp, model_sbp, card)
-    k5 = remat_kernel(dev, sp, det.model.stem_bwd_params(), card)
+    train_kernels = training_kernels(dev, sp, model_sbp, card, tc_info)
+    k5 = remat_kernel(dev, sp, det.model.stem_bwd_params(), card,
+                      train_kernels[-1]["library_fwd_bwd_ms"])
     del det, svc
     torch.cuda.empty_cache()
 

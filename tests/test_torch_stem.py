@@ -141,3 +141,85 @@ def test_fused_stem_refuses_grad():
     scale = xw.grad.abs().max().item()
     torch.testing.assert_close(xf.grad, xw.grad, rtol=2e-5,
                                atol=2e-5 * scale)
+
+
+# every weight the bfloat16 K1 (convs 1, 2, 3, 5: HWIO) and K2 (the five
+# adjoints: stem_bwd_params) read in fragment order, as [kh, kw, K, N]
+MMA_SHAPES = [(3, 3, 32, 64), (1, 1, 64, 32), (3, 3, 32, 64), (3, 3, 64, 128),
+              (3, 3, 32, 8), (3, 3, 64, 32), (1, 1, 32, 64), (3, 3, 64, 32),
+              (3, 3, 128, 64)]
+
+
+@pytest.mark.parametrize("shape", MMA_SHAPES)
+def test_mma_weights_are_the_fragments_mma_sync_reads(shape):
+    """``mma_weights`` lays B out as m16n8k16's B fragments: lane 4g + t of
+    step s and block j holds B[k][8j + g] at k = 16s + 2t + (0, 1, 8, 9);
+    a GEMM summed fragment by fragment equals the conv's product."""
+    kh, kw, k, n = shape
+    g = torch.Generator().manual_seed(k * n + kh)
+    w = torch.randn(*shape, generator=g)
+    f = SF.mma_weights(w)
+    assert f.shape == (kh * kw, k // 16, n // 8, 32, 4) and f.is_contiguous()
+    lane = torch.arange(32)
+    gi, ti = lane // 4, lane % 4
+    taps = w.reshape(kh * kw, k, n)
+    for e, dk in enumerate((0, 1, 8, 9)):
+        for s in range(k // 16):
+            for j in range(n // 8):
+                torch.testing.assert_close(
+                    f[:, s, j, :, e], taps[:, 16 * s + 2 * ti + dk, 8 * j + gi],
+                    rtol=0, atol=0)
+    # A [M, K] times each tap's B, fragment by fragment
+    a = torch.randn(16, k, generator=g)
+    want = a @ taps[0]
+    got = torch.zeros(16, n)
+    for s in range(k // 16):
+        for j in range(n // 8):
+            for e, dk in enumerate((0, 1, 8, 9)):
+                kk = 16 * s + 2 * ti + dk
+                # lane (g, t) adds A[:, kk] * B[kk][8j + g]: scatter to g
+                contrib = a[:, kk] * f[0, s, j, :, e]
+                got[:, 8 * j:8 * j + 8] += contrib.reshape(16, 8, 4).sum(-1)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_mma_weights_built_once_per_weight_tensor():
+    """The wrappers' fragment-order copy is made once per weight tensor and
+    made again after the tensor changes in place."""
+    w = torch.randn(3, 3, 32, 64, generator=torch.Generator().manual_seed(0))
+    f = SF._mma_cached(w)
+    assert SF._mma_cached(w) is f
+    w.mul_(2)
+    f2 = SF._mma_cached(w)
+    assert f2 is not f
+    torch.testing.assert_close(f2, 2 * f, rtol=0, atol=0)
+    torch.testing.assert_close(f2, SF.mma_weights(w), rtol=0, atol=0)
+    # weights made under inference mode (no version counter)
+    with torch.inference_mode():
+        wi = torch.ones(1, 1, 16, 8)
+    fi = SF._mma_cached(wi)
+    assert SF._mma_cached(wi) is fi
+
+
+def test_mma_weights_conv0_pairs_the_taps_of_a_row():
+    """K1's tensor-core conv0 reads step 2 ky + pair as the taps kx = 2 pair
+    (k < 8) and 2 pair + 1 (k >= 8) of row ky, channels padded 3 -> 8 and
+    a zero fourth column: its B, rebuilt from the fragments, is the HWIO
+    kernel laid out so."""
+    w = torch.randn(3, 3, 3, 32, generator=torch.Generator().manual_seed(3))
+    f = SF.mma_weights_conv0(w)
+    assert f.shape == (6, 1, 4, 32, 4)
+    lane = torch.arange(32)
+    gi, ti = lane // 4, lane % 4
+    b = torch.zeros(6, 16, 32)
+    for e, dk in enumerate((0, 1, 8, 9)):
+        for j in range(4):
+            b[:, 2 * ti + dk, 8 * j + gi] = f[:, 0, j, :, e]
+    for ky in range(3):
+        for kx in range(4):
+            step, half = 2 * ky + kx // 2, kx % 2
+            got = b[step, 8 * half:8 * half + 8]
+            want = torch.zeros(8, 32)
+            if kx < 3:
+                want[:3] = w[ky, kx]
+            torch.testing.assert_close(got, want, rtol=0, atol=0)

@@ -325,3 +325,36 @@ def test_port_import_leaves_experimental_unloaded():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("ok")
+
+
+def test_bf16_stem_kernels_run_on_tensor_cores():
+    """The bfloat16 K1 and K2 reach ``mma.sync`` through stem_common.cuh's
+    ``mma_conv`` (K1's five convs and K2's five adjoints), the float32
+    paths keep the CUDA-core helpers, and no kernel source includes a
+    library's kernels (cuDNN, cuBLAS, CUTLASS's device-level GEMMs)."""
+    import re
+    csrc = os.path.join(ROOT, PORT, "csrc")
+    src = {f: open(os.path.join(csrc, f)).read() for f in os.listdir(csrc)
+           if f.endswith((".cu", ".cuh"))}
+    common = src["stem_common.cuh"]
+    assert re.search(r"mma\.sync\.aligned\.m16n8k16\.row\.col\.f32\.bf16"
+                     r"\.bf16\.f32", common)
+    assert "ldmatrix.sync.aligned" in common and "mma_conv" in common
+    fwd, bwd = src["stem_fused.cu"], src["stem_bwd.cu"]
+    # K1: the bfloat16 instantiation takes mma_conv for its five convs,
+    # float32 conv_stage
+    assert "if constexpr (MMA)" in fwd
+    assert len(re.findall(r"\bmma_conv<", fwd)) == 5
+    assert len(re.findall(r"\bconv_stage<", fwd)) == 5
+    # K2: the bfloat16 kernel runs its adjoints through mma_conv (two
+    # parity groups of four in tc::convt_s2, three single GEMMs), float32
+    # the FMA grad_chain
+    tc = bwd[bwd.index("fused_stem_bwd_tc_kernel("):]
+    assert len(re.findall(r"\bmma_conv<", tc)) == 3
+    assert len(re.findall(r"\btc::convt_s2<", tc)) == 2
+    assert "grad_chain<T>" in bwd and "launch_tc" in bwd
+    for name, text in src.items():
+        for inc in re.findall(r'#include\s*[<"]([^>"]+)[>"]', text):
+            low = inc.lower()
+            assert not any(lib in low for lib in ("cudnn", "cublas", "cutlass",
+                                                  "cute/")), (name, inc)
