@@ -6,7 +6,8 @@
 // recompute and the batch-on-lanes forward) and its input-cotangent chain
 // on CUDA-core FMAs (grad_chain, chain_tail: float32 K2, K5 and, past its
 // first stage, the batch-on-lanes backward); and the tensor-core implicit
-// GEMM (mma_conv, on mma.sync) that the bfloat16 K1 and K2 run instead.
+// GEMM (mma_conv, on mma.sync) that the bfloat16 K1, K2 and K5 run instead,
+// with the bfloat16 chain (bwd_tc) that K2 and K5 share.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -810,5 +811,215 @@ __device__ __forceinline__ void mma_conv(const bf16* __restrict__ in, int M,
       }
   }
 }
+
+// ---------------------------------------------------------------------------
+// The bfloat16 input-cotangent chain on the tensor cores (K2, K5)
+// ---------------------------------------------------------------------------
+// grad_chain's stages, regions and tile origins with the adjoints on
+// mma_conv (conv5^T and conv1^T as four GEMMs, one per output parity, with
+// K = 1, 2, 2 or 4 taps x CIN; conv0^T's N = 8 is one m16n8k16 column),
+// the epilogues keeping the FMA chain's rounding points. The gates come
+// from mask readers m(oy, ox, gr, gc, ch): K2's staged mask windows, K5's
+// recomputed sign bits. Row pitches of the tiles an ldmatrix reads are
+// padded by 16 bytes (gp5 136, gp3/gp1 72, gp2 40) but gp0's (32: two-way
+// conflicts), to keep two K2 blocks a multiprocessor.
+
+namespace bwd_tc {
+
+using K = Chain;
+constexpr int P5 = 128 + 8;  // gp5 pitch
+constexpr int P4 = 64 + 8;   // gp3 / gp1 pitch
+constexpr int P2 = 32 + 8;   // gp2 pitch
+constexpr int P0 = 32;       // gp0 pitch
+// X: gs4 over the N1^2 window the shortcut reads (tile rows/cols 1..N1)
+constexpr int SZ_X = K::N1 * K::N1 * 64;
+constexpr int SZ_Y = K::N4 * K::N4 * P4;  // gp3, then gp1
+constexpr int SZ_Z = K::N0 * K::N0 * P0;  // gp5, then gp2, then gp0
+constexpr int ELEMS = SZ_X + SZ_Y + SZ_Z;  // bfloat16 elements, 69,312 B
+static_assert(K::N5 * K::N5 * P5 <= SZ_Z && K::N1 * K::N1 * P2 <= SZ_Z &&
+                  K::N1 * K::N1 * P4 <= SZ_Y,
+              "shared-memory regions");
+
+// gs4 = T(v) into the shortcut's window, gp3 = T(gs4 m3); zero outside the
+// image
+template <class M>
+struct EpiGs4 {
+  bf16* gs4;  // [N1^2][64], tile positions (1..N1)^2
+  bf16* gp3;  // [N4^2][P4]
+  M m3;
+  int org_r, org_c, img;
+  __device__ void operator()(int oy, int ox, int n, float v0,
+                             float v1) const {
+    const int gr = org_r + oy, gc = org_c + ox;
+    const bool in = gr >= 0 && gr < img && gc >= 0 && gc < img;
+    const float v[2] = {v0, v1};
+    float g[2] = {0.f, 0.f}, p[2] = {0.f, 0.f};
+    if (in) {
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        g[c] = round_t<bf16>(v[c]);
+        p[c] = g[c] * gate(m3(oy, ox, gr, gc, n + c));
+      }
+    }
+    store2(gp3 + (oy * K::N4 + ox) * P4 + n, p[0], p[1]);
+    if (oy >= 1 && oy <= K::N1 && ox >= 1 && ox <= K::N1)
+      store2(gs4 + ((oy - 1) * K::N1 + ox - 1) * 64 + n, g[0], g[1]);
+  }
+};
+
+// out = T((v [+ gs4]) m) into [pos][OP] of row width OW; zero outside the
+// image
+template <int OP, bool RES, class M>
+struct EpiGate {
+  bf16* out;
+  int OW;
+  M m;
+  int org_r, org_c, img;
+  const bf16* gs4;  // RES: the [N1^2][64] window, at (oy, ox)
+  __device__ void operator()(int oy, int ox, int n, float v0,
+                             float v1) const {
+    const int gr = org_r + oy, gc = org_c + ox;
+    const bool in = gr >= 0 && gr < img && gc >= 0 && gc < img;
+    const float v[2] = {v0, v1};
+    float y[2] = {0.f, 0.f};
+    if (in) {
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        float s = v[c];
+        if (RES) s += to_f(gs4[(oy * K::N1 + ox) * 64 + n + c]);
+        y[c] = s * gate(m(oy, ox, gr, gc, n + c));
+      }
+    }
+    store2(out + (oy * OW + ox) * OP + n, y[0], y[1]);
+  }
+};
+
+// gx = T(v), channels n and n + 1, into the even/odd column phases
+struct EpiGx {
+  bf16* gxe;  // this image's [H, 8, wl]
+  bf16* gxo;
+  int org_r, org_c, wl;
+  __device__ void operator()(int oy, int ox, int n, float v0,
+                             float v1) const {
+    const int gr = org_r + oy, gc = org_c + ox;
+    bf16* d = ((gc & 1) ? gxo : gxe) + (long long)gr * 8 * wl + (gc >> 1) +
+              1 + (long long)n * wl;
+    d[0] = __float2bfloat16_rn(v0);
+    d[wl] = __float2bfloat16_rn(v1);
+  }
+};
+
+// The four parities of a stride-2 adjoint, each a GEMM over the NS^2 super
+// positions. Where a parity has fewer items than warps, the 1-tap and
+// 4-tap parities go to one half of the warps and the two 2-tap ones to
+// the other
+template <int CIN, int IP, int COUT, int NW, int MT, class Epi>
+__device__ __forceinline__ void convt_s2(const bf16* in, int IW, int NS,
+                                         const uint2* wf, const Epi& epi) {
+  constexpr int H = NT / 64;  // half the warps
+  mma_conv<CIN, IP, COUT, NW, MT>(in, NS * NS, wf, RowsT2<0, 0>{NS, IW}, epi);
+  mma_conv<CIN, IP, COUT, NW, MT>(in, NS * NS, wf, RowsT2<0, 1>{NS, IW}, epi,
+                                  H);
+  mma_conv<CIN, IP, COUT, NW, MT>(in, NS * NS, wf, RowsT2<1, 0>{NS, IW}, epi,
+                                  H);
+  mma_conv<CIN, IP, COUT, NW, MT>(in, NS * NS, wf, RowsT2<1, 1>{NS, IW}, epi);
+}
+
+// gp5 = T(g5 m(y5)) of image b for the block's gx tile into Z [N5^2][P5],
+// four lanes (8 bytes) a load: a row's N5 lanes start at lane o5c + 1 =
+// C0 / 4, a multiple of 4, and end inside the row (wl5 a multiple of 128,
+// H5 of 4)
+__device__ __forceinline__ void load_gp5(bf16* __restrict__ Z,
+                                         const bf16* __restrict__ y5,
+                                         const bf16* __restrict__ g5,
+                                         long long b, int H, int wl5) {
+  static_assert(K::N5 % 4 == 0, "gp5 rows in 4-lane loads");
+  const int R0 = blockIdx.y * K::TX, C0 = blockIdx.x * K::TX;
+  const int H5 = H / 4;
+  const int o5r = R0 / 4 - 1, o5c = C0 / 4 - 1;
+  for (int idx = threadIdx.x; idx < K::N5 * K::N5 * 128 / 4; idx += NT) {
+    const int q = idx % (K::N5 / 4);
+    const int rest = idx / (K::N5 / 4);
+    const int co = rest % 128, r = rest / 128;
+    const int gr = o5r + r;
+    float v[4] = {0.f, 0.f, 0.f, 0.f};
+    if (gr >= 0 && gr < H5) {
+      const long long o =
+          ((b * H5 + gr) * 128 + co) * wl5 + o5c + 1 + 4 * q;
+      const uint2 yv = __ldg(reinterpret_cast<const uint2*>(y5 + o));
+      const uint2 gv = __ldg(reinterpret_cast<const uint2*>(g5 + o));
+      const bf16* yb = reinterpret_cast<const bf16*>(&yv);
+      const bf16* gb = reinterpret_cast<const bf16*>(&gv);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int gc = o5c + 4 * q + i;
+        if (gc >= 0 && gc < H5)
+          v[i] = to_f(gb[i]) * (to_f(yb[i]) > 0.f ? 1.f : LEAKY);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      Z[(r * K::N5 + 4 * q + i) * P5 + co] = __float2bfloat16_rn(v[i]);
+  }
+}
+
+// The chain from gp5 (in Z, load_gp5's) to gx for the block's gx tile
+// (blockIdx.y, blockIdx.x) of image b: sm holds ELEMS elements (X, Y, Z);
+// u0 .. u5 the swapped-channel weights in fragment order; the mask readers
+// m0 (y0), m1 (y1), m2 (y2), m3 (y3) index this image; gxe, gxo planar
+// [B, H, 8, wlh], every lane of the tile's rows written (borders and
+// padding zero)
+template <class M0, class M1, class M2, class M3>
+__device__ __forceinline__ void chain(
+    bf16* __restrict__ sm, const uint2* __restrict__ u0,
+    const uint2* __restrict__ u1, const uint2* __restrict__ u2,
+    const uint2* __restrict__ u3, const uint2* __restrict__ u5, const M0& m0,
+    const M1& m1, const M2& m2, const M3& m3, bf16* __restrict__ gxe,
+    bf16* __restrict__ gxo, long long b, int H, int wlh) {
+  bf16* X = sm;         // gs4 window
+  bf16* Y = X + SZ_X;   // gp3, then gp1
+  bf16* Z = Y + SZ_Y;   // gp5, then gp2, then gp0
+  const int R0 = blockIdx.y * K::TX, C0 = blockIdx.x * K::TX;
+  const int H1 = H / 2;
+  // tile origins in image coordinates (rows; columns alike)
+  const int o4r = R0 / 2 - 2, o4c = C0 / 2 - 2;  // gs4 / gp3, N4
+  const int o1r = R0 / 2 - 1, o1c = C0 / 2 - 1;  // gp2 / gp1, N1
+  const int o0r = R0 - 2, o0c = C0 - 2;          // gp0, N0
+  // gs4 (X) and gp3 (Y) from gp5 (Z)
+  convt_s2<128, P5, 64, 2, 4>(Z, K::N5, K::N4 / 2, u5,
+                              EpiGs4<M3>{X, Y, m3, o4r, o4c, H1});
+  __syncthreads();
+  // gp2 (Z) from gp3 (Y)
+  mma_conv<64, P4, 32, 2, 2>(
+      Y, K::N1 * K::N1, u3, RowsT1<3, 2>{K::N1, K::N4},
+      EpiGate<P2, false, M2>{Z, K::N1, m2, o1r, o1c, H1, nullptr});
+  __syncthreads();
+  // gp1 (Y) from gp2 (Z) and gs4 (X)
+  mma_conv<32, P2, 64, 8>(Z, K::N1 * K::N1, u2, RowsT1<1, 0>{K::N1, K::N1},
+                          EpiGate<P4, true, M1>{Y, K::N1, m1, o1r, o1c, H1, X});
+  __syncthreads();
+  // gp0 (Z) from gp1 (Y)
+  convt_s2<64, P4, 32, 2, 2>(
+      Y, K::N1, K::N0 / 2, u1,
+      EpiGate<P0, false, M0>{Z, K::N0, m0, o0r, o0c, H, nullptr});
+  __syncthreads();
+  // gx from gp0 (Z)
+  const long long gb = b * H * 8 * wlh;
+  mma_conv<32, P0, 8, 1, 2>(Z, K::TX * K::TX, u0, RowsT1<3, 3>{K::TX, K::N0},
+                            EpiGx{gxe + gb, gxo + gb, R0, C0, wlh});
+  // zero border and padding lanes of this tile's rows in both phases:
+  // lane 0 (first tile column), lanes H/2+1 .. wlh-1 (last tile column)
+  const long long gr0 = gb + (long long)R0 * 8 * wlh;
+  if (blockIdx.x == 0)
+    for (int idx = threadIdx.x; idx < 2 * K::TX * 8; idx += NT)
+      ((idx & 1) ? gxo : gxe)[gr0 + (long long)(idx >> 1) * wlh] =
+          __float2bfloat16_rn(0.f);
+  if (blockIdx.x == gridDim.x - 1) {
+    zero_tail(gxe + gr0, K::TX * 8, H1 + 1, wlh);
+    zero_tail(gxo + gr0, K::TX * 8, H1 + 1, wlh);
+  }
+}
+
+}  // namespace bwd_tc
 
 }  // namespace stem

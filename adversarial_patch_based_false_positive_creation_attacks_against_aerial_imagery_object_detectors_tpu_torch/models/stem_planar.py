@@ -9,10 +9,11 @@ with the block-1 shortcut as a planar add between them, one conversion out
 (K3b). Its backward (``PlanarStem``) runs on K4 too, over the saved planar
 activations (leaky's input sign is its output's, so no pre-activation is
 kept): stride-1 and 1x1 input cotangents are flipped, channel-swapped
-kernels; the two stride-2 ones zero-interleave their cotangent
-(``expand2_planar``) and run the same stride-1 conv, the exact adjoint of
-the forward's conv-then-decimate; the y2, y1 and y0 leaky masks ride in
-the convs' epilogues (``gate``). Any width ladder of this geometry works
+kernels; the two stride-2 ones are the JAX package's zero interleave
+(``expand2_planar``) followed by the same stride-1 conv, the exact adjoint
+of the forward's conv-then-decimate, run as K4's adjoint variant
+(``planar_conv_t2``) on the unexpanded cotangent; the y2, y1 and y0 leaky
+masks ride in the convs' epilogues (``gate``). Any width ladder of this geometry works
 (the output width is conv5's). Only the input cotangent is returned: the
 victim's weights are frozen.
 """
@@ -21,9 +22,9 @@ from __future__ import annotations
 
 import torch
 
-from ..ops.planar_conv import (expand2_planar, flip_t, from_planar,
-                               leaky_bwd_planar, pad_cin, pad_cout,
-                               planar_conv, to_planar)
+from ..ops.planar_conv import (flip_t, from_planar, leaky_bwd_planar,
+                               pad_cin, pad_cout, planar_conv,
+                               planar_conv_t2, to_planar)
 
 # layer indices of the stem's convs in the yolov3 block list
 STEM_CONVS = (0, 1, 2, 3, 5)
@@ -117,14 +118,15 @@ def _stem_bwd(acts, g5, bwd, h):
     y0, y1, y2, y3, y5 = acts
     (w0t, z0), (w1t, z1), (w2t, z2), (w3t, z3), (w5t, z5) = bwd
     gp5 = leaky_bwd_planar(to_planar(g5), y5)
-    g_sc = planar_conv(expand2_planar(gp5, h // 4), w5t, z5, k=3, slope=None)
+    # the stride-2 adjoints: planar_conv(expand2_planar(g), wt, ...) as
+    # K4's variant on the unexpanded g
+    g_sc = planar_conv_t2(gp5, w5t, z5, w_img=h // 4)
     # the shortcut's output feeds conv3's branch and y1: g_sc is consumed
     # twice, so its mask cannot ride in an epilogue
     gp3 = leaky_bwd_planar(g_sc, y3)
     gp2 = planar_conv(gp3, w3t, z3, k=3, slope=None, gate=y2)
     gp1 = planar_conv(gp2, w2t, z2, res=g_sc, k=1, slope=None, gate=y1)
-    gp0 = planar_conv(expand2_planar(gp1, h // 2), w1t, z1, k=3, slope=None,
-                      gate=y0)
+    gp0 = planar_conv_t2(gp1, w1t, z1, w_img=h // 2, gate=y0)
     gx0 = planar_conv(gp0, w0t, z0, k=3, slope=None)
     return from_planar(gx0, h, 3)
 

@@ -71,13 +71,21 @@ SIGNATURES = {
     },
     "stem_remat": {
         # xe, xo, w0, w1, w2, w3, b0, b1, b2, b3, y5, g5, v0, v1, v2, v3,
-        # v5, gxe, gxo, dtype, B, H, wlh, wl5, stream
-        "apfp_fused_stem_remat": [_P] * 19 + [_I] * 5 + [_P],
+        # v5, f0, f1, f2, f3, u0, u1, u2, u3, u5 (bfloat16 fragment-order
+        # weights or null), gxe, gxo, dtype, B, H, wlh, wl5, stream
+        "apfp_fused_stem_remat": [_P] * 28 + [_I] * 5 + [_P],
+        # dtype, info[3]
+        "apfp_fused_stem_remat_info": [_I, _P],
     },
     "planar_conv": {
         # x, w, bias, res, gate, out, dtype, B, H, cin, wl_in, w_img, cout,
-        # cout_pad, k, stride, has_slope, slope, gate_slope, stream
-        "apfp_planar_conv": [_P] * 6 + [_I] * 11 + [_F, _F, _P],
+        # cout_pad, K, k, stride, has_slope, slope, gate_slope, stream
+        "apfp_planar_conv": [_P] * 6 + [_I] * 12 + [_F, _F, _P],
+        # g, w, bias, gate, out, dtype, B, Hg, cin, wl_in, w_g, cout,
+        # cout_pad, K, gate_slope, stream
+        "apfp_planar_conv_t2": [_P] * 5 + [_I] * 9 + [_F, _P],
+        # variant (1x1, 3x3 s1, 3x3 s2, adjoint), nw, info[3]
+        "apfp_planar_conv_info": [_I, _I, _P],
     },
     "res_fused": {
         # x, w6, w7, w9, w10, b6, b7, b9, b10, y11, am, p7m, cm, p10m

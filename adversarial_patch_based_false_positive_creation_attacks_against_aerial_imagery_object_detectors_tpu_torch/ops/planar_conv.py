@@ -24,7 +24,13 @@ kernel of ``csrc/planar_conv.cu``, on a CPU tensor ``planar_conv_plain``.
 It carries the per-layer planar stem (``models/stem_planar.py``) and the
 per-layer planar 152^2 stage (``models/res_planar.py``), forward and
 backward; ``expand2_planar`` is the stride-2 adjoint's zero interleave,
-``flip_t`` a stride-1 conv's adjoint kernel.
+``flip_t`` a stride-1 conv's adjoint kernel. ``planar_conv_t2`` is the
+stride-2 adjoint ``planar_conv(expand2_planar(g), flip_t(w), ...)`` as
+one K4 variant that reads the unexpanded cotangent (its four output
+parities, 9 tap products per 4 outputs instead of 36). In bfloat16 K4 runs
+on the tensor cores and reads its weights in ``mma.sync``'s fragment
+order (``k4_weights``, built once per weight tensor by ``_mma_cached``);
+in float32 it keeps CUDA-core FMAs.
 """
 
 from __future__ import annotations
@@ -33,6 +39,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.weak import WeakIdKeyDictionary
 
 from . import _cuda
 
@@ -119,6 +126,60 @@ def from_planar(xp: torch.Tensor, w_img: Optional[int] = None,
 to_planar.launches = 0
 to_planar.tiled_launches = 0
 from_planar.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Weights in mma.sync's fragment order (the bfloat16 tensor-core kernels)
+# ---------------------------------------------------------------------------
+
+def mma_weights(w: torch.Tensor) -> torch.Tensor:
+    """A conv's weights ``[kh, kw, K, N]`` (tap, then the GEMM's depth K
+    and width N: HWIO for a forward conv, ``stem_bwd_params``' layout for
+    an adjoint) -> ``mma.sync.m16n8k16``'s B fragments in the order the
+    kernels load them, ``[kh*kw, K/16, N/8, 32, 4]``: lane ``4g + t`` of
+    the 16-deep step s and 8-wide block j holds ``B[k][8j + g]`` at
+    ``k = 16s + 2t + (0, 1, 8, 9)``."""
+    kh, kw, k, n = w.shape
+    v = w.reshape(kh * kw, k // 16, 2, 4, 2, n // 8, 8)
+    return v.permute(0, 1, 5, 6, 3, 2, 4).reshape(
+        kh * kw, k // 16, n // 8, 32, 4).contiguous()
+
+
+def _k4_nw(cout: int) -> int:
+    """K4's 8-channel blocks a thread block computes, by cout
+    (``csrc/planar_conv.cu: tc::nw_of``)."""
+    return 1 if cout <= 8 else 2 if cout <= 16 else 4 if cout <= 32 else 8
+
+
+def k4_weights(w: torch.Tensor) -> torch.Tensor:
+    """The bfloat16 K4's weights from an HWIO ``w`` [k, k, cin', cout]
+    (a forward kernel, or ``flip_t``'s for an adjoint): cin' zero-padded
+    to a multiple of 16 (the kernel's 16-deep steps) and cout to a
+    multiple of the block's 8 NW channels, in bfloat16 and ``mma_weights``
+    order."""
+    _, _, cin, cout = w.shape
+    cout_pad = _round_up(cout, 8 * _k4_nw(cout))
+    v = F.pad(w, (0, cout_pad - cout, 0, _round_up(cin, 16) - cin))
+    return mma_weights(v.to(torch.bfloat16))
+
+
+# fragment-order copies, one per weight tensor and build function (and the
+# tensor's version: an inference tensor has none); they go when the
+# weights go
+_MMA_CACHE = WeakIdKeyDictionary()
+
+
+def _mma_cached(w: torch.Tensor, build=mma_weights) -> torch.Tensor:
+    """``build(w)``, built once per weight tensor (and per ``build``) and
+    rebuilt when the tensor is modified in place."""
+    version = -1 if w.is_inference() else w._version
+    per_w = _MMA_CACHE.get(w)
+    if per_w is None:
+        per_w = _MMA_CACHE[w] = {}
+    hit = per_w.get(build)
+    if hit is None or hit[0] != version:
+        hit = per_w[build] = (version, build(w))
+    return hit[1]
 
 
 # ---------------------------------------------------------------------------
@@ -218,6 +279,46 @@ def planar_conv_plain(xp: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return F.pad(y.to(dt), (1, wl_out - w_out - 1)).contiguous()
 
 
+def _check_epi(name, xp, b, shape, **opt):
+    """The wrapper checks of an epilogue input (res, gate: planar of the
+    output's shape and dtype; in bfloat16 16-byte aligned, as the kernel
+    reads them 16 bytes at a time) and the bias ([cout] on xp's device)."""
+    dt = xp.dtype
+    for key, t in opt.items():
+        if t is not None and (tuple(t.shape) != shape or t.dtype != dt):
+            raise ValueError(f"{name}: {key} {tuple(t.shape)} {t.dtype}, "
+                             f"expected {shape} {dt}")
+        if t is not None and dt == torch.bfloat16 and t.data_ptr() % 16:
+            raise ValueError(f"{name}: {key} must be 16-byte aligned")
+    if tuple(b.shape) != (shape[2],) or b.device != xp.device:
+        raise ValueError(f"{name}: bias {tuple(b.shape)} on {b.device} for "
+                         f"cout={shape[2]} on {xp.device}")
+
+
+def _kernel_weights(name, xp, w, b):
+    """(weight, bias, cout_pad, K) as the kernel reads them. bfloat16: the
+    fragment-order weights (``k4_weights``, cached per ``w``), K the
+    weights' cin rounded up to 16, the bias float32 [cout]. float32: HWIO
+    with cin as the input's and cout a multiple of 8 (no copy where the
+    caller prepared it so), the bias float32 [cout_pad]."""
+    if w.device != xp.device:
+        raise ValueError(f"{name}: weight on {w.device}, input on "
+                         f"{xp.device}")
+    cout = w.shape[-1]
+    if xp.dtype == torch.bfloat16:
+        if xp.data_ptr() % 16:
+            raise ValueError(f"{name}: the input must be 16-byte aligned")
+        wk = _mma_cached(w, k4_weights)
+        return (wk, b.float().contiguous(), wk.shape[2] * 8,
+                _round_up(w.shape[2], 16))
+    wk = pad_cout(pad_cin(w, xp.shape[2])).to(xp.dtype).contiguous()
+    cout_pad = wk.shape[-1]
+    bk = b.float().contiguous()
+    if cout_pad > cout:
+        bk = F.pad(bk, (0, cout_pad - cout))
+    return wk, bk, cout_pad, 0
+
+
 def planar_conv(xp: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                 res: Optional[torch.Tensor] = None, *, k: int,
                 stride: int = 1, slope: Optional[float] = 0.1,
@@ -230,10 +331,11 @@ def planar_conv(xp: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     are zero-padded), ``b`` [cout], ``res`` and ``gate`` planar
     [B, H/stride, cout, Wl'] or None; ``w_img`` defaults to H. Returns
     [B, H/stride, cout, Wl'] planar in xp's dtype. On a CUDA tensor it
-    launches the K4 kernel of ``csrc/planar_conv.cu``, each geometry
-    counting its own launches (``planar_conv.launches_k1``,
-    ``.launches_k3``, ``.launches_k3s2``); on a CPU tensor it runs
-    ``planar_conv_plain``."""
+    launches the K4 kernel of ``csrc/planar_conv.cu`` (bfloat16 on the
+    tensor cores, float32 on CUDA cores), each geometry counting its own
+    launches (``planar_conv.launches_k1``, ``.launches_k3``,
+    ``.launches_k3s2``; the adjoint variant ``planar_conv_t2`` counts in
+    ``.launches_k3t2``); on a CPU tensor it runs ``planar_conv_plain``."""
     if xp.device.type == "cpu":
         return planar_conv_plain(xp, w, b, res, k=k, stride=stride,
                                  slope=slope, w_img=w_img, gate=gate,
@@ -246,29 +348,15 @@ def planar_conv(xp: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     h_out, w_out, wl_out = _conv_geometry(xp, w, k, stride, w_img)
     cout = w.shape[-1]
     shape = (batch, h_out, cout, wl_out)
-    for name, t in (("res", res), ("gate", gate)):
-        if t is not None and (tuple(t.shape) != shape or t.dtype != dt):
-            raise ValueError(f"planar_conv: {name} {tuple(t.shape)} "
-                             f"{t.dtype}, expected {shape} {dt}")
-    if tuple(b.shape) != (cout,) or w.device != xp.device \
-            or b.device != xp.device:
-        raise ValueError(f"planar_conv: bias {tuple(b.shape)} on {b.device}"
-                         f" / weight on {w.device} for cout={cout} on "
-                         f"{xp.device}")
-    # the kernel's weight layout: cin as the input's, cout a multiple of 8
-    # (no copy where the caller prepared it so)
-    wk = pad_cout(pad_cin(w, cin)).to(dt).contiguous()
-    cout_pad = wk.shape[-1]
-    bk = b.float().contiguous()
-    if cout_pad > cout:
-        bk = F.pad(bk, (0, cout_pad - cout))
+    _check_epi("planar_conv", xp, b, shape, res=res, gate=gate)
+    wk, bk, cout_pad, kdepth = _kernel_weights("planar_conv", xp, w, b)
     out = torch.empty(shape, dtype=dt, device=xp.device)
     err = _cuda.lib("planar_conv").apfp_planar_conv(
         xp.data_ptr(), wk.data_ptr(), bk.data_ptr(),
         res.data_ptr() if res is not None else None,
         gate.data_ptr() if gate is not None else None, out.data_ptr(),
         _cuda.DTYPE_CODES[dt], batch, h_in, cin, wl_in, w_img, cout,
-        cout_pad, k, stride, int(slope is not None),
+        cout_pad, kdepth, k, stride, int(slope is not None),
         float(slope if slope is not None else 0.0), float(gate_slope),
         _cuda.stream_ptr(xp))
     _cuda.check(err, "planar_conv")
@@ -284,3 +372,56 @@ def planar_conv(xp: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 planar_conv.launches_k1 = 0
 planar_conv.launches_k3 = 0
 planar_conv.launches_k3s2 = 0
+planar_conv.launches_k3t2 = 0
+
+
+def planar_conv_t2_plain(g: torch.Tensor, w_t: torch.Tensor,
+                         b: torch.Tensor, *, w_img: int,
+                         gate: Optional[torch.Tensor] = None,
+                         gate_slope: float = 0.1) -> torch.Tensor:
+    """The k3t2 variant's plain version, the JAX package's formulation of
+    a stride-2 conv's input cotangent: the zero interleave, then the
+    stride-1 conv with the flipped kernel."""
+    return planar_conv_plain(expand2_planar(g, w_img), w_t, b, k=3,
+                             slope=None, w_img=2 * w_img, gate=gate,
+                             gate_slope=gate_slope)
+
+
+def planar_conv_t2(g: torch.Tensor, w_t: torch.Tensor, b: torch.Tensor, *,
+                   w_img: int, gate: Optional[torch.Tensor] = None,
+                   gate_slope: float = 0.1) -> torch.Tensor:
+    """``planar_conv(expand2_planar(g, w_img), w_t, b, k=3, slope=None,
+    gate=gate)`` without the interleave: ``g`` planar [B, H, cin, Wl] at
+    image width ``w_img`` (the stride-2 conv's output cotangent), ``w_t``
+    its flipped kernel (``flip_t``) HWIO [3, 3, cin', cout], ``b`` [cout],
+    ``gate`` planar [B, 2H, cout, Wl'] or None. Returns planar
+    [B, 2H, cout, Wl'] at width 2 ``w_img``. On a CUDA tensor the K4
+    adjoint variant of ``csrc/planar_conv.cu`` (its four output parities
+    from the unexpanded g), counted in ``planar_conv.launches_k3t2``; on a
+    CPU tensor ``planar_conv_t2_plain``."""
+    batch, h_in, cin, wl_in = g.shape
+    if (w_t.dim() != 4 or tuple(w_t.shape[:2]) != (3, 3)
+            or w_t.shape[2] > cin):
+        raise ValueError(f"planar_conv_t2: weight {tuple(w_t.shape)} for "
+                         f"cin={cin}")
+    if wl_in != _round_up(w_img + 2, 128):
+        raise ValueError(f"planar_conv_t2: bad planar geometry "
+                         f"{tuple(g.shape)} for w_img={w_img}")
+    if g.device.type == "cpu":
+        return planar_conv_t2_plain(g, w_t, b, w_img=w_img, gate=gate,
+                                    gate_slope=gate_slope)
+    opt = [gate] if gate is not None else []
+    _cuda.require_cuda("planar_conv_t2", g, *opt)
+    cout = w_t.shape[-1]
+    shape = (batch, 2 * h_in, cout, _round_up(2 * w_img + 2, 128))
+    _check_epi("planar_conv_t2", g, b, shape, gate=gate)
+    wk, bk, cout_pad, kdepth = _kernel_weights("planar_conv_t2", g, w_t, b)
+    out = torch.empty(shape, dtype=g.dtype, device=g.device)
+    err = _cuda.lib("planar_conv").apfp_planar_conv_t2(
+        g.data_ptr(), wk.data_ptr(), bk.data_ptr(),
+        gate.data_ptr() if gate is not None else None, out.data_ptr(),
+        _cuda.DTYPE_CODES[g.dtype], batch, h_in, cin, wl_in, w_img, cout,
+        cout_pad, kdepth, float(gate_slope), _cuda.stream_ptr(g))
+    _cuda.check(err, "planar_conv_t2")
+    planar_conv.launches_k3t2 += 1
+    return out

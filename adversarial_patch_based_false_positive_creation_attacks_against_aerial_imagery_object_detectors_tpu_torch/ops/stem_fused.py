@@ -17,9 +17,11 @@ on a CPU tensor it runs its plain version, the same function as
 ``F.conv2d`` / ``F.conv_transpose2d`` chains with the kernel's rounding
 points (float32 accumulation; the compute dtype where the Pallas kernel
 stores). The kernels are bound by operations on the H100 (11.2 GFLOP per
-608^2 image each way); see the sources. In bfloat16, K1 and K2 run their
+608^2 image each way); see the sources. In bfloat16, K1, K2 and K5 run their
 convs on the tensor cores and read the weights in ``mma.sync``'s fragment
-order as well (``mma_weights``, built once per weight tensor).
+order as well (``mma_weights``, built once per weight tensor); K5 runs
+K1's tensor-core stages to recompute the masks and K2's tensor-core chain,
+so in either dtype its result equals K2's on K1's masks bit for bit.
 
 Three autograd Functions around them, the JAX package's three custom
 VJPs of the stem; each returns the input cotangent only (the victim's
@@ -41,11 +43,11 @@ from typing import Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
-from torch.utils.weak import WeakIdKeyDictionary
 
 from . import _cuda
-from .planar_conv import (_round_up, from_planar, from_planar_plain,
-                          to_planar, to_planar_plain)
+from .planar_conv import (_mma_cached, _round_up, from_planar,
+                          from_planar_plain, mma_weights, to_planar,
+                          to_planar_plain)
 
 LEAKY = 0.1
 
@@ -108,19 +110,6 @@ def stem_bwd_params(sp: StemParams) -> list:
     return out
 
 
-def mma_weights(w: torch.Tensor) -> torch.Tensor:
-    """A conv's weights ``[kh, kw, K, N]`` (tap, then the GEMM's depth K
-    and width N: HWIO for a forward conv, ``stem_bwd_params``' layout for
-    an adjoint) -> ``mma.sync.m16n8k16``'s B fragments in the order the
-    kernels load them, ``[kh*kw, K/16, N/8, 32, 4]``: lane ``4g + t`` of
-    the 16-deep step s and 8-wide block j holds ``B[k][8j + g]`` at
-    ``k = 16s + 2t + (0, 1, 8, 9)``."""
-    kh, kw, k, n = w.shape
-    v = w.reshape(kh * kw, k // 16, 2, 4, 2, n // 8, 8)
-    return v.permute(0, 1, 5, 6, 3, 2, 4).reshape(
-        kh * kw, k // 16, n // 8, 32, 4).contiguous()
-
-
 def mma_weights_conv0(w: torch.Tensor) -> torch.Tensor:
     """conv0's HWIO ``[3, 3, 3, 32]`` as K1's tensor-core conv0 reads it
     (``stem_common.cuh: RowsConv0``): input channels padded 3 -> 8 and a
@@ -129,20 +118,6 @@ def mma_weights_conv0(w: torch.Tensor) -> torch.Tensor:
     kh, kw, cin, cout = w.shape
     v = F.pad(w, (0, 0, 0, 8 - cin, 0, 4 - kw))
     return mma_weights(v.reshape(kh, 2, 16, cout))
-
-
-# fragment-order copies, one per weight tensor (and its version: an
-# inference tensor has none); they go when the weights go
-_MMA_CACHE = WeakIdKeyDictionary()
-
-
-def _mma_cached(w: torch.Tensor, build=mma_weights) -> torch.Tensor:
-    version = -1 if w.is_inference() else w._version
-    hit = _MMA_CACHE.get(w)
-    if hit is None or hit[0] != version:
-        hit = (version, build(w))
-        _MMA_CACHE[w] = hit
-    return hit[1]
 
 
 def _sign_mask(v: torch.Tensor) -> torch.Tensor:
@@ -396,12 +371,17 @@ def fused_stem_bwd(xe: torch.Tensor, xo: torch.Tensor, y5p: torch.Tensor,
     # the kernel writes every lane, borders and padding included
     gxe = torch.empty((bsz, h, 8, wlh), dtype=dt, device=xe.device)
     gxo = torch.empty_like(gxe)
+    # bfloat16 on the tensor cores: K1's and K2's fragment-order weights
+    frags = ([_mma_cached(sp[0][0], mma_weights_conv0).data_ptr()]
+             + [_mma_cached(w).data_ptr() for w, _ in sp[1:4]]
+             + [_mma_cached(v).data_ptr() for v in sbp]
+             if dt == torch.bfloat16 else [None] * 9)
     err = _cuda.lib("stem_remat").apfp_fused_stem_remat(
         xe.data_ptr(), xo.data_ptr(), *[w.data_ptr() for w, _ in sp[:4]],
         *[bias.data_ptr() for _, bias in sp[:4]], y5p.data_ptr(),
-        g5p.data_ptr(), *[v.data_ptr() for v in sbp], gxe.data_ptr(),
-        gxo.data_ptr(), _cuda.DTYPE_CODES[dt], bsz, h, wlh, wl5,
-        _cuda.stream_ptr(xe))
+        g5p.data_ptr(), *[v.data_ptr() for v in sbp], *frags,
+        gxe.data_ptr(), gxo.data_ptr(), _cuda.DTYPE_CODES[dt], bsz, h, wlh,
+        wl5, _cuda.stream_ptr(xe))
     _cuda.check(err, "fused_stem_bwd")
     fused_stem_bwd.launches += 1
     return gxe, gxo

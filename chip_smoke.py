@@ -8,8 +8,10 @@ Phases, each fatal on failure:
 1. Build the kernels of ``<port>/csrc`` (one nvcc per source, in
    parallel) and print the build time and the ``-Xptxas -v`` lines; then
    count the tensor-core instructions (``cuobjdump -sass``: HMMA, HGMMA)
-   of each bfloat16 K1 and K2 kernel, with its registers, shared memory
-   and blocks per multiprocessor, and fail if one has none.
+   of each bfloat16 K1, K2 and K5 kernel and of every bfloat16 K4
+   instantiation (1x1, 3x3 s1, 3x3 s2 and the k3t2 adjoint, each block
+   width), with its registers, shared memory and blocks per
+   multiprocessor, and fail if one has none.
 2. Hold each kernel of the serving path against its plain PyTorch
    version on the card at the serving shapes (batch 8, 608^2, bfloat16;
    the fused stem also in float32) and time kernel, plain version and,
@@ -31,10 +33,10 @@ Phases, each fatal on failure:
    variants), each against its plain version and timed as in phase 2,
    K1 and K2 beside the stem on cuDNN (forward; input backward); then
    K5, the recomputing stem backward (bfloat16 and float32), against K2
-   on K1's masks of the same x and the plain chain on those masks (in
-   bfloat16 outside 12 pixels of a gate where K1's tensor-core masks and
-   K5's recomputed signs differ), and its own plain version (which
-   recomputes the masks in cuDNN's order: checked where no gate flipped).
+   on K1's masks of the same x (bit for bit: K5 recomputes them with K1's
+   arithmetic and runs K2's chain) and the plain chain on those masks,
+   and its own plain version (which recomputes the masks in cuDNN's
+   order: checked where no gate flipped).
 6. Training (the second main path; counted launches): the training CLI
    in-process, ``paper_obj`` on the full-width YOLOv3 with random weights
    over 48 synthetic tiles (one epoch of 2 steps at batch 24), then warm-up
@@ -47,20 +49,22 @@ Phases, each fatal on failure:
    relative L2); bfloat16 kernels against the bfloat16 plain-stem route,
    within twice that route's own distance from float32.
 7. Planar-route and stage kernels at full width (b24 608^2 unless said):
-   K4 (the generic planar conv) at the five stem convs' forward (b8,
-   bfloat16 and float32), the five backward convs of the planar stem
-   (expand2_planar, gate, res) and the 152^2 stage's four convs forward
-   and backward; K6a with and without its masks and K6b, bfloat16 and
-   float32; K6c (the stage backward widened by conv12's dgrad), bfloat16
-   and float32. Each against its plain version, timed beside its bound and a
-   cuDNN yardstick (K4: the conv alone; K6: the stage's four convs on
-   the conv walk, forward and forward + backward; K6c: that plus conv12's
-   dgrad on cuDNN).
+   K4 (the generic planar conv) at the five stem convs' forward (bfloat16
+   at b24, float32 at b8), the five backward convs of the planar stem (the
+   two stride-2 adjoints as the k3t2 variant on the unexpanded cotangent;
+   gate, res) and the 152^2 stage's four convs forward and backward; K6a
+   with and without its masks and K6b, bfloat16 and float32; K6c (the
+   stage backward widened by conv12's dgrad), bfloat16 and float32. Each
+   against its plain version, timed beside its bound and a cuDNN
+   yardstick (K4: the conv alone, ``F.conv_transpose2d`` for k3t2; K6:
+   the stage's four convs on the conv walk, forward and forward +
+   backward; K6c: that plus conv12's dgrad on cuDNN).
 8. Training on the other routes (counted launches): ``PatchTrainer`` with
    ``res152="fused"`` (routes fused/fused: one K6a ``save`` and one K6b a
    step) and a train step with ``fused_stem=False, planar_stem=True,
-   res152="planar"`` (only K4 in layers 0-11), each with warm-up and timed
-   steps; then float32 patch-gradient checks at batch 4 (the planar stem
+   res152="planar"`` (only K4 in layers 0-11: 6 1x1, 8 3x3 s1, 2 3x3 s2
+   and 2 k3t2 a step, and no ``expand2_planar``), each with warm-up and
+   timed steps; then float32 patch-gradient checks at batch 4 (the planar stem
    and each stage route against cuDNN convs, the c12 stage against the
    cuDNN walk carrying its leaky gates through layer 12, and each whole
    route against the walk carrying that route's own y11 forward, all at
@@ -90,7 +94,11 @@ Phases, each fatal on failure:
    heads against the conv walk (1e-4 of the head scale).
 
 Phase 4 also holds the slim victim (stem widths 8/16/8/16/32) on the
-planar stem (K4), and once more with ``res152="planar"``. The default
+planar stem (K4), and once more with ``res152="planar"``, and times its
+bfloat16 ``Detector`` forward at b8 (the tensor-core K4 at block widths 1
+and 2, each of its five calls held against ``planar_conv_plain`` on the
+same inputs). Phase 9 times
+the stem on cuDNN at K8's shape as K8's yardstick. The default
 routes stay: serving and training take the fused stem and the conv walk
 for layers 6-11, and launch no K4, K5, K6 or experimental kernel (K7, K8);
 the fused-stage and all-planar routes launch no K5 or K6c.
@@ -129,7 +137,8 @@ TRAIN_BATCH, PATCH, TIMED_STEPS = 24, 224, 20
 SERVE_PATH = ("to_planar", "fused_stem_fwd", "from_planar")
 TRAIN_PATH = ("to_planar", "fused_stem_fwd_save_acts", "from_planar",
               "to_planar_g5", "fused_stem_bwd_saved")
-K4_VARIANTS = ("planar_conv_k1", "planar_conv_k3", "planar_conv_k3s2")
+K4_VARIANTS = ("planar_conv_k1", "planar_conv_k3", "planar_conv_k3s2",
+               "planar_conv_k3t2")
 K6_KERNELS = ("res152_fused", "res152_fused_save", "res152_fused_grad")
 # the remat route's and the c12 route's own kernels (K5, K6c)
 NEW_KERNELS = ("fused_stem_bwd", "res152_fused_grad12")
@@ -206,6 +215,7 @@ def counters() -> dict:
             "planar_conv_k1": (PC.planar_conv, "launches_k1"),
             "planar_conv_k3": (PC.planar_conv, "launches_k3"),
             "planar_conv_k3s2": (PC.planar_conv, "launches_k3s2"),
+            "planar_conv_k3t2": (PC.planar_conv, "launches_k3t2"),
             "res152_fused": (RF.res152_fused, "launches"),
             "res152_fused_save": (RF.res152_fused, "save_launches"),
             "res152_fused_grad": (RF.res152_fused_grad, "launches"),
@@ -260,30 +270,43 @@ def match_count(ours, ref, atol=1e-3) -> int:
     return matched
 
 
-# the bfloat16 stem kernels that must run on the tensor cores: entry name
-# of the kernels line -> (library, its info function and arguments, a
-# substring of the kernel's mangled name)
+# the bfloat16 kernels that must run on the tensor cores: entry name of the
+# kernels line -> its instantiations, each (label, library, its info
+# function and arguments, a substring of the kernel's mangled name). K4:
+# every block width (8 NW output channels) of each variant
+_K4_KEYS = (("planar_conv_k1", 0, "planar_conv_tc_kernelILi1ELi1ELi{}E"),
+            ("planar_conv_k3", 1, "planar_conv_tc_kernelILi3ELi1ELi{}E"),
+            ("planar_conv_k3s2", 2, "planar_conv_tc_kernelILi3ELi2ELi{}E"),
+            ("planar_conv_k3t2", 3, "planar_convt2_tc_kernelILi{}E"))
 TC_KERNELS = {
-    "fused_stem_fwd": ("stem_fused", "apfp_fused_stem_fwd_info", (1, 0),
-                       "fused_stem_fwd_kernelI13__nv_bfloat16Li8ELb0E"),
-    "fused_stem_fwd_save_acts": (
-        "stem_fused", "apfp_fused_stem_fwd_info", (1, 1),
-        "fused_stem_fwd_kernelI13__nv_bfloat16Li8ELb1E"),
-    "fused_stem_bwd_saved": ("stem_bwd", "apfp_fused_stem_bwd_info", (1,),
-                             "fused_stem_bwd_tc_kernel")}
+    "fused_stem_fwd": [("", "stem_fused", "apfp_fused_stem_fwd_info", (1, 0),
+                        "fused_stem_fwd_kernelI13__nv_bfloat16Li8ELb0E")],
+    "fused_stem_fwd_save_acts": [(
+        "", "stem_fused", "apfp_fused_stem_fwd_info", (1, 1),
+        "fused_stem_fwd_kernelI13__nv_bfloat16Li8ELb1E")],
+    "fused_stem_bwd_saved": [("", "stem_bwd", "apfp_fused_stem_bwd_info",
+                              (1,), "fused_stem_bwd_tc_kernel")],
+    "fused_stem_bwd": [("", "stem_remat", "apfp_fused_stem_remat_info", (1,),
+                        "fused_stem_remat_tc_kernel")],
+    **{name: [(f"NW{nw}", "planar_conv", "apfp_planar_conv_info",
+               (variant, nw), key.format(nw)) for nw in (1, 2, 4, 8)]
+       for name, variant, key in _K4_KEYS}}
 
 
 def tensor_core_check(_cuda, info) -> dict:
     """Phase 1: the tensor-core instructions (HMMA, HGMMA) that
-    ``cuobjdump -sass`` finds in each bfloat16 K1 and K2 kernel of the
-    built libraries, with ptxas' registers (``-Xptxas -v``) and the
-    card's own account of registers, dynamic shared memory and blocks per
-    multiprocessor (``apfp_*_info``). Fails if one has no tensor-core
-    instruction. Returns {entry name: record}."""
+    ``cuobjdump -sass`` finds in each bfloat16 kernel instantiation of
+    ``TC_KERNELS`` (K1, K1 ``save_acts``, K2, K5 and every K4 variant and
+    block width) in the built libraries, with ptxas' registers
+    (``-Xptxas -v``) and the card's own account of registers, dynamic
+    shared memory and blocks per multiprocessor (``apfp_*_info``). Fails
+    if one has no tensor-core instruction. Returns {entry name: record};
+    an entry of several instantiations holds them under ``sass``."""
     import ctypes
     tool = os.path.join(os.path.dirname(_cuda._nvcc()), "cuobjdump")
     counts, regs = {}, {}
-    for lib in {v[0] for v in TC_KERNELS.values()}:
+    libs = {inst[1] for insts in TC_KERNELS.values() for inst in insts}
+    for lib in libs:
         sass = subprocess.run([tool, "-sass", info[lib]["path"]],
                               capture_output=True, text=True, check=True,
                               timeout=300).stdout
@@ -305,24 +328,29 @@ def tensor_core_check(_cuda, info) -> dict:
             elif fn is not None and "Used" in line and "registers" in line:
                 regs[fn] = line.strip()
     out = {}
-    for name, (lib, info_fn, args, key) in TC_KERNELS.items():
-        fns = [f for f in counts if key in f]
-        assert len(fns) == 1, (name, fns)
-        c = counts[fns[0]]
-        rec = {"hmma": c["HMMA"], "hgmma": c["HGMMA"],
-               "ptxas": regs.get(fns[0], "")}
-        buf = (ctypes.c_int * 3)()
-        _cuda.check(getattr(_cuda.lib(lib), info_fn)(*args, buf),
-                    f"{name} info")
-        rec.update(registers=buf[0], dynamic_smem_bytes=buf[1],
-                   blocks_per_sm=buf[2])
-        log(f"[sass] {name}: {rec['hmma']} HMMA, {rec['hgmma']} HGMMA; "
-            f"{rec['registers']} registers, {rec['dynamic_smem_bytes']} "
-            f"bytes of shared memory, {rec['blocks_per_sm']} block(s) a "
-            f"multiprocessor; ptxas: {rec['ptxas']}")
-        assert rec["hmma"] + rec["hgmma"] > 0, \
-            f"{name}: no tensor-core instruction in its SASS"
-        out[name] = rec
+    for name, insts in TC_KERNELS.items():
+        recs = {}
+        for label, lib, info_fn, args, key in insts:
+            fns = [f for f in counts if key in f]
+            assert len(fns) == 1, (name, label, fns)
+            c = counts[fns[0]]
+            rec = {"hmma": c["HMMA"], "hgmma": c["HGMMA"],
+                   "ptxas": regs.get(fns[0], "")}
+            buf = (ctypes.c_int * 3)()
+            _cuda.check(getattr(_cuda.lib(lib), info_fn)(*args, buf),
+                        f"{name} info")
+            rec.update(registers=buf[0], dynamic_smem_bytes=buf[1],
+                       blocks_per_sm=buf[2])
+            what = f"{name} {label}".strip()
+            log(f"[sass] {what}: {rec['hmma']} HMMA, {rec['hgmma']} HGMMA; "
+                f"{rec['registers']} registers, "
+                f"{rec['dynamic_smem_bytes']} bytes of shared memory, "
+                f"{rec['blocks_per_sm']} block(s) a multiprocessor; ptxas: "
+                f"{rec['ptxas']}")
+            assert rec["hmma"] + rec["hgmma"] > 0, \
+                f"{what}: no tensor-core instruction in its SASS"
+            recs[label] = rec
+        out[name] = recs[""] if list(recs) == [""] else {"sass": recs}
     return out
 
 
@@ -525,37 +553,19 @@ def flip_zone(acts, plain_acts, h: int, radius: int = 12, extra=None):
     return zone, flips
 
 
-def fma_signs(x, sp, b):
-    """K5's recomputed signs of y0..y3 for NHWC x, in K1's planar mask
-    layout (a tuple like save_acts' with no y5): the batch-on-lanes
-    forward's save_acts activations, which run the same CUDA-core
-    conv_stage code as K5's recompute."""
-    SB = import_port("experimental.stem_batched")
-    PC = import_port("ops.planar_conv")
-    h1 = x.shape[1] // 2
-    seg = SB._seg(h1)
-    acts = SB.fused_stem_fwd_b(*SB.split_phases_b(x, seg), sp, b,
-                               save_acts=True)
-    m0 = (SB.merge_phases_b(acts[1], acts[2], b, h1, 32) > 0).to(torch.int8)
-    return (None, PC.to_planar_plain(m0, step=2, offset=0),
-            PC.to_planar_plain(m0, step=2, offset=1),
-            *[PC.to_planar_plain((SB.batched_to_nhwc(
-                a, b, h1, a.shape[1]) > 0).to(torch.int8))
-              for a in acts[3:]])
-
-
-def remat_kernel(dev, sp, sbp, card, walk_fwd_bwd_ms) -> dict:
+def remat_kernel(dev, sp, sbp, card, walk_fwd_bwd_ms, tc_info) -> dict:
     """Phase 5, K5 at batch 24, 608^2, bfloat16 and float32, against K2 on
-    K1's save_acts masks of the same x and against the plain chain on
-    those masks: K2's tolerances outside the input pixels within 12 of a
-    gate where K1's masks and K5's recomputed signs (``fma_signs``) differ,
-    at most 1e-5 of the mask elements (in float32 all three run the
-    CUDA-core code and agree everywhere; in bfloat16 K1 and K2 run on the
-    tensor cores); then against its own plain version, which recomputes
-    the masks in cuDNN's order: the same tolerances outside 12 of a flipped
-    gate, flips at most 1e-5 of the mask elements. Returns K5's entry of
-    the kernels line, beside the stem's cuDNN forward + input backward at
-    b24 bfloat16 (K5 recomputes the forward)."""
+    K1's save_acts masks of the same x: in either dtype K5 recomputes the
+    masks with K1's own arithmetic and runs K2's chain, so its gx must
+    equal K2's bit for bit (``torch.equal``; a recomputed sign that
+    differed from K1's mask would move gx near it); against the plain chain
+    on those masks at K2's tolerances everywhere; then against its own
+    plain version, which recomputes the masks in cuDNN's order: the same
+    tolerances outside 12 pixels of a gate where K1's masks (K5's signs)
+    and the plain ones differ, at most 1e-5 of the mask elements. Returns
+    K5's entry of the kernels line, beside the stem's cuDNN forward +
+    input backward at b24 bfloat16 (K5 recomputes the forward), with
+    phase 1's tensor-core record."""
     PC = import_port("ops.planar_conv")
     SF = import_port("ops.stem_fused")
     bf16 = torch.bfloat16
@@ -569,17 +579,10 @@ def remat_kernel(dev, sp, sbp, card, walk_fwd_bwd_ms) -> dict:
            "library_ms": walk_fwd_bwd_ms,
            "library_is": "the stem on cuDNN (stem_conv_walk), bfloat16, "
                          "forward + input backward, b24",
-           "dtype": "bfloat16"}
+           "dtype": "bfloat16", **tc_info["fused_stem_bwd"]}
 
-    def outside(got, want, zone):
-        """(max, mean) of |got - want| (merged phases, worst channel) over
-        the pixels outside zone, want's scale and the max over all."""
-        e = (SF.merge_phases(*got, h1, 3).float()
-             - SF.merge_phases(*want, h1, 3).float()).abs().amax(-1)
-        out = e[~zone] if (~zone).any() else e.new_zeros(1)
-        return (out.max().item(), out.mean().item(),
-                max(w.float().abs().max().item() for w in want),
-                e.max().item())
+    def merged(t):
+        return SF.merge_phases(*t, h1, 3).float()
 
     for dt in (bf16, torch.float32):
         spd = sp if dt == bf16 else [(w.float(), bb) for w, bb in sp]
@@ -594,39 +597,40 @@ def remat_kernel(dev, sp, sbp, card, walk_fwd_bwd_ms) -> dict:
         for gk in got:
             assert not gk[..., 0].any() and not gk[..., h1 + 1:].any()
             assert not gk[:, :, 3:].any()
+        unequal = sum(int((gk != kk).sum().item()) for gk, kk in zip(got, k2))
+        n_mask = sum(m.numel() for m in acts[1:])
         chain = SF.fused_stem_bwd_saved_plain(acts, g5p, sbpd)
         rel_tol = 2e-5 if dt == torch.float32 else 2.0 ** -6
-        n_mask = sum(m.numel() for m in acts[1:])
-        k5m = fma_signs(x.to(dt), spd, b)
-        zone5, flips5 = flip_zone(acts, k5m, h)
-        assert flips5 <= 1e-5 * n_mask, (dt, flips5, n_mask)
-        vs_k2, _, sc_k2, vs_k2_all = outside(got, k2, zone5)
-        err, mean, scale, err_all = outside(got, chain, zone5)
-        tol = rel_tol * max(scale, sc_k2)
-        r = {"vs_k2_max_abs_diff_outside_flips": vs_k2,
-             "vs_k2_max_abs_diff": vs_k2_all,
-             "same_masks_max_abs_err_outside_flips": err,
-             "same_masks_mean_abs_err_outside_flips": mean,
-             "same_masks_max_abs_err": err_all,
-             "k5_sign_flips_vs_k1_masks": flips5,
-             "k5_flip_zone_frac": zone5.float().mean().item(), "tol": tol}
-        assert vs_k2 <= tol and err <= tol and mean <= 1e-4 * scale, (dt, r)
-        del chain, k2, zone5
+        e = (merged(got) - merged(chain)).abs()
+        scale = merged(chain).abs().max().item()
+        tol = rel_tol * scale
+        r = {"vs_k2_unequal_elements": unequal,
+             "vs_k2_equal": all(torch.equal(gk, kk)
+                                for gk, kk in zip(got, k2)),
+             "gx_elements": sum(gk.numel() for gk in got),
+             "same_masks_max_abs_err": e.max().item(),
+             "same_masks_mean_abs_err": e.mean().item(), "tol": tol}
+        log(f"[k5] {dt}: gx vs K2 on K1's masks: {unequal} of "
+            f"{r['gx_elements']} elements differ (K5's recomputed signs "
+            f"against K1's masks: bit for bit); vs the plain chain on them "
+            f"{r['same_masks_max_abs_err']:.3g} (tol {tol:.3g})")
+        assert r["vs_k2_equal"] and unequal == 0, (dt, r)
+        assert r["same_masks_max_abs_err"] <= tol, (dt, r)
+        assert r["same_masks_mean_abs_err"] <= 1e-4 * scale, (dt, r)
+        del chain, k2, e
         # its own plain version: the masks recomputed by cuDNN, against
-        # K5's own signs
+        # K5's own signs (K1's masks)
         own = SF.fused_stem_bwd_plain(xe, xo, acts[0], g5p, spd, sbpd)
         plain_acts = SF.fused_stem_fwd_plain(xe, xo, spd, save_acts=True)
-        zone, flips = flip_zone(k5m, plain_acts, h)
-        del plain_acts, k5m
-        e = (SF.merge_phases(*got, h1, 3).float()
-             - SF.merge_phases(*own, h1, 3).float()).abs().amax(-1)
+        zone, flips = flip_zone(acts, plain_acts, h)
+        del plain_acts
+        e = (merged(got) - merged(own)).abs().amax(-1)
         err_out = e[~zone].max().item() if (~zone).any() else 0.0
         r.update(max_abs_err=e.max().item(), mean_abs_err=e.mean().item(),
                  max_abs_err_outside_flips=err_out, mask_flips=flips,
                  mask_elements=n_mask,
                  flip_zone_frac=zone.float().mean().item(),
-                 tol_applies_to="vs_k2_max_abs_diff_outside_flips, "
-                                "same_masks_max_abs_err_outside_flips and "
+                 tol_applies_to="same_masks_max_abs_err and "
                                 "max_abs_err_outside_flips")
         assert flips <= 1e-5 * n_mask, (flips, n_mask)
         assert err_out <= tol, r
@@ -644,13 +648,9 @@ def remat_kernel(dev, sp, sbp, card, walk_fwd_bwd_ms) -> dict:
                      acts, g5p, sbpd), 5),
                  bound_ms=b_ms, bound_by=b_by)
         del got, acts
-        log(f"[k5] {dt}: {flips5} of K5's signs differ from K1's masks; "
-            f"outside their zone vs K2 {vs_k2:.3g}, vs plain chain "
-            f"{err:.3g} (tol {tol:.3g}; everywhere {vs_k2_all:.3g}, "
-            f"{err_all:.3g}), vs own plain {r['max_abs_err']:.3g} "
-            f"({flips} mask flips, outside their zone "
-            f"{err_out:.3g}); {r['ms']:.4f} ms vs plain "
-            f"{r['plain_ms']:.4f}, K2 {r['k2_ms']:.4f}, bound "
+        log(f"[k5] {dt}: vs own plain {r['max_abs_err']:.3g} ({flips} mask "
+            f"flips, outside their zone {err_out:.3g}); {r['ms']:.4f} ms vs "
+            f"plain {r['plain_ms']:.4f}, K2 {r['k2_ms']:.4f}, bound "
             f"{b_ms:.4f} ({b_by}) ({card})")
         if dt == bf16:
             ent.update(r, shape=list(xe.shape),
@@ -1028,25 +1028,48 @@ def stage_conv_walk(y5, fwd):
 
 
 def check_k4(conv, xp, w, b, res=None, *, k, stride=1, slope=0.1, w_img,
-             gate=None, cin_real=None, expanded=False, iters=5):
+             gate=None, cin_real=None, t2=False, iters=5):
     """One K4 geometry of the planar routes: the kernel against
     ``planar_conv_plain`` on the same inputs (float32: 2e-5 of the output
     scale, summation order; bfloat16: two bf16 ulps of it, a rounding
     flipped by the order, and a mean below 1e-4 of it), its zero lanes,
-    its time beside its bound, the plain version's and the cuDNN conv
-    alone of the same geometry (channels_last). Returns (record, output).
-    An expanded (zero-interleaved) input holds data at one position in
-    four, so the bound counts the stride-2 adjoint's bytes and FLOPs."""
+    its time beside its bound, the plain version's and the cuDNN call of
+    the same function alone (channels_last). Returns (record, output).
+    ``t2``: the stride-2 adjoint variant ``planar_conv_t2`` on the
+    unexpanded cotangent ``xp`` at width ``w_img`` (its plain version the
+    zero interleave then the stride-1 conv; its cuDNN call
+    ``F.conv_transpose2d`` with stride 2); its bytes and FLOPs are the
+    real ones (9 tap products per 2 x 2 outputs)."""
     PC = import_port("ops.planar_conv")
     _cuda = import_port("ops._cuda")
+    F = torch.nn.functional
     dt = xp.dtype
     bsz, h, _, _ = xp.shape
     cin_real = cin_real or w.shape[2]
     cout = w.shape[-1]
-    kw = dict(k=k, stride=stride, slope=slope, w_img=w_img, gate=gate)
-    got = PC.planar_conv(xp, w, b, res, **kw)
+    if t2:
+        kw = dict(w_img=w_img, gate=gate)
+
+        def kern():
+            return PC.planar_conv_t2(xp, w, b, **kw)
+
+        def plain():
+            return PC.planar_conv_t2_plain(xp, w, b, **kw)
+        ho, wo = 2 * h, 2 * w_img
+        flops = 2.0 * bsz * h * w_img * cout * 9 * cin_real
+    else:
+        kw = dict(k=k, stride=stride, slope=slope, w_img=w_img, gate=gate)
+
+        def kern():
+            return PC.planar_conv(xp, w, b, res, **kw)
+
+        def plain():
+            return PC.planar_conv_plain(xp, w, b, res, **kw)
+        ho, wo = h // stride, w_img // stride
+        flops = 2.0 * bsz * ho * wo * cout * k * k * cin_real
+    got = kern()
     torch.cuda.synchronize()
-    want = PC.planar_conv_plain(xp, w, b, res, **kw)
+    want = plain()
     scale = max(want.float().abs().max().item(), 1e-30)
     e = (got.float() - want.float()).abs()
     err, mean_err = e.max().item(), e.mean().item()
@@ -1054,41 +1077,53 @@ def check_k4(conv, xp, w, b, res=None, *, k, stride=1, slope=0.1, w_img,
     tol = (2e-5 if dt == torch.float32 else 2.0 ** -6) * scale
     assert err <= tol and mean_err <= 1e-4 * scale, (conv, err, mean_err,
                                                      scale)
-    ho, wo = h // stride, w_img // stride
     assert not got[..., 0].any() and not got[..., wo + 1:].any(), conv
-    share = 4 if expanded else 1
-    read = bsz * h * w_img * cin_real * xp.element_size() // share
+    read = bsz * h * w_img * cin_real * xp.element_size()
     read += sum(image_bytes(t, wo, cout) for t in (res, gate)
                 if t is not None)
-    flops = 2.0 * bsz * ho * wo * cout * k * k * cin_real / share
     b_ms, b_by = bound(read + nbytes(got), flops, dt)
     x_cl = torch.randn(bsz, cin_real, h, w_img, device=xp.device).to(
         dt).contiguous(memory_format=torch.channels_last)
-    w_cl = w[:, :, :cin_real].permute(3, 2, 0, 1).contiguous(
-        memory_format=torch.channels_last)
+    if t2:
+        # conv_transpose2d's weight is the forward conv's OIHW kernel
+        # [cin, cout, 3, 3]: w is its flipped, channel-swapped HWIO
+        w_cl = torch.flip(w[:, :, :cin_real], (0, 1)).permute(
+            2, 3, 0, 1).contiguous(memory_format=torch.channels_last)
+
+        def lib_call():
+            return F.conv_transpose2d(x_cl, w_cl, None, 2, 1, 1)
+    else:
+        w_cl = w[:, :, :cin_real].permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+
+        def lib_call():
+            return F.conv2d(x_cl, w_cl, None, stride, (k - 1) // 2)
     with _cuda.no_tf32():
-        lib = time_ms(lambda: torch.nn.functional.conv2d(
-            x_cl, w_cl, None, stride, (k - 1) // 2), iters)
-        plain = time_ms(lambda: PC.planar_conv_plain(xp, w, b, res, **kw),
-                        max(2, iters // 2), 1)
-    rec = {"conv": conv, "k": k, "stride": stride, "cin": cin_real,
+        lib = time_ms(lib_call, iters)
+        plain_ms = time_ms(plain, max(2, iters // 2), 1)
+    rec = {"conv": conv, "variant": "t2" if t2 else f"k{k}s{stride}",
+           "k": k, "stride": stride, "cin": cin_real,
            "cout": cout, "shape": list(xp.shape), "w_img": w_img,
            "dtype": str(dt).replace("torch.", ""), "res": res is not None,
-           "gate": gate is not None, "slope": slope, "expanded": expanded,
+           "gate": gate is not None, "slope": None if t2 else slope,
+           "expanded": False,
            "max_abs_err": err, "tol": tol, "mean_abs_err": mean_err,
-           "ms": time_ms(lambda: PC.planar_conv(xp, w, b, res, **kw), iters),
-           "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
-           "gflop": flops / 1e9, "library_ms": lib}
+           "ms": time_ms(kern, iters), "plain_ms": plain_ms,
+           "bound_ms": b_ms, "bound_by": b_by, "gflop": flops / 1e9,
+           "library_ms": lib,
+           "library": ("F.conv_transpose2d, stride 2" if t2
+                       else "F.conv2d")}
     del x_cl
     return rec, got
 
 
 def planar_kernels(dev, model, card) -> list:
     """Phase 7, K4: every geometry the planar routes launch at full width,
-    on the bfloat16 model's route weights: the stem forward at b8
-    (bfloat16 and float32), the planar stem's backward convs at b24 (with
-    expand2_planar, gate and res), the 152^2 stage's convs forward and
-    backward at b24. Returns the per-geometry records."""
+    on the bfloat16 model's route weights: the stem forward (bfloat16 at
+    b24, float32 at b8), the planar stem's backward convs at b24 (the
+    two stride-2 adjoints as the k3t2 variant on the unexpanded cotangent;
+    gate and res), the 152^2 stage's convs forward and backward at b24.
+    Returns the per-geometry records."""
     PC = import_port("ops.planar_conv")
     PSP = import_port("models.stem_planar")
     bf16, f32 = torch.bfloat16, torch.float32
@@ -1100,16 +1135,19 @@ def planar_kernels(dev, model, card) -> list:
         recs.append(rec)
         log(f"[k4] {name} {rec['dtype']}: err {rec['max_abs_err']:.3g} "
             f"(tol {rec['tol']:.3g}), {rec['ms']:.4f} ms vs plain "
-            f"{rec['plain_ms']:.4f}, conv alone {rec['library_ms']:.4f}, "
+            f"{rec['plain_ms']:.4f}, cuDNN alone {rec['library_ms']:.4f}, "
             f"bound {rec['bound_ms']:.4f} ({rec['bound_by']}) ({card})")
         return out
 
     fwd, bwd = model.planar_stem_params()
     x8 = torch.rand(BATCH, SIZE, SIZE, 3, generator=gen, device=dev)
+    x24 = torch.rand(TRAIN_BATCH, SIZE, SIZE, 3, generator=gen,
+                     device=dev).to(bf16)
     h1 = SIZE // 2
-    for dt in (bf16, f32):
+    # bfloat16 at the step's b24, float32 (the golden checks' dtype) at b8
+    for dt, x in ((bf16, x24), (f32, x8)):
         f = fwd if dt == bf16 else [(w.float(), b) for w, b in fwd]
-        xp = PC.to_planar(x8.to(dt), c_pad=8)
+        xp = PC.to_planar(x.to(dt), c_pad=8)
         y0 = run("stem_fwd_conv0", xp, *f[0], k=3, w_img=SIZE, cin_real=3)
         y1 = run("stem_fwd_conv1", y0, *f[1], k=3, stride=2, w_img=SIZE)
         y2 = run("stem_fwd_conv2", y1, *f[2], k=1, w_img=h1)
@@ -1117,23 +1155,21 @@ def planar_kernels(dev, model, card) -> list:
         run("stem_fwd_conv5", y3 + y1, *f[4], k=3, stride=2, w_img=h1)
         del xp, y0, y1, y2, y3
     # the backward at b24 on the kernels' own forward activations
-    x24 = torch.rand(TRAIN_BATCH, SIZE, SIZE, 3, generator=gen,
-                     device=dev).to(bf16)
     y0, y1, y2, y3, y5 = PSP._forward(x24, fwd)
     g5 = torch.randn(TRAIN_BATCH, SIZE // 4, SIZE // 4, 128, generator=gen,
                      device=dev).to(bf16)
     gp5 = PC.leaky_bwd_planar(PC.to_planar(g5), y5)
     del g5, y5
-    g_sc = run("stem_bwd_conv5", PC.expand2_planar(gp5, SIZE // 4),
-               *bwd[4], k=3, slope=None, w_img=h1, expanded=True, iters=3)
+    g_sc = run("stem_bwd_conv5", gp5, *bwd[4], k=3, w_img=SIZE // 4,
+               t2=True, iters=3)
     gp3 = PC.leaky_bwd_planar(g_sc, y3)
     gp2 = run("stem_bwd_conv3", gp3, *bwd[3], k=3, slope=None, gate=y2,
               w_img=h1, iters=3)
     gp1 = run("stem_bwd_conv2", gp2, *bwd[2], g_sc, k=1, slope=None,
               gate=y1, w_img=h1, iters=3)
     del gp3, gp2, g_sc, y1, y2, y3
-    gp0 = run("stem_bwd_conv1", PC.expand2_planar(gp1, h1), *bwd[1], k=3,
-              slope=None, gate=y0, w_img=SIZE, expanded=True, iters=3)
+    gp0 = run("stem_bwd_conv1", gp1, *bwd[1], k=3, gate=y0, w_img=h1,
+              t2=True, iters=3)
     del gp1, y0
     run("stem_bwd_conv0", gp0, *bwd[0], k=3, slope=None, w_img=SIZE,
         iters=3)
@@ -1159,18 +1195,19 @@ def planar_kernels(dev, model, card) -> list:
     return recs
 
 
-def k4_entries(recs) -> list:
+def k4_entries(recs, tc_info) -> list:
     """The kernels line's K4 entries, one per variant (1x1, 3x3 s1, 3x3
-    s2): ms, plain_ms, bound_ms and library_ms are sums over the variant's
-    bfloat16 geometries (one planar-route training step launches each of
-    them once per batch, the stem forward at b8 here), bound_by is that of
-    the largest bound, max_abs_err and tol are those of the geometry
-    nearest its tolerance; every geometry's record rides along."""
+    s2, the stride-2 adjoint k3t2): ms, plain_ms, bound_ms and library_ms
+    are sums over the variant's bfloat16 geometries, all at b24 (one
+    planar-route training step launches each of them once), bound_by is that of the largest bound, max_abs_err and
+    tol are those of the geometry nearest its tolerance; every geometry's
+    record rides along, and phase 1's tensor-core records."""
     out = []
-    for name, rep in (("planar_conv_k1", 494), ("planar_conv_k3", 533),
-                      ("planar_conv_k3s2", 533)):
-        mine = [r for r in recs if (r["k"] == 1) == (name.endswith("k1"))
-                and (r["stride"] == 2) == name.endswith("s2")]
+    for name, variant, rep in (
+            ("planar_conv_k1", "k1s1", "494"), ("planar_conv_k3", "k3s1", "533"),
+            ("planar_conv_k3s2", "k3s2", "533"),
+            ("planar_conv_k3t2", "t2", "533 (through expand2_planar :202)")):
+        mine = [r for r in recs if r["variant"] == variant]
         bf = [r for r in mine if r["dtype"] == "bfloat16"]
         worst = max(mine, key=lambda r: r["max_abs_err"] / r["tol"])
         out.append({
@@ -1184,9 +1221,12 @@ def k4_entries(recs) -> list:
             "bound_ms": sum(r["bound_ms"] for r in bf),
             "bound_by": max(bf, key=lambda r: r["bound_ms"])["bound_by"],
             "library_ms": sum(r["library_ms"] for r in bf),
-            "library": "cuDNN F.conv2d of the same geometries, channels_last "
-                       "(conv alone)",
-            "geometries": mine})
+            "library": ("cuDNN F.conv_transpose2d (stride 2) of the same "
+                        "geometries, channels_last" if variant == "t2" else
+                        "cuDNN F.conv2d of the same geometries, "
+                        "channels_last (conv alone)"),
+            "gflop": sum(r["gflop"] for r in bf),
+            "geometries": mine, **tc_info[name]})
     return out
 
 
@@ -1484,17 +1524,19 @@ def gated_stage(y5, rf, gates, c12=None):
 
 @contextlib.contextmanager
 def plain_kernels():
-    """Route K4, K5, K6 and K6c through their plain versions while inside
-    (the layout kernels stay: they are exact), for the bfloat16 gradient
-    readings against the plain route."""
+    """Route K4 (and its k3t2 variant), K5, K6 and K6c through their plain
+    versions while inside (the layout kernels stay: they are exact), for
+    the bfloat16 gradient readings against the plain route."""
     PC = import_port("ops.planar_conv")
     SF = import_port("ops.stem_fused")
     RF = import_port("ops.res_fused")
     PSP = import_port("models.stem_planar")
     PRP = import_port("models.res_planar")
-    saved = (PSP.planar_conv, PRP.planar_conv, RF.res152_fused,
-             RF.res152_fused_grad, RF.res152_fused_grad12, SF.fused_stem_bwd)
+    saved = (PSP.planar_conv, PSP.planar_conv_t2, PRP.planar_conv,
+             RF.res152_fused, RF.res152_fused_grad, RF.res152_fused_grad12,
+             SF.fused_stem_bwd)
     PSP.planar_conv = PRP.planar_conv = PC.planar_conv_plain
+    PSP.planar_conv_t2 = PC.planar_conv_t2_plain
     RF.res152_fused = (lambda xp, fwd, *, save=False, w_img=None:
                        RF.res152_fused_plain(xp, fwd, save, w_img))
     RF.res152_fused_grad = (lambda g, m, bwd, *, w_img=None:
@@ -1506,8 +1548,8 @@ def plain_kernels():
     try:
         yield
     finally:
-        (PSP.planar_conv, PRP.planar_conv, RF.res152_fused,
-         RF.res152_fused_grad, RF.res152_fused_grad12,
+        (PSP.planar_conv, PSP.planar_conv_t2, PRP.planar_conv,
+         RF.res152_fused, RF.res152_fused_grad, RF.res152_fused_grad12,
          SF.fused_stem_bwd) = saved
 
 
@@ -1563,6 +1605,15 @@ def route_training(dev, card) -> dict:
     rec = {}
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    # the stride-2 adjoints run as K4's k3t2 variant: no route may call the
+    # zero interleave
+    expand_calls = []
+    expand2 = PC.expand2_planar
+
+    def counted_expand2(*a, **k):
+        expand_calls.append(1)
+        return expand2(*a, **k)
+    PC.expand2_planar = counted_expand2
     for name, (kw, want) in ROUTES.items():
         # the remat and c12 trainers hold their own model (0.13 GB of
         # bfloat16 weights beside the fused trainer's) for their run only
@@ -1581,6 +1632,7 @@ def route_training(dev, card) -> dict:
             patch_of = pw
         p0 = patch_of.detach().clone()
         reset_counts()
+        expand_calls.clear()
         for i in range(3):
             step(i)
         torch.cuda.synchronize()
@@ -1593,6 +1645,7 @@ def route_training(dev, card) -> dict:
         launches = read_counts()
         routes = tuple(darknet.last_routes().values())
         n = 3 + ROUTE_STEPS
+        assert not expand_calls, (name, "expand2_planar was called")
         ms = start.elapsed_time(end) / ROUTE_STEPS
         r = rec[name] = {
             "routes": routes, "steps_counted": n, "launches": launches,
@@ -1621,10 +1674,10 @@ def route_training(dev, card) -> dict:
             assert all(launches[k] == 0 for k in K4_VARIANTS + NEW_KERNELS), \
                 launches
         elif name == "planar_planar":
-            # only K4 in layers 0-11: per step 6 1x1, 10 3x3 s1 and
-            # 2 3x3 s2 convs (forward and backward)
-            assert [launches[k] for k in K4_VARIANTS] == [6 * n, 10 * n,
-                                                           2 * n], launches
+            # only K4 in layers 0-11: per step 6 1x1, 8 3x3 s1, 2 3x3 s2
+            # and the 2 stride-2 adjoints (k3t2), forward and backward
+            assert [launches[k] for k in K4_VARIANTS] == [
+                6 * n, 8 * n, 2 * n, 2 * n], launches
             assert all(launches[k] == 0 for k in K6_KERNELS + NEW_KERNELS), \
                 launches
             assert launches["fused_stem_fwd_save_acts"] == 0, launches
@@ -1653,6 +1706,7 @@ def route_training(dev, card) -> dict:
         if name in ("remat", "c12"):
             del tr, step, patch_of
             torch.cuda.empty_cache()
+    PC.expand2_planar = expand2
 
     # the default route (fused stem, K2) under the same conditions, two
     # models held: the yardstick of the remat and c12 routes' peaks
@@ -1930,9 +1984,19 @@ def batched_kernels(dev, sp, sbp, card) -> list:
     g5 = torch.randn(b, h5, h5, 128, generator=gen, device=dev)
     names = ("fused_stem_fwd_b", "fused_stem_fwd_b_save_acts",
              "fused_stem_bwd_b")
+    # the yardstick: the stem on cuDNN at the same shape, bfloat16
+    walk = stem_yardstick(x.to(bf16), sp)
+    log(f"[k8] the stem on cuDNN, b24 bfloat16: {json.dumps(walk)} ({card})")
     ents = {n: {"name": n, "route": "cuda",
                 "source": f"{PORT}/csrc/stem_batched.cu", "launches": 0,
-                "library_ms": None, "dtype": "bfloat16"} for n in names}
+                "library_ms": walk["bwd_ms" if n == "fused_stem_bwd_b"
+                                   else "fwd_ms"],
+                "library_is": "the stem on cuDNN (stem_conv_walk), bfloat16, "
+                              "b24, " + ("input backward alone on a "
+                                         "retained graph"
+                                         if n == "fused_stem_bwd_b"
+                                         else "forward"),
+                "dtype": "bfloat16"} for n in names}
     ents["fused_stem_fwd_b"]["replaces"] = \
         f"{JAX_PKG}/experimental/stem_batched.py:402"
     ents["fused_stem_fwd_b_save_acts"]["replaces"] = \
@@ -2642,10 +2706,74 @@ def main() -> int:
                 f"within 1e-3")
         launches = read_counts()
         if routes[0] == "planar":
+            # the forward alone: no stride-2 adjoint
             k4 = {k: launches[k] for k in K4_VARIANTS}
-            assert all(v > 0 for v in k4.values()), k4
+            assert all(v > 0 for k, v in k4.items()
+                       if k != "planar_conv_k3t2"), k4
+            assert k4["planar_conv_k3t2"] == 0, k4
             golden_k4[f"slim_res152_{res152 or 'conv'}"] = k4
             log(f"[golden] {d} res152={res152}: K4 launches {k4}")
+        if routes == ("planar", "conv"):
+            # the slim victim's bfloat16 Detector forward at b8: the planar
+            # stem on the tensor-core K4 at its narrow widths (block widths
+            # NW 1 and 2); each of its five K4 calls, recorded on the way,
+            # is held against planar_conv_plain on the same inputs (two
+            # bf16 ulps of the output scale, a mean below 1e-4 of it, zero
+            # border and padding lanes); then timed, heads finite
+            sdet = E.Detector(gnet, gparams, img_size=golden["img_size"],
+                              num_classes=golden["num_classes"],
+                              compute_dtype=torch.bfloat16, device=dev)
+            gs = golden["img_size"]
+            xs = torch.rand(BATCH, gs, gs, 3, device=dev,
+                            generator=torch.Generator(device=dev).manual_seed(
+                                SEED + 3)).to(torch.bfloat16)
+            PSP = import_port("models.stem_planar")
+            calls, k4_call = [], PSP.planar_conv
+
+            def recorded(*a, **kw):
+                out = k4_call(*a, **kw)
+                calls.append((a, kw, out))
+                return out
+            reset_counts()
+            PSP.planar_conv = recorded
+            try:
+                with torch.inference_mode():
+                    heads = sdet._heads(xs)
+                    torch.cuda.synchronize()
+            finally:
+                PSP.planar_conv = k4_call
+            k4_16 = {k: v for k, v in read_counts().items() if v}
+            assert tuple(darknet.last_routes().values()) == routes
+            assert all(bool(torch.isfinite(hd).all()) for hd in heads)
+            assert len(calls) == 5, len(calls)
+            slim_checks = []
+            with torch.inference_mode():
+                for i, (a, kw, got) in enumerate(calls):
+                    want = PC.planar_conv_plain(*a, **kw)
+                    scale = max(want.float().abs().max().item(), 1e-30)
+                    e = (got.float() - want.float()).abs()
+                    err, mean_err = e.max().item(), e.mean().item()
+                    wo = a[0].shape[1] // kw.get("stride", 1)
+                    assert err <= 2.0 ** -6 * scale \
+                        and mean_err <= 1e-4 * scale, (i, err, mean_err,
+                                                       scale)
+                    assert not got[..., 0].any() \
+                        and not got[..., wo + 1:].any(), i
+                    slim_checks.append({
+                        "k": kw["k"], "stride": kw.get("stride", 1),
+                        "cin": a[1].shape[2], "cout": a[1].shape[3],
+                        "max_abs_err": err, "tol": 2.0 ** -6 * scale,
+                        "mean_abs_err": mean_err})
+                    del want, e
+                del calls
+                slim_bf16 = {"forward_ms": time_ms(lambda: sdet._heads(xs),
+                                                   10),
+                             "batch": BATCH, "launches": k4_16,
+                             "k4_checks": slim_checks}
+            assert all(k4_16.get(k, 0) > 0 for k in K4_VARIANTS[:3]), k4_16
+            log(f"[golden] slim victim bfloat16 Detector forward b{BATCH}: "
+                f"{json.dumps(slim_bf16)} ({card})")
+            del sdet, heads, xs
         del gdet
 
     # -- 5. training kernels at the training shapes --------------------
@@ -2653,7 +2781,7 @@ def main() -> int:
     model_sbp = det.model.stem_bwd_params()
     train_kernels = training_kernels(dev, sp, model_sbp, card, tc_info)
     k5 = remat_kernel(dev, sp, det.model.stem_bwd_params(), card,
-                      train_kernels[-1]["library_fwd_bwd_ms"])
+                      train_kernels[-1]["library_fwd_bwd_ms"], tc_info)
     del det, svc
     torch.cuda.empty_cache()
 
@@ -2669,7 +2797,7 @@ def main() -> int:
     # -- 7. planar-route and stage kernels at full width --------------
     phase("7 planar-route and stage kernels")
     model16 = darknet.Darknet(net, params, torch.bfloat16, device=dev)
-    k4 = k4_entries(planar_kernels(dev, model16, card))
+    k4 = k4_entries(planar_kernels(dev, model16, card), tc_info)
     k6 = stage_kernels(dev, model16, card)
     k6c = grad12_kernel(dev, model16, card)
     del model16
@@ -2734,6 +2862,7 @@ def main() -> int:
     for k in k4:
         k["golden_launches"] = {run: v[k["name"]]
                                 for run, v in golden_k4.items()}
+        k["slim_bf16_forward_b8_ms"] = slim_bf16["forward_ms"]
     kernels += k4 + k6 + [k5, k6c]
 
     # -- 9. the experimental package (counted launches) -----------------

@@ -328,10 +328,12 @@ def test_port_import_leaves_experimental_unloaded():
 
 
 def test_bf16_stem_kernels_run_on_tensor_cores():
-    """The bfloat16 K1 and K2 reach ``mma.sync`` through stem_common.cuh's
-    ``mma_conv`` (K1's five convs and K2's five adjoints), the float32
-    paths keep the CUDA-core helpers, and no kernel source includes a
-    library's kernels (cuDNN, cuBLAS, CUTLASS's device-level GEMMs)."""
+    """The bfloat16 K1, K2 and K5 reach ``mma.sync`` through
+    stem_common.cuh's ``mma_conv`` (K1's five convs, K2's five adjoints in
+    the chain K2 and K5 share, K5's four recompute convs), the bfloat16 K4
+    through its own ``ldmatrix`` / ``mma.sync`` loop, the float32 paths
+    keep the CUDA-core helpers, and no kernel source includes a library's
+    kernels (cuDNN, cuBLAS, CUTLASS's device-level GEMMs)."""
     import re
     csrc = os.path.join(ROOT, PORT, "csrc")
     src = {f: open(os.path.join(csrc, f)).read() for f in os.listdir(csrc)
@@ -346,13 +348,27 @@ def test_bf16_stem_kernels_run_on_tensor_cores():
     assert "if constexpr (MMA)" in fwd
     assert len(re.findall(r"\bmma_conv<", fwd)) == 5
     assert len(re.findall(r"\bconv_stage<", fwd)) == 5
-    # K2: the bfloat16 kernel runs its adjoints through mma_conv (two
-    # parity groups of four in tc::convt_s2, three single GEMMs), float32
-    # the FMA grad_chain
+    # K2 and K5: their bfloat16 kernels run the adjoints through
+    # stem_common.cuh's tensor-core chain (two parity groups of four in
+    # bwd_tc::convt_s2, three single GEMMs), float32 the FMA grad_chain
+    chain = common[common.index("namespace bwd_tc {"):]
+    chain = chain[chain.index("void chain("):]
+    assert len(re.findall(r"\bmma_conv<", chain)) == 3
+    assert len(re.findall(r"\bconvt_s2<", chain)) == 2
     tc = bwd[bwd.index("fused_stem_bwd_tc_kernel("):]
-    assert len(re.findall(r"\bmma_conv<", tc)) == 3
-    assert len(re.findall(r"\btc::convt_s2<", tc)) == 2
+    assert "bwd_tc::chain(" in tc
     assert "grad_chain<T>" in bwd and "launch_tc" in bwd
+    # K5: K1's four recompute convs on mma_conv, then the shared chain
+    remat = src["stem_remat.cu"]
+    rtc = remat[remat.index("fused_stem_remat_tc_kernel("):]
+    assert len(re.findall(r"\bmma_conv<", rtc)) == 4
+    assert "bwd_tc::chain(" in rtc and "grad_chain<T>" in remat
+    # K4: the bfloat16 kernels on ldmatrix + mma.sync, float32 on FMAs
+    k4 = src["planar_conv.cu"]
+    for kern in ("planar_conv_tc_kernel(", "planar_convt2_tc_kernel("):
+        body = k4[k4.index(kern):]
+        assert "tap_mma<" in body[:body.index("\n}\n")], kern
+    assert "ldsm_x4(" in k4 and "mma_bf16(" in k4 and "fmaf(" in k4
     for name, text in src.items():
         for inc in re.findall(r'#include\s*[<"]([^>"]+)[>"]', text):
             low = inc.lower()
