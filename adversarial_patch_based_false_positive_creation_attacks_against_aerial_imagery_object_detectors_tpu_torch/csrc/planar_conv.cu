@@ -885,23 +885,6 @@ int launch_t2(const void* g, const void* wf, const float* bias, EpiArgs ea,
   return (int)cudaGetLastError();
 }
 
-template <class F>
-int info_of(F kernel, size_t smem, int* info) {
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  cudaFuncAttributes a;
-  e = cudaFuncGetAttributes(&a, kernel);
-  if (e != cudaSuccess) return (int)e;
-  int blocks = 0;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, NT,
-                                                     smem);
-  info[0] = a.numRegs;
-  info[1] = (int)smem;
-  info[2] = blocks;
-  return (int)e;
-}
-
 template <int NW>
 int info_nw(int variant, int* info) {
   switch (variant) {

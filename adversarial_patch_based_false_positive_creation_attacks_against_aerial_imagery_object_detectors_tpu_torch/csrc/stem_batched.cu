@@ -19,41 +19,61 @@
 // even/odd column phases [H, 32, B*seg], y1 [H/2, 64, .], y2 [H/2, 32, .]
 // and y3 [H/2, 64, .], y3 before the shortcut sum. Rounding points are
 // _fwd_kernel_b's: float32 accumulation, each activation rounded to T when
-// stored, s4 = T(y3 + y1). The convs are stem_common.cuh's conv_stage, the
-// code the float32 K1 runs (conv5 with its column stride set to 1), so in
-// float32 every value equals K1's bit for bit and the even lanes of y5 are
-// K1's y5 (the bfloat16 K1 sums on the tensor cores, in another order).
+// stored, s4 = T(y3 + y1).
 //
-// K8b takes the conv5 cotangent gp5dd [H/2, 128, B*seg], already gated by
-// y5's sign and zero-interleaved in rows and lanes, and K8a's saved
+// K8b takes the conv5 cotangent gp5dd [H/2, 128, B*seg] and K8a's saved
 // activations, and returns the phase-split input cotangent (gxe, gxo),
-// [H, 8, B*seg] each. With m(v) = 1 if the stored v > 0 else 0.1:
-//   gs4 = T(conv5-dx gp5dd)    stride-1 transposed 3x3, 128 -> 64, over
-//                              every position of whatever gp5dd it is given
+// [H, 8, B*seg] each. Its input contract is the JAX kernel's: gp5dd is
+// already gated by y5's sign and zero-interleaved in rows and lanes (gp5
+// (r, c) at row 2r, lane 2c + 1 of the image's segment, zero elsewhere), as
+// FusedStemBatched.backward builds it. With m(v) = 1 if the stored v > 0
+// else 0.1:
+//   gs4 = T(conv5^T gp5)       (the stride-1 adjoint over gp5dd, the same
+//                               function on the interleaved data)
 //   gp3 = T(gs4 m(y3)), gp2 = T(conv3^T(gp3) m(y2)),
 //   gp1 = T((conv2^T(gp2) + gs4) m(y1)), gp0 = T(conv1^T(gp1) m(y0)),
 //   gx  = T(conv0^T gp0)
-// with float32 accumulation; past gs4 this is stem_common.cuh's chain_tail,
-// the code K2 and K5 run, its gates read from the saved values (ActMask).
+// with float32 accumulation.
 //
-// What bounds them on the H100. K8a: with save_acts, bytes (~1.6 GB of
-// activations written at b24 608^2 bf16, 0.48 ms); without, operations
+// What bounds them on the H100. K8a: with save_acts, bytes (~2.0 GB of
+// activations written at b24 608^2 bf16, 0.60 ms); without, operations
 // (14.6 GFLOP an image: 7.8 for y0-y3 and 2 x 3.4 for the dense conv5).
-// K8b: bytes (~1.9 GB read), its real work 11.2 GFLOP an image with conv5's
-// adjoint at the quarter its zero-interleaved input needs. What this first
-// design does about it: nothing clever yet. Each block owns a tile of one
-// image and computes over its receptive field in shared memory (K8a an 8 x 8
-// y5 tile, 8 x 16 dense, in bfloat16 and 4 x 4 in float32, with K1's halos;
-// K8b K2's 16 x 16 gx tile), with CUDA-core FMAs, so no intermediate
-// touches device memory. K8b's conv5-dx runs over all of its 16^2 x 128
-// gp5dd tile, zeros included (4x the multiply-adds its zero-interleaved
-// input needs, and ~3x halo): ~42 GFLOP an image. Tensor cores and the
-// quarter-work formulation of the adjoint are later work.
+// K8b: bytes (~1.6 GB read), 11.2 GFLOP an image of real work. Each block
+// owns a tile of one image and computes over its receptive field in shared
+// memory, so no intermediate touches device memory.
 //
-// Shared memory: K8a bfloat16 161,568 bytes (x; y0, then y2 and s4; y1,
-// then the dense y5 tile), float32 115,520; K8b 57,856 elements (gs4; gp3
-// then gp1; the gp5dd tile, then gp2, then gp0): 115,712 bytes in bfloat16,
-// 231,424 in float32.
+// bfloat16 runs on the tensor cores, on the code K1, K2 and K5 run. K8a is
+// K1's five mma_conv stages (the same CIN walk, tap order, fragment-order
+// weights and epilogue, stem_common.cuh: EpiConv) over an 8 x 8 sparse
+// (8 x 16 dense) y5 tile with K1's halos, conv5 at stride (2, 1)
+// (RowsConv21) with K1's conv5's taps; every sum is then the sum K1 forms
+// for the same position (the warp tiling differs, which moves no sum), so
+// the even lanes of y5 are K1's y5 bit for bit and the activations' signs
+// are K1's masks. With save_acts, y3 is stored on its own and the shortcut
+// sum s4 = T(y3 + y1) formed in place after (K1's epilogue forms it in the
+// same rounding). Shared memory 182,640 bytes, one block a multiprocessor:
+// y0 [39 x 41][40], then y2 [19 x 20][40] and s4 [17 x 18][72]; y1
+// [19 x 20][72], holding x [41 x 43 + 1][8] before conv1 and the dense y5
+// tile [8 x 16][136] after the shortcut sum. K8b is K2's chain
+// (stem_common.cuh: bwd_tc::chain) on its 16 x 16 gx tile: gp5 comes from
+// gp5dd's data positions alone (one 4-byte load of a lane pair a value), so
+// conv5^T runs as K2's four parity GEMMs (K = 1, 2, 2 or 4 taps x 128) and
+// not over the interleaved zeros (4x the multiply-adds); the gates are the
+// signs of the saved values, staged into K2's window layout (bwd_tc::
+// stage_signs, read by bwd_tc::StagedMask); gx goes to the batched
+// segment. Given the bfloat16 K1's y5 and masks, every value equals K2's:
+// the same gp5, the same chain, the same gates. 115,264 bytes of shared
+// memory, two blocks a multiprocessor, as K2.
+//
+// float32 keeps the first design on CUDA-core FMAs (TF32 would not hold
+// the float32 gradient checks): K8a's convs are stem_common.cuh's
+// conv_stage (the float32 K1's code, conv5 with its column stride set to
+// 1), so its even y5 lanes equal K1's bit for bit, over a 4 x 4 y5 tile
+// (4 x 8 dense), 115,520 bytes; K8b runs conv5's stride-1 adjoint over all
+// of its 16^2 x 128 gp5dd tile, zeros included (~42 GFLOP an image), then
+// stem_common.cuh's chain_tail, the code the float32 K2 and K5 run, with its
+// gates read from the saved values (ActMask): 57,856 elements (gs4; gp3
+// then gp1; the gp5dd tile, then gp2, then gp0), 231,424 bytes.
 
 #include "stem_common.cuh"
 
@@ -83,7 +103,8 @@ struct GeomB {
   static constexpr int ELEMS = A + B + C;
 };
 
-// The own nr x nc region of a [pos][C] tile of row pitch TW, whose position
+// The own nr x nc region of a [pos][P] tile (C channels, P >= C elements a
+// position) of row width TW, whose position
 // (rr + off, k + off) is image position (r0 + rr, c0 + k), into a
 // batch-on-lanes tensor [rows, C, pitch] whose image segment starts at lane
 // lb: column c at lane lb + c + 1 of d0, or with PHASE the even columns into
@@ -91,7 +112,7 @@ struct GeomB {
 // fastest. Positions past the image (rows x cols) are skipped. The block of
 // the first tile column also zeroes lane 0 of its rows, the block of the last
 // tile column the lanes past the values (wq + 1 .. seg - 1).
-template <typename T, int C, bool PHASE>
+template <typename T, int C, bool PHASE, int P = C>
 __device__ void store_own(const T* __restrict__ tile, int TW, int off, int nr,
                           int nc, int r0, int c0, T* __restrict__ d0,
                           T* __restrict__ d1, int rows, int cols,
@@ -108,7 +129,7 @@ __device__ void store_own(const T* __restrict__ tile, int TW, int off, int nr,
     if (r0 + rr >= rows || c0 + col >= cols) continue;
     const int lane = PHASE ? c0 / 2 + j + 1 : c0 + k + 1;
     (ph ? d1 : d0)[((long long)(r0 + rr) * C + ch) * pitch + lb + lane] =
-        tile[((rr + off) * TW + col + off) * C + ch];
+        tile[((rr + off) * TW + col + off) * P + ch];
   }
   if (first || last) {
     const int nz_r = last ? seg - wq - 1 : 0;
@@ -264,6 +285,163 @@ int launch_fwd_any(const void* xe, const void* xo, const void* const* w,
 }
 
 // ---------------------------------------------------------------------------
+// K8a in bfloat16: K1's tensor-core stages
+// ---------------------------------------------------------------------------
+
+// The tiles of GeomB<8> with K1's padded row pitches (stem_fused.cu: Geom)
+struct GeomTC {
+  using G = GeomB<8>;
+  static constexpr int TILE = 8;
+  static constexpr int P32 = 32 + 8, P64 = 64 + 8, P128 = 128 + 8;
+  // x [XN XW + 1][8]: channels 3..7 and the last position zero, read by
+  // conv0's tensor-core taps with zero weights
+  static constexpr int XE = (G::XN * G::XW + 1) * 8;
+  static constexpr int Y2 = G::Y1N * G::Y1W * P32;
+  static constexpr int B0 = G::Y0N * G::Y0W * P32;
+  static constexpr int B1 = Y2 + G::S4N * G::S4W * P64;
+  static constexpr int B = B0 > B1 ? B0 : B1;
+  static constexpr int C0 = G::Y1N * G::Y1W * P64;
+  static constexpr int C1 = TILE * 2 * TILE * P128;
+  static constexpr int C01 = C0 > C1 ? C0 : C1;
+  static constexpr int C = XE > C01 ? XE : C01;
+  static constexpr int ELEMS = B + C;  // bfloat16 elements, 182,640 bytes
+};
+static_assert(GeomTC::Y2 % 8 == 0 && GeomTC::B % 8 == 0,
+              "16-byte aligned regions");
+static_assert(sizeof(bf16) * GeomTC::ELEMS <= 232448, "one block's share");
+
+template <bool SAVE>
+__global__ void __launch_bounds__(NT, 1)
+    fused_stem_fwd_b_tc_kernel(const bf16* __restrict__ xe,
+                               const bf16* __restrict__ xo, Frags fr,
+                               const float* __restrict__ b0,
+                               const float* __restrict__ b1,
+                               const float* __restrict__ b2,
+                               const float* __restrict__ b3,
+                               const float* __restrict__ b5,
+                               bf16* __restrict__ y5, Acts<bf16> ac, int H,
+                               int seg, long long pitch) {
+  using G = GeomB<8>;
+  using Q = GeomTC;
+  constexpr int TILE = Q::TILE;
+  constexpr bool PF = true;  // one block a multiprocessor: registers to spare
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* y0 = reinterpret_cast<bf16*>(smem_raw);  // [Y0N Y0W][P32]
+  bf16* y2 = y0;         // [Y1N Y1W][P32], after conv1
+  bf16* s4 = y0 + Q::Y2;  // [S4N S4W][P64]: y3, then s4
+  bf16* y1 = y0 + Q::B;   // [Y1N Y1W][P64]
+  bf16* xs = y1;          // [XN XW + 1][8], before conv1 writes y1
+  bf16* ys = y1;          // [TILE 2 TILE][P128], after the shortcut sum
+
+  const long long lb = (long long)blockIdx.z * seg;
+  const int R5 = blockIdx.y * TILE, C5 = blockIdx.x * TILE;
+  const int H1 = H / 2, H5 = H / 4;
+  const bool first = blockIdx.x == 0, last = blockIdx.x == gridDim.x - 1;
+
+  // x tile from image row 4 R5 - 6 and column 4 C5 - 6; column c of x is
+  // lane c/2 + 1 of the even (c even) or odd phase. Columns run fastest, so
+  // that a warp reads neighbouring lanes of both phases
+  const int xr0 = 4 * R5 - 6, xc0 = 4 * C5 - 6;
+  for (int idx = threadIdx.x; idx < G::XN * G::XW * 8; idx += NT) {
+    const int col = idx % G::XW;
+    const int rest = idx / G::XW;
+    const int ci = rest % 8, r = rest / 8;
+    const int gr = xr0 + r, gc = xc0 + col;
+    bf16 v = __float2bfloat16_rn(0.f);
+    if (ci < 3 && gr >= 0 && gr < H && gc >= 0 && gc < H)
+      v = ((gc & 1) ? xo : xe)[((long long)gr * 8 + ci) * pitch + lb +
+                               (gc >> 1) + 1];
+    xs[(r * G::XW + col) * 8 + ci] = v;
+  }
+  if (threadIdx.x < 8)
+    xs[G::XN * G::XW * 8 + threadIdx.x] = __float2bfloat16_rn(0.f);
+  __syncthreads();
+  mma_conv<16, 8, 32, 4, 4, PF>(
+      xs, G::Y0N * G::Y0W, fr.w0, RowsConv0{G::Y0W, G::XW},
+      EpiConv<Q::P32, false, false>{y0, G::Y0W, b0, 4 * R5 - 5, 4 * C5 - 5,
+                                    H, nullptr, 0, nullptr});
+  __syncthreads();
+  // own regions: y0 rows/columns [4 R5, 4 R5 + 4 TILE) at tile offset 5, y1
+  // and y2 [2 R5, 2 R5 + 2 TILE) at offset 2, y3 at offset 1; the tiles of
+  // all blocks partition the image
+  if (SAVE)
+    store_own<bf16, 32, true, Q::P32>(y0, G::Y0W, 5, 4 * TILE, 4 * TILE,
+                                      4 * R5, 4 * C5, ac.y0e, ac.y0o, H, H,
+                                      pitch, lb, seg, first, last);
+  mma_conv<32, Q::P32, 64, 4, 3, PF>(
+      y0, G::Y1N * G::Y1W, fr.w1, RowsConv<3, 2>{G::Y1W, G::Y0W},
+      EpiConv<Q::P64, false, false>{y1, G::Y1W, b1, 2 * R5 - 2, 2 * C5 - 2,
+                                    H1, nullptr, 0, nullptr});
+  __syncthreads();
+  if (SAVE)
+    store_own<bf16, 64, false, Q::P64>(y1, G::Y1W, 2, 2 * TILE, 2 * TILE,
+                                       2 * R5, 2 * C5, ac.y1, nullptr, H1,
+                                       H1, pitch, lb, seg, first, last);
+  mma_conv<64, Q::P64, 32, 4, 3, PF>(
+      y1, G::Y1N * G::Y1W, fr.w2, RowsConv<1, 1>{G::Y1W, G::Y1W},
+      EpiConv<Q::P32, false, false>{y2, G::Y1W, b2, 2 * R5 - 2, 2 * C5 - 2,
+                                    H1, nullptr, 0, nullptr});
+  __syncthreads();
+  if (SAVE)
+    store_own<bf16, 32, false, Q::P32>(y2, G::Y1W, 2, 2 * TILE, 2 * TILE,
+                                       2 * R5, 2 * C5, ac.y2, nullptr, H1,
+                                       H1, pitch, lb, seg, first, last);
+  // conv3: without SAVE K1's epilogue with the shortcut sum; with SAVE y3
+  // alone (its own value is saved), the sum below
+  mma_conv<32, Q::P32, 64, 4, 3, PF>(
+      y2, G::S4N * G::S4W, fr.w3, RowsConv<3, 1>{G::S4W, G::Y1W},
+      EpiConv<Q::P64, false, !SAVE, Q::P64>{s4, G::S4W, b3, 2 * R5 - 1,
+                                            2 * C5 - 1, H1, y1, G::Y1W,
+                                            nullptr});
+  __syncthreads();
+  if (SAVE) {
+    store_own<bf16, 64, false, Q::P64>(s4, G::S4W, 1, 2 * TILE, 2 * TILE,
+                                       2 * R5, 2 * C5, ac.y3, nullptr, H1,
+                                       H1, pitch, lb, seg, first, last);
+    __syncthreads();
+    // s4 = T(y3 + y1) in place, y1 at its tile position (oy + 1, ox + 1):
+    // EpiConv's RES sum (outside the image both are zero, and so is s4)
+    for (int idx = threadIdx.x; idx < G::S4N * G::S4W * 64; idx += NT) {
+      const int ch = idx % 64;
+      const int p = idx / 64;
+      const int oy = p / G::S4W, ox = p - oy * G::S4W;
+      bf16* d = s4 + p * Q::P64 + ch;
+      *d = __float2bfloat16_rn(
+          to_f(*d) + to_f(y1[((oy + 1) * G::Y1W + ox + 1) * Q::P64 + ch]));
+    }
+    __syncthreads();
+  }
+  // conv5 at stride (2, 1): dense y5 (R5 + oy, 2 C5 + ox) reads s4 at tile
+  // (2 oy + ky, ox + kx)
+  mma_conv<64, Q::P64, 128, 4, 2, PF>(
+      s4, TILE * 2 * TILE, fr.w5, RowsConv21<3>{2 * TILE, G::S4W},
+      EpiConv<Q::P128, false, false>{ys, 2 * TILE, b5, 0, 0, 0x7fffffff,
+                                     nullptr, 0, nullptr});
+  __syncthreads();
+  store_own<bf16, 128, false, Q::P128>(ys, 2 * TILE, 0, TILE, 2 * TILE, R5,
+                                       2 * C5, y5, nullptr, H5, H1, pitch, lb,
+                                       seg, first, last);
+}
+
+template <bool SAVE>
+int launch_fwd_tc(const void* xe, const void* xo, Frags fr,
+                  const float* const* bias, void* y5, Acts<bf16> ac, int B,
+                  int H, int seg, cudaStream_t s) {
+  constexpr size_t smem = sizeof(bf16) * (size_t)GeomTC::ELEMS;
+  cudaError_t e = cudaFuncSetAttribute(
+      fused_stem_fwd_b_tc_kernel<SAVE>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const int nt = (H / 4 + GeomTC::TILE - 1) / GeomTC::TILE;
+  dim3 grid(nt, nt, B);
+  fused_stem_fwd_b_tc_kernel<SAVE><<<grid, NT, smem, s>>>(
+      static_cast<const bf16*>(xe), static_cast<const bf16*>(xo), fr,
+      bias[0], bias[1], bias[2], bias[3], bias[4], static_cast<bf16*>(y5),
+      ac, H, seg, (long long)B * seg);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
 // K8b
 // ---------------------------------------------------------------------------
 
@@ -273,6 +451,29 @@ struct ChainB {
   static constexpr int SZ_Z = SZ_G > Chain::SZ_Z ? SZ_G : Chain::SZ_Z;
   static constexpr int ELEMS = Chain::SZ_X + Chain::SZ_Y + SZ_Z;
 };
+
+// Zero the border and slack lanes of the gx tile's rows (R0 .. R0 + TX - 1
+// below H) in both phases of one image's segment (d0, d1 at its lane 0):
+// lane 0 (first tile column), lanes H/2 + 1 .. seg - 1 (last tile column)
+template <typename T>
+__device__ void zero_gx_lanes(T* __restrict__ d0, T* __restrict__ d1,
+                              int R0, int H, int seg, long long pitch) {
+  const bool first = blockIdx.x == 0, last = blockIdx.x == gridDim.x - 1;
+  if (!first && !last) return;
+  const int nr = last ? seg - H / 2 - 1 : 0;
+  const int n = nr + (first ? 1 : 0);
+  for (int idx = threadIdx.x; idx < 2 * Chain::TX * 8 * n; idx += NT) {
+    const int k = idx % n;
+    int rest = idx / n;
+    const int c = rest % 8;
+    rest /= 8;
+    const int r = rest % Chain::TX, ph = rest / Chain::TX;
+    const int lane = k < nr ? H / 2 + 1 + k : 0;
+    if (R0 + r < H)
+      (ph ? d1 : d0)[((long long)(R0 + r) * 8 + c) * pitch + lane] =
+          from_f<T>(0.f);
+  }
+}
 
 // gx = T(v), 8 channels, into the even/odd column phases of one image's
 // batch-on-lanes segment; positions past the image (H not a multiple of the
@@ -343,24 +544,7 @@ __global__ void __launch_bounds__(NT, 1)
                 ActMask<T, 64, false>{y1, nullptr, pitch, lb},
                 ActMask<T, 32, false>{y2, nullptr, pitch, lb}, H,
                 EpiGxB<T>{gxe, gxo, R0, C0, H, pitch, lb});
-  // zero border and slack lanes of this tile's rows in both phases: lane 0
-  // (first tile column), lanes H/2 + 1 .. seg - 1 (last tile column)
-  const bool first = blockIdx.x == 0, last = blockIdx.x == gridDim.x - 1;
-  if (first || last) {
-    const int nr = last ? seg - H1 - 1 : 0;
-    const int n = nr + (first ? 1 : 0);
-    for (int idx = threadIdx.x; idx < 2 * K::TX * 8 * n; idx += NT) {
-      const int k = idx % n;
-      int rest = idx / n;
-      const int c = rest % 8;
-      rest /= 8;
-      const int r = rest % K::TX, ph = rest / K::TX;
-      const int lane = k < nr ? H1 + 1 + k : 0;
-      if (R0 + r < H)
-        (ph ? gxo : gxe)[((long long)(R0 + r) * 8 + c) * pitch + lb + lane] =
-            from_f<T>(0.f);
-    }
-  }
+  zero_gx_lanes(gxe + lb, gxo + lb, R0, H, seg, pitch);
 }
 
 template <typename T>
@@ -384,51 +568,214 @@ int launch_bwd(const void* gp5dd, const void* const* a, const void* const* v,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// K8b in bfloat16: K2's tensor-core chain
+// ---------------------------------------------------------------------------
+
+// The chain's gp5 (Z [N5^2][P5], bwd_tc::load_gp5's layout) of the block's
+// gx tile from one image's gp5dd [H/2, 128, lanes] (at the image's lane 0):
+// gp5 (r, c) is the value at row 2r, lane 2c + 1; the zeros between are
+// not read. One 4-byte load of the lane pair (2c, 2c + 1) a value, lanes
+// fastest; zero outside the image
+__device__ void load_gp5dd(bf16* __restrict__ Z,
+                           const bf16* __restrict__ gp5dd, int H,
+                           long long pitch) {
+  using K = Chain;
+  const int R0 = blockIdx.y * K::TX, C0 = blockIdx.x * K::TX;
+  const int H5 = H / 4;
+  const int o5r = R0 / 4 - 1, o5c = C0 / 4 - 1;
+  for (int idx = threadIdx.x; idx < K::N5 * K::N5 * 128; idx += NT) {
+    const int k = idx % K::N5;
+    const int rest = idx / K::N5;
+    const int co = rest % 128, r = rest / 128;
+    const int gr = o5r + r, gc = o5c + k;
+    uint32_t v = 0;
+    if (gr >= 0 && gr < H5 && gc >= 0 && gc < H5)
+      v = __ldg(reinterpret_cast<const uint32_t*>(
+              gp5dd + ((long long)(2 * gr) * 128 + co) * pitch + 2 * gc)) >>
+          16;
+    Z[(r * K::N5 + k) * bwd_tc::P5 + co] = __ushort_as_bfloat16(
+        static_cast<unsigned short>(v));
+  }
+}
+
+// The chain's gx epilogue into one image's segment of the batch-on-lanes
+// phases [H, 8, B*seg] (gxe, gxo at its lane 0; row pitch 8 pitch, channel
+// pitch pitch): channels n and n + 1; positions past the image (H not a
+// multiple of the tile) are dropped
+struct GxBatched {
+  bf16* gxe;
+  bf16* gxo;
+  int org_r, org_c, H, seg;
+  long long pitch;
+  __device__ void operator()(int oy, int ox, int n, float v0,
+                             float v1) const {
+    const int gr = org_r + oy, gc = org_c + ox;
+    if (gr >= H || gc >= H) return;
+    bf16* d = ((gc & 1) ? gxo : gxe) + ((long long)gr * 8 + n) * pitch +
+              (gc >> 1) + 1;
+    d[0] = __float2bfloat16_rn(v0);
+    d[pitch] = __float2bfloat16_rn(v1);
+  }
+  __device__ void zero_borders() const {
+    zero_gx_lanes(gxe, gxo, org_r, H, seg, pitch);
+  }
+};
+
+// The bfloat16 K8b: K2's kernel with gp5 from gp5dd and the gates from the
+// saved activations. u0 .. u5 K2's fragment-order weights.
+__global__ void __launch_bounds__(NT, 2)
+    fused_stem_bwd_b_tc_kernel(const bf16* __restrict__ gp5dd,
+                               const bf16* __restrict__ y0e,
+                               const bf16* __restrict__ y0o,
+                               const bf16* __restrict__ y1,
+                               const bf16* __restrict__ y2,
+                               const bf16* __restrict__ y3,
+                               const uint2* __restrict__ u0,
+                               const uint2* __restrict__ u1,
+                               const uint2* __restrict__ u2,
+                               const uint2* __restrict__ u3,
+                               const uint2* __restrict__ u5,
+                               bf16* __restrict__ gxe, bf16* __restrict__ gxo,
+                               int H, int seg, long long pitch) {
+  using K = Chain;
+  using bwd_tc::StagedMask;
+  using bwd_tc::W12;
+  using bwd_tc::W3;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* sm = reinterpret_cast<bf16*>(smem_raw);  // the chain's X, Y, Z
+  bf16* Z = sm + bwd_tc::SZ_X + bwd_tc::SZ_Y;
+  unsigned char* s3 = reinterpret_cast<unsigned char*>(sm + bwd_tc::ELEMS);
+  unsigned char* s1 = s3 + bwd_tc::M3_BYTES;
+  unsigned char* s2 = s1 + bwd_tc::M1_BYTES;
+  unsigned char* s0 = s2 + bwd_tc::M2_BYTES;
+  const long long lb = (long long)blockIdx.z * seg;
+  const int R0 = blockIdx.y * K::TX, C0 = blockIdx.x * K::TX;
+  const int H1 = H / 2;
+  // K2's tile origins and gate windows (rows; columns alike)
+  const int o4r = R0 / 2 - 2, o4c = C0 / 2 - 2;  // gs4 / gp3, N4
+  const int o1r = R0 / 2 - 1, o1c = C0 / 2 - 1;  // gp2 / gp1, N1
+  const int o0r = R0 - 2, o0c = C0 - 2;          // gp0, N0
+  const int l3 = (o4c + 1) & ~3, l12 = (o1c + 1) & ~3;
+  const int l0 = ((o0c >> 1) + 1) & ~3;
+  bwd_tc::stage_signs<K::N4, 64, 1, W3>(s3, y3 + lb, nullptr, o4r, l3, H1,
+                                         pitch, seg);
+  bwd_tc::stage_signs<K::N1, 64, 1, W12>(s1, y1 + lb, nullptr, o1r, l12, H1,
+                                          pitch, seg);
+  bwd_tc::stage_signs<K::N1, 32, 1, W12>(s2, y2 + lb, nullptr, o1r, l12, H1,
+                                          pitch, seg);
+  bwd_tc::stage_signs<K::N0, 32, 2, W12>(s0, y0e + lb, y0o + lb, o0r, l0, H,
+                                          pitch, seg);
+  load_gp5dd(Z, gp5dd + lb, H, pitch);
+  __syncthreads();
+  bwd_tc::chain(sm, u0, u1, u2, u3, u5, StagedMask<32, W12, true>{s0, l0},
+                StagedMask<64, W12, false>{s1, l12},
+                StagedMask<32, W12, false>{s2, l12},
+                StagedMask<64, W3, false>{s3, l3},
+                GxBatched{gxe + lb, gxo + lb, R0, C0, H, seg, pitch}, H);
+}
+
+constexpr int BWD_TC_SMEM = 2 * bwd_tc::ELEMS + bwd_tc::GATE_BYTES;
+
+int launch_bwd_tc(const void* gp5dd, const void* const* a,
+                  const void* const* u, void* gxe, void* gxo, int B, int H,
+                  int seg, cudaStream_t s) {
+  cudaError_t e = cudaFuncSetAttribute(
+      fused_stem_bwd_b_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      BWD_TC_SMEM);
+  if (e != cudaSuccess) return (int)e;
+  const int nt = (H + Chain::TX - 1) / Chain::TX;
+  dim3 grid(nt, nt, B);
+  fused_stem_bwd_b_tc_kernel<<<grid, NT, BWD_TC_SMEM, s>>>(
+      static_cast<const bf16*>(gp5dd), static_cast<const bf16*>(a[0]),
+      static_cast<const bf16*>(a[1]), static_cast<const bf16*>(a[2]),
+      static_cast<const bf16*>(a[3]), static_cast<const bf16*>(a[4]),
+      static_cast<const uint2*>(u[0]), static_cast<const uint2*>(u[1]),
+      static_cast<const uint2*>(u[2]), static_cast<const uint2*>(u[3]),
+      static_cast<const uint2*>(u[4]), static_cast<bf16*>(gxe),
+      static_cast<bf16*>(gxo), H, seg, (long long)B * seg);
+  return (int)cudaGetLastError();
+}
+
+
 }  // namespace
 
-// K8a. dtype: 0 = float32 (TILE 4), 1 = bfloat16 (TILE 8). xe, xo the
-// batch-on-lanes phases [H, 8, B*seg]; weights HWIO in the compute dtype,
-// biases float32; y5 dense [H/4, 128, B*seg]; a0e .. a3 save_acts' outputs,
-// all null for the forward alone. H a multiple of 8. Returns
+// K8a. dtype: 0 = float32 (TILE 4, CUDA cores), 1 = bfloat16 (TILE 8,
+// tensor cores). xe, xo the batch-on-lanes phases [H, 8, B*seg]; weights
+// HWIO in the compute dtype (read in float32), biases float32; f0 .. f5
+// K1's fragment-order weights of convs 0, 1, 2, 3, 5 (read in bfloat16,
+// null in float32); y5 dense [H/4, 128, B*seg]; a0e .. a3 save_acts'
+// outputs, all null for the forward alone. H a multiple of 8. Returns
 // cudaGetLastError().
-extern "C" int apfp_fused_stem_fwd_b(const void* xe, const void* xo,
-                                     const void* w0, const void* w1,
-                                     const void* w2, const void* w3,
-                                     const void* w5, const void* b0,
-                                     const void* b1, const void* b2,
-                                     const void* b3, const void* b5, void* y5,
-                                     void* a0e, void* a0o, void* a1, void* a2,
-                                     void* a3, int dtype, int B, int H,
-                                     int seg, void* stream) {
-  const void* w[5] = {w0, w1, w2, w3, w5};
+extern "C" int apfp_fused_stem_fwd_b(
+    const void* xe, const void* xo, const void* w0, const void* w1,
+    const void* w2, const void* w3, const void* w5, const void* b0,
+    const void* b1, const void* b2, const void* b3, const void* b5,
+    const void* f0, const void* f1, const void* f2, const void* f3,
+    const void* f5, void* y5, void* a0e, void* a0o, void* a1, void* a2,
+    void* a3, int dtype, int B, int H, int seg, void* stream) {
   const float* bias[5] = {
       static_cast<const float*>(b0), static_cast<const float*>(b1),
       static_cast<const float*>(b2), static_cast<const float*>(b3),
       static_cast<const float*>(b5)};
   void* const a[5] = {a0e, a0o, a1, a2, a3};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1)
-    return launch_fwd_any<__nv_bfloat16, 8>(xe, xo, w, bias, y5, a, B, H, seg,
-                                            s);
+  if (dtype == 1) {
+    const Frags fr = {
+        static_cast<const uint2*>(f0), static_cast<const uint2*>(f1),
+        static_cast<const uint2*>(f2), static_cast<const uint2*>(f3),
+        static_cast<const uint2*>(f5)};
+    const Acts<bf16> ac = {static_cast<bf16*>(a0e), static_cast<bf16*>(a0o),
+                           static_cast<bf16*>(a1), static_cast<bf16*>(a2),
+                           static_cast<bf16*>(a3)};
+    if (a0e != nullptr)
+      return launch_fwd_tc<true>(xe, xo, fr, bias, y5, ac, B, H, seg, s);
+    return launch_fwd_tc<false>(xe, xo, fr, bias, y5, ac, B, H, seg, s);
+  }
+  const void* w[5] = {w0, w1, w2, w3, w5};
   return launch_fwd_any<float, 4>(xe, xo, w, bias, y5, a, B, H, seg, s);
 }
 
-// K8b. dtype: 0 = float32, 1 = bfloat16. gp5dd [H/2, 128, B*seg]; y0e, y0o
+// K8b. dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores).
+// gp5dd [H/2, 128, B*seg], gated and zero-interleaved (the contract in the
+// note above: the bfloat16 kernel reads its data positions only); y0e, y0o
 // [H, 32, B*seg], y1, y3 [H/2, 64, .], y2 [H/2, 32, .]; v0 .. v5 K2's
-// swapped-channel weights of convs 0, 1, 2, 3, 5; gxe, gxo [H, 8, B*seg].
-// H a multiple of 8. Returns cudaGetLastError().
-extern "C" int apfp_fused_stem_bwd_b(const void* gp5dd, const void* y0e,
-                                     const void* y0o, const void* y1,
-                                     const void* y2, const void* y3,
-                                     const void* v0, const void* v1,
-                                     const void* v2, const void* v3,
-                                     const void* v5, void* gxe, void* gxo,
-                                     int dtype, int B, int H, int seg,
-                                     void* stream) {
+// swapped-channel weights of convs 0, 1, 2, 3, 5 (read in float32), u0 ..
+// u5 the same in fragment order (read in bfloat16, null in float32); gxe,
+// gxo [H, 8, B*seg]. H a multiple of 8. Returns cudaGetLastError().
+extern "C" int apfp_fused_stem_bwd_b(
+    const void* gp5dd, const void* y0e, const void* y0o, const void* y1,
+    const void* y2, const void* y3, const void* v0, const void* v1,
+    const void* v2, const void* v3, const void* v5, const void* u0,
+    const void* u1, const void* u2, const void* u3, const void* u5,
+    void* gxe, void* gxo, int dtype, int B, int H, int seg, void* stream) {
   const void* a[5] = {y0e, y0o, y1, y2, y3};
-  const void* v[5] = {v0, v1, v2, v3, v5};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1)
-    return launch_bwd<__nv_bfloat16>(gp5dd, a, v, gxe, gxo, B, H, seg, s);
+  if (dtype == 1) {
+    const void* u[5] = {u0, u1, u2, u3, u5};
+    return launch_bwd_tc(gp5dd, a, u, gxe, gxo, B, H, seg, s);
+  }
+  const void* v[5] = {v0, v1, v2, v3, v5};
   return launch_bwd<float>(gp5dd, a, v, gxe, gxo, B, H, seg, s);
+}
+
+// The K8a kernel of (dtype, save) as the card sees it: info[0] registers a
+// thread, info[1] the dynamic shared memory bytes of a launch, info[2] the
+// blocks one multiprocessor holds. Returns the CUDA error.
+extern "C" int apfp_fused_stem_fwd_b_info(int dtype, int save, int* info) {
+  if (dtype == 1) {
+    const size_t smem = sizeof(bf16) * (size_t)GeomTC::ELEMS;
+    return save ? info_of(fused_stem_fwd_b_tc_kernel<true>, smem, info)
+                : info_of(fused_stem_fwd_b_tc_kernel<false>, smem, info);
+  }
+  const size_t smem = sizeof(float) * (size_t)GeomB<4>::ELEMS;
+  return save ? info_of(fused_stem_fwd_b_kernel<float, 4, true>, smem, info)
+              : info_of(fused_stem_fwd_b_kernel<float, 4, false>, smem, info);
+}
+
+// The K8b kernel of dtype as the card sees it (info as above)
+extern "C" int apfp_fused_stem_bwd_b_info(int dtype, int* info) {
+  if (dtype == 1) return info_of(fused_stem_bwd_b_tc_kernel, BWD_TC_SMEM, info);
+  return info_of(fused_stem_bwd_b_kernel<float>,
+                 sizeof(float) * (size_t)ChainB::ELEMS, info);
 }

@@ -91,18 +91,15 @@ __global__ void __launch_bounds__(NT, 1)
 namespace tc {
 
 using K = Chain;
-static_assert(K::TX % 16 == 0, "the mask windows assume 16-aligned tiles");
-// mask windows: bytes of lanes kept a (row, channel) line. With the gx tile
-// at a multiple of 16, m1's, m2's and both m0 phases' first lanes are
-// multiples of 4 (11 or 10 lanes: 12 bytes); m3's first lane is 3 past one
-// (14 lanes from 3 bytes in: 20)
-constexpr int W3 = 20, W12 = 12;
-constexpr int M3_BYTES = K::N4 * 64 * W3;
-constexpr int M1_BYTES = K::N1 * 64 * W12;
-constexpr int M2_BYTES = K::N1 * 32 * W12;
-constexpr int M0_BYTES = K::N0 * 32 * 2 * W12;
-constexpr int SMEM = 2 * bwd_tc::ELEMS + M3_BYTES + M1_BYTES + M2_BYTES +
-                     M0_BYTES;
+// the mask windows (stem_common.cuh: bwd_tc's gate windows)
+using bwd_tc::M0_BYTES;
+using bwd_tc::M1_BYTES;
+using bwd_tc::M2_BYTES;
+using bwd_tc::M3_BYTES;
+using bwd_tc::StagedMask;
+using bwd_tc::W12;
+using bwd_tc::W3;
+constexpr int SMEM = 2 * bwd_tc::ELEMS + bwd_tc::GATE_BYTES;
 
 // A planar int8 mask window into shared memory, 4-byte cp.async copies:
 // tile rows r < R at image rows org_r + r, C channels, NPH column phases
@@ -127,19 +124,6 @@ __device__ void stage_mask(unsigned char* __restrict__ s,
               (ph ? mo : m) + ((long long)gr * C + ch) * wl + lane);
   }
 }
-
-// A gate's sign from a staged window (stage_mask's layout), at tile row oy
-// and image column gc; PHASE: y0's column phases
-template <int C, int W, bool PHASE>
-struct StagedMask {
-  const unsigned char* s;
-  int l0;
-  __device__ int8_t operator()(int oy, int, int, int gc, int ch) const {
-    const int ph = PHASE ? (gc & 1) : 0;
-    const int lane = PHASE ? (gc >> 1) + 1 : gc + 1;
-    return s[((oy * C + ch) * (PHASE ? 2 : 1) + ph) * W + lane - l0];
-  }
-};
 
 }  // namespace tc
 
@@ -235,23 +219,6 @@ int launch_tc(const void* const* m, const void* y5, const void* g5,
       static_cast<const uint2*>(u[3]), static_cast<const uint2*>(u[4]),
       static_cast<bf16*>(gxe), static_cast<bf16*>(gxo), H, wlh, wl5);
   return (int)cudaGetLastError();
-}
-
-template <class F>
-int info_of(F kernel, size_t smem, int* info) {
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  cudaFuncAttributes a;
-  e = cudaFuncGetAttributes(&a, kernel);
-  if (e != cudaSuccess) return (int)e;
-  int blocks = 0;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, NT,
-                                                     smem);
-  info[0] = a.numRegs;
-  info[1] = (int)smem;
-  info[2] = blocks;
-  return (int)e;
 }
 
 }  // namespace

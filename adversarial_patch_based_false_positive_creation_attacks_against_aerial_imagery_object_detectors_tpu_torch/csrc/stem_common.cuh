@@ -5,9 +5,11 @@
 // stem's forward conv stage on CUDA-core FMAs (conv_stage: float32 K1, K5's
 // recompute and the batch-on-lanes forward) and its input-cotangent chain
 // on CUDA-core FMAs (grad_chain, chain_tail: float32 K2, K5 and, past its
-// first stage, the batch-on-lanes backward); and the tensor-core implicit
-// GEMM (mma_conv, on mma.sync) that the bfloat16 K1, K2 and K5 run instead,
-// with the bfloat16 chain (bwd_tc) that K2 and K5 share.
+// first stage, the float32 batch-on-lanes backward); and the tensor-core
+// implicit GEMM (mma_conv, on mma.sync) with K1's epilogue (EpiConv) that
+// the bfloat16 K1, K5 and batch-on-lanes forward run instead, with the
+// bfloat16 chain (bwd_tc) that K2, K5 and the batch-on-lanes backward
+// share.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -106,6 +108,27 @@ __device__ __forceinline__ void copy_to_shared(T* __restrict__ dst,
   const uint4* s = reinterpret_cast<const uint4*>(src);
   uint4* d = reinterpret_cast<uint4*>(dst);
   for (int i = threadIdx.x; i < nv; i += blockDim.x) d[i] = __ldg(s + i);
+}
+
+// A kernel as the card sees it, for the kernels' *_info entry points:
+// info[0] registers a thread, info[1] the dynamic shared memory bytes of a
+// launch (smem), info[2] the blocks of NT threads one multiprocessor holds.
+// Returns the CUDA error.
+template <class F>
+int info_of(F kernel, size_t smem, int* info) {
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  cudaFuncAttributes a;
+  e = cudaFuncGetAttributes(&a, kernel);
+  if (e != cudaSuccess) return (int)e;
+  int blocks = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, NT,
+                                                     smem);
+  info[0] = a.numRegs;
+  info[1] = (int)smem;
+  info[2] = blocks;
+  return (int)e;
 }
 
 // ---------------------------------------------------------------------------
@@ -611,6 +634,52 @@ __device__ __forceinline__ void store2(bf16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
+// The tensor-core forward convs' epilogue (K1's, and the batch-on-lanes
+// forward's), conv_stage's per element: y = acc + bias, T(leaky); with SG
+// the sign byte of T(leaky) (before the shortcut); with RES
+// T(T(leaky) + res) (res [pos][RP] of row width res_w, read at
+// (oy+1, ox+1)); zero outside [0, img)^2; out [pos][OP] of row width OW.
+template <int OP, bool SG, bool RES, int RP = 1>
+struct EpiConv {
+  bf16* out;
+  int OW;
+  const float* bias;
+  int org_r, org_c, img;
+  const bf16* res;
+  int res_w;
+  unsigned char* sg;  // [pos][64] (conv3)
+  __device__ void operator()(int oy, int ox, int n, float v0,
+                             float v1) const {
+    const int gr = org_r + oy, gc = org_c + ox;
+    const bool inside = gr >= 0 && gr < img && gc >= 0 && gc < img;
+    const int p = oy * OW + ox;
+    const float v[2] = {v0, v1};
+    float r[2];
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const float y = v[c] + bias[n + c];
+      float yt = round_t<bf16>(fmaxf(y, y * LEAKY));
+      if (SG) sg[p * 64 + n + c] = yt > 0.f ? 1 : 0;
+      if (RES)
+        yt = round_t<bf16>(
+            yt + to_f(res[((oy + 1) * res_w + ox + 1) * RP + n + c]));
+      r[c] = inside ? yt : 0.f;
+    }
+    store2(out + p * OP + n, r[0], r[1]);
+  }
+};
+
+// The bfloat16 forward convs' weights in mma.sync's fragment order (K1's:
+// conv0 as RowsConv0 pairs its taps, convs 1, 2, 3, 5); unused (null) in
+// float32
+struct Frags {
+  const uint2* w0;
+  const uint2* w1;
+  const uint2* w2;
+  const uint2* w3;
+  const uint2* w5;
+};
+
 // Row maps of mma_conv: for output row m, the input position its tap i
 // reads (and the tap's index in the weights), and the output position.
 // A forward conv: output (oy, ox) of an OW-wide tile reads the input of row
@@ -624,6 +693,25 @@ struct RowsConv {
     const int ky = i / KS, kx = i - ky * KS;
     tap = i;
     return (S * oy + ky) * IW + S * ox + kx;
+  }
+  __device__ void out(int m, int& oy, int& ox) const {
+    oy = m / OW;
+    ox = m - oy * OW;
+  }
+};
+
+// The batch-on-lanes stem's conv5: row stride 2, column stride 1, so
+// output (oy, ox) reads (2 oy + ky, ox + kx); RowsConv<KS, 2>'s taps in its
+// order
+template <int KS>
+struct RowsConv21 {
+  static constexpr int NTAP = KS * KS;
+  int OW, IW;
+  __device__ int operator()(int m, int i, int& tap) const {
+    const int oy = m / OW, ox = m - oy * OW;
+    const int ky = i / KS, kx = i - ky * KS;
+    tap = i;
+    return (2 * oy + ky) * IW + ox + kx;
   }
   __device__ void out(int m, int& oy, int& ox) const {
     oy = m / OW;
@@ -894,11 +982,13 @@ struct EpiGate {
   }
 };
 
-// gx = T(v), channels n and n + 1, into the even/odd column phases
+// K2's and K5's gx: T(v), channels n and n + 1, into the even/odd column
+// phases of one image, planar [H, 8, wl]; then, for the block's tile
+// (org_r, org_c), the zero border and padding lanes of its rows
 struct EpiGx {
   bf16* gxe;  // this image's [H, 8, wl]
   bf16* gxo;
-  int org_r, org_c, wl;
+  int org_r, org_c, wl, H;
   __device__ void operator()(int oy, int ox, int n, float v0,
                              float v1) const {
     const int gr = org_r + oy, gc = org_c + ox;
@@ -906,6 +996,19 @@ struct EpiGx {
               1 + (long long)n * wl;
     d[0] = __float2bfloat16_rn(v0);
     d[wl] = __float2bfloat16_rn(v1);
+  }
+  // both phases: lane 0 (first tile column), lanes H/2+1 .. wl-1 (last
+  // tile column)
+  __device__ void zero_borders() const {
+    const long long r0 = (long long)org_r * 8 * wl;
+    if (blockIdx.x == 0)
+      for (int idx = threadIdx.x; idx < 2 * K::TX * 8; idx += NT)
+        ((idx & 1) ? gxo : gxe)[r0 + (long long)(idx >> 1) * wl] =
+            __float2bfloat16_rn(0.f);
+    if (blockIdx.x == gridDim.x - 1) {
+      zero_tail(gxe + r0, K::TX * 8, H / 2 + 1, wl);
+      zero_tail(gxo + r0, K::TX * 8, H / 2 + 1, wl);
+    }
   }
 };
 
@@ -964,18 +1067,17 @@ __device__ __forceinline__ void load_gp5(bf16* __restrict__ Z,
 }
 
 // The chain from gp5 (in Z, load_gp5's) to gx for the block's gx tile
-// (blockIdx.y, blockIdx.x) of image b: sm holds ELEMS elements (X, Y, Z);
+// (blockIdx.y, blockIdx.x) of one image: sm holds ELEMS elements (X, Y, Z);
 // u0 .. u5 the swapped-channel weights in fragment order; the mask readers
-// m0 (y0), m1 (y1), m2 (y2), m3 (y3) index this image; gxe, gxo planar
-// [B, H, 8, wlh], every lane of the tile's rows written (borders and
-// padding zero)
-template <class M0, class M1, class M2, class M3>
+// m0 (y0), m1 (y1), m2 (y2), m3 (y3) index this image; gx the epilogue of
+// the last adjoint (each pair of gx channels, then gx.zero_borders():
+// every lane of the tile's rows written, borders and padding zero)
+template <class M0, class M1, class M2, class M3, class Gx>
 __device__ __forceinline__ void chain(
     bf16* __restrict__ sm, const uint2* __restrict__ u0,
     const uint2* __restrict__ u1, const uint2* __restrict__ u2,
     const uint2* __restrict__ u3, const uint2* __restrict__ u5, const M0& m0,
-    const M1& m1, const M2& m2, const M3& m3, bf16* __restrict__ gxe,
-    bf16* __restrict__ gxo, long long b, int H, int wlh) {
+    const M1& m1, const M2& m2, const M3& m3, const Gx& gx, int H) {
   bf16* X = sm;         // gs4 window
   bf16* Y = X + SZ_X;   // gp3, then gp1
   bf16* Z = Y + SZ_Y;   // gp5, then gp2, then gp0
@@ -1004,19 +1106,84 @@ __device__ __forceinline__ void chain(
       EpiGate<P0, false, M0>{Z, K::N0, m0, o0r, o0c, H, nullptr});
   __syncthreads();
   // gx from gp0 (Z)
-  const long long gb = b * H * 8 * wlh;
   mma_conv<32, P0, 8, 1, 2>(Z, K::TX * K::TX, u0, RowsT1<3, 3>{K::TX, K::N0},
-                            EpiGx{gxe + gb, gxo + gb, R0, C0, wlh});
-  // zero border and padding lanes of this tile's rows in both phases:
-  // lane 0 (first tile column), lanes H/2+1 .. wlh-1 (last tile column)
-  const long long gr0 = gb + (long long)R0 * 8 * wlh;
-  if (blockIdx.x == 0)
-    for (int idx = threadIdx.x; idx < 2 * K::TX * 8; idx += NT)
-      ((idx & 1) ? gxo : gxe)[gr0 + (long long)(idx >> 1) * wlh] =
-          __float2bfloat16_rn(0.f);
-  if (blockIdx.x == gridDim.x - 1) {
-    zero_tail(gxe + gr0, K::TX * 8, H1 + 1, wlh);
-    zero_tail(gxo + gr0, K::TX * 8, H1 + 1, wlh);
+                            gx);
+  gx.zero_borders();
+}
+
+// K2's and K5's chain: gx of image b into gxe, gxo planar [B, H, 8, wlh]
+template <class M0, class M1, class M2, class M3>
+__device__ __forceinline__ void chain(
+    bf16* __restrict__ sm, const uint2* __restrict__ u0,
+    const uint2* __restrict__ u1, const uint2* __restrict__ u2,
+    const uint2* __restrict__ u3, const uint2* __restrict__ u5, const M0& m0,
+    const M1& m1, const M2& m2, const M3& m3, bf16* __restrict__ gxe,
+    bf16* __restrict__ gxo, long long b, int H, int wlh) {
+  const long long gb = b * H * 8 * wlh;
+  chain(sm, u0, u1, u2, u3, u5, m0, m1, m2, m3,
+        EpiGx{gxe + gb, gxo + gb, (int)blockIdx.y * K::TX,
+              (int)blockIdx.x * K::TX, wlh, H},
+        H);
+}
+
+// The gate windows of K2 and the batch-on-lanes backward, lanes of one
+// (row, channel) line kept in shared memory as sign bytes. With the gx tile
+// at a multiple of 16, y1's, y2's and both y0 phases' first lanes are
+// multiples of 4 (11 or 10 lanes: 12 bytes); y3's first lane is 3 past one
+// (14 lanes from 3 bytes in: 20)
+constexpr int W3 = 20, W12 = 12;
+static_assert(K::TX % 16 == 0, "the gate windows assume 16-aligned tiles");
+// the windows' bytes: y3 over gs4's N4 rows, y1 and y2 over N1, y0 over N0
+// (both phases)
+constexpr int M3_BYTES = K::N4 * 64 * W3;
+constexpr int M1_BYTES = K::N1 * 64 * W12;
+constexpr int M2_BYTES = K::N1 * 32 * W12;
+constexpr int M0_BYTES = K::N0 * 32 * 2 * W12;
+constexpr int GATE_BYTES = M3_BYTES + M1_BYTES + M2_BYTES + M0_BYTES;
+
+// A gate's sign from a staged window of sign bytes, laid out [r][ch][ph][W]
+// (row r of the window at tile row oy = r, lanes from l0), at tile row oy
+// and image column gc; PHASE: y0's column phases
+template <int C, int W, bool PHASE>
+struct StagedMask {
+  const unsigned char* s;
+  int l0;
+  __device__ int8_t operator()(int oy, int, int, int gc, int ch) const {
+    const int ph = PHASE ? (gc & 1) : 0;
+    const int lane = PHASE ? (gc >> 1) + 1 : gc + 1;
+    return s[((oy * C + ch) * (PHASE ? 2 : 1) + ph) * W + lane - l0];
+  }
+};
+
+// A window of saved bfloat16 activations into StagedMask's layout as their
+// signs (1 where the stored value is > 0): tile rows r < R at image rows
+// org_r + r, C channels, NPH column phases (a, ao), lanes [l0, l0 + W) of
+// each line (line (row, ch) at (row C + ch) pitch; a, ao at the image's
+// first lane; seg its lanes). 8-byte loads of 4 lanes, one 4-byte store of
+// their 4 signs. Rows outside the image and chunks outside [0, seg) are
+// skipped: the epilogues read no gate there.
+template <int R, int C, int NPH, int W>
+__device__ void stage_signs(unsigned char* __restrict__ s,
+                            const bf16* __restrict__ a,
+                            const bf16* __restrict__ ao, int org_r, int l0,
+                            int img, long long pitch, int seg) {
+  constexpr int NQ = W / 4;
+  for (int idx = threadIdx.x; idx < R * C * NPH * NQ; idx += NT) {
+    const int q = idx % NQ;
+    int rest = idx / NQ;
+    const int ph = rest % NPH;
+    rest /= NPH;
+    const int ch = rest % C, r = rest / C;
+    const int gr = org_r + r, lane = l0 + 4 * q;
+    if (gr < 0 || gr >= img || lane < 0 || lane + 4 > seg) continue;
+    const uint2 v = __ldg(reinterpret_cast<const uint2*>(
+        (ph ? ao : a) + ((long long)gr * C + ch) * pitch + lane));
+    const bf16* h = reinterpret_cast<const bf16*>(&v);
+    uint32_t word = 0;
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      if (to_f(h[i]) > 0.f) word |= 1u << (8 * i);
+    reinterpret_cast<uint32_t*>(s)[idx] = word;
   }
 }
 

@@ -26,11 +26,12 @@
 //
 // bfloat16 (TILE 8) runs the five convs on the tensor cores, each as an
 // implicit GEMM (stem_common.cuh: mma_conv; M the tile's positions, N
-// COUT, K CIN x taps) with float32 accumulation, its epilogue doing what
-// conv_stage's does per element (bias, leaky, round, the sign byte, the
-// shortcut sum, zero outside the image). Conv0's 3 channels are padded to
-// 8, and two taps of a row share one 16-deep step (RowsConv0: 6 steps, K
-// 96 for 27 real; conv0 is 6% of the FLOPs). The weights come in
+// COUT, K CIN x taps) with float32 accumulation, its epilogue
+// (stem_common.cuh: EpiConv) doing what conv_stage's does per element
+// (bias, leaky, round, the sign byte, the shortcut sum, zero outside the
+// image). Conv0's 3 channels are padded to 8, and two taps of a row share
+// one 16-deep step (RowsConv0: 6 steps, K 96 for 27 real; conv0 is 6% of
+// the FLOPs). The weights come in
 // mma.sync's B fragment order (230 KB, read through L1/L2; the next tap's
 // are loaded while a tap's MMAs run). The tiles' row pitches are padded by
 // 16 bytes (P32/P64/P128) so that the eight rows of an ldmatrix phase fall
@@ -141,40 +142,6 @@ struct Geom {
   static constexpr int SIGN_BYTES = S4N * S4N * 64;
 };
 
-// The tensor-core convs' epilogue, conv_stage's per element: y = acc +
-// bias, T(leaky); with SG the sign byte of T(leaky) (before the shortcut);
-// with RES T(T(leaky) + res) (res [pos][RP] of row width res_w, read at
-// (oy+1, ox+1)); zero outside [0, img)^2; out [pos][OP] of row width OW.
-template <int OP, bool SG, bool RES, int RP = 1>
-struct EpiConv {
-  bf16* out;
-  int OW;
-  const float* bias;
-  int org_r, org_c, img;
-  const bf16* res;
-  int res_w;
-  unsigned char* sg;  // [pos][64] (conv3)
-  __device__ void operator()(int oy, int ox, int n, float v0,
-                             float v1) const {
-    const int gr = org_r + oy, gc = org_c + ox;
-    const bool inside = gr >= 0 && gr < img && gc >= 0 && gc < img;
-    const int p = oy * OW + ox;
-    const float v[2] = {v0, v1};
-    float r[2];
-#pragma unroll
-    for (int c = 0; c < 2; ++c) {
-      const float y = v[c] + bias[n + c];
-      float yt = round_t<bf16>(fmaxf(y, y * LEAKY));
-      if (SG) sg[p * 64 + n + c] = yt > 0.f ? 1 : 0;
-      if (RES)
-        yt = round_t<bf16>(
-            yt + to_f(res[((oy + 1) * res_w + ox + 1) * RP + n + c]));
-      r[c] = inside ? yt : 0.f;
-    }
-    store2(out + p * OP + n, r[0], r[1]);
-  }
-};
-
 // The int8 sign masks of save_acts, planar as the Pallas kernel's outputs:
 // y0 as even/odd column phases [B, H, 32, wlh], y1 and y3 [B, H/2, 64, wlh],
 // y2 [B, H/2, 32, wlh]. All null when the forward saves nothing.
@@ -184,16 +151,6 @@ struct Masks {
   int8_t* y1;
   int8_t* y2;
   int8_t* y3;
-};
-
-// The bfloat16 convs' weights in mma.sync's fragment order (conv0 as
-// RowsConv0 pairs its taps, convs 1, 2, 3, 5); unused (null) in float32
-struct Frags {
-  const uint2* w0;
-  const uint2* w1;
-  const uint2* w2;
-  const uint2* w3;
-  const uint2* w5;
 };
 
 template <typename T, int TILE, bool SAVE>

@@ -334,23 +334,6 @@ int launch_tc(const void* xe, const void* xo, const void* const* f,
   return (int)cudaGetLastError();
 }
 
-template <class F>
-int info_of(F kernel, size_t smem, int* info) {
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  cudaFuncAttributes a;
-  e = cudaFuncGetAttributes(&a, kernel);
-  if (e != cudaSuccess) return (int)e;
-  int blocks = 0;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, NT,
-                                                     smem);
-  info[0] = a.numRegs;
-  info[1] = (int)smem;
-  info[2] = blocks;
-  return (int)e;
-}
-
 template <typename T>
 int launch(const void* xe, const void* xo, const void* const* w,
            const float* const* bias, const void* y5, const void* g5,

@@ -66,10 +66,9 @@ def median_pool_2d_pallas(x: torch.Tensor, k: int = 7) -> torch.Tensor:
     c = x.numel() // (h * w)
     if c == 0:
         return out
-    err = _cuda.lib("median_pool").apfp_median_pool(
-        x.data_ptr(), out.data_ptr(), _cuda.DTYPE_CODES[x.dtype], c, h, w, k,
-        pt, pl, _cuda.stream_ptr(x))
-    _cuda.check(err, "median_pool_2d_pallas")
+    _cuda.launch("median_pool_2d_pallas", "median_pool", "apfp_median_pool",
+                 x, x.data_ptr(), out.data_ptr(), _cuda.DTYPE_CODES[x.dtype],
+                 c, h, w, k, pt, pl)
     median_pool_2d_pallas.launches += 1
     return out
 

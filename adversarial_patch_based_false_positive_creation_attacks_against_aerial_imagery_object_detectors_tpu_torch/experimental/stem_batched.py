@@ -18,8 +18,10 @@ lanes, so its conv5 adjoint is a plain stride-1 transposed conv.
   hand-written kernels of ``csrc/stem_batched.cu`` on CUDA tensors and run
   their plain versions (``F.conv2d`` / ``F.conv_transpose2d`` chains with
   the kernels' rounding points) on CPU tensors; anything else raises.
-  Launch counts: ``fused_stem_fwd_b.launches`` and
-  ``.save_acts_launches``, ``fused_stem_bwd_b.launches``.
+  In bfloat16 both run on the tensor cores, on the fused stem's code (K1's
+  ``mma_conv`` stages, K2's chain) and its fragment-order weights; float32
+  keeps the CUDA-core kernels. Launch counts: ``fused_stem_fwd_b.launches``
+  and ``.save_acts_launches``, ``fused_stem_bwd_b.launches``.
 - ``fused_stem_batched`` / ``FusedStemBatched``: NHWC in, NHWC
   ``[B, H/4, W/4, 128]`` out; the backward returns the input cotangent
   only. The JAX module's tiling knobs (``s5``, ``interpret``) are gone: the
@@ -35,9 +37,10 @@ import torch
 import torch.nn.functional as F
 
 from ..ops import _cuda
-from ..ops.planar_conv import _round_up
+from ..ops.planar_conv import _mma_cached, _round_up
 from ..ops.stem_fused import (LEAKY, StemBwdParams, StemParams, _needs_grad,
-                              _check_stem_bwd_params, _check_stem_params)
+                              _check_stem_bwd_params, _check_stem_params,
+                              mma_weights_conv0)
 
 
 # ---------------------------------------------------------------------------
@@ -158,8 +161,11 @@ def fused_stem_fwd_b(xe: torch.Tensor, xo: torch.Tensor, sp: StemParams,
     [H/4, 128, B*seg] (+ the activations ``(y0e, y0o, y1, y2, y3)`` when
     ``save_acts``; see the plain version). ``sp``: the fused stem's
     (HWIO weight in the compute dtype, float32 bias) pairs
-    (``Darknet.stem_params()``). The two instantiations count their own
-    launches: ``fused_stem_fwd_b.launches`` and ``.save_acts_launches``."""
+    (``Darknet.stem_params()``). In bfloat16 the kernel runs K1's
+    tensor-core convs on K1's fragment-order weights, so its decimated y5
+    and its activations' signs are K1's. The two instantiations count
+    their own launches: ``fused_stem_fwd_b.launches`` and
+    ``.save_acts_launches``."""
     if xe.device.type == "cpu":
         return fused_stem_fwd_b_plain(xe, xo, sp, bsz, save_acts)
     _cuda.require_cuda("fused_stem_fwd_b", xe, xo)
@@ -179,11 +185,15 @@ def fused_stem_fwd_b(xe: torch.Tensor, xo: torch.Tensor, sp: StemParams,
                 for rows, c in ((h, 32), (h, 32), (h1, 64), (h1, 32),
                                 (h1, 64))]
     act_ptrs = [a.data_ptr() for a in acts] or [None] * 5
-    err = _cuda.lib("stem_batched").apfp_fused_stem_fwd_b(
+    # bfloat16 on the tensor cores (K1's fragment order), float32 on sp
+    frags = ([_mma_cached(sp[0][0], mma_weights_conv0).data_ptr()]
+             + [_mma_cached(w).data_ptr() for w, _ in sp[1:]]
+             if dt == torch.bfloat16 else [None] * 5)
+    _cuda.launch(
+        "fused_stem_fwd_b", "stem_batched", "apfp_fused_stem_fwd_b", xe,
         xe.data_ptr(), xo.data_ptr(), *[w.data_ptr() for w, _ in sp],
-        *[b.data_ptr() for _, b in sp], y5.data_ptr(), *act_ptrs,
-        _cuda.DTYPE_CODES[dt], bsz, h, tot // bsz, _cuda.stream_ptr(xe))
-    _cuda.check(err, "fused_stem_fwd_b")
+        *[b.data_ptr() for _, b in sp], *frags, y5.data_ptr(), *act_ptrs,
+        _cuda.DTYPE_CODES[dt], bsz, h, tot // bsz)
     if save_acts:
         fused_stem_fwd_b.save_acts_launches += 1
         return (y5, *acts)
@@ -245,7 +255,16 @@ def fused_stem_bwd_b(gp5dd: torch.Tensor, acts, sbp: StemBwdParams,
     """``fused_stem_bwd_b_plain`` as the K8b kernel on CUDA tensors,
     counted in ``fused_stem_bwd_b.launches``. ``acts``: K8a's six outputs
     with ``save_acts`` (y5 is not read); ``sbp``: K2's swapped-channel
-    weights (``Darknet.stem_bwd_params()``)."""
+    weights (``Darknet.stem_bwd_params()``).
+
+    Contract (the JAX kernel's): ``gp5dd`` is the conv5 cotangent already
+    leaky-gated by y5's sign and zero-interleaved in rows and lanes, as
+    ``FusedStemBatched.backward`` builds it: gp5 (r, c) at row 2r, lane
+    2c + 1 of its image's segment, zero elsewhere. The bfloat16 kernel
+    reads only those data positions and runs conv5's adjoint as K2's four
+    stride-2 parity GEMMs on them (the plain version's dense stride-1
+    ``conv_transpose2d`` over the interleaved tensor is the same function
+    there); the float32 kernel reads the whole tensor."""
     _, y0e, y0o, y1, y2, y3 = acts
     if gp5dd.device.type == "cpu":
         return fused_stem_bwd_b_plain(gp5dd, acts, sbp, bsz)
@@ -266,12 +285,15 @@ def fused_stem_bwd_b(gp5dd: torch.Tensor, acts, sbp: StemBwdParams,
     # the kernel writes every lane, borders and slack included
     gxe = torch.empty((h, 8, tot), dtype=dt, device=y0e.device)
     gxo = torch.empty_like(gxe)
-    err = _cuda.lib("stem_batched").apfp_fused_stem_bwd_b(
+    # bfloat16 on the tensor cores (K2's fragment order), float32 on sbp
+    frags = ([_mma_cached(v).data_ptr() for v in sbp]
+             if dt == torch.bfloat16 else [None] * 5)
+    _cuda.launch(
+        "fused_stem_bwd_b", "stem_batched", "apfp_fused_stem_bwd_b", y0e,
         gp5dd.data_ptr(), y0e.data_ptr(), y0o.data_ptr(), y1.data_ptr(),
-        y2.data_ptr(), y3.data_ptr(), *[v.data_ptr() for v in sbp],
+        y2.data_ptr(), y3.data_ptr(), *[v.data_ptr() for v in sbp], *frags,
         gxe.data_ptr(), gxo.data_ptr(), _cuda.DTYPE_CODES[dt], bsz, h,
-        tot // bsz, _cuda.stream_ptr(y0e))
-    _cuda.check(err, "fused_stem_bwd_b")
+        tot // bsz)
     fused_stem_bwd_b.launches += 1
     return gxe, gxo
 

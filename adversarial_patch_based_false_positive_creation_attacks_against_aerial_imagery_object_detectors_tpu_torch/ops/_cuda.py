@@ -10,10 +10,13 @@ under the package's ``build/`` directory (listed in ``.gitignore``):
 The library name carries a hash of the sources, so an edited source is
 rebuilt and a stale library is never loaded. Each library is loaded with
 ``ctypes``; every pointer and the stream are passed as ``c_void_p``.
-Each C entry point launches on the stream it is given (the caller passes
-``torch.cuda.current_stream()``) and returns ``cudaGetLastError()``;
-``check`` raises when that is not 0. Nothing here runs at import: the
-CPU tests import every module of the package.
+Each C entry point launches on the stream it is given and returns
+``cudaGetLastError()``. Every kernel wrapper calls its entry point
+through ``launch``, which makes the tensors' device the current CUDA
+device for the call (the kernel then runs in that device's context, on
+that device's current stream) and raises when the error is not 0.
+Nothing here runs at import: the CPU tests import every module of the
+package.
 """
 
 from __future__ import annotations
@@ -103,12 +106,18 @@ SIGNATURES = {
         "apfp_median_pool": [_P, _P] + [_I] * 7 + [_P],
     },
     "stem_batched": {
-        # xe, xo, w0, w1, w2, w3, w5, b0, b1, b2, b3, b5, y5, a0e, a0o, a1,
+        # xe, xo, w0, w1, w2, w3, w5, b0, b1, b2, b3, b5, f0, f1, f2, f3,
+        # f5 (bfloat16 fragment-order weights or null), y5, a0e, a0o, a1,
         # a2, a3 (save_acts outputs or null), dtype, B, H, seg, stream
-        "apfp_fused_stem_fwd_b": [_P] * 18 + [_I] * 4 + [_P],
-        # gp5dd, y0e, y0o, y1, y2, y3, v0, v1, v2, v3, v5, gxe, gxo, dtype,
-        # B, H, seg, stream
-        "apfp_fused_stem_bwd_b": [_P] * 13 + [_I] * 4 + [_P],
+        "apfp_fused_stem_fwd_b": [_P] * 23 + [_I] * 4 + [_P],
+        # dtype, save, info[3]
+        "apfp_fused_stem_fwd_b_info": [_I, _I, _P],
+        # gp5dd, y0e, y0o, y1, y2, y3, v0, v1, v2, v3, v5, u0, u1, u2, u3,
+        # u5 (bfloat16 fragment-order weights or null), gxe, gxo, dtype, B,
+        # H, seg, stream
+        "apfp_fused_stem_bwd_b": [_P] * 18 + [_I] * 4 + [_P],
+        # dtype, info[3]
+        "apfp_fused_stem_bwd_b_info": [_I, _P],
     },
 }
 
@@ -180,7 +189,9 @@ def build_all() -> Dict[str, dict]:
     """Compile every library whose ``.so`` for the current source hash is
     missing, one ``nvcc`` per source, all in parallel. Returns
     ``{name: {"seconds", "log", "path"}}`` (``log`` holds the
-    ``-Xptxas -v`` register, shared-memory and spill lines)."""
+    ``-Xptxas -v`` register, shared-memory and spill lines, kept beside
+    the library as ``<lib>.so.log`` so that a cached build reports them
+    too)."""
     with _lock:
         return _build_locked()
 
@@ -195,8 +206,12 @@ def _build_locked() -> Dict[str, dict]:
         if name in BUILD_INFO and BUILD_INFO[name]["path"] == path:
             continue
         if os.path.exists(path):
-            BUILD_INFO[name] = {"seconds": 0.0, "log": "(cached)",
-                                "path": path}
+            try:
+                with open(path + ".log") as f:
+                    log = f.read()
+            except OSError:
+                log = "(cached)"
+            BUILD_INFO[name] = {"seconds": 0.0, "log": log, "path": path}
             continue
         tmp = f"{path}.{os.getpid()}.tmp"
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
@@ -210,6 +225,8 @@ def _build_locked() -> Dict[str, dict]:
         if proc.returncode != 0:
             failed.append(f"--- {name} (rc {proc.returncode}) ---\n{log}")
             continue
+        with open(path + ".log", "w") as f:
+            f.write(log)
         os.replace(tmp, path)
         BUILD_INFO[name] = {"seconds": time.perf_counter() - t0,
                             "log": log, "path": path}
@@ -239,6 +256,18 @@ def stream_ptr(t: torch.Tensor) -> int:
 def check(err: int, what: str) -> None:
     if err != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with error {err}")
+
+
+def launch(what: str, name: str, entry: str, t: torch.Tensor, *args) -> None:
+    """Call C entry point ``entry`` of kernel library ``name`` with
+    ``args`` and the current stream of ``t``'s device, under that device
+    as the current CUDA device: ``cudaFuncSetAttribute`` and the launch
+    act on the context of the card the tensors live on, not on the
+    process's current one. Raises (naming ``what``) when the entry point
+    returns an error. The one place the port calls a kernel library."""
+    fn = getattr(lib(name), entry)
+    with torch.cuda.device(t.device):
+        check(fn(*args, stream_ptr(t)), what)
 
 
 def require_cuda(name: str, *tensors: torch.Tensor) -> None:

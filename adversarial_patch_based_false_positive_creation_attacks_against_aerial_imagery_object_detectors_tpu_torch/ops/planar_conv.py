@@ -90,11 +90,10 @@ def _to_planar_launch(x: torch.Tensor, c_pad: Optional[int], step: int,
     b, h, w_in, c = x.shape
     w_out, wl, cp = _planar_geometry(w_in, c, c_pad, step, offset)
     out = torch.empty((b, h, cp, wl), dtype=x.dtype, device=x.device)
-    fn = (_cuda.lib("planar").apfp_to_planar_tiled if tiled
-          else _cuda.lib("planar").apfp_to_planar)
-    err = fn(x.data_ptr(), out.data_ptr(), _cuda.DTYPE_CODES[x.dtype], b, h,
-             w_in, c, cp, wl, step, offset, w_out, _cuda.stream_ptr(x))
-    _cuda.check(err, "to_planar")
+    _cuda.launch("to_planar", "planar",
+                 "apfp_to_planar_tiled" if tiled else "apfp_to_planar", x,
+                 x.data_ptr(), out.data_ptr(), _cuda.DTYPE_CODES[x.dtype], b,
+                 h, w_in, c, cp, wl, step, offset, w_out)
     if tiled:
         to_planar.tiled_launches += 1
     else:
@@ -115,10 +114,9 @@ def from_planar(xp: torch.Tensor, w_img: Optional[int] = None,
         raise ValueError(f"from_planar: bad geometry {xp.shape}, "
                          f"w_img={w_img}, c={c}")
     out = torch.empty((b, h, w_img, c), dtype=xp.dtype, device=xp.device)
-    err = _cuda.lib("planar").apfp_from_planar(
-        xp.data_ptr(), out.data_ptr(), _cuda.DTYPE_CODES[xp.dtype], b, h,
-        cp, wl, w_img, c, _cuda.stream_ptr(xp))
-    _cuda.check(err, "from_planar")
+    _cuda.launch("from_planar", "planar", "apfp_from_planar", xp,
+                 xp.data_ptr(), out.data_ptr(), _cuda.DTYPE_CODES[xp.dtype],
+                 b, h, cp, wl, w_img, c)
     from_planar.launches += 1
     return out
 
@@ -351,15 +349,14 @@ def planar_conv(xp: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     _check_epi("planar_conv", xp, b, shape, res=res, gate=gate)
     wk, bk, cout_pad, kdepth = _kernel_weights("planar_conv", xp, w, b)
     out = torch.empty(shape, dtype=dt, device=xp.device)
-    err = _cuda.lib("planar_conv").apfp_planar_conv(
+    _cuda.launch(
+        "planar_conv", "planar_conv", "apfp_planar_conv", xp,
         xp.data_ptr(), wk.data_ptr(), bk.data_ptr(),
         res.data_ptr() if res is not None else None,
         gate.data_ptr() if gate is not None else None, out.data_ptr(),
         _cuda.DTYPE_CODES[dt], batch, h_in, cin, wl_in, w_img, cout,
         cout_pad, kdepth, k, stride, int(slope is not None),
-        float(slope if slope is not None else 0.0), float(gate_slope),
-        _cuda.stream_ptr(xp))
-    _cuda.check(err, "planar_conv")
+        float(slope if slope is not None else 0.0), float(gate_slope))
     if k == 1:
         planar_conv.launches_k1 += 1
     elif stride == 1:
@@ -417,11 +414,11 @@ def planar_conv_t2(g: torch.Tensor, w_t: torch.Tensor, b: torch.Tensor, *,
     _check_epi("planar_conv_t2", g, b, shape, gate=gate)
     wk, bk, cout_pad, kdepth = _kernel_weights("planar_conv_t2", g, w_t, b)
     out = torch.empty(shape, dtype=g.dtype, device=g.device)
-    err = _cuda.lib("planar_conv").apfp_planar_conv_t2(
+    _cuda.launch(
+        "planar_conv_t2", "planar_conv", "apfp_planar_conv_t2", g,
         g.data_ptr(), wk.data_ptr(), bk.data_ptr(),
         gate.data_ptr() if gate is not None else None, out.data_ptr(),
         _cuda.DTYPE_CODES[g.dtype], batch, h_in, cin, wl_in, w_img, cout,
-        cout_pad, kdepth, float(gate_slope), _cuda.stream_ptr(g))
-    _cuda.check(err, "planar_conv_t2")
+        cout_pad, kdepth, float(gate_slope))
     planar_conv.launches_k3t2 += 1
     return out

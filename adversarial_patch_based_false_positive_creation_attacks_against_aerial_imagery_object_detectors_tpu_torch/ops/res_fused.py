@@ -187,11 +187,11 @@ def res152_fused(xp: torch.Tensor, fwd: ResFwd, *, save: bool = False,
                              device=xp.device)
                  for c in (MID, CIN, MID, CIN)]
     mask_ptrs = [m.data_ptr() for m in masks] or [None] * 4
-    err = _cuda.lib("res_fused").apfp_res152_fused(
+    _cuda.launch(
+        "res152_fused", "res_fused", "apfp_res152_fused", xp,
         xp.data_ptr(), *[w.data_ptr() for w, _ in fwd],
         *[bias.data_ptr() for _, bias in fwd], y11.data_ptr(), *mask_ptrs,
-        _cuda.DTYPE_CODES[dt], bsz, h, w_img, wl, _cuda.stream_ptr(xp))
-    _cuda.check(err, "res152_fused")
+        _cuda.DTYPE_CODES[dt], bsz, h, w_img, wl)
     if save:
         res152_fused.save_launches += 1
         return (y11, *masks)
@@ -223,11 +223,11 @@ def res152_fused_grad(g11p: torch.Tensor, masks, bwd: ResBwd, *,
                          f"{want}")
     _check_weights("res152_fused_grad", bwd, BWD_SHAPES, dt, g11p.device)
     g5 = torch.empty_like(g11p)
-    err = _cuda.lib("res_fused").apfp_res152_fused_grad(
+    _cuda.launch(
+        "res152_fused_grad", "res_fused", "apfp_res152_fused_grad", g11p,
         g11p.data_ptr(), *[m.data_ptr() for m in masks],
         *[w.data_ptr() for w in bwd], g5.data_ptr(), _cuda.DTYPE_CODES[dt],
-        bsz, h, w_img, wl, _cuda.stream_ptr(g11p))
-    _cuda.check(err, "res152_fused_grad")
+        bsz, h, w_img, wl)
     res152_fused_grad.launches += 1
     return g5
 
@@ -285,11 +285,11 @@ def res152_fused_grad12(gp12p: torch.Tensor, masks, bwd: ResBwd,
                    [*BWD_SHAPES, W12T_SHAPE], dt, gp12p.device)
     # the kernel writes every lane, borders and padding included
     g5 = torch.empty((bsz, h, CIN, wl), dtype=dt, device=gp12p.device)
-    err = _cuda.lib("res_fused").apfp_res152_fused_grad12(
-        gp12p.data_ptr(), *[m.data_ptr() for m in masks], w12t.data_ptr(),
-        *[w.data_ptr() for w in bwd], g5.data_ptr(), _cuda.DTYPE_CODES[dt],
-        bsz, h, w_img, wl, wl12, _cuda.stream_ptr(gp12p))
-    _cuda.check(err, "res152_fused_grad12")
+    _cuda.launch(
+        "res152_fused_grad12", "res_fused", "apfp_res152_fused_grad12",
+        gp12p, gp12p.data_ptr(), *[m.data_ptr() for m in masks],
+        w12t.data_ptr(), *[w.data_ptr() for w in bwd], g5.data_ptr(),
+        _cuda.DTYPE_CODES[dt], bsz, h, w_img, wl, wl12)
     res152_fused_grad12.launches += 1
     return g5
 

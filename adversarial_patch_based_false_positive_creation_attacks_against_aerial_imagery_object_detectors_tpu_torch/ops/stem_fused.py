@@ -228,12 +228,11 @@ def fused_stem_fwd(xe: torch.Tensor, xo: torch.Tensor, sp: StemParams,
     frags = ([_mma_cached(sp[0][0], mma_weights_conv0).data_ptr()]
              + [_mma_cached(w).data_ptr() for w, _ in sp[1:]]
              if dt == torch.bfloat16 else [None] * 5)
-    err = _cuda.lib("stem_fused").apfp_fused_stem_fwd(
+    _cuda.launch(
+        "fused_stem_fwd", "stem_fused", "apfp_fused_stem_fwd", xe,
         xe.data_ptr(), xo.data_ptr(), *[w.data_ptr() for w, _ in sp],
         *[bias.data_ptr() for _, bias in sp], *frags, y5.data_ptr(),
-        *mask_ptrs, _cuda.DTYPE_CODES[dt], bsz, h, wlh, wl5,
-        _cuda.stream_ptr(xe))
-    _cuda.check(err, "fused_stem_fwd")
+        *mask_ptrs, _cuda.DTYPE_CODES[dt], bsz, h, wlh, wl5)
     if save_acts:
         fused_stem_fwd.save_acts_launches += 1
         return (y5, *masks)
@@ -318,12 +317,12 @@ def fused_stem_bwd_saved(acts, g5p: torch.Tensor, sbp: StemBwdParams):
     # bfloat16 on the tensor cores (fragment order), float32 on sbp
     frags = ([_mma_cached(v).data_ptr() for v in sbp]
              if dt == torch.bfloat16 else [None] * 5)
-    err = _cuda.lib("stem_bwd").apfp_fused_stem_bwd(
+    _cuda.launch(
+        "fused_stem_bwd_saved", "stem_bwd", "apfp_fused_stem_bwd", y5p,
         y0e.data_ptr(), y0o.data_ptr(), y1m.data_ptr(), y2m.data_ptr(),
         y3m.data_ptr(), y5p.data_ptr(), g5p.data_ptr(),
         *[v.data_ptr() for v in sbp], *frags, gxe.data_ptr(), gxo.data_ptr(),
-        _cuda.DTYPE_CODES[dt], bsz, h, wlh, wl5, _cuda.stream_ptr(y5p))
-    _cuda.check(err, "fused_stem_bwd_saved")
+        _cuda.DTYPE_CODES[dt], bsz, h, wlh, wl5)
     fused_stem_bwd_saved.launches += 1
     return gxe, gxo
 
@@ -376,13 +375,13 @@ def fused_stem_bwd(xe: torch.Tensor, xo: torch.Tensor, y5p: torch.Tensor,
              + [_mma_cached(w).data_ptr() for w, _ in sp[1:4]]
              + [_mma_cached(v).data_ptr() for v in sbp]
              if dt == torch.bfloat16 else [None] * 9)
-    err = _cuda.lib("stem_remat").apfp_fused_stem_remat(
+    _cuda.launch(
+        "fused_stem_bwd", "stem_remat", "apfp_fused_stem_remat", xe,
         xe.data_ptr(), xo.data_ptr(), *[w.data_ptr() for w, _ in sp[:4]],
         *[bias.data_ptr() for _, bias in sp[:4]], y5p.data_ptr(),
         g5p.data_ptr(), *[v.data_ptr() for v in sbp], *frags,
         gxe.data_ptr(), gxo.data_ptr(), _cuda.DTYPE_CODES[dt], bsz, h, wlh,
-        wl5, _cuda.stream_ptr(xe))
-    _cuda.check(err, "fused_stem_bwd")
+        wl5)
     fused_stem_bwd.launches += 1
     return gxe, gxo
 

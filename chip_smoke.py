@@ -8,10 +8,11 @@ Phases, each fatal on failure:
 1. Build the kernels of ``<port>/csrc`` (one nvcc per source, in
    parallel) and print the build time and the ``-Xptxas -v`` lines; then
    count the tensor-core instructions (``cuobjdump -sass``: HMMA, HGMMA)
-   of each bfloat16 K1, K2 and K5 kernel and of every bfloat16 K4
-   instantiation (1x1, 3x3 s1, 3x3 s2 and the k3t2 adjoint, each block
-   width), with its registers, shared memory and blocks per
-   multiprocessor, and fail if one has none.
+   of each bfloat16 K1, K2, K5, K8a (with and without ``save_acts``) and
+   K8b kernel and of every bfloat16 K4 instantiation (1x1, 3x3 s1, 3x3 s2
+   and the k3t2 adjoint, each block width), with its registers, shared
+   memory, blocks per multiprocessor and spilled bytes, and fail if one
+   has none (or if K8a or K8b spills).
 2. Hold each kernel of the serving path against its plain PyTorch
    version on the card at the serving shapes (batch 8, 608^2, bfloat16;
    the fused stem also in float32) and time kernel, plain version and,
@@ -84,8 +85,9 @@ Phases, each fatal on failure:
    a ``kthvalue`` yardstick (all exact); K8a (with and without
    ``save_acts``) and K8b, the batch-on-lanes stem, at b24 608^2 bfloat16
    and float32 against their plain versions and against K1 / K2 on the
-   same x; then the package's entry points at full width: K7 on the patch,
-   b24 victim forward + input backward steps with layers 0-5 on
+   same x (bfloat16: K8a's y5 and signs and K8b's gx equal K1's and
+   K2's bit for bit); then the package's entry points at full width: K7
+   on the patch, b24 victim forward + input backward steps with layers 0-5 on
    ``fused_stem_batched`` (one K8a ``save_acts`` and one K8b a step, no K1
    or K2), a forward without grad (K8a alone) and a b8 packed-stem forward;
    the A/B against the shipped fused stem (layout glue apart), the float32
@@ -288,23 +290,38 @@ TC_KERNELS = {
                               (1,), "fused_stem_bwd_tc_kernel")],
     "fused_stem_bwd": [("", "stem_remat", "apfp_fused_stem_remat_info", (1,),
                         "fused_stem_remat_tc_kernel")],
+    "fused_stem_fwd_b": [("", "stem_batched", "apfp_fused_stem_fwd_b_info",
+                          (1, 0), "fused_stem_fwd_b_tc_kernelILb0E")],
+    "fused_stem_fwd_b_save_acts": [(
+        "", "stem_batched", "apfp_fused_stem_fwd_b_info", (1, 1),
+        "fused_stem_fwd_b_tc_kernelILb1E")],
+    "fused_stem_bwd_b": [("", "stem_batched", "apfp_fused_stem_bwd_b_info",
+                          (1,), "fused_stem_bwd_b_tc_kernel")],
     **{name: [(f"NW{nw}", "planar_conv", "apfp_planar_conv_info",
                (variant, nw), key.format(nw)) for nw in (1, 2, 4, 8)]
        for name, variant, key in _K4_KEYS}}
 
 
+# the kernels whose bfloat16 instantiation must not spill (K8a, K8b)
+NO_SPILL = ("fused_stem_fwd_b", "fused_stem_fwd_b_save_acts",
+            "fused_stem_bwd_b")
+
+
 def tensor_core_check(_cuda, info) -> dict:
     """Phase 1: the tensor-core instructions (HMMA, HGMMA) that
     ``cuobjdump -sass`` finds in each bfloat16 kernel instantiation of
-    ``TC_KERNELS`` (K1, K1 ``save_acts``, K2, K5 and every K4 variant and
-    block width) in the built libraries, with ptxas' registers
-    (``-Xptxas -v``) and the card's own account of registers, dynamic
-    shared memory and blocks per multiprocessor (``apfp_*_info``). Fails
-    if one has no tensor-core instruction. Returns {entry name: record};
-    an entry of several instantiations holds them under ``sass``."""
+    ``TC_KERNELS`` (K1, K1 ``save_acts``, K2, K5, K8a, K8a ``save_acts``,
+    K8b and every K4 variant and block width) in the built libraries, with
+    ptxas' registers and spill bytes (``-Xptxas -v``) and the card's own
+    account of registers, dynamic shared memory and blocks per
+    multiprocessor (``apfp_*_info``). Fails if one has no tensor-core
+    instruction, or if one of ``NO_SPILL`` spills. Returns {entry name:
+    record}; an entry of several instantiations holds them under
+    ``sass``."""
     import ctypes
+    import re
     tool = os.path.join(os.path.dirname(_cuda._nvcc()), "cuobjdump")
-    counts, regs = {}, {}
+    counts, regs, spills = {}, {}, {}
     libs = {inst[1] for insts in TC_KERNELS.values() for inst in insts}
     for lib in libs:
         sass = subprocess.run([tool, "-sass", info[lib]["path"]],
@@ -321,12 +338,17 @@ def tensor_core_check(_cuda, info) -> dict:
                     if f" {op}." in s or f" {op} " in s:
                         counts[fn][op] += 1
                         break
-        fn = None
+        fn = props = None
         for line in info[lib]["log"].splitlines():
             if "Compiling entry function" in line:
                 fn = line.split("'")[1]
             elif fn is not None and "Used" in line and "registers" in line:
                 regs[fn] = line.strip()
+            elif "Function properties for" in line:
+                props = line.split("Function properties for", 1)[1].strip()
+            elif props is not None and "spill stores" in line:
+                spills[props] = sum(int(v) for v in re.findall(
+                    r"(\d+) bytes spill (?:stores|loads)", line))
     out = {}
     for name, insts in TC_KERNELS.items():
         recs = {}
@@ -335,7 +357,8 @@ def tensor_core_check(_cuda, info) -> dict:
             assert len(fns) == 1, (name, label, fns)
             c = counts[fns[0]]
             rec = {"hmma": c["HMMA"], "hgmma": c["HGMMA"],
-                   "ptxas": regs.get(fns[0], "")}
+                   "ptxas": regs.get(fns[0], ""),
+                   "spill_bytes": spills.get(fns[0])}
             buf = (ctypes.c_int * 3)()
             _cuda.check(getattr(_cuda.lib(lib), info_fn)(*args, buf),
                         f"{name} info")
@@ -345,10 +368,13 @@ def tensor_core_check(_cuda, info) -> dict:
             log(f"[sass] {what}: {rec['hmma']} HMMA, {rec['hgmma']} HGMMA; "
                 f"{rec['registers']} registers, "
                 f"{rec['dynamic_smem_bytes']} bytes of shared memory, "
-                f"{rec['blocks_per_sm']} block(s) a multiprocessor; ptxas: "
+                f"{rec['blocks_per_sm']} block(s) a multiprocessor, "
+                f"{rec['spill_bytes']} bytes spilled; ptxas: "
                 f"{rec['ptxas']}")
             assert rec["hmma"] + rec["hgmma"] > 0, \
                 f"{what}: no tensor-core instruction in its SASS"
+            assert name not in NO_SPILL or rec["spill_bytes"] == 0, \
+                f"{what}: spills {rec['spill_bytes']} bytes"
             recs[label] = rec
         out[name] = recs[""] if list(recs) == [""] else {"sass": recs}
     return out
@@ -1963,15 +1989,20 @@ def lanes_bytes(t, bsz: int, w: int, c: int) -> int:
     return t.shape[0] * c * bsz * w * t.element_size()
 
 
-def batched_kernels(dev, sp, sbp, card) -> list:
+def batched_kernels(dev, sp, sbp, card, tc_info) -> list:
     """Phase 9, K8a (with and without ``save_acts``) and K8b at b24 608^2,
     bfloat16 and float32, on the full-width victim's stem weights: each
-    against its plain version (K8b on K8a's own activations) with K1's and
-    K2's tolerances, every border and slack lane zero though the blocks
-    were dirty; then against K1 / K2 on the same x: K8a's decimated y5
-    against K1's y5, K8b's gx against K2's on K1's masks outside the
+    against its plain version (K8b on K8a's own activations, its gp5dd
+    built as ``FusedStemBatched.backward`` builds it) with K1's and K2's
+    tolerances, every border and slack lane zero though the blocks were
+    dirty; then against K1 / K2 on the same x. bfloat16, where K8a runs
+    K1's mma_conv stages and K8b K2's chain: K8a's decimated y5 and its
+    activations' signs equal K1's y5 and masks, and K8b's merged gx K2's on
+    K1's masks, bit for bit. float32: K8a's y5 against K1's, K8b's gx
+    (its FMA adjoint sums in another order) against K2's outside the
     12-pixel zone of any sign that differs. Timed beside their bounds and
-    K1 ``save_acts`` + K2 at the same shape. Returns the three entries."""
+    K1 ``save_acts`` + K2 at the same shape. Returns the three entries,
+    with phase 1's tensor-core records."""
     SB = import_port("experimental.stem_batched")
     SF = import_port("ops.stem_fused")
     PC = import_port("ops.planar_conv")
@@ -1996,7 +2027,7 @@ def batched_kernels(dev, sp, sbp, card) -> list:
                                          "retained graph"
                                          if n == "fused_stem_bwd_b"
                                          else "forward"),
-                "dtype": "bfloat16"} for n in names}
+                "dtype": "bfloat16", **tc_info[n]} for n in names}
     ents["fused_stem_fwd_b"]["replaces"] = \
         f"{JAX_PKG}/experimental/stem_batched.py:402"
     ents["fused_stem_fwd_b_save_acts"]["replaces"] = \
@@ -2037,9 +2068,11 @@ def batched_kernels(dev, sp, sbp, card) -> list:
         for t in acts:
             zero_lanes(t, "K8a")
         del want
-        # K8b on K8a's own activations: g5 gated by K8a's y5, interleaved
+        # K8b on K8a's own activations: g5 (in the compute dtype, as
+        # autograd hands it over) gated by K8a's y5, interleaved
         y5n = SB.batched_to_nhwc(y5, b, h5, 128, lane0=1, stride=2)
-        gp5 = (g5 * torch.where(y5n > 0, 1.0, 0.1)).to(dt)
+        g5d = g5.to(dt)
+        gp5 = (g5d.float() * torch.where(y5n > 0, 1.0, 0.1)).to(dt)
         gp5dd = SB.nhwc_to_batched(SB.interleave_zero_rows(
             SB.interleave_zero_cols(gp5)), seg)
         torch.full((h, 8, tot), float("nan"), dtype=dt, device=dev)
@@ -2058,8 +2091,7 @@ def batched_kernels(dev, sp, sbp, card) -> list:
         k1 = SF.fused_stem_fwd(*SF.split_phases(xd), spd, save_acts=True)
         k1y5 = PC.from_planar(k1[0], h5, 128)
         d_y5 = (y5n.float() - k1y5.float()).abs().max().item()
-        _, _, tol5 = close_check(y5n, k1y5, dt, "K8a y5 vs K1")
-        k2 = SF.fused_stem_bwd_saved(k1, PC.to_planar(g5.to(dt)), sbpd)
+        k2 = SF.fused_stem_bwd_saved(k1, PC.to_planar(g5d), sbpd)
         # K8a's signs in K1's planar mask layout
         m0 = (SB.merge_phases_b(acts[1], acts[2], b, h1, 32) > 0).to(
             torch.int8)
@@ -2075,20 +2107,30 @@ def batched_kernels(dev, sp, sbp, card) -> list:
             4, 1).repeat_interleave(4, 2))
         y5_flips = int(((y5n > 0) != (k1y5 > 0)).sum().item())
         del m0, k8m, d5
-        e = (SB.merge_phases_b(*gx, b, h1, 3).float()
-             - SF.merge_phases(*k2, h1, 3).float()).abs().amax(-1)
-        out = e[~zone] if (~zone).any() else e.new_zeros(1)
-        gscale = SF.merge_phases(*k2, h1, 3).float().abs().max().item()
-        gtol = (2e-5 if dt == torch.float32 else 2.0 ** -6) * gscale
-        assert out.max().item() <= gtol, ("K8b vs K2", out.max().item(),
-                                          gtol)
-        vs = {"y5_vs_k1_max_abs_diff": d_y5, "y5_tol": tol5,
-              "gx_vs_k2_max_abs_err_outside_flips": out.max().item(),
-              "gx_vs_k2_max_abs_err": e.max().item(), "gx_tol": gtol,
+        gxm = SB.merge_phases_b(*gx, b, h1, 3)
+        k2m = SF.merge_phases(*k2, h1, 3)
+        e = (gxm.float() - k2m.float()).abs().amax(-1)
+        vs = {"y5_vs_k1_max_abs_diff": d_y5,
+              "gx_vs_k2_max_abs_err": e.max().item(),
               "sign_flips_vs_k1_masks": flips,
-              "y5_sign_flips_vs_k1": y5_flips,
-              "flip_zone_frac": zone.float().mean().item()}
-        del k2, zone, e, out
+              "y5_sign_flips_vs_k1": y5_flips}
+        if dt == bf16:
+            # K1's mma_conv stages and K2's chain: the same sums, bit for bit
+            assert torch.equal(y5n, k1y5) and flips == 0, ("K8a vs K1", d_y5,
+                                                          flips)
+            assert torch.equal(gxm, k2m), ("K8b vs K2", e.max().item())
+            vs["bit_equal_to_k1_k2"] = True
+        else:
+            _, _, tol5 = close_check(y5n, k1y5, dt, "K8a y5 vs K1")
+            out = e[~zone] if (~zone).any() else e.new_zeros(1)
+            gtol = 2e-5 * k2m.float().abs().max().item()
+            assert out.max().item() <= gtol, ("K8b vs K2", out.max().item(),
+                                              gtol)
+            vs.update(y5_tol=tol5, gx_tol=gtol,
+                      gx_vs_k2_max_abs_err_outside_flips=out.max().item(),
+                      flip_zone_frac=zone.float().mean().item())
+            del out
+        del k2, zone, e, gxm, k2m
         # times: kernels, plain versions, K1 (save_acts) + K2 at this shape
         x_read = 2 * lanes_bytes(xe, b, h1, 3)
         in_acts = (2 * lanes_bytes(acts[1], b, h1, 32)
@@ -2868,7 +2910,7 @@ def main() -> int:
     # -- 9. the experimental package (counted launches) -----------------
     phase("9 experimental package")
     k7 = median_kernel(dev, card)
-    k8 = batched_kernels(dev, sp, model_sbp, card)
+    k8 = batched_kernels(dev, sp, model_sbp, card, tc_info)
     erec = experimental_path(dev, net, params, card, rec["breakdown_ms"])
     for k in [k7] + k8:
         k["launches"] = erec["launches"][k["name"]]

@@ -544,10 +544,9 @@ def test_median_pool_kernel_equals_plain(cuda, dtype, shape, k):
 def test_batched_stem_kernels_match_plain(cuda, dtype, b, h):
     """K8a with and without save_acts and K8b (on K8a's own activations)
     against their plain versions; every border and slack lane is zero
-    though the output blocks were dirty; in float32 K8a's even dense lanes
-    equal K1's y5 (the same conv code) and its y0 signs K1's masks; in
-    bfloat16, where K1 runs on the tensor cores, they agree to K1's
-    tolerances (a few signs flipped within a rounding of 0)."""
+    though the output blocks were dirty; in both dtypes K8a's even dense
+    lanes equal K1's y5 and its y0 signs K1's masks (K8a runs K1's conv
+    code: conv_stage in float32, K1's mma_conv stages in bfloat16)."""
     SB = _experimental("stem_batched")
     sp = _stem_params(dtype, cuda)
     sbp = SF.stem_bwd_params(sp)
@@ -574,13 +573,7 @@ def test_batched_stem_kernels_match_plain(cuda, dtype, b, h):
     k1y5 = PC.from_planar(k1[0], h // 4, 128)
     m0 = SF.merge_phases(k1[1], k1[2], h // 2, 32) > 0
     k8m0 = SB.merge_phases_b(acts[1], acts[2], b, h // 2, 32) > 0
-    if dtype == torch.float32:
-        assert torch.equal(k8y5, k1y5) and torch.equal(m0, k8m0)
-    else:
-        # the bfloat16 K1 sums on the tensor cores
-        _close(k8y5, k1y5, dtype, "fused_stem_fwd_b vs K1")
-        flips = int((m0 != k8m0).sum().item())
-        assert flips <= max(2, 1e-5 * m0.numel()), flips
+    assert torch.equal(k8y5, k1y5) and torch.equal(m0, k8m0)
     g5 = torch.randn(b, h // 4, h // 4, 128, generator=g).to(cuda, dtype)
     gp5dd = SB.nhwc_to_batched(SB.interleave_zero_rows(
         SB.interleave_zero_cols(g5)), seg)
@@ -617,6 +610,33 @@ def test_batched_stem_grad_matches_fused_stem_on_card(cuda):
     assert torch.equal(outs[0][0], outs[1][0])
     rel = ((outs[0][1] - outs[1][1]).norm() / outs[1][1].norm()).item()
     assert rel <= 1e-5, rel
+
+
+def test_batched_stem_grad_equals_fused_stem_on_card_bf16(cuda):
+    """bfloat16: the batch-on-lanes route runs the fused stem's
+    tensor-core code (K1's mma_conv stages in K8a, K2's chain in K8b, its
+    gp5 read from gp5dd's data positions and its gates from the saved
+    values' signs), so its y5 and its input gradient equal the fused
+    stem's (K1 save_acts + K2) bit for bit."""
+    SB = _experimental("stem_batched")
+    bf16 = torch.bfloat16
+    sp = _stem_params(bf16, cuda)
+    sbp = SF.stem_bwd_params(sp)
+    g = torch.Generator().manual_seed(17)
+    x = torch.rand(2, 64, 64, 3, generator=g).to(cuda, bf16)
+    g5 = torch.randn(2, 16, 16, 128, generator=g).to(cuda, bf16)
+    n = (SB.fused_stem_fwd_b.save_acts_launches, SB.fused_stem_bwd_b.launches)
+    outs = []
+    for fn in (SB.fused_stem_batched, SF.fused_stem):
+        xr = x.clone().requires_grad_(True)
+        y = fn(xr, sp, sbp)
+        y.backward(g5)
+        outs.append((y.detach(), xr.grad))
+    assert (SB.fused_stem_fwd_b.save_acts_launches,
+            SB.fused_stem_bwd_b.launches) == (n[0] + 1, n[1] + 1)
+    assert outs[1][1].abs().max().item() > 0
+    assert torch.equal(outs[0][0], outs[1][0])
+    assert torch.equal(outs[0][1], outs[1][1])
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -241,3 +241,42 @@ def test_shape_preconditions_raise():
     with pytest.raises(ValueError, match="sbp"):
         SB.fused_stem_batched(torch.zeros(1, 32, 32, 3, requires_grad=True),
                               psp)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_interleaved_conv5_adjoint_is_the_stride2_adjoint(dtype):
+    """The identity the bfloat16 K8b rests on: a gp5dd built as
+    ``FusedStemBatched.backward`` builds it holds gp5 (r, c) at row 2r,
+    lane 2c + 1 of each image's segment and zeros elsewhere, and on it the
+    plain version's stride-1 conv5 adjoint equals
+    ``conv_transpose2d(gp5, w5, stride=2, padding=1, output_padding=1)`` on
+    the unexpanded gp5, which the kernel runs as K2's four parity GEMMs.
+    Both sides hold the same products (the dense one adds exact zeros):
+    in float64 they agree to 1e-12 of the scale, in float32 (the plain
+    versions' accumulation) to 2e-5 of it, the summation orders apart."""
+    F = torch.nn.functional
+    rng = np.random.default_rng(9)
+    bsz, h = 2, 32
+    h1, h5, seg = h // 2, h // 4, SB._seg(h // 2)
+    gp5 = torch.from_numpy(rng.standard_normal(
+        (bsz, h5, h5, 128)).astype(np.float32)).to(dtype)
+    w5 = SF.stem_bwd_params(to_port(make_sp(rng), dtype))[4]
+    gp5dd = SB.nhwc_to_batched(SB.interleave_zero_rows(
+        SB.interleave_zero_cols(gp5)), seg)
+    lanes = gp5dd.reshape(h1, 128, bsz, seg).clone()
+    data = lanes[0::2, :, :, 1:2 * h5:2]
+    assert torch.equal(data.permute(2, 0, 3, 1), gp5)
+    data.zero_()
+    assert not lanes.any()
+    # conv_transpose2d's weight [cin, cout, kh, kw], as the plain version's
+    wt = w5.permute(2, 3, 0, 1)
+    dense = SB.batched_to_nhwc(gp5dd, bsz, h1, 128).permute(0, 3, 1, 2)
+    sparse = gp5.permute(0, 3, 1, 2)
+    for acc, tol in ((torch.float64, 1e-12), (torch.float32, 2e-5)):
+        got = F.conv_transpose2d(dense.to(acc), wt.to(acc), padding=1)
+        want = F.conv_transpose2d(sparse.to(acc), wt.to(acc), stride=2,
+                                  padding=1, output_padding=1)
+        assert got.shape == want.shape == (bsz, 64, h1, h1)
+        scale = want.abs().max().item()
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=tol,
+                                   atol=tol * scale)

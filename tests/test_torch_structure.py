@@ -328,12 +328,13 @@ def test_port_import_leaves_experimental_unloaded():
 
 
 def test_bf16_stem_kernels_run_on_tensor_cores():
-    """The bfloat16 K1, K2 and K5 reach ``mma.sync`` through
+    """The bfloat16 K1, K2, K5, K8a and K8b reach ``mma.sync`` through
     stem_common.cuh's ``mma_conv`` (K1's five convs, K2's five adjoints in
-    the chain K2 and K5 share, K5's four recompute convs), the bfloat16 K4
-    through its own ``ldmatrix`` / ``mma.sync`` loop, the float32 paths
-    keep the CUDA-core helpers, and no kernel source includes a library's
-    kernels (cuDNN, cuBLAS, CUTLASS's device-level GEMMs)."""
+    the chain K2, K5 and K8b share, K5's four recompute convs, K8a's five
+    convs), the bfloat16 K4 through its own ``ldmatrix`` / ``mma.sync``
+    loop, the float32 paths keep the CUDA-core helpers, and no kernel
+    source includes a library's kernels (cuDNN, cuBLAS, CUTLASS's
+    device-level GEMMs)."""
     import re
     csrc = os.path.join(ROOT, PORT, "csrc")
     src = {f: open(os.path.join(csrc, f)).read() for f in os.listdir(csrc)
@@ -363,6 +364,19 @@ def test_bf16_stem_kernels_run_on_tensor_cores():
     rtc = remat[remat.index("fused_stem_remat_tc_kernel("):]
     assert len(re.findall(r"\bmma_conv<", rtc)) == 4
     assert "bwd_tc::chain(" in rtc and "grad_chain<T>" in remat
+    # K8a and K8b: the bfloat16 kernels on K1's five mma_conv stages and on
+    # the shared chain; float32 keeps conv_stage and chain_tail
+    k8 = src["stem_batched.cu"]
+
+    def body(text, kern):
+        b = text[text.index(kern):]
+        return b[:b.index("\n}\n")]
+    assert len(re.findall(r"\bmma_conv<",
+                          body(k8, "fused_stem_fwd_b_tc_kernel("))) == 5
+    assert "bwd_tc::chain(" in body(k8, "fused_stem_bwd_b_tc_kernel(")
+    assert len(re.findall(r"\bconv_stage<",
+                          body(k8, "fused_stem_fwd_b_kernel("))) == 5
+    assert "chain_tail<T>(" in body(k8, "fused_stem_bwd_b_kernel(")
     # K4: the bfloat16 kernels on ldmatrix + mma.sync, float32 on FMAs
     k4 = src["planar_conv.cu"]
     for kern in ("planar_conv_tc_kernel(", "planar_convt2_tc_kernel("):
@@ -374,3 +388,118 @@ def test_bf16_stem_kernels_run_on_tensor_cores():
             low = inc.lower()
             assert not any(lib in low for lib in ("cudnn", "cublas", "cutlass",
                                                   "cute/")), (name, inc)
+
+
+def _launch_calls(tree):
+    for node in ast.walk(tree):
+        if (isinstance(node, ast.Call) and isinstance(node.func, ast.Attribute)
+                and node.func.attr == "launch"
+                and isinstance(node.func.value, ast.Name)
+                and node.func.value.id == "_cuda"):
+            yield node
+
+
+def test_kernel_wrappers_launch_under_their_tensors_device():
+    """An AST scan of the port: no module but ``ops/_cuda.py`` calls a
+    kernel library (``lib(...)``), and there only ``launch`` does, which
+    enters the device of the tensor it is given; every kernel entry point
+    of ``_cuda.SIGNATURES`` (the ``_info`` queries apart) is launched
+    through ``_cuda.launch`` with a tensor argument, so each wrapper runs
+    its kernel in the context of its tensors' card."""
+    from adversarial_patch_based_false_positive_creation_attacks_against_aerial_imagery_object_detectors_tpu_torch.ops import _cuda
+    entries = {e for lib in _cuda.SIGNATURES.values() for e in lib
+               if not e.endswith("_info")}
+    launched = set()
+    for path in _port_sources():
+        if path.endswith("chip_smoke.py"):
+            continue
+        tree = ast.parse(open(path).read(), path)
+        owners = {}
+        for fn in ast.walk(tree):
+            if isinstance(fn, ast.FunctionDef):
+                for node in ast.walk(fn):
+                    owners.setdefault(node, fn.name)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Call):
+                f = node.func
+                name = f.attr if isinstance(f, ast.Attribute) else getattr(
+                    f, "id", None)
+                if name == "lib":
+                    assert path.endswith(os.path.join("ops", "_cuda.py")) \
+                        and owners.get(node) == "launch", (path, node.lineno)
+        for call in _launch_calls(tree):
+            assert len(call.args) >= 4, (path, call.lineno)
+            assert isinstance(call.args[3], ast.Name), (path, call.lineno)
+            for c in ast.walk(call.args[2]):
+                if isinstance(c, ast.Constant) and isinstance(c.value, str):
+                    launched.add(c.value)
+    assert launched == entries, (sorted(entries - launched),
+                                 sorted(launched - entries))
+
+
+def test_launch_enters_the_tensors_device(monkeypatch):
+    """``_cuda.launch`` calls the entry point with the tensor's device as
+    the current CUDA device and that device's stream last, restores the
+    caller's device after, and raises naming the wrapper when the entry
+    point returns an error (``torch.cuda.device``, the stream and the
+    library replaced by recorders, so this runs without a card)."""
+    import contextlib
+    import types
+    from adversarial_patch_based_false_positive_creation_attacks_against_aerial_imagery_object_detectors_tpu_torch.ops import _cuda
+    current = [None]
+    calls = []
+
+    @contextlib.contextmanager
+    def device(d):
+        prev, current[0] = current[0], d
+        try:
+            yield
+        finally:
+            current[0] = prev
+
+    class Lib:
+        def __init__(self, err):
+            self.err = err
+
+        def apfp_k(self, *args):
+            calls.append((current[0], args))
+            return self.err
+
+    monkeypatch.setattr(torch.cuda, "device", device)
+    monkeypatch.setattr(_cuda, "stream_ptr", lambda t: ("stream", t.device))
+    t = types.SimpleNamespace(device=torch.device("cuda", 1))
+    monkeypatch.setattr(_cuda, "lib", lambda name: Lib(0))
+    _cuda.launch("k", "planar", "apfp_k", t, 3, None)
+    assert calls == [(t.device, (3, None, ("stream", t.device)))]
+    assert current[0] is None
+    monkeypatch.setattr(_cuda, "lib", lambda name: Lib(7))
+    with pytest.raises(RuntimeError, match="k: CUDA launch failed"):
+        _cuda.launch("k", "planar", "apfp_k", t)
+    assert calls[-1][0] == t.device and current[0] is None
+
+
+def test_build_keeps_the_ptxas_log_for_cached_libraries(tmp_path,
+                                                        monkeypatch):
+    """A fresh build keeps each library's compiler log beside it, and a
+    later ``build_all`` that finds the library already built reports that
+    log (the registers and spill lines ``chip_smoke.py`` phase 1 reads)
+    instead of a placeholder. ``nvcc`` is replaced by a script that writes
+    the library and prints one ptxas line, so this runs without a card."""
+    from adversarial_patch_based_false_positive_creation_attacks_against_aerial_imagery_object_detectors_tpu_torch.ops import _cuda
+    fake = tmp_path / "nvcc"
+    fake.write_text('#!/bin/sh\nwhile [ "$1" != "-o" ]; do shift; done\n'
+                    'echo lib > "$2"\n'
+                    'echo "ptxas info    : Used 42 registers"\n')
+    fake.chmod(0o755)
+    monkeypatch.setattr(_cuda, "_nvcc", lambda: str(fake))
+    monkeypatch.setattr(_cuda, "BUILD_DIR", str(tmp_path / "build"))
+    monkeypatch.setattr(_cuda, "BUILD_INFO", {})
+    fresh = _cuda.build_all()
+    assert set(fresh) == set(_cuda.SIGNATURES)
+    assert all("Used 42 registers" in v["log"] for v in fresh.values())
+    monkeypatch.setattr(_cuda, "BUILD_INFO", {})
+    cached = _cuda.build_all()
+    assert [v["path"] for v in cached.values()] == [
+        v["path"] for v in fresh.values()]
+    assert all(v["seconds"] == 0.0 and "Used 42 registers" in v["log"]
+               for v in cached.values())
