@@ -2,12 +2,16 @@
 // K6a forward, K6b saved-mask input backward, and K6c, K6b widened by
 // conv12's input cotangent.
 //
-// Replaces the JAX package's Pallas kernels ops/res_fused.py res152_fused
-// (body _fwd_kernel, with and without save), res152_fused_grad (body
-// _bwd_kernel, then _stage_chain) and res152_fused_grad12 (body
-// _bwd12_kernel, then _stage_chain). With T the rounding to the compute
-// dtype, leaky(v) = max(v, 0.1 v) and m(v) = 1 if v > 0 else 0.1, K6a
-// computes, in _fwd_kernel's order and at its rounding points,
+// What each kernel replaces (the JAX package's ops/res_fused.py):
+//   K6a, K6a save  res152_fused (:432, pl.pallas_call at :449), body
+//                  _fwd_kernel (:236)
+//   K6b            res152_fused_grad (:472, at :484), body _bwd_kernel
+//                  (:297) -> _stage_chain (:367)
+//   K6c            res152_fused_grad12 (:511, at :538), body _bwd12_kernel
+//                  (:317) -> _stage_chain
+// With T the rounding to the compute dtype, leaky(v) = max(v, 0.1 v) and
+// m(v) = 1 if v > 0 else 0.1, K6a computes, in _fwd_kernel's order and at
+// its rounding points,
 //   a      = T(leaky(W6 x + b6))            1x1 128 -> 64
 //   post7  = T(leaky(W7 * a + b7))          3x3  64 -> 128
 //   y8     = T(post7 + x)
@@ -27,42 +31,75 @@
 // W12 flag) takes conv12's pre-gated cotangent gp12 [B, H/2, 256, wl12]
 // instead of g11 and first computes
 //   g11  = T(conv12^T gp12)                 3x3 s2 256 -> 128
-// over the tile's 12^2 in a prologue (conv12_adjoint, per 2x2 super
-// position by parity, as K2's stride-2 adjoints), then runs the same chain;
-// g11 never touches device memory. Every value at a row or
-// column outside the image is zero (conv padding). All convs accumulate
-// in float32. Planar tensors are [B, H, C, Wl], column c at lane c + 1;
-// each block writes its own 8 x 8 positions of every output, and the
-// blocks of the first and last tile columns the border and padding lanes,
-// so nothing needs a memset.
+// over the tile's halo in a prologue, per output parity (as K2's stride-2
+// adjoints), then runs the same chain; g11 never touches device memory.
+// Every value at a row or column outside the image is zero (conv padding).
+// All convs accumulate in float32. Planar tensors are [B, H, C, Wl],
+// column c at lane c + 1; the blocks of the first and last tile columns
+// write the border and padding lanes, so nothing needs a memset.
 //
 // What bounds it on the H100: at b24 608^2 bfloat16 the forward moves
 // ~0.74 GB with SAVE (x read, y11 and four masks written) against
 // 1.82e11 FLOP: bytes and operations are about equal (0.22 and 0.18 ms).
-// What this first design does about it: the Pallas kernels' row stripes
-// do not fit (a 152-wide stripe of 8 rows is ~470 KB of bfloat16 x alone,
-// against 227 KB a block), so each block owns an 8 x 8 tile of positions
-// for all 128 channels and works over its receptive field in shared
-// memory (forward: x 12^2 -> a 12^2 -> post7/y8 10^2 -> c 10^2 -> y11 8^2;
-// backward: gp10 12^2 -> gp9 10^2 -> g8, gp7 10^2 -> gp6 8^2 -> g5), so no
-// intermediate touches device memory; the halo recompute costs ~1.34x
-// the FLOPs. Tiles are [position][channel] with the channel stride padded
-// by one 32-bit word so the threads of a warp, which read different
-// positions, hit different banks. The convs are CUDA-core FMAs with
-// float32 accumulation, each thread holding a PT-position x 8-channel
-// register tile; each tap's weights ([cin][cout], 16 KB in bfloat16) are
-// staged in shared memory before use. Masks go to device memory as bytes
-// from the epilogues, and K6b reads them as bytes. Tensor cores are later
-// work.
+// A 152-wide stripe of rows does not fit a block (8 rows of bfloat16 x
+// alone are ~470 KB against 227 KB), so each block owns a tile of
+// positions for all 128 channels and works over its receptive field in
+// shared memory; no intermediate touches device memory.
 //
-// Shared memory, bfloat16 / float32: K6a 98,832 / 196,112 bytes, K6b and
-// K6c 93,024 / 184,672 bytes (two blocks a multiprocessor in bfloat16):
-// K6c's gp12 tile (7^2 x 256) lies over gp9's and g8's regions, dead until
-// conv10^T's epilogue, g11 in gp10's (computed in place), its inner 10^2
-// kept in g8's. Its prologue adds 9 taps x 256 x 128 multiply-adds at 36
-// super positions a block: 2.25x conv12's dgrad (3.41 GFLOP a 608^2
-// image) for the 12^2 halo; conv12's weights (590 KB in bfloat16) are
-// staged tap by tap, 64 input channels at a time.
+// bfloat16 (res152_fwd_tc_kernel, res152_bwd_tc_kernel) runs every conv on
+// the tensor cores as an implicit GEMM (stem_common.cuh: mma_conv,
+// mma.sync.m16n8k16, float32 accumulation): M the tile's positions, N the
+// output channels, K the input channels x taps. W6, W7, W9, W10 and their
+// flipped transposes are stride-1 row maps (RowsConv<1 | 3, 1>) over
+// [pos][pitch] tiles; K6c's prologue is four parity GEMMs (RowsT2, K = 1,
+// 2, 2 or 4 taps x 256) over the unexpanded gp12 tile, so no multiply-add
+// meets a zero. The weights come in mma.sync's fragment order
+// (ops/planar_conv.py: mma_weights, built once per weight tensor), one
+// 8-byte __ldg per lane and 8 channels, read through L1/L2: no per-tap
+// staging and no barrier inside a conv. Tiles' row pitches are C + 8
+// elements (16-byte rows: the eight rows of an ldmatrix phase fall in
+// distinct bank groups).
+//   The tile is 8 rows x 16 planar lanes (columns C0 - 1 .. C0 + 14 for
+// C0 = 16 blockIdx.x), so every (row, channel) line a block writes is one
+// aligned 32-byte sector of bfloat16 (16 bytes of int8), and lane 0 is a
+// column outside the image of the first tile column. a over 12 x 20, post7
+// and c over 10 x 18 and post10 over the own 8 x 16 cost 1.25x the FLOPs
+// of the own positions (8 x 8 tiles: 1.34x); K6c's prologue computes
+// 6 x 11 super positions a parity for the tile's 4 x 8 (2.06x conv12's
+// dgrad; the tile's odd first column puts one more super column in the
+// grid). Forward regions: x [12 x 20][136],
+// then c [10 x 18][72]; a [12 x 20][72], then y11's write-back stage
+// [128][136]; post7, then y8 [10 x 18][136]; with SAVE four sign stages
+// [64 | 128 | 64 | 128][144] bytes: 149,056 / 204,352 bytes. Backward:
+// g11, gp10 [12 x 20][136], then gp7 [10 x 18][136], then g5's stage
+// [128][136]; gp9 [10 x 18][72], then gp6 [8 x 16][72]; g11's inner
+// 10 x 18, then g8 [10 x 18][136]; the three gates' sign bytes staged once
+// ([10 x 18][68], [10 x 18][132], [8 x 16][68]): 184,864 bytes, K6c's gp12
+// tile [7 x 12][264] over gp9's and g8's regions, dead until conv10^T's
+// epilogue. One block a multiprocessor either way (8 warps); two blocks
+// would need the x tile or y8 out of shared memory.
+//   Tile fills (x, g11, gp12) read 16-byte vectors of 8 lanes along the
+// planar rows, 4 channels an item, and store 8 bytes a position; the masks
+// are read as 8-byte vectors of 8 lanes. The epilogues stage y11 / g5 and
+// the signs channel-major in shared memory, and each line goes back to
+// device memory whole (K4's write-back, planar_conv.cu), a warp 16 lines.
+// The epilogues keep the FMA kernel's arithmetic (EpiAct, EpiPost7,
+// EpiY11, EpiGp9, EpiG8, EpiGp6, EpiG5 below), so a kernel differs from
+// its plain version by summation order alone. The forward walks each
+// sum as K4's bfloat16 forward (planar_conv.cu) does: taps, then 16-deep
+// steps (cin 64: one chunk; cin 128: K4's two 64-channel chunks of one
+// tap are the same eight steps in order), on the same fragment-order
+// weights, and rounds where K4 and the planar route's two bfloat16 adds
+// do; so its y11 and its four masks equal the planar stage route's
+// (models/res_planar.py: _forward) bit for bit.
+//
+// float32 (res152_fwd_kernel, res152_bwd_kernel) keeps the CUDA-core FMA
+// kernels (TF32 would not hold the float32 gradient checks): 8 x 8 column
+// tiles, [position][channel] tiles padded by one 32-bit word, each thread
+// a PT-position x 8-channel register tile, each tap's weights staged in
+// shared memory (conv_tile); K6c's prologue per 2x2 super position by
+// parity (conv12_adjoint). Shared memory: K6a 196,112 bytes, K6b and K6c
+// 184,672 bytes.
 
 #include "stem_common.cuh"
 
@@ -555,36 +592,625 @@ __global__ void __launch_bounds__(NT, 2)
              blockIdx.x == gridDim.x - 1);
 }
 
-template <typename T, bool SAVE>
-int launch_fwd(const FwdArgs<T>& a, int B, int H, int W, int wl,
+// ---------------------------------------------------------------------------
+// bfloat16: tensor cores
+// ---------------------------------------------------------------------------
+
+// The bfloat16 kernels' weights in mma.sync's fragment order
+// (ops/planar_conv.py: mma_weights of the HWIO kernels)
+struct FwdFrags {
+  const uint2* w6;
+  const uint2* w7;
+  const uint2* w9;
+  const uint2* w10;
+};
+struct BwdFrags {
+  const uint2* w6t;
+  const uint2* w7t;
+  const uint2* w9t;
+  const uint2* w10t;
+  const uint2* w12t;  // K6c
+};
+
+namespace tc {
+
+constexpr int TR = 8, TL = 16;                // own tile: rows x lanes
+constexpr int R12 = TR + 4, L12 = TL + 4;     // the 12 x 20 halo
+constexpr int R10 = TR + 2, L10 = TL + 2;     // the 10 x 18 halo
+constexpr int PC = C + 8, PM = M + 8;         // row pitches (elements)
+constexpr int OP = TR * TL + 8;               // output stage, a channel
+constexpr int SP = TR * TL + 16;              // sign stage: a channel's bytes
+// K6c: NSR x NSC super positions a parity, over the gp12 tile of
+// (NSR + 1) x (NSC + 1) positions at pitch P12
+constexpr int NSR = R12 / 2, NSC = L12 / 2 + 1;
+constexpr int P12 = 2 * C + 8;
+// element counts of the regions
+constexpr int N12C = R12 * L12 * PC;          // x, g11, gp10
+constexpr int N12M = R12 * L12 * PM;          // a
+constexpr int N10C = R10 * L10 * PC;          // post7 / y8, gp7, g8
+constexpr int N10M = R10 * L10 * PM;          // c, gp9
+constexpr int NOUT = C * OP;                  // y11's or g5's stage
+constexpr int FWD_A = N12M > NOUT ? N12M : NOUT;
+constexpr int FWD_BYTES = 2 * (N12C + FWD_A + N10C);
+constexpr int SIGN_BYTES = 2 * (M + C) * SP;
+// the backward's staged gate bytes: c and post7 over 10 x 18, a over 8 x 16
+constexpr int MC = R10 * L10 * (M + 4), MP7 = R10 * L10 * (C + 4);
+constexpr int MA = TR * TL * (M + 4);
+constexpr int BWD_BYTES = 2 * (N12C + N10M + N10C) + MC + MP7 + MA;
+static_assert(N10C <= N12C && NOUT <= N12C && TR * TL * PM <= N10M,
+              "backward regions");
+static_assert((NSR + 1) * (NSC + 1) * P12 <= N10M + N10C, "gp12 tile");
+static_assert(FWD_BYTES % 16 == 0 && (2 * N12C) % 16 == 0 &&
+                  (2 * FWD_A) % 16 == 0 && (2 * N10M) % 16 == 0 &&
+                  MC % 16 == 0 && MP7 % 16 == 0 && (M * SP) % 16 == 0,
+              "16-byte aligned regions");
+
+template <bool SAVE>
+constexpr int fwd_bytes() {
+  return FWD_BYTES + (SAVE ? SIGN_BYTES : 0);
+}
+
+// A tile's origin in the image: tile position (oy, ox) is image (r0 + oy,
+// c0 + ox)
+struct Org {
+  int r0, c0, H, W;
+  __device__ bool inside(int oy, int ox) const {
+    const int r = r0 + oy, c = c0 + ox;
+    return r >= 0 && r < H && c >= 0 && c < W;
+  }
+};
+
+// Stage a window of one image's planar rows (src: [H][CH][wl]) into dst
+// [pos][P], pos = r NC + col: rows ir0 .. ir0 + R - 1, columns col0 ..
+// col0 + NC - 1 (column c at lane c + 1), zero outside [0, H) x [0, W).
+// The window's first lane lies OFF lanes past a multiple of 8, so its
+// lanes come in NV aligned 16-byte vectors; an item is 4 channels of one
+// vector: four 16-byte loads along W, then an 8-byte store of the 4
+// channels at each of its positions (channel quads fastest, so that a
+// warp's stores fill whole bank rows).
+template <int R, int NC, int OFF, int CH, int P>
+__device__ void stage_tile(bf16* __restrict__ dst,
+                           const bf16* __restrict__ src, int ir0, int col0,
+                           int H, int W, int wl) {
+  constexpr int NV = (OFF + NC + 7) / 8;
+  constexpr int NQ = CH / 4;
+  static_assert(CH % 4 == 0 && P % 4 == 0, "8-byte stores");
+  const int l0 = col0 + 1 - OFF;  // vector 0's first lane, a multiple of 8
+  for (int idx = threadIdx.x; idx < R * NV * NQ; idx += NT) {
+    const int p = idx % NQ;
+    const int rest = idx / NQ;
+    const int v = rest % NV, r = rest / NV;
+    const int gr = ir0 + r, l = l0 + 8 * v;
+    uint4 e[4];
+#pragma unroll
+    for (int t = 0; t < 4; ++t) e[t] = make_uint4(0, 0, 0, 0);
+    // lanes l .. l + 7 hold columns l - 1 .. l + 6
+    if (gr >= 0 && gr < H && l >= 0 && l < wl && l <= W) {
+      const bf16* s = src + ((long long)gr * CH + 4 * p) * wl + l;
+#pragma unroll
+      for (int t = 0; t < 4; ++t)
+        e[t] = __ldg(reinterpret_cast<const uint4*>(s + (long long)t * wl));
+    }
+    const bool edge = l < 1 || l + 7 > W;
+    const bf16* e0 = reinterpret_cast<const bf16*>(&e[0]);
+    const bf16* e1 = reinterpret_cast<const bf16*>(&e[1]);
+    const bf16* e2 = reinterpret_cast<const bf16*>(&e[2]);
+    const bf16* e3 = reinterpret_cast<const bf16*>(&e[3]);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = 8 * v + j - OFF;
+      if (col < 0 || col >= NC) continue;
+      __nv_bfloat162 lo, hi;
+      lo.x = e0[j];
+      lo.y = e1[j];
+      hi.x = e2[j];
+      hi.y = e3[j];
+      uint2 w;
+      w.x = *reinterpret_cast<const uint32_t*>(&lo);
+      w.y = *reinterpret_cast<const uint32_t*>(&hi);
+      const int c = l + j - 1;
+      if (edge && (c < 0 || c >= W)) w = make_uint2(0, 0);
+      *reinterpret_cast<uint2*>(dst + (r * NC + col) * P + 4 * p) = w;
+    }
+  }
+}
+
+// 4 channels' mask bytes of one vector of 8 lanes (zero where the row or
+// the vector lies outside the tensor): m the image's [H][CH][wl] int8
+// mask, lines ch .. ch + 3 of row gr, lanes l .. l + 7
+__device__ __forceinline__ void load_mask4(uint2 (&mv)[4],
+                                           const int8_t* __restrict__ m,
+                                           int gr, int ch, int l, int H,
+                                           int CH, int wl) {
+#pragma unroll
+  for (int t = 0; t < 4; ++t) mv[t] = make_uint2(0, 0);
+  if (gr < 0 || gr >= H || l < 0 || l >= wl) return;
+  const int8_t* s = m + ((long long)gr * CH + ch) * wl + l;
+#pragma unroll
+  for (int t = 0; t < 4; ++t)
+    mv[t] = __ldg(reinterpret_cast<const uint2*>(s + (long long)t * wl));
+}
+
+// Stage the sign bytes of one image's planar int8 mask m [H][CH][wl] over
+// a window (rows ir0 .., columns col0 .., R x NC; its first lane OFF past
+// a multiple of 8) into s [pos][CH + 4]: 8-byte loads of 8 lanes, one
+// 4-byte store of 4 channels a position. Rows and vectors outside the
+// tensor stage zeros (no epilogue reads a gate outside the image).
+template <int R, int NC, int OFF, int CH>
+__device__ void stage_mask(unsigned char* __restrict__ s,
+                           const int8_t* __restrict__ m, int ir0, int col0,
+                           int H, int wl) {
+  constexpr int NV = (OFF + NC + 7) / 8;
+  constexpr int NQ = CH / 4;
+  const int l0 = col0 + 1 - OFF;
+  for (int idx = threadIdx.x; idx < R * NV * NQ; idx += NT) {
+    const int p = idx % NQ;
+    const int rest = idx / NQ;
+    const int v = rest % NV, r = rest / NV;
+    const int l = l0 + 8 * v;
+    uint2 mv[4];
+    load_mask4(mv, m, ir0 + r, 4 * p, l, H, CH, wl);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = 8 * v + j - OFF;
+      if (col < 0 || col >= NC) continue;
+      uint32_t word = 0;
+#pragma unroll
+      for (int t = 0; t < 4; ++t)
+        word |= (uint32_t)reinterpret_cast<const unsigned char*>(&mv[t])[j]
+                << (8 * t);
+      *reinterpret_cast<uint32_t*>(s + (r * NC + col) * (CH + 4) + 4 * p) =
+          word;
+    }
+  }
+}
+
+// gp10 = T(g11 m(post10)) in place over the 12 x 20 tile t (g11 there,
+// zero outside the image), g11's inner 10 x 18 kept in g8 for EpiG8TC;
+// post10's mask lines (m: the image's [H][C][wl]) read as 8-byte vectors
+// of 8 lanes, 4 channels an item
+__device__ void gate_g11(bf16* __restrict__ t, bf16* __restrict__ g8,
+                         const int8_t* __restrict__ m, int ir0, int col0,
+                         int H, int wl) {
+  constexpr int OFF = 6, NV = (OFF + L12 + 7) / 8, NQ = C / 4;
+  const int l0 = col0 + 1 - OFF;
+  for (int idx = threadIdx.x; idx < R12 * NV * NQ; idx += NT) {
+    const int p = idx % NQ;
+    const int rest = idx / NQ;
+    const int v = rest % NV, r = rest / NV;
+    uint2 mv[4];
+    load_mask4(mv, m, ir0 + r, 4 * p, l0 + 8 * v, H, C, wl);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = 8 * v + j - OFF;
+      if (col < 0 || col >= L12) continue;
+      uint2* q = reinterpret_cast<uint2*>(t + (r * L12 + col) * PC + 4 * p);
+      const uint2 raw = *q;
+      if (r >= 1 && r <= R10 && col >= 1 && col <= L10)
+        *reinterpret_cast<uint2*>(g8 + ((r - 1) * L10 + col - 1) * PC +
+                                  4 * p) = raw;
+      const bf16* g = reinterpret_cast<const bf16*>(&raw);
+      float y[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        y[k] = to_f(g[k]) *
+               gate(reinterpret_cast<const int8_t*>(&mv[k])[j]);
+      uint2 w;
+      const __nv_bfloat162 lo = __floats2bfloat162_rn(y[0], y[1]);
+      const __nv_bfloat162 hi = __floats2bfloat162_rn(y[2], y[3]);
+      w.x = *reinterpret_cast<const uint32_t*>(&lo);
+      w.y = *reinterpret_cast<const uint32_t*>(&hi);
+      *q = w;
+    }
+  }
+}
+
+// The block's own 8 x 16 lanes of a staged output st [CH][OP] into a
+// planar tensor (dst: the image's [H][CH][wl]): a line (row, channel) is
+// two 16-byte stores, rows and halves fastest (conflict-free stage reads)
+template <int CH>
+__device__ void put_tile(const bf16* __restrict__ st, bf16* __restrict__ dst,
+                         int R0, int C0, int H, int wl) {
+  for (int idx = threadIdx.x; idx < 2 * TR * CH; idx += NT) {
+    const int h = idx & 1;
+    const int rest = idx >> 1;
+    const int r = rest % TR, ch = rest / TR;
+    if (R0 + r >= H) continue;
+    *reinterpret_cast<uint4*>(dst + ((long long)(R0 + r) * CH + ch) * wl +
+                              C0 + 8 * h) =
+        *reinterpret_cast<const uint4*>(st + ch * OP + r * TL + 8 * h);
+  }
+}
+
+// The same for a sign stage s [CH][SP] bytes: one 16-byte store a line
+template <int CH>
+__device__ void put_signs(const unsigned char* __restrict__ s,
+                          int8_t* __restrict__ dst, int R0, int C0, int H,
+                          int wl) {
+  for (int idx = threadIdx.x; idx < TR * CH; idx += NT) {
+    const int r = idx % TR, ch = idx / TR;
+    if (R0 + r >= H) continue;
+    *reinterpret_cast<uint4*>(dst + ((long long)(R0 + r) * CH + ch) * wl +
+                              C0) =
+        *reinterpret_cast<const uint4*>(s + ch * SP + r * TL);
+  }
+}
+
+// The last tile column: zero lanes C0 + 16 .. wl - 1 of the block's rows
+// of a planar tensor (dst: the image's [H][CH][wl])
+template <typename U>
+__device__ void zero_right(U* __restrict__ dst, int CH, int R0, int C0,
+                           int H, int wl) {
+  if (blockIdx.x != gridDim.x - 1) return;
+  zero_tail(dst + (long long)R0 * CH * wl, min(TR, H - R0) * CH, C0 + TL,
+            wl);
+}
+
+// a or c: T(leaky(acc + b)) into out [pos][PM] of row width OW, zero
+// outside the image; with SAVE its sign at the own positions (tile offset
+// own) into sg [ch][SP] (EpiAct's arithmetic)
+template <bool SAVE>
+struct EpiActTC {
+  bf16* out;
+  int OW;
+  const float* bias;
+  Org o;
+  unsigned char* sg;
+  int own;
+  __device__ void operator()(int oy, int ox, int n, float v0,
+                             float v1) const {
+    const bool in = o.inside(oy, ox);
+    const float v[2] = {v0, v1};
+    float y[2];
+#pragma unroll
+    for (int c = 0; c < 2; ++c)
+      y[c] = in ? round_t<bf16>(leaky(v[c] + bias[n + c])) : 0.f;
+    store2(out + (oy * OW + ox) * PM + n, y[0], y[1]);
+    if (SAVE) {
+      const int ry = oy - own, rx = ox - own;
+      if (ry >= 0 && ry < TR && rx >= 0 && rx < TL)
+#pragma unroll
+        for (int c = 0; c < 2; ++c)
+          sg[(n + c) * SP + ry * TL + rx] = y[c] > 0.f ? 1 : 0;
+    }
+  }
+};
+
+// post7 = T(leaky(acc + b7)), its sign at the own positions, and
+// y8 = T(post7 + x) into y8 [pos][PC] (10 x 18; x [12 x 20][PC] read at
+// tile offset +1) (EpiPost7's arithmetic)
+template <bool SAVE>
+struct EpiPost7TC {
+  bf16* y8;
+  const bf16* x;
+  const float* bias;
+  Org o;
+  unsigned char* sg;
+  __device__ void operator()(int oy, int ox, int n, float v0,
+                             float v1) const {
+    const bool in = o.inside(oy, ox);
+    const float v[2] = {v0, v1};
+    const bf16* xr = x + ((oy + 1) * L12 + ox + 1) * PC + n;
+    const bool mine = SAVE && oy >= 1 && oy <= TR && ox >= 1 && ox <= TL;
+    float y[2];
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      float p = 0.f;
+      y[c] = 0.f;
+      if (in) {
+        p = round_t<bf16>(leaky(v[c] + bias[n + c]));
+        y[c] = round_t<bf16>(p + to_f(xr[c]));
+      }
+      if (mine) sg[(n + c) * SP + (oy - 1) * TL + ox - 1] = p > 0.f ? 1 : 0;
+    }
+    store2(y8 + (oy * L10 + ox) * PC + n, y[0], y[1]);
+  }
+};
+
+// post10 = T(leaky(acc + b10)), its sign, and y11 = T(post10 + y8) into
+// the output stage [C][OP] (y8 [10 x 18][PC] read at tile offset +1), zero
+// outside the image (EpiY11's arithmetic)
+template <bool SAVE>
+struct EpiY11TC {
+  bf16* st;
+  const bf16* y8;
+  const float* bias;
+  Org o;
+  unsigned char* sg;
+  __device__ void operator()(int oy, int ox, int n, float v0,
+                             float v1) const {
+    const bool in = o.inside(oy, ox);
+    const float v[2] = {v0, v1};
+    const bf16* yr = y8 + ((oy + 1) * L10 + ox + 1) * PC + n;
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      float p = 0.f, y = 0.f;
+      if (in) {
+        p = round_t<bf16>(leaky(v[c] + bias[n + c]));
+        y = p + to_f(yr[c]);
+      }
+      if (SAVE) sg[(n + c) * SP + oy * TL + ox] = p > 0.f ? 1 : 0;
+      st[(n + c) * OP + oy * TL + ox] = __float2bfloat16_rn(y);
+    }
+  }
+};
+
+// gp9 = T(acc m(c)) into out [pos][PM] of row width OW (gp9; gp6 with the
+// gate of a), the gates' bytes staged [pos][M + 4] at the tile's positions
+// (EpiGp9's and EpiGp6's arithmetic)
+struct EpiGateTC {
+  bf16* out;
+  int OW;
+  Org o;
+  const unsigned char* m;
+  __device__ void operator()(int oy, int ox, int n, float v0,
+                             float v1) const {
+    float y0 = 0.f, y1 = 0.f;
+    if (o.inside(oy, ox)) {
+      const unsigned char* g = m + (oy * OW + ox) * (M + 4) + n;
+      y0 = v0 * gate(g[0]);
+      y1 = v1 * gate(g[1]);
+    }
+    store2(out + (oy * OW + ox) * PM + n, y0, y1);
+  }
+};
+
+// g8 = T(acc + g11) in place of g11 (g8 [10 x 18][PC]) and
+// gp7 = T(g8 m(post7)) into gp7 [10 x 18][PC] (EpiG8's arithmetic)
+struct EpiG8TC {
+  bf16* g8;
+  bf16* gp7;
+  Org o;
+  const unsigned char* m;  // post7's gate bytes [10 x 18][C + 4]
+  __device__ void operator()(int oy, int ox, int n, float v0,
+                             float v1) const {
+    const int q = (oy * L10 + ox) * PC + n;
+    float g[2] = {0.f, 0.f}, p[2] = {0.f, 0.f};
+    if (o.inside(oy, ox)) {
+      const float2 h =
+          __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(g8 + q));
+      const unsigned char* mg = m + (oy * L10 + ox) * (C + 4) + n;
+      g[0] = round_t<bf16>(v0 + h.x);
+      g[1] = round_t<bf16>(v1 + h.y);
+      p[0] = g[0] * gate(mg[0]);
+      p[1] = g[1] * gate(mg[1]);
+    }
+    store2(g8 + q, g[0], g[1]);
+    store2(gp7 + q, p[0], p[1]);
+  }
+};
+
+// g5 = T(acc + g8) into the output stage [C][OP] (g8 read at tile offset
+// +1), zero outside the image (EpiG5's arithmetic)
+struct EpiG5TC {
+  bf16* st;
+  const bf16* g8;
+  Org o;
+  __device__ void operator()(int oy, int ox, int n, float v0,
+                             float v1) const {
+    float y[2] = {0.f, 0.f};
+    if (o.inside(oy, ox)) {
+      const float2 h = __bfloat1622float2(*reinterpret_cast<
+          const __nv_bfloat162*>(g8 + ((oy + 1) * L10 + ox + 1) * PC + n));
+      y[0] = v0 + h.x;
+      y[1] = v1 + h.y;
+    }
+#pragma unroll
+    for (int c = 0; c < 2; ++c)
+      st[(n + c) * OP + oy * TL + ox] = __float2bfloat16_rn(y[c]);
+  }
+};
+
+// K6c's prologue epilogue: g11 = T(acc) into t [12 x 20][PC]. The parity
+// GEMMs' super grid starts one column left of the tile (the tile's first
+// column, C0 - 3, is odd), so output (oy, ox) of RowsT2 is tile position
+// (oy, ox - 1); the grid's extra first and last columns are dropped.
+struct EpiG11TC {
+  bf16* t;
+  Org o;
+  __device__ void operator()(int oy, int ox, int n, float v0,
+                             float v1) const {
+    const int tx = ox - 1;
+    if (tx < 0 || tx >= L12) return;
+    const bool in = o.inside(oy, tx);
+    store2(t + (oy * L12 + tx) * PC + n, in ? v0 : 0.f, in ? v1 : 0.f);
+  }
+};
+
+}  // namespace tc
+
+// K6a in bfloat16: the block's 8 x 16 lanes (rows R0 .., columns C0 - 1 ..)
+// of y11 and, with SAVE, of the four masks
+template <bool SAVE>
+__global__ void __launch_bounds__(NT, 1)
+    res152_fwd_tc_kernel(FwdArgs<bf16> g, FwdFrags f, int H, int W, int wl) {
+  using namespace tc;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* X = reinterpret_cast<bf16*>(smem_raw);  // x, then c
+  bf16* A = X + N12C;                           // a, then y11's stage
+  bf16* P = A + FWD_A;                          // post7, then y8
+  unsigned char* sa = smem_raw + FWD_BYTES;     // signs (SAVE)
+  unsigned char* sp7 = sa + M * SP;
+  unsigned char* sc = sp7 + C * SP;
+  unsigned char* sp10 = sc + M * SP;
+
+  const int R0 = blockIdx.y * TR, C0 = blockIdx.x * TL, oc = C0 - 1;
+  const long long img = (long long)blockIdx.z * H;
+  const Org o12 = {R0 - 2, oc - 2, H, W};
+  const Org o10 = {R0 - 1, oc - 1, H, W};
+  const Org o8 = {R0, oc, H, W};
+
+  stage_tile<R12, L12, 6, C, PC>(X, g.x + img * C * wl, R0 - 2, oc - 2, H,
+                                 W, wl);
+  __syncthreads();
+  // a over 12 x 20
+  mma_conv<C, PC, M, 4, 2>(X, R12 * L12, f.w6, RowsConv<1, 1>{L12, L12},
+                           EpiActTC<SAVE>{A, L12, g.b6, o12, sa, 2});
+  __syncthreads();
+  if (SAVE) put_signs<M>(sa, g.am + img * M * wl, R0, C0, H, wl);
+  // post7, then y8, over 10 x 18
+  mma_conv<M, PM, C, 4, 3, true>(A, R10 * L10, f.w7,
+                                 RowsConv<3, 1>{L10, L12},
+                                 EpiPost7TC<SAVE>{P, X, g.b7, o10, sp7});
+  __syncthreads();
+  if (SAVE) put_signs<C>(sp7, g.p7m + img * C * wl, R0, C0, H, wl);
+  // c over 10 x 18 into the x region (x is dead once y8 exists)
+  mma_conv<C, PC, M, 4, 3>(P, R10 * L10, f.w9, RowsConv<1, 1>{L10, L10},
+                           EpiActTC<SAVE>{X, L10, g.b9, o10, sc, 1});
+  __syncthreads();
+  if (SAVE) put_signs<M>(sc, g.cm + img * M * wl, R0, C0, H, wl);
+  // post10 and y11 = post10 + y8 over the own 8 x 16 into A's stage
+  mma_conv<M, PM, C, 4, 2, true>(X, TR * TL, f.w10,
+                                 RowsConv<3, 1>{TL, L10},
+                                 EpiY11TC<SAVE>{A, P, g.b10, o8, sp10});
+  __syncthreads();
+  put_tile<C>(A, g.y11 + img * C * wl, R0, C0, H, wl);
+  zero_right(g.y11 + img * C * wl, C, R0, C0, H, wl);
+  if (SAVE) {
+    put_signs<C>(sp10, g.p10m + img * C * wl, R0, C0, H, wl);
+    zero_right(g.am + img * M * wl, M, R0, C0, H, wl);
+    zero_right(g.p7m + img * C * wl, C, R0, C0, H, wl);
+    zero_right(g.cm + img * M * wl, M, R0, C0, H, wl);
+    zero_right(g.p10m + img * C * wl, C, R0, C0, H, wl);
+  }
+}
+
+// K6b (K6c with W12) in bfloat16: the block's 8 x 16 lanes of g5
+template <bool W12>
+__global__ void __launch_bounds__(NT, 1)
+    res152_bwd_tc_kernel(BwdArgs<bf16> g, BwdFrags f, int H, int W, int wl,
+                         int wl12) {
+  using namespace tc;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* A = reinterpret_cast<bf16*>(smem_raw);  // g11, gp10; gp7; g5's stage
+  bf16* B = A + N12C;                           // gp9, then gp6
+  bf16* G8 = B + N10M;                          // g11's inner 10 x 18, g8
+  bf16* GP12 = B;                               // K6c: gp12, over B and G8
+  unsigned char* mc = reinterpret_cast<unsigned char*>(G8 + N10C);
+  unsigned char* mp7 = mc + MC;
+  unsigned char* ma = mp7 + MP7;
+
+  const int R0 = blockIdx.y * TR, C0 = blockIdx.x * TL, oc = C0 - 1;
+  const long long img = (long long)blockIdx.z * H;
+  const Org o12 = {R0 - 2, oc - 2, H, W};
+  const Org o10 = {R0 - 1, oc - 1, H, W};
+  const Org o8 = {R0, oc, H, W};
+
+  // the gates of c and post7 over 10 x 18, of a over the own 8 x 16
+  stage_mask<R10, L10, 7, M>(mc, g.cm + img * M * wl, R0 - 1, oc - 1, H, wl);
+  stage_mask<R10, L10, 7, C>(mp7, g.p7m + img * C * wl, R0 - 1, oc - 1, H,
+                             wl);
+  stage_mask<TR, TL, 0, M>(ma, g.am + img * M * wl, R0, oc, H, wl);
+  if constexpr (W12) {
+    // gp12's super positions (a, b) from (R0/2 - 1, C0/2 - 2): output
+    // (2a + py, 2b + px) of the parity GEMMs is image (R0 - 2 + 2a + py,
+    // C0 - 4 + 2b + px), tile position (2a + py, 2b + px - 1)
+    const int H12 = H / 2, W12c = W / 2;
+    stage_tile<NSR + 1, NSC + 1, 7, 2 * C, P12>(
+        GP12, g.gp12 + (long long)blockIdx.z * H12 * 2 * C * wl12,
+        R0 / 2 - 1, C0 / 2 - 2, H12, W12c, wl12);
+    __syncthreads();
+    const EpiG11TC e{A, o12};
+    constexpr int NS = NSR * NSC;
+    mma_conv<2 * C, P12, C, 2, 5>(GP12, NS, f.w12t,
+                                  RowsT2<0, 0>{NSC, NSC + 1}, e);
+    mma_conv<2 * C, P12, C, 2, 5>(GP12, NS, f.w12t,
+                                  RowsT2<0, 1>{NSC, NSC + 1}, e, NT / 64);
+    mma_conv<2 * C, P12, C, 2, 5>(GP12, NS, f.w12t,
+                                  RowsT2<1, 0>{NSC, NSC + 1}, e, NT / 64);
+    mma_conv<2 * C, P12, C, 2, 5>(GP12, NS, f.w12t,
+                                  RowsT2<1, 1>{NSC, NSC + 1}, e);
+  } else {
+    stage_tile<R12, L12, 6, C, PC>(A, g.g11 + img * C * wl, R0 - 2, oc - 2,
+                                   H, W, wl);
+  }
+  __syncthreads();
+  gate_g11(A, G8, g.p10m + img * C * wl, R0 - 2, oc - 2, H, wl);
+  __syncthreads();
+  // gp9 over 10 x 18
+  mma_conv<C, PC, M, 2, 3, true>(A, R10 * L10, f.w10t,
+                                 RowsConv<3, 1>{L10, L12},
+                                 EpiGateTC{B, L10, o10, mc});
+  __syncthreads();
+  // g8 (in place of g11) and gp7 (into A) over 10 x 18
+  mma_conv<M, PM, C, 4, 3>(B, R10 * L10, f.w9t, RowsConv<1, 1>{L10, L10},
+                           EpiG8TC{G8, A, o10, mp7});
+  __syncthreads();
+  // gp6 over the own 8 x 16
+  mma_conv<C, PC, M, 2, 2, true>(A, TR * TL, f.w7t,
+                                 RowsConv<3, 1>{TL, L10},
+                                 EpiGateTC{B, TL, o8, ma});
+  __syncthreads();
+  // g5 = T(W6^T gp6 + g8) into A's stage
+  mma_conv<M, PM, C, 4, 2>(B, TR * TL, f.w6t, RowsConv<1, 1>{TL, TL},
+                           EpiG5TC{A, G8, o8});
+  __syncthreads();
+  put_tile<C>(A, g.g5 + img * C * wl, R0, C0, H, wl);
+  zero_right(g.g5 + img * C * wl, C, R0, C0, H, wl);
+}
+
+// float32: 8 x 8 column tiles on the FMA kernels
+template <bool SAVE>
+int launch_fwd(const FwdArgs<float>& a, int B, int H, int W, int wl,
                cudaStream_t s) {
-  const size_t smem = sizeof(T) * (size_t)Smem<T>::FWD;
+  const size_t smem = sizeof(float) * (size_t)Smem<float>::FWD;
   cudaError_t e = cudaFuncSetAttribute(
-      res152_fwd_kernel<T, SAVE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      res152_fwd_kernel<float, SAVE>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   dim3 grid((W + TS - 1) / TS, (H + TS - 1) / TS, B);
-  res152_fwd_kernel<T, SAVE><<<grid, NT, smem, s>>>(a, H, W, wl);
+  res152_fwd_kernel<float, SAVE><<<grid, NT, smem, s>>>(a, H, W, wl);
   return (int)cudaGetLastError();
 }
 
-template <typename T, bool W12>
-int launch_bwd(const BwdArgs<T>& a, int B, int H, int W, int wl, int wl12,
-               cudaStream_t s) {
-  const size_t smem = sizeof(T) * (size_t)Smem<T>::BWD;
+template <bool W12>
+int launch_bwd(const BwdArgs<float>& a, int B, int H, int W, int wl,
+               int wl12, cudaStream_t s) {
+  const size_t smem = sizeof(float) * (size_t)Smem<float>::BWD;
   cudaError_t e = cudaFuncSetAttribute(
-      res152_bwd_kernel<T, W12>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      res152_bwd_kernel<float, W12>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   dim3 grid((W + TS - 1) / TS, (H + TS - 1) / TS, B);
-  res152_bwd_kernel<T, W12><<<grid, NT, smem, s>>>(a, H, W, wl, wl12);
+  res152_bwd_kernel<float, W12><<<grid, NT, smem, s>>>(a, H, W, wl, wl12);
+  return (int)cudaGetLastError();
+}
+
+// bfloat16: 8 x 16-lane tiles over lanes 0 .. W (column -1 .. W - 1)
+inline dim3 tc_grid(int B, int H, int W) {
+  return dim3((W + 1 + tc::TL - 1) / tc::TL, (H + tc::TR - 1) / tc::TR, B);
+}
+
+template <bool SAVE>
+int launch_fwd_tc(const FwdArgs<bf16>& a, const FwdFrags& f, int B, int H,
+                  int W, int wl, cudaStream_t s) {
+  const size_t smem = tc::fwd_bytes<SAVE>();
+  cudaError_t e = cudaFuncSetAttribute(
+      res152_fwd_tc_kernel<SAVE>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  res152_fwd_tc_kernel<SAVE><<<tc_grid(B, H, W), NT, smem, s>>>(a, f, H, W,
+                                                                 wl);
+  return (int)cudaGetLastError();
+}
+
+template <bool W12>
+int launch_bwd_tc(const BwdArgs<bf16>& a, const BwdFrags& f, int B, int H,
+                  int W, int wl, int wl12, cudaStream_t s) {
+  const size_t smem = tc::BWD_BYTES;
+  cudaError_t e = cudaFuncSetAttribute(
+      res152_bwd_tc_kernel<W12>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  res152_bwd_tc_kernel<W12><<<tc_grid(B, H, W), NT, smem, s>>>(a, f, H, W,
+                                                                wl, wl12);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int fwd_any(const void* x, const void* const* w, const void* const* bias,
-            void* y11, void* const* m, int B, int H, int W, int wl,
-            cudaStream_t s) {
+            const void* const* fr, void* y11, void* const* m, int B, int H,
+            int W, int wl, cudaStream_t s) {
   const FwdArgs<T> a = {
       static_cast<const T*>(x),        static_cast<const T*>(w[0]),
       static_cast<const T*>(w[1]),     static_cast<const T*>(w[2]),
@@ -593,14 +1219,25 @@ int fwd_any(const void* x, const void* const* w, const void* const* bias,
       static_cast<const float*>(bias[3]), static_cast<T*>(y11),
       static_cast<int8_t*>(m[0]),      static_cast<int8_t*>(m[1]),
       static_cast<int8_t*>(m[2]),      static_cast<int8_t*>(m[3])};
-  if (m[0] != nullptr) return launch_fwd<T, true>(a, B, H, W, wl, s);
-  return launch_fwd<T, false>(a, B, H, W, wl, s);
+  const bool save = m[0] != nullptr;
+  if constexpr (sizeof(T) == 2) {
+    const FwdFrags f = {static_cast<const uint2*>(fr[0]),
+                        static_cast<const uint2*>(fr[1]),
+                        static_cast<const uint2*>(fr[2]),
+                        static_cast<const uint2*>(fr[3])};
+    return save ? launch_fwd_tc<true>(a, f, B, H, W, wl, s)
+                : launch_fwd_tc<false>(a, f, B, H, W, wl, s);
+  } else {
+    return save ? launch_fwd<true>(a, B, H, W, wl, s)
+                : launch_fwd<false>(a, B, H, W, wl, s);
+  }
 }
 
 template <typename T>
 int bwd_any(const void* g11, const void* gp12, const void* w12t,
-            const void* const* m, const void* const* wt, void* g5, int B,
-            int H, int W, int wl, int wl12, cudaStream_t s) {
+            const void* const* m, const void* const* wt,
+            const void* const* fr, void* g5, int B, int H, int W, int wl,
+            int wl12, cudaStream_t s) {
   const BwdArgs<T> a = {
       static_cast<const T*>(g11),       static_cast<const T*>(gp12),
       static_cast<const T*>(w12t),      static_cast<const int8_t*>(m[0]),
@@ -608,68 +1245,112 @@ int bwd_any(const void* g11, const void* gp12, const void* w12t,
       static_cast<const int8_t*>(m[3]), static_cast<const T*>(wt[0]),
       static_cast<const T*>(wt[1]),     static_cast<const T*>(wt[2]),
       static_cast<const T*>(wt[3]),     static_cast<T*>(g5)};
-  if (gp12 != nullptr) return launch_bwd<T, true>(a, B, H, W, wl, wl12, s);
-  return launch_bwd<T, false>(a, B, H, W, wl, wl12, s);
+  const bool w12 = gp12 != nullptr;
+  if constexpr (sizeof(T) == 2) {
+    const BwdFrags f = {
+        static_cast<const uint2*>(fr[0]), static_cast<const uint2*>(fr[1]),
+        static_cast<const uint2*>(fr[2]), static_cast<const uint2*>(fr[3]),
+        static_cast<const uint2*>(fr[4])};
+    return w12 ? launch_bwd_tc<true>(a, f, B, H, W, wl, wl12, s)
+               : launch_bwd_tc<false>(a, f, B, H, W, wl, wl12, s);
+  } else {
+    return w12 ? launch_bwd<true>(a, B, H, W, wl, wl12, s)
+               : launch_bwd<false>(a, B, H, W, wl, wl12, s);
+  }
 }
 
 }  // namespace
 
 // K6a. dtype: 0 = float32, 1 = bfloat16 (x, weights, y11); biases float32.
 // Weights HWIO, contiguous: w6 and w9 [1][1][128][64], w7 and w10
-// [3][3][64][128]. am, p7m, cm, p10m: the int8 masks [B, H, 64 | 128 |
-// 64 | 128, wl], all null for the forward alone (which then runs the
-// kernel instantiated without mask code). Returns cudaGetLastError().
+// [3][3][64][128]; f6 .. f10 the same in mma.sync's fragment order
+// (bfloat16; null in float32). am, p7m, cm, p10m: the int8 masks [B, H,
+// 64 | 128 | 64 | 128, wl], all null for the forward alone (which then runs
+// the kernel instantiated without mask code). Returns cudaGetLastError().
 extern "C" int apfp_res152_fused(const void* x, const void* w6,
                                  const void* w7, const void* w9,
                                  const void* w10, const void* b6,
                                  const void* b7, const void* b9,
-                                 const void* b10, void* y11, void* am,
+                                 const void* b10, const void* f6,
+                                 const void* f7, const void* f9,
+                                 const void* f10, void* y11, void* am,
                                  void* p7m, void* cm, void* p10m, int dtype,
                                  int B, int H, int W, int wl, void* stream) {
   const void* w[4] = {w6, w7, w9, w10};
   const void* bias[4] = {b6, b7, b9, b10};
+  const void* fr[4] = {f6, f7, f9, f10};
   void* m[4] = {am, p7m, cm, p10m};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1)
-    return fwd_any<__nv_bfloat16>(x, w, bias, y11, m, B, H, W, wl, s);
-  return fwd_any<float>(x, w, bias, y11, m, B, H, W, wl, s);
+    return fwd_any<bf16>(x, w, bias, fr, y11, m, B, H, W, wl, s);
+  return fwd_any<float>(x, w, bias, fr, y11, m, B, H, W, wl, s);
 }
 
 // K6b. g11 and g5 planar [B, H, 128, wl] in the compute dtype; the masks
 // of K6a; the flipped, channel-swapped weights, contiguous HWIO:
-// w6t and w9t [1][1][64][128], w7t and w10t [3][3][128][64].
+// w6t and w9t [1][1][64][128], w7t and w10t [3][3][128][64]; f6t .. f10t
+// the same in fragment order (bfloat16; null in float32).
 extern "C" int apfp_res152_fused_grad(const void* g11, const void* am,
                                       const void* p7m, const void* cm,
                                       const void* p10m, const void* w6t,
                                       const void* w7t, const void* w9t,
-                                      const void* w10t, void* g5, int dtype,
+                                      const void* w10t, const void* f6t,
+                                      const void* f7t, const void* f9t,
+                                      const void* f10t, void* g5, int dtype,
                                       int B, int H, int W, int wl,
                                       void* stream) {
   const void* m[4] = {am, p7m, cm, p10m};
   const void* wt[4] = {w6t, w7t, w9t, w10t};
+  const void* fr[5] = {f6t, f7t, f9t, f10t, nullptr};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1)
-    return bwd_any<__nv_bfloat16>(g11, nullptr, nullptr, m, wt, g5, B, H, W,
-                                  wl, 0, s);
-  return bwd_any<float>(g11, nullptr, nullptr, m, wt, g5, B, H, W, wl, 0, s);
+    return bwd_any<bf16>(g11, nullptr, nullptr, m, wt, fr, g5, B, H, W, wl,
+                         0, s);
+  return bwd_any<float>(g11, nullptr, nullptr, m, wt, fr, g5, B, H, W, wl, 0,
+                        s);
 }
 
 // K6c. gp12 the pre-gated conv12 cotangent, planar [B, H/2, 256, wl12]
 // (H and W even); w12t conv12's HWIO weight with its channel axes swapped,
-// contiguous [3][3][256][128]; the rest as K6b's. g5 [B, H, 128, wl].
-extern "C" int apfp_res152_fused_grad12(const void* gp12, const void* am,
-                                        const void* p7m, const void* cm,
-                                        const void* p10m, const void* w12t,
-                                        const void* w6t, const void* w7t,
-                                        const void* w9t, const void* w10t,
-                                        void* g5, int dtype, int B, int H,
-                                        int W, int wl, int wl12,
-                                        void* stream) {
+// contiguous [3][3][256][128], f12t the same in fragment order (bfloat16;
+// null in float32); the rest as K6b's. g5 [B, H, 128, wl].
+extern "C" int apfp_res152_fused_grad12(
+    const void* gp12, const void* am, const void* p7m, const void* cm,
+    const void* p10m, const void* w12t, const void* w6t, const void* w7t,
+    const void* w9t, const void* w10t, const void* f12t, const void* f6t,
+    const void* f7t, const void* f9t, const void* f10t, void* g5, int dtype,
+    int B, int H, int W, int wl, int wl12, void* stream) {
   const void* m[4] = {am, p7m, cm, p10m};
   const void* wt[4] = {w6t, w7t, w9t, w10t};
+  const void* fr[5] = {f6t, f7t, f9t, f10t, f12t};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1)
-    return bwd_any<__nv_bfloat16>(nullptr, gp12, w12t, m, wt, g5, B, H, W,
-                                  wl, wl12, s);
-  return bwd_any<float>(nullptr, gp12, w12t, m, wt, g5, B, H, W, wl, wl12, s);
+    return bwd_any<bf16>(nullptr, gp12, w12t, m, wt, fr, g5, B, H, W, wl,
+                         wl12, s);
+  return bwd_any<float>(nullptr, gp12, w12t, m, wt, fr, g5, B, H, W, wl, wl12,
+                        s);
+}
+
+// The kernel instantiation of (dtype, save) as the card sees it: info[0]
+// registers a thread, info[1] the dynamic shared memory bytes of a launch,
+// info[2] the blocks one multiprocessor holds. Returns the CUDA error.
+extern "C" int apfp_res152_fused_info(int dtype, int save, int* info) {
+  if (dtype == 1)
+    return save ? info_of(res152_fwd_tc_kernel<true>, tc::fwd_bytes<true>(),
+                          info)
+                : info_of(res152_fwd_tc_kernel<false>,
+                          tc::fwd_bytes<false>(), info);
+  const size_t smem = sizeof(float) * (size_t)Smem<float>::FWD;
+  return save ? info_of(res152_fwd_kernel<float, true>, smem, info)
+              : info_of(res152_fwd_kernel<float, false>, smem, info);
+}
+
+// The same for K6b (w12 = 0) and K6c (w12 = 1)
+extern "C" int apfp_res152_fused_grad_info(int dtype, int w12, int* info) {
+  if (dtype == 1)
+    return w12 ? info_of(res152_bwd_tc_kernel<true>, tc::BWD_BYTES, info)
+               : info_of(res152_bwd_tc_kernel<false>, tc::BWD_BYTES, info);
+  const size_t smem = sizeof(float) * (size_t)Smem<float>::BWD;
+  return w12 ? info_of(res152_bwd_kernel<float, true>, smem, info)
+             : info_of(res152_bwd_kernel<float, false>, smem, info);
 }

@@ -17,7 +17,10 @@ store. The kernels' weights come from ``res_weights``, built once by the
 model: the BN-folded HWIO kernels as they are for the forward, and their
 flipped, channel-swapped transposes for the backward (the Pallas
 kernels' pair and block-diagonal matrices are TPU blocking and are not
-ported).
+ported). In bfloat16 the kernels run on the tensor cores and also read
+each of those weights (and K6c's ``res12_weights``) in ``mma.sync``'s
+fragment order (``stage_frags``: ``mma_weights``, built once per weight
+tensor by ``_mma_cached``); float32 reads the HWIO weights alone.
 """
 
 from __future__ import annotations
@@ -28,7 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _cuda
-from .planar_conv import _round_up, flip_t, to_planar_plain
+from .planar_conv import _mma_cached, _round_up, flip_t, to_planar_plain
 
 CIN = 128      # stage width (yolov3); MID = CIN // 2
 MID = CIN // 2
@@ -64,6 +67,15 @@ def res12_weights(w12: torch.Tensor) -> torch.Tensor:
     ``res12_weights`` also builds a parity pair matrix: TPU blocking, not
     ported; the kernel splits the taps by parity itself.)"""
     return w12.permute(0, 1, 3, 2).contiguous()
+
+
+def stage_frags(ws, dt) -> list:
+    """The bfloat16 kernels' fragment-order copies of the stage's HWIO
+    weights ``ws`` (``mma_weights``, built once per weight tensor), as
+    pointers; null pointers in float32, whose kernels read ``ws``."""
+    if dt != torch.bfloat16:
+        return [None] * len(ws)
+    return [_mma_cached(w).data_ptr() for w in ws]
 
 
 def _body(xp: torch.Tensor, w_img: int) -> torch.Tensor:
@@ -190,7 +202,8 @@ def res152_fused(xp: torch.Tensor, fwd: ResFwd, *, save: bool = False,
     _cuda.launch(
         "res152_fused", "res_fused", "apfp_res152_fused", xp,
         xp.data_ptr(), *[w.data_ptr() for w, _ in fwd],
-        *[bias.data_ptr() for _, bias in fwd], y11.data_ptr(), *mask_ptrs,
+        *[bias.data_ptr() for _, bias in fwd],
+        *stage_frags([w for w, _ in fwd], dt), y11.data_ptr(), *mask_ptrs,
         _cuda.DTYPE_CODES[dt], bsz, h, w_img, wl)
     if save:
         res152_fused.save_launches += 1
@@ -226,8 +239,8 @@ def res152_fused_grad(g11p: torch.Tensor, masks, bwd: ResBwd, *,
     _cuda.launch(
         "res152_fused_grad", "res_fused", "apfp_res152_fused_grad", g11p,
         g11p.data_ptr(), *[m.data_ptr() for m in masks],
-        *[w.data_ptr() for w in bwd], g5.data_ptr(), _cuda.DTYPE_CODES[dt],
-        bsz, h, w_img, wl)
+        *[w.data_ptr() for w in bwd], *stage_frags(bwd, dt), g5.data_ptr(),
+        _cuda.DTYPE_CODES[dt], bsz, h, w_img, wl)
     res152_fused_grad.launches += 1
     return g5
 
@@ -288,7 +301,8 @@ def res152_fused_grad12(gp12p: torch.Tensor, masks, bwd: ResBwd,
     _cuda.launch(
         "res152_fused_grad12", "res_fused", "apfp_res152_fused_grad12",
         gp12p, gp12p.data_ptr(), *[m.data_ptr() for m in masks],
-        w12t.data_ptr(), *[w.data_ptr() for w in bwd], g5.data_ptr(),
+        w12t.data_ptr(), *[w.data_ptr() for w in bwd],
+        *stage_frags([w12t, *bwd], dt), g5.data_ptr(),
         _cuda.DTYPE_CODES[dt], bsz, h, w_img, wl, wl12)
     res152_fused_grad12.launches += 1
     return g5

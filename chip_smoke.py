@@ -8,11 +8,12 @@ Phases, each fatal on failure:
 1. Build the kernels of ``<port>/csrc`` (one nvcc per source, in
    parallel) and print the build time and the ``-Xptxas -v`` lines; then
    count the tensor-core instructions (``cuobjdump -sass``: HMMA, HGMMA)
-   of each bfloat16 K1, K2, K5, K8a (with and without ``save_acts``) and
-   K8b kernel and of every bfloat16 K4 instantiation (1x1, 3x3 s1, 3x3 s2
-   and the k3t2 adjoint, each block width), with its registers, shared
-   memory, blocks per multiprocessor and spilled bytes, and fail if one
-   has none (or if K8a or K8b spills).
+   of each bfloat16 K1, K2, K5, K8a (with and without ``save_acts``),
+   K8b, K6a (with and without ``save``), K6b and K6c kernel and of every
+   bfloat16 K4 instantiation (1x1, 3x3 s1, 3x3 s2 and the k3t2 adjoint,
+   each block width), with its registers, shared memory, blocks per
+   multiprocessor and spilled bytes, and fail if one has none (or if K8a,
+   K8b or a K6 kernel spills).
 2. Hold each kernel of the serving path against its plain PyTorch
    version on the card at the serving shapes (batch 8, 608^2, bfloat16;
    the fused stem also in float32) and time kernel, plain version and,
@@ -56,8 +57,10 @@ Phases, each fatal on failure:
    gate, res) and the 152^2 stage's four convs forward and backward; K6a
    with and without its masks and K6b, bfloat16 and float32; K6c (the
    stage backward widened by conv12's dgrad), bfloat16 and float32. Each
-   against its plain version, timed beside its bound and a cuDNN
-   yardstick (K4: the conv alone, ``F.conv_transpose2d`` for k3t2; K6:
+   against its plain version (bfloat16 K6a's y11 and masks also against
+   the planar stage route's, K4 x 4: equal bit for bit), timed beside its
+   bound and a cuDNN yardstick (K4: the conv alone,
+   ``F.conv_transpose2d`` for k3t2; K6:
    the stage's four convs on the conv walk, forward and forward +
    backward; K6c: that plus conv12's dgrad on cuDNN).
 8. Training on the other routes (counted launches): ``PatchTrainer`` with
@@ -297,27 +300,37 @@ TC_KERNELS = {
         "fused_stem_fwd_b_tc_kernelILb1E")],
     "fused_stem_bwd_b": [("", "stem_batched", "apfp_fused_stem_bwd_b_info",
                           (1,), "fused_stem_bwd_b_tc_kernel")],
+    "res152_fused": [("", "res_fused", "apfp_res152_fused_info", (1, 0),
+                      "res152_fwd_tc_kernelILb0E")],
+    "res152_fused_save": [("", "res_fused", "apfp_res152_fused_info", (1, 1),
+                           "res152_fwd_tc_kernelILb1E")],
+    "res152_fused_grad": [("", "res_fused", "apfp_res152_fused_grad_info",
+                           (1, 0), "res152_bwd_tc_kernelILb0E")],
+    "res152_fused_grad12": [("", "res_fused", "apfp_res152_fused_grad_info",
+                             (1, 1), "res152_bwd_tc_kernelILb1E")],
     **{name: [(f"NW{nw}", "planar_conv", "apfp_planar_conv_info",
                (variant, nw), key.format(nw)) for nw in (1, 2, 4, 8)]
        for name, variant, key in _K4_KEYS}}
 
 
-# the kernels whose bfloat16 instantiation must not spill (K8a, K8b)
+# the kernels whose bfloat16 instantiation must not spill (K8a, K8b, K6a,
+# K6a save, K6b, K6c)
 NO_SPILL = ("fused_stem_fwd_b", "fused_stem_fwd_b_save_acts",
-            "fused_stem_bwd_b")
+            "fused_stem_bwd_b", "res152_fused", "res152_fused_save",
+            "res152_fused_grad", "res152_fused_grad12")
 
 
 def tensor_core_check(_cuda, info) -> dict:
     """Phase 1: the tensor-core instructions (HMMA, HGMMA) that
     ``cuobjdump -sass`` finds in each bfloat16 kernel instantiation of
     ``TC_KERNELS`` (K1, K1 ``save_acts``, K2, K5, K8a, K8a ``save_acts``,
-    K8b and every K4 variant and block width) in the built libraries, with
-    ptxas' registers and spill bytes (``-Xptxas -v``) and the card's own
-    account of registers, dynamic shared memory and blocks per
-    multiprocessor (``apfp_*_info``). Fails if one has no tensor-core
-    instruction, or if one of ``NO_SPILL`` spills. Returns {entry name:
-    record}; an entry of several instantiations holds them under
-    ``sass``."""
+    K8b, K6a, K6a ``save``, K6b, K6c and every K4 variant and block
+    width) in the built libraries, with ptxas' registers and spill bytes
+    (``-Xptxas -v``) and the card's own account of registers, dynamic
+    shared memory and blocks per multiprocessor (``apfp_*_info``). Fails
+    if one has no tensor-core instruction, or if one of ``NO_SPILL`` (K8,
+    K6) spills. Returns {entry name: record}; an entry of several
+    instantiations holds them under ``sass``."""
     import ctypes
     import re
     tool = os.path.join(os.path.dirname(_cuda._nvcc()), "cuobjdump")
@@ -1256,14 +1269,19 @@ def k4_entries(recs, tc_info) -> list:
     return out
 
 
-def stage_kernels(dev, model, card) -> list:
+def stage_kernels(dev, model, card, tc_info) -> list:
     """Phase 7, K6: K6a with and without its masks and K6b at b24 608^2
     (the 152^2 stage), bfloat16 and float32, against their plain versions
     (K6b on the kernel's own masks), timed beside their bounds and the
     stage's four convs on the cuDNN walk (forward, forward + backward).
-    Returns the three entries of the kernels line."""
+    bfloat16 K6a walks its sums as K4's forward does, so its y11 and masks
+    must equal the planar stage route's (``res_planar._forward``: K4 x 4
+    and two bfloat16 adds) bit for bit: the differing elements are
+    counted and must be none. Returns the three entries of the kernels
+    line, with phase 1's tensor-core records."""
     PC = import_port("ops.planar_conv")
     RF = import_port("ops.res_fused")
+    PRP = import_port("models.res_planar")
     _cuda = import_port("ops._cuda")
     bf16 = torch.bfloat16
     b, h = TRAIN_BATCH, SIZE // 4
@@ -1276,6 +1294,8 @@ def stage_kernels(dev, model, card) -> list:
                    "source": f"{PORT}/csrc/res_fused.cu", "launches": 0,
                    "library_ms": None}
                for n in K6_KERNELS}
+    for n in K6_KERNELS:
+        entries[n].update(tc_info[n])
     entries["res152_fused"]["replaces"] = f"{JAX_PKG}/ops/res_fused.py:449"
     entries["res152_fused_save"]["replaces"] = \
         f"{JAX_PKG}/ops/res_fused.py:449"
@@ -1317,6 +1337,19 @@ def stage_kernels(dev, model, card) -> list:
         assert sum(flips) <= 1e-5 * n_mask, (flips, n_mask)
         for t in (y11, *masks):
             assert not t[..., 0].any() and not t[..., h + 1:].any()
+        if dt == bf16:
+            # the K4 witness: the planar stage route on the same x
+            k4_y11, *acts = PRP._forward(xp, fwd)
+            witness = {"y11": int((y11 != k4_y11).sum().item()),
+                       "masks": [int((m != (a > 0).to(torch.int8))
+                                     .sum().item())
+                                 for m, a in zip(masks, acts)]}
+            del k4_y11, acts
+            log(f"[k6] bf16 K6a against the planar stage route (K4 x 4): "
+                f"{witness} elements differ")
+            assert witness == {"y11": 0, "masks": [0, 0, 0, 0]}, witness
+            for n in ("res152_fused", "res152_fused_save"):
+                entries[n]["k4_route_differing"] = witness
         torch.full(xp.shape, float("nan"), dtype=dt, device=dev)
         g5 = RF.res152_fused_grad(gp, masks, bwd)
         torch.cuda.synchronize()
@@ -1369,14 +1402,14 @@ def stage_kernels(dev, model, card) -> list:
     return [entries[n] for n in K6_KERNELS]
 
 
-def grad12_kernel(dev, model, card) -> dict:
+def grad12_kernel(dev, model, card, tc_info) -> dict:
     """Phase 7, K6c at b24 608^2 (gp12 [24, 76, 256, *], the stage's masks
     from K6a on a random x), bfloat16 and float32, against its plain
     version at K6b's tolerances, timed beside its bound (the stage's four
     convs and conv12's dgrad) and its cuDNN yardstick: conv12's dgrad
     (``torch.nn.grad.conv2d_input``) plus the stage's four convs forward
     and backward on the conv walk. Returns K6c's entry of the kernels
-    line."""
+    line, with phase 1's tensor-core record."""
     PC = import_port("ops.planar_conv")
     RF = import_port("ops.res_fused")
     _cuda = import_port("ops._cuda")
@@ -1395,7 +1428,8 @@ def grad12_kernel(dev, model, card) -> dict:
            "replaces": f"{JAX_PKG}/ops/res_fused.py:538", "launches": 0,
            "dtype": "bfloat16", "gflop": flops / 1e9,
            "library": "cuDNN conv12 dgrad (torch.nn.grad.conv2d_input) + "
-                      "the stage's four convs fwd + bwd on the conv walk"}
+                      "the stage's four convs fwd + bwd on the conv walk",
+           **tc_info["res152_fused_grad12"]}
     for dt in (bf16, torch.float32):
         fwd = rfwd if dt == bf16 else [(w.float(), bb) for w, bb in rfwd]
         bwd = rbwd if dt == bf16 else [w.float() for w in rbwd]
@@ -2840,8 +2874,8 @@ def main() -> int:
     phase("7 planar-route and stage kernels")
     model16 = darknet.Darknet(net, params, torch.bfloat16, device=dev)
     k4 = k4_entries(planar_kernels(dev, model16, card), tc_info)
-    k6 = stage_kernels(dev, model16, card)
-    k6c = grad12_kernel(dev, model16, card)
+    k6 = stage_kernels(dev, model16, card, tc_info)
+    k6c = grad12_kernel(dev, model16, card, tc_info)
     del model16
     torch.cuda.empty_cache()
 

@@ -367,67 +367,112 @@ def _stage_weights(dtype, device, seed=12):
     return RF.res_weights(sp)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,h", [(2, 16), (1, 40)])
-def test_res152_kernels_match_plain(cuda, dtype, b, h):
+def _res152_fwd_bwd(cuda, dtype, b, h, w):
     """K6a with and without its masks and K6b against their plain
-    versions; the masks agree but for sign flips of values within a
-    rounding of 0 (at most 1e-5 of them, or 2), every border and padding
-    lane of every output is zero though the blocks were dirty."""
+    versions at an image of h x w; the masks agree but for sign flips of
+    values within a rounding of 0 (at most 1e-5 of them, or 2), every
+    border and padding lane of every output is zero though the blocks were
+    dirty."""
     from adversarial_patch_based_false_positive_creation_attacks_against_aerial_imagery_object_detectors_tpu_torch.ops import res_fused as RF
     fwd, bwd = _stage_weights(dtype, cuda)
     g = torch.Generator().manual_seed(13)
-    xp = PC.to_planar(torch.randn(b, h, h, 128, generator=g).to(cuda, dtype))
+    xp = PC.to_planar(torch.randn(b, h, w, 128, generator=g).to(cuda, dtype))
     wl = xp.shape[-1]
     torch.full(xp.shape, float("nan"), dtype=dtype, device=cuda)
     for c in (64, 128, 64, 128):
         torch.full((b, h, c, wl), 7, dtype=torch.int8, device=cuda)
     n = (RF.res152_fused.launches, RF.res152_fused.save_launches,
          RF.res152_fused_grad.launches)
-    y11 = RF.res152_fused(xp, fwd)
-    y11s, *masks = RF.res152_fused(xp, fwd, save=True)
+    y11 = RF.res152_fused(xp, fwd, w_img=w)
+    y11s, *masks = RF.res152_fused(xp, fwd, save=True, w_img=w)
     torch.cuda.synchronize()
     assert torch.equal(y11, y11s)
-    want, *wmasks = RF.res152_fused_plain(xp, fwd, save=True)
+    want, *wmasks = RF.res152_fused_plain(xp, fwd, save=True, w_img=w)
     _close(y11, want, dtype, "res152_fused")
     for t in (y11, *masks):
-        assert not t[..., 0].any() and not t[..., h + 1:].any()
-    flips = sum(int((m != w).sum().item()) for m, w in zip(masks, wmasks))
+        assert not t[..., 0].any() and not t[..., w + 1:].any()
+    flips = sum(int((m != v).sum().item()) for m, v in zip(masks, wmasks))
     assert flips <= max(2, 1e-5 * sum(m.numel() for m in masks)), flips
-    g11 = PC.to_planar(torch.randn(b, h, h, 128, generator=g).to(cuda, dtype))
+    g11 = PC.to_planar(torch.randn(b, h, w, 128, generator=g).to(cuda, dtype))
     torch.full(xp.shape, float("nan"), dtype=dtype, device=cuda)
-    g5 = RF.res152_fused_grad(g11, masks, bwd)
+    g5 = RF.res152_fused_grad(g11, masks, bwd, w_img=w)
     torch.cuda.synchronize()
-    _close(g5, RF.res152_fused_grad_plain(g11, masks, bwd), dtype,
+    _close(g5, RF.res152_fused_grad_plain(g11, masks, bwd, w_img=w), dtype,
            "res152_fused_grad")
-    assert not g5[..., 0].any() and not g5[..., h + 1:].any()
+    assert not g5[..., 0].any() and not g5[..., w + 1:].any()
     assert (RF.res152_fused.launches, RF.res152_fused.save_launches,
             RF.res152_fused_grad.launches) == (n[0] + 1, n[1] + 1, n[2] + 1)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,h", [(2, 16), (1, 40)])
-def test_res152_grad12_kernel_matches_plain(cuda, dtype, b, h):
+def test_res152_kernels_match_plain(cuda, dtype, b, h):
+    """``_res152_fwd_bwd`` on square images: 16 is one bfloat16 tile
+    column with lanes past the image, 40 a partial last tile row and
+    column."""
+    _res152_fwd_bwd(cuda, dtype, b, h, h)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_res152_kernels_match_plain_rect(cuda, dtype):
+    """``_res152_fwd_bwd`` at 24 x 36: a width neither of 8 nor of 16
+    columns (the float32 and bfloat16 tiles), H != W."""
+    _res152_fwd_bwd(cuda, dtype, 1, 24, 36)
+
+
+@pytest.mark.parametrize("b,h", [(2, 16), (1, 40)])
+def test_res152_bf16_forward_equals_k4_route(cuda, b, h):
+    """bfloat16 K6a walks each sum as K4's forward does and rounds where
+    K4 and the planar stage route's two bfloat16 adds do, so its y11 and
+    masks equal ``res_planar._forward``'s (K4 x 4) bit for bit."""
+    from adversarial_patch_based_false_positive_creation_attacks_against_aerial_imagery_object_detectors_tpu_torch.models import res_planar as PRP
+    from adversarial_patch_based_false_positive_creation_attacks_against_aerial_imagery_object_detectors_tpu_torch.ops import res_fused as RF
+    fwd, _ = _stage_weights(torch.bfloat16, cuda)
+    g = torch.Generator().manual_seed(15)
+    xp = PC.to_planar(torch.randn(b, h, h, 128, generator=g).to(
+        cuda, torch.bfloat16))
+    y11, *masks = RF.res152_fused(xp, fwd, save=True)
+    want, *acts = PRP._forward(xp, fwd)
+    torch.cuda.synchronize()
+    assert torch.equal(y11, want)
+    for m, a in zip(masks, acts):
+        assert torch.equal(m, (a > 0).to(torch.int8))
+
+
+def _res152_grad12(cuda, dtype, b, h, w):
     """K6c against its plain version on K6a's own masks (K6b's
-    tolerances); g5's border and padding lanes are zero though the block
-    was dirty."""
+    tolerances) at an image of h x w; g5's border and padding lanes are
+    zero though the block was dirty."""
     from adversarial_patch_based_false_positive_creation_attacks_against_aerial_imagery_object_detectors_tpu_torch.ops import res_fused as RF
     fwd, bwd = _stage_weights(dtype, cuda)
     g = torch.Generator().manual_seed(14)
     w12t = RF.res12_weights((torch.randn(3, 3, 128, 256, generator=g)
                              * (2.0 / 1152) ** 0.5).to(cuda, dtype))
-    xp = PC.to_planar(torch.randn(b, h, h, 128, generator=g).to(cuda, dtype))
-    _, *masks = RF.res152_fused(xp, fwd, save=True)
-    gp12 = PC.to_planar(torch.randn(b, h // 2, h // 2, 256, generator=g).to(
+    xp = PC.to_planar(torch.randn(b, h, w, 128, generator=g).to(cuda, dtype))
+    _, *masks = RF.res152_fused(xp, fwd, save=True, w_img=w)
+    gp12 = PC.to_planar(torch.randn(b, h // 2, w // 2, 256, generator=g).to(
         cuda, dtype))
     torch.full(xp.shape, float("nan"), dtype=dtype, device=cuda)
     n = RF.res152_fused_grad12.launches
-    g5 = RF.res152_fused_grad12(gp12, masks, bwd, w12t)
+    g5 = RF.res152_fused_grad12(gp12, masks, bwd, w12t, w_img=w)
     torch.cuda.synchronize()
     assert RF.res152_fused_grad12.launches == n + 1
-    _close(g5, RF.res152_fused_grad12_plain(gp12, masks, bwd, w12t), dtype,
-           "res152_fused_grad12")
-    assert not g5[..., 0].any() and not g5[..., h + 1:].any()
+    _close(g5, RF.res152_fused_grad12_plain(gp12, masks, bwd, w12t, w_img=w),
+           dtype, "res152_fused_grad12")
+    assert not g5[..., 0].any() and not g5[..., w + 1:].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h", [(2, 16), (1, 40)])
+def test_res152_grad12_kernel_matches_plain(cuda, dtype, b, h):
+    """``_res152_grad12`` on square images."""
+    _res152_grad12(cuda, dtype, b, h, h)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_res152_grad12_kernel_matches_plain_rect(cuda, dtype):
+    """``_res152_grad12`` at 24 x 36 (conv12's 12 x 18)."""
+    _res152_grad12(cuda, dtype, 1, 24, 36)
 
 
 def _route_grad_vs_walk(cuda, kw):
