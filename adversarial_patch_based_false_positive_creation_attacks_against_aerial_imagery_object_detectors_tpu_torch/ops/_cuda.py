@@ -50,11 +50,19 @@ SIGNATURES = {
         # x, out, dtype, B, H, W, C, cp, wl, step, offset, w_out, stream
         "apfp_to_planar": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                            _P],
-        # the same arguments
+        # x, out0, out1, dtype, B, H, W, C, cp, wl0, wl1, w_out0, w_out1,
+        # stream
+        "apfp_to_planar_phases": [_P] * 3 + [_I] * 10 + [_P],
+        # the same arguments as apfp_to_planar
         "apfp_to_planar_tiled": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                                  _I, _P],
         # xp, out, dtype, B, H, cp, wl, w_img, c, stream
         "apfp_from_planar": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+        # the same arguments
+        "apfp_from_planar_narrow": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+        # which (narrow / tiled to_planar, narrow / tiled from_planar),
+        # dtype, info[3] (registers, static shared bytes, blocks/SM)
+        "apfp_planar_info": [_I, _I, _P],
     },
     "stem_fused": {
         # xe, xo, w0, w1, w2, w3, w5, b0, b1, b2, b3, b5, f0, f1, f2, f3,

@@ -12,10 +12,11 @@ compare element for element with the Pallas kernels.
 ``to_planar`` / ``from_planar`` are the kernel wrappers: on a CUDA
 tensor they launch the hand-written kernels of ``csrc/planar.cu``
 (replacing the Pallas ``to_planar_mxu`` / ``from_planar_mxu``), on a CPU
-tensor they run ``to_planar_plain`` / ``from_planar_plain``. Both are
-bound by bytes on the H100. ``step``/``offset`` fold a column decimation
-into ``to_planar`` (step 2, offset 0/1: the even/odd column phases that
-``stem_fused.split_phases`` builds).
+tensor they run ``to_planar_plain`` / ``from_planar_plain``. All are
+bound by bytes on the H100 and move 16-byte vectors. ``step``/``offset``
+fold a column decimation into ``to_planar``; ``to_planar_phases`` writes
+both column phases of step 2 (offset 0 and 1: what
+``stem_fused.split_phases`` builds) in one launch.
 
 ``planar_conv`` is one conv layer on planar activations (3x3 stride 1 or
 2, or 1x1; + bias, optional leaky, optional residual, optional leaky-
@@ -73,23 +74,41 @@ def from_planar_plain(xp: torch.Tensor, w_img: Optional[int] = None,
     return xp[:, :, :c, 1:w_img + 1].permute(0, 1, 3, 2).contiguous()
 
 
+def _out_block(out: Optional[torch.Tensor], shape, like: torch.Tensor,
+               name: str) -> torch.Tensor:
+    """A layout kernel's output: a new block, or ``out`` when the caller
+    passes one (the GPU tests and ``chip_smoke.py`` pass blocks filled
+    with NaN, so a lane or channel the kernel fails to write shows)."""
+    if out is None:
+        return torch.empty(shape, dtype=like.dtype, device=like.device)
+    if (tuple(out.shape) != tuple(shape) or out.dtype != like.dtype
+            or out.device != like.device or not out.is_contiguous()):
+        raise ValueError(f"{name}: out must be a contiguous {like.dtype} "
+                         f"{tuple(shape)} block on {like.device}")
+    return out
+
+
 def to_planar(x: torch.Tensor, c_pad: Optional[int] = None,
               step: int = 1, offset: int = 0) -> torch.Tensor:
-    """``to_planar_plain`` as the K3a kernel on a CUDA tensor: the tiled
-    transpose for C >= 32 (coalesced reads of wide rows), one thread per
-    output element otherwise. Each variant counts its own launches:
+    """``to_planar_plain`` as the K3a kernel on a CUDA tensor: its narrow
+    form for C < 32 (the NHWC row staged in shared memory, each output
+    vector gathered from the stage), its tiled form for C >= 32 (V x V
+    tiles transposed in registers). Each form counts its own launches:
     ``to_planar.launches`` and ``to_planar.tiled_launches``."""
     if x.device.type == "cpu":
         return to_planar_plain(x, c_pad, step, offset)
-    return _to_planar_launch(x, c_pad, step, offset, tiled=x.shape[3] >= 32)
+    return _to_planar_into(x, None, c_pad, step, offset)
 
 
-def _to_planar_launch(x: torch.Tensor, c_pad: Optional[int], step: int,
-                      offset: int, tiled: bool) -> torch.Tensor:
+def _to_planar_into(x: torch.Tensor, out: Optional[torch.Tensor],
+                    c_pad: Optional[int] = None, step: int = 1,
+                    offset: int = 0) -> torch.Tensor:
+    """``to_planar``'s launch, into ``out`` when it is given."""
     _cuda.require_cuda("to_planar", x)
     b, h, w_in, c = x.shape
+    tiled = c >= 32
     w_out, wl, cp = _planar_geometry(w_in, c, c_pad, step, offset)
-    out = torch.empty((b, h, cp, wl), dtype=x.dtype, device=x.device)
+    out = _out_block(out, (b, h, cp, wl), x, "to_planar")
     _cuda.launch("to_planar", "planar",
                  "apfp_to_planar_tiled" if tiled else "apfp_to_planar", x,
                  x.data_ptr(), out.data_ptr(), _cuda.DTYPE_CODES[x.dtype], b,
@@ -101,29 +120,80 @@ def _to_planar_launch(x: torch.Tensor, c_pad: Optional[int], step: int,
     return out
 
 
+def to_planar_phases(x: torch.Tensor, c_pad: Optional[int] = None):
+    """The two column phases of step 2, ``(to_planar_plain(x, c_pad, 2,
+    0), to_planar_plain(x, c_pad, 2, 1))``; on a CUDA tensor one launch of
+    K3a's narrow form (C < 32) writes both from one read of x, counted in
+    ``to_planar.phases_launches``. At odd W the even phase holds one
+    column more than the odd one."""
+    if x.device.type == "cpu":
+        return (to_planar_plain(x, c_pad, 2, 0),
+                to_planar_plain(x, c_pad, 2, 1))
+    return _to_planar_phases_into(x, None, None, c_pad)
+
+
+def _to_planar_phases_into(x: torch.Tensor, xe: Optional[torch.Tensor],
+                           xo: Optional[torch.Tensor],
+                           c_pad: Optional[int] = None):
+    """``to_planar_phases``' launch, into ``xe`` and ``xo`` when they are
+    given."""
+    _cuda.require_cuda("to_planar_phases", x)
+    b, h, w_in, c = x.shape
+    if c >= 32:
+        raise ValueError(f"to_planar_phases: C = {c} (the narrow form "
+                         "takes C < 32)")
+    w_e, wl_e, cp = _planar_geometry(w_in, c, c_pad, 2, 0)
+    w_o, wl_o, _ = _planar_geometry(w_in, c, c_pad, 2, 1)
+    xe = _out_block(xe, (b, h, cp, wl_e), x, "to_planar_phases")
+    xo = _out_block(xo, (b, h, cp, wl_o), x, "to_planar_phases")
+    _cuda.launch("to_planar_phases", "planar", "apfp_to_planar_phases", x,
+                 x.data_ptr(), xe.data_ptr(), xo.data_ptr(),
+                 _cuda.DTYPE_CODES[x.dtype], b, h, w_in, c, cp, wl_e, wl_o,
+                 w_e, w_o)
+    to_planar.phases_launches += 1
+    return xe, xo
+
+
 def from_planar(xp: torch.Tensor, w_img: Optional[int] = None,
                 c: Optional[int] = None) -> torch.Tensor:
-    """``from_planar_plain`` as the K3b kernel on a CUDA tensor."""
+    """``from_planar_plain`` as the K3b kernel on a CUDA tensor: its tiled
+    form for c >= 32 (``from_planar.launches``), its narrow form for
+    c < 32 (the NHWC run staged in shared memory,
+    ``from_planar.narrow_launches``)."""
     if xp.device.type == "cpu":
         return from_planar_plain(xp, w_img, c)
+    return _from_planar_into(xp, None, w_img, c)
+
+
+def _from_planar_into(xp: torch.Tensor, out: Optional[torch.Tensor],
+                      w_img: Optional[int] = None,
+                      c: Optional[int] = None) -> torch.Tensor:
+    """``from_planar``'s launch, into ``out`` when it is given."""
     _cuda.require_cuda("from_planar", xp)
     b, h, cp, wl = xp.shape
     w_img = w_img if w_img is not None else h
     c = c if c is not None else cp
-    if w_img + 1 > wl or c > cp or b * h > 65535:
+    if w_img + 1 > wl or not 0 < c <= cp:
         raise ValueError(f"from_planar: bad geometry {xp.shape}, "
                          f"w_img={w_img}, c={c}")
-    out = torch.empty((b, h, w_img, c), dtype=xp.dtype, device=xp.device)
-    _cuda.launch("from_planar", "planar", "apfp_from_planar", xp,
-                 xp.data_ptr(), out.data_ptr(), _cuda.DTYPE_CODES[xp.dtype],
-                 b, h, cp, wl, w_img, c)
-    from_planar.launches += 1
+    narrow = c < 32
+    out = _out_block(out, (b, h, w_img, c), xp, "from_planar")
+    _cuda.launch("from_planar", "planar",
+                 "apfp_from_planar_narrow" if narrow else "apfp_from_planar",
+                 xp, xp.data_ptr(), out.data_ptr(),
+                 _cuda.DTYPE_CODES[xp.dtype], b, h, cp, wl, w_img, c)
+    if narrow:
+        from_planar.narrow_launches += 1
+    else:
+        from_planar.launches += 1
     return out
 
 
 to_planar.launches = 0
 to_planar.tiled_launches = 0
+to_planar.phases_launches = 0
 from_planar.launches = 0
+from_planar.narrow_launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -28,8 +28,9 @@ VJPs of the stem; each returns the input cotangent only (the victim's
 weights are frozen):
 
 - ``fused_stem`` / ``FusedStem``: NHWC in, NHWC out: ``split_phases``
-  (K3a twice) -> K1 (``save_acts``) -> ``from_planar`` (K3b); backward
-  K3a (g5 -> planar) -> K2 -> ``merge_phases``.
+  (K3a, both phases in one launch) -> K1 (``save_acts``) ->
+  ``from_planar`` (K3b); backward K3a (g5 -> planar) -> K2 ->
+  ``merge_phases``.
 - ``fused_stem_remat`` / ``FusedStemRemat``: the same forward without
   masks, saving only x's phases and y5; backward K3a -> K5.
 - ``fused_stem_planar`` / ``FusedStemPlanar``: stops at the planar y5
@@ -47,7 +48,7 @@ import torch.nn.functional as F
 from . import _cuda
 from .planar_conv import (_mma_cached, _round_up, from_planar,
                           from_planar_plain, mma_weights, to_planar,
-                          to_planar_plain)
+                          to_planar_phases, to_planar_plain)
 
 LEAKY = 0.1
 
@@ -65,9 +66,9 @@ StemBwdParams = Sequence[torch.Tensor]
 
 def split_phases(x: torch.Tensor):
     """NHWC [B, H, W, C<=8] -> (even-column, odd-column) planar phases,
-    each [B, H, 8, round_up(W/2+2, 128)] with value j at lane j+1."""
-    return (to_planar(x, c_pad=8, step=2, offset=0),
-            to_planar(x, c_pad=8, step=2, offset=1))
+    each [B, H, 8, round_up(W/2+2, 128)] with value j at lane j+1: one
+    K3a launch on a CUDA tensor (``to_planar_phases``)."""
+    return to_planar_phases(x, c_pad=8)
 
 
 def merge_phases(pe: torch.Tensor, po: torch.Tensor, w_half: int,

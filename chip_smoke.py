@@ -13,12 +13,22 @@ Phases, each fatal on failure:
    bfloat16 K4 instantiation (1x1, 3x3 s1, 3x3 s2 and the k3t2 adjoint,
    each block width), with its registers, shared memory, blocks per
    multiprocessor and spilled bytes, and fail if one has none (or if K8a,
-   K8b or a K6 kernel spills).
+   K8b or a K6 kernel spills); the same resource records (static shared
+   memory) for the layout kernels K3a and K3b, each form and dtype, which
+   must not spill.
 2. Hold each kernel of the serving path against its plain PyTorch
    version on the card at the serving shapes (batch 8, 608^2, bfloat16;
-   the fused stem also in float32) and time kernel, plain version and,
-   where one exists, a single PyTorch call computing the same function
-   (for K1, the stem on cuDNN: ``stem_conv_walk``).
+   the fused stem and the layout kernels also in float32) and time
+   kernel, plain version and, where one exists, a single PyTorch call
+   computing the same function (for K1, the stem on cuDNN:
+   ``stem_conv_walk``): ``split_phases`` (K3a, both column phases in one
+   launch) bit for bit against two ``to_planar_plain`` calls, beside the
+   bound of both phases and two ``F.pad`` calls; K3a's step-1 narrow form
+   at the planar stem's input; K3b of y5. Each layout kernel writes once
+   into output blocks filled with NaN and once into the wrapper's own;
+   the layout kernels and their library calls are also timed by their
+   calls' device time (a CUDA graph of 20 calls replayed between two
+   CUDA events), which leaves out host-launch gaps.
 3. Serve: the full-width YOLOv3 (75 convs, 608^2, 15 classes, random
    weights from a seed) as a bfloat16 Detector on the card, driven
    through a DetectionService (16 requests from 4 threads) and its HTTP
@@ -31,8 +41,10 @@ Phases, each fatal on failure:
    port's float32 Detector on the card 1-1 within 1e-3.
 5. Training kernels at the training shapes (batch 24, 608^2, bfloat16):
    K1 with ``save_acts`` (y5 and the int8 sign masks), K2 on the same
-   masks (also float32) and K3a at the cotangent g5's shape (both of its
-   variants), each against its plain version and timed as in phase 2,
+   masks (also float32), K3a's tiled form at the cotangent g5's shape and
+   at gp12's, ``split_phases`` and K3b of y5 (the layout kernels bit for
+   bit, also float32), each against its plain version and timed as in
+   phase 2,
    K1 and K2 beside the stem on cuDNN (forward; input backward); then
    K5, the recomputing stem backward (bfloat16 and float32), against K2
    on K1's masks of the same x (bit for bit: K5 recomputes them with K1's
@@ -54,7 +66,9 @@ Phases, each fatal on failure:
    K4 (the generic planar conv) at the five stem convs' forward (bfloat16
    at b24, float32 at b8), the five backward convs of the planar stem (the
    two stride-2 adjoints as the k3t2 variant on the unexpanded cotangent;
-   gate, res) and the 152^2 stage's four convs forward and backward; K6a
+   gate, res) and the 152^2 stage's four convs forward and backward, K3b's
+   narrow form at the planar stem's input cotangent (beside the tiled
+   form at the same shape, timed as the reason for a narrow form); K6a
    with and without its masks and K6b, bfloat16 and float32; K6c (the
    stage backward widened by conv12's dgrad), bfloat16 and float32. Each
    against its plain version (bfloat16 K6a's y11 and masks also against
@@ -130,6 +144,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PORT = ("adversarial_patch_based_false_positive_creation_attacks_against_"
@@ -139,8 +154,8 @@ SEED = 0
 BATCH, SIZE = 8, 608
 TRAIN_BATCH, PATCH, TIMED_STEPS = 24, 224, 20
 # the kernels each main path must launch (entry names of the kernels line)
-SERVE_PATH = ("to_planar", "fused_stem_fwd", "from_planar")
-TRAIN_PATH = ("to_planar", "fused_stem_fwd_save_acts", "from_planar",
+SERVE_PATH = ("to_planar_phases", "fused_stem_fwd", "from_planar")
+TRAIN_PATH = ("to_planar_phases", "fused_stem_fwd_save_acts", "from_planar",
               "to_planar_g5", "fused_stem_bwd_saved")
 K4_VARIANTS = ("planar_conv_k1", "planar_conv_k3", "planar_conv_k3s2",
                "planar_conv_k3t2")
@@ -189,6 +204,39 @@ def time_ms(fn, iters=20, warmup=3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, iters=20, warmup=3, reps=3) -> float:
+    """Device time of one ``fn()`` without the host's launch path:
+    ``iters`` calls captured as one CUDA graph, ``reps`` replays of it
+    between two CUDA events, over ``reps * iters``. Unlike ``time_ms`` it
+    leaves out the gaps in which the device waits for the host to launch:
+    a call whose kernels take tens of microseconds can be bound by its
+    host-side launch. The events bracket every kernel of the replays, so
+    none can be left out of the sum (a ``torch.profiler`` trace could
+    drop one, and read low); what it adds is the graph's own gap between
+    kernels, a microsecond or less."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(warmup):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / (reps * iters)
+
+
 def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
@@ -211,11 +259,13 @@ def counters() -> dict:
     MPL = import_port("experimental.median_pallas")
     SB = import_port("experimental.stem_batched")
     return {"to_planar": (PC.to_planar, "launches"),
+            "to_planar_phases": (PC.to_planar, "phases_launches"),
             "to_planar_g5": (PC.to_planar, "tiled_launches"),
             "fused_stem_fwd": (SF.fused_stem_fwd, "launches"),
             "fused_stem_fwd_save_acts": (SF.fused_stem_fwd,
                                          "save_acts_launches"),
             "from_planar": (PC.from_planar, "launches"),
+            "from_planar_narrow": (PC.from_planar, "narrow_launches"),
             "fused_stem_bwd_saved": (SF.fused_stem_bwd_saved, "launches"),
             "planar_conv_k1": (PC.planar_conv, "launches_k1"),
             "planar_conv_k3": (PC.planar_conv, "launches_k3"),
@@ -393,9 +443,111 @@ def tensor_core_check(_cuda, info) -> dict:
     return out
 
 
+# the layout kernels (csrc/planar.cu): entry name of the kernels line ->
+# (its apfp_planar_info selector, the kernel's mangled-name stem)
+LAYOUT_KERNELS = {"to_planar": (0, "to_planar_narrow_kernel"),
+                  "to_planar_phases": (0, "to_planar_narrow_kernel"),
+                  "to_planar_g5": (1, "to_planar_tiled_kernel"),
+                  "from_planar_narrow": (2, "from_planar_narrow_kernel"),
+                  "from_planar": (3, "from_planar_tiled_kernel")}
+
+
+def layout_resources(_cuda, info) -> dict:
+    """Phase 1 for the layout kernels K3a and K3b (narrow and tiled
+    forms, bfloat16 and float32 instantiations): ptxas' registers, stack
+    frame and spill bytes and the card's registers, static shared memory
+    and blocks per multiprocessor (``apfp_planar_info``). Fails if one
+    spills. Returns {entry name: {"bf16": record, "f32": record}}."""
+    import ctypes
+    import re
+    recs, fn = {}, None
+    for line in info["planar"]["log"].splitlines():
+        if "Compiling entry function" in line:
+            fn = line.split("'")[1]
+        elif fn is not None and "stack frame" in line:
+            recs.setdefault(fn, {}).update(
+                stack_bytes=int(re.search(r"(\d+) bytes stack", line)[1]),
+                spill_bytes=sum(int(v) for v in re.findall(
+                    r"(\d+) bytes spill (?:stores|loads)", line)))
+        elif fn is not None and "Used" in line and "registers" in line:
+            recs.setdefault(fn, {})["ptxas"] = line.strip()
+    out = {}
+    for name, (which, stem) in LAYOUT_KERNELS.items():
+        out[name] = {}
+        for label, code, tag in (("bf16", 1, "t"), ("f32", 0, "j")):
+            fns = [f for f in recs if f"{stem}I{tag}E" in f]
+            assert len(fns) == 1, (name, label, fns)
+            rec = dict(recs[fns[0]])
+            buf = (ctypes.c_int * 3)()
+            _cuda.check(_cuda.lib("planar").apfp_planar_info(which, code, buf),
+                        f"{name} info")
+            rec.update(registers=buf[0], static_smem_bytes=buf[1],
+                       blocks_per_sm=buf[2])
+            log(f"[layout] {name} {label}: {rec['registers']} registers, "
+                f"{rec['static_smem_bytes']} bytes of shared memory, "
+                f"{rec['blocks_per_sm']} block(s) a multiprocessor, "
+                f"{rec['spill_bytes']} bytes spilled, {rec['stack_bytes']} "
+                f"bytes of stack; ptxas: {rec['ptxas']}")
+            assert rec["spill_bytes"] == 0, f"{name} {label} spills"
+            out[name][label] = rec
+    return out
+
+
 def import_port(name: str):
     import importlib
     return importlib.import_module(f"{PORT}.{name}")
+
+
+def layout_entry(name: str, line: int, make, shape, library_is: str,
+                 sub: bool = False) -> dict:
+    """A layout kernel's (K3a, K3b) entry of the kernels line, or with
+    ``sub`` the record of one more shape of it: ``make(dtype)`` ->
+    (kernel call, the same launch into given output blocks, plain call,
+    library call, input bytes). In bfloat16 and float32 the kernel's
+    outputs, written into blocks filled with NaN and by the wrapper into
+    its own, must equal the plain version's bit for bit; both are timed
+    beside the byte bound (inputs at what the function reads, outputs
+    whole) and the library call, by CUDA events (``ms``, ``library_ms``)
+    and by their device time without host-launch gaps (``device_ms``,
+    ``library_device_ms``)."""
+    out = {"name": name, "route": "cuda",
+           "source": f"{PORT}/csrc/planar.cu",
+           "replaces": f"{JAX_PKG}/ops/planar_conv.py:{line}",
+           "launches": 0, "shape": list(shape), "dtype": "bfloat16",
+           "library_is": library_is}
+    for dt in (torch.bfloat16, torch.float32):
+        run, into, plain, library, read_bytes = make(dt)
+        want = plain()
+        want = want if isinstance(want, tuple) else (want,)
+        nans = tuple(torch.full_like(t, float("nan")) for t in want)
+        got = into(nans)
+        got = got if isinstance(got, tuple) else (got,)
+        assert len(got) == len(want) and all(
+            g is n for g, n in zip(got, nans)), f"{name}: not in place"
+        ran = run()
+        ran = ran if isinstance(ran, tuple) else (ran,)
+        torch.cuda.synchronize()
+        for outs, how in ((got, "into NaN blocks"), (ran, "wrapper")):
+            assert len(outs) == len(want) and all(
+                torch.equal(g, w) for g, w in zip(outs, want)), \
+                f"{name} {dt} ({how}) differs from its plain version"
+        b_ms, b_by = bound(read_bytes + nbytes(*got), 0.0, dt)
+        t = {"max_abs_err": 0.0, "tol": 0.0, "ms": time_ms(run),
+             "plain_ms": time_ms(plain), "bound_ms": b_ms, "bound_by": b_by,
+             "library_ms": time_ms(library),
+             "device_ms": device_ms(run),
+             "library_device_ms": device_ms(library)}
+        del got, ran, nans, want
+        if dt == torch.bfloat16:
+            out.update(t)
+        else:
+            out["f32"] = t
+    if not sub:
+        return out
+    return {k: out[k] for k in ("shape", "max_abs_err", "tol", "ms",
+                                "plain_ms", "bound_ms", "bound_by",
+                                "library_ms", "library_is", "device_ms",
+                                "library_device_ms", "f32")}
 
 
 def k2_read_bytes(acts, g5p) -> int:
@@ -407,12 +559,13 @@ def k2_read_bytes(acts, g5p) -> int:
             + image_bytes(y5, h5, 128) + image_bytes(g5p, h5, 128))
 
 
-def training_kernels(dev, sp, sbp, card, tc_info) -> list:
-    """Phase 5: K1 save_acts, K2 and K3a (g5) against their plain versions
-    at batch 24, 608^2, bfloat16 (K2 also float32), K1 and K2 beside the
-    stem on cuDNN (``stem_yardstick``); returns their entries of the
-    kernels line (launches filled in by the training phase), with phase
-    1's tensor-core records."""
+def training_kernels(dev, sp, sbp, card, tc_info) -> tuple:
+    """Phase 5: K1 save_acts, K2 and K3a (g5, gp12) against their plain
+    versions at batch 24, 608^2, bfloat16 (K2 and K3a also float32), K1
+    and K2 beside the stem on cuDNN (``stem_yardstick``); returns their
+    entries of the kernels line (launches filled in by the training
+    phase), with phase 1's tensor-core records, and the b24 records of
+    ``split_phases`` and K3b (y5) by entry name."""
     PC = import_port("ops.planar_conv")
     SF = import_port("ops.stem_fused")
     _cuda = import_port("ops._cuda")
@@ -469,29 +622,53 @@ def training_kernels(dev, sp, sbp, card, tc_info) -> list:
         **tc_info["fused_stem_fwd_save_acts"]})
     del want
 
-    # K3a at the cotangent's shape: the tiled transpose (the wrapper's
-    # choice for C >= 32) and the one-thread-per-element variant
+    # K3a's tiled form at the cotangent g5's shape and at gp12's (the c12
+    # route's [24, 76, 76, 256] -> [24, 76, 256, 128]); split_phases and
+    # K3b (y5) at b24
+    def nhwc_at(t):
+        def make(dt):
+            u = t.to(dt)
+            wl = PC._round_up(u.shape[2] + 2, 128)
+            view = u.permute(0, 1, 3, 2)
+            return (lambda: PC.to_planar(u),
+                    lambda o: PC._to_planar_into(u, o[0]),
+                    lambda: PC.to_planar_plain(u),
+                    lambda: F.pad(view, (1, wl - u.shape[2] - 1)), nbytes(u))
+        return make
     g5 = torch.randn(b, h5, h5, 128, generator=gen, device=dev).to(bf16)
     g5p = PC.to_planar(g5)
-    plain = PC.to_planar_plain(g5)
-    assert torch.equal(g5p, plain), "to_planar (g5) differs"
-    assert torch.equal(PC._to_planar_launch(g5, None, 1, 0, False), plain)
-    b_ms, b_by = bound(nbytes(g5, g5p), 0.0, bf16)
-    view = g5.permute(0, 1, 3, 2)
-    out.append({
-        "name": "to_planar_g5", "route": "cuda",
-        "source": f"{PORT}/csrc/planar.cu",
-        "replaces": f"{JAX_PKG}/ops/planar_conv.py:124",
-        "launches": 0, "max_abs_err": 0.0, "tol": 0.0,
-        "shape": list(g5.shape), "dtype": "bfloat16",
-        "ms": time_ms(lambda: PC.to_planar(g5)),
-        "ms_per_element_variant": time_ms(
-            lambda: PC._to_planar_launch(g5, None, 1, 0, False)),
-        "plain_ms": time_ms(lambda: PC.to_planar_plain(g5)),
-        "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": time_ms(lambda: torch.nn.functional.pad(
-            view, (1, wl5 - h5 - 1)))})
-    del plain
+    k3a = layout_entry("to_planar_g5", 124, nhwc_at(g5), g5.shape,
+                       "F.pad on the transposed view")
+    gp12 = torch.randn(b, h5 // 2, h5 // 2, 256, generator=gen, device=dev)
+    k3a["gp12"] = layout_entry("to_planar_g5", 124, nhwc_at(gp12),
+                               gp12.shape, "F.pad on the transposed view",
+                               sub=True)
+    del gp12
+    out.append(k3a)
+
+    def phases_at(dt):
+        u = x.to(dt)
+        pads = [(1, wlh - w - 1, 0, 5) for w in (h1, h1)]
+        return (lambda: SF.split_phases(u),
+                lambda o: PC._to_planar_phases_into(u, *o, 8),
+                lambda: (PC.to_planar_plain(u, 8, 2, 0),
+                         PC.to_planar_plain(u, 8, 2, 1)),
+                lambda: [F.pad(u[:, :, o::2].permute(0, 1, 3, 2), pads[o])
+                         for o in (0, 1)], nbytes(u))
+
+    def y5_at(dt):
+        y = y5.to(dt)
+        view = y[:, :, :128, 1:h5 + 1].permute(0, 1, 3, 2)
+        return (lambda: PC.from_planar(y, h5, 128),
+                lambda o: PC._from_planar_into(y, o[0], h5, 128),
+                lambda: PC.from_planar_plain(y, h5, 128),
+                view.contiguous, image_bytes(y, h5, 128))
+    b24 = {"to_planar_phases": layout_entry(
+               "to_planar_phases", 124, phases_at, x.shape,
+               "two F.pad calls on the phases' transposed views", sub=True),
+           "from_planar": layout_entry(
+               "from_planar", 170, y5_at, y5.shape,
+               ".contiguous() of the image-lane view", sub=True)}
 
     # K2 on the kernel's own masks: the plain version reads the same
     # gates, so only summation order (and the bf16 roundings it flips)
@@ -561,10 +738,11 @@ def training_kernels(dev, sp, sbp, card, tc_info) -> list:
             f"{k['plain_ms']:.4f} ms, bound {k['bound_ms']:.4f} ms "
             f"({k['bound_by']}) ({card})")
     log(f"[train-kernel] K1 mask flips {out[0]['mask_flips']} of "
-        f"{n_mask}; K3a per-element variant "
-        f"{out[1]['ms_per_element_variant']:.4f} ms; K2 f32 "
+        f"{n_mask}; K3a gp12 {json.dumps(out[1]['gp12'])}; K2 f32 "
         f"{json.dumps(k2['f32'])}")
-    return out
+    for name, r in b24.items():
+        log(f"[train-kernel] {name} b24: {json.dumps(r)} ({card})")
+    return out, b24
 
 
 def flip_zone(acts, plain_acts, h: int, radius: int = 12, extra=None):
@@ -852,6 +1030,11 @@ def training(dev, card) -> dict:
                    + NEW_KERNELS + EXP_KERNELS), launches
         for k in TRAIN_PATH:
             assert launches[k] > 0, f"kernel {k} did not launch in training"
+        # split_phases: one K3a launch (both column phases) a stem forward
+        assert launches["to_planar_phases"] == (
+            launches["fused_stem_fwd"]
+            + launches["fused_stem_fwd_save_acts"]), launches
+        assert launches["to_planar"] == 0, launches
         assert all(np.isfinite(v) for v in rec["loss"].values()), rec["loss"]
         patch = trainer.patch.detach()
         assert not torch.equal(patch, p_start), "the patch did not move"
@@ -1730,6 +1913,7 @@ def route_training(dev, card) -> dict:
             assert launches["res152_fused"] == 0, launches
             assert launches["to_planar_g5"] == 3 * n, launches
             assert launches["from_planar"] == 3 * n, launches
+            assert launches["to_planar_phases"] == n, launches
             assert launches["fused_stem_fwd_save_acts"] == n, launches
             assert all(launches[k] == 0 for k in K4_VARIANTS + NEW_KERNELS), \
                 launches
@@ -1742,11 +1926,17 @@ def route_training(dev, card) -> dict:
                 launches
             assert launches["fused_stem_fwd_save_acts"] == 0, launches
             assert launches["fused_stem_bwd_saved"] == 0, launches
+            # K3a's step-1 narrow form on x and K3b's narrow form on gx0,
+            # once a step each; no split_phases
+            assert launches["to_planar"] == n, launches
+            assert launches["from_planar_narrow"] == n, launches
+            assert launches["to_planar_phases"] == 0, launches
         elif name == "remat":
             # K1 without masks and K5 a step; no K2, no masks
             want_ps = {"fused_stem_fwd": 1, "fused_stem_fwd_save_acts": 0,
                        "fused_stem_bwd": 1, "fused_stem_bwd_saved": 0,
-                       "to_planar": 2, "to_planar_g5": 1, "from_planar": 1}
+                       "to_planar_phases": 1, "to_planar": 0,
+                       "to_planar_g5": 1, "from_planar": 1}
             assert all(per_step[k] == v for k, v in want_ps.items()), \
                 launches
             assert all(launches[k] == 0 for k in
@@ -1754,12 +1944,13 @@ def route_training(dev, card) -> dict:
                 launches
         else:
             # K1 save_acts, K6a save, K6c and K2 a step; K3a for the two x
-            # phases (per element) and gp12 (tiled), K3b for y11 only
+            # phases (one launch) and gp12 (tiled), K3b for y11 only
             want_ps = {"fused_stem_fwd": 0, "fused_stem_fwd_save_acts": 1,
                        "res152_fused": 0, "res152_fused_save": 1,
                        "res152_fused_grad": 0, "res152_fused_grad12": 1,
                        "fused_stem_bwd_saved": 1, "fused_stem_bwd": 0,
-                       "to_planar": 2, "to_planar_g5": 1, "from_planar": 1}
+                       "to_planar_phases": 1, "to_planar": 0,
+                       "to_planar_g5": 1, "from_planar": 1}
             assert all(per_step[k] == v for k, v in want_ps.items()), \
                 launches
             assert all(launches[k] == 0 for k in K4_VARIANTS), launches
@@ -2481,6 +2672,7 @@ def main() -> int:
             if "Compiling entry" in line or "Used" in line or "spill" in line:
                 log(f"    {line.strip()}")
     tc_info = tensor_core_check(_cuda, info)
+    layout_info = layout_resources(_cuda, info)
 
     # -- model and main-path inputs ------------------------------------
     net = M.build_network(M.yolov3_blocks(width=SIZE, height=SIZE))
@@ -2498,30 +2690,32 @@ def main() -> int:
     phase("2 serving kernels")
     kernels = []
     x8c = x8.contiguous()
-    # K3a to_planar (one phase of split_phases)
-    got = PC.to_planar(x8c, 8, 2, 0)
-    want = PC.to_planar_plain(x8c, 8, 2, 0)
-    err = (got.float() - want.float()).abs().max().item()
-    assert err == 0.0, f"to_planar differs from its plain version: {err}"
-    assert torch.equal(PC._to_planar_launch(x8c, 8, 2, 0, True), want)
-    pads = (1, got.shape[-1] - SIZE // 2 - 1, 0, 5)
-    # the bytes one launch must move: the phase's half of the NHWC input
-    # (every second column) read once, the planar output written once
-    b_ms, b_by = bound(nbytes(x8c) // 2 + nbytes(got), 0.0, torch.bfloat16)
-    kernels.append({
-        "name": "to_planar", "route": "cuda",
-        "source": f"{PORT}/csrc/planar.cu",
-        "replaces": f"{JAX_PKG}/ops/planar_conv.py:124",
-        "launches": 0, "max_abs_err": err, "tol": 0.0,
-        "shape": list(x8c.shape), "dtype": "bfloat16",
-        "ms": time_ms(lambda: PC.to_planar(x8c, 8, 2, 0)),
-        # the tiled transpose the wrapper takes for C >= 32, at C = 3
-        "ms_tiled_variant": time_ms(
-            lambda: PC._to_planar_launch(x8c, 8, 2, 0, True)),
-        "plain_ms": time_ms(lambda: PC.to_planar_plain(x8c, 8, 2, 0)),
-        "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": time_ms(lambda: torch.nn.functional.pad(
-            x8c[:, :, 0::2].permute(0, 1, 3, 2), pads))})
+    # K3a: split_phases (both column phases, one launch) and the step-1
+    # narrow form at the planar stem's input (c_pad 8: [8, 608, 8, 640])
+    def phases_at(dt):
+        x = x8c.to(dt)
+        pads = [(1, PC._round_up(w + 2, 128) - w - 1, 0, 5)
+                for w in ((SIZE + 1) // 2, SIZE // 2)]
+        return (lambda: SF.split_phases(x),
+                lambda o: PC._to_planar_phases_into(x, *o, 8),
+                lambda: (PC.to_planar_plain(x, 8, 2, 0),
+                         PC.to_planar_plain(x, 8, 2, 1)),
+                lambda: [F.pad(x[:, :, o::2].permute(0, 1, 3, 2), pads[o])
+                         for o in (0, 1)], nbytes(x))
+    kernels.append(layout_entry(
+        "to_planar_phases", 124, phases_at, x8c.shape,
+        "two F.pad calls on the phases' transposed views"))
+
+    def step1_at(dt):
+        x = x8c.to(dt)
+        wl = PC._round_up(SIZE + 2, 128)
+        return (lambda: PC.to_planar(x, 8),
+                lambda o: PC._to_planar_into(x, o[0], 8),
+                lambda: PC.to_planar_plain(x, 8),
+                lambda: F.pad(x.permute(0, 1, 3, 2), (1, wl - SIZE - 1, 0, 5)),
+                nbytes(x))
+    kernels.append(layout_entry("to_planar", 124, step1_at, x8c.shape,
+                                "F.pad on the transposed view"))
     # K1 fused_stem_fwd, bf16 (serving) and f32
     xe, xo = SF.split_phases(x8c)
     y5_shape = (BATCH, SIZE // 4, 128, 256)
@@ -2575,28 +2769,19 @@ def main() -> int:
             lambda: SF.fused_stem_fwd_plain(xe32, xo32, sp32), 5),
         "bound_ms": b_ms, "bound_by": b_by}
     kernels.append(k1)
-    # K3b from_planar (stem output y5 -> NHWC)
+    # K3b from_planar (stem output y5 -> NHWC): reads the image lanes of
+    # y5's 128 channels (not its border and padding lanes)
     y5 = SF.fused_stem_fwd(xe, xo, sp)
-    got = PC.from_planar(y5, SIZE // 4, 128)
-    want = PC.from_planar_plain(y5, SIZE // 4, 128)
-    err = (got.float() - want.float()).abs().max().item()
-    assert err == 0.0, f"from_planar differs from its plain version: {err}"
-    # the bytes the function must move: the image lanes of y5's 128
-    # channels read once (not its border and padding lanes), the NHWC
-    # output written once
-    b_ms, b_by = bound(2 * nbytes(got), 0.0, torch.bfloat16)
-    view = y5[:, :, :128, 1:SIZE // 4 + 1].permute(0, 1, 3, 2)
-    kernels.append({
-        "name": "from_planar", "route": "cuda",
-        "source": f"{PORT}/csrc/planar.cu",
-        "replaces": f"{JAX_PKG}/ops/planar_conv.py:170",
-        "launches": 0, "max_abs_err": err,
-        "tol": 0.0, "shape": list(y5.shape), "dtype": "bfloat16",
-        "ms": time_ms(lambda: PC.from_planar(y5, SIZE // 4, 128)),
-        "plain_ms": time_ms(lambda: PC.from_planar_plain(y5, SIZE // 4,
-                                                          128)),
-        "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": time_ms(lambda: view.contiguous())})
+
+    def y5_at(dt):
+        y = y5.to(dt)
+        view = y[:, :, :128, 1:SIZE // 4 + 1].permute(0, 1, 3, 2)
+        return (lambda: PC.from_planar(y, SIZE // 4, 128),
+                lambda o: PC._from_planar_into(y, o[0], SIZE // 4, 128),
+                lambda: PC.from_planar_plain(y, SIZE // 4, 128),
+                view.contiguous, image_bytes(y, SIZE // 4, 128))
+    kernels.append(layout_entry("from_planar", 170, y5_at, y5.shape,
+                                ".contiguous() of the image-lane view"))
     for k in kernels:
         log(f"[kernel] {k['name']}: err {k['max_abs_err']:.3g} "
             f"(tol {k['tol']:.3g}), {k['ms']:.4f} ms vs plain "
@@ -2661,6 +2846,10 @@ def main() -> int:
         f"saturated {svc.stats.saturated}; launches {launches}")
     for k in SERVE_PATH:
         assert launches[k] > 0, f"kernel {k} did not launch while serving"
+    # split_phases: one K3a launch (both column phases) a stem forward
+    assert launches["to_planar_phases"] == launches["fused_stem_fwd"], \
+        launches
+    assert launches["to_planar"] == 0, launches
     for k in kernels:
         k["launches"] = launches[k["name"]]
 
@@ -2855,7 +3044,11 @@ def main() -> int:
     # -- 5. training kernels at the training shapes --------------------
     phase("5 training kernels")
     model_sbp = det.model.stem_bwd_params()
-    train_kernels = training_kernels(dev, sp, model_sbp, card, tc_info)
+    train_kernels, layout_b24 = training_kernels(dev, sp, model_sbp, card,
+                                                 tc_info)
+    for k in kernels:
+        if k["name"] in layout_b24:
+            k["b24"] = layout_b24[k["name"]]
     k5 = remat_kernel(dev, sp, det.model.stem_bwd_params(), card,
                       train_kernels[-1]["library_fwd_bwd_ms"], tc_info)
     del det, svc
@@ -2878,11 +3071,54 @@ def main() -> int:
     k6c = grad12_kernel(dev, model16, card, tc_info)
     del model16
     torch.cuda.empty_cache()
+    # K3b's narrow form at the planar stem's input cotangent gx0
+    # ([24, 608, 8, 640] -> [24, 608, 608, 3]): reads 3 channel rows' image
+    # lanes
+    gx0 = torch.randn(TRAIN_BATCH, SIZE, 8, PC._round_up(SIZE + 2, 128),
+                      device=dev, generator=torch.Generator(
+                          device=dev).manual_seed(SEED + 21))
+
+    def gx0_at(dt):
+        g = gx0.to(dt)
+        view = g[:, :, :3, 1:SIZE + 1].permute(0, 1, 3, 2)
+        return (lambda: PC.from_planar(g, SIZE, 3),
+                lambda o: PC._from_planar_into(g, o[0], SIZE, 3),
+                lambda: PC.from_planar_plain(g, SIZE, 3), view.contiguous,
+                image_bytes(g, SIZE, 3))
+    k3b_narrow = layout_entry("from_planar_narrow", 170, gx0_at, gx0.shape,
+                              ".contiguous() of the image-lane view")
+    # the tiled K3b at the same shape, the measurement that keeps a narrow
+    # form (at c = 3 a tiled warp's tiles span one channel block, so 7 of
+    # every 8 of its lanes have no tile): bit for bit, into NaN blocks
+    k3b_narrow["tiled_form"] = {}
+    for dt in (torch.bfloat16, torch.float32):
+        g = gx0.to(dt)
+        want = PC.from_planar_plain(g, SIZE, 3)
+
+        def tiled(o):
+            _cuda.launch("from_planar (tiled, c = 3)", "planar",
+                         "apfp_from_planar", g, g.data_ptr(), o.data_ptr(),
+                         _cuda.DTYPE_CODES[dt], *g.shape, SIZE, 3)
+            return o
+        got = tiled(torch.full_like(want, float("nan")))
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), f"tiled K3b at c = 3, {dt}"
+        k3b_narrow["tiled_form"][str(dt).split(".")[1]] = {
+            "ms": time_ms(lambda: tiled(torch.empty_like(want))),
+            "device_ms": device_ms(lambda: tiled(torch.empty_like(want)))}
+        del g, want, got
+    log(f"[planar-kernel] from_planar_narrow: {json.dumps(k3b_narrow)} "
+        f"({card})")
+    del gx0
 
     # -- 8. training on the other routes (counted launches) ------------
     phase("8 training on the other routes")
     rrec = route_training(dev, card)
-    for k, run in [(k, "planar_planar") for k in k4] + [
+    # K3a's step-1 narrow form and K3b's narrow form run on the planar
+    # stem (its input x; its input cotangent gx0)
+    k3_planar = [k for k in kernels if k["name"] == "to_planar"] + [
+        k3b_narrow]
+    for k, run in [(k, "planar_planar") for k in k4 + k3_planar] + [
             (k, "fused_fused") for k in k6] + [(k5, "remat"), (k6c, "c12")]:
         k["launches"] = rrec[run]["launches"][k["name"]]
         k["train_launches_per_step"] = \
@@ -2922,7 +3158,7 @@ def main() -> int:
     launches = read_counts()
     assert darknet.last_routes() == {"stem": "c12", "res152": "c12"}
     assert tuple(dets.shape) == (BATCH, 300, 7)
-    want = {"to_planar": 2, "fused_stem_fwd": 1, "res152_fused": 1,
+    want = {"to_planar_phases": 1, "fused_stem_fwd": 1, "res152_fused": 1,
             "from_planar": 1}
     assert all(launches[k] == want.get(k, 0) for k in launches), launches
     with torch.inference_mode():
@@ -2933,13 +3169,13 @@ def main() -> int:
     log(f"[routes] serving b8 on the c12 route: "
         f"{json.dumps(rrec['serve_c12'])} ({card})")
     del cdet
-    for k in k4 + k6 + [k5, k6c]:
+    for k in k4 + k6 + k3_planar + [k5, k6c]:
         assert k["launches"] > 0, k["name"]
     for k in k4:
         k["golden_launches"] = {run: v[k["name"]]
                                 for run, v in golden_k4.items()}
         k["slim_bf16_forward_b8_ms"] = slim_bf16["forward_ms"]
-    kernels += k4 + k6 + [k5, k6c]
+    kernels += k4 + k6 + [k5, k6c, k3b_narrow]
 
     # -- 9. the experimental package (counted launches) -----------------
     phase("9 experimental package")
@@ -2957,6 +3193,9 @@ def main() -> int:
     log(f"[exp] {json.dumps(erec)} ({card})")
     phase("done")
 
+    for k in kernels:
+        if k["name"] in layout_info:
+            k["resources"] = layout_info[k["name"]]
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -61,6 +61,13 @@ def test_layout_kernels_exact(cuda, dtype):
         assert torch.equal(PC.to_planar(x, 8, 2, off),
                            PC.to_planar_plain(x, 8, 2, off))
     assert PC.to_planar.launches == n + 2
+    # split_phases: both phases from one launch of the narrow form
+    n = (PC.to_planar.launches, PC.to_planar.phases_launches)
+    xe, xo = SF.split_phases(x)
+    assert (PC.to_planar.launches, PC.to_planar.phases_launches) == (
+        n[0], n[1] + 1)
+    assert torch.equal(xe, PC.to_planar_plain(x, 8, 2, 0))
+    assert torch.equal(xo, PC.to_planar_plain(x, 8, 2, 1))
     y = torch.randn(2, 16, 16, 128, generator=g).to(cuda, dtype)
     yp = PC.to_planar_plain(y)
     n = (PC.to_planar.launches, PC.to_planar.tiled_launches)
@@ -68,6 +75,125 @@ def test_layout_kernels_exact(cuda, dtype):
     assert (PC.to_planar.launches, PC.to_planar.tiled_launches) == (
         n[0], n[1] + 1)
     assert torch.equal(PC.from_planar(yp, 16, 128), y)
+
+
+DTYPES = [torch.float32, torch.bfloat16]
+
+
+def _nan_like(t):
+    """A block of ``t``'s shape filled with NaN, for a kernel to write
+    into: a lane or channel it fails to write shows."""
+    return torch.full_like(t, float("nan"))
+
+
+def _nhwc(shape, dtype, device, seed, storage_offset=0):
+    """A contiguous NHWC tensor from a seed, as a view ``storage_offset``
+    elements into its storage (off 16-byte alignment for 1)."""
+    g = torch.Generator().manual_seed(seed)
+    n = int(np.prod(shape))
+    flat = torch.randn(storage_offset + n, generator=g).to(device, dtype)
+    x = flat[storage_offset:].view(shape)
+    assert x.is_contiguous() and x.storage_offset() == storage_offset
+    return x
+
+
+# (C, c_pad, W): odd and even W, row pitches W * C * esz that are no
+# multiple of 16 bytes (W = 20, C = 3: 120 bytes in bfloat16)
+NARROW_CASES = [(1, 8, 20), (3, 8, 20), (3, 8, 21), (5, None, 13),
+                (8, 16, 21), (31, 32, 9), (31, 40, 76)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("c,c_pad,w", NARROW_CASES)
+@pytest.mark.parametrize("step,offset", [(1, 0), (2, 0), (2, 1)])
+@pytest.mark.parametrize("storage_offset", [0, 1])
+def test_to_planar_narrow_exact(cuda, dtype, c, c_pad, w, step, offset,
+                                storage_offset):
+    """K3a's narrow form (C < 32) equals ``to_planar_plain`` bit for bit,
+    every padding lane and channel written."""
+    x = _nhwc((3, 5, w, c), dtype, cuda, c * w + step + offset,
+              storage_offset)
+    want = PC.to_planar_plain(x, c_pad, step, offset)
+    out = _nan_like(want)
+    n = (PC.to_planar.launches, PC.to_planar.tiled_launches)
+    got = PC._to_planar_into(x, out, c_pad, step, offset)
+    assert got is out
+    assert (PC.to_planar.launches, PC.to_planar.tiled_launches) == (
+        n[0] + 1, n[1])
+    assert torch.equal(got, want)
+
+
+# (C, W): W = 253 gives the two phases different lane widths (127 and 126
+# columns: Wl 256 and 128); odd W leaves the odd phase one zero lane more
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("c,w", [(3, 608), (3, 21), (1, 20), (5, 7),
+                                 (8, 253), (3, 1)])
+@pytest.mark.parametrize("storage_offset", [0, 1])
+def test_split_phases_one_launch_exact(cuda, dtype, c, w, storage_offset):
+    x = _nhwc((2, 4, w, c), dtype, cuda, 40 + w, storage_offset)
+    want = [PC.to_planar_plain(x, 8, 2, o) for o in (0, 1)]
+    outs = [_nan_like(t) for t in want]
+    n = (PC.to_planar.launches, PC.to_planar.phases_launches)
+    xe, xo = PC._to_planar_phases_into(x, *outs, 8)
+    assert xe is outs[0] and xo is outs[1]
+    assert (PC.to_planar.launches, PC.to_planar.phases_launches) == (
+        n[0], n[1] + 1)
+    assert torch.equal(xe, want[0]) and torch.equal(xo, want[1])
+    # split_phases is that one launch
+    n = (PC.to_planar.launches, PC.to_planar.phases_launches)
+    xe, xo = SF.split_phases(x)
+    assert (PC.to_planar.launches, PC.to_planar.phases_launches) == (
+        n[0], n[1] + 1)
+    assert torch.equal(xe, want[0]) and torch.equal(xo, want[1])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("c", [32, 48, 128, 256])
+@pytest.mark.parametrize("w", [16, 76, 152])
+@pytest.mark.parametrize("extra", [0, 8])
+def test_to_planar_tiled_exact(cuda, dtype, c, w, extra):
+    """K3a's tiled form (C >= 32), with and without padding channels."""
+    x = _nhwc((2, 3, w, c), dtype, cuda, c + w)
+    want = PC.to_planar_plain(x, c + extra)
+    out = _nan_like(want)
+    n = (PC.to_planar.launches, PC.to_planar.tiled_launches)
+    got = PC._to_planar_into(x, out, c + extra)
+    assert got is out
+    assert (PC.to_planar.launches, PC.to_planar.tiled_launches) == (
+        n[0], n[1] + 1)
+    assert torch.equal(got, want)
+
+
+# (c, cp, w_img): c < cp, w_img < wl - 1; c < 32 takes the narrow form
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("c,cp,w", [(3, 8, 608), (3, 8, 21), (5, 5, 13),
+                                    (31, 32, 76), (32, 40, 16),
+                                    (33, 40, 17), (128, 128, 152),
+                                    (128, 256, 76), (256, 256, 16)])
+@pytest.mark.parametrize("storage_offset", [0, 1])
+def test_from_planar_exact(cuda, dtype, c, cp, w, storage_offset):
+    """K3b (both forms) equals ``from_planar_plain`` bit for bit, also on
+    a planar input whose base is off 16-byte alignment."""
+    wl = PC._round_up(w + 2, 128)
+    xp = _nhwc((2, 3, cp, wl), dtype, cuda, c + w, storage_offset)
+    want = PC.from_planar_plain(xp, w, c)
+    out = _nan_like(want)
+    n = (PC.from_planar.launches, PC.from_planar.narrow_launches)
+    got = PC._from_planar_into(xp, out, w, c)
+    assert got is out
+    narrow = c < 32
+    assert (PC.from_planar.launches, PC.from_planar.narrow_launches) == (
+        n[0] + (not narrow), n[1] + narrow)
+    assert torch.equal(got, want)
+
+
+def test_from_planar_above_the_old_row_cap(cuda):
+    """B * H = 65,537 rows (the old grid's z limit was 65,535, and the
+    wrapper raised above it): both K3b forms take them."""
+    for c, cp in ((32, 32), (3, 8)):
+        xp = _nhwc((1, 65537, cp, 128), torch.bfloat16, cuda, c)
+        assert torch.equal(PC.from_planar(xp, 5, c),
+                           PC.from_planar_plain(xp, 5, c))
 
 
 # (batch, side): 32 and 96 fill whole tiles of K1 (8 y5 positions in
@@ -104,14 +230,16 @@ def test_detector_takes_fused_route_on_cuda(cuda):
     net = PM.build_network(PM.yolov3_blocks(width=64, height=64))
     params = PM.init_params(net, 0)
     det = PE.Detector(net, params, img_size=64, device=cuda)
-    n = (PC.to_planar.launches, SF.fused_stem_fwd.launches,
-         PC.from_planar.launches)
+    def counts():
+        return (PC.to_planar.phases_launches, PC.to_planar.launches,
+                SF.fused_stem_fwd.launches, PC.from_planar.launches)
+    n = counts()
     images = np.random.default_rng(2).integers(0, 256, (2, 64, 64, 3),
                                                dtype=np.uint8)
     dets, valid, sat = det.detect_batch_device(images, 0.4, 0.4)
     assert PM.last_routes()["stem"] == "fused"
-    assert (PC.to_planar.launches, SF.fused_stem_fwd.launches,
-            PC.from_planar.launches) == (n[0] + 2, n[1] + 1, n[2] + 1)
+    # split_phases: one K3a launch for both column phases
+    assert counts() == (n[0] + 1, n[1], n[2] + 1, n[3] + 1)
     assert tuple(dets.shape) == (2, 300, 7) and dets.device.type == "cuda"
 
 
@@ -226,25 +354,27 @@ def test_fused_stem_remat_kernel_matches_plain_and_k2(cuda, dtype, b, h):
 
 
 def test_to_planar_g5_geometry_exact(cuda):
-    """K3a at the cotangent's width (C = 128, the tiled transpose) and on
-    a wide input with a column decimation and channel padding; both K3a
-    variants agree with the plain version bit for bit."""
+    """K3a at the cotangent's width (C = 128, the tiled transpose), on a
+    wide input with a column decimation and channel padding, at a C that
+    is no multiple of the vector (scalar loads) and on an input off
+    16-byte alignment: equal to the plain version bit for bit."""
     g = torch.Generator().manual_seed(4)
     g5 = torch.randn(2, 24, 24, 128, generator=g).to(cuda, torch.bfloat16)
     want = PC.to_planar_plain(g5)
     n = PC.to_planar.tiled_launches
     assert torch.equal(PC.to_planar(g5), want)
     assert PC.to_planar.tiled_launches == n + 1
-    for tiled in (False, True):
-        assert torch.equal(PC._to_planar_launch(g5, None, 1, 0, tiled), want)
     x = torch.randn(3, 5, 70, 40, generator=g).to(cuda)
     for off in (0, 1):
-        want = PC.to_planar_plain(x, 48, 2, off)
-        for tiled in (False, True):
-            assert torch.equal(PC._to_planar_launch(x, 48, 2, off, tiled),
-                               want)
-    # more rows than the grid's z limit (65535): the tiled kernel's blocks
-    # loop over rows
+        assert torch.equal(PC.to_planar(x, 48, 2, off),
+                           PC.to_planar_plain(x, 48, 2, off))
+    for dtype in DTYPES:
+        x = _nhwc((2, 3, 19, 33), dtype, cuda, 5)
+        assert torch.equal(PC.to_planar(x, 40, 2, 1),
+                           PC.to_planar_plain(x, 40, 2, 1))
+        x = _nhwc((2, 3, 19, 64), dtype, cuda, 6, storage_offset=1)
+        assert torch.equal(PC.to_planar(x), PC.to_planar_plain(x))
+    # more rows than the old grid's z limit (65535): the blocks walk rows
     x = torch.randn(1, 65537, 3, 32, generator=g).to(cuda, torch.bfloat16)
     assert torch.equal(PC.to_planar(x), PC.to_planar_plain(x))
 

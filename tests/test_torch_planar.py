@@ -76,3 +76,41 @@ def test_planar_bf16_is_exact():
     assert torch.equal(PC.from_planar(xp, 12, 5), x)
     assert not xp[:, :, 5:].any() and not xp[..., 0].any()
     assert not xp[..., 13:].any()
+
+
+# the kernels' edge geometries: odd W with the odd phase (one zero lane
+# more than the even one), C on both sides of the narrow / tiled split,
+# padding channels
+@pytest.mark.parametrize("c", [31, 32, 33])
+@pytest.mark.parametrize("step,offset", [(2, 1), (2, 0), (1, 0)])
+def test_to_planar_edges_match_pallas_interpret(c, step, offset):
+    x = _x((2, 3, 21, c), seed=c + offset)
+    want = np.asarray(JPC.to_planar_mxu(jnp.asarray(x), c_pad=c + 7,
+                                        step=step, offset=offset,
+                                        interpret=True))
+    got = PC.to_planar_plain(torch.from_numpy(x), c + 7, step, offset)
+    assert got.shape == want.shape
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("c,cp,w_img", [(3, 8, 21), (31, 32, 13),
+                                        (33, 40, 9)])
+def test_from_planar_edges_match_pallas_interpret(c, cp, w_img):
+    """c < cp on the way back, at odd widths."""
+    yp = _x((2, 3, cp, 128), seed=cp + w_img)
+    want = np.asarray(JPC.from_planar_mxu(jnp.asarray(yp), w_img, c,
+                                          interpret=True))
+    got = PC.from_planar_plain(torch.from_numpy(yp), w_img, c)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("w", [21, 253])
+def test_split_phases_odd_width_match_jax(w):
+    """At odd W the even phase holds (W + 1) // 2 columns and the odd
+    phase W // 2; at W = 253 their lane widths differ (256 and 128)."""
+    x = _x((1, 2, w, 3), seed=w)
+    je, jo = JSF.split_phases(jnp.asarray(x))
+    pe, po = SF.split_phases(torch.from_numpy(x))
+    assert pe.shape == je.shape and po.shape == jo.shape
+    np.testing.assert_array_equal(pe.numpy(), np.asarray(je))
+    np.testing.assert_array_equal(po.numpy(), np.asarray(jo))

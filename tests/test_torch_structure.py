@@ -123,16 +123,54 @@ def test_kernel_wrappers_use_plain_versions_only_on_cpu():
     sf = importlib.import_module(f"{PORT}.ops.stem_fused")
     def counts():
         return (pc.to_planar.launches, pc.to_planar.tiled_launches,
-                pc.from_planar.launches, sf.fused_stem_fwd.launches,
+                pc.to_planar.phases_launches, pc.from_planar.launches,
+                pc.from_planar.narrow_launches, sf.fused_stem_fwd.launches,
                 sf.fused_stem_fwd.save_acts_launches,
                 sf.fused_stem_bwd_saved.launches)
     before = counts()
     rng = np.random.default_rng(0)
-    for c in (3, 40):   # both K3a variants' choice of C
+    for c in (3, 40):   # both forms' choice of C, each way
         x = torch.from_numpy(rng.random((1, 8, 8, c), dtype=np.float32))
         xp = pc.to_planar(x)
         assert torch.equal(pc.from_planar(xp, 8, c), x)
+    xe, xo = sf.split_phases(x[..., :3].contiguous())
+    assert torch.equal(xo, pc.to_planar_plain(x[..., :3], 8, 2, 1))
     assert counts() == before
+    meta = torch.empty(1, 8, 8, 3, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        pc.to_planar_phases(meta, 8)
+    assert counts() == before
+
+
+def test_layout_launch_helpers_write_only_into_a_matching_block():
+    """The layout kernels' launch helpers (``_to_planar_into`` and its
+    siblings, which the GPU tests and ``chip_smoke.py`` hand NaN-filled
+    blocks) take the caller's block only when it is contiguous and of the
+    output's shape, dtype and device, and refuse a CPU tensor without
+    counting a launch."""
+    import importlib
+    pc = importlib.import_module(f"{PORT}.ops.planar_conv")
+    bf16 = torch.bfloat16
+    like = torch.zeros(1, 2, dtype=bf16)
+    out = torch.full((2, 3, 4), float("nan"), dtype=bf16)
+    assert pc._out_block(out, (2, 3, 4), like, "k") is out
+    new = pc._out_block(None, (2, 3, 4), like, "k")
+    assert new is not out and new.shape == (2, 3, 4) and new.dtype == bf16
+    for bad in (torch.empty(2, 3, 5, dtype=bf16), torch.empty(2, 3, 4),
+                torch.empty(2, 4, 3, dtype=bf16).transpose(1, 2)):
+        with pytest.raises(ValueError, match="out must be"):
+            pc._out_block(bad, (2, 3, 4), like, "k")
+    x = torch.zeros(1, 4, 4, 3)
+    counts = (pc.to_planar.launches, pc.to_planar.phases_launches,
+              pc.from_planar.narrow_launches)
+    for call in (lambda: pc._to_planar_into(x, None, 8),
+                 lambda: pc._to_planar_phases_into(x, None, None, 8),
+                 lambda: pc._from_planar_into(pc.to_planar_plain(x, 8),
+                                              None, 4, 3)):
+        with pytest.raises(ValueError, match="CUDA"):
+            call()
+    assert (pc.to_planar.launches, pc.to_planar.phases_launches,
+            pc.from_planar.narrow_launches) == counts
 
 
 def test_no_tf32_nests_and_restores_across_threads():
