@@ -4,8 +4,10 @@ re-run on this hardware; NOT wired into any default path.
 Each module is the JAX package's ``experimental/`` module of the same name,
 exact against it on the CPU and against its own plain version on the card:
 
-- ``median_pallas``: the rank-counting median (K7, ``csrc/median_pool.cu``),
-  beside the shipped ``ops/median_pool.py`` forward.
+- ``median_pallas``: the median filter (K7, ``csrc/median_pool.cu``: a
+  selection network for k <= 8, rank counting above, both exact against
+  the rank-counting plain version), beside the shipped
+  ``ops/median_pool.py`` forward.
 - ``stem_batched``: the batch-on-lanes stem megakernels (K8a forward, K8b
   input backward, ``csrc/stem_batched.cu``) and their NHWC <-> lanes glue,
   beside the shipped ``ops/stem_fused.py`` (K3a -> K1 -> K3b, K3a -> K2).

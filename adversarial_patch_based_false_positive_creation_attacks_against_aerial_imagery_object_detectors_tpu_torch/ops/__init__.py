@@ -1,3 +1,5 @@
+from .median_pool import (median_pool_2d, median_pool_nhwc,
+    median_pool_2d_fast, median_pool_nhwc_fast, median_select)
 from .decode import decode_head, decode_all_heads, head_cell_scores
 from .nms import (iou_xywh_matrix, greedy_nms_host, greedy_nms_device,
     greedy_nms_device_batch)

@@ -118,6 +118,8 @@ SIGNATURES = {
     "median_pool": {
         # x, out, dtype, C, H, W, k, pt, pl, stream
         "apfp_median_pool": [_P, _P] + [_I] * 7 + [_P],
+        # k, dtype, info[3] (registers, shared bytes, blocks/SM)
+        "apfp_median_pool_info": [_I, _I, _P],
     },
     "stem_batched": {
         # xe, xo, w0, w1, w2, w3, w5, b0, b1, b2, b3, b5, f0, f1, f2, f3,

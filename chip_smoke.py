@@ -14,8 +14,9 @@ Phases, each fatal on failure:
    each block width), with its registers, shared memory, blocks per
    multiprocessor and spilled bytes, and fail if one has none (or if K8a,
    K8b or a K6 kernel spills); the same resource records (static shared
-   memory) for the layout kernels K3a and K3b, each form and dtype, which
-   must not spill.
+   memory) for the layout kernels K3a and K3b, each form and dtype, and
+   for K7 (the network form at k = 1..8 and the rank-counting form, each
+   dtype), none of which may spill.
 2. Hold each kernel of the serving path against its plain PyTorch
    version on the card at the serving shapes (batch 8, 608^2, bfloat16;
    the fused stem and the layout kernels also in float32) and time
@@ -97,14 +98,18 @@ Phases, each fatal on failure:
    which training never launches) and one with ``res152="c12"``.
 
 9. The experimental package (``<port>/experimental/``; counted launches):
-   K7, the rank-counting median, at the EOT smoother's shape (float32 and
-   bfloat16) against its plain version, the shipped sort-free forward and
-   a ``kthvalue`` yardstick (all exact); K8a (with and without
+   K7, the median (a register-resident selection network for k <= 8,
+   rank counting above), bit for bit against its plain version in float32
+   and bfloat16 (k 1, 3, 4, 7, 8 and 9; ties, +-0, +-inf, NaN windows on
+   both sides of the -inf limit; into NaN-filled blocks), at the EOT
+   smoother's shape also against the shipped forward and a ``kthvalue``
+   yardstick, timed beside its operations bound, at a 608^2 scene and at
+   k 9; K8a (with and without
    ``save_acts``) and K8b, the batch-on-lanes stem, at b24 608^2 bfloat16
    and float32 against their plain versions and against K1 / K2 on the
    same x (bfloat16: K8a's y5 and signs and K8b's gx equal K1's and
    K2's bit for bit); then the package's entry points at full width: K7
-   on the patch, b24 victim forward + input backward steps with layers 0-5 on
+   on the patch (the k 7 network form, counted apart), b24 victim forward + input backward steps with layers 0-5 on
    ``fused_stem_batched`` (one K8a ``save_acts`` and one K8b a step, no K1
    or K2), a forward without grad (K8a alone) and a b8 packed-stem forward;
    the A/B against the shipped fused stem (layout glue apart), the float32
@@ -163,8 +168,9 @@ K6_KERNELS = ("res152_fused", "res152_fused_save", "res152_fused_grad")
 # the remat route's and the c12 route's own kernels (K5, K6c)
 NEW_KERNELS = ("fused_stem_bwd", "res152_fused_grad12")
 # the experimental package's kernels (K7, K8a alone and with save_acts, K8b)
-EXP_KERNELS = ("median_pool_2d_pallas", "fused_stem_fwd_b",
-               "fused_stem_fwd_b_save_acts", "fused_stem_bwd_b")
+EXP_KERNELS = ("median_pool_2d_pallas", "median_pool_2d_pallas_network",
+               "fused_stem_fwd_b", "fused_stem_fwd_b_save_acts",
+               "fused_stem_bwd_b")
 ROUTE_STEPS = 20   # timed steps of each of the other routes
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and dense FLOP/s by type
@@ -277,6 +283,8 @@ def counters() -> dict:
             "fused_stem_bwd": (SF.fused_stem_bwd, "launches"),
             "res152_fused_grad12": (RF.res152_fused_grad12, "launches"),
             "median_pool_2d_pallas": (MPL.median_pool_2d_pallas, "launches"),
+            "median_pool_2d_pallas_network": (MPL.median_pool_2d_pallas,
+                                              "network_launches"),
             "fused_stem_fwd_b": (SB.fused_stem_fwd_b, "launches"),
             "fused_stem_fwd_b_save_acts": (SB.fused_stem_fwd_b,
                                            "save_acts_launches"),
@@ -364,10 +372,34 @@ TC_KERNELS = {
 
 
 # the kernels whose bfloat16 instantiation must not spill (K8a, K8b, K6a,
-# K6a save, K6b, K6c)
+# K6a save, K6b, K6c), and K7, whose float32 and bfloat16 instantiations
+# (each k of the network form, and the rank form) must not either
 NO_SPILL = ("fused_stem_fwd_b", "fused_stem_fwd_b_save_acts",
             "fused_stem_bwd_b", "res152_fused", "res152_fused_save",
-            "res152_fused_grad", "res152_fused_grad12")
+            "res152_fused_grad", "res152_fused_grad12",
+            "median_pool_2d_pallas")
+
+
+def sass_op_counts(_cuda, path: str, ops) -> dict:
+    """{kernel's mangled name: {op: count}}: the instructions of ``ops``
+    (SASS mnemonics, each counted once a line, the first that matches)
+    in every kernel of the library at ``path`` (``cuobjdump -sass``,
+    beside ``nvcc``)."""
+    tool = os.path.join(os.path.dirname(_cuda._nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", path], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        s = line.strip()
+        if s.startswith("Function :"):
+            fn = s.split(":", 1)[1].strip()
+            counts[fn] = dict.fromkeys(ops, 0)
+        elif fn is not None:
+            for op in ops:
+                if f" {op}." in s or f" {op} " in s:
+                    counts[fn][op] += 1
+                    break
+    return counts
 
 
 def tensor_core_check(_cuda, info) -> dict:
@@ -383,24 +415,11 @@ def tensor_core_check(_cuda, info) -> dict:
     instantiations holds them under ``sass``."""
     import ctypes
     import re
-    tool = os.path.join(os.path.dirname(_cuda._nvcc()), "cuobjdump")
     counts, regs, spills = {}, {}, {}
     libs = {inst[1] for insts in TC_KERNELS.values() for inst in insts}
     for lib in libs:
-        sass = subprocess.run([tool, "-sass", info[lib]["path"]],
-                              capture_output=True, text=True, check=True,
-                              timeout=300).stdout
-        fn = None
-        for line in sass.splitlines():
-            s = line.strip()
-            if s.startswith("Function :"):
-                fn = s.split(":", 1)[1].strip()
-                counts[fn] = {"HMMA": 0, "HGMMA": 0}
-            elif fn is not None:
-                for op in ("HGMMA", "HMMA"):
-                    if f" {op}." in s or f" {op} " in s:
-                        counts[fn][op] += 1
-                        break
+        counts.update(sass_op_counts(_cuda, info[lib]["path"],
+                                     ("HGMMA", "HMMA")))
         fn = props = None
         for line in info[lib]["log"].splitlines():
             if "Compiling entry function" in line:
@@ -452,16 +471,12 @@ LAYOUT_KERNELS = {"to_planar": (0, "to_planar_narrow_kernel"),
                   "from_planar": (3, "from_planar_tiled_kernel")}
 
 
-def layout_resources(_cuda, info) -> dict:
-    """Phase 1 for the layout kernels K3a and K3b (narrow and tiled
-    forms, bfloat16 and float32 instantiations): ptxas' registers, stack
-    frame and spill bytes and the card's registers, static shared memory
-    and blocks per multiprocessor (``apfp_planar_info``). Fails if one
-    spills. Returns {entry name: {"bf16": record, "f32": record}}."""
-    import ctypes
+def ptxas_records(log: str) -> dict:
+    """{kernel's mangled name: {"ptxas": its "Used N registers" line,
+    "stack_bytes", "spill_bytes"}} from a library's ``-Xptxas -v`` log."""
     import re
     recs, fn = {}, None
-    for line in info["planar"]["log"].splitlines():
+    for line in log.splitlines():
         if "Compiling entry function" in line:
             fn = line.split("'")[1]
         elif fn is not None and "stack frame" in line:
@@ -471,6 +486,68 @@ def layout_resources(_cuda, info) -> dict:
                     r"(\d+) bytes spill (?:stores|loads)", line)))
         elif fn is not None and "Used" in line and "registers" in line:
             recs.setdefault(fn, {})["ptxas"] = line.strip()
+    return recs
+
+
+# K7 is checked at these k: the network form at 1, 3, 4, 7 and 8, the
+# rank-counting form at 9
+K7_KS = (1, 3, 4, 7, 8, 9)
+
+
+def median_resources(_cuda, info) -> dict:
+    """Phase 1 for K7 (``csrc/median_pool.cu``): for the network form at
+    every k of ``NET_KS`` and the rank-counting form, float32 and
+    bfloat16, ptxas' registers, stack frame and spill bytes, the card's
+    registers, shared memory and blocks per multiprocessor
+    (``apfp_median_pool_info``), and the min/max (FMNMX) instructions of
+    its SASS beside the ``median_net_minmax`` that the bound counts. Fails
+    if one spills (K7 is in ``NO_SPILL``). Returns {"k<k>" (9: the rank
+    form): {"bf16": record, "f32": record}}."""
+    import ctypes
+    MP = import_port("ops.median_pool")
+    recs = ptxas_records(info["median_pool"]["log"])
+    fmnmx = sass_op_counts(_cuda, info["median_pool"]["path"], ("FMNMX",))
+    out = {}
+    for k in MP.NET_KS + (9,):
+        stem = (f"median_net_kernelI{{}}Li{k}EE" if k in MP.NET_KS
+                else "median_rank_kernelI{}EE")
+        out[f"k{k}"] = {}
+        for label, code, tag in (("bf16", 1, "13__nv_bfloat16"),
+                                 ("f32", 0, "f")):
+            fns = [f for f in recs if stem.format(tag) in f]
+            assert len(fns) == 1, (k, label, fns)
+            rec = dict(recs[fns[0]])
+            buf = (ctypes.c_int * 3)()
+            _cuda.check(_cuda.lib("median_pool").apfp_median_pool_info(
+                k, code, buf), f"K7 k {k} info")
+            rec.update(registers=buf[0], smem_bytes=buf[1],
+                       blocks_per_sm=buf[2],
+                       sass_fmnmx=sum(c["FMNMX"] for f, c in fmnmx.items()
+                                      if stem.format(tag) in f),
+                       minmax_counted=(MP.median_net_minmax(k)
+                                       if k in MP.NET_KS else None))
+            form = "network" if k in MP.NET_KS else "rank"
+            log(f"[k7] {form} form k {k} {label}: {rec['registers']} "
+                f"registers, {rec['smem_bytes']} bytes of shared memory, "
+                f"{rec['blocks_per_sm']} block(s) a multiprocessor, "
+                f"{rec['sass_fmnmx']} FMNMX in its SASS (the bound counts "
+                f"{rec['minmax_counted']}), "
+                f"{rec['spill_bytes']} bytes spilled, {rec['stack_bytes']} "
+                f"bytes of stack; ptxas: {rec['ptxas']}")
+            assert "median_pool_2d_pallas" not in NO_SPILL or \
+                rec["spill_bytes"] == 0, f"K7 k {k} {label} spills"
+            out[f"k{k}"][label] = rec
+    return out
+
+
+def layout_resources(_cuda, info) -> dict:
+    """Phase 1 for the layout kernels K3a and K3b (narrow and tiled
+    forms, bfloat16 and float32 instantiations): ptxas' registers, stack
+    frame and spill bytes and the card's registers, static shared memory
+    and blocks per multiprocessor (``apfp_planar_info``). Fails if one
+    spills. Returns {entry name: {"bf16": record, "f32": record}}."""
+    import ctypes
+    recs = ptxas_records(info["planar"]["log"])
     out = {}
     for name, (which, stem) in LAYOUT_KERNELS.items():
         out[name] = {}
@@ -2155,55 +2232,120 @@ def close_check(got, want, dt, what) -> tuple:
     return err, mean, tol
 
 
-def median_kernel(dev, card) -> dict:
-    """Phase 9, K7 at the EOT smoother's shape ([3, 224, 224] float32, k 7,
-    with a tied block; also a bfloat16 copy): equal to its plain version
-    and to the shipped ``median_pool_nhwc_fast`` forward, timed beside its
-    bound, one ``kthvalue`` over the unfolded reflect-padded windows and
-    the shipped forward. Returns K7's entry of the kernels line."""
+def median_kernel(dev, card, k7_info) -> dict:
+    """Phase 9, K7: bit for bit (int32 / int16 views) against its plain
+    version in float32 and bfloat16, written into blocks filled with NaN
+    that are checked to be its outputs, at [3, 224, 224] for every k of
+    ``K7_KS`` (the network form, and the rank-counting form at k 9) and
+    every case of ``median_pallas.check_input`` (the GPU tests' inputs);
+    then, at the EOT smoother's shape ([3, 224, 224] float32, k 7, with a
+    tied block), equal to the shipped ``median_pool_nhwc_fast`` forward
+    and to one ``kthvalue`` over the unfolded reflect-padded windows, and
+    timed (CUDA events and device time) beside its operations bound (the
+    min/max instructions of the pruned network that the kernel runs), the
+    plain version, the ``kthvalue`` yardstick and the shipped forward;
+    also at [3, 608, 608] (a whole scene tile, the rate
+    apart from the launch) and the rank form at k 9. Returns K7's entry of
+    the kernels line."""
     MPL = import_port("experimental.median_pallas")
     MP = import_port("ops.median_pool")
-    F = torch.nn.functional
     gen = torch.Generator(device=dev).manual_seed(SEED + 20)
+    checked = 0
+    for k in K7_KS:
+        for case in ("ties", "zeros", "nan"):
+            x = torch.from_numpy(MPL.check_input(
+                (3, PATCH, PATCH), k, case, seed=SEED + 20 + k)).to(dev)
+            for dt, bits in ((torch.float32, torch.int32),
+                             (torch.bfloat16, torch.int16)):
+                xd = x.to(dt)
+                nans = torch.full_like(xd, float("nan"))
+                got = MPL._median_pool_into(xd, nans, k)
+                torch.cuda.synchronize()
+                assert got is nans, "K7: not in place"
+                want = MPL.median_pool_2d_pallas_plain(xd, k)
+                assert torch.equal(got.view(bits), want.view(bits)), \
+                    f"K7 k {k} {case} {dt} differs from its plain version"
+                checked += 1
+    del x, xd, nans, got, want
+
+    def instructions(k, numel):
+        """min/max instructions of the pruned network: those of the
+        comparators' halves that the median reads."""
+        return float(MP.median_net_minmax(k)) * numel
+
+    def ops_bound(xt, k):
+        # an FMNMX issues as one lane instruction where an FMA counts two
+        # FLOPs: instructions x 2 over the f32 FLOP rate
+        return bound(2 * nbytes(xt), 2 * instructions(k, xt.numel()),
+                     torch.float32)
+
     x = torch.rand(3, PATCH, PATCH, generator=gen, device=dev)
     x[:, 40:60, 70:90] = 0.5
-    torch.full(x.shape, float("nan"), device=dev)
     got = MPL.median_pool_2d_pallas(x, 7)
-    torch.cuda.synchronize()
-    assert torch.equal(got, MPL.median_pool_2d_pallas_plain(x, 7)), "K7"
     with torch.no_grad():
         shipped = MP.median_pool_nhwc_fast(x.permute(1, 2, 0), 7)
     assert torch.equal(got, shipped.permute(2, 0, 1)), "K7 vs shipped"
-    xb = x.to(torch.bfloat16)
-    assert torch.equal(MPL.median_pool_2d_pallas(xb, 7),
-                       MPL.median_pool_2d_pallas_plain(xb, 7)), "K7 bf16"
 
     def library():
         xp = F.pad(x[None], (3, 3, 3, 3), mode="reflect")
         return F.unfold(xp, 7).view(3, 49, -1).kthvalue(25, 1).values.view(
             x.shape)
     assert torch.equal(library(), got), "kthvalue yardstick"
-    b_ms, b_by = bound(nbytes(x, got), 0.0, torch.float32)
+    xb = x.to(torch.bfloat16)
+    b_ms, b_by = ops_bound(x, 7)
+    scene = torch.rand(3, SIZE, SIZE, generator=gen, device=dev)
+    assert torch.equal(MPL.median_pool_2d_pallas(scene, 7),
+                       MPL.median_pool_2d_pallas_plain(scene, 7)), "K7 608"
+    s_ms, s_by = ops_bound(scene, 7)
+    r_ms, r_by = ops_bound(x, 9)
+    def run():
+        return MPL.median_pool_2d_pallas(x, 7)
     with torch.no_grad():
         ent = {"name": "median_pool_2d_pallas", "route": "cuda",
                "source": f"{PORT}/csrc/median_pool.cu",
                "replaces": f"{JAX_PKG}/experimental/median_pallas.py:54",
-               "launches": 0, "max_abs_err": 0.0, "tol": 0.0,
+               "launches": 0, "form": MPL.kernel_form(7),
+               "max_abs_err": 0.0, "tol": 0.0, "checked_bit_for_bit": checked,
                "shape": list(x.shape), "k": 7, "dtype": "float32",
-               "ms": time_ms(lambda: MPL.median_pool_2d_pallas(x, 7)),
+               "ms": time_ms(run), "device_ms": device_ms(run),
                "bf16_ms": time_ms(lambda: MPL.median_pool_2d_pallas(xb, 7)),
+               "bf16_device_ms": device_ms(
+                   lambda: MPL.median_pool_2d_pallas(xb, 7)),
                "plain_ms": time_ms(
                    lambda: MPL.median_pool_2d_pallas_plain(x, 7), 5),
                "bound_ms": b_ms, "bound_by": b_by,
+               "comparators": len(MP.median_net_table(7)[0]),
+               "minmax_an_output": MP.median_net_minmax(7),
+               "minmax_instructions": instructions(7, x.numel()),
                "library_ms": time_ms(library),
+               "library_device_ms": device_ms(library),
                "library": "F.pad (reflect) + F.unfold + torch.kthvalue",
                "shipped_fwd_ms": time_ms(
                    lambda: MP.median_pool_2d_fast(x, 7)),
-               "rank_count_compares": 2.0 * x.numel() * 49 ** 2}
-    log(f"[k7] equal to plain, shipped forward and kthvalue; "
-        f"{ent['ms']:.4f} ms (bf16 {ent['bf16_ms']:.4f}) vs plain "
-        f"{ent['plain_ms']:.4f}, kthvalue {ent['library_ms']:.4f}, shipped "
-        f"forward {ent['shipped_fwd_ms']:.4f}, bound {b_ms:.6f} ({card})")
+               "scene_608": {
+                   "shape": list(scene.shape),
+                   "ms": time_ms(lambda: MPL.median_pool_2d_pallas(scene, 7)),
+                   "device_ms": device_ms(
+                       lambda: MPL.median_pool_2d_pallas(scene, 7)),
+                   "bound_ms": s_ms, "bound_by": s_by},
+               "rank_k9": {
+                   "form": MPL.kernel_form(9),
+                   "ms": time_ms(lambda: MPL.median_pool_2d_pallas(x, 9)),
+                   "device_ms": device_ms(
+                       lambda: MPL.median_pool_2d_pallas(x, 9)),
+                   "bound_ms": r_ms, "bound_by": r_by,
+                   "comparators": len(MP.median_net_table(9)[0]),
+                   "minmax_an_output": MP.median_net_minmax(9)},
+               "resources": k7_info, "card": card}
+    log(f"[k7] {checked} checks bit for bit (k {K7_KS}, ties / zeros / nan, "
+        f"f32 and bf16, into NaN blocks); equal to the shipped forward and "
+        f"kthvalue; {ent['ms']:.4f} ms, device {ent['device_ms']:.4f} (bf16 "
+        f"{ent['bf16_ms']:.4f}, device {ent['bf16_device_ms']:.4f}) vs "
+        f"plain {ent['plain_ms']:.4f}, kthvalue {ent['library_ms']:.4f} "
+        f"(device {ent['library_device_ms']:.4f}), shipped forward "
+        f"{ent['shipped_fwd_ms']:.4f}, bound {b_ms:.6f} ({b_by}); 608: "
+        f"{json.dumps(ent['scene_608'])}; k 9: {json.dumps(ent['rank_k9'])} "
+        f"({card})")
     return ent
 
 
@@ -2477,12 +2619,13 @@ def experimental_path(dev, net, params, card, default_breakdown) -> dict:
     log(f"[exp] counted run: {launches}")
     assert route_packed == "packed", route_packed
     assert launches["median_pool_2d_pallas"] == 1, launches
+    # the patch's k 7 median went through the network form
+    assert launches["median_pool_2d_pallas_network"] == 1, launches
     assert launches["fused_stem_fwd_b_save_acts"] == EXP_PATH_STEPS, launches
     assert launches["fused_stem_bwd_b"] == EXP_PATH_STEPS, launches
     assert launches["fused_stem_fwd_b"] == 1, launches
     assert all(v == 0 for k, v in launches.items() if k not in
-               ("median_pool_2d_pallas", "fused_stem_fwd_b",
-                "fused_stem_fwd_b_save_acts", "fused_stem_bwd_b")), launches
+               EXP_KERNELS), launches
     assert smoothed.shape == (3, PATCH, PATCH) and bool(
         torch.isfinite(smoothed).all())
     assert bool(torch.isfinite(gxb).all()) and gxb.abs().max().item() > 0
@@ -2673,6 +2816,7 @@ def main() -> int:
                 log(f"    {line.strip()}")
     tc_info = tensor_core_check(_cuda, info)
     layout_info = layout_resources(_cuda, info)
+    k7_info = median_resources(_cuda, info)
 
     # -- model and main-path inputs ------------------------------------
     net = M.build_network(M.yolov3_blocks(width=SIZE, height=SIZE))
@@ -3179,16 +3323,18 @@ def main() -> int:
 
     # -- 9. the experimental package (counted launches) -----------------
     phase("9 experimental package")
-    k7 = median_kernel(dev, card)
+    k7 = median_kernel(dev, card, k7_info)
     k8 = batched_kernels(dev, sp, model_sbp, card, tc_info)
     erec = experimental_path(dev, net, params, card, rec["breakdown_ms"])
     for k in [k7] + k8:
         k["launches"] = erec["launches"][k["name"]]
-        k["launches_on"] = ("phase 9: K7 on the EOT patch once, "
+        k["launches_on"] = ("phase 9: K7 (network form) on the EOT patch "
+                            "once, "
                             f"{EXP_PATH_STEPS} b24 victim fwd + bwd steps "
                             "through fused_stem_batched, one forward "
                             "without grad")
         assert k["launches"] > 0, k["name"]
+    k7["network_launches"] = erec["launches"]["median_pool_2d_pallas_network"]
     kernels += [k7] + k8
     log(f"[exp] {json.dumps(erec)} ({card})")
     phase("done")

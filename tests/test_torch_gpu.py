@@ -691,27 +691,37 @@ def _experimental(name):
         f"aerial_imagery_object_detectors_tpu_torch.experimental.{name}")
 
 
+@pytest.mark.parametrize("case", ["ties", "zeros", "nan"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape,k", [((3, 40, 37), 7), ((2, 2, 17, 33), 3),
-                                     ((1, 9, 5), 8)])
-def test_median_pool_kernel_equals_plain(cuda, dtype, shape, k):
-    """K7 against its plain version bit for bit (the median is one of the
-    inputs), ties, leading dims, tiles past the image, an even k, and a
-    NaN window's -inf."""
+                                     ((1, 9, 5), 8), ((3, 224, 224), 7),
+                                     ((2, 19, 41), 1), ((2, 19, 41), 4),
+                                     ((3, 40, 37), 9)])
+def test_median_pool_kernel_equals_plain(cuda, dtype, shape, k, case):
+    """K7 against its plain version bit for bit (int32 / int16 views: the
+    median is one of the inputs, so +0 and -0 must come out as the rank
+    counter's): the network form (k 1, 3, 4, 7, 8) and the rank-counting
+    form (k 9), ties, leading dims, tiles past the image, even k, +-0,
+    +-inf and windows on both sides of the NaN count that gives -inf; once
+    by the wrapper and once into a block filled with NaN."""
     MPL = _experimental("median_pallas")
-    g = torch.Generator().manual_seed(15)
-    x = torch.rand(*shape, generator=g)
-    x[..., 2:7, 1:4] = 0.5
-    x[..., 0, 0] = float("nan")
+    x = torch.from_numpy(MPL.check_input(shape, k, case, seed=15 + k))
     x = x.to(cuda, dtype)
-    n = MPL.median_pool_2d_pallas.launches
+    n = (MPL.median_pool_2d_pallas.launches,
+         MPL.median_pool_2d_pallas.network_launches)
     got = MPL.median_pool_2d_pallas(x, k)
+    nans = torch.full_like(x, float("nan"))
+    into = MPL._median_pool_into(x, nans, k)
     torch.cuda.synchronize()
-    assert MPL.median_pool_2d_pallas.launches == n + 1
+    assert into is nans
+    assert (MPL.median_pool_2d_pallas.launches,
+            MPL.median_pool_2d_pallas.network_launches) == (
+        n[0] + 2, n[1] + 2 * (k <= 8))
     want = MPL.median_pool_2d_pallas_plain(x, k)
     assert got.dtype == dtype and got.shape == x.shape
-    assert torch.equal(got.isnan(), want.isnan())
-    assert torch.equal(torch.nan_to_num(got), torch.nan_to_num(want))
+    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    assert torch.equal(got.view(bits), want.view(bits))
+    assert torch.equal(into.view(bits), want.view(bits))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -67,3 +67,24 @@ def test_nan_window_gives_minus_inf_as_pallas():
 def test_refuses_windows_reflection_cannot_fill(h, w, k):
     with pytest.raises(ValueError, match="k // 2"):
         MP.median_pool_2d_pallas(torch.zeros(2, h, w), k)
+
+
+@pytest.mark.parametrize("k", [3, 4, 7])
+def test_signed_zeros_and_inf_equal_pallas_bit_for_bit(k):
+    """+0 and -0 mixes and real +-inf: the last qualifying zero in window
+    order decides the sign, as in the Pallas kernel; compared on int32
+    views, where -0 and +0 differ."""
+    rng = np.random.default_rng(40 + k)
+    x = _input((2, 14, 16), seed=k)
+    x[0, 2:10, 3:12] = np.where(rng.random((8, 9)) < 0.5, -0.0, 0.0)
+    x[0, 11, 4:9] = np.inf
+    x[1] = np.where(rng.random((14, 16)) < 0.5, -0.0, 0.0)
+    x[1, 1:9, 1:9] = np.inf
+    x[1, 9:13, 10:14] = -np.inf
+    got = MP.median_pool_2d_pallas(torch.from_numpy(x), k).numpy()
+    want = np.asarray(JMP.median_pool_2d_pallas(jnp.asarray(x), k,
+                                                interpret=True))
+    assert np.signbit(want[want == 0]).any() and (
+        ~np.signbit(want[want == 0])).any()
+    assert np.isposinf(want).any()
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))

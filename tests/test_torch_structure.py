@@ -338,6 +338,34 @@ def test_experimental_wrappers_plain_on_cpu_raise_elsewhere():
     assert counts() == before
 
 
+@pytest.mark.parametrize("k", range(1, 10))
+def test_median_wrapper_plain_on_cpu_raises_on_meta_at_every_k(k):
+    """K7's wrapper runs its plain version on a CPU tensor and counts no
+    launch of either form, and raises on a ``meta`` tensor, at every k of
+    the network form (1-8) and at 9 (the rank-counting form). The module
+    of the new ``ops/median_pool.py`` names is among the sources the
+    no-JAX scan reads, and imports no JAX."""
+    import importlib
+    import inspect
+    mp = importlib.import_module(f"{PORT}.experimental.median_pallas")
+    ops_mp = importlib.import_module(f"{PORT}.ops.median_pool")
+    path = inspect.getsourcefile(ops_mp.median_net_table)
+    assert path in set(_port_sources())
+    for name in ("median_select", "median_pool_nhwc", "median_net_table",
+                 "median_net_minmax", "median_net_header", "_batcher_pairs"):
+        assert inspect.getsourcefile(getattr(ops_mp, name)) == path
+    assert not [m for m in _imported_modules(path)
+                if m.split(".")[0] in ("jax", "jaxlib", JAX_PKG)]
+    assert mp.kernel_form(k) == ("network" if k <= 8 else "rank")
+    fn = mp.median_pool_2d_pallas
+    before = (fn.launches, fn.network_launches)
+    x = torch.rand(2, 11, 12, generator=torch.Generator().manual_seed(k))
+    assert torch.equal(fn(x, k), mp.median_pool_2d_pallas_plain(x, k))
+    with pytest.raises(ValueError, match="CUDA"):
+        fn(torch.empty(x.shape, device="meta"), k)
+    assert (fn.launches, fn.network_launches) == before
+
+
 def test_port_import_leaves_experimental_unloaded():
     """As in the JAX package, nothing on a default path imports the
     experimental package: not ``import <port>``, not a ``Darknet`` built
