@@ -18,7 +18,9 @@ planar ``[B, H, C, Wl]`` rows of ``ops.planar_conv.to_planar``.
              creation losses.
 - ``train``  experiment configs, the amsgrad patch optimizer and the
              ``PatchTrainer``.
-- ``utils``  patch PNGs and training checkpoints.
+- ``parallel`` data parallelism on ``torch.distributed``, one process a
+             card.
+- ``utils``  patch PNGs, training checkpoints, tracing and step timing.
 - ``cli``    ``python -m <package>.cli.serve``, ``...cli.train_patch``.
 
 Every entry point takes ``device=`` (default ``"cuda"``) and raises when
@@ -28,4 +30,5 @@ runs its plain version only for tensors that lie on the CPU.
 
 __version__ = "0.1.0"
 
-from . import attack, data, evals, models, ops, train, utils  # noqa: E402,F401
+from . import (attack, data, evals, models, ops, parallel, train,  # noqa: E402,F401
+               utils)

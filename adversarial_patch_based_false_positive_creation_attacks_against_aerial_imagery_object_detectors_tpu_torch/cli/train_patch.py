@@ -8,6 +8,15 @@
     python -m <package>.cli.train_patch --synthetic 48 --batch-size 24 \
         --epochs 1
 
+    # the trainset resident on the card, each epoch one loop of steps with
+    # no host sync (the protocol-scale path)
+    python -m <package>.cli.train_patch --device-store --img-dir ... \
+        --lab-dir ...
+
+    # data parallel, one process a card (every rank builds the same
+    # global batches and trains on its rows; rank 0 writes the outputs)
+    torchrun --nproc_per_node N -m <package>.cli.train_patch ...
+
 Every experiment mode is available via --mode, and config fields can be
 overridden by flag. The training state (patch, optimizer, EOT generator,
 plateau schedule) checkpoints every ``checkpoint_every`` epochs and
@@ -21,7 +30,9 @@ kernel stem (``ADV_PATCH_RES152=fused|1``), ``--res152 c12`` layers 0-12
 on the planar-out stem and the conv12-widened stage
 (``ADV_PATCH_RES152=c12``), and ``--stem-remat`` recomputes the fused
 stem's masks in its backward instead of keeping them
-(``ADV_PATCH_STEM_REMAT=1``).
+(``ADV_PATCH_STEM_REMAT=1``). The file-backed loader drops the partial
+final batch, as the JAX package's CLI does; ``--device-store`` runs it
+padded with zero weights (the reference's ``drop_last=False``).
 """
 
 from __future__ import annotations
@@ -34,7 +45,9 @@ import time
 import torch
 
 from .. import train as T
-from ..data.dataset import BatchLoader, DotaDataset, SyntheticData
+from ..data.dataset import (BatchLoader, DeviceStore, DotaDataset,
+                            SyntheticData)
+from ..parallel.mesh import init_distributed, make_mesh_for_batch
 from ..utils.checkpoint import save_patch_png
 
 
@@ -66,6 +79,11 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--synthetic", type=int, default=0, metavar="N",
                     help="train on N synthetic tiles instead of files")
     ap.add_argument("--num-workers", type=int, default=8)
+    ap.add_argument("--device-store", action="store_true",
+                    help="hold the whole trainset on the card (uint8) and "
+                         "run each epoch as one loop of steps gathering "
+                         "their batches there, with no host copy or sync "
+                         "per step")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; raises if missing)")
     ap.add_argument("--planar-stem", action="store_true",
@@ -100,11 +118,21 @@ def main(argv=None):
         overrides["debug_nans"] = True
     exp = T.get_experiment(args.mode, **overrides)
 
+    mesh = None
+    if init_distributed(args.device):
+        mesh = make_mesh_for_batch(exp.batch_size, args.device)
+        if not mesh.member:
+            print(f"batch {exp.batch_size} splits over {mesh.size} ranks: "
+                  "this rank takes no part")
+            return None
     trainer = T.PatchTrainer(exp, seed=args.seed,
                              checkpoint_dir=args.out_dir, device=args.device,
                              planar_stem=args.planar_stem,
-                             res152=args.res152, stem_remat=args.stem_remat)
+                             res152=args.res152, stem_remat=args.stem_remat,
+                             mesh=mesh)
     dev = trainer.device
+    if mesh is not None:
+        print(f"rank {mesh.rank} of {mesh.size}")
     print(f"mode={exp.name} recipe={exp.loss_recipe} "
           f"batch={exp.batch_size} patch={exp.patch_size} "
           f"lr={exp.learning_rate} target_id={exp.target_id}")
@@ -124,12 +152,26 @@ def main(argv=None):
         def make_batches(epoch):
             return [data.batch(exp.batch_size, epoch * 10000 + i)
                     for i in range(n_batches)]
+    elif args.device_store:
+        ds = DotaDataset(exp.img_dir, exp.lab_dir, exp.max_labels,
+                         exp.img_size)
+        t0 = time.time()
+        store = DeviceStore(ds, device=dev, num_workers=args.num_workers)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        print(f"{len(ds)} training images -> device store: "
+              f"{store.images.numel() / 1e9:.2f} GB uint8 on {dev}, "
+              f"resident in {time.time() - t0:.1f} s; "
+              f"{-(-len(ds) // exp.batch_size)} batches an epoch (a "
+              f"partial final batch runs padded with zero weights)")
     else:
         ds = DotaDataset(exp.img_dir, exp.lab_dir, exp.max_labels,
                          exp.img_size)
         print(f"{len(ds)} training images")
+        # drop the partial final batch, as the JAX package's CLI does
         loader = BatchLoader(ds, exp.batch_size, shuffle=True,
-                             num_workers=args.num_workers, seed=args.seed)
+                             num_workers=args.num_workers, seed=args.seed,
+                             drop_last=True)
 
         def make_batches(epoch):
             return loader
@@ -137,17 +179,24 @@ def main(argv=None):
     epochs = (args.epochs if args.epochs is not None
               else exp.max_epochs) - start_epoch
     t0 = time.time()
-    patch, history = trainer.train(make_batches, epochs=epochs,
-                                   start_epoch=start_epoch)
+    if args.device_store and not args.synthetic:
+        patch, history = trainer.train_store(store, epochs=epochs,
+                                             start_epoch=start_epoch)
+    else:
+        patch, history = trainer.train(make_batches, epochs=epochs,
+                                       start_epoch=start_epoch)
     print(f"total training time: {(time.time() - t0) / 60:.2f} min")
 
-    os.makedirs(args.out_dir, exist_ok=True)
-    save_patch_png(patch, os.path.join(args.out_dir, "final_patch.png"))
-    with open(os.path.join(args.out_dir, "history.json"), "w") as f:
-        json.dump(history, f, indent=1)
-    print(f"saved {args.out_dir}/final_patch.png")
+    if trainer.is_main:
+        os.makedirs(args.out_dir, exist_ok=True)
+        save_patch_png(patch, os.path.join(args.out_dir, "final_patch.png"))
+        with open(os.path.join(args.out_dir, "history.json"), "w") as f:
+            json.dump(history, f, indent=1)
+        print(f"saved {args.out_dir}/final_patch.png")
     return trainer
 
 
 if __name__ == "__main__":
     main()
+    if torch.distributed.is_initialized():
+        torch.distributed.destroy_process_group()

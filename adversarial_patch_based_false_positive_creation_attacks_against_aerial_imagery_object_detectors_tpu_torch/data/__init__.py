@@ -4,6 +4,6 @@ from .assets import (
     ANCHOR_FILE, DOTA_NAMES_FILE, PRINTABLE_COLORS_FILE,
 )
 from .dataset import (load_image_rgb, pad_and_scale, DotaDataset,
-    BatchLoader, SyntheticData, epoch_plan)
+    BatchLoader, DeviceStore, SyntheticData, epoch_plan)
 from .labels import (read_label_file, write_label_file, pad_labels,
     count_instances, filter_min_box_scale)

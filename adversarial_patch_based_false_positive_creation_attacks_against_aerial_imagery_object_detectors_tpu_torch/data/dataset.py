@@ -1,7 +1,8 @@
 """DOTA tiles and YOLO labels for training, and the square-pad + resize
 preprocessing that the serve handler also applies (the JAX package's
 ``data/dataset.py``: ``load_image_rgb``, ``pad_and_scale``,
-``DotaDataset``, ``BatchLoader``, ``epoch_plan``, ``SyntheticData``).
+``DotaDataset``, ``BatchLoader``, ``DeviceStore``, ``epoch_plan``,
+``SyntheticData``).
 
 Preprocessing parity with the reference's ``DotaDataset``: non-square
 images are squared by gray-127 padding with label coordinate fixup, then
@@ -18,8 +19,10 @@ from concurrent.futures import ThreadPoolExecutor
 from typing import Iterator, Tuple
 
 import numpy as np
+import torch
 from PIL import Image, ImageOps
 
+from ..ops._cuda import resolve_device
 from .labels import pad_labels, read_label_file
 
 IMG_EXTENSIONS = (".png", ".jpg")
@@ -150,6 +153,42 @@ class BatchLoader:
                 yield batch
         finally:
             stop.set()
+
+
+class DeviceStore:
+    """The whole trainset resident on the card, for the epoch program
+    (``train.make_epoch_scan_fn``), which gathers each step's batch by
+    index on the device instead of copying it from the host.
+
+    Every tile is decoded once (a thread pool), quantized to uint8 as
+    ``np.round(arr * 255.0)`` and moved to ``device`` with its labels
+    once: ``images`` [N, S, S, 3] uint8, ``labels`` [N, L, 5] float32.
+    uint8 is exact for 8-bit tiles already at ``img_size`` (the step
+    divides by 255 on the device); resized sources are quantized to 1/255
+    steps. The 2,410-tile protocol set at 608^2 is 2.67 GB of uint8.
+    ``device`` defaults to ``"cuda"`` and raises, before any decode, where
+    there is no card."""
+
+    def __init__(self, dataset: DotaDataset, device="cuda",
+                 num_workers: int = 8):
+        dev = resolve_device(device)
+        n, s = len(dataset), dataset.img_size
+        images = np.empty((n, s, s, 3), np.uint8)
+
+        def load(i):
+            arr, labels = dataset[i]
+            images[i] = np.round(arr * 255.0).astype(np.uint8)
+            return labels
+
+        with ThreadPoolExecutor(max_workers=num_workers) as pool:
+            labels = np.stack(list(pool.map(load, range(n))))
+        self.images = torch.from_numpy(images).to(dev)
+        self.labels = torch.from_numpy(labels.astype(np.float32)).to(dev)
+        self.n = n
+        self.img_size = s
+
+    def __len__(self) -> int:
+        return self.n
 
 
 def epoch_plan(n: int, batch_size: int, epoch: int, seed: int = 0,

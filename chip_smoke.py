@@ -117,6 +117,34 @@ Phases, each fatal on failure:
    forward and gates (1e-4 relative L2), and the packed route's float32
    heads against the conv walk (1e-4 of the head scale).
 
+10. The device-store training path (counted launches): the training CLI
+    with ``--device-store`` over 58 synthetic 608^2 PNG tiles (2 epochs of
+    3 b24 steps, each epoch's last batch padded with zero weights), each
+    of the default training kernels (split_phases, K1 ``save_acts``, K3b,
+    the tiled K3a of g5, K2) launched once a step and nothing else, and
+    the per-step CLI (``BatchLoader``, partial batch dropped: 2 steps) on
+    the same files; the first store step held against the per-step path
+    on the same rows (the gathered float32 batch bit for bit; the loss
+    parts within 1e-3 relative in bfloat16 and float32; the float32 patch
+    gradient within 1e-4 relative L2, TF32 off); the two paths' pace over
+    192 tiles (8 b24 steps an epoch, CUDA events): the store epoch's ms
+    per step beside the per-step path's first step and its running steps,
+    with what the per-step path adds: one batch's PNG decode and its host
+    -> device copy. The tiles are smooth random fields with pixel noise,
+    whose PNGs compress about as photographs do; not DOTA imagery.
+11. Data parallelism: a one-rank NCCL process group through
+    ``init_distributed`` (``WORLD_SIZE=1``, a local ``MASTER_ADDR``), its
+    collectives on card tensors, and 3 default b24 steps of a
+    ``PatchTrainer`` given the mesh, equal bit for bit to the meshless
+    trainer's (a size-1 mesh runs the meshless code: this shows the group
+    and the default path, not the cross-rank step); with two cards or
+    more, also the training CLI as two NCCL processes against it in one
+    (one card alone prints that the check needs two).
+12. A profiler trace (``utils.profiling.trace``) of 5 default b24 steps
+    after warm-up: the device's busy share over the traced steps, its
+    time by kind of kernel, the 10 device operations that take the most
+    time, the longest idle gaps.
+
 Phase 4 also holds the slim victim (stem widths 8/16/8/16/32) on the
 planar stem (K4), and once more with ``res152="planar"``, and times its
 bfloat16 ``Detector`` forward at b8 (the tensor-core K4 at block widths 1
@@ -2783,6 +2811,525 @@ def experimental_path(dev, net, params, card, default_breakdown) -> dict:
     return rec
 
 
+STORE_TILES = 58    # 2 x 24 + 10: the store epoch's last batch is padded
+STORE_EPOCHS = 2    # the second epoch is the timed one
+PACE_TILES = 192    # 8 b24 steps an epoch: the paths' pace once running
+TRACE_STEPS = 5     # default b24 steps inside the profiler trace
+
+
+def smooth_tile(rng) -> np.ndarray:
+    """A synthetic 608^2 uint8 tile: smooth random fields at three scales
+    (5, 19 and 76 cells across, bicubic) plus pixel noise (sigma 6). Not
+    aerial imagery: a stand-in whose PNG (PIL's default level 6) inflates
+    and unfilters like a photograph's, at about 0.63 of its raw bytes,
+    where uniform noise is stored nearly raw and decodes faster."""
+    from PIL import Image
+    out = 120.0 + rng.normal(0.0, 6.0, (SIZE, SIZE, 3))
+    for cells, amp in ((5, 90.0), (19, 40.0), (76, 25.0)):
+        low = rng.normal(0.0, 1.0, (cells, cells, 3)).astype(np.float32)
+        out += amp * np.stack([np.asarray(Image.fromarray(
+            low[..., c], mode="F").resize((SIZE, SIZE), Image.BICUBIC))
+            for c in range(3)], -1)
+    return np.clip(out, 0, 255).astype(np.uint8)
+
+
+def write_tiles(root: str, n: int, seed: int) -> tuple:
+    """``n`` synthetic 608^2 PNG tiles (``smooth_tile``) and their YOLO
+    label files (1-5 boxes each) under ``root``; returns (image dir, label
+    dir, PNG bytes over raw bytes)."""
+    from PIL import Image
+    img_dir, lab_dir = os.path.join(root, "img"), os.path.join(root, "lab")
+    os.makedirs(img_dir)
+    os.makedirs(lab_dir)
+    rng = np.random.default_rng(seed)
+    seeds = rng.integers(0, 2**31, n)
+    labels = []
+    for _ in range(n):
+        k = int(rng.integers(1, 6))
+        labels.append("".join(
+            f"{int(c)} {x:.4f} {y:.4f} {w:.4f} {h:.4f}\n" for c, x, y, w, h in
+            zip(rng.integers(0, 15, k), *rng.uniform(0.2, 0.8, (2, k)),
+                *rng.uniform(0.02, 0.2, (2, k)))))
+
+    def save(i):
+        path = os.path.join(img_dir, f"t{i:03d}.png")
+        Image.fromarray(smooth_tile(np.random.default_rng(seeds[i]))).save(
+            path)
+        with open(os.path.join(lab_dir, f"t{i:03d}.txt"), "w") as f:
+            f.write(labels[i])
+        return os.path.getsize(path)
+
+    with ThreadPoolExecutor(8) as pool:
+        png_bytes = sum(pool.map(save, range(n)))
+    return img_dir, lab_dir, png_bytes / (n * SIZE * SIZE * 3)
+
+
+def pace(PT, D, exp, net, params, ds, dev) -> dict:
+    """ms per b24 step of the store epoch and of the per-step path
+    (``run_epoch`` over the CLI's ``BatchLoader``: PNG decode on 8 threads
+    up to two batches ahead, a float32 host -> device copy a step) on the
+    same files, in epoch 1 after a warm-up epoch 0, by CUDA events. The
+    per-step path's steps are split apart by an event recorded as each
+    step is enqueued, so an interval is a step as the card lives it, its
+    waits for the host included: the first holds the epoch's first
+    decode, which nothing can hide; the others are the path's running
+    pace."""
+    k = len(ds) // TRAIN_BATCH
+
+    def event():
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        return e
+
+    rec = {"steps_an_epoch": k}
+    store = D.DeviceStore(ds, device=dev)
+    tr = PT.PatchTrainer(exp, net, params, seed=SEED, device=dev,
+                         log=lambda s: None)
+    for epoch in range(2):
+        e0 = event()
+        stats = tr.run_epoch_store(store, epoch)
+        e1 = event()
+        torch.cuda.synchronize()
+        assert stats["num_batches"] == k, stats
+    rec["store_ms_per_step"] = e0.elapsed_time(e1) / k
+    del tr, store
+    torch.cuda.empty_cache()
+    tr = PT.PatchTrainer(exp, net, params, seed=SEED, device=dev,
+                         log=lambda s: None)
+    loader = D.BatchLoader(ds, TRAIN_BATCH, shuffle=True, num_workers=8,
+                           seed=SEED, drop_last=True)
+    for epoch in range(2):
+        events = []
+
+        def batches():
+            events.append(event())
+            for batch in loader:
+                yield batch
+                events.append(event())
+
+        stats = tr.run_epoch(batches(), epoch)
+        torch.cuda.synchronize()
+        assert stats["num_batches"] == k == len(events) - 1, stats
+    loader.pool.shutdown()
+    del tr
+    torch.cuda.empty_cache()
+    steps = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+    rec.update({"per_step_ms": steps, "per_step_first_ms": steps[0],
+                "per_step_running_ms_per_step": float(np.mean(steps[1:])),
+                "per_step_epoch_ms_per_step": float(np.mean(steps))})
+    rec["running_over_store"] = (rec["per_step_running_ms_per_step"]
+                                 / rec["store_ms_per_step"])
+    return rec
+
+
+def store_path(dev, card) -> dict:
+    """Phase 10: the device-store training path at full width (counted
+    launches): the training CLI with ``--device-store`` over 58 PNG tiles
+    (3 batches an epoch, the last padded) and without it (2, the partial
+    batch dropped), the first store step held against the per-step path
+    on the same rows (the gathered batch bit for bit; bfloat16 and float32
+    loss parts within 1e-3 relative; the float32 patch gradient within
+    1e-4 relative L2, TF32 off), and the two paths' pace (``pace``) over
+    192 tiles, with one batch's PNG decode and its host -> device copy.
+    The tiles are ``smooth_tile``s: synthetic, not DOTA imagery."""
+    PT = import_port("train.trainer")
+    D = import_port("data.dataset")
+    _cuda = import_port("ops._cuda")
+    darknet = import_port("models.darknet")
+    cli = import_port("cli.train_patch")
+    root = tempfile.mkdtemp(prefix="chip_smoke_store_")
+    rec = {"tiles": STORE_TILES, "epochs": STORE_EPOCHS}
+    try:
+        t0 = time.perf_counter()
+        img_dir, lab_dir, _ = write_tiles(os.path.join(root, "cli"),
+                                          STORE_TILES, SEED + 30)
+        pimg, plab, rec["png_over_raw"] = write_tiles(
+            os.path.join(root, "pace"), PACE_TILES, SEED + 31)
+        rec["write_tiles_s"] = time.perf_counter() - t0
+        args = ["--mode", "paper_obj", "--img-dir", img_dir, "--lab-dir",
+                lab_dir, "--batch-size", str(TRAIN_BATCH), "--img-size",
+                str(SIZE), "--patch-size", str(PATCH), "--epochs",
+                str(STORE_EPOCHS), "--device", dev.type]
+        reset_counts()
+        t0 = time.perf_counter()
+        trainer = cli.main(args + ["--device-store", "--out-dir",
+                                   os.path.join(root, "store")])
+        torch.cuda.synchronize()
+        rec["cli_s"] = time.perf_counter() - t0
+        launches = read_counts()
+        exp = trainer.exp
+        assert (exp.img_size, exp.patch_size, exp.batch_size,
+                exp.compute_dtype) == (SIZE, PATCH, TRAIN_BATCH, "bfloat16")
+        assert len(darknet.conv_specs(trainer.net)) == 75
+        hist = trainer.history
+        n_batches = -(-STORE_TILES // TRAIN_BATCH)
+        assert [h["num_batches"] for h in hist] == [n_batches] * \
+            STORE_EPOCHS, hist
+        for h in hist:
+            assert all(np.isfinite(h[k]) for k in
+                       ("loss", "no_obj", "no_cls", "tv", "nps", "colorful"))
+        steps = n_batches * STORE_EPOCHS
+        # the default training kernels, each once a step, as on the
+        # per-step path; nothing else
+        want = {k: steps for k in TRAIN_PATH}
+        assert launches == {k: want.get(k, 0) for k in launches}, launches
+        assert darknet.last_routes() == {"stem": "fused", "res152": "conv"}
+        rec.update({"launches": launches, "steps": steps,
+                    "history": hist,
+                    "store_ms_per_step": [h["epoch_time"] / n_batches * 1e3
+                                          for h in hist]})
+        del trainer
+        torch.cuda.empty_cache()
+
+        # the per-step CLI on the same files (BatchLoader: PNG decode and a
+        # host -> device copy a step; the partial batch dropped). Its
+        # epochs of 2 steps are mostly the first batch's decode: the pace
+        # comes from ``pace`` below
+        t0 = time.perf_counter()
+        per = cli.main(args + ["--out-dir", os.path.join(root, "steps")])
+        torch.cuda.synchronize()
+        rec["per_step_cli_s"] = time.perf_counter() - t0
+        k_per = STORE_TILES // TRAIN_BATCH
+        assert [h["num_batches"] for h in per.history] == [k_per] * \
+            STORE_EPOCHS
+        rec["per_step_ms_per_step"] = [h["epoch_time"] / k_per * 1e3
+                                       for h in per.history]
+        del per
+        torch.cuda.empty_cache()
+        net, params = PT.build_victim(exp, SEED + 1)   # the CLI's victim
+        pds = D.DotaDataset(pimg, plab, exp.max_labels, SIZE)
+        rec["pace"] = pace(PT, D, exp, net, params, pds, dev)
+        # what the per-step path adds to a step: one batch's PNG decode
+        # (24 tiles on the loader's 8 threads) and its float32 copy from
+        # pageable host memory to the card (106 MB)
+        loader = D.BatchLoader(pds, TRAIN_BATCH, num_workers=8)
+        t0 = time.perf_counter()
+        host_imgs, _ = loader._make_batch(range(TRAIN_BATCH))
+        rec["decode_batch_ms"] = (time.perf_counter() - t0) * 1e3
+        loader.pool.shutdown()
+        rec["h2d_batch_ms"] = time_ms(
+            lambda: torch.from_numpy(host_imgs).to(dev), 5, 1)
+        rec["h2d_batch_mb"] = host_imgs.nbytes / 1e6
+        del host_imgs
+
+        # the first store step against the per-step path on the same rows
+        ds = D.DotaDataset(img_dir, lab_dir, exp.max_labels, SIZE)
+        t0 = time.perf_counter()
+        store = D.DeviceStore(ds, device=dev)
+        torch.cuda.synchronize()
+        rec["store_resident_s"] = time.perf_counter() - t0
+        rec["store_gb"] = store.images.numel() / 1e9
+        idx, w = D.epoch_plan(STORE_TILES, TRAIN_BATCH, 0, seed=SEED)
+        idx_t, w_t = (torch.from_numpy(a).to(dev) for a in (idx, w))
+        imgs, labs = (np.stack(a) for a in zip(*(ds[i] for i in idx[0])))
+        gathered, _ = PT.store_batch(store.images, store.labels, idx_t[0])
+        assert torch.equal(gathered, torch.from_numpy(imgs).to(dev)), \
+            "the store's batch is not the loader's"
+        del gathered
+        checks = {}
+        for dt in ("bfloat16", "float32"):
+            exp_d = dataclasses.replace(exp, compute_dtype=dt)
+            a, b = (PT.PatchTrainer(exp_d, net, params, seed=SEED,
+                                    device=dev, log=lambda s: None)
+                    for _ in range(2))
+            epoch_fn = PT.make_epoch_scan_fn(b.model, exp_d)
+            with _cuda.no_tf32():
+                aux = a.step(imgs, labs, w[0])
+                means = epoch_fn(b.patch, b.optimizer, b.generator,
+                                 store.images, store.labels, idx_t[:1],
+                                 w_t[:1], b.scheduler.lr)
+            torch.cuda.synchronize()
+            parts = {k: (float(aux[k]), float(means[k]))
+                     for k in PT.LOSS_KEYS}
+            rel_parts = {k: abs(u - v) / max(abs(u), 1e-30)
+                         for k, (u, v) in parts.items()}
+            ga, gb = a.patch.grad, b.patch.grad
+            grad_rel = ((gb - ga).norm() / ga.norm()).item()
+            checks[dt] = {"loss_parts": parts, "loss_rel": rel_parts,
+                          "grad_rel_l2": grad_rel,
+                          "grad_l2": ga.norm().item(),
+                          "patch_equal": torch.equal(a.patch, b.patch)}
+            assert all(v <= 1e-3 for v in rel_parts.values()), (dt,
+                                                                rel_parts)
+            if dt == "float32":
+                assert ga.norm().item() > 0 and grad_rel <= 1e-4, grad_rel
+            del a, b, epoch_fn
+            torch.cuda.empty_cache()
+        rec["first_step_checks"] = checks
+        del store
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"[store] launches {json.dumps(rec['launches'])}; store "
+        f"{rec['store_gb']:.3f} GB resident in {rec['store_resident_s']:.2f} "
+        f"s; first step vs per-step path "
+        f"{json.dumps(rec['first_step_checks'])}")
+    pc = rec["pace"]
+    log(f"[store] CLI epochs, host clock, ms per step (epoch 0, epoch 1): "
+        f"store {rec['store_ms_per_step']} (3 steps), per-step "
+        f"{rec['per_step_ms_per_step']} (2 steps, the first batch's decode "
+        f"exposed) ({card})")
+    log(f"[store] pace over {PACE_TILES} synthetic tiles (PNG "
+        f"{rec['png_over_raw']:.3f} of raw), epoch 1 of 8 b24 steps, CUDA "
+        f"events: store {pc['store_ms_per_step']:.2f} ms a step; per-step "
+        f"path running {pc['per_step_running_ms_per_step']:.2f} (steps 2-8; "
+        f"{pc['running_over_store']:.3f}x the store's), first step "
+        f"{pc['per_step_first_ms']:.2f}, epoch mean "
+        f"{pc['per_step_epoch_ms_per_step']:.2f}; its steps "
+        f"{[round(t, 2) for t in pc['per_step_ms']]}; one batch's PNG "
+        f"decode {rec['decode_batch_ms']:.1f} ms, its host -> device copy "
+        f"({rec['h2d_batch_mb']:.0f} MB) {rec['h2d_batch_ms']:.2f} ms "
+        f"({card})")
+    return rec
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+@contextlib.contextmanager
+def launcher_env(rank: int, world: int, port: int):
+    """The variables ``torchrun`` sets for one process, while inside."""
+    new = {"RANK": str(rank), "WORLD_SIZE": str(world),
+           "LOCAL_RANK": str(rank), "MASTER_ADDR": "127.0.0.1",
+           "MASTER_PORT": str(port)}
+    saved = {k: os.environ.get(k) for k in new}
+    os.environ.update(new)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def nccl_mesh(dev, card) -> dict:
+    """Phase 11: a one-rank NCCL process group on the card through
+    ``init_distributed`` (``WORLD_SIZE=1``, a local ``MASTER_ADDR``), its
+    collectives on card tensors, and 3 default b24 steps of a
+    ``PatchTrainer`` given the mesh against the meshless trainer's. A
+    size-1 mesh runs the meshless code, so the equal patches show that
+    the trainer takes a mesh from the group and that this path stays the
+    default one, not that the step's gather and reduction are right: the
+    gloo tests on the CPU hold those (two ranks against one process and
+    against the JAX step), and with two cards or more this phase runs the
+    training CLI in two processes over NCCL (one card each) against it
+    in one."""
+    import torch.distributed as dist
+    PT = import_port("train.trainer")
+    PM = import_port("parallel.mesh")
+    SyntheticData = import_port("data").SyntheticData
+    rec = {}
+    exp = import_port("train").get_experiment("paper_obj", batch_size=TRAIN_BATCH,
+                           img_size=SIZE, patch_size=PATCH)
+    net, params = PT.build_victim(exp, SEED + 1)
+    data = SyntheticData(48, SIZE, exp.max_labels, seed=SEED + 40)
+    staged = [tuple(torch.from_numpy(a).to(dev) for a in
+                    data.batch(TRAIN_BATCH, i)) for i in range(3)]
+    with launcher_env(0, 1, free_port()):
+        assert PM.init_distributed(dev.type)
+    try:
+        assert dist.get_backend() == "nccl", dist.get_backend()
+        mesh = PM.make_mesh_for_batch(TRAIN_BATCH, dev.type)
+        assert (mesh.size, mesh.rank, mesh.device) == (
+            1, 0, torch.device("cuda", 0)), mesh
+        t = torch.arange(4.0, device=dev)
+        dist.all_reduce(t, group=mesh.group)
+        dist.broadcast(t, src=0, group=mesh.group)
+        (g,) = PM.gather_rows(mesh, t[:, None])
+        torch.cuda.synchronize()
+        assert torch.equal(g[:, 0], torch.arange(4.0, device=dev))
+        patches = {}
+        for name, m in (("mesh", mesh), ("meshless", None),
+                        ("meshless_again", None)):
+            tr = PT.PatchTrainer(exp, net, params, seed=SEED, device=dev,
+                                 log=lambda s: None, mesh=m)
+            for images, labels in staged:
+                tr.step(images, labels)
+            patches[name] = tr.patch.detach().clone()
+            del tr
+        rec["one_rank_equal_meshless"] = torch.equal(patches["mesh"],
+                                                     patches["meshless"])
+        rec["meshless_runs_equal"] = torch.equal(patches["meshless"],
+                                                 patches["meshless_again"])
+        assert rec["one_rank_equal_meshless"], "one-rank mesh != meshless"
+    finally:
+        dist.destroy_process_group()
+    del patches
+    torch.cuda.empty_cache()
+    n_cards = torch.cuda.device_count()
+    rec["cards"] = n_cards
+    if n_cards < 2:
+        log("[mesh] the two-process NCCL check needs two cards; this "
+            f"machine has {n_cards}: it ran the one-rank group alone")
+    else:
+        rec["two_process"] = two_process_cli(dev)
+    log(f"[mesh] {json.dumps(rec)} ({card})")
+    return rec
+
+
+def two_process_cli(dev) -> dict:
+    """The training CLI (``paper_obj`` b24, 48 synthetic tiles, one
+    epoch) as two NCCL processes on cards 0 and 1 (so rank 1's kernels
+    run on ``cuda:1``), against the same CLI in this process: the loss
+    parts within 1e-3 relative (bfloat16; each rank's half batch may take
+    its own conv algorithms; 1.3e-4 seen on H100s)."""
+    cli = import_port("cli.train_patch")
+    root = tempfile.mkdtemp(prefix="chip_smoke_dp_")
+    args = ["--mode", "paper_obj", "--synthetic", "48", "--batch-size",
+            str(TRAIN_BATCH), "--img-size", str(SIZE), "--patch-size",
+            str(PATCH), "--epochs", "1", "--device", "cuda"]
+    try:
+        one = cli.main(args + ["--out-dir", os.path.join(root, "one")])
+        ref = one.history[0]
+        del one
+        torch.cuda.empty_cache()
+        port = free_port()
+        env = dict(os.environ, WORLD_SIZE="2", MASTER_ADDR="127.0.0.1",
+                   MASTER_PORT=str(port))
+        procs = [subprocess.Popen(
+            [sys.executable, "-m", f"{PORT}.cli.train_patch", *args,
+             "--out-dir", os.path.join(root, "two")], cwd=ROOT,
+            env=dict(env, RANK=str(r), LOCAL_RANK=str(r)),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in (0, 1)]
+        outs = []
+        try:
+            for p in procs:
+                outs.append(p.communicate(timeout=600)[0])
+        finally:
+            for p in procs:
+                p.kill()
+        for r, (p, out) in enumerate(zip(procs, outs)):
+            assert p.returncode == 0, f"rank {r}:\n{out[-3000:]}"
+            # each rank trains on its own card
+            assert f"device: cuda:{r} (" in out, out[-3000:]
+        with open(os.path.join(root, "two", "history.json")) as f:
+            two = json.load(f)[0]
+        rel = {k: abs(two[k] - ref[k]) / max(abs(ref[k]), 1e-30)
+               for k in ("loss", "no_obj", "no_cls", "tv", "nps",
+                         "colorful")}
+        assert two["num_batches"] == ref["num_batches"]
+        assert all(v <= 1e-3 for v in rel.values()), rel
+        return {"loss_rel": rel, "one": ref["loss"], "two": two["loss"]}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def device_intervals(events, window) -> tuple:
+    """The device's kernels, copies and sets of a Chrome trace inside
+    ``window`` (start, end in us): (merged busy intervals, [(start, end,
+    name)])."""
+    lo, hi = window
+    ops = sorted((max(e["ts"], lo), min(e["ts"] + e["dur"], hi), e["name"])
+                 for e in events
+                 if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+                 and e["ts"] < hi and e["ts"] + e["dur"] > lo)
+    merged = []
+    for s, e, _ in ops:
+        if merged and s <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], e)
+        else:
+            merged.append([s, e])
+    return merged, ops
+
+
+def step_trace(dev, card) -> dict:
+    """Phase 12: a profiler trace (``utils.profiling.trace``) of 5 default
+    b24 steps after warm-up: the device's busy share over the traced steps
+    (from the host's start of the first step to the end of the last),
+    the 10 device operations that take the most time, and the longest idle
+    gaps."""
+    PT = import_port("train.trainer")
+    prof = import_port("utils.profiling")
+    SyntheticData = import_port("data").SyntheticData
+    exp = import_port("train").get_experiment("paper_obj", batch_size=TRAIN_BATCH,
+                           img_size=SIZE, patch_size=PATCH)
+    tr = PT.PatchTrainer(exp, seed=SEED, device=dev, log=lambda s: None)
+    data = SyntheticData(48, SIZE, exp.max_labels, seed=SEED + 50)
+    staged = [tuple(torch.from_numpy(a).to(dev) for a in
+                    data.batch(TRAIN_BATCH, i)) for i in range(2)]
+    for i in range(3):
+        tr.step(*staged[i % 2])
+    torch.cuda.synchronize()
+    root = tempfile.mkdtemp(prefix="chip_smoke_trace_")
+    try:
+        with prof.trace(root):
+            with prof.annotate("apfp_steps"):
+                for i in range(TRACE_STEPS):
+                    with prof.annotate(f"apfp_step_{i}"):
+                        tr.step(*staged[i % 2])
+                torch.cuda.synchronize()
+        files = [f for f in os.listdir(root) if f.endswith(".json")]
+        assert len(files) == 1, files
+        with open(os.path.join(root, files[0])) as f:
+            events = json.load(f)["traceEvents"]
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    del tr
+    torch.cuda.empty_cache()
+    (win,) = [e for e in events if e.get("name") == "apfp_steps"
+              and e.get("ph") == "X"]
+    window = (win["ts"], win["ts"] + win["dur"])
+    merged, ops = device_intervals(events, window)
+    assert ops, "the trace holds no device operation"
+    busy = sum(e - s for s, e in merged)
+    span = window[1] - window[0]
+    by_name = {}
+    for s, e, name in ops:
+        by_name[name] = by_name.get(name, 0.0) + (e - s)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    # device time by kind of kernel (names as the trace gives them)
+    kinds = {"port kernels (csrc)": ("fused_stem", "planar", "res152",
+                                     "median"),
+             "GEMM / conv (cuBLAS, cuDNN, CUTLASS)": (
+                 "gemm", "conv", "cudnn", "xmma", "cutlass", "sm90_",
+                 "wgrad", "dgrad", "implicit"),
+             "elementwise": ("elementwise",),
+             "reduction": ("reduce",),
+             "copy / set": ("Memcpy", "Memset", "copy", "Cat")}
+    by_kind = {}
+    for name, d in by_name.items():
+        kind = next((k for k, keys in kinds.items()
+                     if any(w in name for w in keys)), "other")
+        by_kind[kind] = by_kind.get(kind, 0.0) + d
+    ends = {e: n for _, e, n in ops}
+    starts = {}
+    for s, _, n in ops:
+        starts.setdefault(s, n)
+    gaps = []
+    edges = [[window[0], window[0]]] + merged + [[window[1], window[1]]]
+    for (s0, e0), (s1, e1) in zip(edges, edges[1:]):
+        if s1 > e0:
+            gaps.append((s1 - e0, e0 - window[0], ends.get(e0, "start"),
+                         starts.get(s1, "end")))
+    gaps.sort(reverse=True)
+    rec = {"steps": TRACE_STEPS, "window_ms": span / 1e3,
+           "ms_per_step_traced": span / 1e3 / TRACE_STEPS,
+           "device_busy_ms": busy / 1e3, "busy_share": busy / span,
+           "idle_share": 1 - busy / span, "device_ops": len(ops),
+           "distinct_ops": len(by_name),
+           "share_by_kind": {k: d / span for k, d in sorted(
+               by_kind.items(), key=lambda kv: -kv[1])},
+           "top_ops": [{"name": n[:120], "ms": d / 1e3,
+                        "share_of_window": d / span,
+                        "calls": sum(1 for o in ops if o[2] == n)}
+                       for n, d in top],
+           "longest_gaps": [{"us": g, "at_ms": at / 1e3,
+                             "after": a[:80], "before": b[:80]}
+                            for g, at, a, b in gaps[:8]],
+           "gaps_over_20us": sum(1 for g, *_ in gaps if g > 20),
+           "idle_in_gaps_over_20us_ms": sum(g for g, *_ in gaps
+                                            if g > 20) / 1e3}
+    assert 0.0 < rec["busy_share"] <= 1.0, rec["busy_share"]
+    log(f"[trace] {json.dumps(rec)} ({card})")
+    return rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -3337,6 +3884,21 @@ def main() -> int:
     k7["network_launches"] = erec["launches"]["median_pool_2d_pallas_network"]
     kernels += [k7] + k8
     log(f"[exp] {json.dumps(erec)} ({card})")
+    torch.cuda.empty_cache()
+
+    # -- 10. the device-store training path (counted launches) ---------
+    phase("10 device-store training")
+    srec = store_path(dev, card)
+    for k in kernels:
+        k["store_path_launches"] = srec["launches"][k["name"]]
+
+    # -- 11. data parallelism: a one-rank NCCL group on the card -------
+    phase("11 NCCL mesh")
+    nccl_mesh(dev, card)
+
+    # -- 12. a profiler trace of the default training step -------------
+    phase("12 step trace")
+    step_trace(dev, card)
     phase("done")
 
     for k in kernels:

@@ -569,3 +569,59 @@ def test_build_keeps_the_ptxas_log_for_cached_libraries(tmp_path,
         v["path"] for v in fresh.values()]
     assert all(v["seconds"] == 0.0 and "Used 42 registers" in v["log"]
                for v in cached.values())
+
+
+def _defined_names(path):
+    """Top-level ``def``s and ``class``es of a module, and its classes'
+    methods as ``Class.method``, each with its argument names."""
+    tree = ast.parse(open(path).read(), path)
+    out = {}
+    for node in tree.body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            out[node.name] = ([a.arg for a in node.args.args]
+                              if isinstance(node, ast.FunctionDef) else [])
+        if isinstance(node, ast.ClassDef):
+            for fn in node.body:
+                if isinstance(fn, ast.FunctionDef):
+                    out[f"{node.name}.{fn.name}"] = [a.arg
+                                                     for a in fn.args.args]
+    return out
+
+
+# the training path's names that the port had left out, by module
+TRAINING_PATH_NAMES = {
+    "data/dataset.py": ("DeviceStore",),
+    "train/trainer.py": ("make_epoch_scan_fn", "PatchTrainer.run_epoch_store",
+                         "PatchTrainer.train_store"),
+    "parallel/mesh.py": ("init_distributed", "make_mesh",
+                         "make_mesh_for_batch", "batch_sharding",
+                         "replicated", "shard_batch"),
+    "utils/profiling.py": ("StepTimer", "trace", "annotate"),
+}
+
+
+def test_name_diff_finds_the_training_path_in_the_port():
+    """A name diff of the two packages' modules (top-level ``def``s,
+    ``class``es and methods, by AST) finds each training-path name of the
+    JAX package in the port's module of the same path, and ``mesh`` among
+    the arguments of ``make_loss_fn``, ``make_train_step``,
+    ``make_epoch_scan_fn`` and ``PatchTrainer``, as in the JAX package;
+    the new modules are among the sources the no-JAX scans read and
+    import no JAX."""
+    scanned = {os.path.relpath(p, ROOT) for p in _port_sources()}
+    for mod, names in TRAINING_PATH_NAMES.items():
+        jax_names = _defined_names(os.path.join(ROOT, JAX_PKG, mod))
+        port_path = os.path.join(ROOT, PORT, mod)
+        port_names = _defined_names(port_path)
+        assert os.path.join(PORT, mod) in scanned, mod
+        assert not [m for m in _imported_modules(port_path)
+                    if m.split(".")[0] in ("jax", "jaxlib", JAX_PKG)], mod
+        for name in names:
+            assert name in jax_names, (mod, name)
+            assert name in port_names, (mod, name)
+    trainer = "train/trainer.py"
+    for pkg in (JAX_PKG, PORT):
+        names = _defined_names(os.path.join(ROOT, pkg, trainer))
+        for fn in ("make_loss_fn", "make_train_step", "make_epoch_scan_fn",
+                   "PatchTrainer.__init__"):
+            assert "mesh" in names[fn], (pkg, fn)
