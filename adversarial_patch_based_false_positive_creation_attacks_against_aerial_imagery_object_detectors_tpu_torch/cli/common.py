@@ -1,11 +1,16 @@
-"""Shared CLI plumbing: argument groups and victim-detector construction."""
+"""Shared CLI plumbing: argument groups, victim-detector construction and
+the image directories the eval CLIs walk."""
 
 from __future__ import annotations
 
 import argparse
+import os
+from typing import List
 
+import numpy as np
 import torch
 
+from ..data.dataset import load_image_rgb, pad_and_scale
 from ..evals.detect import Detector
 from ..models import (build_network, init_params, load_darknet_weights,
                       network_from_cfg, yolov3_blocks)
@@ -43,3 +48,17 @@ def build_detector(args) -> Detector:
         num_classes=args.num_classes,
         compute_dtype=torch.float32 if args.fp32 else torch.bfloat16,
         device=args.device)
+
+
+def list_images(img_dir: str) -> List[str]:
+    """The .png / .jpg file names of ``img_dir``, sorted."""
+    return sorted(f for f in os.listdir(img_dir)
+                  if f.lower().endswith((".png", ".jpg")))
+
+
+def load_scaled(path: str, img_size: int) -> np.ndarray:
+    """An image square-padded (gray 127) and resized: [S, S, 3] float32
+    in [0, 1]."""
+    arr, _ = pad_and_scale(load_image_rgb(path),
+                           np.zeros((0, 5), np.float32), img_size)
+    return arr

@@ -4,6 +4,6 @@ from .darknet_cfg import (
 )
 from .darknet import (
     Darknet, Network, build_network, network_from_cfg, init_params, fold_bn,
-    apply, conv_specs, last_routes,
+    apply, conv_specs, last_routes, head_strides, describe_network,
 )
 from .weights import load_darknet_weights, save_darknet_weights, params_from_jax

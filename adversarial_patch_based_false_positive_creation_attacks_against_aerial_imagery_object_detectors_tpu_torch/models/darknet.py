@@ -543,3 +543,73 @@ def apply(net: Network, params: Params, x: torch.Tensor,
     return model(x, fused_stem=bool(fused_stem),
                  planar_stem=bool(planar_stem), res152=res152,
                  stem_remat=stem_remat, packed_stem=packed_stem)
+
+
+def head_strides(net: Network, img_size: int) -> List[int]:
+    """Static stride of each yolo head for a given square input size."""
+    # Heads come out at img_size/32, /16, /8 for YOLOv3; compute generically
+    # by walking the layer strides.
+    strides = []
+    cur = 1
+    cur_by_index: Dict[int, int] = {}
+    for i, layer in enumerate(net.layers):
+        if layer.kind == "convolutional":
+            cur *= layer.conv.stride
+        elif layer.kind == "maxpool":
+            cur *= layer.pool_stride
+        elif layer.kind == "upsample":
+            cur //= layer.scale
+        elif layer.kind == "route":
+            cur = cur_by_index[layer.route_from[0]]
+        elif layer.kind == "shortcut":
+            cur = cur_by_index[layer.shortcut_from]
+        elif layer.kind == "yolo":
+            strides.append(cur)
+        cur_by_index[i] = cur
+    return strides
+
+
+def describe_network(net: Network, img_size: Optional[int] = None) -> str:
+    """Human-readable layer table (the reference's ``print_cfg``,
+    cfg.py:58-173): per-layer filters/size/stride and activation-map
+    shapes, plus totals."""
+    size = img_size if img_size is not None else net.width
+    lines = ["layer      type           filters  size/str      output"]
+    hw = size
+    hw_by_index = {}
+    ch_by_index = {}
+    ch = net.channels
+    n_params = 0
+    for i, layer in enumerate(net.layers):
+        if layer.kind == "convolutional":
+            s = layer.conv
+            hw = (hw + 2 * s.pad - s.size) // s.stride + 1
+            ch = s.filters
+            n_params += s.size * s.size * s.in_ch * s.filters + (
+                4 * s.filters if s.bn else s.filters)
+            desc = (f"conv{'+bn' if s.bn else '   '}      {s.filters:5d}"
+                    f"  {s.size}x{s.size}/{s.stride}")
+        elif layer.kind == "maxpool":
+            hw = hw // layer.pool_stride
+            desc = (f"maxpool            "
+                    f"  {layer.pool_size}x{layer.pool_size}/"
+                    f"{layer.pool_stride}")
+        elif layer.kind == "upsample":
+            hw = hw * layer.scale
+            desc = f"upsample             x{layer.scale}    "
+        elif layer.kind == "route":
+            hw = hw_by_index[layer.route_from[0]]
+            ch = sum(ch_by_index[s] for s in layer.route_from)
+            desc = ("route " + ",".join(str(s) for s in layer.route_from)
+                    ).ljust(26)
+        elif layer.kind == "shortcut":
+            hw = hw_by_index[layer.shortcut_from]
+            ch = ch_by_index[layer.shortcut_from]
+            desc = f"shortcut {layer.shortcut_from}".ljust(26)
+        else:  # yolo
+            desc = f"yolo mask={','.join(map(str, layer.mask))}".ljust(26)
+        hw_by_index[i] = hw
+        ch_by_index[i] = ch
+        lines.append(f"{i:5d}  {desc:32s}  {hw:4d}x{hw:<4d}x{ch}")
+    lines.append(f"total conv parameters: {n_params:,}")
+    return "\n".join(lines)

@@ -61,15 +61,25 @@ def _affine_pixel_coeffs(theta: torch.Tensor, out_hw: Tuple[int, int],
     return a11, a12, a21, a22, b1, b2
 
 
+def output_grid_coords(out_hw: Tuple[int, int], dtype=torch.float32,
+                       device="cpu"):
+    """Normalized align_corners=False output coords: x_n [ow], y_n [oh].
+    The divisor is a 0-dim tensor on ``device``: on CUDA a division by a
+    Python scalar is a multiplication by its reciprocal, an ulp off the
+    division that XLA (and the CPU) makes."""
+    def coords(n):
+        i = torch.arange(n, dtype=dtype, device=device)
+        return (2.0 * i + 1.0) / torch.full((), n, dtype=dtype,
+                                            device=device) - 1.0
+    return coords(out_hw[1]), coords(out_hw[0])
+
+
 def affine_source_coords(theta: torch.Tensor, out_hw: Tuple[int, int],
                          src_hw: Tuple[int, int]):
     """Source *pixel* coords (ix, iy), each [B, oh, ow], for a batch of
     2x3 affines ``theta`` [B, 2, 3] in normalized-coordinate convention."""
-    oh, ow = out_hw
     sh, sw = src_hw
-    dev, dt = theta.device, theta.dtype
-    x_n = (2.0 * torch.arange(ow, device=dev, dtype=dt) + 1.0) / ow - 1.0
-    y_n = (2.0 * torch.arange(oh, device=dev, dtype=dt) + 1.0) / oh - 1.0
+    x_n, y_n = output_grid_coords(out_hw, theta.dtype, theta.device)
     xg = x_n[None, None, :]
     yg = y_n[None, :, None]
     t = theta[:, :, :, None, None]
@@ -78,6 +88,43 @@ def affine_source_coords(theta: torch.Tensor, out_hw: Tuple[int, int],
     ix = ((xs + 1.0) * sw - 1.0) * 0.5
     iy = ((ys + 1.0) * sh - 1.0) * 0.5
     return ix, iy
+
+
+def bilinear_gather(img: torch.Tensor, ix: torch.Tensor, iy: torch.Tensor,
+                    with_mask: bool = False):
+    """Bilinear-sample ``img`` [B, H, W, C] at pixel coords ``ix, iy``
+    [B, oh, ow] with zero padding: [B, oh, ow, C] (and the in-bounds
+    bilinear weight-sum mask [B, oh, ow, 1]). The JAX package's
+    ``bilinear_gather`` op for op (four taps, each weighted and summed in
+    that order, in float32), so on equal coordinates it gives its values
+    bit for bit on the CPU and on the card; the eval placement tests its
+    mask for exactly 1.0."""
+    b, h, w, c = img.shape
+    ix0 = torch.floor(ix)
+    iy0 = torch.floor(iy)
+    fx = ix - ix0
+    fy = iy - iy0
+    ix0 = ix0.long()
+    iy0 = iy0.long()
+    ix1 = ix0 + 1
+    iy1 = iy0 + 1
+    flat = img.reshape(b, h * w, c)
+
+    def tap(iyk, ixk, wk):
+        valid = (ixk >= 0) & (ixk < w) & (iyk >= 0) & (iyk < h)
+        idx = (iyk.clamp(0, h - 1) * w + ixk.clamp(0, w - 1)).reshape(b, -1)
+        vals = torch.gather(flat, 1, idx[..., None].expand(-1, -1, c))
+        wv = (wk * valid).to(img.dtype)
+        return vals.reshape(*ixk.shape, c) * wv[..., None], wv
+
+    v00, m00 = tap(iy0, ix0, (1 - fx) * (1 - fy))
+    v01, m01 = tap(iy0, ix1, fx * (1 - fy))
+    v10, m10 = tap(iy1, ix0, (1 - fx) * fy)
+    v11, m11 = tap(iy1, ix1, fx * fy)
+    out = v00 + v01 + v10 + v11
+    if with_mask:
+        return out, (m00 + m01 + m10 + m11)[..., None]
+    return out
 
 
 def affine_sample(img: torch.Tensor, theta: torch.Tensor,

@@ -1,7 +1,12 @@
 """IoU and non-maximum suppression, with the greedy semantics of the
 reference (utils.py:93-112 ``nms`` over the xywh IoU of utils.py:27-58).
 
-- ``greedy_nms_host``: numpy, variable-length: the eval path.
+- ``greedy_nms_host``: variable-length, on the host: the eval path. It
+  runs the native C++ routine (``utils/native.py``) where that is built,
+  else its numpy twin (the same indices, unless an IoU lies within an
+  ulp of the threshold: the C++ IoU may contract into fused
+  multiply-adds).
+- ``merge_nms_host``: the reference's alternative merge-NMS on the host.
 - ``greedy_nms_device_batch`` / ``greedy_nms_device``: fixed-size masked
   NMS on the device (``max_det`` slots and a validity mask), with the
   JAX package's pruning contract and ``saturated`` flag.
@@ -16,6 +21,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+from ..utils import native
 
 # Jacobi-NMS pass bound before falling back to the exact serial scan
 # (see greedy_nms_device_batch); module-level so tests can pin it low.
@@ -53,10 +60,14 @@ def iou_xywh_matrix(boxes_a, boxes_b, xp=np):
 def greedy_nms_host(boxes: np.ndarray, scores: np.ndarray,
                     iou_thresh: float) -> np.ndarray:
     """Greedy NMS on host. boxes [N,4] xywh, scores [N]. Returns kept
-    indices in descending-score order (ties: lower index first)."""
+    indices in descending-score order (ties: lower index first). Uses the
+    native routine when it is available."""
     n = len(scores)
     if n == 0:
         return np.zeros((0,), dtype=np.int64)
+    kept = native.greedy_nms(boxes, scores, iou_thresh)
+    if kept is not None:
+        return kept
     order = np.argsort(-scores, kind="stable")
     iou = iou_xywh_matrix(boxes[order], boxes[order])
     alive = np.ones(n, dtype=bool)
@@ -67,6 +78,53 @@ def greedy_nms_host(boxes: np.ndarray, scores: np.ndarray,
         keep.append(order[i])
         alive[i + 1:] &= iou[i, i + 1:] <= iou_thresh
     return np.asarray(keep, dtype=np.int64)
+
+
+def merge_nms_host(boxes: np.ndarray, obj: np.ndarray, cls: np.ndarray,
+                   conf_thresh: float = 0.5, iou_thresh: float = 0.5,
+                   class_agnostic: bool = False, max_det: int = 300,
+                   merge: bool = True) -> np.ndarray:
+    """The reference's alternative vectorized NMS (utils.py:639-732
+    ``non_max_suppression``): combined score obj*cls, per-class box
+    offsets (unless class_agnostic), greedy NMS (stable descending order),
+    then merge-NMS: kept boxes are replaced by the IoU-weighted mean of
+    their cluster, and kept only if the cluster is redundant (> 1 member).
+
+    boxes [N,4] xywh normalized; obj [N]; cls [N,C] class scores.
+    Returns [M, 7] rows (x, y, w, h, obj, cls_conf, cls_id).
+    """
+    if len(boxes) == 0:
+        return np.zeros((0, 7), np.float32)
+    keep_cand = obj > conf_thresh
+    boxes, obj, cls = boxes[keep_cand], obj[keep_cand], cls[keep_cand]
+    if len(boxes) == 0:
+        return np.zeros((0, 7), np.float32)
+    conf = cls * obj[:, None]
+    cls_id = conf.argmax(axis=1)
+    score = conf[np.arange(len(conf)), cls_id]
+    sel = score > conf_thresh
+    boxes, obj, cls_id, score = boxes[sel], obj[sel], cls_id[sel], score[sel]
+    if len(boxes) == 0:
+        return np.zeros((0, 7), np.float32)
+    # per-class offset trick: disjoint coordinate islands per class
+    off = 0.0 if class_agnostic else cls_id.astype(np.float32) * 8.0
+    shifted = boxes.copy()
+    shifted[:, 0] += off
+    keep = greedy_nms_host(shifted, score, iou_thresh)[:max_det]
+    out_boxes = boxes[keep].copy()
+    if merge and 1 < len(boxes) < 3000:
+        iou = iou_xywh_matrix(shifted[keep], shifted)
+        clusters = iou > iou_thresh
+        weights = clusters * score[None, :]
+        denom = weights.sum(axis=1, keepdims=True)
+        out_boxes = (weights @ boxes) / np.maximum(denom, 1e-12)
+        redundant = clusters.sum(axis=1) > 1
+        keep = keep[redundant]
+        out_boxes = out_boxes[redundant]
+    return np.concatenate([
+        out_boxes, obj[keep, None],
+        (score[keep] / np.maximum(obj[keep], 1e-12))[:, None],
+        cls_id[keep, None].astype(np.float32)], axis=1).astype(np.float32)
 
 
 def _nms_prep(boxes, scores, iou_thresh, max_det):

@@ -144,6 +144,29 @@ Phases, each fatal on failure:
     after warm-up: the device's busy share over the traced steps, its
     time by kind of kernel, the 10 device operations that take the most
     time, the longest idle gaps.
+13. The evaluation path (counted launches): the native host library built
+    (``utils/native.py``: the run fails if g++ cannot build it); the full-
+    width YOLOv3 (random weights, bf16) written as .cfg + .weights and
+    driven through the eval CLIs in-process over 16 ``smooth_tile``s:
+    ``images_filter`` (conf 0.01, b8), ``test_patch`` (a seeded 224
+    patch, ``--save-images``), ``test_patch_metrics --json``,
+    ``clean_img_pre`` (conf 0.2), ``paste_patch`` in both modes and
+    ``dataset_tools stats``; one label file per kept image, every report
+    value finite but the M2s that are NaN or inf by definition; img/s of
+    ``images_filter`` and ``test_patch``, the latter's per-image time
+    split into placement, composite and detection (host clock and CUDA
+    events); K3a ``split_phases``, K1 and K3b launched. Then the trained
+    slim victim on its three tiles, float32, on the card and on the CPU
+    (``images_filter`` -> ``test_patch`` -> ``test_patch_metrics``, both
+    placing from the CPU run's labels): placements and half-edges equal,
+    labels equal up to NMS tie order within 1e-3, M1 and the counts
+    equal, the other report floats within 1e-3; K3a, K4 and K3b
+    launched. Then PGD: the slim victim's first image gradient (planar
+    stem) against the conv walk carrying the route's leaky gates (1e-4
+    relative L2; the plain walk's distance and the gates it flips
+    recorded) and the stepped images' sign flips (<= 1e-4); at full
+    width, b2, three float32 steps (K1 ``save_acts``, K2, the tiled K3a
+    and K3b each once a step) within eps and [0, 1], and its ms a step.
 
 Phase 4 also holds the slim victim (stem widths 8/16/8/16/32) on the
 planar stem (K4), and once more with ``res152="planar"``, and times its
@@ -155,7 +178,9 @@ routes stay: serving and training take the fused stem and the conv walk
 for layers 6-11, and launch no K4, K5, K6 or experimental kernel (K7, K8);
 the fused-stage and all-planar routes launch no K5 or K6c.
 
-The last two lines are the kernels JSON object and
+Each entry of the kernels line carries its launches on the phase 10
+store path and the phase 13 eval path (``store_path_launches``,
+``eval_path_launches``). The last two lines are the kernels JSON object and
 ``{"ok": true, "device": {...}}``; the card's name and power limit are
 printed before them. Exits non-zero, printing no result, without a card
 or without the port beside this script.
@@ -3330,6 +3355,497 @@ def step_trace(dev, card) -> dict:
     return rec
 
 
+EVAL_TILES = 16      # full-width eval sweep: two b8 images_filter batches
+EVAL_PGD_STEPS = 3   # full-width PGD steps (b2)
+
+
+def structural_match(ours, ref, nms_thresh: float, atol=1e-3) -> int:
+    """Two detection sets equal up to greedy-NMS tie order (T2, the check
+    of ``tests/test_refparity.py``): counts within max(2, 1.5%), at most
+    3% of ``ref`` unmatched 1-1 within ``atol``, each unmatched reference
+    row overlapping (IoU > nms_thresh) one of our unmatched rows, another
+    representative of its suppression cluster. Returns the rows matched
+    1-1; raises otherwise."""
+    ours = np.asarray(ours, np.float32).reshape(-1, 7)
+    ref = np.asarray(ref, np.float32).reshape(-1, 7)
+    assert abs(len(ours) - len(ref)) <= max(2, 0.015 * len(ref)), (
+        len(ours), len(ref))
+    used = np.zeros(len(ref), bool)
+    mine = np.zeros(len(ours), bool)
+    for i, row in enumerate(ours):
+        d = np.abs(ref - row).max(axis=1)
+        d[used] = np.inf
+        j = int(np.argmin(d))
+        if d[j] <= atol:
+            used[j] = mine[i] = True
+    assert (~used).sum() <= 0.03 * len(ref), ((~used).sum(), len(ref))
+    alt = ours[~mine]
+    for r in ref[~used]:
+        x1, y1 = alt[:, 0] - alt[:, 2] / 2, alt[:, 1] - alt[:, 3] / 2
+        x2, y2 = alt[:, 0] + alt[:, 2] / 2, alt[:, 1] + alt[:, 3] / 2
+        iw = np.clip(np.minimum(r[0] + r[2] / 2, x2)
+                     - np.maximum(r[0] - r[2] / 2, x1), 0, None)
+        ih = np.clip(np.minimum(r[1] + r[3] / 2, y2)
+                     - np.maximum(r[1] - r[3] / 2, y1), 0, None)
+        inter = iw * ih
+        iou = inter / (r[2] * r[3] + alt[:, 2] * alt[:, 3] - inter + 1e-12)
+        assert len(alt) and iou.max() > nms_thresh, r
+    return int(used.sum())
+
+
+@contextlib.contextmanager
+def timed_calls(owner, name: str, log: list, keep_result=False):
+    """Replace ``owner.name`` for the block with a wrapper that appends
+    (host ms, CUDA-event ms[, result]) of each call to ``log``; both
+    clocks bracket the call between synchronizations."""
+    real = getattr(owner, name)
+
+    def wrapper(*a, **kw):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        out = real(*a, **kw)
+        end.record()
+        torch.cuda.synchronize()
+        log.append(((time.perf_counter() - t0) * 1e3,
+                    start.elapsed_time(end)) + ((out,) if keep_result
+                                                else ()))
+        return out
+    setattr(owner, name, wrapper)
+    try:
+        yield
+    finally:
+        setattr(owner, name, real)
+
+
+def as_7col(rows: np.ndarray) -> np.ndarray:
+    """5-column ``cls x y w h`` rows as 7-column ``x y w h 0 0 cls``."""
+    if rows.shape[1] == 7:
+        return rows
+    return np.concatenate([rows[:, 1:5], np.zeros((len(rows), 2),
+                                                  np.float32), rows[:, :1]], 1)
+
+
+def label_dir(path: str) -> dict:
+    L = import_port("data.labels")
+    return {n: L.read_label_file(os.path.join(path, n), None)
+            for n in sorted(os.listdir(path)) if n.endswith(".txt")}
+
+
+def report_finite(report: dict, pred: str, gt: str) -> None:
+    """Every value of a ``test_patch_metrics`` report over the label dirs
+    ``pred`` and ``gt`` is finite, but an M2 whose instance gap is zero
+    (NaN by definition) and the M2@0.4 quirk where a 5-column file holds
+    a non-finite height (the quirk sums that column; random weights
+    overflow ``exp`` into inf boxes)."""
+    gaps = {"M2_avg_conf_created_04_quirk":
+            report["instances_pred_04"] - report["instances_gt_04"],
+            "M2_avg_conf_created_001":
+            report["instances_pred_001"] - report["instances_gt_001"]}
+    heights_finite = all(
+        np.isfinite(rows[:, 4]).all() for d in (pred, gt)
+        for rows in label_dir(os.path.join(d, "yolo-labels")).values()
+        if rows.shape[1] == 5)
+    for k, v in report.items():
+        vals = v if isinstance(v, list) else [v]
+        if k in gaps and gaps[k] == 0:
+            assert all(np.isnan(x) for x in vals), (k, v)
+        elif k == "M2_avg_conf_created_04_quirk" and not heights_finite:
+            assert not np.isfinite(v), (k, v)
+        else:
+            assert all(np.isfinite(x) for x in vals), (k, v)
+
+
+def eval_pipeline(cli, model_args, raw, root, patch_png, patch_size, conf,
+                  seed) -> dict:
+    """``images_filter`` -> ``test_patch`` -> ``test_patch_metrics
+    --json`` in-process under ``root``, with each CLI's wall time, the
+    eval placements (``transform_patch_eval``'s centres and the
+    half-edges of ``mask_semi_edge``) and the per-image time of the
+    placement, the composite and the detection (host clock and CUDA
+    events)."""
+    attack = import_port("attack")
+    EE = import_port("attack.eot_eval")
+    det_mod = import_port("evals.detect")
+    gt, att = os.path.join(root, "gt"), os.path.join(root, "attacked")
+    rec = {}
+    filt = []
+    t0 = time.perf_counter()
+    with timed_calls(det_mod.Detector, "detect_batch", filt):
+        cli["images_filter"].main([*model_args, "--img-dir", raw,
+                                   "--out-dir", gt, "--conf", str(conf),
+                                   "--batch-size", "8"])
+    torch.cuda.synchronize()
+    rec["images_filter_s"] = time.perf_counter() - t0
+    rec["images_filter_detect_batch_ms"] = [h for h, _ in filt]
+    log(f"[eval] images_filter {rec['images_filter_s']:.2f} s")
+    place, paste, detect, semi = [], [], [], []
+    t0 = time.perf_counter()
+    with timed_calls(attack, "transform_patch_eval", place, True), \
+            timed_calls(attack, "paste_patch", paste), \
+            timed_calls(det_mod.Detector, "detect_batch", detect), \
+            timed_calls(EE, "mask_semi_edge", semi, True):
+        cli["test_patch"].main([
+            *model_args, "--patch", patch_png, "--patch-size",
+            str(patch_size), "--img-dir", os.path.join(gt, "images"),
+            "--lab-dir", os.path.join(gt, "yolo-labels_w_conf"),
+            "--out-dir", att, "--conf", str(conf), "--seed", str(seed),
+            "--save-images"])
+    torch.cuda.synchronize()
+    rec["test_patch_s"] = time.perf_counter() - t0
+    log(f"[eval] test_patch {rec['test_patch_s']:.2f} s")
+    rec["placements"] = [list(r[2][1]) for r in place]
+    rec["semi_edges"] = [r[2] for r in semi]
+    rec["split_ms"] = {
+        part: {"host": [r[0] for r in log], "events": [r[1] for r in log]}
+        for part, log in (("transform_patch_eval", place),
+                          ("paste_patch", paste), ("detect", detect))}
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        report = cli["test_patch_metrics"].main(
+            ["--pred-dir", att, "--gt-dir", gt, "--json"])
+    rec["metrics_s"] = time.perf_counter() - t0
+    printed = json.loads(out.getvalue().strip().splitlines()[-1])
+    assert set(printed) == set(report)
+    report_finite(report, att, gt)
+    rec["report"] = report
+    n_kept = len(os.listdir(os.path.join(gt, "images")))
+    for d, subs in ((gt, ("images", "yolo-labels", "yolo-labels_w_conf")),
+                    (att, ("images", "yolo-labels", "yolo-labels_w_conf"))):
+        for sub in subs:
+            assert len(os.listdir(os.path.join(d, sub))) == n_kept, (d, sub)
+    assert len(place) == len(semi) == n_kept
+    rec["kept"] = n_kept
+    rec["gt"], rec["attacked"] = gt, att
+    return rec
+
+
+def slim_stem_gates(model, x):
+    """The slim victim's stem (convs 0, 1, 2, 3, 5, any widths) on the
+    planar route and on the conv walk (float32, TF32 off, no grad): each
+    route's leaky gates (NCHW, 1 where the value is > 0, else 0.1), and
+    the (HWIO weight, float32 bias) pairs ``gated_stem_walk`` takes."""
+    PC = import_port("ops.planar_conv")
+    PSP = import_port("models.stem_planar")
+    _cuda = import_port("ops._cuda")
+    h = x.shape[1]
+    stem = [(getattr(model, f"w{i}").permute(2, 3, 1, 0),
+             getattr(model, f"b{i}")) for i in PSP.STEM_CONVS]
+    widths = (h, h // 2, h // 2, h // 2, h // 4)
+    with torch.no_grad(), _cuda.no_tf32():
+        acts = PSP._forward(x.contiguous(), model.planar_stem_params()[0])
+        gk = [torch.where(PC.from_planar(a, w, b.shape[0]).permute(
+            0, 3, 1, 2) > 0, 1.0, 0.1) for a, w, (_, b) in
+            zip(acts, widths, stem)]
+        gw = []
+
+        def conv(u, i, s):
+            w, b = stem[i]
+            p = F.conv2d(u, w.permute(3, 2, 0, 1), b, s,
+                         (w.shape[0] - 1) // 2)
+            gw.append(torch.where(p > 0, 1.0, 0.1))
+            return p * gw[-1]
+        y1 = conv(conv(x.permute(0, 3, 1, 2), 0, 1), 1, 2)
+        y3 = conv(conv(y1, 2, 1), 3, 1)
+        conv(y3 + y1, 4, 2)
+    return gk, gw, stem
+
+
+def eval_path(dev, card) -> dict:
+    """Phase 13: the evaluation half on the card. (1) Full width
+    (``yolov3_blocks()``, random He-normal weights from the seed, bf16,
+    written as .cfg + .weights): the eval CLIs in-process over 16
+    ``smooth_tile``s (counted launches: K3a ``split_phases``, K1, K3b);
+    img/s of ``images_filter`` and ``test_patch``, the latter's per-image
+    time split into placement, composite and detection. (2) The committed
+    slim victim (trained, 608^2) on its three tiles, float32, on the card
+    and on the CPU: ``images_filter`` labels equal up to NMS tie order
+    (1e-3); then ``test_patch`` on both from the CPU run's ground truth
+    (the placement reads label coordinates through ``int()``, so one
+    last-digit difference in a label file can move it; the detections are
+    compared apart), with equal placements and half-edges, detections
+    equal up to tie order, M1 and the instance counts equal, the other
+    report floats within 1e-3 (counted launches: K3a, K4, K3b). (3) PGD:
+    the slim victim's first image gradient on its kernel route against
+    the conv walk on the card (1e-4 relative L2) and the stepped images'
+    sign flips; at full width, b2, 3 float32 steps (counted launches: K1
+    ``save_acts``, K2, the tiled K3a, K3b), within eps and [0, 1]."""
+    from PIL import Image
+    M = import_port("models")
+    native = import_port("utils.native")
+    darknet = import_port("models.darknet")
+    PP = import_port("attack.pgd")
+    EE = import_port("attack.eot_eval")
+    attack = import_port("attack")
+    _cuda = import_port("ops._cuda")
+    cli = {n: import_port(f"cli.{n}") for n in (
+        "images_filter", "clean_img_pre", "test_patch", "test_patch_metrics",
+        "paste_patch", "dataset_tools")}
+    assert native.available(), native.BUILD_ERROR
+    rec = {"native": native.library_path()}
+    root = tempfile.mkdtemp(prefix="chip_smoke_eval_")
+    try:
+        # -- full width: the six CLIs (the phase's main path) ------------
+        t0 = time.perf_counter()
+        blocks = M.yolov3_blocks(width=SIZE, height=SIZE)
+        net = M.build_network(blocks)
+        assert len(M.conv_specs(net)) == 75
+        cfg, wts = os.path.join(root, "v.cfg"), os.path.join(root, "v.weights")
+        M.write_darknet_cfg(blocks, cfg)
+        M.save_darknet_weights(net, M.init_params(net, SEED), wts)
+        raw, _, _ = write_tiles(os.path.join(root, "tiles"), EVAL_TILES,
+                                SEED + 40)
+        rng = np.random.default_rng(SEED + 41)
+        patch_png = os.path.join(root, "patch.png")
+        Image.fromarray((rng.random((PATCH, PATCH, 3)) * 255).astype(
+            np.uint8)).save(patch_png)
+        rec["setup_s"] = time.perf_counter() - t0
+        model = ["--cfgfile", cfg, "--weightfile", wts, "--img-size",
+                 str(SIZE), "--device", dev.type]
+        reset_counts()
+        full = eval_pipeline(cli, model, raw, os.path.join(root, "full"),
+                             patch_png, PATCH, 0.01, SEED)
+        t0 = time.perf_counter()
+        cli["clean_img_pre"].main([*model, "--img-dir", raw, "--out-dir",
+                                   os.path.join(root, "clean"), "--conf",
+                                   "0.2"])
+        full["clean_img_pre_s"] = time.perf_counter() - t0
+        assert len(os.listdir(os.path.join(root, "clean", "yolo-labels"))) \
+            == EVAL_TILES
+        for mode, extra in (("fixed", ["--fixed-center", "0.5", "0.5",
+                                       "--fixed-scale", "0.4"]),
+                            ("eot", ["--lab-dir", os.path.join(
+                                full["gt"], "yolo-labels"), "--seed",
+                                str(SEED)])):
+            out = os.path.join(root, f"paste_{mode}")
+            t0 = time.perf_counter()
+            cli["paste_patch"].main(["--patch", patch_png, "--patch-size",
+                                     str(PATCH), "--img-dir", raw,
+                                     "--out-dir", out, "--img-size",
+                                     str(SIZE), "--device", dev.type, *extra])
+            full[f"paste_patch_{mode}_s"] = time.perf_counter() - t0
+            names = sorted(os.listdir(out))
+            assert len(names) == EVAL_TILES
+            for n in names[:4]:
+                got = np.asarray(Image.open(os.path.join(out, n)))
+                src = np.asarray(Image.open(os.path.join(raw, n)))
+                assert not np.array_equal(got, src), (mode, n)
+                if mode == "fixed":   # the patch spans rows 0.3-0.7
+                    assert np.array_equal(got[:SIZE // 4], src[:SIZE // 4])
+        stats = io.StringIO()
+        with contextlib.redirect_stdout(stats):
+            # the 7-column dir: ``instances_per_class`` reads the class
+            # from the last column (in a 5-column file, the height, which
+            # random weights make inf), as the JAX package's CLI does
+            cli["dataset_tools"].main(["stats", "--img-dir", os.path.join(
+                full["gt"], "images"), "--lab-dir", os.path.join(
+                full["gt"], "yolo-labels_w_conf"), "--ncols", "7"])
+        assert f"images: {full['kept']}" in stats.getvalue()
+        torch.cuda.synchronize()
+        launches = read_counts()
+        for k in SERVE_PATH:
+            assert launches[k] > 0, f"{k} did not launch on the eval path"
+        full["launches"] = launches
+        full["images_filter_img_per_s"] = EVAL_TILES / full["images_filter_s"]
+        full["test_patch_img_per_s"] = full["kept"] / full["test_patch_s"]
+        full["label_rows"] = {
+            sub: sum(len(v) for v in label_dir(os.path.join(
+                full["gt"], sub)).values())
+            for sub in ("yolo-labels", "yolo-labels_w_conf")}
+        rec["full_width"] = {k: v for k, v in full.items()
+                             if k not in ("gt", "attacked")}
+        log(f"[eval] full width: {EVAL_TILES} tiles, kept {full['kept']}, "
+            f"images_filter {full['images_filter_img_per_s']:.2f} img/s, "
+            f"test_patch {full['test_patch_img_per_s']:.2f} img/s, "
+            f"metrics {full['metrics_s']:.1f} s, test_patch per image "
+            f"(median host ms) "
+            f"{ {k: float(np.median(v['host'])) for k, v in full['split_ms'].items()} }, "
+            f"label rows {full['label_rows']}, launches "
+            f"{ {k: v for k, v in launches.items() if v} } ({card})")
+
+        # -- the slim victim on the card against the CPU ----------------
+        slim = os.path.join(ROOT, "tests", "fixtures", "refparity_slim")
+        sraw = os.path.join(root, "slim_raw")
+        os.makedirs(sraw)
+        for i in range(3):
+            shutil.copy(os.path.join(slim, f"tile_{i}.png"), sraw)
+        smodel = ["--cfgfile", os.path.join(slim, "yolov3_dota_slim.cfg"),
+                  "--weightfile", os.path.join(slim,
+                                               "yolov3_dota_slim.weights"),
+                  "--img-size", str(SIZE), "--fp32"]
+        runs = {}
+        sides = (("cpu", "cpu"), ("card", dev.type))
+        for side, where in sides:
+            base = os.path.join(root, f"slim_{side}")
+            os.makedirs(base)
+            if side == "card":
+                reset_counts()
+            gt = os.path.join(base, "gt")
+            t0 = time.perf_counter()
+            cli["images_filter"].main([*smodel, "--device", where,
+                                       "--img-dir", sraw, "--out-dir", gt,
+                                       "--conf", "0.01"])
+            runs[side] = {"images_filter_s": time.perf_counter() - t0,
+                          "gt": gt}
+        cpu_gt = runs["cpu"]["gt"]
+        for side, where in sides:
+            att = os.path.join(root, f"slim_{side}", "attacked")
+            place, semi = [], []
+            t0 = time.perf_counter()
+            with timed_calls(attack, "transform_patch_eval", place, True), \
+                    timed_calls(EE, "mask_semi_edge", semi, True):
+                cli["test_patch"].main([
+                    *smodel, "--device", where, "--patch", patch_png,
+                    "--img-dir", os.path.join(cpu_gt, "images"),
+                    "--lab-dir", os.path.join(cpu_gt, "yolo-labels_w_conf"),
+                    "--out-dir", att, "--conf", "0.01", "--seed",
+                    str(SEED)])
+            runs[side]["test_patch_s"] = time.perf_counter() - t0
+            if side == "card":
+                runs[side]["launches"] = {k: v for k, v in
+                                          read_counts().items() if v}
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                runs[side]["report"] = cli["test_patch_metrics"].main(
+                    ["--pred-dir", att, "--gt-dir", cpu_gt, "--json"])
+            runs[side]["placements"] = [list(r[2][1]) for r in place]
+            runs[side]["semi_edges"] = [r[2] for r in semi]
+            runs[side]["attacked"] = att
+        c, g = runs["cpu"], runs["card"]
+        assert len(c["placements"]) == 3
+        assert g["placements"] == c["placements"], (g["placements"],
+                                                    c["placements"])
+        assert g["semi_edges"] == c["semi_edges"], (g["semi_edges"],
+                                                    c["semi_edges"])
+        matched = {}
+        for what, a, b in (("gt", g["gt"], c["gt"]),
+                           ("attacked", g["attacked"], c["attacked"])):
+            for sub in ("yolo-labels_w_conf", "yolo-labels"):
+                ours, ref = label_dir(os.path.join(a, sub)), label_dir(
+                    os.path.join(b, sub))
+                assert list(ours) == list(ref), (what, sub)
+                matched[f"{what}/{sub}"] = [
+                    [structural_match(as_7col(ours[n]), as_7col(ref[n]),
+                                      0.4), len(ref[n])] for n in ref]
+        # the card's own ground truth, as text, against the CPU's
+        differ = 0
+        for n in sorted(os.listdir(os.path.join(c["gt"],
+                                                "yolo-labels_w_conf"))):
+            with open(os.path.join(c["gt"], "yolo-labels_w_conf", n)) as f:
+                a = f.read().splitlines()
+            with open(os.path.join(g["gt"], "yolo-labels_w_conf", n)) as f:
+                b = f.read().splitlines()
+            differ += sum(x != y for x, y in zip(a, b)) + abs(len(a) - len(b))
+        rg, rc = g["report"], c["report"]
+        for k, v in rc.items():
+            if k.startswith("M1") or k.startswith("instances"):
+                assert rg[k] == v, (k, rg[k], v)
+            elif isinstance(v, list):
+                assert rg[k] == v, (k, rg[k], v)
+            elif np.isnan(v):
+                assert np.isnan(rg[k]), k
+            else:
+                assert abs(rg[k] - v) <= 1e-3, (k, rg[k], v)
+        for k in ("to_planar", "from_planar") + K4_VARIANTS[:3]:
+            assert g["launches"].get(k, 0) > 0, (k, g["launches"])
+        rec["slim"] = {
+            "placements": c["placements"], "semi_edges": c["semi_edges"],
+            "matched_rows": matched, "gt_text_lines_differing": differ,
+            "report_cuda": rg, "report_cpu": rc,
+            "launches_cuda": g["launches"],
+            "seconds": {w: {k: v for k, v in r.items() if k.endswith("_s")}
+                        for w, r in runs.items()}}
+        log(f"[eval] slim victim card vs CPU: placements {c['placements']}, "
+            f"semi-edges {c['semi_edges']}, rows matched {matched}, M1@0.01 "
+            f"{rg['M1_avg_instances_created_001']} ({card})")
+
+        # -- PGD ---------------------------------------------------------
+        snet = M.network_from_cfg(os.path.join(slim,
+                                               "yolov3_dota_slim.cfg"))
+        sparams, _ = M.load_darknet_weights(
+            snet, os.path.join(slim, "yolov3_dota_slim.weights"))
+        xs = torch.stack([torch.from_numpy(np.asarray(Image.open(
+            os.path.join(slim, f"tile_{i}.png")).convert("RGB"),
+            np.float32) / 255.0) for i in range(2)]).to(dev)
+        smodel32 = darknet.Darknet(snet, sparams, torch.float32, device=dev)
+        g_k = PP.fabrication_grad(smodel32, xs)
+        route = dict(darknet.last_routes())
+        assert route["stem"] == "planar", route
+        # the references: the conv walk as it is, and the conv walk
+        # carrying the planar route's leaky gates in layers 0-5 (a flat
+        # region whose pre-activation lies within rounding of 0 flips a
+        # whole patch of gates between two summation orders)
+        gates_k, gates_w, stem = slim_stem_gates(smodel32, xs)
+        with _cuda.no_tf32(), torch.enable_grad():
+            xw = xs.clone().requires_grad_(True)
+            (g_w,) = torch.autograd.grad(
+                PP.fabrication_loss(smodel32(xw)), xw)
+            assert darknet.last_routes()["stem"] == "conv"
+            xg = xs.clone().requires_grad_(True)
+            y5 = gated_stem_walk(xg, stem, gates_k)
+            (g_g,) = torch.autograd.grad(PP.fabrication_loss(
+                smodel32.walk(y5, 6, {5: y5})), xg)
+        rel = ((g_k - g_g).norm() / g_g.norm()).item()
+        rel_walk = ((g_k - g_w).norm() / g_w.norm()).item()
+        flipped_gates = [int((a != b).sum()) for a, b in zip(gates_k,
+                                                             gates_w)]
+        cfg1 = PP.PGDConfig(steps=1)
+        adv1 = PP.make_pgd_fabrication(snet, cfg1)(sparams, xs)
+        lo1 = torch.clamp(xs - cfg1.eps, 0, 1)
+        hi1 = torch.clamp(xs + cfg1.eps, 0, 1)
+        flips = (adv1 != torch.clamp(xs + cfg1.alpha * torch.sign(g_g),
+                                     lo1, hi1)).float().mean().item()
+        flips_walk = (adv1 != torch.clamp(
+            xs + cfg1.alpha * torch.sign(g_w), lo1, hi1)).float().mean().item()
+        assert rel <= 1e-4, rel
+        assert flips <= 1e-4, flips
+        if not any(flipped_gates):
+            assert rel_walk <= 1e-4, rel_walk
+        del smodel32, g_k, g_w, g_g
+        fparams = M.init_params(net, SEED)
+        xf = torch.stack([torch.from_numpy(smooth_tile(
+            np.random.default_rng(SEED + 42 + i))) for i in range(2)]).to(
+            dev).float() / 255.0
+        cfgf = PP.PGDConfig(steps=EVAL_PGD_STEPS)
+        attack_f = PP.make_pgd_fabrication(net, cfgf)
+        reset_counts()
+        advf = attack_f(fparams, xf)
+        torch.cuda.synchronize()
+        pgd_launches = {k: v for k, v in read_counts().items() if v}
+        assert darknet.last_routes()["stem"] == "fused"
+        for k in ("fused_stem_fwd_save_acts", "fused_stem_bwd_saved",
+                  "to_planar_g5", "from_planar"):
+            assert pgd_launches.get(k, 0) == EVAL_PGD_STEPS, pgd_launches
+        assert bool(torch.isfinite(advf).all())
+        assert (advf - xf).abs().max().item() <= cfgf.eps + 1e-6
+        assert advf.min().item() >= 0.0 and advf.max().item() <= 1.0
+        assert not torch.equal(advf, xf)
+        fmodel = darknet.Darknet(net, fparams, torch.float32, device=dev)
+        step_ms = time_ms(lambda: PP.fabrication_grad(fmodel, xf), 3, 1)
+        rec["pgd"] = {"slim_grad_rel_l2": rel, "slim_route": route,
+                      "slim_step_sign_flips": flips,
+                      "slim_grad_rel_l2_vs_plain_walk": rel_walk,
+                      "slim_step_sign_flips_vs_plain_walk": flips_walk,
+                      "slim_gates_flipped_vs_plain_walk": flipped_gates,
+                      "full_width_b2_launches": pgd_launches,
+                      "full_width_b2_ms_per_step": step_ms,
+                      "full_width_steps": EVAL_PGD_STEPS,
+                      "max_abs_step": (advf - xf).abs().max().item()}
+        log(f"[eval] PGD: slim gradient rel L2 {rel:.3g} against the walk "
+            f"carrying the route's gates, {rel_walk:.3g} against the plain "
+            f"walk (gates flipped {flipped_gates}; route {route}), sign "
+            f"flips {flips:.3g} ({flips_walk:.3g}); full width b2 f32 {step_ms:.2f} ms a "
+            f"step, launches {pgd_launches} ({card})")
+        del fmodel, advf, xf
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -3899,6 +4415,13 @@ def main() -> int:
     # -- 12. a profiler trace of the default training step -------------
     phase("12 step trace")
     step_trace(dev, card)
+
+    # -- 13. the evaluation path (counted launches) ---------------------
+    phase("13 evaluation path")
+    vrec = eval_path(dev, card)
+    for k in kernels:
+        k["eval_path_launches"] = vrec["full_width"]["launches"][k["name"]]
+    log(f"[eval] {json.dumps(vrec)}")
     phase("done")
 
     for k in kernels:

@@ -843,3 +843,73 @@ def test_packed_stem_route_on_card(cuda, dtype):
         if dtype == torch.float32:
             err = (hp - hw).abs().max().item()
             assert err <= 1e-4 * hw.abs().max().item(), err
+
+
+@pytest.mark.parametrize("s,p", [(608, 224), (96, 24)])
+def test_transform_patch_eval_card_equals_cpu(cuda, s, p):
+    """The eval placement on the card against the CPU for the same
+    generator seed: equal placements (the half-edge's mask and the warps
+    are the bilinear gather op for op, theta built on the host) and the
+    canvas bit for bit."""
+    from adversarial_patch_based_false_positive_creation_attacks_against_aerial_imagery_object_detectors_tpu_torch.attack import eot_eval as EE
+    rng = np.random.default_rng(4)
+    patch = torch.from_numpy(rng.random((p, p, 3)).astype(np.float32))
+    cfg = EE.EvalEOTConfig(img_size=s)
+    for i in range(6):
+        n = int(rng.integers(1, 30))
+        labels = np.zeros((n, 7), np.float32)
+        labels[:, :2] = rng.uniform(0.05, 0.95, (n, 2))
+        labels[:, 2:4] = rng.uniform(0.02, 0.3, (n, 2))
+        labels[:, 4:6] = 0.5
+        adv_c, at_c = EE.transform_patch_eval(
+            patch, labels, np.random.default_rng(i), cfg)
+        adv_g, at_g = EE.transform_patch_eval(
+            patch.to(cuda), labels, np.random.default_rng(i), cfg)
+        assert at_g == at_c and adv_g.device.type == "cuda"
+        assert torch.equal(adv_g.cpu(), adv_c)
+
+
+def test_pgd_first_gradient_card_equals_cpu(cuda):
+    """PGD's first image gradient, float32: the trained slim victim on the
+    card (its planar stem, K4) against the CPU (the conv walk) within 1e-4
+    relative L2; and the full-width stem geometry through the fused stem's
+    training kernels (K1 ``save_acts``, K2; both launched) against the
+    card's conv walk. Random weights saturate the heads' sigmoids, which
+    leaves the fabrication loss's gradient to a few anchors and moves it
+    by 1e-2 between summation orders, so that victim's head convs are
+    scaled down 1000-fold."""
+    import os
+    from adversarial_patch_based_false_positive_creation_attacks_against_aerial_imagery_object_detectors_tpu_torch.attack import pgd as PP
+    from adversarial_patch_based_false_positive_creation_attacks_against_aerial_imagery_object_detectors_tpu_torch.ops import _cuda
+    slim = os.path.join(os.path.dirname(__file__), "fixtures",
+                        "refparity_slim")
+    snet = PM.network_from_cfg(os.path.join(slim, "yolov3_dota_slim.cfg"))
+    sp, _ = PM.load_darknet_weights(
+        snet, os.path.join(slim, "yolov3_dota_slim.weights"))
+    x = torch.rand(2, 128, 128, 3, generator=torch.Generator().manual_seed(8))
+    g_cpu = PP.fabrication_grad(
+        PM.Darknet(snet, sp, torch.float32, device="cpu"), x)
+    g_card = PP.fabrication_grad(
+        PM.Darknet(snet, sp, torch.float32, device=cuda), x.to(cuda))
+    assert PM.last_routes()["stem"] == "planar"
+    rel = ((g_card.cpu() - g_cpu).norm() / g_cpu.norm()).item()
+    assert rel <= 1e-4, rel
+
+    net = PM.build_network(PM.yolov3_blocks(width=64, height=64))
+    params = PM.fold_bn(net, PM.init_params(net, 0))
+    for i in net.yolo_indices:
+        params[f"conv_{i - 1}"]["w"] = params[f"conv_{i - 1}"]["w"] * 1e-3
+    model = PM.Darknet(net, params, torch.float32, device=cuda)
+    x = torch.rand(2, 64, 64, 3, generator=torch.Generator().manual_seed(8)
+                   ).to(cuda)
+    n = (SF.fused_stem_fwd.save_acts_launches,
+         SF.fused_stem_bwd_saved.launches)
+    g_k = PP.fabrication_grad(model, x)
+    assert PM.last_routes()["stem"] == "fused"
+    assert (SF.fused_stem_fwd.save_acts_launches,
+            SF.fused_stem_bwd_saved.launches) == (n[0] + 1, n[1] + 1)
+    with _cuda.no_tf32():
+        xr = x.clone().requires_grad_(True)
+        (g_w,) = torch.autograd.grad(PP.fabrication_loss(model(xr)), xr)
+    rel = ((g_k - g_w).norm() / g_w.norm()).item()
+    assert rel <= 1e-4, rel

@@ -625,3 +625,127 @@ def test_name_diff_finds_the_training_path_in_the_port():
         for fn in ("make_loss_fn", "make_train_step", "make_epoch_scan_fn",
                    "PatchTrainer.__init__"):
             assert "mesh" in names[fn], (pkg, fn)
+
+
+# slices C and D: the evaluation half and the two remaining attacks, by
+# module (the JAX package's path; ``cli/`` is the repository's)
+EVAL_PATH_NAMES = {
+    "utils/native.py": ("get_lib", "available", "iou_xywh_matrix",
+                        "greedy_nms", "interference_map", "parse_floats"),
+    "ops/nms.py": ("greedy_nms_host", "merge_nms_host"),
+    "evals/metrics.py": ("instance_count", "conf_sum", "instances_per_class",
+                         "m1_average_instances_created",
+                         "m2_average_confidence_created", "m4_per_class_gap",
+                         "precision_recall", "ap_from_pr",
+                         "average_precision", "mean_average_precision",
+                         "creation_metrics_report", "_m2_04_quirk"),
+    "evals/plotting.py": ("class_color", "draw_detections"),
+    "models/darknet.py": ("head_strides", "describe_network"),
+    "attack/eot_eval.py": ("EvalEOTConfig", "select_reference_box_7col",
+                           "interference_map", "mask_semi_edge",
+                           "transform_patch_eval"),
+    "attack/vanishing.py": ("VanishingConfig", "transform_patch_vanishing",
+                            "paste_vanishing"),
+    "attack/pgd.py": ("PGDConfig", "fabrication_loss",
+                      "make_pgd_fabrication"),
+}
+EVAL_CLIS = ("clean_img_pre", "images_filter", "test_patch",
+             "test_patch_metrics", "paste_patch", "dataset_tools")
+
+# what the name diff leaves unmatched on purpose: the Pallas kernels'
+# internals, the TPU layout switches, the JAX state types, the windowed-
+# gather VJP (the port warps through grid_sample), and the JAX compilation
+# cache (``utils/cache.py``: the port compiles only its kernels, keyed by
+# their sources' hash)
+DELIBERATE_DEVIATIONS = {
+    "ops/affine.py": {"_bilinear_block_sample", "_block_gather", "_hat",
+                      "affine_sample_bwd_window", "affine_sample_fast"},
+    "ops/median_pool.py": {"_median_net"},
+    "ops/planar_conv.py": {"_auto_r_out", "_k1_kernel", "_k3_kernel",
+                           "_leaky", "_row_chunk", "_shift_mat",
+                           "from_planar_auto", "from_planar_mxu",
+                           "planar_conv_reference", "to_planar_auto",
+                           "to_planar_mxu", "use_mxu_layout"},
+    "ops/res_fused.py": {"_bias_pair", "_blocked", "_bwd12_kernel",
+                         "_bwd_kernel", "_common", "_conv1x1_pairs",
+                         "_conv3x3_pairs", "_flip_t", "_fwd_kernel",
+                         "_gate_i8", "_sgn_rows", "_stage_chain",
+                         "_store_body", "_store_body4", "_w12dx_pair",
+                         "_w1x1_pair", "_w3x3_pair", "_zero_edges"},
+    "ops/stem_fused.py": {
+        "_blkw", "_bwd_kernel", "_bwd_kernel_sv", "_bwd_weights",
+        "_compute_y0_phases", "_compute_y123", "_flip_t", "_fs_bwd",
+        "_fs_fwd", "_fsp_bwd", "_fsp_fwd", "_fsr_bwd", "_fsr_fwd",
+        "_fwd_kernel", "_fwd_weights", "_g5_to_planar", "_grad_chain",
+        "_halo_copy", "_halo_copy_multi", "_in_range", "_leaky_f32",
+        "_mask_of", "_onehot_sel", "_pad_cin", "_pad_cout", "_pairs",
+        "_phase_block", "_pick_s5", "_sh_rows_grad", "_shift_block",
+        "_store_out_row", "_store_row", "_w0_pair", "_w0t_pair", "_w1_pair",
+        "_w1dx_pair", "_w3_pair", "_w3t_pair", "_w5dx_pair", "_y5_to_nhwc"},
+    "experimental/median_pallas.py": {"_median_kernel"},
+    "experimental/stem_batched.py": {
+        "_bwd_kernel_b", "_bwd_weights_b", "_compute_y0_b",
+        "_compute_y123_b", "_dot_b", "_fsb_bwd", "_fsb_fwd",
+        "_fwd_kernel_b", "_fwd_weights_b", "_halo_copy_b", "_in_range",
+        "_pairs", "_phase_block_b", "_pick_s5", "_shiftrow", "_store_rowb",
+        "_w5_pair", "_w5t_pair"},
+    "train/optim.py": {"AmsgradState", "scale_by_torch_amsgrad"},
+    "train/trainer.py": {"TrainState", "init_train_state"},
+    "models/darknet.py": {"_conv_layer"},
+    "models/res_planar.py": {"_c12_bwd", "_c12_fwd", "_flip_t", "_fused_bwd",
+                             "_fused_fwd", "_mask", "_res_bwd", "_res_fwd",
+                             "_stage_params"},
+    "models/stem_planar.py": {"_flip_t", "_leaky_bwd_planar", "_pad_cout",
+                              "_stem_fwd"},
+    "utils/checkpoint.py": {"restore_checkpoint"},
+}
+MODULES_NOT_PORTED = {"utils/cache.py"}
+
+
+def _jax_modules():
+    top = os.path.join(ROOT, JAX_PKG)
+    for dirpath, _, files in os.walk(top):
+        for f in sorted(files):
+            if f.endswith(".py"):
+                yield os.path.relpath(os.path.join(dirpath, f), top)
+
+
+def test_name_diff_finds_the_eval_path_in_the_port():
+    """Each name of slices C and D of the JAX package is in the port's
+    module of the same path, and each of the repository's six eval CLIs
+    has a port module of its name with the same top-level names; every
+    one of these modules is among the no-JAX scans' sources and imports
+    no JAX."""
+    scanned = {os.path.relpath(p, ROOT) for p in _port_sources()}
+    mods = [(os.path.join(JAX_PKG, m), m, names)
+            for m, names in EVAL_PATH_NAMES.items()]
+    mods += [(os.path.join("cli", f"{c}.py"), f"cli/{c}.py", None)
+             for c in EVAL_CLIS]
+    for ref, mod, names in mods:
+        ref_names = _defined_names(os.path.join(ROOT, ref))
+        port_path = os.path.join(ROOT, PORT, mod)
+        port_names = _defined_names(port_path)
+        assert os.path.join(PORT, mod) in scanned, mod
+        assert not [m for m in _imported_modules(port_path)
+                    if m.split(".")[0] in ("jax", "jaxlib", JAX_PKG)], mod
+        for name in names or ref_names:
+            assert name in ref_names, (mod, name)
+            assert name in port_names, (mod, name)
+
+
+def test_name_diff_leaves_only_the_deliberate_deviations():
+    """Over every module of the JAX package, the names the port's module
+    of the same path lacks are exactly the deliberate deviations, and the
+    only module without a counterpart is the JAX compilation cache."""
+    missing_modules, unmatched = set(), {}
+    for mod in _jax_modules():
+        port_path = os.path.join(ROOT, PORT, mod)
+        if not os.path.exists(port_path):
+            missing_modules.add(mod)
+            continue
+        left = (set(_defined_names(os.path.join(ROOT, JAX_PKG, mod)))
+                - set(_defined_names(port_path)))
+        if left:
+            unmatched[mod] = left
+    assert missing_modules == MODULES_NOT_PORTED
+    assert unmatched == DELIBERATE_DEVIATIONS
