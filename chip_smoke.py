@@ -167,6 +167,25 @@ Phases, each fatal on failure:
     recorded) and the stepped images' sign flips (<= 1e-4); at full
     width, b2, three float32 steps (K1 ``save_acts``, K2, the tiled K3a
     and K3b each once a step) within eps and [0, 1], and its ms a step.
+14. The attack-of-record tools (``<port>/tools/``, in this process, each
+    CLI leg's time, launches and ``last_routes()`` recorded; counted
+    launches): (a) ``attack_quality --mini`` at its defaults (96 train
+    and 64 held-out scenes, 150 epochs, b24, patch 112, 320^2): the
+    trained patch must beat the random control on M1@0.4 and M2@0.01 (the
+    JAX package's criterion), every metric finite, M4 of 15 entries,
+    printed beside the JAX package's recorded 150-epoch run; (b) the
+    protocol on the trained slim victim (608^2, patch 224):
+    ``protocol_prep``'s scenes and ``images_filter``, then
+    ``protocol_run`` with 96 images (4 b24 batches an epoch), 42 epochs
+    resumed at 21 (leg 2 a fresh trainer and store from the checkpoint)
+    and 16 held-out scenes: 42 epochs logged once each, 168 steps, leg 2
+    resumed at 21, both patches' metrics finite, K3a, K4 and K3b in the
+    eval legs (the slim victim's training takes the conv walk: no kernel);
+    (c) ``soak`` at full width, 200 b24 steps on the default route (each
+    of K3a ``split_phases``, K1 ``save_acts``, K3b, the tiled K3a and K2
+    once a step), its own asserts (every loss term finite, the patch in
+    [0, 1], the loss falling) and steps/min; (d) ``convergence_compare``
+    at its mini defaults (20 epochs, 96 scenes), every value finite.
 
 Phase 4 also holds the slim victim (stem widths 8/16/8/16/32) on the
 planar stem (K4), and once more with ``res152="planar"``, and times its
@@ -179,8 +198,9 @@ for layers 6-11, and launch no K4, K5, K6 or experimental kernel (K7, K8);
 the fused-stage and all-planar routes launch no K5 or K6c.
 
 Each entry of the kernels line carries its launches on the phase 10
-store path and the phase 13 eval path (``store_path_launches``,
-``eval_path_launches``). The last two lines are the kernels JSON object and
+store path, the phase 13 eval path and the phase 14 protocol path
+(``store_path_launches``, ``eval_path_launches``,
+``protocol_path_launches``). The last two lines are the kernels JSON object and
 ``{"ok": true, "device": {...}}``; the card's name and power limit are
 printed before them. Exits non-zero, printing no result, without a card
 or without the port beside this script.
@@ -188,6 +208,7 @@ or without the port beside this script.
 
 import contextlib
 import dataclasses
+import functools
 import io
 import json
 import os
@@ -3846,6 +3867,221 @@ def eval_path(dev, card) -> dict:
     return rec
 
 
+PROTO_RAW = 104      # slim protocol: raw scenes synthesized for 96 kept
+PROTO_TRAIN = 96     # 4 b24 batches an epoch
+PROTO_TEST = 16      # held-out scenes
+PROTO_EPOCHS, PROTO_BREAK = 42, 21   # leg 2 resumes from epoch 20's checkpoint
+SOAK_STEPS = 200     # full-width soak, b24
+# the JAX package's recorded 150-epoch mini run (tests/test_attack_quality.py)
+AQ_RECORD = {"M1_avg_instances_created_04": (49.8, 6.9),
+             "M2_avg_conf_created_001": (1.87, 0.44)}
+
+
+@contextlib.contextmanager
+def recorded_clis(mods: dict, legs: list):
+    """Replace each CLI module's ``main`` for the block with a wrapper that
+    appends its leg to ``legs``: the CLI, its first arguments, its wall
+    time (synchronized), the kernel launches it made and
+    ``last_routes()`` after it."""
+    darknet = import_port("models.darknet")
+    real = {n: m.main for n, m in mods.items()}
+
+    def wrap(name, fn):
+        @functools.wraps(fn)
+        def wrapper(argv=None):
+            before = read_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                return fn(argv)
+            finally:
+                torch.cuda.synchronize()
+                after = read_counts()
+                legs.append({
+                    "cli": name, "argv": list(argv or [])[:4],
+                    "seconds": time.perf_counter() - t0,
+                    "launches": {k: after[k] - before[k] for k in after
+                                 if after[k] != before[k]},
+                    "routes": dict(darknet.last_routes())})
+        return wrapper
+    for n, m in mods.items():
+        m.main = wrap(n, real[n])
+    try:
+        yield
+    finally:
+        for n, m in mods.items():
+            m.main = real[n]
+
+
+def metrics_finite(report: dict) -> None:
+    """Every value of a ``test_patch_metrics --json`` report is finite,
+    but an M2 whose instance gap is zero (NaN by definition, printed as
+    null)."""
+    gaps = {"M2_avg_conf_created_04_quirk":
+            report["instances_pred_04"] - report["instances_gt_04"],
+            "M2_avg_conf_created_001":
+            report["instances_pred_001"] - report["instances_gt_001"]}
+    for k, v in report.items():
+        if k in gaps and gaps[k] == 0:
+            assert v is None, (k, v)
+            continue
+        vals = v if isinstance(v, list) else [v]
+        assert all(x is not None and np.isfinite(x) for x in vals), (k, v)
+
+
+def protocol_path(dev, card) -> dict:
+    """Phase 14: the attack-of-record tools (``<port>/tools/``) in this
+    process, each CLI leg recorded (``recorded_clis``). (a)
+    ``attack_quality --mini`` at its defaults: the trained patch beats the
+    random control on M1@0.4 and M2@0.01. (b) The slim victim's protocol
+    at 608^2, patch 224: ``protocol_prep``'s scenes and filter, then
+    ``protocol_run`` (96 images, 42 epochs resumed at 21, 16 held-out
+    scenes): 168 steps, every epoch logged once, K3a, K4 and K3b in the
+    eval legs. (c) ``soak`` at full width, b24: each default training
+    kernel once a step. (d) ``convergence_compare`` at its mini
+    defaults."""
+    tools = {n: import_port(f"tools.{n}") for n in (
+        "attack_quality", "protocol_prep", "protocol_run",
+        "convergence_compare", "soak")}
+    clis = {n: import_port(f"cli.{n}") for n in (
+        "images_filter", "train_patch", "test_patch", "test_patch_metrics")}
+    root = tempfile.mkdtemp(prefix="chip_smoke_protocol_")
+    legs, rec = [], {}
+    try:
+        with recorded_clis(clis, legs):
+            reset_counts()
+            # -- (a) attack quality on the mini victim -------------------
+            t0 = time.perf_counter()
+            aq_out = os.path.join(root, "aq")
+            aq = tools["attack_quality"].main(
+                ["--mini", "--out", aq_out, "--device", dev.type])
+            aq_s = time.perf_counter() - t0
+            t, r = aq["results"]["trained"], aq["results"]["random"]
+            for rep in (t, r):
+                metrics_finite(rep)
+                assert len(rep["M4_per_class_gap_001"]) == 15
+            for k in AQ_RECORD:
+                assert t[k] > r[k], (k, t[k], r[k])
+            run = os.path.join(aq_out, "run")
+            n_b = [json.loads(line)["num_batches"] for line in open(
+                os.path.join(run, "train_log.jsonl"))]
+            aq_sched = tools["protocol_run"].schedule_summary(
+                os.path.join(run, "train_log.jsonl"), n_b[-1], 0)
+            rec["attack_quality"] = {
+                "seconds": aq_s, "summary": aq,
+                "steps": aq_sched["total_steps"],
+                "steps_per_min_steady": aq_sched["steps_per_min_steady"],
+                "legs": legs[:]}
+            log(f"[protocol] (a) attack_quality --mini ({aq['epochs']} "
+                f"epochs, {aq_sched['total_steps']} b24 steps at "
+                f"{aq_sched['steps_per_min_steady']} steps/min, "
+                f"{aq['test_scenes']} held-out scenes) in {aq_s:.1f} s: "
+                + "; ".join(
+                    f"{k} trained {t[k]:.3f} vs random {r[k]:.3f} (the JAX "
+                    f"package's recorded 150-epoch run: {v[0]} vs {v[1]})"
+                    for k, v in AQ_RECORD.items()) + f" ({card})")
+            del legs[:]
+
+            # -- (b) the protocol on the slim victim ---------------------
+            slim = os.path.join(ROOT, "tests", "fixtures", "refparity_slim")
+            cfg = os.path.join(slim, "yolov3_dota_slim.cfg")
+            wts = os.path.join(slim, "yolov3_dota_slim.weights")
+            prep = os.path.join(root, "slim")
+            t0 = time.perf_counter()
+            kept = tools["protocol_prep"].prepare(
+                prep, cfg, wts, SIZE, PROTO_RAW, PROTO_TEST, SEED, dev.type)
+            prep_s = time.perf_counter() - t0
+            assert kept[0] >= PROTO_TRAIN and kept[1] == PROTO_TEST, kept
+            n_prep = len(legs)
+            out = os.path.join(prep, "run")
+            t0 = time.perf_counter()
+            ps = tools["protocol_run"].main([
+                "--train-set", os.path.join(prep, "train_set"),
+                "--gt", os.path.join(prep, "gt"), "--cfgfile", cfg,
+                "--weightfile", wts, "--out", out, "--img-size", str(SIZE),
+                "--patch-size", str(PATCH), "--train-images",
+                str(PROTO_TRAIN), "--epochs", str(PROTO_EPOCHS),
+                "--resume-break", str(PROTO_BREAK), "--seed", str(SEED),
+                "--device", dev.type])
+            run_s = time.perf_counter() - t0
+            sched = ps["schedule"]
+            assert (sched["epochs_run"], sched["total_steps"],
+                    sched["resumed_at"]) == (
+                PROTO_EPOCHS, PROTO_EPOCHS * PROTO_TRAIN // TRAIN_BATCH,
+                PROTO_BREAK), sched
+            with open(os.path.join(out, "cli.log")) as f:
+                assert f"resumed at epoch {PROTO_BREAK}\n" in f.read()
+            with open(os.path.join(out, "train", "train_log.jsonl")) as f:
+                assert [json.loads(line)["epoch"] for line in f] == list(
+                    range(PROTO_EPOCHS))
+            for rep in ps["results"].values():
+                metrics_finite(rep)
+            evals = [g for g in legs[n_prep:] if g["cli"] == "test_patch"]
+            assert len(evals) == 2, legs
+            for g in evals:
+                for k in ("to_planar", "from_planar") + K4_VARIANTS[:3]:
+                    assert g["launches"].get(k, 0) > 0, (k, g)
+            trains = [g for g in legs if g["cli"] == "train_patch"]
+            rec["protocol_slim"] = {
+                "prep_seconds": prep_s, "run_seconds": run_s,
+                "kept": kept, "summary": ps, "legs": legs[:]}
+            log(f"[protocol] (b) slim victim, 608^2, patch {PATCH}: prep "
+                f"{prep_s:.1f} s (kept {kept}), protocol_run {run_s:.1f} s "
+                f"(legs {ps['train_seconds']}); {sched['epochs_run']} epochs,"
+                f" {sched['total_steps']} steps, resumed at "
+                f"{sched['resumed_at']}, {sched['steps_per_min_steady']} "
+                f"steps/min steady, loss {sched['loss_first']:.4f} -> "
+                f"{sched['loss_last']:.4f}; M1@0.4 / M2@0.01 trained "
+                f"{ps['results']['trained']['M1_avg_instances_created_04']}"
+                f" / {ps['results']['trained']['M2_avg_conf_created_001']}"
+                f", random "
+                f"{ps['results']['random']['M1_avg_instances_created_04']}"
+                f" / {ps['results']['random']['M2_avg_conf_created_001']}; "
+                f"routes: train {[g['routes'] for g in trains]}, eval "
+                f"{[g['routes'] for g in evals]} ({card})")
+            del legs[:]
+
+        # -- (c) the full-width soak -------------------------------------
+        before = read_counts()
+        soak = tools["soak"].main([str(SOAK_STEPS), str(TRAIN_BATCH),
+                                   "--device", dev.type])
+        after = read_counts()
+        soak["launches"] = {k: after[k] - before[k] for k in after
+                            if after[k] != before[k]}
+        assert soak["routes"]["stem"] == "fused", soak["routes"]
+        for k in TRAIN_PATH:
+            assert soak["launches"].get(k, 0) == SOAK_STEPS, soak["launches"]
+        rec["soak"] = soak
+        log(f"[protocol] (c) soak {SOAK_STEPS} steps b{TRAIN_BATCH} at full "
+            f"width: {soak['steps_per_min']:.1f} steps/min, loss "
+            f"{soak['loss_first']:.4f} -> {soak['loss_last']:.4f}, "
+            f"launches {soak['launches']} ({card})")
+        torch.cuda.empty_cache()
+
+        # -- (d) the convergence table on the mini victim ----------------
+        t0 = time.perf_counter()
+        cc = tools["convergence_compare"].main(
+            ["--out", os.path.join(root, "cc.json"), "--device", dev.type])
+        cc_s = time.perf_counter() - t0
+        assert len(cc["mini"]) == 20
+        assert all(np.isfinite(v) for row in cc["mini"] for v in row.values())
+        rec["convergence_compare"] = {"seconds": cc_s, "table": cc}
+        log(f"[protocol] (d) convergence_compare (mini, 20 epochs, 96 "
+            f"scenes) in {cc_s:.1f} s: epoch 0 {cc['mini'][0]}, epoch 19 "
+            f"{cc['mini'][-1]}; reference epoch 0 {cc['reference_epoch0']} "
+            f"({card})")
+        torch.cuda.synchronize()
+        rec["launches"] = read_counts()
+        for k in ("to_planar_phases", "to_planar", "to_planar_g5",
+                  "fused_stem_fwd_save_acts", "fused_stem_bwd_saved",
+                  "from_planar") + K4_VARIANTS[:3]:
+            assert rec["launches"][k] > 0, (k, rec["launches"])
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -4422,6 +4658,13 @@ def main() -> int:
     for k in kernels:
         k["eval_path_launches"] = vrec["full_width"]["launches"][k["name"]]
     log(f"[eval] {json.dumps(vrec)}")
+
+    # -- 14. the attack-of-record tools (counted launches) --------------
+    phase("14 attack-of-record tools")
+    prec = protocol_path(dev, card)
+    for k in kernels:
+        k["protocol_path_launches"] = prec["launches"][k["name"]]
+    log(f"[protocol] {json.dumps(prec)}")
     phase("done")
 
     for k in kernels:

@@ -749,3 +749,89 @@ def test_name_diff_leaves_only_the_deliberate_deviations():
             unmatched[mod] = left
     assert missing_modules == MODULES_NOT_PORTED
     assert unmatched == DELIBERATE_DEVIATIONS
+
+
+# the repository's attack-of-record tools, each ported as
+# ``<port>/tools/<name>.py`` with its public names and ``main``
+PROTOCOL_TOOLS = ("attack_quality", "protocol_prep", "protocol_run",
+                  "convergence_compare", "soak", "plot_history")
+# the port's own helpers, by module: names no repository tool of the same
+# name defines (``tools/scenes.py`` copies the scene generator, checked
+# against its sources below)
+PORT_TOOL_HELPERS = {
+    "attack_quality": {"_release"},
+    "protocol_prep": {"prepare"},
+    "protocol_run": {"schedule_summary"},
+    "convergence_compare": set(),
+    "soak": set(),
+    "plot_history": set(),
+}
+SCENE_SOURCES = {"_palette": "make_refparity_fixture",
+                 "make_scene": "make_refparity_fixture",
+                 "_gen_scenes": "attack_quality"}
+
+
+def _port_tool_sources():
+    top = os.path.join(ROOT, PORT, "tools")
+    return sorted(os.path.join(top, f) for f in os.listdir(top)
+                  if f.endswith(".py"))
+
+
+def test_name_diff_finds_the_protocol_tools_in_the_port():
+    """Each of the six repository tools has a port module of its name
+    with the tool's public top-level names and ``main(argv)``; the names
+    only the port defines are its listed helpers; ``tools/scenes.py``
+    holds the scene generator's names; every module is among the no-JAX
+    scans' sources."""
+    scanned = {os.path.relpath(p, ROOT) for p in _port_sources()}
+    for name in PROTOCOL_TOOLS:
+        ref = _defined_names(os.path.join(ROOT, "tools", f"{name}.py"))
+        path = os.path.join(PORT, "tools", f"{name}.py")
+        assert path in scanned, path
+        ours = _defined_names(os.path.join(ROOT, path))
+        public = {n for n in ref if not n.startswith("_")}
+        assert "main" in public and public <= set(ours), (name, public)
+        assert ours["main"] == ["argv"], name
+        assert set(ours) - set(ref) == PORT_TOOL_HELPERS[name], name
+    scenes = _defined_names(os.path.join(ROOT, PORT, "tools", "scenes.py"))
+    assert set(scenes) == set(SCENE_SOURCES)
+    for fn, src in SCENE_SOURCES.items():
+        assert fn in _defined_names(os.path.join(ROOT, "tools",
+                                                 f"{src}.py")), fn
+    assert os.path.join(PORT, "tools", "scenes.py") in scanned
+
+
+def test_port_tools_import_neither_the_repo_tools_nor_its_cli():
+    """No port tool imports JAX, the JAX package, the repository's
+    ``tools/`` or ``cli/`` (absolutely, by path or through ``sys.path``):
+    they drive the port's own CLI modules."""
+    sources = _port_tool_sources()
+    assert len(sources) == len(PROTOCOL_TOOLS) + 2   # + scenes, __init__
+    for path in sources:
+        for mod in _imported_modules(path):
+            top = mod.split(".")[0]
+            assert top not in ("jax", "jaxlib", JAX_PKG, "tools", "cli",
+                               "importlib", "subprocess", "matplotlib") or (
+                top == "matplotlib"
+                and path.endswith("plot_history.py")), (path, mod)
+        tree = ast.parse(open(path).read(), path)
+        assert not [n for n in ast.walk(tree) if isinstance(n, ast.Attribute)
+                    and n.attr == "path" and isinstance(n.value, ast.Name)
+                    and n.value.id == "sys"], path
+    # matplotlib only inside the figure's function (the card's machine
+    # has none)
+    tree = ast.parse(open(os.path.join(ROOT, PORT, "tools",
+                                       "plot_history.py")).read())
+    assert not [n for n in tree.body if isinstance(n, (ast.Import,
+                                                       ast.ImportFrom))
+                and "matplotlib" in ast.dump(n)]
+
+
+@pytest.mark.parametrize("name", PROTOCOL_TOOLS)
+def test_port_tools_run_as_modules(name):
+    """``python -m <port>.tools.<name> --help`` parses and exits 0."""
+    out = subprocess.run([sys.executable, "-m", f"{PORT}.tools.{name}",
+                          "--help"], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("usage:")
