@@ -1,7 +1,10 @@
-"""The attack-of-record tools on the port (the repository's ``tools/``):
-the attack-quality check, the protocol of record in two stages
-(``protocol_prep``, ``protocol_run``), the convergence table, the
-full-width stability soak and the loss figure.
+"""The repository's ``tools/`` on the port: the attack-of-record tools
+(the attack-quality check, the protocol of record in two stages
+``protocol_prep`` and ``protocol_run``, the convergence table, the
+full-width stability soak and the loss figure), the serving and training
+measurement tools (``serving_throughput``, ``detector_throughput``,
+``serve_soak``, ``perf_breakdown``, ``step_profile``) and the warp
+quality A/Bs (``warp_ab``, ``warp_dtype_ab``).
 
     python -m <package>.tools.attack_quality --mini
     python -m <package>.tools.protocol_prep --mini --out DIR
@@ -9,6 +12,13 @@ full-width stability soak and the loss figure.
     python -m <package>.tools.convergence_compare
     python -m <package>.tools.soak 200 24
     python -m <package>.tools.plot_history RUN_DIR
+    python -m <package>.tools.serving_throughput 2048 8 16 uint8
+    python -m <package>.tools.detector_throughput 16
+    python -m <package>.tools.serve_soak --duration 1800
+    python -m <package>.tools.perf_breakdown 8
+    python -m <package>.tools.step_profile 8 10
+    python -m <package>.tools.warp_ab
+    python -m <package>.tools.warp_dtype_ab
 
 Each ``main(argv=None)`` returns its summary dict. The tools take
 ``--device`` (default ``cuda``; they raise where there is no card) and
@@ -17,5 +27,8 @@ CLI as a subprocess, these call the port's CLI module's ``main(argv)`` in
 their own process and append its output to ``<out>/cli.log``: the built
 kernels and the CUDA context are reused, and a caller can count the
 kernels' launches. ``scenes`` holds the port's own copy of the scene
-generator the refparity victims were trained on.
+generator the refparity victims were trained on, ``victims`` its copy of
+the crafted brightness victim the warp A/Bs attack. The measurement
+tools time with CUDA events, or the host's clock between
+``torch.cuda.synchronize`` calls, and compile nothing but the kernels.
 """

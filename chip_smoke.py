@@ -142,8 +142,8 @@ Phases, each fatal on failure:
     (one card alone prints that the check needs two).
 12. A profiler trace (``utils.profiling.trace``) of 5 default b24 steps
     after warm-up: the device's busy share over the traced steps, its
-    time by kind of kernel, the 10 device operations that take the most
-    time, the longest idle gaps.
+    time by category (``tools/step_profile``'s attribution), the 10
+    device operations that take the most time, the longest idle gaps.
 13. The evaluation path (counted launches): the native host library built
     (``utils/native.py``: the run fails if g++ cannot build it); the full-
     width YOLOv3 (random weights, bf16) written as .cfg + .weights and
@@ -186,6 +186,25 @@ Phases, each fatal on failure:
     once a step), its own asserts (every loss term finite, the patch in
     [0, 1], the loss falling) and steps/min; (d) ``convergence_compare``
     at its mini defaults (20 epochs, 96 scenes), every value finite.
+15. The measurement tools and the warp A/Bs (``<port>/tools/``, in this
+    process, each summary on a line of its own; counted launches): (a)
+    ``serving_throughput 2048 8 16 uint8`` (the service counts 2,049
+    requests, the warm one included; mean fill <= 8; K3a ``split_phases``,
+    K1 and K3b launched); (b)
+    ``detector_throughput 16`` (three finite positive rates: the device
+    pipeline, end to end with the host NMS, ``detect_batch_device``); (c)
+    ``serve_soak`` for 30 s (cut from the tool's 1,800 s; 16 clients, b8,
+    uint8: the repository tool's report keys, >= 1 request a second, RSS
+    drift recorded); (d) ``perf_breakdown`` at b8 and b24 (finite; at b24
+    each default training kernel once a step), its b24 ms/step beside
+    phase 6's; (e) ``step_profile 8 10`` (the categories sum to the
+    device's merged busy time within 1%; stem-fwd, stem-bwd and layout
+    non-zero); (f) ``warp_ab`` and ``warp_dtype_ab`` at their defaults
+    (600 steps, 64 held-out scenes, the crafted 64^2 victim, which takes
+    no stem kernel in training): every metric finite, and every row's
+    M1@0.4 and M2@0.01 more than twice the control's (the untrained
+    patch through the same paste warp, which fails that gate), printed
+    beside the JAX package's record.
 
 Phase 4 also holds the slim victim (stem widths 8/16/8/16/32) on the
 planar stem (K4), and once more with ``res152="planar"``, and times its
@@ -198,9 +217,9 @@ for layers 6-11, and launch no K4, K5, K6 or experimental kernel (K7, K8);
 the fused-stage and all-planar routes launch no K5 or K6c.
 
 Each entry of the kernels line carries its launches on the phase 10
-store path, the phase 13 eval path and the phase 14 protocol path
-(``store_path_launches``, ``eval_path_launches``,
-``protocol_path_launches``). The last two lines are the kernels JSON object and
+store path, the phase 13 eval path, the phase 14 protocol path and the
+phase 15 tools path (``store_path_launches``, ``eval_path_launches``,
+``protocol_path_launches``, ``tools_path_launches``). The last two lines are the kernels JSON object and
 ``{"ok": true, "device": {...}}``; the card's name and power limit are
 printed before them. Exits non-zero, printing no result, without a card
 or without the port beside this script.
@@ -3266,32 +3285,16 @@ def two_process_cli(dev) -> dict:
         shutil.rmtree(root, ignore_errors=True)
 
 
-def device_intervals(events, window) -> tuple:
-    """The device's kernels, copies and sets of a Chrome trace inside
-    ``window`` (start, end in us): (merged busy intervals, [(start, end,
-    name)])."""
-    lo, hi = window
-    ops = sorted((max(e["ts"], lo), min(e["ts"] + e["dur"], hi), e["name"])
-                 for e in events
-                 if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
-                 and e["ts"] < hi and e["ts"] + e["dur"] > lo)
-    merged = []
-    for s, e, _ in ops:
-        if merged and s <= merged[-1][1]:
-            merged[-1][1] = max(merged[-1][1], e)
-        else:
-            merged.append([s, e])
-    return merged, ops
-
-
 def step_trace(dev, card) -> dict:
     """Phase 12: a profiler trace (``utils.profiling.trace``) of 5 default
     b24 steps after warm-up: the device's busy share over the traced steps
     (from the host's start of the first step to the end of the last),
-    the 10 device operations that take the most time, and the longest idle
-    gaps."""
+    its time by category, the 10 device operations that take the most
+    time, and the longest idle gaps. ``tools/step_profile`` captures and
+    reads the trace (``capture``, ``read_trace``, ``steps_window``,
+    ``device_intervals``, ``attribute``)."""
     PT = import_port("train.trainer")
-    prof = import_port("utils.profiling")
+    SP = import_port("tools.step_profile")
     SyntheticData = import_port("data").SyntheticData
     exp = import_port("train").get_experiment("paper_obj", batch_size=TRAIN_BATCH,
                            img_size=SIZE, patch_size=PATCH)
@@ -3301,48 +3304,24 @@ def step_trace(dev, card) -> dict:
                     data.batch(TRAIN_BATCH, i)) for i in range(2)]
     for i in range(3):
         tr.step(*staged[i % 2])
-    torch.cuda.synchronize()
-    root = tempfile.mkdtemp(prefix="chip_smoke_trace_")
+    calls = iter(range(TRACE_STEPS))
+    path = SP.capture(lambda: tr.step(*staged[next(calls) % 2]),
+                      TRACE_STEPS, dev)
     try:
-        with prof.trace(root):
-            with prof.annotate("apfp_steps"):
-                for i in range(TRACE_STEPS):
-                    with prof.annotate(f"apfp_step_{i}"):
-                        tr.step(*staged[i % 2])
-                torch.cuda.synchronize()
-        files = [f for f in os.listdir(root) if f.endswith(".json")]
-        assert len(files) == 1, files
-        with open(os.path.join(root, files[0])) as f:
-            events = json.load(f)["traceEvents"]
+        events = SP.read_trace(path)
     finally:
-        shutil.rmtree(root, ignore_errors=True)
+        shutil.rmtree(os.path.dirname(path), ignore_errors=True)
     del tr
     torch.cuda.empty_cache()
-    (win,) = [e for e in events if e.get("name") == "apfp_steps"
-              and e.get("ph") == "X"]
-    window = (win["ts"], win["ts"] + win["dur"])
-    merged, ops = device_intervals(events, window)
+    window = SP.steps_window(events)
+    assert any(e.get("name") == SP.WINDOW for e in events), "no window"
+    merged, ops = SP.device_intervals(events, window)
     assert ops, "the trace holds no device operation"
     busy = sum(e - s for s, e in merged)
     span = window[1] - window[0]
-    by_name = {}
-    for s, e, name in ops:
-        by_name[name] = by_name.get(name, 0.0) + (e - s)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
-    # device time by kind of kernel (names as the trace gives them)
-    kinds = {"port kernels (csrc)": ("fused_stem", "planar", "res152",
-                                     "median"),
-             "GEMM / conv (cuBLAS, cuDNN, CUTLASS)": (
-                 "gemm", "conv", "cudnn", "xmma", "cutlass", "sm90_",
-                 "wgrad", "dgrad", "implicit"),
-             "elementwise": ("elementwise",),
-             "reduction": ("reduce",),
-             "copy / set": ("Memcpy", "Memset", "copy", "Cat")}
-    by_kind = {}
-    for name, d in by_name.items():
-        kind = next((k for k, keys in kinds.items()
-                     if any(w in name for w in keys)), "other")
-        by_kind[kind] = by_kind.get(kind, 0.0) + d
+    # device time by name and by category (``step_profile.CATEGORIES``)
+    by_name, by_kind = SP.attribute(ops)
+    top = by_name.most_common(10)
     ends = {e: n for _, e, n in ops}
     starts = {}
     for s, _, n in ops:
@@ -4082,6 +4061,186 @@ def protocol_path(dev, card) -> dict:
     return rec
 
 
+SERVE_SOAK_S = 30       # serve_soak cut from the tool's 1,800 s to fit
+# the repository tool's report keys (tools/serve_soak.py), in its order
+SERVE_SOAK_KEYS = ("duration_s", "requests", "req_per_s", "latency_ms",
+                   "batches", "mean_fill", "saturated_requests", "clients",
+                   "max_batch", "wire", "img_size", "rss_mb", "rss_samples",
+                   "devices")
+# the JAX package's recorded warp A/B (600 steps, 64 held-out scenes, on
+# another device and random stream): (train, paste) -> M1@0.4, M2@0.4,
+# M1@0.01, M2@0.01
+WARP_AB_RECORD = {("mxu", "mxu"): (11.766, 0.951, 3.656, 3.026),
+                  ("mxu", "gather"): (11.766, 0.952, 3.766, 2.941),
+                  ("gather", "mxu"): (11.766, 0.951, 3.656, 3.026),
+                  ("gather", "gather"): (11.766, 0.952, 3.766, 2.941)}
+WARP_DTYPE_RECORD = ("float32 and bfloat16 rows equal to 3 decimals, final "
+                     "losses 0.035% apart")
+AB_COLUMNS = ("M1@0.4", "M2@0.4", "M1@0.01", "M2@0.01")
+# the warp A/Bs' gate: a trained row's M1@0.4 and M2@0.01 each more than
+# AB_GATE times the control's (the same init patch, trained 0 steps,
+# pasted through the same warp with the same draws)
+AB_GATE_COLUMNS = ("M1@0.4", "M2@0.01")
+AB_GATE = 2.0
+
+
+def warp_ab_control(tool, dev) -> dict:
+    """The A/Bs' control: the patch both A/Bs start from (``train_with``
+    at 0 steps), pasted on the held-out scenes through each warp with the
+    A/Bs' shared draws; paste warp -> its M1 / M2 row."""
+    det, (imgs, labs), (eval_imgs, eval_labs), clean = tool.setup(64, dev)
+    patch, _ = tool.train_with(det.model, imgs, labs, 0)
+    draws = tool.paste_draws(64, dev)
+    return {pw: tool.creation_row(det, tool.paste(patch, eval_imgs,
+                                                  eval_labs, draws, pw),
+                                  clean)
+            for pw in ("mxu", "gather")}
+
+
+def ab_gate(row: dict, control: dict) -> bool:
+    return all(row[c] > AB_GATE * control[c] for c in AB_GATE_COLUMNS)
+
+
+def launches_since(before: dict) -> dict:
+    after = read_counts()
+    return {k: after[k] - before[k] for k in after if after[k] != before[k]}
+
+
+def tools_path(dev, card, phase6_ms: float) -> dict:
+    """Phase 15: the serving and training measurement tools and the warp
+    A/Bs (``<port>/tools/``), each ``main(argv)`` in this process with
+    ``--device cuda``, its summary printed on a line of its own. (a)
+    ``serving_throughput 2048 8 16 uint8``: the service counts the 2,048
+    requests and the warm one, mean fill <= 8, K3a ``split_phases``, K1
+    and K3b launched. (b) ``detector_throughput
+    16``: three finite positive rates. (c) ``serve_soak`` for
+    ``SERVE_SOAK_S`` s (16 clients, b8, uint8): the repository tool's
+    report keys, >= 1 request a second; RSS drift recorded. (d)
+    ``perf_breakdown`` at b8 and b24: finite; at b24 K3a ``split_phases``,
+    K1 ``save_acts``, K3b, the tiled K3a and K2 once a step. (e)
+    ``step_profile 8 10``: the categories sum to the device's merged busy
+    time over the window within 1% (one stream: no operation overlaps
+    another, none is lost), stem-fwd, stem-bwd and layout non-zero. (f)
+    ``warp_ab`` and ``warp_dtype_ab`` at their defaults: every metric
+    finite, and every row's M1@0.4 and M2@0.01 more than ``AB_GATE``
+    times those of the control (``warp_ab_control``: the untrained patch
+    through the same paste warp), which fails that gate by construction
+    and is recorded beside the clean count; printed beside the JAX
+    package's record (not asserted: the random streams differ)."""
+    import gc
+    tools = {n: import_port(f"tools.{n}") for n in (
+        "serving_throughput", "detector_throughput", "serve_soak",
+        "perf_breakdown", "step_profile", "warp_ab", "warp_dtype_ab")}
+    d = ["--device", dev.type]
+    rec = {}
+
+    def run(name, argv):
+        """The tool's summary, and its launches and wall time apart."""
+        before = read_counts()
+        t0 = time.perf_counter()
+        out = tools[name].main(argv + d)
+        torch.cuda.synchronize()
+        meta = {"launches": launches_since(before),
+                "seconds_total": time.perf_counter() - t0}
+        gc.collect()
+        torch.cuda.empty_cache()
+        return out, meta
+
+    reset_counts()
+    # -- (a) serving throughput ------------------------------------------
+    st, meta = run("serving_throughput", ["2048", "8", "16", "uint8"])
+    st.update(meta)
+    assert st["served"] == 2048 + 1 and st["mean_fill"] <= 8, st
+    for k in SERVE_PATH:
+        assert st["launches"].get(k, 0) > 0, (k, st["launches"])
+    rec["serving_throughput"] = st
+    log(f"[tools] (a) serving_throughput {json.dumps(st)} ({card})")
+
+    # -- (b) detector throughput -----------------------------------------
+    dt, meta = run("detector_throughput", ["16"])
+    for line in ("device_pipeline", "end_to_end", "detect_batch_device"):
+        r = dt[line]
+        assert all(np.isfinite(v) and v > 0 for v in r.values()), dt
+    dt.update(meta)
+    rec["detector_throughput"] = dt
+    log(f"[tools] (b) detector_throughput {json.dumps(dt)} ({card})")
+
+    # -- (c) serving soak, cut to SERVE_SOAK_S ---------------------------
+    soak, meta = run("serve_soak", [
+        "--duration", str(SERVE_SOAK_S), "--clients", "16", "--max-batch",
+        "8", "--wire", "uint8"])
+    assert tuple(soak) == SERVE_SOAK_KEYS, list(soak)
+    assert soak["req_per_s"] >= 1.0, soak
+    rec["serve_soak"] = {k: v for k, v in soak.items() if k != "rss_samples"}
+    rec["serve_soak"].update(meta)
+    log(f"[tools] (c) serve_soak {SERVE_SOAK_S} s (cut from 1,800): "
+        f"{json.dumps(rec['serve_soak'])}; RSS drift "
+        f"{soak['rss_mb']['drift']} MB (recorded, not asserted) ({card})")
+
+    # -- (d) the training step at b8 and b24 ------------------------------
+    pb = {}
+    for b in (8, 24):
+        pb[b], meta = run("perf_breakdown", [str(b)])
+        pb[b].update(meta)
+        assert np.isfinite(pb[b]["ms_per_step"]) and np.isfinite(
+            pb[b]["loss"]), pb[b]
+        assert pb[b]["routes"]["stem"] == "fused", pb[b]["routes"]
+    steps = 3 + pb[24]["steps"]
+    for k in TRAIN_PATH:
+        assert pb[24]["launches"].get(k, 0) == steps, (k, pb[24]["launches"])
+    rec["perf_breakdown"] = {f"b{b}": v for b, v in pb.items()}
+    rec["perf_breakdown"]["phase6_b24_ms_per_step"] = phase6_ms
+    log(f"[tools] (d) perf_breakdown {json.dumps(rec['perf_breakdown'])}; "
+        f"b24 {pb[24]['ms_per_step']:.2f} ms/step beside phase 6's "
+        f"{phase6_ms:.2f} ({card})")
+
+    # -- (e) the step's device-time attribution ---------------------------
+    sp, meta = run("step_profile", ["8", "10"])
+    sp.update(meta)
+    shutil.rmtree(os.path.dirname(sp["trace"]), ignore_errors=True)
+    cats = sp["ms_per_step_by_category"]
+    busy = sp["device_busy_ms"] / sp["steps"]
+    assert abs(sum(cats.values()) - busy) <= 0.01 * busy, (cats, busy)
+    for c in ("stem-fwd", "stem-bwd", "layout"):
+        assert cats.get(c, 0.0) > 0, (c, cats)
+    rec["step_profile"] = sp
+    log(f"[tools] (e) step_profile {json.dumps(sp)} ({card})")
+
+    # -- (f) the warp quality A/Bs ----------------------------------------
+    control = warp_ab_control(tools["warp_ab"], dev)
+    for pw, row in control.items():
+        assert all(np.isfinite(row[c]) for c in AB_COLUMNS), row
+        assert not ab_gate(row, row)
+    rec["warp_ab_control"] = control
+    log(f"[tools] (f) control (the init patch, 0 steps): "
+        f"{json.dumps(control)}; M1@0.4 > 0 (the former check) "
+        f"{all(r['M1@0.4'] > 0 for r in control.values())}, the gate "
+        f"(> {AB_GATE}x the control on {'/'.join(AB_GATE_COLUMNS)}) "
+        f"fails ({card})")
+    for name in ("warp_ab", "warp_dtype_ab"):
+        ab, meta = run(name, [])
+        ab.update(meta)
+        for row in ab["table"]:
+            assert all(np.isfinite(row[c]) for c in AB_COLUMNS), row
+            assert ab_gate(row, control[row.get("paste_warp", "mxu")]), (
+                row, control)
+        rec[name] = ab
+        log(f"[tools] (f) {name} {json.dumps(ab)} ({card})")
+    for row in rec["warp_ab"]["table"]:
+        want = WARP_AB_RECORD[(row["train_warp"], row["paste_warp"])]
+        log(f"[tools] (f) warp_ab {row['train_warp']:6s} "
+            f"{row['paste_warp']:6s} " + "  ".join(
+                f"{c} {row[c]:.3f} (JAX record {w})"
+                for c, w in zip(AB_COLUMNS, want)))
+    for row in rec["warp_dtype_ab"]["table"]:
+        log(f"[tools] (f) warp_dtype_ab {row['warp_dtype']:8s} loss "
+            f"{row['final_loss']:.4f} "
+            + "  ".join(f"{c} {row[c]:.3f}" for c in AB_COLUMNS)
+            + f" (JAX record: {WARP_DTYPE_RECORD})")
+    rec["launches"] = read_counts()
+    return rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -4665,6 +4824,13 @@ def main() -> int:
     for k in kernels:
         k["protocol_path_launches"] = prec["launches"][k["name"]]
     log(f"[protocol] {json.dumps(prec)}")
+
+    # -- 15. the measurement tools and the warp A/Bs (counted launches) -
+    phase("15 measurement tools")
+    trec = tools_path(dev, card, rec["ms_per_step"])
+    for k in kernels:
+        k["tools_path_launches"] = trec["launches"][k["name"]]
+    log(f"[tools] {json.dumps(trec)}")
     phase("done")
 
     for k in kernels:

@@ -359,13 +359,22 @@ def test_attack_quality_orchestration_on_the_mini_victim(tmp_path):
                       "x", "--weightfile", "x", "--out", "{tmp}/run"]),
     ("convergence_compare", []),
     ("soak", ["1", "1"]),
+    ("serving_throughput", ["1", "1", "1"]),
+    ("detector_throughput", ["1"]),
+    ("serve_soak", ["--duration", "1", "--out", "{tmp}/soak.json"]),
+    ("perf_breakdown", ["1"]),
+    ("step_profile", ["1", "1"]),
+    ("warp_ab", ["1", "1"]),
+    ("warp_dtype_ab", ["1", "1"]),
 ])
 def test_tools_default_to_cuda_and_refuse_without_a_card(tool, argv,
                                                           monkeypatch,
                                                           tmp_path):
     """With no visible card each device tool's default ``--device cuda``
-    raises before it writes anything."""
+    raises before it writes anything (``step_profile`` in its tracing
+    mode: no capture named by ``STEP_PROFILE_TRACE``)."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.delenv("STEP_PROFILE_TRACE", raising=False)
     argv = [a.format(tmp=tmp_path) for a in argv]
     before = sorted(os.listdir(tmp_path))
     with pytest.raises(RuntimeError, match="cuda"):

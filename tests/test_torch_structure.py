@@ -771,6 +771,24 @@ SCENE_SOURCES = {"_palette": "make_refparity_fixture",
                  "_gen_scenes": "attack_quality"}
 
 
+# the repository's serving and training measurement tools and warp
+# quality A/Bs, each ported as ``<port>/tools/<name>.py`` with its public
+# names and ``main``; the names only the port defines, by tool
+# (``tools/victims.py`` copies the crafted victim of the tests)
+MEASUREMENT_TOOL_HELPERS = {
+    "serving_throughput": {"build_detector", "device_count"},
+    "detector_throughput": {"_timed"},
+    "serve_soak": {"clients_at"},
+    "perf_breakdown": set(),
+    "step_profile": {"device_intervals", "attribute", "steps_window",
+                     "read_trace", "capture"},
+    "warp_ab": {"scenes", "train_with", "paste_draws", "paste",
+                "creation_row", "setup", "format_row", "parse"},
+    "warp_dtype_ab": set(),
+}
+MEASUREMENT_TOOLS = tuple(MEASUREMENT_TOOL_HELPERS)
+
+
 def _port_tool_sources():
     top = os.path.join(ROOT, PORT, "tools")
     return sorted(os.path.join(top, f) for f in os.listdir(top)
@@ -801,12 +819,38 @@ def test_name_diff_finds_the_protocol_tools_in_the_port():
     assert os.path.join(PORT, "tools", "scenes.py") in scanned
 
 
+def test_name_diff_finds_the_measurement_tools_in_the_port():
+    """Each of the seven repository measurement and warp A/B tools has a
+    port module of its name with the tool's public top-level names and
+    ``main(argv)``; the names only the port defines are its listed
+    helpers; ``tools/victims.py`` holds the crafted victim, the one name
+    of the tests that the repository's A/B tools import; every module is
+    among the no-JAX scans' sources."""
+    scanned = {os.path.relpath(p, ROOT) for p in _port_sources()}
+    for name in MEASUREMENT_TOOLS:
+        ref = _defined_names(os.path.join(ROOT, "tools", f"{name}.py"))
+        path = os.path.join(PORT, "tools", f"{name}.py")
+        assert path in scanned, path
+        ours = _defined_names(os.path.join(ROOT, path))
+        public = {n for n in ref if not n.startswith("_")}
+        assert public <= set(ours), (name, public)
+        assert ours["main"] == ["argv"], name
+        assert set(ours) - set(ref) - {"main"} == \
+            MEASUREMENT_TOOL_HELPERS[name], name
+    victims = _defined_names(os.path.join(ROOT, PORT, "tools", "victims.py"))
+    assert set(victims) == {"craft_brightness_victim"}
+    assert "craft_brightness_victim" in _defined_names(
+        os.path.join(ROOT, "tests", "test_attack_closed_loop.py"))
+    assert os.path.join(PORT, "tools", "victims.py") in scanned
+
+
 def test_port_tools_import_neither_the_repo_tools_nor_its_cli():
     """No port tool imports JAX, the JAX package, the repository's
     ``tools/`` or ``cli/`` (absolutely, by path or through ``sys.path``):
     they drive the port's own CLI modules."""
     sources = _port_tool_sources()
-    assert len(sources) == len(PROTOCOL_TOOLS) + 2   # + scenes, __init__
+    # + scenes, victims, __init__
+    assert len(sources) == len(PROTOCOL_TOOLS) + len(MEASUREMENT_TOOLS) + 3
     for path in sources:
         for mod in _imported_modules(path):
             top = mod.split(".")[0]
@@ -827,7 +871,7 @@ def test_port_tools_import_neither_the_repo_tools_nor_its_cli():
                 and "matplotlib" in ast.dump(n)]
 
 
-@pytest.mark.parametrize("name", PROTOCOL_TOOLS)
+@pytest.mark.parametrize("name", PROTOCOL_TOOLS + MEASUREMENT_TOOLS)
 def test_port_tools_run_as_modules(name):
     """``python -m <port>.tools.<name> --help`` parses and exits 0."""
     out = subprocess.run([sys.executable, "-m", f"{PORT}.tools.{name}",
