@@ -3,8 +3,11 @@
 ``protocol_prep`` and ``protocol_run``, the convergence table, the
 full-width stability soak and the loss figure), the serving and training
 measurement tools (``serving_throughput``, ``detector_throughput``,
-``serve_soak``, ``perf_breakdown``, ``step_profile``) and the warp
-quality A/Bs (``warp_ab``, ``warp_dtype_ab``).
+``serve_soak``, ``perf_breakdown``, ``step_profile``), the warp
+quality A/Bs (``warp_ab``, ``warp_dtype_ab``) and the A/B micro tools of
+the stem, the 152^2 stage and the victim's convs (``stem_ab``,
+``stem_fused_ab``, ``c12_ab``, ``c12_micro``, ``conv_micro``,
+``s2dx_poly_ab``).
 
     python -m <package>.tools.attack_quality --mini
     python -m <package>.tools.protocol_prep --mini --out DIR
@@ -19,6 +22,13 @@ quality A/Bs (``warp_ab``, ``warp_dtype_ab``).
     python -m <package>.tools.step_profile 8 10
     python -m <package>.tools.warp_ab
     python -m <package>.tools.warp_dtype_ab
+    python -m <package>.tools.stem_ab 8 608
+    python -m <package>.tools.stem_fused_ab 8 608
+    python -m <package>.tools.c12_ab grad [c12]
+    python -m <package>.tools.c12_ab step 24 [c12]
+    python -m <package>.tools.c12_micro 24
+    python -m <package>.tools.conv_micro 8
+    python -m <package>.tools.s2dx_poly_ab 8
 
 Each ``main(argv=None)`` returns its summary dict. The tools take
 ``--device`` (default ``cuda``; they raise where there is no card) and
@@ -30,5 +40,8 @@ kernels' launches. ``scenes`` holds the port's own copy of the scene
 generator the refparity victims were trained on, ``victims`` its copy of
 the crafted brightness victim the warp A/Bs attack. The measurement
 tools time with CUDA events, or the host's clock between
-``torch.cuda.synchronize`` calls, and compile nothing but the kernels.
+``torch.cuda.synchronize`` calls, and compile nothing but the kernels;
+the micro tools time back-to-back calls between CUDA events
+(``utils/profiling.py: time_calls``) and list the rows that read under
+``HOST_BOUND_MS`` a call, whose time the host's launch path sets.
 """

@@ -18,11 +18,9 @@ raises where there is no card.
 from __future__ import annotations
 
 import argparse
-import time
-
-import torch
 
 from ..models import last_routes
+from ..utils.profiling import time_calls
 from .step_profile import build_step
 
 STEPS = 30
@@ -39,21 +37,8 @@ def main(argv=None):
     for _ in range(3):
         aux = run()
     float(aux["loss"])
-    if mesh.device.type == "cuda":
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(n):
-            aux = run()
-        end.record()
-        torch.cuda.synchronize(mesh.device)
-        dt = start.elapsed_time(end) / 1e3 / n
-    else:
-        t0 = time.perf_counter()
-        for _ in range(n):
-            aux = run()
-        dt = (time.perf_counter() - t0) / n
-    loss = float(aux["loss"])
+    dt, loss = time_calls(lambda: run()["loss"], n, mesh.device, warmup=0)
+    loss = float(loss)
     print(f"batch {b}: {dt * 1e3:.1f} ms/step  {b / dt:.1f} img/s  "
           f"{60 / dt:.0f} steps/min  devices={mesh.size}")
     return {"batch": b, "steps": n, "ms_per_step": dt * 1e3,

@@ -124,14 +124,15 @@ def read_trace(path: str) -> list:
         return json.load(f)["traceEvents"]
 
 
-def build_step(batch: int, device="cuda"):
+def build_step(batch: int, device="cuda", res152=None):
     """The default training step at ``batch`` on device-resident inputs
     (random scenes from ``default_rng(0)``, labels filled with 1e-6), a
     victim with random weights from seed 1 in bfloat16 and a patch from a
     generator seeded 0. One card, or this rank's rows of the batch where
     the process was started under ``torch.distributed`` (``torchrun``).
-    Returns ``(run, mesh)``: ``run()`` takes one step (fresh EOT draws)
-    and returns its loss parts as device scalars."""
+    ``res152`` is ``make_train_step``'s route of the 152^2 stage (None:
+    the default route). Returns ``(run, mesh)``: ``run()`` takes one step
+    (fresh EOT draws) and returns its loss parts as device scalars."""
     dev = resolve_device(device)
     init_distributed(dev.type)
     mesh = make_mesh(dev)
@@ -141,7 +142,7 @@ def build_step(batch: int, device="cuda"):
     net = build_network(yolov3_blocks())
     model = Darknet(net, fold_bn(net, init_params(net, 1)), torch.bfloat16,
                     device=mesh.device).eval()
-    step = T.make_train_step(model, exp, mesh=mesh)
+    step = T.make_train_step(model, exp, res152=res152, mesh=mesh)
     generator = torch.Generator(device=mesh.device)
     generator.manual_seed(0)
     patch = T.init_patch(exp, generator).requires_grad_(True)

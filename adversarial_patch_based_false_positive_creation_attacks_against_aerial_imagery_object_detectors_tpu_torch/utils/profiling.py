@@ -6,12 +6,15 @@ on ``torch.profiler`` in place of ``jax.profiler``):
 - ``trace``: context manager around ``torch.profiler.profile`` (host
   activity, and the card's wherever one is visible) writing a Chrome
   trace when a directory is given, a no-op otherwise;
-- ``annotate``: named trace region (``torch.profiler.record_function``).
+- ``annotate``: named trace region (``torch.profiler.record_function``);
+- ``time_calls``: the time of one call of a function over back-to-back
+  calls (CUDA events on a card), the micro tools' timer.
 """
 
 from __future__ import annotations
 
 import contextlib
+import math
 import time
 from typing import Optional
 
@@ -70,3 +73,41 @@ def trace(log_dir: Optional[str]):
 def annotate(name: str):
     """Named region visible in profiler traces."""
     return record_function(name)
+
+
+# a call that reads under this many ms by CUDA events is bound by the
+# host's launch path, not by its kernels (K7 on one H100: 0.028 ms by
+# events against 0.0086 ms of device time)
+HOST_BOUND_MS = 0.05
+
+
+def time_calls(fn, iters: int, device, warmup: int = 3):
+    """``(seconds, out)``: the time of one ``fn()`` over ``iters``
+    back-to-back calls after ``warmup`` untimed ones (the first call also
+    builds the kernels), and the last call's result, a tensor. On a CUDA
+    ``device`` two CUDA events bracket the calls: the card's time from
+    the first launch to the end of the last kernel, the gaps in which it
+    waits for the host included. Elsewhere the host's clock. ``out`` is
+    then read back as one scalar, its sum, which must be finite (else
+    ``FloatingPointError``)."""
+    cuda = torch.device(device).type == "cuda"
+    for _ in range(warmup):
+        out = fn()
+    if cuda:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+    else:
+        t0 = time.perf_counter()
+    for _ in range(iters):
+        out = fn()
+    if cuda:
+        end.record()
+        end.synchronize()
+        seconds = start.elapsed_time(end) / 1e3 / iters
+    else:
+        seconds = (time.perf_counter() - t0) / iters
+    total = float(out.float().sum())
+    if not math.isfinite(total):
+        raise FloatingPointError(f"a timed call's result sums to {total}")
+    return seconds, out

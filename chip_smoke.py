@@ -205,6 +205,29 @@ Phases, each fatal on failure:
     M1@0.4 and M2@0.01 more than twice the control's (the untrained
     patch through the same paste warp, which fails that gate), printed
     beside the JAX package's record.
+16. The TPU-route A/B micro tools (``<port>/tools/``, in this process,
+    each summary on a line of its own; counted launches; CUDA events
+    around 20-30 back-to-back calls after a warm-up, rows under 0.05 ms a
+    call listed as host-bound): (a) ``stem_ab 8 608`` (the stem on cuDNN
+    vs the planar stem, fwd and fwd + bwd, then the planar backward piece
+    by piece): every row finite, the chained pieces' last output (through
+    K3b's narrow form) equal to ``_stem_bwd``'s on the same inputs bit for
+    bit, K4 1x1, 3x3 s1, 3x3 s2 and ``k3t2`` launched; (b) ``stem_fused_ab
+    8 608`` (cuDNN vs planar vs fused, fwd and fwd + bwd, remat and
+    saved): the b1 bf16 fused forward within 5e-2 of the cuDNN walk, K1,
+    K1 ``save_acts``, K2 and K5 launched; (c) ``c12_ab grad``, ``grad
+    c12``, ``step 24`` and ``step 24 c12``: each on the route it asked
+    for (the tool exits otherwise), finite digests (their gap recorded),
+    on c12 K6a ``save`` and K6c once a step, the step ms beside phase 8's;
+    (d) ``c12_micro 24`` (K6a ``save``, K6b, K6c and cuDNN's conv12 dgrad
+    apart): finite, each beside phase 7's reading of the same kernel; (e)
+    ``conv_micro 8`` (the victim's conv geometries, fwd and dgrad on
+    cuDNN): finite, every TF/s below the bf16 peak; (f) ``s2dx_poly_ab
+    8`` (the stride-2 dgrad: cuDNN vs two polyphase forms): both forms
+    within 1e-5 of the float32 adjoint (TF32 off) at all five
+    geometries. K1, K1 ``save_acts``, K2, K5, K3a (step 1,
+    ``split_phases``, tiled), K3b (tiled, narrow), the four K4 variants,
+    K6a ``save``, K6b and K6c are each launched over the phase.
 
 Phase 4 also holds the slim victim (stem widths 8/16/8/16/32) on the
 planar stem (K4), and once more with ``res152="planar"``, and times its
@@ -217,9 +240,11 @@ for layers 6-11, and launch no K4, K5, K6 or experimental kernel (K7, K8);
 the fused-stage and all-planar routes launch no K5 or K6c.
 
 Each entry of the kernels line carries its launches on the phase 10
-store path, the phase 13 eval path, the phase 14 protocol path and the
-phase 15 tools path (``store_path_launches``, ``eval_path_launches``,
-``protocol_path_launches``, ``tools_path_launches``). The last two lines are the kernels JSON object and
+store path, the phase 13 eval path, the phase 14 protocol path, the
+phase 15 tools path and the phase 16 micro tools path
+(``store_path_launches``, ``eval_path_launches``,
+``protocol_path_launches``, ``tools_path_launches``,
+``micro_path_launches``). The last two lines are the kernels JSON object and
 ``{"ok": true, "device": {...}}``; the card's name and power limit are
 printed before them. Exits non-zero, printing no result, without a card
 or without the port beside this script.
@@ -4241,6 +4266,142 @@ def tools_path(dev, card, phase6_ms: float) -> dict:
     return rec
 
 
+MICRO_STEP_BATCH = 24   # c12_ab step: phase 8's batch
+FUSED_REL_ERR = 5e-2    # stem_fused_ab's b1 bf16 fused forward vs cuDNN
+S2DX_TOL = 1e-5         # s2dx_poly_ab's float32 polyphase forms vs cuDNN
+# what phase 16 must launch (entry names of the kernels line): K1 (and
+# save_acts), K2, K5, K3a (step 1, split_phases, tiled), K3b (tiled,
+# narrow), the four K4 variants, K6a save, K6b, K6c
+MICRO_PATH = ("fused_stem_fwd", "fused_stem_fwd_save_acts",
+              "fused_stem_bwd_saved", "fused_stem_bwd", "to_planar",
+              "to_planar_phases", "to_planar_g5", "from_planar",
+              "from_planar_narrow", *K4_VARIANTS, "res152_fused_save",
+              "res152_fused_grad", "res152_fused_grad12")
+
+
+def finite(values) -> bool:
+    return all(np.isfinite(v) for v in values)
+
+
+def micro_path(dev, card, phase7: dict, phase8: dict) -> dict:
+    """Phase 16: the TPU-route A/B micro tools (``<port>/tools/``), each
+    ``main(argv)`` in this process with ``--device cuda``, its summary
+    printed on a line of its own, with its launches and wall time. (a)
+    ``stem_ab 8 608``: every row finite; the chained backward's last piece
+    (through ``from_planar``) equals ``_stem_bwd`` on the same inputs bit
+    for bit (the tool counts the differing elements: 0); K4 1x1, 3x3 s1,
+    3x3 s2 and ``k3t2`` launched. (b) ``stem_fused_ab 8 608``: the b1
+    bf16 fused forward within ``FUSED_REL_ERR`` of the cuDNN walk; K1, K1
+    ``save_acts``, K2 and K5 launched. (c) ``c12_ab grad`` and ``grad
+    c12``: the routes asked for (the tool exits otherwise), finite
+    digests, their gap recorded (not gated: bf16 summation orders); ``step
+    24`` and ``step 24 c12``: on c12, K6a ``save`` and K6c once a step,
+    the ms printed beside phase 8's (``phase8``: route -> ms/step). (d)
+    ``c12_micro 24``: finite, K6a ``save``, K6b and K6c launched, each row
+    beside phase 7's reading of the same kernel (``phase7``). (e)
+    ``conv_micro 8``: finite, every TF/s below the bf16 peak (a reading
+    above it is a timing fault). (f) ``s2dx_poly_ab 8``: both polyphase
+    forms within ``S2DX_TOL`` max-rel of the float32 library adjoint (TF32
+    off) at all five geometries. Every kernel of ``MICRO_PATH`` is
+    launched over the phase."""
+    import gc
+    tools = {n: import_port(f"tools.{n}") for n in (
+        "stem_ab", "stem_fused_ab", "c12_ab", "c12_micro", "conv_micro",
+        "s2dx_poly_ab")}
+    rec = {}
+
+    def run(name, argv):
+        """The tool's summary with its launches and wall time, printed."""
+        before = read_counts()
+        t0 = time.perf_counter()
+        out = tools[name].main(argv + ["--device", dev.type])
+        torch.cuda.synchronize()
+        out["launches"] = launches_since(before)
+        out["seconds_total"] = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+        rec[" ".join([name, *argv])] = out
+        log(f"[micro] {name} {' '.join(argv)} {json.dumps(out)} ({card})")
+        return out
+
+    reset_counts()
+    # -- (a) the stem, cuDNN vs planar, and the planar backward's pieces --
+    sa = run("stem_ab", [str(BATCH), str(SIZE)])
+    assert finite([*sa["ms"].values(), *sa["pieces_ms"].values()]), sa
+    assert sa["chain_vs_stem_bwd_differing"] == 0, sa
+    for k in K4_VARIANTS:
+        assert sa["launches"].get(k, 0) > 0, (k, sa["launches"])
+
+    # -- (b) cuDNN vs planar vs fused ---------------------------------------
+    sf = run("stem_fused_ab", [str(BATCH), str(SIZE)])
+    assert finite(sf["ms"].values()), sf
+    assert sf["fused_fwd_rel_err_b1"] < FUSED_REL_ERR, sf
+    for k in ("fused_stem_fwd", "fused_stem_fwd_save_acts",
+              "fused_stem_bwd_saved", "fused_stem_bwd"):
+        assert sf["launches"].get(k, 0) > 0, (k, sf["launches"])
+
+    # -- (c) the c12 route against the default: digests, step ms ----------
+    digests = {}
+    for c12 in ("", "c12"):
+        g = run("c12_ab", ["grad"] + ([c12] if c12 else []))
+        assert g["routes"] == tools["c12_ab"].WANT_ROUTES[bool(c12)], g
+        assert finite([g[k] for k in ("loss", "gsum", "gmax", "gnorm")]), g
+        digests[c12 or "default"] = g
+    gap = {k: abs(digests["c12"][k] - digests["default"][k])
+           / abs(digests["default"][k]) for k in ("loss", "gsum", "gnorm")}
+    log(f"[micro] (c) c12_ab grad: c12 vs default relative gaps {gap} "
+        f"(recorded, not gated: bf16 summation orders) ({card})")
+    steps = {}
+    for c12 in ("", "c12"):
+        st = run("c12_ab", ["step", str(MICRO_STEP_BATCH)]
+                 + ([c12] if c12 else []))
+        assert finite([st["ms_per_step"], st["loss"]]), st
+        n = 3 + st["steps"]
+        if c12:
+            for k in ("res152_fused_save", "res152_fused_grad12"):
+                assert st["launches"].get(k, 0) == n, (k, st["launches"])
+        steps[c12 or "default"] = st["ms_per_step"]
+    log(f"[micro] (c) c12_ab step {MICRO_STEP_BATCH}: c12 "
+        f"{steps['c12']:.2f} ms (phase 8: {phase8['c12']:.2f}), default "
+        f"{steps['default']:.2f} ms (phase 8: {phase8['default']:.2f}) "
+        f"({card})")
+    rec["c12_ab_gap"] = gap
+
+    # -- (d) the c12 stage backward taken apart --------------------------
+    cm = run("c12_micro", [str(TRAIN_BATCH)])
+    rows = {"res152_fused_save": cm["fwd_save_ms"],
+            "res152_fused_grad": cm["bwd_g11_ms"],
+            "res152_fused_grad12": cm["bwd_g12_ms"],
+            "conv12_dgrad": cm["conv12_dgrad_ms"]}
+    assert finite(rows.values()), cm
+    for k in ("res152_fused_save", "res152_fused_grad",
+              "res152_fused_grad12"):
+        assert cm["launches"].get(k, 0) > 0, (k, cm["launches"])
+    for k, ms in rows.items():
+        log(f"[micro] (d) c12_micro {k}: {ms:.4f} ms (phase 7: "
+            f"{phase7[k]:.4f}) ({card})")
+
+    # -- (e) the victim's conv geometries on cuDNN -------------------------
+    cv = run("conv_micro", [str(BATCH)])
+    peak = PEAK_FLOPS[torch.bfloat16] / 1e12
+    for r in cv["rows"]:
+        assert finite([r["fwd_ms"], r["dx_ms"]]), r
+        assert r["fwd_tflops"] < peak and r["dx_tflops"] < peak, r
+
+    # -- (f) the stride-2 adjoint, polyphase vs cuDNN ----------------------
+    s2 = run("s2dx_poly_ab", [str(BATCH)])
+    assert len(s2["rows"]) == 5, s2
+    for r in s2["rows"]:
+        assert finite([r["xla_ms"], r["poly_ms"], r["poly_conv_ms"]]), r
+        assert r["relerr_poly"] <= S2DX_TOL, r
+        assert r["relerr_poly_conv"] <= S2DX_TOL, r
+
+    rec["launches"] = read_counts()
+    for k in MICRO_PATH:
+        assert rec["launches"][k] > 0, (k, rec["launches"])
+    return rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -4831,6 +4992,18 @@ def main() -> int:
     for k in kernels:
         k["tools_path_launches"] = trec["launches"][k["name"]]
     log(f"[tools] {json.dumps(trec)}")
+
+    # -- 16. the A/B micro tools (counted launches) -----------------------
+    phase("16 micro tools")
+    by_name = {k["name"]: k for k in k6 + [k6c]}
+    mrec = micro_path(dev, card, {
+        **{n: by_name[n]["ms"] for n in ("res152_fused_save",
+                                         "res152_fused_grad",
+                                         "res152_fused_grad12")},
+        "conv12_dgrad": k6c["conv12_dgrad_ms"]},
+        {r: rrec[r]["ms_per_step"] for r in ("c12", "default")})
+    for k in kernels:
+        k["micro_path_launches"] = mrec["launches"][k["name"]]
     phase("done")
 
     for k in kernels:

@@ -788,6 +788,19 @@ MEASUREMENT_TOOL_HELPERS = {
 }
 MEASUREMENT_TOOLS = tuple(MEASUREMENT_TOOL_HELPERS)
 
+# the repository's TPU-route A/B micro tools, each ported as
+# ``<port>/tools/<name>.py`` with its public names and ``main``; the names
+# only the port defines, by tool
+MICRO_TOOL_HELPERS = {
+    "stem_ab": {"stem_inputs", "input_grad", "chain"},
+    "stem_fused_ab": set(),
+    "c12_ab": {"grad_digest", "step_time"},
+    "c12_micro": {"c12_dx"},
+    "conv_micro": {"library_weight", "conv_dx"},
+    "s2dx_poly_ab": {"_interleave"},
+}
+MICRO_TOOLS = tuple(MICRO_TOOL_HELPERS)
+
 
 def _port_tool_sources():
     top = os.path.join(ROOT, PORT, "tools")
@@ -844,13 +857,34 @@ def test_name_diff_finds_the_measurement_tools_in_the_port():
     assert os.path.join(PORT, "tools", "victims.py") in scanned
 
 
+def test_name_diff_finds_the_micro_tools_in_the_port():
+    """Each of the six repository A/B micro tools has a port module of its
+    name with the tool's public top-level names and ``main(argv)`` (the
+    repository's ``stem_ab``, ``stem_fused_ab`` and ``c12_ab`` run at
+    import: their module-level code is the port's ``main``); the names
+    only the port defines are its listed helpers; every module is among
+    the no-JAX scans' sources."""
+    scanned = {os.path.relpath(p, ROOT) for p in _port_sources()}
+    for name in MICRO_TOOLS:
+        ref = _defined_names(os.path.join(ROOT, "tools", f"{name}.py"))
+        path = os.path.join(PORT, "tools", f"{name}.py")
+        assert path in scanned, path
+        ours = _defined_names(os.path.join(ROOT, path))
+        public = {n for n in ref if not n.startswith("_")}
+        assert public <= set(ours), (name, public - set(ours))
+        assert ours["main"] == ["argv"], name
+        assert set(ours) - set(ref) - {"main"} == \
+            MICRO_TOOL_HELPERS[name], name
+
+
 def test_port_tools_import_neither_the_repo_tools_nor_its_cli():
     """No port tool imports JAX, the JAX package, the repository's
     ``tools/`` or ``cli/`` (absolutely, by path or through ``sys.path``):
     they drive the port's own CLI modules."""
     sources = _port_tool_sources()
     # + scenes, victims, __init__
-    assert len(sources) == len(PROTOCOL_TOOLS) + len(MEASUREMENT_TOOLS) + 3
+    assert len(sources) == (len(PROTOCOL_TOOLS) + len(MEASUREMENT_TOOLS)
+                            + len(MICRO_TOOLS) + 3)
     for path in sources:
         for mod in _imported_modules(path):
             top = mod.split(".")[0]
@@ -871,7 +905,8 @@ def test_port_tools_import_neither_the_repo_tools_nor_its_cli():
                 and "matplotlib" in ast.dump(n)]
 
 
-@pytest.mark.parametrize("name", PROTOCOL_TOOLS + MEASUREMENT_TOOLS)
+@pytest.mark.parametrize("name", PROTOCOL_TOOLS + MEASUREMENT_TOOLS
+                         + MICRO_TOOLS)
 def test_port_tools_run_as_modules(name):
     """``python -m <port>.tools.<name> --help`` parses and exits 0."""
     out = subprocess.run([sys.executable, "-m", f"{PORT}.tools.{name}",
