@@ -63,10 +63,12 @@ def train_step_flops_per_image(net: Network) -> float:
 
 
 def mfu(step_seconds: float, batch: int, net: Network,
-        device_name: str) -> Optional[float]:
-    """Model FLOP utilization of the training step on one card, or None
-    where the card has no known peak."""
+        device_name: str, n_devices: int = 1) -> Optional[float]:
+    """Model FLOP utilization of the training step of a global ``batch``
+    on ``n_devices`` cards (each card's share of the batch's FLOPs over
+    its peak), or None where the card has no known peak."""
     peak = peak_flops_bf16(device_name)
     if peak is None or step_seconds <= 0:
         return None
-    return train_step_flops_per_image(net) * batch / step_seconds / peak
+    flops = train_step_flops_per_image(net) * batch
+    return flops / step_seconds / (peak * n_devices)

@@ -10,12 +10,23 @@ optimizer state are replicated (``replicated`` broadcasts from rank 0);
 the trainer gathers the per-sample loss inputs (``gather_rows``) so that
 every batch mean runs over the global batch, and sums the patch gradient
 over the ranks (``all_reduce_sum``) before the update.
+
+The entry points that start their own ranks or children do so with
+``run_ranks`` (the launcher's variables, a free local port), and count
+the cards out of process with ``count_cards``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
+import signal
+import socket
+import subprocess
+import sys
+import tempfile
+import threading
+import time
 from typing import Optional
 
 import torch
@@ -24,6 +35,16 @@ import torch.distributed as dist
 from ..ops._cuda import resolve_device
 
 ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")
+# the card count, printed by a process of its own (a backend's
+# initialization can hang rather than raise)
+PROBE_CODE = "import torch; print(torch.cuda.device_count())"
+# the processes ``run_ranks`` starts run from the directory that holds
+# the package
+_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+# seconds between SIGTERM and SIGKILL when ``run_ranks`` stops its
+# processes
+_STOP_GRACE_S = 10.0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -159,3 +180,115 @@ def gather_rows(mesh: Mesh, *parts: torch.Tensor):
             (full.shape[0],) + tuple(p.shape[1:])))
         col += f.shape[1]
     return out
+
+
+def free_port() -> int:
+    """A free TCP port on the local host, for one process group's
+    ``MASTER_PORT``."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def child_env(**extra) -> dict:
+    """This process's environment for a child, less the launcher's
+    variables (``run_ranks`` sets its own) and the JAX package's platform
+    switches, plus ``extra``."""
+    env = {k: v for k, v in os.environ.items()
+           if k not in ENV + ("JAX_PLATFORMS", "XLA_FLAGS")}
+    env.update(extra)
+    return env
+
+
+def count_cards(timeout: float) -> int:
+    """Run ``PROBE_CODE`` in a process of its own and read the last
+    integer it prints: 0 on a timeout, a crash or output without one (all
+    three mean the backend cannot be trusted to supply cards now)."""
+    try:
+        out = subprocess.run([sys.executable, "-c", PROBE_CODE],
+                             capture_output=True, text=True,
+                             timeout=timeout, env=child_env())
+    except (subprocess.TimeoutExpired, OSError):
+        return 0
+    if out.returncode != 0:
+        return 0
+    for line in reversed(out.stdout.strip().splitlines()):
+        try:
+            return int(line.strip())
+        except ValueError:
+            continue
+    return 0
+
+
+def _terminated(signum, frame):
+    raise SystemExit(128 + signum)
+
+
+def _stop(procs) -> None:
+    """End each live process and what it started (its session): SIGTERM,
+    then SIGKILL after ``_STOP_GRACE_S``."""
+    live = [p for p in procs if p.poll() is None]
+    for sig in (signal.SIGTERM, signal.SIGKILL):
+        for p in live:
+            try:
+                os.killpg(p.pid, sig)
+            except ProcessLookupError:
+                pass
+        deadline = time.monotonic() + _STOP_GRACE_S
+        for p in live:
+            try:
+                p.wait(timeout=max(0.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                pass
+        live = [p for p in live if p.poll() is None]
+        if not live:
+            return
+
+
+def run_ranks(args, n: int, env: dict, timeout: float,
+              group: bool = False) -> list:
+    """Run ``python *args`` as ``n`` processes from the package's parent
+    directory, each in a session of its own: ranks 0..n-1 of one group
+    (the launcher's variables, a free local port; card r for rank r) where
+    ``n > 1`` or ``group``, else one process without them. Returns
+    ``[(returncode, stdout, stderr)]`` in rank order. When ``timeout``
+    seconds pass first, stops every process (and what it started) and
+    raises ``subprocess.TimeoutExpired``. A SIGTERM to this process
+    meanwhile (on the main thread) raises ``SystemExit`` here, so the
+    processes are stopped all the same."""
+    base = dict(env)
+    if n > 1 or group:
+        base.update(WORLD_SIZE=str(n), MASTER_ADDR="127.0.0.1",
+                    MASTER_PORT=str(free_port()))
+    on_main = threading.current_thread() is threading.main_thread()
+    if on_main:
+        saved = signal.signal(signal.SIGTERM, _terminated)
+    procs, files = [], []
+    try:
+        for r in range(n):
+            out, err = tempfile.TemporaryFile(), tempfile.TemporaryFile()
+            files += [out, err]
+            rank_env = (dict(base, RANK=str(r), LOCAL_RANK=str(r))
+                        if "WORLD_SIZE" in base else base)
+            procs.append(subprocess.Popen(
+                [sys.executable, *args], cwd=_ROOT, env=rank_env,
+                stdout=out, stderr=err, start_new_session=True))
+        deadline = time.monotonic() + timeout
+        for p in procs:
+            p.wait(timeout=max(0.0, deadline - time.monotonic()))
+        results = []
+        for p, out, err in zip(procs, files[::2], files[1::2]):
+            out.seek(0)
+            err.seek(0)
+            results.append((p.returncode,
+                            out.read().decode(errors="replace"),
+                            err.read().decode(errors="replace")))
+        return results
+    finally:
+        _stop(procs)
+        for f in files:
+            f.close()
+        if on_main:
+            # None: a handler that was not set from Python
+            signal.signal(signal.SIGTERM,
+                          signal.SIG_DFL if saved is None else saved)

@@ -7,7 +7,9 @@ measurement tools (``serving_throughput``, ``detector_throughput``,
 quality A/Bs (``warp_ab``, ``warp_dtype_ab``) and the A/B micro tools of
 the stem, the 152^2 stage and the victim's convs (``stem_ab``,
 ``stem_fused_ab``, ``c12_ab``, ``c12_micro``, ``conv_micro``,
-``s2dx_poly_ab``).
+``s2dx_poly_ab``); and the repository's root entry points, the step
+bench of its ``bench.py`` (``bench``) and the flagship forward and
+multi-rank dryrun of its ``__graft_entry__.py`` (``entry``).
 
     python -m <package>.tools.attack_quality --mini
     python -m <package>.tools.protocol_prep --mini --out DIR
@@ -29,6 +31,8 @@ the stem, the 152^2 stage and the victim's convs (``stem_ab``,
     python -m <package>.tools.c12_micro 24
     python -m <package>.tools.conv_micro 8
     python -m <package>.tools.s2dx_poly_ab 8
+    python -m <package>.tools.bench
+    python -m <package>.tools.entry 8
 
 Each ``main(argv=None)`` returns its summary dict. The tools take
 ``--device`` (default ``cuda``; they raise where there is no card) and
@@ -43,5 +47,9 @@ tools time with CUDA events, or the host's clock between
 ``torch.cuda.synchronize`` calls, and compile nothing but the kernels;
 the micro tools time back-to-back calls between CUDA events
 (``utils/profiling.py: time_calls``) and list the rows that read under
-``HOST_BOUND_MS`` a call, whose time the host's launch path sets.
+``HOST_BOUND_MS`` a call, whose time the host's launch path sets. The
+root entry points start processes of their own (a time-bounded card
+probe, the bench's children, the dryrun's ranks:
+``parallel/mesh.py: count_cards``, ``run_ranks``) and print one record
+as the repository's scripts do.
 """

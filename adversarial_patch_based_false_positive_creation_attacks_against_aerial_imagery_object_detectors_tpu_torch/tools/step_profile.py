@@ -124,15 +124,31 @@ def read_trace(path: str) -> list:
         return json.load(f)["traceEvents"]
 
 
-def build_step(batch: int, device="cuda", res152=None):
+def step_inputs(batch: int, label0=None) -> tuple:
+    """The global batch of ``build_step`` as numpy arrays: ``batch``
+    random scenes [B, IMG, IMG, 3] from ``default_rng(0)`` and labels
+    [B, MAX_LABELS, 5] filled with 1e-6, whose first row is ``label0``
+    in every scene where it is given (one real box)."""
+    rng = np.random.default_rng(0)
+    images = rng.random((batch, IMG, IMG, 3), np.float32)
+    labels = np.full((batch, MAX_LABELS, 5), 1e-6, np.float32)
+    if label0 is not None:
+        labels[:, 0] = label0
+    return images, labels
+
+
+def build_step(batch: int, device="cuda", res152=None, label0=None,
+               lr: float = 0.03):
     """The default training step at ``batch`` on device-resident inputs
-    (random scenes from ``default_rng(0)``, labels filled with 1e-6), a
-    victim with random weights from seed 1 in bfloat16 and a patch from a
-    generator seeded 0. One card, or this rank's rows of the batch where
-    the process was started under ``torch.distributed`` (``torchrun``).
-    ``res152`` is ``make_train_step``'s route of the 152^2 stage (None:
-    the default route). Returns ``(run, mesh)``: ``run()`` takes one step
-    (fresh EOT draws) and returns its loss parts as device scalars."""
+    (``step_inputs``: random scenes from ``default_rng(0)``, labels filled
+    with 1e-6, or with one real box ``label0`` first), a victim with
+    random weights from seed 1 in bfloat16 and a patch from a generator
+    seeded 0. One card, or this rank's rows of the batch where the process
+    was started under ``torch.distributed`` (``torchrun``). ``res152`` is
+    ``make_train_step``'s route of the 152^2 stage (None: the default
+    route). Returns ``(run, mesh)``: ``run()`` takes one step (fresh EOT
+    draws) at learning rate ``lr`` and returns its loss parts as device
+    scalars."""
     dev = resolve_device(device)
     init_distributed(dev.type)
     mesh = make_mesh(dev)
@@ -150,17 +166,14 @@ def build_step(batch: int, device="cuda", res152=None):
     optimizer = T.make_optimizer(patch, exp.learning_rate)
     cfg = T.eot_config(exp)
     rows = batch_sharding(mesh, batch)
-    rng = np.random.default_rng(0)
-    images = rng.random((batch, IMG, IMG, 3), np.float32)
-    labels = np.full((batch, MAX_LABELS, 5), 1e-6, np.float32)
     images, labels = (torch.from_numpy(a[rows]).to(mesh.device)
-                      for a in (images, labels))
+                      for a in step_inputs(batch, label0))
 
     def run():
         draws = draw_eot(generator, batch, PATCH, cfg)
         if mesh.distributed:
             draws = T.local_draws(draws, rows)
-        return step(patch, optimizer, images, labels, 0.03, draws)
+        return step(patch, optimizer, images, labels, lr, draws)
 
     return run, mesh
 

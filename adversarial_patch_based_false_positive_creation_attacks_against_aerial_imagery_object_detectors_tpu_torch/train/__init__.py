@@ -5,6 +5,6 @@ from .config import (
 from .optim import make_optimizer, amsgrad_step
 from .trainer import (
     PatchTrainer, ReduceLROnPlateau, make_loss_fn, make_train_step,
-    make_epoch_scan_fn,
+    make_epoch_scan_fn, local_draws,
     init_patch, build_victim, eot_config, compute_dtype, LOSS_KEYS,
 )

@@ -228,6 +228,23 @@ Phases, each fatal on failure:
     geometries. K1, K1 ``save_acts``, K2, K5, K3a (step 1,
     ``split_phases``, tiled), K3b (tiled, narrow), the four K4 variants,
     K6a ``save``, K6b and K6c are each launched over the phase.
+17. The repository's root entry points (``<port>/tools/bench.py``, the
+    counterpart of ``bench.py``, and ``<port>/tools/entry.py``, of
+    ``__graft_entry__.py``): (a) ``python -m <port>.tools.bench`` as a
+    subprocess (``run_ranks``: stopped with what it started on a
+    timeout): its last line is the record of
+    ``patch_train_steps_per_min_b8_{cards}dev`` with ``value`` > 0, no
+    "error", a finite ``ms_per_step`` and ``mfu`` in (0, 1) on an H100
+    SXM, and its "# launches" line shows each default training kernel
+    launched 33 times (3 warm-up + 30 timed steps) on rank 0; then
+    ``bench.main`` in this process with both child timeouts at 1 s and no
+    backoff prints the "error" record of a child that timed out. (b)
+    ``entry()`` on the card: the three heads' shapes, equal bit for bit to
+    the ``Detector``'s forward of the same weights, on the fused stem
+    (``last_routes()``), launching K3a ``split_phases``, K1 and K3b once
+    each and nothing else. (c) ``dryrun_multichip(min(cards, 4), "cuda")``
+    over NCCL (a one-rank group on one card). (d) ``dryrun_multichip(4,
+    "cpu")``: 4 gloo ranks, its line says ``4-way cpu mesh``.
 
 Phase 4 also holds the slim victim (stem widths 8/16/8/16/32) on the
 planar stem (K4), and once more with ``res152="planar"``, and times its
@@ -241,10 +258,11 @@ the fused-stage and all-planar routes launch no K5 or K6c.
 
 Each entry of the kernels line carries its launches on the phase 10
 store path, the phase 13 eval path, the phase 14 protocol path, the
-phase 15 tools path and the phase 16 micro tools path
-(``store_path_launches``, ``eval_path_launches``,
+phase 15 tools path, the phase 16 micro tools path and the phase 17
+root entry path (``store_path_launches``, ``eval_path_launches``,
 ``protocol_path_launches``, ``tools_path_launches``,
-``micro_path_launches``). The last two lines are the kernels JSON object and
+``micro_path_launches``, ``entry_path_launches``: the bench child's
+counts plus ``entry()``'s call's). The last two lines are the kernels JSON object and
 ``{"ok": true, "device": {...}}``; the card's name and power limit are
 printed before them. Exits non-zero, printing no result, without a card
 or without the port beside this script.
@@ -376,37 +394,22 @@ def image_bytes(t, w: int, c: int) -> int:
 def counters() -> dict:
     """Every kernel's launch count: entry name -> (wrapper, attribute).
     Each wrapper adds one to the attribute where it launches that kernel,
-    and nowhere else."""
-    PC = import_port("ops.planar_conv")
-    SF = import_port("ops.stem_fused")
-    RF = import_port("ops.res_fused")
+    and nowhere else. The default package's are ``ops``'
+    ``LAUNCH_COUNTERS``; the experimental package's follow."""
+    ops = import_port("ops")
     MPL = import_port("experimental.median_pallas")
     SB = import_port("experimental.stem_batched")
-    return {"to_planar": (PC.to_planar, "launches"),
-            "to_planar_phases": (PC.to_planar, "phases_launches"),
-            "to_planar_g5": (PC.to_planar, "tiled_launches"),
-            "fused_stem_fwd": (SF.fused_stem_fwd, "launches"),
-            "fused_stem_fwd_save_acts": (SF.fused_stem_fwd,
-                                         "save_acts_launches"),
-            "from_planar": (PC.from_planar, "launches"),
-            "from_planar_narrow": (PC.from_planar, "narrow_launches"),
-            "fused_stem_bwd_saved": (SF.fused_stem_bwd_saved, "launches"),
-            "planar_conv_k1": (PC.planar_conv, "launches_k1"),
-            "planar_conv_k3": (PC.planar_conv, "launches_k3"),
-            "planar_conv_k3s2": (PC.planar_conv, "launches_k3s2"),
-            "planar_conv_k3t2": (PC.planar_conv, "launches_k3t2"),
-            "res152_fused": (RF.res152_fused, "launches"),
-            "res152_fused_save": (RF.res152_fused, "save_launches"),
-            "res152_fused_grad": (RF.res152_fused_grad, "launches"),
-            "fused_stem_bwd": (SF.fused_stem_bwd, "launches"),
-            "res152_fused_grad12": (RF.res152_fused_grad12, "launches"),
-            "median_pool_2d_pallas": (MPL.median_pool_2d_pallas, "launches"),
-            "median_pool_2d_pallas_network": (MPL.median_pool_2d_pallas,
-                                              "network_launches"),
-            "fused_stem_fwd_b": (SB.fused_stem_fwd_b, "launches"),
-            "fused_stem_fwd_b_save_acts": (SB.fused_stem_fwd_b,
-                                           "save_acts_launches"),
-            "fused_stem_bwd_b": (SB.fused_stem_bwd_b, "launches")}
+    out = {name: (getattr(import_port(f"ops.{mod}"), fn), attr)
+           for name, (mod, fn, attr) in ops.LAUNCH_COUNTERS.items()}
+    out.update({
+        "median_pool_2d_pallas": (MPL.median_pool_2d_pallas, "launches"),
+        "median_pool_2d_pallas_network": (MPL.median_pool_2d_pallas,
+                                          "network_launches"),
+        "fused_stem_fwd_b": (SB.fused_stem_fwd_b, "launches"),
+        "fused_stem_fwd_b_save_acts": (SB.fused_stem_fwd_b,
+                                       "save_acts_launches"),
+        "fused_stem_bwd_b": (SB.fused_stem_bwd_b, "launches")})
+    return out
 
 
 def reset_counts() -> None:
@@ -3172,13 +3175,6 @@ def store_path(dev, card) -> dict:
     return rec
 
 
-def free_port() -> int:
-    import socket
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 @contextlib.contextmanager
 def launcher_env(rank: int, world: int, port: int):
     """The variables ``torchrun`` sets for one process, while inside."""
@@ -3220,7 +3216,7 @@ def nccl_mesh(dev, card) -> dict:
     data = SyntheticData(48, SIZE, exp.max_labels, seed=SEED + 40)
     staged = [tuple(torch.from_numpy(a).to(dev) for a in
                     data.batch(TRAIN_BATCH, i)) for i in range(3)]
-    with launcher_env(0, 1, free_port()):
+    with launcher_env(0, 1, PM.free_port()):
         assert PM.init_distributed(dev.type)
     try:
         assert dist.get_backend() == "nccl", dist.get_backend()
@@ -3269,6 +3265,7 @@ def two_process_cli(dev) -> dict:
     parts within 1e-3 relative (bfloat16; each rank's half batch may take
     its own conv algorithms; 1.3e-4 seen on H100s)."""
     cli = import_port("cli.train_patch")
+    PM = import_port("parallel.mesh")
     root = tempfile.mkdtemp(prefix="chip_smoke_dp_")
     args = ["--mode", "paper_obj", "--synthetic", "48", "--batch-size",
             str(TRAIN_BATCH), "--img-size", str(SIZE), "--patch-size",
@@ -3278,24 +3275,12 @@ def two_process_cli(dev) -> dict:
         ref = one.history[0]
         del one
         torch.cuda.empty_cache()
-        port = free_port()
-        env = dict(os.environ, WORLD_SIZE="2", MASTER_ADDR="127.0.0.1",
-                   MASTER_PORT=str(port))
-        procs = [subprocess.Popen(
-            [sys.executable, "-m", f"{PORT}.cli.train_patch", *args,
-             "--out-dir", os.path.join(root, "two")], cwd=ROOT,
-            env=dict(env, RANK=str(r), LOCAL_RANK=str(r)),
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-            for r in (0, 1)]
-        outs = []
-        try:
-            for p in procs:
-                outs.append(p.communicate(timeout=600)[0])
-        finally:
-            for p in procs:
-                p.kill()
-        for r, (p, out) in enumerate(zip(procs, outs)):
-            assert p.returncode == 0, f"rank {r}:\n{out[-3000:]}"
+        outs = PM.run_ranks(
+            ("-m", f"{PORT}.cli.train_patch", *args, "--out-dir",
+             os.path.join(root, "two")), 2, PM.child_env(), 600)
+        for r, (rc, out, err) in enumerate(outs):
+            out += err
+            assert rc == 0, f"rank {r}:\n{out[-3000:]}"
             # each rank trains on its own card
             assert f"device: cuda:{r} (" in out, out[-3000:]
         with open(os.path.join(root, "two", "history.json")) as f:
@@ -4402,6 +4387,130 @@ def micro_path(dev, card, phase7: dict, phase8: dict) -> dict:
     return rec
 
 
+ENTRY_BENCH_TIMEOUT_S = 600   # the bench subprocess: probe, child, 33 steps
+ENTRY_CPU_RANKS = 4           # phase 17 (d): gloo ranks on the CPU
+
+
+def entry_path(dev, card) -> dict:
+    """Phase 17: the repository's root entry points on the port. (a) the
+    bench as a user runs it (``python -m <port>.tools.bench``, a
+    subprocess through ``run_ranks``, which stops it and its children on
+    a timeout: the probe and one child a card): its record, and from its
+    "# launches" line each kernel of ``TRAIN_PATH`` launched ``WARMUP +
+    STEPS`` times; then ``bench.main`` in this process with both child
+    timeouts at 1 s, no backoff and the probe's count of (a): the "error"
+    record of a timed-out child, value 0.0. (b) ``entry()``'s forward: the heads' shapes, equal
+    bit for bit to the ``Detector``'s forward of the same weights, on the
+    fused stem, K3a ``split_phases``, K1 and K3b once each. (c)
+    ``dryrun_multichip`` over NCCL on up to 4 cards. (d)
+    ``dryrun_multichip(4, "cpu")``: 4 gloo ranks. Returns the record, whose "launches"
+    are the bench child's counts plus ``entry()``'s call's (the
+    ``Detector`` reference's forward is not counted; the dryruns' tiny
+    victim takes no kernel)."""
+    B = import_port("tools.bench")
+    EN = import_port("tools.entry")
+    PM = import_port("parallel.mesh")
+    darknet = import_port("models.darknet")
+    flops = import_port("models.flops")
+    M, E = import_port("models"), import_port("evals")
+    cards = torch.cuda.device_count()
+    rec = {"cards": cards}
+
+    # -- (a) the bench, as a subprocess, then a child that hangs ---------
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ((bench_rc, stdout, stderr),) = PM.run_ranks(
+        ("-m", f"{PORT}.tools.bench"), 1, PM.child_env(),
+        ENTRY_BENCH_TIMEOUT_S)
+    rec["bench_seconds"] = time.perf_counter() - t0
+    assert bench_rc == 0, stderr[-3000:]
+    lines = stdout.strip().splitlines()
+    for line in lines[:-1]:
+        log(f"[entry] (a) {line}")
+    bench = json.loads(lines[-1])
+    log(f"[entry] (a) bench record {json.dumps(bench)} in "
+        f"{rec['bench_seconds']:.1f} s ({card})")
+    assert "error" not in bench, bench
+    assert bench["metric"] == (f"patch_train_steps_per_min_b8_"
+                               f"{B._ranks(cards)}dev"), bench
+    assert bench["value"] > 0 and np.isfinite(bench["ms_per_step"]), bench
+    if flops.peak_flops_bf16(torch.cuda.get_device_name(0)) is not None:
+        assert 0 < bench["mfu"] < 1, bench
+    tag = "# launches: "
+    child = json.loads(next(x for x in lines if x.startswith(tag))[len(tag):])
+    assert set(child) <= set(counters()), child
+    for k in TRAIN_PATH:
+        assert child[k] == B.WARMUP + B.STEPS, (k, child)
+    rec["bench"], rec["bench_launches"] = bench, child
+    # the probe ran in (a); here it reports the cards without a process
+    saved = {k: getattr(B, k) for k in ("_CHILD_TIMEOUT_S",
+                                        "_CHILD_RETRY_TIMEOUT_S",
+                                        "_BACKOFF_S", "_probe_device_count")}
+    B._CHILD_TIMEOUT_S = B._CHILD_RETRY_TIMEOUT_S = 1.0
+    B._BACKOFF_S = 0.0
+    B._probe_device_count = lambda: cards
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            hung = B.main([])
+    finally:
+        for k, v in saved.items():
+            setattr(B, k, v)
+    assert hung["value"] == 0.0 and "timed out" in hung["error"], hung
+    assert json.loads(B._extract_json_line(buf.getvalue())) == hung
+    log(f"[entry] (a) 1-s child timeouts: {json.dumps(hung)} in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # -- (b) entry(): the flagship forward at b1 ---------------------------
+    reset_counts()
+    fn, args = EN.entry()
+    heads = fn(*args)
+    torch.cuda.synchronize()
+    forward = read_counts()
+    routes = darknet.last_routes()
+    assert [tuple(h.shape) for h in heads] == [
+        (1, 19, 19, 60), (1, 38, 38, 60), (1, 76, 76, 60)], heads
+    assert all(torch.isfinite(h).all() for h in heads)
+    assert routes == {"stem": "fused", "res152": "conv"}, routes
+    want = {"to_planar_phases": 1, "fused_stem_fwd": 1, "from_planar": 1}
+    assert all(forward[k] == want.get(k, 0) for k in forward), forward
+    net = fn.model.net
+    det = E.Detector(net, M.fold_bn(net, M.init_params(net, 0)),
+                     img_size=SIZE, compute_dtype=torch.bfloat16, device=dev)
+    with torch.inference_mode():
+        ref = det._heads(args[0])
+    rec["entry_equal_detector"] = all(torch.equal(a, b)
+                                      for a, b in zip(heads, ref))
+    assert rec["entry_equal_detector"], "entry() != the Detector's forward"
+    rec["entry_forward_ms"] = time_ms(lambda: fn(*args), 10)
+    log(f"[entry] (b) entry(): heads {[list(h.shape) for h in heads]}, "
+        f"routes {routes}, launches {want}, equal to the Detector's "
+        f"forward; {rec['entry_forward_ms']:.3f} ms a b1 forward ({card})")
+    del fn, args, heads, det, ref
+    torch.cuda.empty_cache()
+
+    # -- (c) the dryrun over NCCL, (d) without a device ---------------------
+    n = min(cards, 4)
+    if n < 2:
+        log(f"[entry] (c) the dryrun needs a card a rank; this machine has "
+            f"{cards}: it runs a one-rank NCCL group")
+    t0 = time.perf_counter()
+    rc = EN.dryrun_multichip(n, "cuda")
+    assert (rc["platform"], rc["n"]) == ("cuda", n), rc
+    assert f"{n}-way cuda mesh" in rc["line"], rc
+    log(f"[entry] (c) {rc['line']} in {time.perf_counter() - t0:.1f} s "
+        f"({card})")
+    t0 = time.perf_counter()
+    rd = EN.dryrun_multichip(ENTRY_CPU_RANKS, "cpu")
+    assert (rd["platform"], rd["n"]) == ("cpu", ENTRY_CPU_RANKS), rd
+    assert f"{ENTRY_CPU_RANKS}-way cpu mesh" in rd["line"], rd
+    log(f"[entry] (d) {rd['line']} in {time.perf_counter() - t0:.1f} s")
+    rec["dryrun"] = {"cuda": rc, "cpu": rd}
+    rec["launches"] = {k: v + child.get(k, 0) for k, v in forward.items()}
+    return rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -5004,6 +5113,13 @@ def main() -> int:
         {r: rrec[r]["ms_per_step"] for r in ("c12", "default")})
     for k in kernels:
         k["micro_path_launches"] = mrec["launches"][k["name"]]
+
+    # -- 17. the repository's root entry points (counted launches) -----
+    phase("17 root entry points")
+    nrec = entry_path(dev, card)
+    for k in kernels:
+        k["entry_path_launches"] = nrec["launches"][k["name"]]
+    log(f"[entry] {json.dumps(nrec)}")
     phase("done")
 
     for k in kernels:

@@ -781,7 +781,7 @@ MEASUREMENT_TOOL_HELPERS = {
     "serve_soak": {"clients_at"},
     "perf_breakdown": set(),
     "step_profile": {"device_intervals", "attribute", "steps_window",
-                     "read_trace", "capture"},
+                     "read_trace", "capture", "step_inputs"},
     "warp_ab": {"scenes", "train_with", "paste_draws", "paste",
                 "creation_row", "setup", "format_row", "parse"},
     "warp_dtype_ab": set(),
@@ -800,6 +800,20 @@ MICRO_TOOL_HELPERS = {
     "s2dx_poly_ab": {"_interleave"},
 }
 MICRO_TOOLS = tuple(MICRO_TOOL_HELPERS)
+
+
+# the repository's root entry points, each ported as
+# ``<port>/tools/<name>.py``: its top-level names, the port's counterpart
+# of each name it renames (the CPU re-exec becomes the gloo / NCCL launch
+# of either platform), and the names only the port defines. One
+# deviation: ``dryrun_multichip``'s ``device`` defaults to "cuda" and
+# raises without n cards (``_probe_device_count`` counts them), where
+# ``__graft_entry__.py`` moves to the CPU by itself
+ROOT_ENTRY_POINTS = {
+    "bench": ("bench.py", {}, {"bench_record", "_card_line", "_ranks"}),
+    "entry": ("__graft_entry__.py", {"_reexec_cpu_dryrun": "_launch"}, {
+        "_line", "_rank_views", "_rank_main", "main"}),
+}
 
 
 def _port_tool_sources():
@@ -877,21 +891,59 @@ def test_name_diff_finds_the_micro_tools_in_the_port():
             MICRO_TOOL_HELPERS[name], name
 
 
+def test_name_diff_finds_the_root_entry_points_in_the_port():
+    """Every top-level def of ``bench.py`` and ``__graft_entry__.py`` has
+    its counterpart of the same name (and arguments, for ``entry`` and
+    ``_probe_device_count``) in the port's module, or is a pinned
+    rename; the names only the port defines are its listed helpers; both
+    modules are among the no-JAX scans' sources."""
+    scanned = {os.path.relpath(p, ROOT) for p in _port_sources()}
+    for name, (script, renamed, helpers) in ROOT_ENTRY_POINTS.items():
+        ref = _defined_names(os.path.join(ROOT, script))
+        path = os.path.join(PORT, "tools", f"{name}.py")
+        assert path in scanned, path
+        ours = _defined_names(os.path.join(ROOT, path))
+        want = {renamed.get(n, n) for n in ref}
+        assert want <= set(ours), (name, want - set(ours))
+        assert set(ours) - want == helpers, (name, set(ours) - want)
+        assert ours["main"] == ["argv"], name
+    ours = _defined_names(os.path.join(ROOT, PORT, "tools", "entry.py"))
+    assert ours["entry"] == ["device"]
+    assert ours["dryrun_multichip"][:2] == ["n_devices", "device"]
+    assert ours["_dryrun_impl"] == ["n_devices", "device", "params",
+                                    "patch", "draws"]
+    assert ours["_probe_device_count"] == []
+
+
+def test_port_imports_neither_root_script():
+    """No module of the port, nor ``chip_smoke.py``, imports the
+    repository's ``bench.py`` or ``__graft_entry__.py``."""
+    for path in _port_sources():
+        for mod in _imported_modules(path):
+            assert mod.split(".")[0] not in ("bench", "__graft_entry__"), (
+                path, mod)
+
+
 def test_port_tools_import_neither_the_repo_tools_nor_its_cli():
     """No port tool imports JAX, the JAX package, the repository's
     ``tools/`` or ``cli/`` (absolutely, by path or through ``sys.path``):
-    they drive the port's own CLI modules."""
+    they drive the port's own CLI modules. Only the root entry points
+    start processes (the probe, the bench's children, the dryrun's
+    ranks)."""
     sources = _port_tool_sources()
     # + scenes, victims, __init__
     assert len(sources) == (len(PROTOCOL_TOOLS) + len(MEASUREMENT_TOOLS)
-                            + len(MICRO_TOOLS) + 3)
+                            + len(MICRO_TOOLS) + len(ROOT_ENTRY_POINTS) + 3)
+    launchers = tuple(f"{n}.py" for n in ROOT_ENTRY_POINTS)
     for path in sources:
         for mod in _imported_modules(path):
             top = mod.split(".")[0]
             assert top not in ("jax", "jaxlib", JAX_PKG, "tools", "cli",
-                               "importlib", "subprocess", "matplotlib") or (
+                               "importlib", "subprocess", "matplotlib",
+                               "bench", "__graft_entry__") or (
                 top == "matplotlib"
-                and path.endswith("plot_history.py")), (path, mod)
+                and path.endswith("plot_history.py")) or (
+                top == "subprocess" and path.endswith(launchers)), (path, mod)
         tree = ast.parse(open(path).read(), path)
         assert not [n for n in ast.walk(tree) if isinstance(n, ast.Attribute)
                     and n.attr == "path" and isinstance(n.value, ast.Name)
@@ -906,7 +958,7 @@ def test_port_tools_import_neither_the_repo_tools_nor_its_cli():
 
 
 @pytest.mark.parametrize("name", PROTOCOL_TOOLS + MEASUREMENT_TOOLS
-                         + MICRO_TOOLS)
+                         + MICRO_TOOLS + tuple(ROOT_ENTRY_POINTS))
 def test_port_tools_run_as_modules(name):
     """``python -m <port>.tools.<name> --help`` parses and exits 0."""
     out = subprocess.run([sys.executable, "-m", f"{PORT}.tools.{name}",
