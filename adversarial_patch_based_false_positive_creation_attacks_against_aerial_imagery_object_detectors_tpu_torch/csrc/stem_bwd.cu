@@ -21,7 +21,7 @@
 //
 // Weights: each conv's HWIO kernel with its two channel axes swapped,
 // w^T[dy][dx][cout][cin] (conv0's cin padded 3 -> 8), built once by the
-// model; bfloat16 takes them in mma.sync's fragment order. A stride-1
+// model; bfloat16 takes them packed for wgmma (below). A stride-1
 // adjoint reads its input at (o + pad - dy) with the forward tap (dy, dx).
 // A stride-2 adjoint is computed per 2x2 "super position": output rows 2a
 // and 2a+1 (and columns alike) take the taps whose parity matches, dy = 1
@@ -36,20 +36,39 @@
 // gp2/gp1 11^2 -> gp0 20^2x32 -> gx 16^2), so no cotangent touches device
 // memory; the halo recompute costs ~1.7x the FLOPs.
 //
-// bfloat16 runs the five adjoints on the tensor cores (stem_common.cuh:
-// bwd_tc::chain on mma_conv, shared with K5; conv5^T and conv1^T as four
-// GEMMs, one per output parity, with K = 1, 2, 2 or 4 taps x CIN; conv0^T's
-// N = 8 is one m16n8k16 column), the epilogues keeping the FMA chain's
-// rounding points. The block first
-// stages its mask windows into shared memory with 4-byte cp.async copies,
-// lanes fastest (each (row, channel) line's lanes are contiguous in the
-// planar layout), overlapped with the gp5 loads; the gates then come from
-// shared memory instead of strided byte reads of device memory. Row pitches
-// of the tiles an ldmatrix reads are padded by 16 bytes (gp5 136, gp3/gp1
-// 72, gp2 40) but gp0's (32: two-way conflicts) to keep two blocks a
-// multiprocessor: 115,264 bytes each (the chain's 69,312, the masks'
-// 45,952). float32 stays on stem_common.cuh's grad_chain (CUDA-core FMAs,
-// shared with K5), 151,552 bytes, one block a multiprocessor.
+// bfloat16 (fused_stem_bwd_wg_kernel) is built for Hopper's units
+// (stem_common.cuh: wg): the five adjoints are implicit GEMMs on
+// wgmma.mma_async issued by two consumer warpgroups (conv5^T and conv1^T
+// as four GEMMs, one per output parity, with K = 1, 2, 2 or 4 taps x CIN;
+// conv0^T's N = 8 is one m64n8k16), with bwd_tc's epilogues, so the FMA
+// chain's rounding points and K2's tile origins stay. A producer warp
+// keeps every load in flight by TMA and bulk copies: first y5's and g5's
+// boxes (8 rows x 128 channels x 16 lanes; gp5 = T(g5 m(y5)) is formed
+// from them in shared memory), then the y3 and y2 mask windows, boxes
+// [row][channel][32 lanes] of the planar int8 masks through 4-d tensor
+// maps (the row stride is a multiple of 16 bytes; a box must start on a
+// 16-byte boundary, so a window holds the 32 lanes from the boundary at
+// or below its first lane; rows and lanes outside the tensor arrive as
+// zeros), then conv5^T's weight chunks, then, once gp5 is formed, the y0
+// and y1 windows into the region the y5 and g5 boxes held, then the other
+// GEMMs' chunks (wg_weights' packing of the swapped-channel adjoints,
+// conv5^T's and conv1^T's per parity in RowsT2's tap order) through a
+// ring of six 8 KB slots (a conv5^T or conv2^T chunk, two conv3^T or
+// conv1^T chunks, all of conv0^T's): 18 + 5 + 1 + 9 + 1 slot loads, 229 KB
+// a tile from L2. What bounds this design: one block a multiprocessor
+// (226,176 bytes: the chain's 69,312, the boxes' and windows' 105,472 and
+// the ring), so each tile's first loads wait with the card's units idle
+// and its serial parts (the gp5 pass, the epilogues and their gate reads,
+// gx's scattered 2-byte stores) leave the tensor cores idle; the 16 x 16
+// gx tile's halo (~1.7x the FLOPs) stays, a larger tile's windows and
+// regions would not fit; and a persistent block (tiles in turn, the next
+// one's loads under the current one's tail) loops over the divergent
+// epilogues, around which ptxas serializes the wgmmas (measured slower).
+// float32 stays on stem_common.cuh's grad_chain (CUDA-core FMAs, shared
+// with K5), 151,552 bytes, one block a multiprocessor.
+
+#include <cuda.h>
+#include <dlfcn.h>
 
 #include "stem_common.cuh"
 
@@ -85,101 +104,301 @@ __global__ void __launch_bounds__(NT, 1)
 }
 
 // ---------------------------------------------------------------------------
-// The bfloat16 chain on tensor cores
+// The bfloat16 chain on wgmma
 // ---------------------------------------------------------------------------
 
-namespace tc {
+namespace k2 {
 
 using K = Chain;
-// the mask windows (stem_common.cuh: bwd_tc's gate windows)
-using bwd_tc::M0_BYTES;
-using bwd_tc::M1_BYTES;
-using bwd_tc::M2_BYTES;
-using bwd_tc::M3_BYTES;
-using bwd_tc::StagedMask;
-using bwd_tc::W12;
-using bwd_tc::W3;
-constexpr int SMEM = 2 * bwd_tc::ELEMS + bwd_tc::GATE_BYTES;
+// the ring: six 8 KB slots (a conv5^T chunk; two conv3^T or conv1^T
+// chunks; all of conv0^T's)
+constexpr int STAGES = 6, SLOT = 8192;
+// one parity (PY, PX) of a stride-2 adjoint as a GEMM over NS^2 super
+// positions: taps, depth a tap, N, channel groups
+template <int PY, int PX, int KT, int N, int NG, int NS>
+using T2 =
+    wg::Gemm<(PY + 1) * (PX + 1), KT, N, NG, 1, NS * NS, SLOT, STAGES>;
+// the chain's GEMMs in order: conv5^T's parities, conv3^T, conv2^T,
+// conv1^T's parities, conv0^T
+using U5a = T2<0, 0, 128, 64, 2, K::N4 / 2>;
+using U5b = T2<0, 1, 128, 64, 2, K::N4 / 2>;
+using U5c = T2<1, 0, 128, 64, 2, K::N4 / 2>;
+using U5d = T2<1, 1, 128, 64, 2, K::N4 / 2>;
+using U3 = wg::Gemm<9, 64, 32, 1, 1, K::N1 * K::N1, SLOT, STAGES>;
+using U2 = wg::Gemm<1, 32, 64, 1, 1, K::N1 * K::N1, SLOT, STAGES>;
+using U1a = T2<0, 0, 64, 32, 1, K::N0 / 2>;
+using U1b = T2<0, 1, 64, 32, 1, K::N0 / 2>;
+using U1c = T2<1, 0, 64, 32, 1, K::N0 / 2>;
+using U1d = T2<1, 1, 64, 32, 1, K::N0 / 2>;
+using U0 = wg::Gemm<9, 32, 8, 1, 2, K::TX * K::TX, SLOT, STAGES>;
+// A box's first lane must lie on a 16-byte boundary (the tensor unit
+// refuses others), so the windows are 32 lanes (int8) and 16 lanes
+// (bfloat16) from the boundary at or below the first lane read. Shared
+// memory from a 1024-aligned base (bytes): the chain's X, Y, Z; region R1
+// holds y5's and g5's boxes [N5][128][16] until gp5 is formed, then the
+// y0 windows (both phases) and y1's; region R2 the y3 and y2 windows
+// (windows [row][channel][32 lanes]); four barriers (the inputs, the y3 /
+// y2 windows, the y0 / y1 windows, R1 free); the ring
+constexpr int WL = 32, WL5 = 16;
+constexpr int R1_AT = (2 * bwd_tc::ELEMS + 127) / 128 * 128;
+constexpr int Y5_B = K::N5 * 128 * WL5 * 2;
+constexpr int M0_B = K::N0 * 32 * WL;  // a phase
+constexpr int M1_B = K::N1 * 64 * WL;
+constexpr int M0_AT = R1_AT, M1_AT = M0_AT + 2 * M0_B;
+constexpr int R2_AT = R1_AT + 2 * Y5_B;
+constexpr int M3_B = K::N4 * 64 * WL, M2_B = K::N1 * 32 * WL;
+constexpr int M3_AT = R2_AT, M2_AT = M3_AT + M3_B;
+constexpr int BAR_AT = M2_AT + M2_B;
+constexpr int RING_AT = BAR_AT + 32;
+constexpr int SMEM = 1024 + RING_AT + wg::ring_bytes(STAGES, SLOT);
+static_assert(SMEM <= 232448 && 2 * M0_B + M1_B <= 2 * Y5_B &&
+                  M3_B % 128 == 0 && M2_B % 128 == 0 && M0_B % 128 == 0 &&
+                  M1_B % 128 == 0 && Y5_B % 128 == 0,
+              "shared memory");
+static_assert(K::N5 == 8 && K::TX == 16, "the boxes cover the windows");
 
-// A planar int8 mask window into shared memory, 4-byte cp.async copies:
-// tile rows r < R at image rows org_r + r, C channels, NPH column phases
-// (m, mo), lanes [l0, l0 + W) of each line of wl lanes; laid out [r][ch]
-// [ph][W]. Rows outside the image and chunks outside [0, wl) are skipped:
-// the epilogues read no gate there.
-template <int R, int C, int NPH, int W>
-__device__ void stage_mask(unsigned char* __restrict__ s,
-                           const int8_t* __restrict__ m,
-                           const int8_t* __restrict__ mo, int org_r, int l0,
-                           int img, int wl) {
-  constexpr int NQ = W / 4;
-  for (int idx = threadIdx.x; idx < R * C * NPH * NQ; idx += NT) {
-    const int q = idx % NQ;
-    int rest = idx / NQ;
-    const int ph = rest % NPH;
-    rest /= NPH;
-    const int ch = rest % C, r = rest / C;
-    const int gr = org_r + r, lane = l0 + 4 * q;
-    if (gr < 0 || gr >= img || lane < 0 || lane + 4 > wl) continue;
-    cp_async4(s + 4 * idx,
-              (ph ? mo : m) + ((long long)gr * C + ch) * wl + lane);
+// The packed adjoint weights (wg_weights): conv0^T, conv1^T (its four
+// parities' chunks back to back), conv2^T, conv3^T, conv5^T (the same)
+struct Weights {
+  const unsigned char* u[5];
+};
+
+// A gate's sign from a staged window [ph][r][ch][WL lanes] (window row r
+// at tile row oy = r, lanes from l0), at tile row oy and image column gc;
+// PHASE: y0's column phases
+template <int C, int R, bool PHASE>
+struct BoxMask {
+  const unsigned char* s;
+  int l0;
+  __device__ int8_t operator()(int oy, int, int, int gc, int ch) const {
+    const int ph = PHASE ? (gc & 1) : 0;
+    const int lane = PHASE ? (gc >> 1) + 1 : gc + 1;
+    return s[((ph * R + oy) * C + ch) * WL + lane - l0];
   }
-}
+};
 
-}  // namespace tc
+}  // namespace k2
 
 // The bfloat16 K2: grad_chain's stages, regions and tile origins, with the
-// adjoints on tensor cores and the gates staged in shared memory. u0 .. u5
-// the swapped-channel weights in fragment order.
-__global__ void __launch_bounds__(NT, 2)
-    fused_stem_bwd_tc_kernel(const int8_t* __restrict__ m0e,
-                             const int8_t* __restrict__ m0o,
-                             const int8_t* __restrict__ m1,
-                             const int8_t* __restrict__ m2,
-                             const int8_t* __restrict__ m3,
-                             const bf16* __restrict__ y5,
-                             const bf16* __restrict__ g5,
-                             const uint2* __restrict__ u0,
-                             const uint2* __restrict__ u1,
-                             const uint2* __restrict__ u2,
-                             const uint2* __restrict__ u3,
-                             const uint2* __restrict__ u5,
-                             bf16* __restrict__ gxe, bf16* __restrict__ gxo,
-                             int H, int wlh, int wl5) {
-  using namespace tc;
+// adjoints on wgmma and every load issued by the producer warp. The tensor
+// maps: the masks (boxes of 32 lanes x C channels x the window's rows), y5
+// and g5 (16 lanes x 128 x 8 rows).
+__global__ void __launch_bounds__(wg::NTH, 1)
+    fused_stem_bwd_wg_kernel(const __grid_constant__ CUtensorMap tm0e,
+                             const __grid_constant__ CUtensorMap tm0o,
+                             const __grid_constant__ CUtensorMap tm1,
+                             const __grid_constant__ CUtensorMap tm2,
+                             const __grid_constant__ CUtensorMap tm3,
+                             const __grid_constant__ CUtensorMap ty5,
+                             const __grid_constant__ CUtensorMap tg5,
+                             k2::Weights ww, bf16* __restrict__ gxe,
+                             bf16* __restrict__ gxo, int H, int wlh) {
+  using namespace k2;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sm = reinterpret_cast<bf16*>(smem_raw);  // the chain's X, Y, Z
-  bf16* Z = sm + bwd_tc::SZ_X + bwd_tc::SZ_Y;
-  unsigned char* s3 =
-      reinterpret_cast<unsigned char*>(sm + bwd_tc::ELEMS);
-  unsigned char* s1 = s3 + M3_BYTES;
-  unsigned char* s2 = s1 + M1_BYTES;
-  unsigned char* s0 = s2 + M2_BYTES;
-  const long long b = blockIdx.z;
+  const uint32_t raw = wg::smem_u32(smem_raw);
+  unsigned char* sm = smem_raw + (((raw + 1023) & ~1023u) - raw);
+  const uint32_t s0 = wg::smem_u32(sm);
+  const uint32_t bar_in = s0 + BAR_AT, bar_m32 = bar_in + 8;
+  const uint32_t bar_m01 = bar_in + 16, bar_r1 = bar_in + 24;
+  auto ring = wg::make_ring<STAGES, SLOT>(s0 + RING_AT);
+  if (threadIdx.x == 0) {
+    wg::mbar_init(bar_in, 1);
+    wg::mbar_init(bar_m32, 1);
+    wg::mbar_init(bar_m01, 1);
+    wg::mbar_init(bar_r1, wg::CONSUMER_WARPS);
+    wg::fence_barrier_init();
+  }
+  __syncthreads();
+  const int b = blockIdx.z;
   const int R0 = blockIdx.y * K::TX, C0 = blockIdx.x * K::TX;
-  const int H1 = H / 2;
+  const int H1 = H / 2, H5 = H / 4;
   // tile origins in image coordinates (rows; columns alike)
+  const int o5r = R0 / 4 - 1, o5c = C0 / 4 - 1;  // gp5, N5
   const int o4r = R0 / 2 - 2, o4c = C0 / 2 - 2;  // gs4 / gp3, N4
   const int o1r = R0 / 2 - 1, o1c = C0 / 2 - 1;  // gp2 / gp1, N1
   const int o0r = R0 - 2, o0c = C0 - 2;          // gp0, N0
-  // the first lane of each mask window, rounded down to 4 bytes
-  const int l3 = (o4c + 1) & ~3, l12 = (o1c + 1) & ~3;
-  const int l0 = ((o0c >> 1) + 1) & ~3;
+  // each window's first lane: the 16-byte boundary at or below the first
+  // lane read (y3's from lane o4c + 1, y1's and y2's from o1c + 1, y0's
+  // from (o0c >> 1) + 1, y5's and g5's from o5c + 1)
+  const int l3 = (o4c + 1) & ~15, l12 = (o1c + 1) & ~15;
+  const int l0 = ((o0c >> 1) + 1) & ~15, l5 = (o5c + 1) & ~7;
+  if (threadIdx.x >= wg::NC) {
+    // the producer warp: one thread issues every load, in the order the
+    // consumers need them
+    if (threadIdx.x == wg::NC) {
+      wg::mbar_expect_tx(bar_in, 2 * Y5_B);
+      wg::tma_load_4d(s0 + R1_AT, &ty5, l5, 0, o5r, b, bar_in);
+      wg::tma_load_4d(s0 + R1_AT + Y5_B, &tg5, l5, 0, o5r, b, bar_in);
+      wg::mbar_expect_tx(bar_m32, M3_B + M2_B);
+      wg::tma_load_4d(s0 + M3_AT, &tm3, l3, 0, o4r, b, bar_m32);
+      wg::tma_load_4d(s0 + M2_AT, &tm2, l12, 0, o1r, b, bar_m32);
+      const unsigned char* u5 = ww.u[4];
+      wg::produce<U5a>(ring, u5);
+      wg::produce<U5b>(ring, u5 + U5a::BYTES);
+      wg::produce<U5c>(ring, u5 + U5a::BYTES + U5b::BYTES);
+      wg::produce<U5d>(ring, u5 + U5a::BYTES + U5b::BYTES + U5c::BYTES);
+      // R1 is free once gp5 is formed: the y0 and y1 windows into it
+      wg::mbar_wait(bar_r1, 0);
+      wg::mbar_expect_tx(bar_m01, 2 * M0_B + M1_B);
+      wg::tma_load_4d(s0 + M0_AT, &tm0e, l0, 0, o0r, b, bar_m01);
+      wg::tma_load_4d(s0 + M0_AT + M0_B, &tm0o, l0, 0, o0r, b, bar_m01);
+      wg::tma_load_4d(s0 + M1_AT, &tm1, l12, 0, o1r, b, bar_m01);
+      wg::produce<U3>(ring, ww.u[3]);
+      wg::produce<U2>(ring, ww.u[2]);
+      const unsigned char* u1 = ww.u[1];
+      wg::produce<U1a>(ring, u1);
+      wg::produce<U1b>(ring, u1 + U1a::BYTES);
+      wg::produce<U1c>(ring, u1 + U1a::BYTES + U1b::BYTES);
+      wg::produce<U1d>(ring, u1 + U1a::BYTES + U1b::BYTES + U1c::BYTES);
+      wg::produce<U0>(ring, ww.u[0]);
+    }
+    return;
+  }
 
-  const long long mb0 = b * H * 32 * wlh;  // this image's masks
-  const long long mb64 = b * H1 * 64 * wlh;
-  const long long mb32 = b * H1 * 32 * wlh;
-  stage_mask<K::N4, 64, 1, W3>(s3, m3 + mb64, nullptr, o4r, l3, H1, wlh);
-  stage_mask<K::N1, 64, 1, W12>(s1, m1 + mb64, nullptr, o1r, l12, H1, wlh);
-  stage_mask<K::N1, 32, 1, W12>(s2, m2 + mb32, nullptr, o1r, l12, H1, wlh);
-  stage_mask<K::N0, 32, 2, W12>(s0, m0e + mb0, m0o + mb0, o0r, l0, H, wlh);
-  // gp5, overlapped with the mask copies
-  bwd_tc::load_gp5(Z, y5, g5, b, H, wl5);
-  cp_async_wait_all();
-  __syncthreads();
-  bwd_tc::chain(sm, u0, u1, u2, u3, u5, StagedMask<32, W12, true>{s0, l0},
-                StagedMask<64, W12, false>{s1, l12},
-                StagedMask<32, W12, false>{s2, l12},
-                StagedMask<64, W3, false>{s3, l3}, gxe, gxo, b, H, wlh);
+  using bwd_tc::P0;
+  using bwd_tc::P2;
+  using bwd_tc::P4;
+  using bwd_tc::P5;
+  bf16* X = reinterpret_cast<bf16*>(sm);  // gs4 window
+  bf16* Y = X + bwd_tc::SZ_X;             // gp3, then gp1
+  bf16* Z = Y + bwd_tc::SZ_Y;             // gp5, then gp2, then gp0
+  // gp5 = T(g5 m(y5)) from the boxes into Z [N5^2][P5], zero outside the
+  // image; then R1 is handed back to the producer
+  wg::Lap lap;
+  wg::mbar_wait(bar_in, 0);
+  lap(wg::P_INPUT);
+  {
+    const bf16* yb = reinterpret_cast<const bf16*>(sm + R1_AT);
+    const bf16* gb = reinterpret_cast<const bf16*>(sm + R1_AT + Y5_B);
+    const int k0 = o5c + 1 - l5;  // the box lane of tile column 0
+    // a thread takes one (row, channel) line's 8 columns: 4-byte reads of
+    // the boxes, 2-byte stores of neighbouring channels
+    for (int idx = threadIdx.x; idx < K::N5 * 128; idx += wg::NC) {
+      const int co = idx % 128, r = idx / 128;
+      const int gr = o5r + r;
+      const uint32_t* y4 =
+          reinterpret_cast<const uint32_t*>(yb + idx * WL5 + k0);
+      const uint32_t* g4 =
+          reinterpret_cast<const uint32_t*>(gb + idx * WL5 + k0);
+#pragma unroll
+      for (int k2 = 0; k2 < K::N5 / 2; ++k2) {
+        const uint32_t yv = y4[k2], gv = g4[k2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int k = 2 * k2 + h, gc = o5c + k;
+          const float y = __uint_as_float((h ? yv >> 16 : yv) << 16);
+          const float g = __uint_as_float((h ? gv >> 16 : gv) << 16);
+          float v = 0.f;
+          if (gr >= 0 && gr < H5 && gc >= 0 && gc < H5)
+            v = g * (y > 0.f ? 1.f : LEAKY);
+          Z[(r * K::N5 + k) * P5 + co] = __float2bfloat16_rn(v);
+        }
+      }
+    }
+  }
+  // the boxes' reads done (generic proxy) before the tensor unit rewrites
+  // R1 (async proxy)
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  lap(wg::P_LOAD);
+  wg::sync_consumers();
+  if ((threadIdx.x & 31) == 0) wg::mbar_arrive(bar_r1);
+  lap(wg::P_SYNC);
+  wg::mbar_wait(bar_m32, 0);
+  lap(wg::P_INPUT);
+  const BoxMask<64, K::N4, false> m3{sm + M3_AT, l3};
+  const BoxMask<32, K::N1, false> m2{sm + M2_AT, l12};
+  const BoxMask<64, K::N1, false> m1{sm + M1_AT, l12};
+  const BoxMask<32, K::N0, true> m0{sm + M0_AT, l0};
+  // gs4 (X) and gp3 (Y) from gp5 (Z)
+  {
+    const bwd_tc::EpiGs4<BoxMask<64, K::N4, false>> epi{X, Y, m3, o4r, o4c,
+                                                        H1};
+    constexpr int NS = K::N4 / 2;
+    wg::conv<U5a, P5>(ring, Z, RowsT2<0, 0>{NS, K::N5}, epi, lap);
+    wg::conv<U5b, P5>(ring, Z, RowsT2<0, 1>{NS, K::N5}, epi, lap);
+    wg::conv<U5c, P5>(ring, Z, RowsT2<1, 0>{NS, K::N5}, epi, lap);
+    wg::conv<U5d, P5>(ring, Z, RowsT2<1, 1>{NS, K::N5}, epi, lap);
+  }
+  wg::sync_consumers();
+  lap(wg::P_SYNC);
+  // gp2 (Z) from gp3 (Y)
+  wg::conv<U3, P4>(ring, Y, RowsT1<3, 2>{K::N1, K::N4},
+                   bwd_tc::EpiGate<P2, false, BoxMask<32, K::N1, false>>{
+                       Z, K::N1, m2, o1r, o1c, H1, nullptr},
+                   lap);
+  wg::sync_consumers();
+  lap(wg::P_SYNC);
+  wg::mbar_wait(bar_m01, 0);
+  lap(wg::P_INPUT);
+  // gp1 (Y) from gp2 (Z) and gs4 (X)
+  wg::conv<U2, P2>(ring, Z, RowsT1<1, 0>{K::N1, K::N1},
+                   bwd_tc::EpiGate<P4, true, BoxMask<64, K::N1, false>>{
+                       Y, K::N1, m1, o1r, o1c, H1, X},
+                   lap);
+  wg::sync_consumers();
+  lap(wg::P_SYNC);
+  // gp0 (Z) from gp1 (Y)
+  {
+    const bwd_tc::EpiGate<P0, false, BoxMask<32, K::N0, true>> epi{
+        Z, K::N0, m0, o0r, o0c, H, nullptr};
+    constexpr int NS = K::N0 / 2;
+    wg::conv<U1a, P4>(ring, Y, RowsT2<0, 0>{NS, K::N1}, epi, lap);
+    wg::conv<U1b, P4>(ring, Y, RowsT2<0, 1>{NS, K::N1}, epi, lap);
+    wg::conv<U1c, P4>(ring, Y, RowsT2<1, 0>{NS, K::N1}, epi, lap);
+    wg::conv<U1d, P4>(ring, Y, RowsT2<1, 1>{NS, K::N1}, epi, lap);
+  }
+  wg::sync_consumers();
+  lap(wg::P_SYNC);
+  // gx from gp0 (Z)
+  const long long gb = (long long)b * H * 8 * wlh;
+  const bwd_tc::EpiGx gx{gxe + gb, gxo + gb, R0, C0, wlh, H};
+  wg::conv<U0, P0>(ring, Z, RowsT1<3, 3>{K::TX, K::N0}, gx, lap);
+  gx.zero_borders();
+  lap(wg::P_STORE);
+}
+
+// cuTensorMapEncodeTiled from the driver (looked up at run time: the
+// library links no driver stub)
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
+                                cuuint32_t, void*, const cuuint64_t*,
+                                const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static EncodeTiled fn = [] {
+    void* h = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
+    if (h == nullptr) h = dlopen("libcuda.so.1", RTLD_NOW);
+    return h ? reinterpret_cast<EncodeTiled>(
+                   dlsym(h, "cuTensorMapEncodeTiled"))
+             : nullptr;
+  }();
+  return fn;
+}
+
+// The tensor map of a planar [B, rows, C, wl] tensor (int8, or bfloat16
+// with bf16) with boxes of bw lanes x C channels x br rows of one image.
+// Returns 0, or an error code past the runtime's (1000 + the driver's).
+int planar_map(CUtensorMap* m, const void* p, bool bf16, int B, int rows,
+               int C, int wl, int bw, int br) {
+  EncodeTiled f = encoder();
+  if (f == nullptr) return 999;
+  const cuuint64_t es = bf16 ? 2 : 1;
+  const cuuint64_t dims[4] = {(cuuint64_t)wl, (cuuint64_t)C,
+                              (cuuint64_t)rows, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {wl * es, (cuuint64_t)C * wl * es,
+                                 (cuuint64_t)rows * C * wl * es};
+  const cuuint32_t box[4] = {(cuuint32_t)bw, (cuuint32_t)C, (cuuint32_t)br,
+                             1};
+  const cuuint32_t el[4] = {1, 1, 1, 1};
+  const CUresult r = f(
+      m,
+      bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_UINT8,
+      4, const_cast<void*>(p), dims, strides, box, el,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : 1000 + (int)r;
 }
 
 int launch_f32(const void* const* m, const void* y5, const void* g5,
@@ -202,32 +421,58 @@ int launch_f32(const void* const* m, const void* y5, const void* g5,
   return (int)cudaGetLastError();
 }
 
-int launch_tc(const void* const* m, const void* y5, const void* g5,
+int launch_wg(const void* const* m, const void* y5, const void* g5,
               const void* const* u, void* gxe, void* gxo, int B, int H,
               int wlh, int wl5, cudaStream_t s) {
+  using K = Chain;
+  const int H1 = H / 2, H5 = H / 4;
+  CUtensorMap tm[7];
+  int err = 0;
+  using k2::WL;
+  using k2::WL5;
+  err = err ? err : planar_map(&tm[0], m[0], false, B, H, 32, wlh, WL, K::N0);
+  err = err ? err : planar_map(&tm[1], m[1], false, B, H, 32, wlh, WL, K::N0);
+  err = err ? err : planar_map(&tm[2], m[2], false, B, H1, 64, wlh, WL, K::N1);
+  err = err ? err : planar_map(&tm[3], m[3], false, B, H1, 32, wlh, WL, K::N1);
+  err = err ? err : planar_map(&tm[4], m[4], false, B, H1, 64, wlh, WL, K::N4);
+  err = err ? err : planar_map(&tm[5], y5, true, B, H5, 128, wl5, WL5, K::N5);
+  err = err ? err : planar_map(&tm[6], g5, true, B, H5, 128, wl5, WL5, K::N5);
+  if (err) return err;
   cudaError_t e = cudaFuncSetAttribute(
-      fused_stem_bwd_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      tc::SMEM);
+      fused_stem_bwd_wg_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      k2::SMEM);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid(H / Chain::TX, H / Chain::TX, B);
-  fused_stem_bwd_tc_kernel<<<grid, NT, tc::SMEM, s>>>(
-      static_cast<const int8_t*>(m[0]), static_cast<const int8_t*>(m[1]),
-      static_cast<const int8_t*>(m[2]), static_cast<const int8_t*>(m[3]),
-      static_cast<const int8_t*>(m[4]), static_cast<const bf16*>(y5),
-      static_cast<const bf16*>(g5), static_cast<const uint2*>(u[0]),
-      static_cast<const uint2*>(u[1]), static_cast<const uint2*>(u[2]),
-      static_cast<const uint2*>(u[3]), static_cast<const uint2*>(u[4]),
-      static_cast<bf16*>(gxe), static_cast<bf16*>(gxo), H, wlh, wl5);
+  const k2::Weights ww = {{static_cast<const unsigned char*>(u[0]),
+                           static_cast<const unsigned char*>(u[1]),
+                           static_cast<const unsigned char*>(u[2]),
+                           static_cast<const unsigned char*>(u[3]),
+                           static_cast<const unsigned char*>(u[4])}};
+  dim3 grid(H / K::TX, H / K::TX, B);
+  fused_stem_bwd_wg_kernel<<<grid, wg::NTH, k2::SMEM, s>>>(
+      tm[0], tm[1], tm[2], tm[3], tm[4], tm[5], tm[6], ww,
+      static_cast<bf16*>(gxe), static_cast<bf16*>(gxo), H, wlh);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+#ifdef APFP_PROFILE
+// The cycle accounts (stem_common.cuh: wg::Lap) into out[PROF_N], then
+// zeroed
+extern "C" int apfp_prof_take(unsigned long long* out) {
+  cudaError_t e = cudaMemcpyFromSymbol(out, wg::prof_cycles,
+                                       sizeof(wg::prof_cycles));
+  if (e != cudaSuccess) return (int)e;
+  static const unsigned long long zero[wg::PROF_N] = {};
+  return (int)cudaMemcpyToSymbol(wg::prof_cycles, zero, sizeof(zero));
+}
+#endif
+
 // dtype: 0 = float32, 1 = bfloat16 (y5, g5, weights and gx). Masks int8;
 // v0 .. v5 the swapped-channel weights of convs 0, 1, 2, 3, 5 (read in
-// float32), u0 .. u5 the same in mma.sync's fragment order (read in
-// bfloat16; null in float32). H must be a multiple of 16. Returns
-// cudaGetLastError().
+// float32), u0 .. u5 the same packed for wgmma (wg_weights, conv1^T's and
+// conv5^T's per parity; read in bfloat16; null in float32). H must be a
+// multiple of 16. Returns cudaGetLastError() (or a tensor map's error).
 extern "C" int apfp_fused_stem_bwd(const void* m0e, const void* m0o,
                                    const void* m1, const void* m2,
                                    const void* m3, const void* y5,
@@ -243,7 +488,7 @@ extern "C" int apfp_fused_stem_bwd(const void* m0e, const void* m0o,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
     const void* u[5] = {u0, u1, u2, u3, u5};
-    return launch_tc(m, y5, g5, u, gxe, gxo, B, H, wlh, wl5, s);
+    return launch_wg(m, y5, g5, u, gxe, gxo, B, H, wlh, wl5, s);
   }
   const void* v[5] = {v0, v1, v2, v3, v5};
   return launch_f32(m, y5, g5, v, gxe, gxo, B, H, wlh, wl5, s);
@@ -253,7 +498,8 @@ extern "C" int apfp_fused_stem_bwd(const void* m0e, const void* m0o,
 // info[1] the dynamic shared memory bytes of a launch, info[2] the blocks
 // one multiprocessor holds. Returns the CUDA error.
 extern "C" int apfp_fused_stem_bwd_info(int dtype, int* info) {
-  if (dtype == 1) return info_of(fused_stem_bwd_tc_kernel, tc::SMEM, info);
+  if (dtype == 1)
+    return info_of(fused_stem_bwd_wg_kernel, k2::SMEM, info, wg::NTH);
   return info_of(fused_stem_bwd_kernel<float>,
                  sizeof(float) * (size_t)Chain::ELEMS, info);
 }

@@ -5,11 +5,15 @@
 // stem's forward conv stage on CUDA-core FMAs (conv_stage: float32 K1, K5's
 // recompute and the batch-on-lanes forward) and its input-cotangent chain
 // on CUDA-core FMAs (grad_chain, chain_tail: float32 K2, K5 and, past its
-// first stage, the float32 batch-on-lanes backward); and the tensor-core
-// implicit GEMM (mma_conv, on mma.sync) with K1's epilogue (EpiConv) that
-// the bfloat16 K1, K5 and batch-on-lanes forward run instead, with the
-// bfloat16 chain (bwd_tc) that K2, K5 and the batch-on-lanes backward
-// share.
+// first stage, the float32 batch-on-lanes backward); the tensor-core
+// implicit GEMM on mma.sync (mma_conv) with K1's epilogue (EpiConv), which
+// the bfloat16 K5 and batch-on-lanes forward run, and the bfloat16 chain
+// (bwd_tc) that K5 and the batch-on-lanes backward share; and the same
+// GEMMs built for Hopper's own units (wg: wgmma with the weights streamed
+// into shared memory by bulk copies, a producer warp, mbarriers), which the
+// bfloat16 K1 and K2 run with EpiConv and bwd_tc's epilogues. A wgmma k16
+// step sums as an mma.sync one, bit for bit (checked on the card), so the
+// two families agree exactly where they sum alike.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -81,17 +85,20 @@ __device__ __forceinline__ void load8s(const __nv_bfloat16* p, float* w) {
 
 // Zero elements [l, wl) of n_lines consecutive lines of wl elements from p
 // (p 16-byte aligned, a line 16 bytes' multiple): single elements up to
-// the first 16-byte boundary, 16-byte stores past it
+// the first 16-byte boundary, 16-byte stores past it. Threads 0 .. nthr - 1
+// share the work (nthr 0: the whole block)
 template <typename T>
-__device__ void zero_tail(T* __restrict__ p, int n_lines, int l, int wl) {
+__device__ void zero_tail(T* __restrict__ p, int n_lines, int l, int wl,
+                          int nthr = 0) {
   constexpr int V = 16 / (int)sizeof(T);
+  const int step = nthr ? nthr : (int)blockDim.x;
   const int a = min((l + V - 1) / V * V, wl);
-  for (int idx = threadIdx.x; idx < n_lines * (V - 1); idx += blockDim.x) {
+  for (int idx = threadIdx.x; idx < n_lines * (V - 1); idx += step) {
     const int k = idx % (V - 1), line = idx / (V - 1);
     if (l + k < a) p[(long long)line * wl + l + k] = T(0.f);
   }
   const int nv = (wl - a) / V;
-  for (int idx = threadIdx.x; idx < n_lines * nv; idx += blockDim.x) {
+  for (int idx = threadIdx.x; idx < n_lines * nv; idx += step) {
     const int line = idx / nv, k = idx - line * nv;
     reinterpret_cast<uint4*>(p + (long long)line * wl + a)[k] =
         make_uint4(0, 0, 0, 0);
@@ -112,10 +119,10 @@ __device__ __forceinline__ void copy_to_shared(T* __restrict__ dst,
 
 // A kernel as the card sees it, for the kernels' *_info entry points:
 // info[0] registers a thread, info[1] the dynamic shared memory bytes of a
-// launch (smem), info[2] the blocks of NT threads one multiprocessor holds.
-// Returns the CUDA error.
+// launch (smem), info[2] the blocks of `threads` threads one
+// multiprocessor holds. Returns the CUDA error.
 template <class F>
-int info_of(F kernel, size_t smem, int* info) {
+int info_of(F kernel, size_t smem, int* info, int threads = NT) {
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
@@ -123,8 +130,8 @@ int info_of(F kernel, size_t smem, int* info) {
   e = cudaFuncGetAttributes(&a, kernel);
   if (e != cudaSuccess) return (int)e;
   int blocks = 0;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, NT,
-                                                     smem);
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
+                                                     threads, smem);
   info[0] = a.numRegs;
   info[1] = (int)smem;
   info[2] = blocks;
@@ -618,17 +625,6 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b.x), "r"(b.y));
 }
 
-// 4 bytes device -> shared memory, asynchronously (both 4-byte aligned)
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
-               "l"(src)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
 // two channels (n even) rounded to bfloat16, one 4-byte store
 __device__ __forceinline__ void store2(bf16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
@@ -1006,8 +1002,8 @@ struct EpiGx {
         ((idx & 1) ? gxo : gxe)[r0 + (long long)(idx >> 1) * wl] =
             __float2bfloat16_rn(0.f);
     if (blockIdx.x == gridDim.x - 1) {
-      zero_tail(gxe + r0, K::TX * 8, H / 2 + 1, wl);
-      zero_tail(gxo + r0, K::TX * 8, H / 2 + 1, wl);
+      zero_tail(gxe + r0, K::TX * 8, H / 2 + 1, wl, NT);
+      zero_tail(gxo + r0, K::TX * 8, H / 2 + 1, wl, NT);
     }
   }
 };
@@ -1188,5 +1184,495 @@ __device__ void stage_signs(unsigned char* __restrict__ s,
 }
 
 }  // namespace bwd_tc
+
+// ---------------------------------------------------------------------------
+// Hopper's own units (the bfloat16 K1 and K2): wgmma, bulk copies, TMA
+// ---------------------------------------------------------------------------
+// A conv (or adjoint) stage is the implicit GEMM of mma_conv, run by
+// warpgroups: wgmma.mma_async.m64nNk16 (bfloat16 in, float32 accumulate)
+// with A from registers, loaded by ldmatrix from the [pos][pitch]
+// activation tile exactly as mma_conv loads it (each lane the address of
+// its own position's row: tap shifts and stride-2 gathers stay address
+// arithmetic), and B from shared memory. Each warpgroup item is MT blocks
+// of 64 rows x N/NG channels; per 16-deep step its warps load their 16
+// rows of each block and the warpgroup issues MT wgmmas on one
+// descriptor. The step order is mma_conv's (taps outer, 16-channel steps
+// inner, one float32 accumulator an output starting from zero, bias and
+// leaky in the epilogue), so a result differs from mma_conv's only if a
+// wgmma k16 step rounds otherwise than an mma.sync one (tested on the
+// card: tests/test_torch_gpu.py, chip_smoke.py phase 5).
+//
+// The weights are packed on the host (ops/stem_fused.py: wg_weights) per
+// GEMM as [chunk][N][64] bfloat16: the GEMM's depth (taps x K, in step
+// order) cut into 64-deep chunks (the last zero-padded), each row n of a
+// chunk 128 bytes of k, its eight 16-byte units swizzled as the
+// descriptor's 128-byte swizzle reads them: (k, n) of chunk c at byte
+//   n * 128 + (((k % 64) / 8) ^ (n % 8)) * 16 + (k % 8) * 2.
+// A GEMM's packed weights reach shared memory by cp.async.bulk (UBLKCP)
+// into a ring of slots, issued by a producer warp beside the consumer
+// warpgroups and guarded by mbarriers (full: the copy landed; empty: all
+// consumer warps' wgmmas that read it completed); a slot holds several
+// small chunks, or a large chunk spans several slots (each warpgroup's
+// channel group in one). The producer walks the same GEMM list as the
+// consumers: a GEMM whose passes over the tile all fit the ring is loaded
+// once and read by every pass (resident), another is streamed again each
+// pass. A block's registers are allotted by warpgroup, so the producer
+// warp's group holds as many as a consumer's (168 a thread for three).
+
+namespace wg {
+
+constexpr int NC = 256;       // consumer threads: two warpgroups
+constexpr int NTH = NC + 32;  // and the producer warp
+constexpr int CONSUMER_WARPS = NC / 32;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+// Wait for the completion of the barrier's phase of the given parity: a
+// polling loop inside one asm block. No exit but completion: a bounded
+// wait that traps, or a branch of the program's own, gives ptxas a
+// divergent path around which it serializes the in-flight wgmmas.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+// the barriers' initialisation made visible to the async proxy
+__device__ __forceinline__ void fence_barrier_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// bytes (a multiple of 16) device -> shared memory by one bulk copy,
+// completing on bar (cp.async.bulk: SASS UBLKCP)
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+// one box of a 4-d tensor map (innermost coordinate first) into shared
+// memory, completing on bar (cp.async.bulk.tensor: SASS UTMALDG); positions
+// outside the tensor arrive as zeros
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const void* map,
+                                            int c0, int c1, int c2, int c3,
+                                            uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3), "r"(bar)
+      : "memory");
+}
+
+// the consumers' own barrier (named barrier 1; the producer warp never
+// joins it)
+__device__ __forceinline__ void sync_consumers() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(NC) : "memory");
+}
+
+__device__ __forceinline__ void fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// The descriptor of a K-major B of 8-row groups 1024 bytes apart, rows of
+// 128 bytes with the 128-byte swizzle, starting at shared address a (a
+// chunk's row 0 plus 32 bytes a 16-deep step: the swizzle is applied to
+// the address bits, so chunks are 1024-byte aligned)
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t a) {
+  return (uint64_t)((a & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+// D[64 x N] += A[64 x 16] B[16 x N]: A from registers (each warp of the
+// warpgroup its 16 rows, mma.m16n8k16's A fragment), B by descriptor, d as
+// m16n8's accumulators repeated over N / 8
+template <int N>
+__device__ __forceinline__ void mma_async(float (&d)[N / 2],
+                                          const uint32_t (&a)[4], uint64_t b);
+
+template <>
+__device__ __forceinline__ void mma_async<8>(float (&d)[4],
+                                              const uint32_t (&a)[4],
+                                              uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, %8, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void mma_async<32>(float (&d)[16],
+                                              const uint32_t (&a)[4],
+                                              uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void mma_async<64>(float (&d)[32],
+                                              const uint32_t (&a)[4],
+                                              uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// One GEMM of a kernel's list: NTAP taps of depth KT (a multiple of 16),
+// N output channels in NG groups, M rows in items of MT 64-row blocks (an
+// odd item count padded by an item of rows past M, computed and dropped),
+// each of the two consumer warpgroups one item a pass. Its
+// packed weights stream through a ring of STAGES slots of SLOT bytes
+// (powers of two times 1 KB): CPS chunks a slot, or a chunk over SPC slots
+// (each channel group's part in one). Where a GEMM of several passes fits
+// the ring (RES), the producer loads it once and every pass reads the same
+// slots; otherwise each pass streams it again.
+template <int NTAP_, int KT_, int N_, int NG_, int MT_, int M_, int SLOT_,
+          int STAGES_>
+struct Gemm {
+  static constexpr int NTAP = NTAP_, KT = KT_, N = N_, NG = NG_, MT = MT_,
+                       M = M_, SLOT = SLOT_;
+  static constexpr int NN = N / NG;           // channels an item
+  static constexpr int NSTEP = NTAP * KT / 16;  // 16-deep steps
+  static constexpr int NCH = (NSTEP + 3) / 4;   // 64-deep chunks
+  static constexpr int CHUNK = N * 128;         // bytes a chunk
+  static constexpr int ITEMS0 = ((M + 63) / 64 + MT - 1) / MT * NG;
+  static constexpr int ITEMS = ITEMS0 + ITEMS0 % 2;
+  static constexpr int NPASS = ITEMS / 2;
+  static constexpr int BYTES = NCH * CHUNK;  // the packed weights
+  static constexpr int CPS = CHUNK < SLOT ? SLOT / CHUNK : 1;
+  static constexpr int SPC = CHUNK > SLOT ? CHUNK / SLOT : 1;
+  static constexpr int NSL = (BYTES + SLOT - 1) / SLOT;  // slots a pass
+  static constexpr bool RES = NPASS > 1 && NSL <= STAGES_;
+  static_assert(KT % 16 == 0 && N % 8 == 0 && NN % 8 == 0 && NN <= 64 &&
+                    NN * 128 <= SLOT && CHUNK % SLOT * (SLOT % CHUNK) == 0,
+                "wgmma tiling");
+  // chunk c's first slot (counted from the GEMM's first), and the slot and
+  // byte offset of its channel group ng
+  static __device__ int first_slot(int c) {
+    return SPC > 1 ? c * SPC : c / CPS;
+  }
+  static __device__ int slot_of(int c, int ng) {
+    return first_slot(c) + (SPC > 1 ? ng * NN * 128 / SLOT : 0);
+  }
+  static __device__ int offset_of(int c, int ng) {
+    return SPC > 1 ? ng * NN * 128 % SLOT : (c % CPS) * CHUNK + ng * NN * 128;
+  }
+  // a chunk that opens new slots, and one whose completion frees slots
+  static __device__ bool opens(int c) { return SPC > 1 || c % CPS == 0; }
+  static __device__ bool closes(int c) {
+    return SPC > 1 || c % CPS == CPS - 1 || c == NCH - 1;
+  }
+};
+
+// The ring of weight stages: N slots of SB bytes (1024-aligned), a full and
+// an empty barrier each; a role's position in it (slot, phase)
+template <int N_, int SB_>
+struct Ring {
+  static constexpr int N = N_, SB = SB_;
+  uint32_t slots, full, empty;  // shared addresses
+  int slot, phase;
+  __device__ void advance() {
+    if (++slot == N) {
+      slot = 0;
+      phase ^= 1;
+    }
+  }
+  // the position k slots ahead
+  __device__ Ring ahead(int k) const {
+    Ring q = *this;
+    const int s = slot + k;
+    q.slot = s % N;
+    q.phase = phase ^ ((s / N) & 1);
+    return q;
+  }
+  __device__ uint32_t at() const { return slots + slot * SB; }
+  __device__ uint32_t full_bar() const { return full + 8 * slot; }
+  __device__ uint32_t empty_bar(int s) const { return empty + 8 * s; }
+};
+
+// bytes a ring needs past its base: the alignment slack, slots, barriers
+constexpr int ring_bytes(int n, int sb) { return 1024 + n * sb + 16 * n; }
+
+// The ring at shared address base (rounded up to 1024 bytes): N slots of
+// SB bytes, then the 2 N barriers; initialised by thread 0, visible to the
+// whole block after the __syncthreads that must follow
+template <int N, int SB>
+__device__ __forceinline__ Ring<N, SB> make_ring(uint32_t base) {
+  Ring<N, SB> r;
+  r.slots = (base + 1023) & ~1023u;
+  r.full = r.slots + N * SB;
+  r.empty = r.full + 8 * N;
+  r.slot = 0;
+  r.phase = 0;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < N; ++i) {
+      mbar_init(r.full + 8 * i, 1);
+      mbar_init(r.empty + 8 * i, CONSUMER_WARPS);
+    }
+    fence_barrier_init();
+  }
+  return r;
+}
+
+// The producer's part of GEMM G (one thread): its packed weights a slot at
+// a time, each by one bulk copy once all consumer warps freed the slot;
+// once (RES) or once a pass
+template <class G, class R>
+__device__ __forceinline__ void produce(R& r, const unsigned char* w) {
+  for (int p = 0; p < (G::RES ? 1 : G::NPASS); ++p)
+    for (int si = 0; si < G::NSL; ++si) {
+      const int bytes = min(G::SLOT, G::BYTES - si * G::SLOT);
+      mbar_wait(r.empty_bar(r.slot), r.phase ^ 1);
+      mbar_expect_tx(r.full_bar(), bytes);
+      bulk_load(r.at(), w + si * G::SLOT, bytes, r.full_bar());
+      r.advance();
+    }
+}
+
+// A consumer warp is done with slot s: its lane 0 arrives on the slot's
+// empty barrier (the eight consumer warps free it together), by a
+// predicated arrive, not a branch
+template <class R>
+__device__ __forceinline__ void release(const R& r, int s) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.eq.u32 p, %1, 0;\n"
+      "@p mbarrier.arrive.shared::cta.b64 _, [%0];\n}\n" ::"r"(
+          r.empty_bar(s)),
+      "r"(threadIdx.x & 31)
+      : "memory");
+}
+
+// Cycle accounting of the wgmma kernels, compiled in only with
+// -DAPFP_PROFILE (ops/_cuda.py: profiled builds such a copy, chip_smoke.py
+// phase 5 reads it): thread 0 of each block adds the clock64 cycles since
+// its previous lap to the category a lap names (by a predicated
+// reduction, no branch). Otherwise every lap is empty.
+enum Prof { P_LOAD, P_INPUT, P_WAIT, P_MMA, P_EPI, P_MASK, P_STORE, P_SYNC,
+            PROF_N };
+#ifdef APFP_PROFILE
+__device__ unsigned long long prof_cycles[PROF_N];
+struct Lap {
+  long long t;
+  __device__ Lap() { t = clock64(); }
+  __device__ void operator()(int cat) {
+    const long long n = clock64();
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.eq.u32 p, %2, 0;\n"
+        "@p red.global.add.u64 [%0], %1;\n}\n" ::"l"(&prof_cycles[cat]),
+        "l"(n - t), "r"(threadIdx.x)
+        : "memory");
+    t = n;
+  }
+};
+#else
+struct Lap {
+  __device__ void operator()(int) const {}
+};
+#endif
+
+// An item of GEMM G for a consumer thread: its 64-row blocks' A rows at tap
+// 0 (rows past M repeat the last; their sums are dropped; a tap shifts
+// every row by the same offset), its channel group, and the epilogue of
+// its accumulators
+template <class G, int IP, class Rows>
+struct Item {
+  static constexpr int MT = G::MT, NN = G::NN, KS = G::KT / 16;
+  const bf16* a0[MT];
+  int mg, ng, d00;
+  __device__ Item(const bf16* in, const Rows& rows, int p) {
+    const int t = threadIdx.x;
+    const int w = (t >> 5) & 3, lane = t & 31;
+    const int it = 2 * p + (t >> 7);
+    mg = it / G::NG;
+    ng = it - mg * G::NG;
+    int tap;
+#pragma unroll
+    for (int b = 0; b < MT; ++b) {
+      const int m = min((mg * MT + b) * 64 + 16 * w + (lane & 15), G::M - 1);
+      a0[b] = in + rows(m, 0, tap) * IP + (lane >> 4) * 8;
+    }
+    d00 = rows(0, 0, tap);
+  }
+  // the A fragments of chunk c's (up to) four steps
+  __device__ void load(uint32_t (&a)[4][MT][4], const Rows& rows,
+                       int c) const {
+    int tap;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int s = 4 * c + j;
+      if (s < G::NSTEP) {
+        const int d = (rows(0, s / KS, tap) - d00) * IP + (s % KS) * 16;
+#pragma unroll
+        for (int b = 0; b < MT; ++b) ldsm_x4(a[j][b], a0[b] + d);
+      }
+    }
+  }
+  // accumulator (b, e): row (mg MT + b) 64 + 16 w + lane/4 (+8 for
+  // e % 4 >= 2), channels ng NN + 8 (e / 4) + 2 (lane % 4) (+1)
+  template <class Epi>
+  __device__ void epilogue(const float (&acc)[MT][NN / 2], const Rows& rows,
+                           const Epi& epi) const {
+    const int t = threadIdx.x;
+    const int w = (t >> 5) & 3, lane = t & 31;
+    const int g = lane >> 2, n0 = ng * NN + 2 * (lane & 3);
+#pragma unroll
+    for (int b = 0; b < MT; ++b)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = (mg * MT + b) * 64 + 16 * w + g + 8 * h;
+        if (m >= G::M) continue;
+        int oy, ox;
+        rows.out(m, oy, ox);
+#pragma unroll
+        for (int j = 0; j < NN / 8; ++j)
+          epi(oy, ox, n0 + 8 * j, acc[b][4 * j + 2 * h],
+              acc[b][4 * j + 2 * h + 1]);
+      }
+  }
+};
+
+// chunk c's wgmmas for one item: its (up to) four steps x MT blocks on the
+// descriptor of its channel group's part of the chunk, as one group
+template <class G, class R>
+__device__ __forceinline__ void issue(float (&acc)[G::MT][G::NN / 2],
+                                      const uint32_t (&a)[4][G::MT][4],
+                                      const R& r, int c, int ng) {
+  fence();
+  const uint64_t desc =
+      desc_sw128(r.ahead(G::slot_of(c, ng)).at() + G::offset_of(c, ng));
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    if (4 * c + j < G::NSTEP)
+#pragma unroll
+      for (int b = 0; b < G::MT; ++b)
+        mma_async<G::NN>(acc[b], a[j][b], desc + 2 * j);  // +32 bytes
+  commit();
+}
+
+// Wait for the slots chunk c opens (every warp waits for all of them: it
+// frees them all)
+template <class G, class R>
+__device__ __forceinline__ void wait_chunk(const R& r, int c, Lap& lap) {
+  if (!G::opens(c)) return;
+  lap(P_MMA);
+#pragma unroll
+  for (int k = 0; k < G::SPC; ++k) {
+    const R q = r.ahead(G::first_slot(c) + k);
+    mbar_wait(q.full_bar(), q.phase);
+  }
+  lap(P_WAIT);
+}
+
+// The consumers' part of GEMM G over in [pos][IP] (bfloat16, rows of IP * 2
+// bytes, a multiple of 16, 16-byte aligned), rows as mma_conv's Rows maps
+// them; each result pair (channels n, n+1 of one position) to
+// epi(oy, ox, n, v0, v1). Called by the consumer threads; passes unrolled
+// (a loop around the divergent epilogue makes ptxas serialize the wgmmas).
+// A chunk's steps are one wgmma group; while it runs, the warpgroup loads
+// the next chunk's A fragments (two register sets). A streamed GEMM's
+// slots are freed as the group of their last chunk completes; a resident
+// one waits for its slots in the first pass only and frees them after the
+// last.
+template <class G, int IP, class R, class Rows, class Epi>
+__device__ __forceinline__ void conv(R& r, const bf16* __restrict__ in,
+                                     const Rows& rows, const Epi& epi,
+                                     Lap& lap) {
+  constexpr int MT = G::MT, NN = G::NN;
+  static_assert(IP % 8 == 0 && Rows::NTAP == G::NTAP, "GEMM shape");
+#pragma unroll
+  for (int p = 0; p < G::NPASS; ++p) {
+    const Item<G, IP, Rows> item(in, rows, p);
+    float acc[MT][NN / 2];
+#pragma unroll
+    for (int b = 0; b < MT; ++b)
+#pragma unroll
+      for (int e = 0; e < NN / 2; ++e) acc[b][e] = 0.f;
+    uint32_t a[2][4][MT][4];  // chunk c's A fragments in set c & 1
+    item.load(a[0], rows, 0);
+#pragma unroll
+    for (int c = 0; c < G::NCH; ++c) {
+      if (!G::RES || p == 0) wait_chunk<G>(r, c, lap);
+      issue<G>(acc, a[c & 1], r, c, item.ng);
+      if (c > 0) {
+        wait<1>();  // chunk c - 1's group has completed
+        if (!G::RES && G::closes(c - 1))
+#pragma unroll
+          for (int k = 0; k < G::SPC; ++k)
+            release(r, r.ahead(G::first_slot(c - 1) + k).slot);
+      }
+      if (c + 1 < G::NCH) item.load(a[(c + 1) & 1], rows, c + 1);
+    }
+    wait<0>();
+    if (!G::RES) {
+#pragma unroll
+      for (int k = 0; k < G::SPC; ++k)
+        release(r, r.ahead(G::first_slot(G::NCH - 1) + k).slot);
+      r = r.ahead(G::NSL);
+    }
+    lap(P_MMA);
+    item.epilogue(acc, rows, epi);
+    lap(P_EPI);
+  }
+  if (G::RES) {
+#pragma unroll
+    for (int si = 0; si < G::NSL; ++si) release(r, r.ahead(si).slot);
+    r = r.ahead(G::NSL);
+  }
+}
+
+}  // namespace wg
 
 }  // namespace stem

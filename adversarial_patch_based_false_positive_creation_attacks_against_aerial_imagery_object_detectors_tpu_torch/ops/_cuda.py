@@ -66,16 +66,18 @@ SIGNATURES = {
     },
     "stem_fused": {
         # xe, xo, w0, w1, w2, w3, w5, b0, b1, b2, b3, b5, f0, f1, f2, f3,
-        # f5 (bfloat16 fragment-order weights or null), y5, m0e, m0o, m1,
-        # m2, m3 (save_acts masks or null), dtype, B, H, wlh, wl5, stream
+        # f5 (bfloat16 weights packed for wgmma, or null), y5, m0e, m0o,
+        # m1, m2, m3 (save_acts masks or null), dtype, B, H, wlh, wl5, stream
         "apfp_fused_stem_fwd": [_P] * 23 + [_I] * 5 + [_P],
         # dtype, save, info[3] (registers, dynamic shared bytes, blocks/SM)
         "apfp_fused_stem_fwd_info": [_I, _I, _P],
+        # a, b in fragment order, b packed, d_mma, d_wgmma, K, stream
+        "apfp_wgmma_bitcheck": [_P] * 5 + [_I, _P],
     },
     "stem_bwd": {
         # m0e, m0o, m1, m2, m3, y5, g5, v0, v1, v2, v3, v5, u0, u1, u2, u3,
-        # u5 (bfloat16 fragment-order weights or null), gxe, gxo, dtype, B,
-        # H, wlh, wl5, stream
+        # u5 (bfloat16 weights packed for wgmma, or null), gxe, gxo, dtype,
+        # B, H, wlh, wl5, stream
         "apfp_fused_stem_bwd": [_P] * 19 + [_I] * 5 + [_P],
         # dtype, info[3]
         "apfp_fused_stem_bwd_info": [_I, _P],
@@ -263,6 +265,65 @@ def lib(name: str) -> ctypes.CDLL:
             getattr(so, fn).restype = ctypes.c_int
         _libs[name] = so
         return so
+
+
+# the wgmma kernels' cycle categories (csrc/stem_common.cuh: wg::Prof), in
+# order
+PROF_CATEGORIES = ("load", "input_wait", "weight_wait", "mma", "epilogue",
+                   "masks", "store", "sync")
+
+
+@contextlib.contextmanager
+def profiled(*names: str):
+    """While the block runs, the libraries ``names`` are copies built with
+    ``-DAPFP_PROFILE`` (``build/lib<name>_prof_<hash>.so``): their wgmma
+    kernels keep cycle accounts by category (``prof_take``). The normal
+    libraries come back afterwards."""
+    digest = _sources_hash()
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    with _lock:
+        paths, procs = {}, {}
+        for name in names:
+            path = os.path.join(BUILD_DIR, f"lib{name}_prof_{digest}.so")
+            paths[name] = path
+            if not os.path.exists(path):
+                tmp = f"{path}.{os.getpid()}.tmp"
+                procs[name] = (subprocess.Popen(
+                    [_nvcc(), *NVCC_FLAGS, "-DAPFP_PROFILE", "-o", tmp,
+                     os.path.join(SRC_DIR, f"{name}.cu")],
+                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                    text=True), tmp)
+        for name, (proc, tmp) in procs.items():
+            log, _ = proc.communicate()
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({name}, profiled):\n{log}")
+            os.replace(tmp, paths[name])
+        saved = {name: _libs.get(name) for name in names}
+        for name, path in paths.items():
+            so = ctypes.CDLL(path)
+            for fn, argtypes in SIGNATURES[name].items():
+                getattr(so, fn).argtypes = argtypes
+                getattr(so, fn).restype = ctypes.c_int
+            so.apfp_prof_take.argtypes = [_P]
+            so.apfp_prof_take.restype = ctypes.c_int
+            _libs[name] = so
+    try:
+        yield
+    finally:
+        with _lock:
+            for name, so in saved.items():
+                if so is None:
+                    _libs.pop(name, None)
+                else:
+                    _libs[name] = so
+
+
+def prof_take(name: str) -> dict:
+    """The cycle accounts of profiled library ``name`` since the last take
+    ({category: cycles}, summed over the blocks' thread 0), then zeroed."""
+    buf = (ctypes.c_ulonglong * len(PROF_CATEGORIES))()
+    check(_libs[name].apfp_prof_take(buf), f"{name} prof_take")
+    return dict(zip(PROF_CATEGORIES, (int(v) for v in buf)))
 
 
 def stream_ptr(t: torch.Tensor) -> int:

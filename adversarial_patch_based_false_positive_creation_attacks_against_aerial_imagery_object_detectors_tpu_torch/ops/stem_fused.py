@@ -17,11 +17,13 @@ on a CPU tensor it runs its plain version, the same function as
 ``F.conv2d`` / ``F.conv_transpose2d`` chains with the kernel's rounding
 points (float32 accumulation; the compute dtype where the Pallas kernel
 stores). The kernels are bound by operations on the H100 (11.2 GFLOP per
-608^2 image each way); see the sources. In bfloat16, K1, K2 and K5 run their
-convs on the tensor cores and read the weights in ``mma.sync``'s fragment
-order as well (``mma_weights``, built once per weight tensor); K5 runs
-K1's tensor-core stages to recompute the masks and K2's tensor-core chain,
-so in either dtype its result equals K2's on K1's masks bit for bit.
+608^2 image each way); see the sources. In bfloat16, K1 and K2 run their
+convs on ``wgmma`` with the weights streamed into shared memory by bulk
+copies, packed on the host in the descriptor's swizzled chunks
+(``wg_weights``, built once per weight tensor). K5 runs ``mma.sync`` on
+weights in its fragment order (``mma_weights``): K1's sums to recompute
+the masks and K2's chain, in the order of K1's and K2's ``wgmma`` ones, so
+in either dtype its result equals K2's on K1's masks bit for bit.
 
 Three autograd Functions around them, the JAX package's three custom
 VJPs of the stem; each returns the input cotangent only (the victim's
@@ -119,6 +121,92 @@ def mma_weights_conv0(w: torch.Tensor) -> torch.Tensor:
     kh, kw, cin, cout = w.shape
     v = F.pad(w, (0, 0, 0, 8 - cin, 0, 4 - kw))
     return mma_weights(v.reshape(kh, 2, 16, cout))
+
+
+# ---------------------------------------------------------------------------
+# Weights packed for the wgmma kernels (the bfloat16 K1 and K2)
+# ---------------------------------------------------------------------------
+
+def wg_weights(w: torch.Tensor) -> torch.Tensor:
+    """One GEMM's weights ``[T, K, N]`` (T taps in the kernel's step
+    order, depth K a tap, N output channels) -> the chunks the kernels
+    stream into shared memory, ``[NCH, N, 64]``: the T*K rows of depth
+    cut into 64-deep chunks (the last padded with zeros), each chunk
+    ``N`` rows of 64 values of k (128 bytes, K-major) whose 16-byte units
+    are swizzled as ``wgmma``'s 128-byte-swizzle descriptor reads them:
+    element (k, n) of the GEMM lies in chunk ``k // 64`` at byte
+    ``n * 128 + (((k % 64) // 8) ^ (n % 8)) * 16 + (k % 8) * 2``
+    (``csrc/stem_common.cuh: wg``)."""
+    t, k, n = w.shape
+    depth = t * k
+    nch = -(-depth // 64)
+    flat = F.pad(w.reshape(depth, n), (0, 0, 0, nch * 64 - depth))
+    v = flat.reshape(nch, 64, n).transpose(1, 2).reshape(nch, n, 8, 8)
+    unit = torch.arange(8, device=w.device)
+    src = unit[None, :] ^ (torch.arange(n, device=w.device)[:, None] % 8)
+    out = torch.gather(v, 2, src[None, :, :, None].expand(nch, n, 8, 8))
+    return out.reshape(nch, n, 64).contiguous()
+
+
+def wg_weights_conv(w: torch.Tensor) -> torch.Tensor:
+    """A conv's (or a stride-1 adjoint's) ``[kh, kw, K, N]`` weights, taps
+    in row-major order (``RowsConv``, ``RowsT1``), packed by
+    ``wg_weights``."""
+    kh, kw, k, n = w.shape
+    return wg_weights(w.reshape(kh * kw, k, n))
+
+
+def wg_weights_conv0(w: torch.Tensor) -> torch.Tensor:
+    """conv0's HWIO ``[3, 3, 3, 32]`` as K1's conv0 steps through it
+    (``RowsConv0``): channels padded 3 -> 8 and a zero fourth column, each
+    16-deep step the taps kx = 2 pair, 2 pair + 1 of one row (6 steps),
+    packed by ``wg_weights``."""
+    kh, kw, cin, cout = w.shape
+    v = F.pad(w, (0, 0, 0, 8 - cin, 0, 4 - kw))
+    return wg_weights(v.reshape(kh * 2, 16, cout))
+
+
+# the four output parities (py, px) of a stride-2 adjoint and their taps
+# (dy, dx) in the kernel's order (stem_common.cuh: RowsT2)
+T2_PARITY_TAPS = tuple(
+    tuple(((2 * (i // (px + 1)) if py else 1, 2 * (i % (px + 1)) if px else 1)
+           for i in range((py + 1) * (px + 1))))
+    for py in (0, 1) for px in (0, 1))
+
+
+def wg_weights_t2(v: torch.Tensor) -> torch.Tensor:
+    """A stride-2 adjoint's ``[3, 3, K, N]`` weights (``stem_bwd_params``:
+    conv1's or conv5's) as K2 runs it, one GEMM per output parity: each
+    parity's taps (``T2_PARITY_TAPS``) packed by ``wg_weights``, the four
+    back to back."""
+    return torch.cat([wg_weights(torch.stack([v[dy, dx] for dy, dx in taps]))
+                      for taps in T2_PARITY_TAPS])
+
+
+def wgmma_bitcheck(a: torch.Tensor, b: torch.Tensor):
+    """``a`` [64, K] and ``b`` [K, 64] bfloat16 on a card (K a multiple of
+    64, at most 768) -> ``(d_mma, d_wgmma)``, each [64, 64] float32: the
+    product ``a @ b`` summed one 16-deep step after another from zero by
+    ``mma.sync.m16n8k16`` and by ``wgmma.m64n64k16`` (A from the same
+    ``ldmatrix`` registers), in one launch of a check kernel
+    (``csrc/stem_fused.cu: wgmma_bitcheck_kernel``). Equal bits say that
+    K5 and K8 (``mma_conv``) and the ``wgmma`` K1 and K2 sum alike."""
+    _cuda.require_cuda("wgmma_bitcheck", a, b)
+    k = a.shape[1]
+    if (a.dtype != torch.bfloat16 or b.dtype != torch.bfloat16
+            or tuple(a.shape) != (64, k) or tuple(b.shape) != (k, 64)
+            or k % 64 or k > 768):
+        raise ValueError(f"wgmma_bitcheck: a {tuple(a.shape)} {a.dtype}, "
+                         f"b {tuple(b.shape)} {b.dtype}")
+    frags = mma_weights(b.reshape(1, 1, k, 64))
+    packed = wg_weights(b[None])
+    dm = torch.empty((64, 64), dtype=torch.float32, device=a.device)
+    dw = torch.empty_like(dm)
+    _cuda.launch("wgmma_bitcheck", "stem_fused", "apfp_wgmma_bitcheck", a,
+                 a.data_ptr(), frags.data_ptr(), packed.data_ptr(),
+                 dm.data_ptr(), dw.data_ptr(), k)
+    torch.cuda.synchronize(a.device)
+    return dm, dw
 
 
 def _sign_mask(v: torch.Tensor) -> torch.Tensor:
@@ -225,14 +313,15 @@ def fused_stem_fwd(xe: torch.Tensor, xo: torch.Tensor, sp: StemParams,
                  for rows, c in ((h, 32), (h, 32), (h1, 64), (h1, 32),
                                  (h1, 64))]
     mask_ptrs = [m.data_ptr() for m in masks] or [None] * 5
-    # bfloat16 on the tensor cores (fragment order), float32 on sp
-    frags = ([_mma_cached(sp[0][0], mma_weights_conv0).data_ptr()]
-             + [_mma_cached(w).data_ptr() for w, _ in sp[1:]]
-             if dt == torch.bfloat16 else [None] * 5)
+    # bfloat16 on wgmma (packed chunks), float32 on sp
+    packed = ([_mma_cached(sp[0][0], wg_weights_conv0).data_ptr()]
+              + [_mma_cached(w, wg_weights_conv).data_ptr()
+                 for w, _ in sp[1:]]
+              if dt == torch.bfloat16 else [None] * 5)
     _cuda.launch(
         "fused_stem_fwd", "stem_fused", "apfp_fused_stem_fwd", xe,
         xe.data_ptr(), xo.data_ptr(), *[w.data_ptr() for w, _ in sp],
-        *[bias.data_ptr() for _, bias in sp], *frags, y5.data_ptr(),
+        *[bias.data_ptr() for _, bias in sp], *packed, y5.data_ptr(),
         *mask_ptrs, _cuda.DTYPE_CODES[dt], bsz, h, wlh, wl5)
     if save_acts:
         fused_stem_fwd.save_acts_launches += 1
@@ -315,15 +404,19 @@ def fused_stem_bwd_saved(acts, g5p: torch.Tensor, sbp: StemBwdParams):
     # the kernel writes every lane, borders and padding included
     gxe = torch.empty((bsz, h, 8, wlh), dtype=dt, device=y5p.device)
     gxo = torch.empty_like(gxe)
-    # bfloat16 on the tensor cores (fragment order), float32 on sbp
-    frags = ([_mma_cached(v).data_ptr() for v in sbp]
-             if dt == torch.bfloat16 else [None] * 5)
+    # bfloat16 on wgmma (packed chunks; conv1^T and conv5^T per output
+    # parity), float32 on sbp
+    builds = (wg_weights_conv, wg_weights_t2, wg_weights_conv,
+              wg_weights_conv, wg_weights_t2)
+    packed = ([_mma_cached(v, build).data_ptr()
+               for v, build in zip(sbp, builds)]
+              if dt == torch.bfloat16 else [None] * 5)
     _cuda.launch(
         "fused_stem_bwd_saved", "stem_bwd", "apfp_fused_stem_bwd", y5p,
         y0e.data_ptr(), y0o.data_ptr(), y1m.data_ptr(), y2m.data_ptr(),
         y3m.data_ptr(), y5p.data_ptr(), g5p.data_ptr(),
-        *[v.data_ptr() for v in sbp], *frags, gxe.data_ptr(), gxo.data_ptr(),
-        _cuda.DTYPE_CODES[dt], bsz, h, wlh, wl5)
+        *[v.data_ptr() for v in sbp], *packed, gxe.data_ptr(),
+        gxo.data_ptr(), _cuda.DTYPE_CODES[dt], bsz, h, wlh, wl5)
     fused_stem_bwd_saved.launches += 1
     return gxe, gxo
 

@@ -464,12 +464,12 @@ _K4_KEYS = (("planar_conv_k1", 0, "planar_conv_tc_kernelILi1ELi1ELi{}E"),
             ("planar_conv_k3t2", 3, "planar_convt2_tc_kernelILi{}E"))
 TC_KERNELS = {
     "fused_stem_fwd": [("", "stem_fused", "apfp_fused_stem_fwd_info", (1, 0),
-                        "fused_stem_fwd_kernelI13__nv_bfloat16Li8ELb0E")],
+                        "fused_stem_fwd_wg_kernelILb0E")],
     "fused_stem_fwd_save_acts": [(
         "", "stem_fused", "apfp_fused_stem_fwd_info", (1, 1),
-        "fused_stem_fwd_kernelI13__nv_bfloat16Li8ELb1E")],
+        "fused_stem_fwd_wg_kernelILb1E")],
     "fused_stem_bwd_saved": [("", "stem_bwd", "apfp_fused_stem_bwd_info",
-                              (1,), "fused_stem_bwd_tc_kernel")],
+                              (1,), "fused_stem_bwd_wg_kernel")],
     "fused_stem_bwd": [("", "stem_remat", "apfp_fused_stem_remat_info", (1,),
                         "fused_stem_remat_tc_kernel")],
     "fused_stem_fwd_b": [("", "stem_batched", "apfp_fused_stem_fwd_b_info",
@@ -492,13 +492,21 @@ TC_KERNELS = {
        for name, variant, key in _K4_KEYS}}
 
 
-# the kernels whose bfloat16 instantiation must not spill (K8a, K8b, K6a,
-# K6a save, K6b, K6c), and K7, whose float32 and bfloat16 instantiations
-# (each k of the network form, and the rank form) must not either
-NO_SPILL = ("fused_stem_fwd_b", "fused_stem_fwd_b_save_acts",
-            "fused_stem_bwd_b", "res152_fused", "res152_fused_save",
-            "res152_fused_grad", "res152_fused_grad12",
+# the kernels whose bfloat16 instantiation must not spill (K1, K1
+# save_acts, K2, K8a, K8b, K6a, K6a save, K6b, K6c), and K7, whose float32
+# and bfloat16 instantiations (each k of the network form, and the rank
+# form) must not either
+NO_SPILL = ("fused_stem_fwd", "fused_stem_fwd_save_acts",
+            "fused_stem_bwd_saved", "fused_stem_fwd_b",
+            "fused_stem_fwd_b_save_acts", "fused_stem_bwd_b", "res152_fused",
+            "res152_fused_save", "res152_fused_grad", "res152_fused_grad12",
             "median_pool_2d_pallas")
+# the kernels built for Hopper's own units (K1, K1 save_acts, K2): wgmma
+# and no mma.sync, and their weights (K2: also masks, y5, g5) by bulk
+# copies or the tensor unit
+WGMMA_KERNELS = ("fused_stem_fwd", "fused_stem_fwd_save_acts",
+                 "fused_stem_bwd_saved")
+SASS_OPS = ("HGMMA", "HMMA", "UTMALDG", "UBLKCP")
 
 
 def sass_op_counts(_cuda, path: str, ops) -> dict:
@@ -524,23 +532,25 @@ def sass_op_counts(_cuda, path: str, ops) -> dict:
 
 
 def tensor_core_check(_cuda, info) -> dict:
-    """Phase 1: the tensor-core instructions (HMMA, HGMMA) that
+    """Phase 1: the tensor-core instructions (HMMA, HGMMA) and the
+    tensor-unit and bulk copies (UTMALDG, UBLKCP) that
     ``cuobjdump -sass`` finds in each bfloat16 kernel instantiation of
     ``TC_KERNELS`` (K1, K1 ``save_acts``, K2, K5, K8a, K8a ``save_acts``,
     K8b, K6a, K6a ``save``, K6b, K6c and every K4 variant and block
     width) in the built libraries, with ptxas' registers and spill bytes
     (``-Xptxas -v``) and the card's own account of registers, dynamic
     shared memory and blocks per multiprocessor (``apfp_*_info``). Fails
-    if one has no tensor-core instruction, or if one of ``NO_SPILL`` (K8,
-    K6) spills. Returns {entry name: record}; an entry of several
-    instantiations holds them under ``sass``."""
+    if one has no tensor-core instruction, if one of ``NO_SPILL`` (K1, K2,
+    K8, K6) spills, or if one of ``WGMMA_KERNELS`` (K1, K1 ``save_acts``,
+    K2) has an HMMA, no HGMMA or neither a UTMALDG nor a UBLKCP. Returns
+    {entry name: record}; an entry of several instantiations holds them
+    under ``sass``."""
     import ctypes
     import re
     counts, regs, spills = {}, {}, {}
     libs = {inst[1] for insts in TC_KERNELS.values() for inst in insts}
     for lib in libs:
-        counts.update(sass_op_counts(_cuda, info[lib]["path"],
-                                     ("HGMMA", "HMMA")))
+        counts.update(sass_op_counts(_cuda, info[lib]["path"], SASS_OPS))
         fn = props = None
         for line in info[lib]["log"].splitlines():
             if "Compiling entry function" in line:
@@ -560,6 +570,7 @@ def tensor_core_check(_cuda, info) -> dict:
             assert len(fns) == 1, (name, label, fns)
             c = counts[fns[0]]
             rec = {"hmma": c["HMMA"], "hgmma": c["HGMMA"],
+                   "tma_loads": c["UTMALDG"], "bulk_copies": c["UBLKCP"],
                    "ptxas": regs.get(fns[0], ""),
                    "spill_bytes": spills.get(fns[0])}
             buf = (ctypes.c_int * 3)()
@@ -568,7 +579,8 @@ def tensor_core_check(_cuda, info) -> dict:
             rec.update(registers=buf[0], dynamic_smem_bytes=buf[1],
                        blocks_per_sm=buf[2])
             what = f"{name} {label}".strip()
-            log(f"[sass] {what}: {rec['hmma']} HMMA, {rec['hgmma']} HGMMA; "
+            log(f"[sass] {what}: {rec['hmma']} HMMA, {rec['hgmma']} HGMMA, "
+                f"{rec['tma_loads']} UTMALDG, {rec['bulk_copies']} UBLKCP; "
                 f"{rec['registers']} registers, "
                 f"{rec['dynamic_smem_bytes']} bytes of shared memory, "
                 f"{rec['blocks_per_sm']} block(s) a multiprocessor, "
@@ -578,6 +590,11 @@ def tensor_core_check(_cuda, info) -> dict:
                 f"{what}: no tensor-core instruction in its SASS"
             assert name not in NO_SPILL or rec["spill_bytes"] == 0, \
                 f"{what}: spills {rec['spill_bytes']} bytes"
+            if name in WGMMA_KERNELS:
+                assert rec["hgmma"] > 0 and rec["hmma"] == 0, \
+                    f"{what}: not on wgmma alone"
+                assert rec["tma_loads"] + rec["bulk_copies"] > 0, \
+                    f"{what}: no TMA or bulk copy"
             recs[label] = rec
         out[name] = recs[""] if list(recs) == [""] else {"sass": recs}
     return out
@@ -757,13 +774,115 @@ def k2_read_bytes(acts, g5p) -> int:
             + image_bytes(y5, h5, 128) + image_bytes(g5p, h5, 128))
 
 
+def wgmma_bitcheck(dev, sp) -> list:
+    """The bfloat16 K1 and K2 sum on wgmma, K5 and K8 on mma.sync
+    (``mma_conv``), one 16-deep step after another from a zero float32
+    accumulator; the exact checks K5 = K2, K8a = K1 and K8b = K2 hold only
+    if a wgmma k16 step rounds as an mma.sync one. On the stem's operands
+    (conv5's weights in tap order, its first 64 channels; leaky
+    activations of the stem's scale, numpy-seeded) at depths 64 and 576:
+    ``ops/stem_fused.py: wgmma_bitcheck`` runs both in one launch and
+    every bit must agree. Returns a record a depth."""
+    SF = import_port("ops.stem_fused")
+    rng = np.random.default_rng(SEED + 18)
+    w5 = sp[4][0].reshape(576, 128)[:, :64].contiguous()
+    recs = []
+    for depth in (64, 576):
+        a = rng.standard_normal((64, depth))
+        a = torch.tensor(np.where(a > 0, a, 0.1 * a), dtype=torch.bfloat16,
+                         device=dev)
+        d_mma, d_wg = SF.wgmma_bitcheck(a, w5[:depth].contiguous())
+        differ = int((d_mma.view(torch.int32)
+                      != d_wg.view(torch.int32)).sum().item())
+        recs.append({"depth": depth, "outputs": d_mma.numel(),
+                     "differing_bits": differ,
+                     "max_abs": d_wg.abs().max().item()})
+        assert differ == 0, recs[-1]
+    return recs
+
+
+def wgmma_device_times(dev, sp, sbp, b: int) -> dict:
+    """Device ms (``device_ms``: a CUDA graph of 20 calls) of the bfloat16
+    K1 (forward alone and with ``save_acts``) and K2 at batch b, 608^2."""
+    SF = import_port("ops.stem_fused")
+    PC = import_port("ops.planar_conv")
+    bf16 = torch.bfloat16
+    h5 = SIZE // 4
+    gen = torch.Generator(device=dev).manual_seed(SEED + 18)
+    x = torch.rand(b, SIZE, SIZE, 3, generator=gen, device=dev).to(bf16)
+    xe, xo = SF.split_phases(x)
+    acts = SF.fused_stem_fwd(xe, xo, sp, save_acts=True)
+    g5p = PC.to_planar(torch.randn(b, h5, h5, 128, generator=gen,
+                                   device=dev).to(bf16))
+    out = {"fused_stem_fwd": device_ms(lambda: SF.fused_stem_fwd(xe, xo, sp)),
+           "fused_stem_fwd_save_acts": device_ms(
+               lambda: SF.fused_stem_fwd(xe, xo, sp, save_acts=True)),
+           "fused_stem_bwd_saved": device_ms(
+               lambda: SF.fused_stem_bwd_saved(acts, g5p, sbp))}
+    del acts, g5p, xe, xo, x
+    torch.cuda.empty_cache()
+    return out
+
+
+def wgmma_split(dev, sp, sbp, dev_ms: dict) -> dict:
+    """Where the bfloat16 K1's (both forms) and K2's time goes at b24: the
+    kernels rebuilt with ``-DAPFP_PROFILE`` (``ops/_cuda.py: profiled``),
+    in which thread 0 of each block (a consumer of the first warpgroup)
+    adds the clock64 cycles between its laps to a category
+    (``csrc/stem_common.cuh: wg::Lap``: loads, input waits, weight waits,
+    MMAs, epilogues, mask stores, output stores, the consumers' barriers).
+    Shares are of the summed cycles; ``split_ms`` applies them to the
+    normal build's device time (``dev_ms``, by entry name); the profiled
+    build's own time is beside it (the laps cost a little)."""
+    _cuda = import_port("ops._cuda")
+    SF = import_port("ops.stem_fused")
+    PC = import_port("ops.planar_conv")
+    bf16, b, h5 = torch.bfloat16, TRAIN_BATCH, SIZE // 4
+    gen = torch.Generator(device=dev).manual_seed(SEED + 18)
+    x = torch.rand(b, SIZE, SIZE, 3, generator=gen, device=dev).to(bf16)
+    xe, xo = SF.split_phases(x)
+    acts = SF.fused_stem_fwd(xe, xo, sp, save_acts=True)
+    g5p = PC.to_planar(torch.randn(b, h5, h5, 128, generator=gen,
+                                   device=dev).to(bf16))
+    fns = {"fused_stem_fwd": ("stem_fused",
+                              lambda: SF.fused_stem_fwd(xe, xo, sp)),
+           "fused_stem_fwd_save_acts": ("stem_fused", lambda: SF.
+                                        fused_stem_fwd(xe, xo, sp, True)),
+           "fused_stem_bwd_saved": ("stem_bwd", lambda: SF.
+                                    fused_stem_bwd_saved(acts, g5p, sbp))}
+    out = {}
+    with _cuda.profiled("stem_fused", "stem_bwd"):
+        for name, (lib, fn) in fns.items():
+            fn()
+            torch.cuda.synchronize()
+            _cuda.prof_take(lib)
+            for _ in range(3):
+                fn()
+            torch.cuda.synchronize()
+            cycles = _cuda.prof_take(lib)
+            total = sum(cycles.values())
+            share = {k: v / total for k, v in cycles.items()}
+            out[name] = {"share": share,
+                         "split_ms": {k: v * dev_ms[name]
+                                      for k, v in share.items()},
+                         "profiled_dev_ms": device_ms(fn)}
+    del acts, g5p, xe, xo, x
+    torch.cuda.empty_cache()
+    return out
+
+
 def training_kernels(dev, sp, sbp, card, tc_info) -> tuple:
     """Phase 5: K1 save_acts, K2 and K3a (g5, gp12) against their plain
     versions at batch 24, 608^2, bfloat16 (K2 and K3a also float32), K1
-    and K2 beside the stem on cuDNN (``stem_yardstick``); returns their
-    entries of the kernels line (launches filled in by the training
-    phase), with phase 1's tensor-core records, and the b24 records of
-    ``split_phases`` and K3b (y5) by entry name."""
+    and K2 beside the stem on cuDNN (``stem_yardstick``), the wgmma k16
+    step against mma.sync's bits (``wgmma_bitcheck``), the device times
+    of K1 (both forms) and K2 at b8 and b24 (``wgmma_device_times``) and
+    their b24 split by cycle accounts (``wgmma_split``);
+    returns their entries of the kernels line (launches filled in by the
+    training phase), with phase 1's tensor-core records, and the b24
+    records of ``split_phases`` and K3b (y5) by entry name, with K1's
+    serving device times and split under ``fused_stem_fwd`` and
+    ``fused_stem_fwd_split_b24``."""
     PC = import_port("ops.planar_conv")
     SF = import_port("ops.stem_fused")
     _cuda = import_port("ops._cuda")
@@ -930,6 +1049,34 @@ def training_kernels(dev, sp, sbp, card, tc_info) -> tuple:
         "bound_ms": b_ms, "bound_by": b_by}
     out.append(k2)
     del got, want, acts32, acts
+    # the wgmma kernels: the k16 step's bits, and device times at b8, b24
+    bits = wgmma_bitcheck(dev, sp)
+    k2["wgmma_bitcheck"] = bits
+    log(f"[wgmma] k16 step against mma.sync on the stem's operands: "
+        f"{json.dumps(bits)}")
+    dev_ms = {b: wgmma_device_times(dev, sp, sbp, b) for b in (8, 24)}
+    for k in out:
+        if k["name"] in ("fused_stem_fwd_save_acts", "fused_stem_bwd_saved"):
+            k["dev_ms"] = {f"b{b}": t[k["name"]] for b, t in dev_ms.items()}
+    b24["fused_stem_fwd"] = {f"b{b}": t["fused_stem_fwd"]
+                             for b, t in dev_ms.items()}
+    split = wgmma_split(dev, sp, sbp, dev_ms[24])
+    for k in out:
+        if k["name"] in split:
+            k["split_b24"] = split[k["name"]]
+    b24["fused_stem_fwd_split_b24"] = split["fused_stem_fwd"]
+    for name, rec in split.items():
+        log(f"[wgmma] {name} b24 split: "
+            f"{json.dumps({k: round(v, 4) for k, v in rec['share'].items()})}"
+            f"; profiled build {rec['profiled_dev_ms']:.4f} ms ({card})")
+    for name in ("fused_stem_fwd", "fused_stem_fwd_save_acts",
+                 "fused_stem_bwd_saved"):
+        rec = tc_info[name]
+        log(f"[wgmma] {name}: dev ms "
+            f"{json.dumps({f'b{b}': t[name] for b, t in dev_ms.items()})}; "
+            f"{rec['registers']} registers, {rec['dynamic_smem_bytes']} "
+            f"bytes of shared memory, {rec['blocks_per_sm']} block(s) a "
+            f"multiprocessor ({card})")
     for k in out:
         log(f"[train-kernel] {k['name']}: err {k['max_abs_err']:.3g} "
             f"(tol {k['tol']:.3g}), {k['ms']:.4f} ms vs plain "
@@ -4919,7 +5066,10 @@ def main() -> int:
     train_kernels, layout_b24 = training_kernels(dev, sp, model_sbp, card,
                                                  tc_info)
     for k in kernels:
-        if k["name"] in layout_b24:
+        if k["name"] == "fused_stem_fwd":
+            k["dev_ms"] = layout_b24.pop("fused_stem_fwd")
+            k["split_b24"] = layout_b24.pop("fused_stem_fwd_split_b24")
+        elif k["name"] in layout_b24:
             k["b24"] = layout_b24[k["name"]]
     k5 = remat_kernel(dev, sp, det.model.stem_bwd_params(), card,
                       train_kernels[-1]["library_fwd_bwd_ms"], tc_info)

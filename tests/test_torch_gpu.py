@@ -198,7 +198,7 @@ def test_from_planar_above_the_old_row_cap(cuda):
 
 # (batch, side): 32 and 96 fill whole tiles of K1 (8 y5 positions in
 # bfloat16) and K2 (16 gx); 16, 48 and 80 leave a ragged last tile of K1
-# and, in bfloat16, a last mma.sync row block partly past the tile
+# and, in bfloat16, a last wgmma row block partly past the tile
 STEM_SHAPES = [(2, 32), (1, 96), (3, 16), (3, 48), (3, 80)]
 
 
@@ -224,6 +224,44 @@ def test_fused_stem_kernel_matches_plain(cuda, dtype, b, h):
         assert err.max().item() <= scale * 2.0 ** -6
         assert err.mean().item() <= 1e-4 * scale
     assert not got[..., 0].any() and not got[..., h // 4 + 1:].any()
+
+
+def _bitcheck_operands(k, kind, seed):
+    """A [64, K] and B [K, 64] in bfloat16 from numpy: "stem" draws A as
+    leaky activations of the stem's scale and B from the stem's conv5
+    weights (HWIO rows in tap order, its first 64 output channels);
+    "wide" spreads both over 2^-12 .. 2^12 with signs mixed, so that the
+    float32 sums cancel and round often."""
+    rng = np.random.default_rng(seed)
+    if kind == "stem":
+        a = rng.standard_normal((64, k))
+        a = np.where(a > 0, a, 0.1 * a)
+        w = _stem_params(torch.float32, "cpu", seed)[4][0].numpy()
+        b = np.tile(w.reshape(576, 128)[:, :64], (k // 576 + 1, 1))[:k]
+    else:
+        a = rng.standard_normal((64, k)) * 2.0 ** rng.integers(-12, 13,
+                                                                (64, k))
+        b = rng.standard_normal((k, 64)) * 2.0 ** rng.integers(-12, 13,
+                                                                (k, 64))
+    return a, b
+
+
+@pytest.mark.parametrize("k", [64, 576, 768])
+@pytest.mark.parametrize("kind", ["stem", "wide"])
+def test_wgmma_k16_step_matches_mma_sync_bits(cuda, k, kind):
+    """The bfloat16 K1 and K2 sum on wgmma.m64nNk16, K5 and K8 on
+    mma.sync.m16n8k16 (stem_common.cuh: mma_conv), one 16-deep step after
+    another into one float32 accumulator from zero: the exact checks K5 =
+    K2, K8a = K1 and K8b = K2 need both instructions to round each step
+    alike. Every bit of the two products must agree."""
+    a, b = _bitcheck_operands(k, kind, 11)
+    a = torch.tensor(a, dtype=torch.bfloat16, device=cuda)
+    b = torch.tensor(b, dtype=torch.bfloat16, device=cuda)
+    d_mma, d_wg = SF.wgmma_bitcheck(a, b)
+    assert torch.equal(d_mma.view(torch.int32), d_wg.view(torch.int32))
+    want = a.double() @ b.double()
+    assert (d_wg.double() - want).abs().max().item() <= \
+        1e-4 * (a.double().abs() @ b.double().abs()).max().item()
 
 
 def test_detector_takes_fused_route_on_cuda(cuda):

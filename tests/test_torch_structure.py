@@ -394,13 +394,16 @@ def test_port_import_leaves_experimental_unloaded():
 
 
 def test_bf16_stem_kernels_run_on_tensor_cores():
-    """The bfloat16 K1, K2, K5, K8a and K8b reach ``mma.sync`` through
-    stem_common.cuh's ``mma_conv`` (K1's five convs, K2's five adjoints in
-    the chain K2, K5 and K8b share, K5's four recompute convs, K8a's five
-    convs), the bfloat16 K4 through its own ``ldmatrix`` / ``mma.sync``
-    loop, the float32 paths keep the CUDA-core helpers, and no kernel
-    source includes a library's kernels (cuDNN, cuBLAS, CUTLASS's
-    device-level GEMMs)."""
+    """The bfloat16 K1 and K2 run their convs on ``wgmma`` through
+    stem_common.cuh's ``wg::conv`` (K1's five convs; K2's adjoints: two
+    parity groups of four and three single GEMMs), their weights streamed
+    by ``cp.async.bulk`` and K2's masks, y5 and g5 by tensor maps; the
+    bfloat16 K5, K8a and K8b reach ``mma.sync`` through ``mma_conv`` (K5's
+    four recompute convs and K2's former chain, ``bwd_tc::chain``, which K5
+    and K8b share; K8a's five convs), the bfloat16 K4 through its own
+    ``ldmatrix`` / ``mma.sync`` loop, the float32 paths keep the CUDA-core
+    helpers, and no kernel source includes a library's kernels (cuDNN,
+    cuBLAS, CUTLASS's device-level GEMMs)."""
     import re
     csrc = os.path.join(ROOT, PORT, "csrc")
     src = {f: open(os.path.join(csrc, f)).read() for f in os.listdir(csrc)
@@ -409,22 +412,37 @@ def test_bf16_stem_kernels_run_on_tensor_cores():
     assert re.search(r"mma\.sync\.aligned\.m16n8k16\.row\.col\.f32\.bf16"
                      r"\.bf16\.f32", common)
     assert "ldmatrix.sync.aligned" in common and "mma_conv" in common
+    for n in (8, 32, 64):
+        assert f"wgmma.mma_async.sync.aligned.m64n{n}k16.f32.bf16.bf16" \
+            in common
+    assert "cp.async.bulk.shared::cluster.global.mbarrier" in common
+    assert "cp.async.bulk.tensor.4d" in common
     fwd, bwd = src["stem_fused.cu"], src["stem_bwd.cu"]
-    # K1: the bfloat16 instantiation takes mma_conv for its five convs,
-    # float32 conv_stage
-    assert "if constexpr (MMA)" in fwd
-    assert len(re.findall(r"\bmma_conv<", fwd)) == 5
+
+    def body(text, kern):
+        b = text[text.index(kern):]
+        return b[:b.index("\n}\n")]
+    # K1: the bfloat16 kernel takes wg::conv for its five convs and no
+    # mma_conv; float32 conv_stage
+    k1 = body(fwd, "fused_stem_fwd_wg_kernel(")
+    assert len(re.findall(r"\bwg::conv<", k1)) == 5
+    assert len(re.findall(r"\bwg::produce<", k1)) == 5
+    assert "mma_conv<" not in fwd
     assert len(re.findall(r"\bconv_stage<", fwd)) == 5
-    # K2 and K5: their bfloat16 kernels run the adjoints through
-    # stem_common.cuh's tensor-core chain (two parity groups of four in
-    # bwd_tc::convt_s2, three single GEMMs), float32 the FMA grad_chain
+    # K2: eleven GEMMs on wg::conv, its loads by tensor maps; float32 the
+    # FMA grad_chain
+    k2 = body(bwd, "fused_stem_bwd_wg_kernel(")
+    assert len(re.findall(r"\bwg::conv<", k2)) == 11
+    assert len(re.findall(r"\bwg::produce<", k2)) == 11
+    assert len(re.findall(r"\bwg::tma_load_4d\(", k2)) == 7
+    assert "mma_conv<" not in bwd and "bwd_tc::chain(" not in bwd
+    assert "grad_chain<T>" in bwd and "launch_wg" in bwd
+    # the chain K5 and K8b share: two parity groups of four in
+    # bwd_tc::convt_s2, three single GEMMs on mma_conv
     chain = common[common.index("namespace bwd_tc {"):]
     chain = chain[chain.index("void chain("):]
     assert len(re.findall(r"\bmma_conv<", chain)) == 3
     assert len(re.findall(r"\bconvt_s2<", chain)) == 2
-    tc = bwd[bwd.index("fused_stem_bwd_tc_kernel("):]
-    assert "bwd_tc::chain(" in tc
-    assert "grad_chain<T>" in bwd and "launch_tc" in bwd
     # K5: K1's four recompute convs on mma_conv, then the shared chain
     remat = src["stem_remat.cu"]
     rtc = remat[remat.index("fused_stem_remat_tc_kernel("):]
@@ -433,10 +451,6 @@ def test_bf16_stem_kernels_run_on_tensor_cores():
     # K8a and K8b: the bfloat16 kernels on K1's five mma_conv stages and on
     # the shared chain; float32 keeps conv_stage and chain_tail
     k8 = src["stem_batched.cu"]
-
-    def body(text, kern):
-        b = text[text.index(kern):]
-        return b[:b.index("\n}\n")]
     assert len(re.findall(r"\bmma_conv<",
                           body(k8, "fused_stem_fwd_b_tc_kernel("))) == 5
     assert "bwd_tc::chain(" in body(k8, "fused_stem_bwd_b_tc_kernel(")
