@@ -655,8 +655,10 @@ __global__ void __launch_bounds__(NT)
   const bf16* xb = x + (long long)b * H * cin * wl_in;
   const int nt8 = n_cb * NW, k16 = K / 16;
   const int cob = cb * CB;
+  wg::Lap lap;
   if (l0 > Wo) {  // every column of the tile is past the image
     write_tile<CB>(nullptr, ea, out, b, r0, l0, cob, cout, Ho, Wo, wl_out);
+    lap(wg::P_STORE);
     return;
   }
 
@@ -679,9 +681,12 @@ __global__ void __launch_bounds__(NT)
   for (int ch0 = 0; ch0 < K; ch0 += G::KC) {
     const int nch = min(G::KC, K - ch0);
     __syncthreads();  // the previous chunk has been read
+    lap(wg::P_SYNC);
     stage<G::IH, G::IW, G::PI, G::KC>(xs, xb, ir0, H, cin, wl_in,
                                       S * l0 - G::LB, w_img, ch0, nch);
+    lap(wg::P_LOAD);
     __syncthreads();
+    lap(wg::P_SYNC);
 #pragma unroll 1
     for (int tap = 0; tap < KS * KS; ++tap) {
       const int ky = tap / KS, kx = tap - ky * KS;
@@ -695,8 +700,10 @@ __global__ void __launch_bounds__(NT)
               lane,
           nt8, nch / 16);
     }
+    lap(wg::P_MMA);
   }
   __syncthreads();  // the staged input has been read: os reuses it
+  lap(wg::P_SYNC);
   // + bias, leaky, the stride-2 rounding; channel-major into os
   const int g = lane >> 2, q = lane & 3;
 #pragma unroll
@@ -716,8 +723,11 @@ __global__ void __launch_bounds__(NT)
           os[n * OP + m] = y;
         }
     }
+  lap(wg::P_EPI);
   __syncthreads();
+  lap(wg::P_SYNC);
   write_tile<CB>(os, ea, out, b, r0, l0, cob, cout, Ho, Wo, wl_out);
+  lap(wg::P_STORE);
 }
 
 // The stride-2 adjoint on the tensor cores, from the unexpanded g
@@ -988,6 +998,18 @@ extern "C" int apfp_planar_conv_t2(const void* g, const void* w,
       static_cast<float*>(out), Hg, cin, wl_in, w_g, cout, cout_pad, wl_out);
   return (int)cudaGetLastError();
 }
+
+#ifdef APFP_PROFILE
+// The cycle accounts (stem_common.cuh: wg::Lap) into out[PROF_N], then
+// zeroed
+extern "C" int apfp_prof_take(unsigned long long* out) {
+  cudaError_t e = cudaMemcpyFromSymbol(out, wg::prof_cycles,
+                                       sizeof(wg::prof_cycles));
+  if (e != cudaSuccess) return (int)e;
+  static const unsigned long long zero[wg::PROF_N] = {};
+  return (int)cudaMemcpyToSymbol(wg::prof_cycles, zero, sizeof(zero));
+}
+#endif
 
 // A bfloat16 tensor-core instantiation as the card sees it: variant 0 =
 // 1x1, 1 = 3x3 stride 1, 2 = 3x3 stride 2, 3 = the stride-2 adjoint; nw =

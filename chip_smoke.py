@@ -1762,6 +1762,58 @@ def planar_kernels(dev, model, card) -> list:
     return recs
 
 
+# the K4 cycle split's geometries at b24: (image side, cin, cout, stride)
+K4_SPLIT = {"stage_fwd_conv7": (SIZE // 4, 64, 128, 1),
+            "stem_fwd_conv1": (SIZE, 32, 64, 2)}
+
+
+def k4_split(dev, card) -> dict:
+    """Where the bfloat16 K4's time goes at b24 in the stage's 3x3 s1
+    (conv7, 64 -> 128 at 152^2) and the stem's 3x3 s2 (conv1, 32 -> 64,
+    608^2 -> 304^2), on seeded random inputs and He-scaled weights: the
+    library rebuilt with ``-DAPFP_PROFILE`` (``ops/_cuda.py: profiled``),
+    in which thread 0 of each block adds the clock64 cycles between its
+    laps to a category (``csrc/stem_common.cuh: wg::Lap``: input staging,
+    input waits, weight waits, MMAs, epilogue, stores, barriers). Shares
+    are of the summed cycles; ``split_ms`` applies them to the normal
+    build's device time; the profiled build's own time is beside it."""
+    _cuda = import_port("ops._cuda")
+    PC = import_port("ops.planar_conv")
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(SEED + 19)
+    out = {}
+    for name, (h, cin, cout, s) in K4_SPLIT.items():
+        x = PC.to_planar(torch.randn(TRAIN_BATCH, h, h, cin, generator=gen,
+                                     device=dev).to(bf16))
+        w = (torch.randn(3, 3, cin, cout, generator=gen, device=dev)
+             * (2.0 / (9 * cin)) ** 0.5).to(bf16)
+        b = torch.randn(cout, generator=gen, device=dev) * 0.1
+
+        def fn():
+            return PC.planar_conv(x, w, b, k=3, stride=s, w_img=h)
+        ms = device_ms(fn)
+        with _cuda.profiled("planar_conv"):
+            fn()
+            torch.cuda.synchronize()
+            _cuda.prof_take("planar_conv")
+            for _ in range(3):
+                fn()
+            torch.cuda.synchronize()
+            cycles = _cuda.prof_take("planar_conv")
+            prof_ms = device_ms(fn)
+        total = sum(cycles.values())
+        share = {k: v / total for k, v in cycles.items() if v}
+        out[name] = {"dev_ms": ms, "share": share,
+                     "split_ms": {k: v * ms for k, v in share.items()},
+                     "profiled_dev_ms": prof_ms}
+        log(f"[k4-split] {name} b24: dev {ms:.4f} ms; "
+            f"{json.dumps({k: round(v, 4) for k, v in share.items()})}; "
+            f"profiled build {prof_ms:.4f} ms ({card})")
+        del x
+        torch.cuda.empty_cache()
+    return out
+
+
 def k4_entries(recs, tc_info) -> list:
     """The kernels line's K4 entries, one per variant (1x1, 3x3 s1, 3x3
     s2, the stride-2 adjoint k3t2): ms, plain_ms, bound_ms and library_ms
