@@ -17,9 +17,8 @@
 //   out = T(y)
 // with float32 accumulation, P = (k - 1) / 2, x zero outside the image.
 // Planar tensors are [B, H, C, Wl], column c at lane c + 1; every border
-// and padding lane of the output is written as zero (the blocks of the
-// first tile column write lane 0, those of the last the lanes past the
-// image), so the output needs no memset.
+// and padding lane of the output is written as zero (the tiles cover every
+// lane of the output rows), so the output needs no memset.
 //
 // The k3t2 variant is the JAX package's stride-2 adjoint
 // planar_conv(expand2_planar(g), flip_t(w), 0, k=3, slope=None, gate) (its
@@ -29,41 +28,67 @@
 // flipped kernel wt meets data only at the taps of its parity: dy = 1 at
 // row a for py = 0, dy = 0 at row a and dy = 2 at row a + 1 for py = 1
 // (columns alike). The four output parities take 1, 2, 2 and 4 taps, 9 tap
-// products per 4 outputs where the expanded form takes 36.
+// products per 4 outputs where the expanded form takes 36; tap (dy, dx)
+// belongs to parity (dy != 1, dx != 1).
 //
-// What bounds it on the H100: operations at the stem's widths (a 3x3 conv
-// does 9 cin multiply-adds per output value against a few bytes of input
-// and output), bytes for the 1x1 convs at small cin.
+// What bounds it on the H100: bytes at the stem's widths (the 3x3 convs
+// at 608^2 and 304^2 read and write ~0.3-0.6 GB at b24 for 4-16 GFLOP),
+// operations at the 152^2 stage's 3x3 convs (64 x 128 channels).
 //
-// bfloat16 runs on the tensor cores, an implicit GEMM on mma.sync.m16n8k16
-// (stem_common.cuh's ldmatrix / mma helpers) with D[position][cout] = sum
-// over taps and cin of A[position][cin] B[cin][cout]. Each block owns an
-// 8 x 32 tile of output positions (M = 256: each of the 8 warps owns two
-// 16-row blocks for all CB = 8 NW output channels of the block, NW = 1, 2,
-// 4 or 8 by cout; grid.z runs over batch and channel blocks). The tile is
-// 32 lanes of the planar rows, not 32 columns (tc::TC below), and the grid
-// covers every lane, so each block writes whole aligned 64-byte runs and
-// no border or padding lane needs a pass of its own. cin is zero-padded to
-// a multiple of 16 and walked in chunks of KC = 64 (32 at stride 2): the
-// chunk's input halo is staged position-major ([pos][KC + 8], 16-byte
-// reads along W transposed four channels at a time into 8-byte stores that
-// fill whole bank rows), the 16-byte pitch pad putting the eight
-// rows of a stride-1 ldmatrix phase in distinct bank groups (two-way at
-// stride 2). The accumulators stay in registers across the chunks, which
-// is why the warps own fixed rows instead of taking mma_conv's items in
-// turn: any cin runs in a fixed shared-memory budget (69.1 KB stride 1,
-// 97.9 KB stride 2). The taps are row maps of the staged tile (a stride-2
-// conv and the adjoint's parities need no im2col), and the weights come
-// in mma.sync's fragment order ([tap][K/16][Npad/8][lane] uint2,
-// ops/planar_conv.py: k4_weights, built once per weight tensor), one
-// 8-byte __ldg per lane and 8 channels, L1/L2-resident. The epilogue
-// stages the block's float32 results channel-major in shared memory
-// (+ bias, leaky and the stride-2 rounding there) and writes them back
-// planar, a warp a line, adding res and applying gate on the way: the
-// rounding points are the plain version's. The adjoint variant runs the
-// same tile (4 x 16 super positions a parity, 8 x 32 outputs); warp w < 4
-// owns row block w of parities (1, 1) and (0, 0), warp w >= 4 row block
-// w - 4 of (0, 1) and (1, 0), 5 and 4 tap products a warp.
+// bfloat16 runs on Hopper's units (stem_common.cuh: wg), an implicit GEMM
+// D[position][cout] = sum over taps and cin of A[position][cin]
+// B[cin][cout] per block of 288 threads: two consumer warpgroups and a
+// producer warp, as many blocks as the card holds at once, each walking
+// its share of the tiles (persistent: the producer loads the next tile's
+// box and weights while the consumers finish this one). A tile is TR
+// output rows x 32 lanes [32 x, 32 x + 32) of those rows (TR = 4, a
+// warpgroup two rows; the
+// adjoint 8, whose four parities hold 64 super positions each, warpgroup 0
+// computing parities (0, 0) and (1, 1), warpgroup 1 (0, 1) and (1, 0))
+// and the N output channels of its channel block (N = 8-64, the wgmma
+// width; the adjoint 8-32). A thread then keeps at most 32 accumulators,
+// and two blocks fit a multiprocessor (96 registers a thread; a block of
+// 128 channels ran one an SM and lost more than its input's second read
+// from L2 costs); the channel blocks of a tile are neighbours in the grid.
+//  - Input: the producer's lane 0 loads each channel chunk (KC = 16 NS
+//    channels, NS 16-deep steps: 1 at stride 2 or for a depth up to 16, 2
+//    up to 32, else 4) as one TMA box of the planar input (IH
+//    rows x KC channels x BL lanes, rows, lanes and channels outside the
+//    tensor arriving as zeros) into a landing buffer under a full / empty
+//    mbarrier pair. The consumers transpose it into the staged tile
+//    [position][KC] (ldmatrix.trans then stmatrix, 8 x 8 at a time: what
+//    is left of the transposition, a shared-memory pass of 2 bytes read
+//    and written an element), zeroing the columns outside the image, and
+//    free the landing buffer: the next chunk's box is in flight under this
+//    chunk's MMAs. There every tap is a row offset for ldmatrix (a
+//    stride-2 conv reads every second position), as in mma_conv. The 1x1
+//    conv needs no transposition: its A comes by ldmatrix.trans from the
+//    landing buffers (two, so both chunks of a 128-channel input load at
+//    once).
+//  - Weights: packed on the host (ops/planar_conv.py: k4_weights) per
+//    channel chunk as wg_weights' 64-deep K-major chunks with the 128-byte
+//    swizzle, taps in row-major order; the producer's lane 1 streams them
+//    into a ring of N x 128-byte slots by bulk copies (full: landed;
+//    empty: every consumer warp's wgmmas on it completed).
+//  - MMAs: per 64-deep weight chunk each warpgroup issues its (up to) four
+//    wgmma.m64nNk16 steps, A from registers (ldmatrix from the staged tile,
+//    the next chunk's fragments loaded under this chunk's wgmmas), one
+//    commit group, waits for it and frees the slot.
+//    The sum runs over channel chunks, then taps, then 16-deep steps from a
+//    zero float32 accumulator: at stride 1 with 64-channel chunks the
+//    order of the mma.sync kernel it replaced (a wgmma k16 step rounds as
+//    an mma.sync one), so bf16 K6a still equals the planar stage route bit
+//    for bit. Stride 2 takes 16-channel chunks.
+//  - Epilogue: 8-32 channels at a time, the accumulators + bias, leaky and
+//    the stride-2 rounding are staged float32 channel-major in shared
+//    memory (where the staged tile was: the landing buffers meanwhile take
+//    the next tile's boxes); then a thread takes 8 lanes (16 bytes) of a
+//    line, adds res,
+//    applies the gate, rounds once and writes whole aligned 64-byte runs,
+//    zero outside [0, Wo). A tile entirely past the image only writes
+//    zeros.
+// Every wait is an asm loop and every arrival predicated: ptxas serializes
+// wgmmas around a branch of the program's own inside their pipeline.
 //
 // float32 keeps the CUDA-core FMA kernels (TF32 tensor cores would not
 // hold the float32 goldens): planar_conv_kernel below, and for the adjoint
@@ -367,178 +392,333 @@ __global__ void __launch_bounds__(NT)
              blockIdx.x == 0, blockIdx.x == gridDim.x - 1);
 }
 
+
 // ---------------------------------------------------------------------------
-// bfloat16: tensor cores
+// bfloat16: Hopper's units (wgmma, TMA, bulk copies)
 // ---------------------------------------------------------------------------
 
-namespace tc {
+namespace wgk {
 
-// A block's output tile is TR rows x the TC lanes [TC x, TC x + TC) of its
-// rows, i.e. columns TC x - 1 .. TC x + TC - 2 (column c is lane c + 1):
-// every block writes whole, aligned 64-byte runs of each output line, and
-// the grid covers every lane (borders and padding written as zero; a block
-// entirely past the image only writes zeros). A tile that owned columns
-// instead would share a 32-byte sector with its neighbour at each end, and
-// the card would then merge partial sector writes in device memory.
-constexpr int TR = 8, TC = 32;          // output tile
-constexpr int M = TR * TC;              // GEMM rows of a block
-constexpr int NWARP = NT / 32;
-constexpr int MT = M / NWARP / 16;      // 16-row blocks a warp owns
-constexpr int OP = M + 4;               // output stage pitch (floats)
-static_assert(MT * 16 * NWARP == M, "tile rows");
+using wg::NC;
+using wg::NTH;
+constexpr int TC = 32;  // output lanes a tile
 
-// the output channels of a block by cout (8 NW; ops/planar_conv.py: _k4_nw)
-__host__ __device__ inline int nw_of(int cout) {
-  return cout <= 8 ? 1 : cout <= 16 ? 2 : cout <= 32 ? 4 : 8;
-}
+// the variants (apfp_planar_conv_info's numbering)
+enum { V1X1 = 0, V3S1 = 1, V3S2 = 2, VT2 = 3 };
 
-// The staged input window of a geometry: IH rows x IW lanes (a multiple of
-// 8, from the 8-aligned lane L0) x KC channels of pitch PI. A forward conv
-// reads, for output (oy, ox) of the tile at lane l0 = TC x and tap (ky,
-// kx), input lane S (l0 - 1 + ox) + kx - P + 1, staged position
-// (S oy + ky, S ox + kx + OFF) with L0 = S l0 - LB.
-template <int KS, int S>
-struct Geom {
-  static constexpr int LB = KS == 1 ? 0 : 8;
-  static constexpr int OFF = LB - S - (KS - 1) / 2 + 1;
-  static constexpr int IH = S * (TR - 1) + KS;
-  static constexpr int IW = (S * (TC - 1) + KS + OFF + 7) / 8 * 8;
-  static constexpr int KC = S == 2 ? 32 : 64;
-  static constexpr int PI = KC + 8;
-  static constexpr int IN_BYTES = IH * IW * PI * 2;
-};
-// the adjoint: 4 x 16 super positions a parity, rows a0 .. a0 + 4 and lanes
-// from L0 = l0 / 2 - 8. The tile's even columns l0 .. l0 + 30 are super
-// columns b = l0 / 2 + j, its odd ones l0 - 1 .. l0 + 29 are b = l0 / 2 - 1
-// + j (j < 16), output column 2 b + px at tile position ox = 2 j + 1 - px;
-// g's column b is lane b + 1, staged position j + 9 - px
-struct GeomT2 {
-  static constexpr int SR = TR / 2, SC = TC / 2;
-  static constexpr int IH = SR + 1;
-  static constexpr int IW = (SC + 10 + 7) / 8 * 8;
-  static constexpr int KC = 64;
-  static constexpr int PI = KC + 8;
-  static constexpr int IN_BYTES = IH * IW * PI * 2;
+// A variant's tile and stages at NS 16-deep steps a channel chunk
+template <int V, int NS>
+struct Geo {
+  static constexpr int KC = 16 * NS;            // channels a chunk
+  static constexpr int S = V == V3S2 ? 2 : 1;
+  static constexpr int TR = V == VT2 ? 8 : 4;   // output rows a tile
+  static constexpr int M = TR * TC;             // outputs a tile
+  static constexpr int NI = V == VT2 ? 2 : 1;   // accumulator sets
+  static constexpr int T = V == V1X1 ? 1 : 9;   // taps
+  static constexpr int WPC = (T * NS + 3) / 4;  // weight chunks a chunk
+  // the box: IH rows x KC channels x BL lanes (an odd multiple of 8, so
+  // the eight channel rows a transposing ldmatrix reads fall in distinct
+  // bank groups), from lane 8 below the tile's first input lane (1x1: at
+  // it), row P below its first input row (adjoint: super row r0 / 2)
+  static constexpr int IH = V == V1X1 ? 4 : V == V3S1 ? 6 : V == V3S2 ? 9
+                                                                      : 5;
+  static constexpr int BL = V == V1X1 ? 40 : V == V3S1 ? 56 : V == V3S2 ? 72
+                                                                      : 40;
+  static constexpr int LB = V == V1X1 ? 2 : 1;  // landing buffers
+  static constexpr int LAND = IH * KC * BL * 2;
+  // the staged tile: IH rows x PL box lanes, a position PB bytes (64
+  // channels: 128, its 16-byte units XOR-swizzled by the position's low
+  // bits; else padded by 16 bytes); a tap is a position offset: output
+  // (oy, ox) of a forward conv reads (S oy + ky, S ox + kx + OFF)
+  static constexpr int PL = V == V1X1 ? 0 : V == V3S1 ? 48 : V == V3S2 ? 72
+                                                                      : 32;
+  static constexpr int PB = KC == 64 ? 128 : 2 * KC + 16;
+  static constexpr int POS = IH * PL * PB;
+  static constexpr int OFF = V == V3S1 ? 7 : 6;
+  static_assert(LAND % 128 == 0, "box alignment");
 };
 
-template <int NW>
-constexpr int out_bytes() {
-  return 8 * NW * OP * 4;
+// the weight ring: a 64-deep chunk of N channels a slot
+template <int N>
+struct RingOf {
+  static constexpr int SLOT = N * 128;
+  static constexpr int ST = N == 64 ? 4 : 6;
+};
+
+// the channels an epilogue piece stages: the most of 32, 16 and 8 (at
+// most N) whose float32 stage [PC][M + 4] fits the landing buffers and
+// staged tile
+__host__ __device__ constexpr int piece(int n, int m, int room) {
+  return n >= 32 && 32 * (m + 4) * 4 <= room   ? 32
+         : n >= 16 && 16 * (m + 4) * 4 <= room ? 16
+                                                : 8;
 }
 
-// Stage channels [ch0, ch0 + 4 NQ) of IH input rows from image row ir0 and
-// IW lanes from lane L0 into xs [pos][PI], zero for rows, columns and
-// channels outside the input. Four channels x 8 lanes an item: four
-// 16-byte loads along W, eight 8-byte stores (channel quads fastest, so a
-// warp's stores fill whole bank rows); the column test runs only for the
-// vectors at the image's edges. A thread loads U items before it stores
-// any, so U x 4 loads are in flight at once.
-template <int IH, int IW, int PI, int NQ>
-__device__ __forceinline__ void stage_q(bf16* __restrict__ xs,
-                                        const bf16* __restrict__ xb, int ir0,
-                                        int H, int cin, int wl_in, int L0,
-                                        int w_img, int ch0) {
-  constexpr int NV = IW / 8;
-  constexpr int TOTAL = IH * NV * NQ;
-  constexpr int U = 2;
-  static_assert(PI % 4 == 0, "8-byte stores");
-  for (int i0 = threadIdx.x; i0 < TOTAL; i0 += U * NT) {
-    uint4 e[U][4];
-    int dst[U], lv[U];
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const int idx = i0 + u * NT;
-      dst[u] = -1;
-#pragma unroll
-      for (int t = 0; t < 4; ++t) e[u][t] = make_uint4(0, 0, 0, 0);
-      if (idx < TOTAL) {
-        const int p = idx % NQ;
-        const int rest = idx / NQ;
-        const int v = rest % NV, iy = rest / NV;
-        const int gr = ir0 + iy, ci = ch0 + 4 * p, l = L0 + 8 * v;
-        dst[u] = (iy * IW + 8 * v) * PI + 4 * p;
-        lv[u] = l;
-        // lanes l .. l + 7 hold columns l - 1 .. l + 6
-        if (gr >= 0 && gr < H && l + 7 >= 1 && l <= w_img) {
-          const bf16* src = xb + ((long long)gr * cin + ci) * wl_in + l;
-#pragma unroll
-          for (int t = 0; t < 4; ++t)
-            if (ci + t < cin)
-              e[u][t] = __ldg(reinterpret_cast<const uint4*>(
-                  src + (long long)t * wl_in));
-        }
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      if (dst[u] < 0) continue;
-      const bf16* e0 = reinterpret_cast<const bf16*>(&e[u][0]);
-      const bf16* e1 = reinterpret_cast<const bf16*>(&e[u][1]);
-      const bf16* e2 = reinterpret_cast<const bf16*>(&e[u][2]);
-      const bf16* e3 = reinterpret_cast<const bf16*>(&e[u][3]);
-      const bool edge = lv[u] < 1 || lv[u] + 7 > w_img;
-      bf16* d = xs + dst[u];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        __nv_bfloat162 lo, hi;
-        lo.x = e0[j];
-        lo.y = e1[j];
-        hi.x = e2[j];
-        hi.y = e3[j];
-        uint2 w;
-        w.x = *reinterpret_cast<const uint32_t*>(&lo);
-        w.y = *reinterpret_cast<const uint32_t*>(&hi);
-        const int col = lv[u] + j - 1;
-        if (edge && (col < 0 || col >= w_img)) w = make_uint2(0, 0);
-        *reinterpret_cast<uint2*>(d + j * PI) = w;
-      }
-    }
-  }
+// shared memory from a 1024-aligned base: the ring, the landing buffers,
+// the staged tile, the barriers; the epilogue's stage [PC][OP] float32
+// reuses the staged tile (made at least as large; the 1x1 conv's holds 32
+// channels), which the producer never writes: the next tile's boxes land
+// meanwhile
+template <int V, int NS, int N>
+struct Lay {
+  using G = Geo<V, NS>;
+  using R = RingOf<N>;
+  static constexpr int OP = G::M + 4;  // the stage's pitch (floats)
+  static constexpr int ROOM = G::POS > (V == V1X1 ? 32 : 8) * OP * 4
+                                  ? G::POS
+                                  : (V == V1X1 ? 32 : 8) * OP * 4;
+  static constexpr int PC = piece(N, G::M, ROOM);
+  static constexpr int LAND_AT = R::ST * R::SLOT;
+  static constexpr int POS_AT = LAND_AT + G::LB * G::LAND;
+  static constexpr int BAR_AT = POS_AT + ROOM;
+  static constexpr int NBAR = 2 * R::ST + 2 * G::LB;
+  static constexpr int SMEM = 1024 + BAR_AT + 8 * NBAR;
+  static_assert(SMEM <= 232448, "shared memory");
+};
+
+// the launches this kernel takes: at most 64 channels a block (the
+// adjoint, with two accumulator sets, 32), so a thread keeps at most 32
+// accumulators and two blocks fit a multiprocessor's registers (96 a
+// thread); stride 2 walks 16-channel chunks
+template <int V, int NS, int N>
+__host__ __device__ constexpr bool valid() {
+  return N <= (V == VT2 ? 32 : 64) && (V == V3S2 ? NS == 1 : true);
 }
 
-// stage_q for a chunk of nch channels (a multiple of 16, at most KC)
-template <int IH, int IW, int PI, int KC>
-__device__ __forceinline__ void stage(bf16* __restrict__ xs,
-                                      const bf16* __restrict__ xb, int ir0,
-                                      int H, int cin, int wl_in, int L0,
-                                      int w_img, int ch0, int nch) {
-  static_assert(KC == 32 || KC == 64, "chunk widths");
-  if (nch == 16) {
-    stage_q<IH, IW, PI, 4>(xs, xb, ir0, H, cin, wl_in, L0, w_img, ch0);
-  } else if constexpr (KC == 32) {
-    stage_q<IH, IW, PI, 8>(xs, xb, ir0, H, cin, wl_in, L0, w_img, ch0);
-  } else if (nch == 32) {
-    stage_q<IH, IW, PI, 8>(xs, xb, ir0, H, cin, wl_in, L0, w_img, ch0);
-  } else if (nch == 48) {
-    stage_q<IH, IW, PI, 12>(xs, xb, ir0, H, cin, wl_in, L0, w_img, ch0);
+// The block's channel width (the wgmma N) and 16-deep steps a chunk for a
+// variant, the GEMM depth K (cin rounded up to 16) and cout
+// (ops/planar_conv.py: k4_plan)
+inline void plan(int variant, int K, int cout, int* n, int* ns) {
+  const int cap = variant == VT2 ? 32 : 64;
+  *n = 8;
+  while (*n < cout && *n < cap) *n *= 2;
+  *ns = variant == V3S2 || K <= 16 ? 1 : K <= 32 ? 2 : 4;
+}
+
+struct Args {
+  const unsigned char* w;  // packed weights [n_cb][nck WPC][N][64]
+  const float* bias;       // [cout]
+  EpiArgs ea;
+  bf16* out;
+  int w_in, Ho, Wo, wl_out, cout, n_cb, nck;
+  int ntx, nty, ntiles;  // lane tiles a row, tile rows, tiles
+};
+
+// Tile t of a launch: image b, TR output rows from r0, the lanes [l0, l0 +
+// 32) and the N channels of channel block cb (fastest: the channel blocks
+// of a tile are neighbours, so they share its input in L2; then lanes,
+// rows, images)
+struct Tile {
+  int b, r0, l0, cb;
+};
+template <int TR>
+__device__ __forceinline__ Tile tile_of(const Args& a, int t) {
+  Tile u;
+  u.cb = t % a.n_cb;
+  t /= a.n_cb;
+  u.l0 = t % a.ntx * TC;
+  t /= a.ntx;
+  u.r0 = t % a.nty * TR;
+  u.b = t / a.nty;
+  return u;
+}
+
+// ldmatrix / stmatrix on shared addresses
+__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], uint32_t a) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+__device__ __forceinline__ void ldsm4t(uint32_t (&r)[4], uint32_t a) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+__device__ __forceinline__ void ldsm2t(uint32_t (&r)[2], uint32_t a) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
+      : "r"(a));
+}
+__device__ __forceinline__ void stsm4(uint32_t a, const uint32_t (&r)[4]) {
+  asm volatile(
+      "stmatrix.sync.aligned.m8n8.x4.shared.b16 [%0], {%1, %2, %3, %4};\n" ::
+          "r"(a),
+      "r"(r[0]), "r"(r[1]), "r"(r[2]), "r"(r[3])
+      : "memory");
+}
+__device__ __forceinline__ void stsm2(uint32_t a, const uint32_t (&r)[2]) {
+  asm volatile(
+      "stmatrix.sync.aligned.m8n8.x2.shared.b16 [%0], {%1, %2};\n" ::"r"(a),
+      "r"(r[0]), "r"(r[1])
+      : "memory");
+}
+
+// a consumer warp is done with what barrier bar guards: its lane 0 arrives
+// (by a predicated arrive, not a branch)
+__device__ __forceinline__ void arrive(uint32_t bar) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.eq.u32 p, %1, 0;\n"
+      "@p mbarrier.arrive.shared::cta.b64 _, [%0];\n}\n" ::"r"(bar),
+      "r"(threadIdx.x & 31)
+      : "memory");
+}
+
+// byte offset of 16-byte unit u of staged position p
+template <class G>
+__device__ __forceinline__ uint32_t pos_off(int p, int u) {
+  return G::KC == 64 ? p * 128 + ((u ^ (p & 7)) << 4) : p * G::PB + (u << 4);
+}
+
+// The landing buffer (IH rows x KC channels x BL lanes) -> the staged tile
+// [IH x PL][KC], 8 lanes x 8 channels a matrix (ldmatrix.trans, stmatrix);
+// positions whose image column (box lane lx + i is column lx + i - 1) lies
+// outside [0, w_in) are zero
+template <class G>
+__device__ __forceinline__ void transpose(uint32_t land, uint32_t pos, int lx,
+                                          int w_in) {
+  constexpr int NV = G::PL / 8;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int r = lane & 7;
+  const int col = lx + (lane >> 2) - 1;  // + 8 v: this thread's column
+  if constexpr (G::KC >= 32) {
+    constexpr int UQ = G::KC / 32;  // four 8-channel units an instruction
+    const int mi = lane >> 3;
+    for (int i = warp; i < G::IH * NV * UQ; i += NC / 32) {
+      const int uq = i % UQ, rest = i / UQ;
+      const int v = rest % NV, iy = rest / NV;
+      uint32_t x[4];
+      ldsm4t(x, land + ((iy * G::KC + 8 * (4 * uq + mi) + r) * G::BL +
+                        8 * v) * 2);
+      const bool in = col + 8 * v >= 0 && col + 8 * v < w_in;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) x[k] = in ? x[k] : 0u;
+      stsm4(pos + pos_off<G>(iy * G::PL + 8 * v + r, 4 * uq + mi), x);
+    }
   } else {
-    stage_q<IH, IW, PI, 16>(xs, xb, ir0, H, cin, wl_in, L0, w_img, ch0);
+    const int mi = (lane >> 3) & 1;
+    for (int i = warp; i < G::IH * NV; i += NC / 32) {
+      const int v = i % NV, iy = i / NV;
+      uint32_t x[2];
+      ldsm2t(x, land + ((iy * G::KC + 8 * mi + r) * G::BL + 8 * v) * 2);
+      const bool in = col + 8 * v >= 0 && col + 8 * v < w_in;
+      x[0] = in ? x[0] : 0u;
+      x[1] = in ? x[1] : 0u;
+      stsm2(pos + pos_off<G>(iy * G::PL + 8 * v + r, mi), x);
+    }
   }
 }
 
-// One tap's products of a warp's row blocks: B from the fragment-ordered
-// weights wt (this tap, the chunk's first 16-deep step, the block's first
-// 8-channel block), A by ldmatrix from a[t] (the tap's staged rows)
-template <int MTI, int NW, int KSMAX>
-__device__ __forceinline__ void tap_mma(float (&acc)[MTI][NW][4],
-                                        const bf16* const (&a)[MTI],
-                                        const uint2* __restrict__ wt,
-                                        int nt8, int nks) {
+// The adjoint's output parities (py, px) = (q >> 1, q & 1): tap (dy, dx)
+// belongs to q = 2 (dy != 1) + (dx != 1), reading g at (a + [dy == 2],
+// b + [dx == 2]); warpgroup 0 computes parities 0 and 3 (1 + 4 taps),
+// warpgroup 1 parities 1 and 2 (2 + 2), its accumulator set i parity
+// par(wgi, i) (set q >> 1 of the parity's warpgroup)
+__host__ __device__ constexpr int par(int wgi, int i) {
+  return wgi == 0 ? 3 * i : 1 + i;
+}
+
+// The A side of a consumer thread: its rows' staged positions (1x1:
+// landing offsets) at tap 0 for each accumulator set, and step g of a
+// chunk (tap g / NS, channels 16 (g % NS) ...): whether its warpgroup
+// computes it (the adjoint's: warpgroup WGI's parities), into which set,
+// and its A fragment
+template <int V, int NS, int WGI>
+struct ARows {
+  using G = Geo<V, NS>;
+  int p0[G::NI];
+  __device__ ARows() {
+    const int t = threadIdx.x, lane = t & 31, w4 = (t >> 5) & 3;
+    const int wgi = t >> 7;
+    if constexpr (V == V1X1) {
+      // ldmatrix.trans from [row][channel][lane]: matrix lane >> 3 is
+      // channels 8 (lane >> 4) + (lane & 7) at lanes 8 ((lane >> 3) & 1)
+      // of the warp's 16 positions
+      const int oy = 2 * wgi + (w4 >> 1);
+      p0[0] = (oy * G::KC + (lane & 7) + 8 * (lane >> 4)) * G::BL +
+              16 * (w4 & 1) + 8 * ((lane >> 3) & 1);
+    } else if constexpr (V == VT2) {
+      // super position (w4, lane & 15) of the set's parity, staged at lane
+      // j + 9 - px
 #pragma unroll
-  for (int s = 0; s < KSMAX; ++s) {
-    if (s < nks) {
-      uint2 bfr[NW];
-#pragma unroll
-      for (int j = 0; j < NW; ++j) bfr[j] = __ldg(wt + (s * nt8 + j) * 32);
-      uint32_t af[MTI][4];
-#pragma unroll
-      for (int t = 0; t < MTI; ++t) ldsm_x4(af[t], a[t] + s * 16);
-#pragma unroll
-      for (int t = 0; t < MTI; ++t)
-#pragma unroll
-        for (int j = 0; j < NW; ++j) mma_bf16(acc[t][j], af[t], bfr[j]);
+      for (int i = 0; i < 2; ++i)
+        p0[i] = w4 * G::PL + (lane & 15) + 9 - (par(WGI, i) & 1);
+    } else {
+      const int oy = 2 * wgi + (w4 >> 1), ox = 16 * (w4 & 1) + (lane & 15);
+      p0[0] = G::S * oy * G::PL + G::S * ox + G::OFF;
     }
   }
+  __host__ __device__ static constexpr int tap(int g) { return g / NS; }
+  __host__ __device__ static constexpr int parity(int g) {
+    return 2 * (tap(g) / 3 != 1) + (tap(g) % 3 != 1);
+  }
+  __host__ __device__ static constexpr bool mine(int g) {
+    return g < G::T * NS &&
+           (V != VT2 || (parity(g) == 0 || parity(g) == 3) == (WGI == 0));
+  }
+  __host__ __device__ static constexpr int set(int g) {
+    return V == VT2 ? parity(g) >> 1 : 0;
+  }
+  __host__ __device__ static constexpr int delta(int g) {
+    return V == VT2 ? (tap(g) / 3 == 2) * G::PL + (tap(g) % 3 == 2)
+                    : (tap(g) / 3) * G::PL + tap(g) % 3;
+  }
+  __device__ __forceinline__ void load(uint32_t (&a)[4], uint32_t src,
+                                       int g) const {
+    const int lane = threadIdx.x & 31;
+    if constexpr (V == V1X1) {
+      ldsm4t(a, src + (p0[0] + 16 * (g % NS) * G::BL) * 2);
+    } else {
+      ldsm4(a, src + pos_off<G>(p0[set(g)] + delta(g),
+                                2 * (g % NS) + (lane >> 4)));
+    }
+  }
+};
+
+// Channel chunk c's products into acc: its WPC weight chunks in turn, each
+// waited for, the warpgroup's steps of it issued as one wgmma group on the
+// slot's descriptor, completed, and the slot freed (by every consumer
+// warp, whether its warpgroup used it or not); the next weight chunk's A
+// fragments loaded under this one's wgmmas
+template <int V, int NS, int N, int WGI>
+__device__ __forceinline__ void chunk_mma(float (&acc)[Geo<V, NS>::NI][N / 2],
+                                          uint32_t src, uint32_t ring,
+                                          uint32_t wfull, uint32_t wempty,
+                                          int c, wg::Lap& lap) {
+  using G = Geo<V, NS>;
+  using R = RingOf<N>;
+  using A = ARows<V, NS, WGI>;
+  const A rows;
+  uint32_t a[2][4][4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    if (A::mine(j)) rows.load(a[0][j], src, j);
+#pragma unroll
+  for (int w = 0; w < G::WPC; ++w) {
+    const int gw = c * G::WPC + w;
+    const int sl = gw % R::ST;
+    lap(wg::P_MMA);
+    wg::mbar_wait(wfull + 8 * sl, (gw / R::ST) & 1);
+    lap(wg::P_WAIT);
+    const uint64_t desc = wg::desc_sw128(ring + sl * R::SLOT);
+    wg::fence();
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (A::mine(4 * w + j))
+        wg::mma_async<N>(acc[A::set(4 * w + j)], a[w & 1][j], desc + 2 * j);
+    wg::commit();
+    if (w + 1 < G::WPC)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (A::mine(4 * (w + 1) + j))
+          rows.load(a[(w + 1) & 1][j], src, 4 * (w + 1) + j);
+    wg::wait<0>();
+    arrive(wempty + 8 * sl);
+  }
+  lap(wg::P_MMA);
 }
 
 // 8 bfloat16 <-> float
@@ -559,360 +739,343 @@ __device__ __forceinline__ uint4 pack8(const float (&f)[8]) {
   return u;
 }
 
-// The planar write-back of a block's staged results os [CB][OP] (float32,
-// bias and leaky applied; position oy * TC + ox, ox the lane's offset in
-// the tile): + res, the gate, one rounding at the store; zero at columns
-// outside [0, Wo) (with os null, everywhere: a block past the image). A
-// thread takes 8 lanes (16 bytes: one load of res, of gate and of the
-// output each) of a line (a row and a real channel of the block), four
-// threads a line; two lines a thread at a time, their loads issued before
-// their stores.
-template <int CB>
-__device__ __forceinline__ void write_tile(const float* __restrict__ os,
-                                           EpiArgs ea, bf16* __restrict__ out,
-                                           int b, int r0, int l0, int cob,
-                                           int cout, int Ho, int Wo,
-                                           int wl_out) {
-  static_assert(TC == 32 && OP % 4 == 0, "a line is four 8-lane quarters");
-  constexpr int U = 2, LPP = NT / 4;  // lines a pass
-  const bf16* res = static_cast<const bf16*>(ea.res);
-  const bf16* gate = static_cast<const bf16*>(ea.gate);
-  const long long ob = (long long)b * Ho * cout * wl_out;
-  const int nco = min(CB, cout - cob);
-  const int q = threadIdx.x & 3;
+// The output offset of lanes [l, l + 8) of row r, channel co of image b
+__device__ __forceinline__ long long out_at(const Args& a, int b, int r,
+                                            int co, int l) {
+  return ((long long)(b * a.Ho + r) * a.cout + co) * a.wl_out + l;
+}
+
+// A tile entirely past the image: its TR rows x N channels of the lanes
+// [l0, l0 + 32) written as zeros, 16 bytes a thread, by the consumers
+template <int TR, int N>
+__device__ void zero_tile(const Args& a, int b, int r0, int l0, int cob) {
+  const int nco = min(N, a.cout - cob);
+  for (int i = threadIdx.x; i < TR * nco * 4; i += NC) {
+    const int line = i >> 2, oy = line / nco, cl = line - oy * nco;
+    if (r0 + oy < a.Ho)
+      *reinterpret_cast<uint4*>(
+          a.out + out_at(a, b, r0 + oy, cob + cl, l0 + 8 * (i & 3))) =
+          make_uint4(0, 0, 0, 0);
+  }
+}
+
+// The epilogue, 16 channels at a time: + bias, leaky and the stride-2
+// rounding into the stage os [PC][OP] (tile position oy * 32 + ox), then
+// the planar write-back: a thread takes 8 lanes (16 bytes) of a line (a
+// row and a channel), + res, the gate, one rounding at the store, zero at
+// columns outside [0, Wo)
+template <int V, int NS, int N>
+__device__ __forceinline__ void epilogue(const float (&acc)[Geo<V, NS>::NI]
+                                                           [N / 2],
+                                         float* __restrict__ os,
+                                         const Args& a, int b, int r0, int l0,
+                                         int cob, wg::Lap& lap) {
+  using G = Geo<V, NS>;
+  using L = Lay<V, NS, N>;
+  constexpr int PC = L::PC, OP = L::OP;
+  const int t = threadIdx.x, lane = t & 31, w4 = (t >> 5) & 3, wgi = t >> 7;
+  const int g8 = lane >> 2, q4 = lane & 3;
+  const bf16* res = static_cast<const bf16*>(a.ea.res);
+  const bf16* gate = static_cast<const bf16*>(a.ea.gate);
+  const int q = t & 3;
   const int c0 = l0 + 8 * q - 1;  // the image column of this thread's lane 0
-  const bool any = os != nullptr && c0 + 7 >= 0 && c0 < Wo;
-  const bool all = os != nullptr && c0 >= 0 && c0 + 7 < Wo;
-  const int nlines = TR * nco;
-  for (int i0 = threadIdx.x >> 2; i0 < nlines; i0 += U * LPP) {
-    float y[U][8];
-    uint4 rv[U], gv[U];
-    long long o[U];
+  const bool any = c0 + 7 >= 0 && c0 < a.Wo;
+  const bool all = c0 >= 0 && c0 + 7 < a.Wo;
 #pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const int line = i0 + u * LPP;
-      const int oy = line / nco, cl = line - oy * nco;
-      const int r = r0 + oy;
-      o[u] = -1;
+  for (int n0 = 0; n0 < N; n0 += PC) {
 #pragma unroll
-      for (int j = 0; j < 8; ++j) y[u][j] = 0.f;
-      if (line < nlines && r < Ho) {
-        o[u] = ob + ((long long)r * cout + cob + cl) * wl_out + l0 + 8 * q;
-        if (any) {
-          const float4* sp =
-              reinterpret_cast<const float4*>(os + cl * OP + oy * TC + 8 * q);
-          const float4 f0 = sp[0], f1 = sp[1];
-          y[u][0] = f0.x; y[u][1] = f0.y; y[u][2] = f0.z; y[u][3] = f0.w;
-          y[u][4] = f1.x; y[u][5] = f1.y; y[u][6] = f1.z; y[u][7] = f1.w;
-          if (res != nullptr)
-            rv[u] = __ldg(reinterpret_cast<const uint4*>(res + o[u]));
-          if (gate != nullptr)
-            gv[u] = __ldg(reinterpret_cast<const uint4*>(gate + o[u]));
+    for (int s = 0; s < G::NI; ++s)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        int pos;  // the tile position of row 16 w4 + g8 + 8 h of set s
+        if constexpr (V == VT2) {
+          const int q = wgi == 0 ? 3 * s : 1 + s, j = g8 + 8 * h;
+          pos = (2 * w4 + (q >> 1)) * TC + 2 * j + 1 - (q & 1);
+        } else {
+          pos = 64 * wgi + 16 * w4 + g8 + 8 * h;
         }
-      }
-    }
 #pragma unroll
-    for (int u = 0; u < U; ++u) {
-      if (o[u] < 0) continue;
+        for (int jj = 0; jj < PC / 8; ++jj)
+#pragma unroll
+          for (int cc = 0; cc < 2; ++cc) {
+            const int n = n0 + 8 * jj + 2 * q4 + cc;
+            float y = acc[s][4 * (n0 / 8 + jj) + 2 * h + cc];
+            if (cob + n < a.cout) y += a.bias[cob + n];
+            if (a.ea.has_slope) y = fmaxf(y, y * a.ea.slope);
+            if (G::S == 2) y = round_t<bf16>(y);
+            os[(n - n0) * OP + pos] = y;
+          }
+      }
+    lap(wg::P_EPI);
+    wg::sync_consumers();
+    lap(wg::P_SYNC);
+    for (int line = t >> 2; line < G::TR * PC; line += NC / 4) {
+      const int oy = line / PC, cl = line - oy * PC;
+      const int r = r0 + oy, co = cob + n0 + cl;
+      if (r >= a.Ho || co >= a.cout) continue;
+      const long long o = out_at(a, b, r, co, l0 + 8 * q);
+      float y[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
       if (any) {
+        const float4* sp =
+            reinterpret_cast<const float4*>(os + cl * OP + oy * TC + 8 * q);
+        const float4 f0 = sp[0], f1 = sp[1];
+        y[0] = f0.x; y[1] = f0.y; y[2] = f0.z; y[3] = f0.w;
+        y[4] = f1.x; y[5] = f1.y; y[6] = f1.z; y[7] = f1.w;
         float rf[8], gf[8];
-        if (res != nullptr) unpack8(rv[u], rf);
-        if (gate != nullptr) unpack8(gv[u], gf);
+        if (res != nullptr)
+          unpack8(__ldg(reinterpret_cast<const uint4*>(res + o)), rf);
+        if (gate != nullptr)
+          unpack8(__ldg(reinterpret_cast<const uint4*>(gate + o)), gf);
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          float v = y[u][j];
-          if (res != nullptr) v += rf[j];
-          if (gate != nullptr) v = gf[j] > 0.f ? v : v * ea.gate_slope;
-          if (!all && (c0 + j < 0 || c0 + j >= Wo)) v = 0.f;
-          y[u][j] = v;
+        for (int k = 0; k < 8; ++k) {
+          float v = y[k];
+          if (res != nullptr) v += rf[k];
+          if (gate != nullptr) v = gf[k] > 0.f ? v : v * a.ea.gate_slope;
+          if (!all && (c0 + k < 0 || c0 + k >= a.Wo)) v = 0.f;
+          y[k] = v;
         }
       }
-      *reinterpret_cast<uint4*>(out + o[u]) = pack8(y[u]);
+      *reinterpret_cast<uint4*>(a.out + o) = pack8(y);
     }
-  }
-}
-
-// A forward conv (KS x KS, stride S) on the tensor cores. wf: the weights
-// in fragment order with K (cin rounded up to 16) deep steps and
-// n_cb * 8 NW output channels; bias float32 [cout].
-template <int KS, int S, int NW>
-__global__ void __launch_bounds__(NT)
-    planar_conv_tc_kernel(const bf16* __restrict__ x,
-                          const uint2* __restrict__ wf,
-                          const float* __restrict__ bias, EpiArgs ea,
-                          bf16* __restrict__ out, int H, int cin, int K,
-                          int wl_in, int w_img, int cout, int n_cb, int Ho,
-                          int Wo, int wl_out) {
-  using G = Geom<KS, S>;
-  constexpr int CB = 8 * NW;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* xs = reinterpret_cast<bf16*>(smem_raw);   // [IH * IW][PI]
-  float* os = reinterpret_cast<float*>(smem_raw);  // [CB][OP], at the end
-  const int cb = blockIdx.z % n_cb, b = blockIdx.z / n_cb;
-  const int r0 = blockIdx.y * TR, l0 = blockIdx.x * TC;
-  const int ir0 = r0 * S - (KS - 1) / 2;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const bf16* xb = x + (long long)b * H * cin * wl_in;
-  const int nt8 = n_cb * NW, k16 = K / 16;
-  const int cob = cb * CB;
-  wg::Lap lap;
-  if (l0 > Wo) {  // every column of the tile is past the image
-    write_tile<CB>(nullptr, ea, out, b, r0, l0, cob, cout, Ho, Wo, wl_out);
     lap(wg::P_STORE);
-    return;
-  }
-
-  // this lane's A row in each of the warp's row blocks, at tap (0, 0)
-  int arow[MT];
-#pragma unroll
-  for (int t = 0; t < MT; ++t) {
-    const int m = (warp * MT + t) * 16 + (lane & 15);
-    const int oy = m / TC, ox = m - oy * TC;
-    arow[t] = ((S * oy) * G::IW + S * ox + G::OFF) * G::PI + (lane >> 4) * 8;
-  }
-  float acc[MT][NW][4];
-#pragma unroll
-  for (int t = 0; t < MT; ++t)
-#pragma unroll
-    for (int j = 0; j < NW; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[t][j][e] = 0.f;
-
-  for (int ch0 = 0; ch0 < K; ch0 += G::KC) {
-    const int nch = min(G::KC, K - ch0);
-    __syncthreads();  // the previous chunk has been read
+    wg::sync_consumers();
     lap(wg::P_SYNC);
-    stage<G::IH, G::IW, G::PI, G::KC>(xs, xb, ir0, H, cin, wl_in,
-                                      S * l0 - G::LB, w_img, ch0, nch);
-    lap(wg::P_LOAD);
-    __syncthreads();
-    lap(wg::P_SYNC);
-#pragma unroll 1
-    for (int tap = 0; tap < KS * KS; ++tap) {
-      const int ky = tap / KS, kx = tap - ky * KS;
-      const bf16* a[MT];
-#pragma unroll
-      for (int t = 0; t < MT; ++t)
-        a[t] = xs + arow[t] + (ky * G::IW + kx) * G::PI;
-      tap_mma<MT, NW, G::KC / 16>(
-          acc, a,
-          wf + ((long long)(tap * k16 + ch0 / 16) * nt8 + cb * NW) * 32 +
-              lane,
-          nt8, nch / 16);
-    }
-    lap(wg::P_MMA);
   }
-  __syncthreads();  // the staged input has been read: os reuses it
-  lap(wg::P_SYNC);
-  // + bias, leaky, the stride-2 rounding; channel-major into os
-  const int g = lane >> 2, q = lane & 3;
-#pragma unroll
-  for (int t = 0; t < MT; ++t)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int m = (warp * MT + t) * 16 + g + 8 * h;
-#pragma unroll
-      for (int j = 0; j < NW; ++j)
-#pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          const int n = 8 * j + 2 * q + c;
-          float y = acc[t][j][2 * h + c];
-          if (cob + n < cout) y += bias[cob + n];
-          if (ea.has_slope) y = fmaxf(y, y * ea.slope);
-          if (S == 2) y = round_t<bf16>(y);
-          os[n * OP + m] = y;
-        }
-    }
-  lap(wg::P_EPI);
-  __syncthreads();
-  lap(wg::P_SYNC);
-  write_tile<CB>(os, ea, out, b, r0, l0, cob, cout, Ho, Wo, wl_out);
-  lap(wg::P_STORE);
 }
 
-// The stride-2 adjoint on the tensor cores, from the unexpanded g
-// [B, Hg, cin, wl_in] at width w_g to [B, 2 Hg, cout, wl_out]; wf the
-// flipped kernel in fragment order (as planar_conv_tc_kernel's)
-template <int NW>
-__global__ void __launch_bounds__(NT)
-    planar_convt2_tc_kernel(const bf16* __restrict__ g,
-                            const uint2* __restrict__ wf,
-                            const float* __restrict__ bias, EpiArgs ea,
-                            bf16* __restrict__ out, int Hg, int cin, int K,
-                            int wl_in, int w_g, int cout, int n_cb,
-                            int wl_out) {
-  using G = GeomT2;
-  constexpr int CB = 8 * NW;
+// Variant V on its tiles: block x takes tiles x, x + gridDim.x, ...
+// (persistent: the producer loads the next tile's boxes and weights while
+// the consumers finish this one)
+template <int V, int NS, int N>
+__global__ void __launch_bounds__(NTH, 2)
+    planar_conv_wg_kernel(const __grid_constant__ CUtensorMap tmx,
+                          const Args a) {
+  using G = Geo<V, NS>;
+  using L = Lay<V, NS, N>;
+  using R = RingOf<N>;
+  static_assert(valid<V, NS, N>(), "instantiation");
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* xs = reinterpret_cast<bf16*>(smem_raw);
-  float* os = reinterpret_cast<float*>(smem_raw);
-  const int cb = blockIdx.z % n_cb, b = blockIdx.z / n_cb;
-  const int r0 = blockIdx.y * TR, l0 = blockIdx.x * TC;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const bf16* gb = g + (long long)b * Hg * cin * wl_in;
-  const int nt8 = n_cb * NW, k16 = K / 16;
-  const int cob = cb * CB;
-  if (l0 > 2 * w_g) {  // every column of the tile is past the image
-    write_tile<CB>(nullptr, ea, out, b, r0, l0, cob, cout, 2 * Hg, 2 * w_g,
-                   wl_out);
-    return;
+  const uint32_t raw = wg::smem_u32(smem_raw);
+  unsigned char* sm = smem_raw + (((raw + 1023) & ~1023u) - raw);
+  const uint32_t s0 = wg::smem_u32(sm);
+  const uint32_t wfull = s0 + L::BAR_AT, wempty = wfull + 8 * R::ST;
+  const uint32_t lfull = wempty + 8 * R::ST, lempty = lfull + 8 * G::LB;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < R::ST; ++i) {
+      wg::mbar_init(wfull + 8 * i, 1);
+      wg::mbar_init(wempty + 8 * i, wg::CONSUMER_WARPS);
+    }
+    for (int i = 0; i < G::LB; ++i) {
+      wg::mbar_init(lfull + 8 * i, 1);
+      wg::mbar_init(lempty + 8 * i, wg::CONSUMER_WARPS);
+    }
+    wg::fence_barrier_init();
   }
-  // the warp's two items: (parity, 16-row block of the parity's 4 x 16
-  // super positions)
-  // super positions: warps 0-3 parities (1, 1) and (0, 0), warps 4-7
-  // (0, 1) and (1, 0)
-  const int rb = warp & 3;
-  const int pys[2] = {warp < 4 ? 1 : 0, warp < 4 ? 0 : 1};
-  const int pxs[2] = {1, 0};
-  const int m = rb * 16 + (lane & 15);
-  int arow[2];
-#pragma unroll
-  for (int it = 0; it < 2; ++it)
-    arow[it] = ((m / G::SC) * G::IW + m % G::SC + 9 - pxs[it]) * G::PI +
-               (lane >> 4) * 8;
-  float acc[2][1][NW][4];
-#pragma unroll
-  for (int it = 0; it < 2; ++it)
-#pragma unroll
-    for (int j = 0; j < NW; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[it][0][j][e] = 0.f;
-
-  for (int ch0 = 0; ch0 < K; ch0 += G::KC) {
-    const int nch = min(G::KC, K - ch0);
-    __syncthreads();
-    stage<G::IH, G::IW, G::PI, G::KC>(xs, gb, r0 / 2, Hg, cin, wl_in,
-                                      l0 / 2 - 8, w_g, ch0, nch);
-    __syncthreads();
-#pragma unroll
-    for (int it = 0; it < 2; ++it) {
-      const int py = pys[it], px = pxs[it];
-      const int ntap = (py + 1) * (px + 1);
-#pragma unroll 1
-      for (int i = 0; i < ntap; ++i) {
-        const int iy = i / (px + 1), ix = i - iy * (px + 1);
-        const int dy = py ? 2 * iy : 1, ey = py ? iy : 0;
-        const int dx = px ? 2 * ix : 1, ex = px ? ix : 0;
-        const bf16* const a[1] = {xs + arow[it] +
-                                  (ey * G::IW + ex) * G::PI};
-        tap_mma<1, NW, G::KC / 16>(
-            acc[it], a,
-            wf + ((long long)((dy * 3 + dx) * k16 + ch0 / 16) * nt8 +
-                  cb * NW) * 32 + lane,
-            nt8, nch / 16);
+  __syncthreads();
+  // a tile's box: its first lane (a multiple of 8) and row
+  auto box_lane = [](const Tile& u) {
+    return V == V1X1 ? u.l0 : V == V3S1 ? u.l0 - 8 : V == V3S2 ? 2 * u.l0 - 8
+                                                               : u.l0 / 2 - 8;
+  };
+  auto box_row = [](const Tile& u) {
+    return V == V1X1 ? u.r0 : V == V3S1 ? u.r0 - 1 : V == V3S2 ? 2 * u.r0 - 1
+                                                               : u.r0 / 2;
+  };
+  if (threadIdx.x >= NC) {
+    // the producer warp: lane 0 the input boxes, lane 1 the weights, for
+    // every tile with a column in the image
+    const int lane = threadIdx.x & 31;
+    if (lane == 0) {
+      int lc = 0;  // boxes issued
+      for (int t = blockIdx.x; t < a.ntiles; t += gridDim.x) {
+        const Tile u = tile_of<G::TR>(a, t);
+        if (u.l0 > a.Wo) continue;
+        for (int c = 0; c < a.nck; ++c, ++lc) {
+          const int sl = lc % G::LB;
+          wg::mbar_wait(lempty + 8 * sl, ((lc / G::LB) & 1) ^ 1);
+          wg::mbar_expect_tx(lfull + 8 * sl, G::LAND);
+          wg::tma_load_4d(s0 + L::LAND_AT + sl * G::LAND, &tmx, box_lane(u),
+                          c * G::KC, box_row(u), u.b, lfull + 8 * sl);
+        }
+      }
+    } else if (lane == 1) {
+      int gw = 0;  // weight chunks issued
+      for (int t = blockIdx.x; t < a.ntiles; t += gridDim.x) {
+        const Tile u = tile_of<G::TR>(a, t);
+        if (u.l0 > a.Wo) continue;
+        const unsigned char* wp =
+            a.w + (size_t)u.cb * a.nck * G::WPC * R::SLOT;
+        for (int k = 0; k < a.nck * G::WPC; ++k, ++gw) {
+          const int sl = gw % R::ST;
+          wg::mbar_wait(wempty + 8 * sl, ((gw / R::ST) & 1) ^ 1);
+          wg::mbar_expect_tx(wfull + 8 * sl, R::SLOT);
+          wg::bulk_load(s0 + sl * R::SLOT, wp + (size_t)k * R::SLOT,
+                        R::SLOT, wfull + 8 * sl);
+        }
       }
     }
+    return;
   }
-  __syncthreads();
-  const int gq = lane >> 2, q = lane & 3;
-#pragma unroll
-  for (int it = 0; it < 2; ++it)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int mm = rb * 16 + gq + 8 * h;
-      const int oy = 2 * (mm / G::SC) + pys[it];
-      const int ox = 2 * (mm % G::SC) + 1 - pxs[it];
-#pragma unroll
-      for (int j = 0; j < NW; ++j)
-#pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          const int n = 8 * j + 2 * q + c;
-          float y = acc[it][0][j][2 * h + c];
-          if (cob + n < cout) y += bias[cob + n];
-          os[n * OP + oy * TC + ox] = y;
-        }
+
+  wg::Lap lap;
+  int gc = 0;  // channel chunks consumed (boxes and weight chunk groups)
+  for (int t = blockIdx.x; t < a.ntiles; t += gridDim.x) {
+    const Tile u = tile_of<G::TR>(a, t);
+    if (u.l0 > a.Wo) {  // every column of the tile is past the image
+      zero_tile<G::TR, N>(a, u.b, u.r0, u.l0, u.cb * N);
+      lap(wg::P_STORE);
+      continue;
     }
-  __syncthreads();
-  write_tile<CB>(os, ea, out, b, r0, l0, cob, cout, 2 * Hg, 2 * w_g,
-                 wl_out);
-}
-
-template <int KS, int S, int NW>
-size_t smem_of() {
-  return (size_t)max(Geom<KS, S>::IN_BYTES, out_bytes<NW>());
-}
-template <int NW>
-size_t smem_t2() {
-  return (size_t)max(GeomT2::IN_BYTES, out_bytes<NW>());
-}
-
-template <int KS, int S, int NW>
-int launch(const void* x, const void* wf, const float* bias, EpiArgs ea,
-           void* out, int B, int H, int cin, int K, int wl_in, int w_img,
-           int cout, int cout_pad, cudaStream_t s) {
-  const size_t smem = smem_of<KS, S, NW>();
-  auto kern = planar_conv_tc_kernel<KS, S, NW>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  const int Ho = H / S, Wo = w_img / S;
-  const int wl_out = (Wo + 2 + 127) / 128 * 128;
-  const int n_cb = cout_pad / (8 * NW);
-  dim3 grid(wl_out / TC, (Ho + TR - 1) / TR, B * n_cb);
-  kern<<<grid, NT, smem, s>>>(
-      static_cast<const bf16*>(x), static_cast<const uint2*>(wf), bias, ea,
-      static_cast<bf16*>(out), H, cin, K, wl_in, w_img, cout, n_cb, Ho, Wo,
-      wl_out);
-  return (int)cudaGetLastError();
-}
-
-template <int KS, int S>
-int launch_nw(const void* x, const void* wf, const float* bias, EpiArgs ea,
-              void* out, int B, int H, int cin, int K, int wl_in, int w_img,
-              int cout, int cout_pad, cudaStream_t s) {
-  switch (nw_of(cout)) {
-    case 1:
-      return launch<KS, S, 1>(x, wf, bias, ea, out, B, H, cin, K, wl_in,
-                              w_img, cout, cout_pad, s);
-    case 2:
-      return launch<KS, S, 2>(x, wf, bias, ea, out, B, H, cin, K, wl_in,
-                              w_img, cout, cout_pad, s);
-    case 4:
-      return launch<KS, S, 4>(x, wf, bias, ea, out, B, H, cin, K, wl_in,
-                              w_img, cout, cout_pad, s);
-    default:
-      return launch<KS, S, 8>(x, wf, bias, ea, out, B, H, cin, K, wl_in,
-                              w_img, cout, cout_pad, s);
+    float acc[G::NI][N / 2];
+#pragma unroll
+    for (int s = 0; s < G::NI; ++s)
+#pragma unroll
+      for (int e = 0; e < N / 2; ++e) acc[s][e] = 0.f;
+    for (int c = 0; c < a.nck; ++c, ++gc) {
+      const int sl = gc % G::LB;
+      const uint32_t land = s0 + L::LAND_AT + sl * G::LAND;
+      wg::mbar_wait(lfull + 8 * sl, (gc / G::LB) & 1);
+      lap(wg::P_INPUT);
+      uint32_t src = land;
+      if constexpr (V != V1X1) {
+        src = s0 + L::POS_AT;
+        transpose<G>(land, src, box_lane(u), a.w_in);
+        lap(wg::P_LOAD);
+        arrive(lempty + 8 * sl);
+        wg::sync_consumers();
+        lap(wg::P_SYNC);
+      }
+      // the warpgroups' steps differ only in the adjoint (their parities)
+      if (V != VT2 || threadIdx.x < 128)
+        chunk_mma<V, NS, N, 0>(acc, src, s0, wfull, wempty, gc, lap);
+      else
+        chunk_mma<V, NS, N, 1>(acc, src, s0, wfull, wempty, gc, lap);
+      if constexpr (V == V1X1) arrive(lempty + 8 * sl);
+      wg::sync_consumers();  // the staged tile (or landing buffer) is free
+      lap(wg::P_SYNC);
+    }
+    epilogue<V, NS, N>(acc, reinterpret_cast<float*>(sm + L::POS_AT), a,
+                       u.b, u.r0, u.l0, u.cb * N, lap);
   }
 }
 
-template <int NW>
-int launch_t2(const void* g, const void* wf, const float* bias, EpiArgs ea,
-              void* out, int B, int Hg, int cin, int K, int wl_in, int w_g,
-              int cout, int cout_pad, cudaStream_t s) {
-  const size_t smem = smem_t2<NW>();
-  auto kern = planar_convt2_tc_kernel<NW>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  const int Ho = 2 * Hg, Wo = 2 * w_g;
-  const int wl_out = (Wo + 2 + 127) / 128 * 128;
-  const int n_cb = cout_pad / (8 * NW);
-  dim3 grid(wl_out / TC, (Ho + TR - 1) / TR, B * n_cb);
-  kern<<<grid, NT, smem, s>>>(
-      static_cast<const bf16*>(g), static_cast<const uint2*>(wf), bias, ea,
-      static_cast<bf16*>(out), Hg, cin, K, wl_in, w_g, cout, n_cb, wl_out);
-  return (int)cudaGetLastError();
-}
-
-template <int NW>
-int info_nw(int variant, int* info) {
-  switch (variant) {
-    case 0:
-      return info_of(planar_conv_tc_kernel<1, 1, NW>, smem_of<1, 1, NW>(),
-                     info);
-    case 1:
-      return info_of(planar_conv_tc_kernel<3, 1, NW>, smem_of<3, 1, NW>(),
-                     info);
-    case 2:
-      return info_of(planar_conv_tc_kernel<3, 2, NW>, smem_of<3, 2, NW>(),
-                     info);
-    default:
-      return info_of(planar_convt2_tc_kernel<NW>, smem_t2<NW>(), info);
+template <int V, int NS, int N>
+int launch(const void* x, const void* w, const float* bias, EpiArgs ea,
+           void* out, int B, int H, int cin, int wl_in, int w_in, int cout,
+           int n_cb, int K, cudaStream_t s) {
+  if constexpr (!valid<V, NS, N>()) {
+    return (int)cudaErrorInvalidValue;
+  } else {
+    using G = Geo<V, NS>;
+    using L = Lay<V, NS, N>;
+    auto kern = planar_conv_wg_kernel<V, NS, N>;
+    cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, L::SMEM);
+    if (e != cudaSuccess) return (int)e;
+    CUtensorMap tm;
+    const int err = wg::planar_map(&tm, x, true, B, H, cin, wl_in, G::BL,
+                                   G::IH, G::KC);
+    if (err != 0) return err;
+    Args a;
+    a.w = static_cast<const unsigned char*>(w);
+    a.bias = bias;
+    a.ea = ea;
+    a.out = static_cast<bf16*>(out);
+    a.w_in = w_in;
+    a.Ho = V == VT2 ? 2 * H : H / G::S;
+    a.Wo = V == VT2 ? 2 * w_in : w_in / G::S;
+    a.wl_out = (a.Wo + 2 + 127) / 128 * 128;
+    a.cout = cout;
+    a.n_cb = n_cb;
+    a.nck = (K + G::KC - 1) / G::KC;
+    a.ntx = a.wl_out / TC;
+    a.nty = (a.Ho + G::TR - 1) / G::TR;
+    a.ntiles = a.ntx * a.nty * B * n_cb;
+    // as many blocks as the card holds at once, at most one a tile
+    static int per_sm = 0;
+    if (per_sm == 0) {
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, NTH,
+                                                        L::SMEM);
+      if (e != cudaSuccess || per_sm == 0) return e ? (int)e : 1;
+    }
+    int dev = 0, sms = 0;
+    e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return (int)e;
+    kern<<<min(a.ntiles, per_sm * sms), NTH, L::SMEM, s>>>(tm, a);
+    return (int)cudaGetLastError();
   }
 }
 
-}  // namespace tc
+template <int V, int NS>
+int launch_n(int n, const void* x, const void* w, const float* bias,
+             EpiArgs ea, void* out, int B, int H, int cin, int wl_in,
+             int w_in, int cout, int n_cb, int K, cudaStream_t s) {
+  switch (n) {
+    case 8:
+      return launch<V, NS, 8>(x, w, bias, ea, out, B, H, cin, wl_in, w_in,
+                              cout, n_cb, K, s);
+    case 16:
+      return launch<V, NS, 16>(x, w, bias, ea, out, B, H, cin, wl_in, w_in,
+                               cout, n_cb, K, s);
+    case 32:
+      return launch<V, NS, 32>(x, w, bias, ea, out, B, H, cin, wl_in, w_in,
+                               cout, n_cb, K, s);
+    default:
+      return launch<V, NS, 64>(x, w, bias, ea, out, B, H, cin, wl_in, w_in,
+                               cout, n_cb, K, s);
+  }
+}
+
+// A launch of variant v: the plan's channel width and steps a chunk, the
+// channel blocks from cout_pad
+template <int V>
+int launch_v(const void* x, const void* w, const float* bias, EpiArgs ea,
+             void* out, int B, int H, int cin, int wl_in, int w_in, int cout,
+             int cout_pad, int K, cudaStream_t s) {
+  int n, ns;
+  plan(V, K, cout, &n, &ns);
+  if (K % 16 != 0 || K <= 0 || cout_pad % n != 0)
+    return (int)cudaErrorInvalidValue;
+  const int n_cb = cout_pad / n;
+  if (ns == 1)
+    return launch_n<V, 1>(n, x, w, bias, ea, out, B, H, cin, wl_in, w_in,
+                          cout, n_cb, K, s);
+  if (ns == 2)
+    return launch_n<V, 2>(n, x, w, bias, ea, out, B, H, cin, wl_in, w_in,
+                          cout, n_cb, K, s);
+  return launch_n<V, 4>(n, x, w, bias, ea, out, B, H, cin, wl_in, w_in, cout,
+                        n_cb, K, s);
+}
+
+template <int V, int NS, int N>
+int info_of_wg(int* info) {
+  if constexpr (!valid<V, NS, N>())
+    return (int)cudaErrorInvalidValue;
+  else
+    return info_of(planar_conv_wg_kernel<V, NS, N>, Lay<V, NS, N>::SMEM,
+                   info, NTH);
+}
+
+template <int V, int NS>
+int info_n(int n, int* info) {
+  switch (n) {
+    case 8: return info_of_wg<V, NS, 8>(info);
+    case 16: return info_of_wg<V, NS, 16>(info);
+    case 32: return info_of_wg<V, NS, 32>(info);
+    default: return info_of_wg<V, NS, 64>(info);
+  }
+}
+
+template <int V>
+int info_v(int ns, int n, int* info) {
+  if (ns == 1) return info_n<V, 1>(n, info);
+  if (ns == 2) return info_n<V, 2>(n, info);
+  return info_n<V, 4>(n, info);
+}
+
+}  // namespace wgk
 
 }  // namespace
 
@@ -920,11 +1083,12 @@ int info_nw(int variant, int* info) {
 // [cout] (float32: [cout_pad]). k = 1 (stride 1) or 3 (stride 1 or 2;
 // stride 2 needs even H and w_img). res and gate are null or planar
 // [B, H/stride, cout, wl_out]. float32: w HWIO [k][k][cin][cout_pad]
-// (cout_pad a multiple of 8); bfloat16: w in mma.sync's fragment order,
-// [k*k][K/16][cout_pad/8][32] uint2 with K the weights' cin rounded up to
-// 16 and cout_pad a multiple of the block's 8 NW (tc::nw_of). Returns
-// cudaGetLastError(), or cudaErrorInvalidValue for a geometry the kernel
-// does not take.
+// (cout_pad a multiple of 8); bfloat16: w packed for wgmma
+// (ops/planar_conv.py: k4_weights) for the plan's channel width n and
+// steps a chunk (wgk::plan), [cout_pad / n][chunks][n][64], K the weights'
+// cin rounded up to 16 and cout_pad a multiple of n; x 16-byte aligned.
+// Returns cudaGetLastError(), or cudaErrorInvalidValue for a geometry the
+// kernel does not take (bfloat16: a tensor-map error past 999).
 extern "C" int apfp_planar_conv(const void* x, const void* w,
                                 const void* bias, const void* res,
                                 const void* gate, void* out, int dtype, int B,
@@ -939,16 +1103,14 @@ extern "C" int apfp_planar_conv(const void* x, const void* w,
   const float* bf = static_cast<const float*>(bias);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
-    if (K % 16 != 0 || K <= 0 || cout_pad % (8 * tc::nw_of(cout)) != 0)
-      return (int)cudaErrorInvalidValue;
     if (k == 1)
-      return tc::launch_nw<1, 1>(x, w, bf, ea, out, B, H, cin, K, wl_in,
-                                 w_img, cout, cout_pad, s);
+      return wgk::launch_v<wgk::V1X1>(x, w, bf, ea, out, B, H, cin, wl_in,
+                                      w_img, cout, cout_pad, K, s);
     if (stride == 2)
-      return tc::launch_nw<3, 2>(x, w, bf, ea, out, B, H, cin, K, wl_in,
-                                 w_img, cout, cout_pad, s);
-    return tc::launch_nw<3, 1>(x, w, bf, ea, out, B, H, cin, K, wl_in, w_img,
-                               cout, cout_pad, s);
+      return wgk::launch_v<wgk::V3S2>(x, w, bf, ea, out, B, H, cin, wl_in,
+                                      w_img, cout, cout_pad, K, s);
+    return wgk::launch_v<wgk::V3S1>(x, w, bf, ea, out, B, H, cin, wl_in,
+                                    w_img, cout, cout_pad, K, s);
   }
   if (cout_pad % 8 != 0) return (int)cudaErrorInvalidValue;
   return launch_f32(x, w, bf, ea, out, B, H, cin, wl_in, w_img, cout,
@@ -958,8 +1120,8 @@ extern "C" int apfp_planar_conv(const void* x, const void* w,
 // The stride-2 adjoint (k3t2): g planar [B, Hg, cin, wl_in] at image width
 // w_g -> out planar [B, 2 Hg, cout, wl_out] at width 2 w_g, with the
 // flipped kernel w (float32: HWIO [3][3][cin][cout_pad], cout_pad a
-// multiple of 8; bfloat16: fragment order as apfp_planar_conv's), bias,
-// no leaky, and gate (null or planar like out) applied last. Returns
+// multiple of 8; bfloat16: packed as apfp_planar_conv's), bias, no leaky,
+// and gate (null or planar like out) applied last. Returns
 // cudaGetLastError(), or cudaErrorInvalidValue.
 extern "C" int apfp_planar_conv_t2(const void* g, const void* w,
                                    const void* bias, const void* gate,
@@ -971,27 +1133,11 @@ extern "C" int apfp_planar_conv_t2(const void* g, const void* w,
   const EpiArgs ea = {nullptr, gate, 0, 0.f, gate_slope};
   const float* bf = static_cast<const float*>(bias);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int wl_out = (2 * w_g + 2 + 127) / 128 * 128;
-  if (dtype == 1) {
-    const int nw = tc::nw_of(cout);
-    if (K % 16 != 0 || K <= 0 || cout_pad % (8 * nw) != 0)
-      return (int)cudaErrorInvalidValue;
-    switch (nw) {
-      case 1:
-        return tc::launch_t2<1>(g, w, bf, ea, out, B, Hg, cin, K, wl_in, w_g,
-                                cout, cout_pad, s);
-      case 2:
-        return tc::launch_t2<2>(g, w, bf, ea, out, B, Hg, cin, K, wl_in, w_g,
-                                cout, cout_pad, s);
-      case 4:
-        return tc::launch_t2<4>(g, w, bf, ea, out, B, Hg, cin, K, wl_in, w_g,
-                                cout, cout_pad, s);
-      default:
-        return tc::launch_t2<8>(g, w, bf, ea, out, B, Hg, cin, K, wl_in, w_g,
-                                cout, cout_pad, s);
-    }
-  }
+  if (dtype == 1)
+    return wgk::launch_v<wgk::VT2>(g, w, bf, ea, out, B, Hg, cin, wl_in, w_g,
+                                   cout, cout_pad, K, s);
   if (cout_pad % 8 != 0) return (int)cudaErrorInvalidValue;
+  const int wl_out = (2 * w_g + 2 + 127) / 128 * 128;
   dim3 grid((w_g + 31) / 32, (Hg + 7) / 8, B * (cout_pad / 8));
   planar_convt2_f32_kernel<<<grid, NT, 0, s>>>(
       static_cast<const float*>(g), static_cast<const float*>(w), bf, ea,
@@ -1011,16 +1157,18 @@ extern "C" int apfp_prof_take(unsigned long long* out) {
 }
 #endif
 
-// A bfloat16 tensor-core instantiation as the card sees it: variant 0 =
-// 1x1, 1 = 3x3 stride 1, 2 = 3x3 stride 2, 3 = the stride-2 adjoint; nw =
-// 1, 2, 4 or 8 (8 nw output channels a block). info[0] registers a thread,
+// A bfloat16 instantiation as the card sees it: variant 0 = 1x1, 1 = 3x3
+// stride 1, 2 = 3x3 stride 2, 3 = the stride-2 adjoint; ns 16-deep steps a
+// channel chunk (1, 2 or 4; stride 2: 1), n output channels a block (8,
+// 16, 32 or 64; the adjoint up to 32). info[0] registers a thread,
 // info[1] the dynamic shared memory bytes of a launch, info[2] the blocks
-// one multiprocessor holds. Returns the CUDA error.
-extern "C" int apfp_planar_conv_info(int variant, int nw, int* info) {
-  switch (nw) {
-    case 1: return tc::info_nw<1>(variant, info);
-    case 2: return tc::info_nw<2>(variant, info);
-    case 4: return tc::info_nw<4>(variant, info);
-    default: return tc::info_nw<8>(variant, info);
+// one multiprocessor holds. Returns the CUDA error (cudaErrorInvalidValue
+// for an instantiation that does not exist).
+extern "C" int apfp_planar_conv_info(int variant, int ns, int n, int* info) {
+  switch (variant) {
+    case 0: return wgk::info_v<wgk::V1X1>(ns, n, info);
+    case 1: return wgk::info_v<wgk::V3S1>(ns, n, info);
+    case 2: return wgk::info_v<wgk::V3S2>(ns, n, info);
+    default: return wgk::info_v<wgk::VT2>(ns, n, info);
   }
 }

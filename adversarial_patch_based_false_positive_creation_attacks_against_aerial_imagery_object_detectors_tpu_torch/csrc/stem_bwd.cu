@@ -67,8 +67,6 @@
 // float32 stays on stem_common.cuh's grad_chain (CUDA-core FMAs, shared
 // with K5), 151,552 bytes, one block a multiprocessor.
 
-#include <cuda.h>
-#include <dlfcn.h>
 
 #include "stem_common.cuh"
 
@@ -357,49 +355,7 @@ __global__ void __launch_bounds__(wg::NTH, 1)
   lap(wg::P_STORE);
 }
 
-// cuTensorMapEncodeTiled from the driver (looked up at run time: the
-// library links no driver stub)
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
-                                cuuint32_t, void*, const cuuint64_t*,
-                                const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave,
-                                CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static EncodeTiled fn = [] {
-    void* h = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
-    if (h == nullptr) h = dlopen("libcuda.so.1", RTLD_NOW);
-    return h ? reinterpret_cast<EncodeTiled>(
-                   dlsym(h, "cuTensorMapEncodeTiled"))
-             : nullptr;
-  }();
-  return fn;
-}
-
-// The tensor map of a planar [B, rows, C, wl] tensor (int8, or bfloat16
-// with bf16) with boxes of bw lanes x C channels x br rows of one image.
-// Returns 0, or an error code past the runtime's (1000 + the driver's).
-int planar_map(CUtensorMap* m, const void* p, bool bf16, int B, int rows,
-               int C, int wl, int bw, int br) {
-  EncodeTiled f = encoder();
-  if (f == nullptr) return 999;
-  const cuuint64_t es = bf16 ? 2 : 1;
-  const cuuint64_t dims[4] = {(cuuint64_t)wl, (cuuint64_t)C,
-                              (cuuint64_t)rows, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {wl * es, (cuuint64_t)C * wl * es,
-                                 (cuuint64_t)rows * C * wl * es};
-  const cuuint32_t box[4] = {(cuuint32_t)bw, (cuuint32_t)C, (cuuint32_t)br,
-                             1};
-  const cuuint32_t el[4] = {1, 1, 1, 1};
-  const CUresult r = f(
-      m,
-      bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_UINT8,
-      4, const_cast<void*>(p), dims, strides, box, el,
-      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
-      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : 1000 + (int)r;
-}
+using wg::planar_map;
 
 int launch_f32(const void* const* m, const void* y5, const void* g5,
                const void* const* v, void* gxe, void* gxo, int B, int H,

@@ -16,8 +16,10 @@
 // two families agree exactly where they sum alike.
 #pragma once
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <dlfcn.h>
 #include <stdint.h>
 
 namespace stem {
@@ -1286,6 +1288,51 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const void* map,
       : "memory");
 }
 
+// cuTensorMapEncodeTiled from the driver (looked up at run time: the
+// libraries link no driver stub)
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
+                                cuuint32_t, void*, const cuuint64_t*,
+                                const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encoder() {
+  static EncodeTiled fn = [] {
+    void* h = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
+    if (h == nullptr) h = dlopen("libcuda.so.1", RTLD_NOW);
+    return h ? reinterpret_cast<EncodeTiled>(
+                   dlsym(h, "cuTensorMapEncodeTiled"))
+             : nullptr;
+  }();
+  return fn;
+}
+
+// The tensor map of a planar [B, rows, C, wl] tensor (int8, or bfloat16
+// with bf16) with boxes of bw lanes x bc channels (0: all C) x br rows of
+// one image; positions outside the tensor arrive as zeros. Returns 0, or
+// an error code past the runtime's (1000 + the driver's).
+inline int planar_map(CUtensorMap* m, const void* p, bool bf16, int B,
+                      int rows, int C, int wl, int bw, int br, int bc = 0) {
+  EncodeTiled f = encoder();
+  if (f == nullptr) return 999;
+  const cuuint64_t es = bf16 ? 2 : 1;
+  const cuuint64_t dims[4] = {(cuuint64_t)wl, (cuuint64_t)C,
+                              (cuuint64_t)rows, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {wl * es, (cuuint64_t)C * wl * es,
+                                 (cuuint64_t)rows * C * wl * es};
+  const cuuint32_t box[4] = {(cuuint32_t)bw, (cuuint32_t)(bc ? bc : C),
+                             (cuuint32_t)br, 1};
+  const cuuint32_t el[4] = {1, 1, 1, 1};
+  const CUresult r = f(
+      m,
+      bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_UINT8,
+      4, const_cast<void*>(p), dims, strides, box, el,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : 1000 + (int)r;
+}
+
 // the consumers' own barrier (named barrier 1; the producer warp never
 // joins it)
 __device__ __forceinline__ void sync_consumers() {
@@ -1367,6 +1414,20 @@ __device__ __forceinline__ void mma_async<64>(float (&d)[32],
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void mma_async<16>(float (&d)[8],
+                                               const uint32_t (&a)[4],
+                                               uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 

@@ -97,8 +97,9 @@ SIGNATURES = {
         # g, w, bias, gate, out, dtype, B, Hg, cin, wl_in, w_g, cout,
         # cout_pad, K, gate_slope, stream
         "apfp_planar_conv_t2": [_P] * 5 + [_I] * 9 + [_F, _P],
-        # variant (1x1, 3x3 s1, 3x3 s2, adjoint), nw, info[3]
-        "apfp_planar_conv_info": [_I, _I, _P],
+        # variant (1x1, 3x3 s1, 3x3 s2, adjoint), 16-deep steps a chunk,
+        # channels a block, info[3]
+        "apfp_planar_conv_info": [_I, _I, _I, _P],
     },
     "res_fused": {
         # x, w6, w7, w9, w10, b6, b7, b9, b10, f6, f7, f9, f10 (bfloat16

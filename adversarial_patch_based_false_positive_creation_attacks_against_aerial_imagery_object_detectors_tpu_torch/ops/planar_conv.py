@@ -29,13 +29,15 @@ backward; ``expand2_planar`` is the stride-2 adjoint's zero interleave,
 stride-2 adjoint ``planar_conv(expand2_planar(g), flip_t(w), ...)`` as
 one K4 variant that reads the unexpanded cotangent (its four output
 parities, 9 tap products per 4 outputs instead of 36). In bfloat16 K4 runs
-on the tensor cores and reads its weights in ``mma.sync``'s fragment
-order (``k4_weights``, built once per weight tensor by ``_mma_cached``);
-in float32 it keeps CUDA-core FMAs.
+on ``wgmma`` with its input loaded by TMA and its weights streamed into
+shared memory by bulk copies, packed on the host in the descriptor's
+swizzled chunks (``k4_plan``, ``k4_weights``, built once per weight
+tensor by ``_mma_cached``); in float32 it keeps CUDA-core FMAs.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -197,7 +199,8 @@ from_planar.narrow_launches = 0
 
 
 # ---------------------------------------------------------------------------
-# Weights in mma.sync's fragment order (the bfloat16 tensor-core kernels)
+# Weights as the bfloat16 tensor-core kernels read them: mma.sync's
+# fragment order, or wgmma's swizzled chunks
 # ---------------------------------------------------------------------------
 
 def mma_weights(w: torch.Tensor) -> torch.Tensor:
@@ -213,25 +216,82 @@ def mma_weights(w: torch.Tensor) -> torch.Tensor:
         kh * kw, k // 16, n // 8, 32, 4).contiguous()
 
 
-def _k4_nw(cout: int) -> int:
-    """K4's 8-channel blocks a thread block computes, by cout
-    (``csrc/planar_conv.cu: tc::nw_of``)."""
-    return 1 if cout <= 8 else 2 if cout <= 16 else 4 if cout <= 32 else 8
+def wg_weights(w: torch.Tensor) -> torch.Tensor:
+    """One GEMM's weights ``[T, K, N]`` (T taps in the kernel's step
+    order, depth K a tap, N output channels) -> the chunks the ``wgmma``
+    kernels stream into shared memory, ``[NCH, N, 64]``: the T*K rows of
+    depth cut into 64-deep chunks (the last padded with zeros), each chunk
+    ``N`` rows of 64 values of k (128 bytes, K-major) whose 16-byte units
+    are swizzled as ``wgmma``'s 128-byte-swizzle descriptor reads them:
+    element (k, n) of the GEMM lies in chunk ``k // 64`` at byte
+    ``n * 128 + (((k % 64) // 8) ^ (n % 8)) * 16 + (k % 8) * 2``
+    (``csrc/stem_common.cuh: wg``)."""
+    t, k, n = w.shape
+    depth = t * k
+    nch = -(-depth // 64)
+    flat = F.pad(w.reshape(depth, n), (0, 0, 0, nch * 64 - depth))
+    v = flat.reshape(nch, 64, n).transpose(1, 2).reshape(nch, n, 8, 8)
+    unit = torch.arange(8, device=w.device)
+    src = unit[None, :] ^ (torch.arange(n, device=w.device)[:, None] % 8)
+    out = torch.gather(v, 2, src[None, :, :, None].expand(nch, n, 8, 8))
+    return out.reshape(nch, n, 64).contiguous()
 
 
-def k4_weights(w: torch.Tensor) -> torch.Tensor:
-    """The bfloat16 K4's weights from an HWIO ``w`` [k, k, cin', cout]
-    (a forward kernel, or ``flip_t``'s for an adjoint): cin' zero-padded
-    to a multiple of 16 (the kernel's 16-deep steps) and cout to a
-    multiple of the block's 8 NW channels, in bfloat16 and ``mma_weights``
-    order."""
-    _, _, cin, cout = w.shape
-    cout_pad = _round_up(cout, 8 * _k4_nw(cout))
-    v = F.pad(w, (0, cout_pad - cout, 0, _round_up(cin, 16) - cin))
-    return mma_weights(v.to(torch.bfloat16))
+# the wgmma widths K4's blocks take (csrc/planar_conv.cu: wgk::plan)
+K4_WIDTHS = (8, 16, 32, 64)
 
 
-# fragment-order copies, one per weight tensor and build function (and the
+def k4_plan(k: int, stride, cin: int, cout: int):
+    """The bfloat16 K4's launch plan for a conv of ``k`` x ``k`` taps at
+    ``stride`` (1, 2, or ``"t2"``: the stride-2 adjoint), weights of
+    ``cin`` input and ``cout`` output channels (``csrc/planar_conv.cu:
+    wgk::plan``): ``(ns, n, n_cb, kdepth)``, the 16-deep steps of a
+    channel chunk (1 at stride 2 or for a depth up to 16, 2 up to 32, 4
+    past it), the block's channel width (the least of ``K4_WIDTHS`` that
+    holds cout, at most 64; the adjoint's, with two accumulator sets, at
+    most 32), the channel blocks and the GEMM depth (cin rounded up to
+    16)."""
+    cap = 32 if stride == "t2" else 64
+    n = next((v for v in K4_WIDTHS if v >= min(cout, cap)), cap)
+    kdepth = _round_up(cin, 16)
+    ns = 1 if (k == 3 and stride == 2) or kdepth <= 16 else \
+        2 if kdepth <= 32 else 4
+    return ns, n, -(-cout // n), kdepth
+
+
+def k4_weights(w: torch.Tensor, ns: int, n: int) -> torch.Tensor:
+    """The bfloat16 K4's weights from an HWIO ``w`` [k, k, cin', cout] (a
+    forward kernel, or ``flip_t``'s for an adjoint) for a plan of ``ns``
+    16-deep steps a channel chunk and ``n`` channels a block
+    (``k4_plan``): ``[n_cb * nck * wpc, n, 64]`` bfloat16, the chunks the
+    kernel streams, channel block after channel block. cin is zero-padded
+    to ``nck`` chunks of ``kc = 16 ns`` channels and cout to ``n_cb * n``;
+    channel chunk c of block cb is ``wg_weights`` of its taps in row-major
+    order ``[k*k, kc, n]`` (``wpc = ceil(k*k ns / 4)`` chunks, the last
+    zero-padded): input channel ``c kc + i`` of tap t and output channel
+    ``cb n + j`` lie in chunk ``(cb nck + c) wpc + (t kc + i) // 64`` at
+    ``wg_weights``' byte of ``(t kc + i) % 64`` and j."""
+    kh, kw, cin, cout = w.shape
+    kc = 16 * ns
+    nck = -(-_round_up(cin, 16) // kc)
+    n_cb = -(-cout // n)
+    v = F.pad(w.to(torch.bfloat16),
+              (0, n_cb * n - cout, 0, nck * kc - cin))
+    v = v.reshape(kh * kw, nck, kc, n_cb, n)
+    return torch.cat([wg_weights(v[:, c, :, cb])
+                      for cb in range(n_cb) for c in range(nck)])
+
+
+@functools.lru_cache(maxsize=None)
+def _k4_builder(ns: int, n: int):
+    """``k4_weights`` at one plan, as a build function of ``w`` alone
+    (one object per plan: ``_mma_cached``'s key)."""
+    def build(w: torch.Tensor) -> torch.Tensor:
+        return k4_weights(w, ns, n)
+    return build
+
+
+# the kernels' copies, one per weight tensor and build function (and the
 # tensor's version: an inference tensor has none); they go when the
 # weights go
 _MMA_CACHE = WeakIdKeyDictionary()
@@ -363,22 +423,23 @@ def _check_epi(name, xp, b, shape, **opt):
                          f"cout={shape[2]} on {xp.device}")
 
 
-def _kernel_weights(name, xp, w, b):
+def _kernel_weights(name, xp, w, b, stride=1):
     """(weight, bias, cout_pad, K) as the kernel reads them. bfloat16: the
-    fragment-order weights (``k4_weights``, cached per ``w``), K the
-    weights' cin rounded up to 16, the bias float32 [cout]. float32: HWIO
-    with cin as the input's and cout a multiple of 8 (no copy where the
-    caller prepared it so), the bias float32 [cout_pad]."""
+    packed weights of the plan (``k4_plan``, ``k4_weights``, cached per
+    ``w``), cout_pad its channel blocks' width, K the weights' cin rounded
+    up to 16, the bias float32 [cout]. float32: HWIO with cin as the
+    input's and cout a multiple of 8 (no copy where the caller prepared
+    it so), the bias float32 [cout_pad]."""
     if w.device != xp.device:
         raise ValueError(f"{name}: weight on {w.device}, input on "
                          f"{xp.device}")
-    cout = w.shape[-1]
+    k, _, cin, cout = w.shape
     if xp.dtype == torch.bfloat16:
         if xp.data_ptr() % 16:
             raise ValueError(f"{name}: the input must be 16-byte aligned")
-        wk = _mma_cached(w, k4_weights)
-        return (wk, b.float().contiguous(), wk.shape[2] * 8,
-                _round_up(w.shape[2], 16))
+        ns, n, n_cb, kdepth = k4_plan(k, stride, cin, cout)
+        wk = _mma_cached(w, _k4_builder(ns, n))
+        return wk, b.float().contiguous(), n_cb * n, kdepth
     wk = pad_cout(pad_cin(w, xp.shape[2])).to(xp.dtype).contiguous()
     cout_pad = wk.shape[-1]
     bk = b.float().contiguous()
@@ -417,7 +478,8 @@ def planar_conv(xp: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     cout = w.shape[-1]
     shape = (batch, h_out, cout, wl_out)
     _check_epi("planar_conv", xp, b, shape, res=res, gate=gate)
-    wk, bk, cout_pad, kdepth = _kernel_weights("planar_conv", xp, w, b)
+    wk, bk, cout_pad, kdepth = _kernel_weights("planar_conv", xp, w, b,
+                                                stride)
     out = torch.empty(shape, dtype=dt, device=xp.device)
     _cuda.launch(
         "planar_conv", "planar_conv", "apfp_planar_conv", xp,
@@ -482,7 +544,8 @@ def planar_conv_t2(g: torch.Tensor, w_t: torch.Tensor, b: torch.Tensor, *,
     cout = w_t.shape[-1]
     shape = (batch, 2 * h_in, cout, _round_up(2 * w_img + 2, 128))
     _check_epi("planar_conv_t2", g, b, shape, gate=gate)
-    wk, bk, cout_pad, kdepth = _kernel_weights("planar_conv_t2", g, w_t, b)
+    wk, bk, cout_pad, kdepth = _kernel_weights("planar_conv_t2", g, w_t, b,
+                                                "t2")
     out = torch.empty(shape, dtype=g.dtype, device=g.device)
     _cuda.launch(
         "planar_conv_t2", "planar_conv", "apfp_planar_conv_t2", g,

@@ -50,7 +50,7 @@ import torch.nn.functional as F
 from . import _cuda
 from .planar_conv import (_mma_cached, _round_up, from_planar,
                           from_planar_plain, mma_weights, to_planar,
-                          to_planar_phases, to_planar_plain)
+                          to_planar_phases, to_planar_plain, wg_weights)
 
 LEAKY = 0.1
 
@@ -126,27 +126,6 @@ def mma_weights_conv0(w: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # Weights packed for the wgmma kernels (the bfloat16 K1 and K2)
 # ---------------------------------------------------------------------------
-
-def wg_weights(w: torch.Tensor) -> torch.Tensor:
-    """One GEMM's weights ``[T, K, N]`` (T taps in the kernel's step
-    order, depth K a tap, N output channels) -> the chunks the kernels
-    stream into shared memory, ``[NCH, N, 64]``: the T*K rows of depth
-    cut into 64-deep chunks (the last padded with zeros), each chunk
-    ``N`` rows of 64 values of k (128 bytes, K-major) whose 16-byte units
-    are swizzled as ``wgmma``'s 128-byte-swizzle descriptor reads them:
-    element (k, n) of the GEMM lies in chunk ``k // 64`` at byte
-    ``n * 128 + (((k % 64) // 8) ^ (n % 8)) * 16 + (k % 8) * 2``
-    (``csrc/stem_common.cuh: wg``)."""
-    t, k, n = w.shape
-    depth = t * k
-    nch = -(-depth // 64)
-    flat = F.pad(w.reshape(depth, n), (0, 0, 0, nch * 64 - depth))
-    v = flat.reshape(nch, 64, n).transpose(1, 2).reshape(nch, n, 8, 8)
-    unit = torch.arange(8, device=w.device)
-    src = unit[None, :] ^ (torch.arange(n, device=w.device)[:, None] % 8)
-    out = torch.gather(v, 2, src[None, :, :, None].expand(nch, n, 8, 8))
-    return out.reshape(nch, n, 64).contiguous()
-
 
 def wg_weights_conv(w: torch.Tensor) -> torch.Tensor:
     """A conv's (or a stride-1 adjoint's) ``[kh, kw, K, N]`` weights, taps

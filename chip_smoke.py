@@ -457,11 +457,12 @@ def match_count(ours, ref, atol=1e-3) -> int:
 # the bfloat16 kernels that must run on the tensor cores: entry name of the
 # kernels line -> its instantiations, each (label, library, its info
 # function and arguments, a substring of the kernel's mangled name). K4:
-# every block width (8 NW output channels) of each variant
-_K4_KEYS = (("planar_conv_k1", 0, "planar_conv_tc_kernelILi1ELi1ELi{}E"),
-            ("planar_conv_k3", 1, "planar_conv_tc_kernelILi3ELi1ELi{}E"),
-            ("planar_conv_k3s2", 2, "planar_conv_tc_kernelILi3ELi2ELi{}E"),
-            ("planar_conv_k3t2", 3, "planar_convt2_tc_kernelILi{}E"))
+# every (16-deep steps a chunk, channel width) of each variant
+# (csrc/planar_conv.cu: wgk::valid)
+_K4_KEYS = (("planar_conv_k1", 0, (1, 2, 4), (8, 16, 32, 64)),
+            ("planar_conv_k3", 1, (1, 2, 4), (8, 16, 32, 64)),
+            ("planar_conv_k3s2", 2, (1,), (8, 16, 32, 64)),
+            ("planar_conv_k3t2", 3, (1, 2, 4), (8, 16, 32)))
 TC_KERNELS = {
     "fused_stem_fwd": [("", "stem_fused", "apfp_fused_stem_fwd_info", (1, 0),
                         "fused_stem_fwd_wg_kernelILb0E")],
@@ -487,25 +488,28 @@ TC_KERNELS = {
                            (1, 0), "res152_bwd_tc_kernelILb0E")],
     "res152_fused_grad12": [("", "res_fused", "apfp_res152_fused_grad_info",
                              (1, 1), "res152_bwd_tc_kernelILb1E")],
-    **{name: [(f"NW{nw}", "planar_conv", "apfp_planar_conv_info",
-               (variant, nw), key.format(nw)) for nw in (1, 2, 4, 8)]
-       for name, variant, key in _K4_KEYS}}
+    **{name: [(f"NS{ns}N{n}", "planar_conv", "apfp_planar_conv_info",
+               (variant, ns, n),
+               f"planar_conv_wg_kernelILi{variant}ELi{ns}ELi{n}EE")
+              for ns in nss for n in ns_n]
+       for name, variant, nss, ns_n in _K4_KEYS}}
+K4_NAMES = tuple(name for name, *_ in _K4_KEYS)
 
 
 # the kernels whose bfloat16 instantiation must not spill (K1, K1
-# save_acts, K2, K8a, K8b, K6a, K6a save, K6b, K6c), and K7, whose float32
-# and bfloat16 instantiations (each k of the network form, and the rank
-# form) must not either
+# save_acts, K2, K8a, K8b, K6a, K6a save, K6b, K6c, K4), and K7, whose
+# float32 and bfloat16 instantiations (each k of the network form, and the
+# rank form) must not either
 NO_SPILL = ("fused_stem_fwd", "fused_stem_fwd_save_acts",
             "fused_stem_bwd_saved", "fused_stem_fwd_b",
             "fused_stem_fwd_b_save_acts", "fused_stem_bwd_b", "res152_fused",
             "res152_fused_save", "res152_fused_grad", "res152_fused_grad12",
-            "median_pool_2d_pallas")
-# the kernels built for Hopper's own units (K1, K1 save_acts, K2): wgmma
-# and no mma.sync, and their weights (K2: also masks, y5, g5) by bulk
-# copies or the tensor unit
+            "median_pool_2d_pallas", *K4_NAMES)
+# the kernels built for Hopper's own units (K1, K1 save_acts, K2, K4):
+# wgmma and no mma.sync, and their weights (K2: also masks, y5, g5; K4:
+# its input) by bulk copies or the tensor unit
 WGMMA_KERNELS = ("fused_stem_fwd", "fused_stem_fwd_save_acts",
-                 "fused_stem_bwd_saved")
+                 "fused_stem_bwd_saved", *K4_NAMES)
 SASS_OPS = ("HGMMA", "HMMA", "UTMALDG", "UBLKCP")
 
 
@@ -536,23 +540,29 @@ def tensor_core_check(_cuda, info) -> dict:
     tensor-unit and bulk copies (UTMALDG, UBLKCP) that
     ``cuobjdump -sass`` finds in each bfloat16 kernel instantiation of
     ``TC_KERNELS`` (K1, K1 ``save_acts``, K2, K5, K8a, K8a ``save_acts``,
-    K8b, K6a, K6a ``save``, K6b, K6c and every K4 variant and block
-    width) in the built libraries, with ptxas' registers and spill bytes
-    (``-Xptxas -v``) and the card's own account of registers, dynamic
-    shared memory and blocks per multiprocessor (``apfp_*_info``). Fails
-    if one has no tensor-core instruction, if one of ``NO_SPILL`` (K1, K2,
-    K8, K6) spills, or if one of ``WGMMA_KERNELS`` (K1, K1 ``save_acts``,
-    K2) has an HMMA, no HGMMA or neither a UTMALDG nor a UBLKCP. Returns
+    K8b, K6a, K6a ``save``, K6b, K6c and every K4 variant, chunk depth and
+    channel width) in the built libraries, with ptxas' registers and spill
+    bytes (``-Xptxas -v``), its note where it serialized a kernel's wgmmas,
+    and the card's own account of registers, dynamic shared memory and
+    blocks per multiprocessor (``apfp_*_info``). Fails if one has no
+    tensor-core instruction, if one of ``NO_SPILL`` (K1, K2, K8, K6, K4)
+    spills, or if one of ``WGMMA_KERNELS`` (K1, K1 ``save_acts``, K2, K4)
+    has an HMMA, no HGMMA or neither a UTMALDG nor a UBLKCP. Returns
     {entry name: record}; an entry of several instantiations holds them
     under ``sass``."""
     import ctypes
     import re
-    counts, regs, spills = {}, {}, {}
+    counts, regs, spills, serial = {}, {}, {}, {}
     libs = {inst[1] for insts in TC_KERNELS.values() for inst in insts}
     for lib in libs:
         counts.update(sass_op_counts(_cuda, info[lib]["path"], SASS_OPS))
         fn = props = None
         for line in info[lib]["log"].splitlines():
+            if "wgmma" in line and "serialized" in line:
+                # ptxas' performance note: the function's wgmmas wait for
+                # each other
+                name = line.rsplit("'", 2)[-2] if "'" in line else line
+                serial[name] = line.strip()
             if "Compiling entry function" in line:
                 fn = line.split("'")[1]
             elif fn is not None and "Used" in line and "registers" in line:
@@ -572,7 +582,8 @@ def tensor_core_check(_cuda, info) -> dict:
             rec = {"hmma": c["HMMA"], "hgmma": c["HGMMA"],
                    "tma_loads": c["UTMALDG"], "bulk_copies": c["UBLKCP"],
                    "ptxas": regs.get(fns[0], ""),
-                   "spill_bytes": spills.get(fns[0])}
+                   "spill_bytes": spills.get(fns[0]),
+                   "wgmma_serialized": serial.get(fns[0])}
             buf = (ctypes.c_int * 3)()
             _cuda.check(getattr(_cuda.lib(lib), info_fn)(*args, buf),
                         f"{name} info")
@@ -585,7 +596,9 @@ def tensor_core_check(_cuda, info) -> dict:
                 f"{rec['dynamic_smem_bytes']} bytes of shared memory, "
                 f"{rec['blocks_per_sm']} block(s) a multiprocessor, "
                 f"{rec['spill_bytes']} bytes spilled; ptxas: "
-                f"{rec['ptxas']}")
+                f"{rec['ptxas']}"
+                + (f"; {rec['wgmma_serialized']}"
+                   if rec["wgmma_serialized"] else ""))
             assert rec["hmma"] + rec["hgmma"] > 0, \
                 f"{what}: no tensor-core instruction in its SASS"
             assert name not in NO_SPILL or rec["spill_bytes"] == 0, \
@@ -2375,6 +2388,9 @@ def route_training(dev, card) -> dict:
     assert rec["default"]["routes"] == ("fused", "conv"), rec["default"]
     log(f"[routes] default: {ms:.2f} ms/step, peak "
         f"{rec['default']['peak_mem_gb']:.2f} GB ({card})")
+    pp = rec["planar_planar"]["ms_per_step"]
+    log(f"[routes] planar stem + planar stage (K4): {pp:.2f} ms/step beside "
+        f"the default's {ms:.2f} ({pp - ms:+.2f} ms) ({card})")
     del tr
     torch.cuda.empty_cache()
 
@@ -5141,6 +5157,12 @@ def main() -> int:
     phase("7 planar-route and stage kernels")
     model16 = darknet.Darknet(net, params, torch.bfloat16, device=dev)
     k4 = k4_entries(planar_kernels(dev, model16, card), tc_info)
+    split = k4_split(dev, card)
+    for k in k4:
+        if k["name"] == "planar_conv_k3":
+            k["split_b24"] = {"stage_fwd_conv7": split["stage_fwd_conv7"]}
+        elif k["name"] == "planar_conv_k3s2":
+            k["split_b24"] = {"stem_fwd_conv1": split["stem_fwd_conv1"]}
     k6 = stage_kernels(dev, model16, card, tc_info)
     k6c = grad12_kernel(dev, model16, card, tc_info)
     del model16
@@ -5335,5 +5357,72 @@ def main() -> int:
     return 0
 
 
+# One tree's K4 readings for ``k4_ab``: phase 7's geometries and the cycle
+# split, from that tree's own chip_smoke.py and kernels (what a parent
+# commit already has)
+K4_AB_CHILD = r"""
+import json, sys, torch
+sys.path.insert(0, ".")
+import chip_smoke as C
+C.import_port("ops._cuda").build_all()
+M = C.import_port("models")
+darknet = C.import_port("models.darknet")
+net = M.build_network(M.yolov3_blocks(width=C.SIZE, height=C.SIZE))
+params = M.init_params(net, C.SEED)
+dev, card = torch.device("cuda"), C.card_line()
+model16 = darknet.Darknet(net, params, torch.bfloat16, device=dev)
+recs = C.planar_kernels(dev, model16, card)
+print("K4AB " + json.dumps({"geometries": recs,
+                            "split": C.k4_split(dev, card)}))
+"""
+
+
+def k4_ab(parent: str) -> int:
+    """``python3 chip_smoke.py --k4-ab DIR``: K4 in the checkout at DIR
+    (a parent commit, e.g. unpacked by ``git archive``) and in this one,
+    on one card in one call, in turns (parent, this, this, parent), each
+    in its own process: phase 7's geometries (``planar_kernels``) and the
+    cycle split (``k4_split``). Prints a ``[k4-ab]`` line a variant (the
+    bfloat16 b24 sums of ms, cuDNN's and the bound) and one JSON record
+    last."""
+    card = card_line()
+    runs = []
+    for label, tree in (("parent", parent), ("this", ROOT), ("this", ROOT),
+                        ("parent", parent)):
+        out = subprocess.run([sys.executable, "-c", K4_AB_CHILD], cwd=tree,
+                             capture_output=True, text=True, timeout=1500)
+        sys.stderr.write(out.stderr[-4000:])
+        lines = [ln for ln in out.stdout.splitlines()
+                 if ln.startswith("K4AB ")]
+        assert out.returncode == 0 and lines, (label, out.stdout[-4000:])
+        rec = json.loads(lines[-1][5:])
+        rec["tree"] = label
+        runs.append(rec)
+        for r in rec["geometries"]:
+            if r["dtype"] == "bfloat16":
+                log(f"[k4-ab] {label} {r['conv']}: {r['ms']:.4f} ms, cuDNN "
+                    f"{r['library_ms']:.4f}, bound {r['bound_ms']:.4f} "
+                    f"({card})")
+    sums = {}
+    for i, rec in enumerate(runs):
+        for r in rec["geometries"]:
+            if r["dtype"] != "bfloat16":
+                continue
+            v = sums.setdefault(r["variant"], {}).setdefault(
+                f"{i}_{rec['tree']}", {"ms": 0.0, "library_ms": 0.0,
+                                       "bound_ms": 0.0})
+            for key in v:
+                v[key] += r[key]
+    for variant, by_run in sums.items():
+        log(f"[k4-ab] {variant} b24 sums: " + "; ".join(
+            f"{run} {v['ms']:.4f} ms (cuDNN {v['library_ms']:.4f}, bound "
+            f"{v['bound_ms']:.4f})" for run, v in by_run.items())
+            + f" ({card})")
+    log(json.dumps({"k4_ab": runs, "sums": sums, "card": card}))
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--k4-ab"]:
+        sys.exit(k4_ab(os.path.abspath(sys.argv[2])))
     sys.exit(main())

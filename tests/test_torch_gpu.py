@@ -468,7 +468,14 @@ K4_VARIANTS = [
     (3, "t2", 128, 64, False, False, None),
     (3, "t2", 64, 32, False, True, None),
     (3, "t2", 24, 12, False, True, None),
-    (3, "t2", 40, 12, False, False, None)]
+    (3, "t2", 40, 12, False, False, None),
+    # every channel width of the wgmma kernel (8 to 128, the adjoint's
+    # channel blocks of 32), two 64-channel chunks
+    (3, 2, 32, 8, False, True, 0.1), (3, 2, 64, 16, True, False, 0.1),
+    (1, 1, 128, 128, True, True, None), (3, 1, 128, 64, False, True, None),
+    (3, "t2", 32, 8, False, True, None), (3, "t2", 64, 16, False, False,
+                                          None),
+    (3, "t2", 64, 128, False, True, None)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -522,6 +529,38 @@ def test_planar_conv_kernel_matches_plain(cuda, dtype, k, s, cin, cout, res,
         scale = want.float().abs().max().item()
         assert (got.float() - want.float()).abs().mean().item() \
             <= 1e-4 * scale
+    assert not got[..., 0].any() and not got[..., wo + 1:].any()
+
+
+@pytest.mark.parametrize("k,s,cin,cout,w_img", [
+    (3, 1, 64, 128, 152), (1, 1, 128, 64, 152), (3, 2, 32, 64, 608),
+    (3, 1, 32, 64, 304), (3, "t2", 128, 64, 152), (3, "t2", 64, 32, 304)])
+def test_planar_conv_kernel_ragged_width(cuda, k, s, cin, cout, w_img):
+    """bfloat16 K4 at the planar routes' widths (608, 304, 152: the last
+    32-lane tile only partly in the image, tiles past it), a few rows,
+    against its plain version; border and padding lanes zero in a dirty
+    block."""
+    g = torch.Generator().manual_seed(w_img + cout)
+    dtype = torch.bfloat16
+    t2 = s == "t2"
+    h = 6
+    x = torch.randn(1, h, w_img, cin, generator=g).to(cuda, dtype)
+    xp = PC.to_planar(x)
+    wt = (torch.randn(k, k, cin, cout, generator=g) * 0.1).to(cuda, dtype)
+    bias = (torch.randn(cout, generator=g) * 0.1).to(cuda)
+    ho, wo = (2 * h, 2 * w_img) if t2 else (h // s, w_img // s)
+    wl = (wo + 2 + 127) // 128 * 128
+    torch.full((1, ho, cout, wl), float("nan"), dtype=dtype, device=cuda)
+    if t2:
+        got = PC.planar_conv_t2(xp, wt, bias, w_img=w_img)
+        want = PC.planar_conv_t2_plain(xp, wt, bias, w_img=w_img)
+    else:
+        got = PC.planar_conv(xp, wt, bias, k=k, stride=s, w_img=w_img)
+        want = PC.planar_conv_plain(xp, wt, bias, k=k, stride=s,
+                                    w_img=w_img)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == (1, ho, cout, wl)
+    _close(got, want, dtype, "planar_conv")
     assert not got[..., 0].any() and not got[..., wo + 1:].any()
 
 

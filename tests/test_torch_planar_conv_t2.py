@@ -1,5 +1,5 @@
 """K4's stride-2 adjoint variant (``planar_conv_t2``) and the bfloat16
-K4's fragment-order weights, on the CPU.
+K4's packed weights, on the CPU.
 
 - ``planar_conv_t2``'s plain version against the JAX package's
   formulation of the same function, ``planar_conv(expand2_planar(g),
@@ -8,9 +8,10 @@ K4's fragment-order weights, on the CPU.
   conv5^T 32 -> 16) and an odd one (24 -> 12, with a gate): float32
   within 1e-5, bfloat16 within two bf16 ulps of the output scale (the
   two frameworks may round one intermediate apart).
-- ``k4_weights``: the fragments ``mma.sync`` reads, with cin zero-padded
-  to a multiple of 16 and cout to the kernel's channel block, for widths
-  that are multiples of neither; built once per weight tensor.
+- ``k4_weights``: the chunks the ``wgmma`` kernel streams, with cin
+  zero-padded to whole channel chunks and cout to the block's channel
+  width, for widths that are multiples of neither; built once per weight
+  tensor.
 - The wrapper's geometry rules.
 """
 
@@ -22,6 +23,7 @@ import torch
 from adversarial_patch_based_false_positive_creation_attacks_against_aerial_imagery_object_detectors_tpu.models import stem_planar as JSP
 from adversarial_patch_based_false_positive_creation_attacks_against_aerial_imagery_object_detectors_tpu.ops import planar_conv as JP
 from adversarial_patch_based_false_positive_creation_attacks_against_aerial_imagery_object_detectors_tpu_torch.ops import planar_conv as PC
+from test_torch_k4_wgmma_layout import k4_unpack
 
 
 def _t(a):
@@ -97,51 +99,44 @@ def test_t2_wrapper_geometry_rules():
                           w_img=8)
 
 
-def _unfragment(f):
-    """Invert ``mma_weights``: [taps, K/16, N/8, 32, 4] -> [taps, K, N]."""
-    taps, ks, nb = f.shape[:3]
-    b = torch.zeros(taps, 16 * ks, 8 * nb, dtype=f.dtype)
-    lane = torch.arange(32)
-    gi, ti = lane // 4, lane % 4
-    for e, dk in enumerate((0, 1, 8, 9)):
-        for s in range(ks):
-            for j in range(nb):
-                b[:, 16 * s + 2 * ti + dk, 8 * j + gi] = f[:, s, j, :, e]
-    return b
-
-
 @pytest.mark.parametrize("k,cin,cout,kdepth,cout_pad", [
     (3, 3, 8, 16, 8), (3, 20, 12, 32, 16), (1, 40, 24, 48, 32),
     (3, 8, 16, 16, 16), (3, 64, 128, 64, 128), (1, 33, 65, 48, 128)])
 def test_k4_weights_pad_cin_and_cout_in_the_right_lanes(k, cin, cout, kdepth,
                                                        cout_pad):
-    """cin is zero-padded to a multiple of 16 (the 16-deep steps) and cout
-    to a multiple of the kernel's channel block (8, 16, 32 or 64 by
-    cout), in bfloat16; the real weights sit where ``mma_weights`` of the
-    padded HWIO kernel puts them and every padded lane is zero."""
+    """cin is zero-padded to whole channel chunks (16 ``ns`` channels of
+    ``k4_plan``) and cout to whole channel blocks (8, 16, 32 or 64
+    channels by cout), in bfloat16; the real weights sit where the documented
+    formula (``tests/test_torch_k4_wgmma_layout.py: k4_unpack``) puts
+    them and every padded byte is zero."""
     g = torch.Generator().manual_seed(cin * cout + k)
     w = torch.randn(k, k, cin, cout, generator=g)
-    f = PC.k4_weights(w)
+    ns, n, n_cb, kd = PC.k4_plan(k, 1, cin, cout)
+    assert (kd, n_cb * n) == (kdepth, cout_pad)
+    f = PC.k4_weights(w, ns, n)
     assert f.dtype == torch.bfloat16 and f.is_contiguous()
-    assert tuple(f.shape) == (k * k, kdepth // 16, cout_pad // 8, 32, 4)
-    assert cout_pad % (8 * PC._k4_nw(cout)) == 0
-    b = _unfragment(f)
-    assert torch.equal(b[:, :cin, :cout],
-                       w.reshape(k * k, cin, cout).bfloat16())
-    assert not b[:, cin:].any() and not b[:, :, cout:].any()
+    nck = -(-kdepth // (16 * ns))
+    assert tuple(f.shape) == (n_cb * nck * -(-(k * k * ns) // 4), n, 64)
+    got, rest = k4_unpack(f, k, cin, cout, ns, n)
+    want = w.reshape(k * k, cin, cout).bfloat16()
+    assert np.array_equal(got, want.view(torch.int16).numpy().astype(
+        np.uint16))
+    assert not rest.any()
 
 
 def test_k4_weights_built_once_per_weight_tensor():
-    """The fragment-order copy is built once per weight tensor and per
-    build function (K4's and K1/K2's layouts of one tensor do not
+    """The packed copy is built once per weight tensor and per build
+    function (K4's and the fragment-order layouts of one tensor do not
     overwrite each other), and again after the tensor changes in place."""
     w = torch.randn(3, 3, 32, 64, generator=torch.Generator().manual_seed(1))
-    f = PC._mma_cached(w, PC.k4_weights)
-    assert PC._mma_cached(w, PC.k4_weights) is f
+    ns, n, _, _ = PC.k4_plan(3, 1, 32, 64)
+    build = PC._k4_builder(ns, n)
+    f = PC._mma_cached(w, build)
+    assert PC._mma_cached(w, PC._k4_builder(ns, n)) is f
     m = PC._mma_cached(w)
-    assert m is not f and PC._mma_cached(w, PC.k4_weights) is f
+    assert m is not f and PC._mma_cached(w, build) is f
     assert PC._mma_cached(w) is m
     w.mul_(2)
-    f2 = PC._mma_cached(w, PC.k4_weights)
+    f2 = PC._mma_cached(w, build)
     assert f2 is not f
-    assert torch.equal(f2, PC.k4_weights(w))
+    assert torch.equal(f2, PC.k4_weights(w, ns, n))

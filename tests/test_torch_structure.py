@@ -457,12 +457,15 @@ def test_bf16_stem_kernels_run_on_tensor_cores():
     assert len(re.findall(r"\bconv_stage<",
                           body(k8, "fused_stem_fwd_b_kernel("))) == 5
     assert "chain_tail<T>(" in body(k8, "fused_stem_bwd_b_kernel(")
-    # K4: the bfloat16 kernels on ldmatrix + mma.sync, float32 on FMAs
+    # K4: the bfloat16 kernel on wgmma (its input by TMA, its weights by
+    # bulk copies, no mma.sync left), float32 on FMAs
     k4 = src["planar_conv.cu"]
-    for kern in ("planar_conv_tc_kernel(", "planar_convt2_tc_kernel("):
-        body = k4[k4.index(kern):]
-        assert "tap_mma<" in body[:body.index("\n}\n")], kern
-    assert "ldsm_x4(" in k4 and "mma_bf16(" in k4 and "fmaf(" in k4
+    wgk = k4[k4.index("planar_conv_wg_kernel("):]
+    wgk = wgk[:wgk.index("\n}\n")]
+    assert "chunk_mma<" in wgk and "tma_load_4d(" in wgk
+    assert "bulk_load(" in wgk and "transpose<" in wgk
+    assert "wg::mma_async<N>(" in k4 and "fmaf(" in k4
+    assert "mma_bf16(" not in k4 and "tap_mma" not in k4
     for name, text in src.items():
         for inc in re.findall(r'#include\s*[<"]([^>"]+)[>"]', text):
             low = inc.lower()
