@@ -38,29 +38,29 @@
 // bfloat16 runs on Hopper's units (stem_common.cuh: wg), an implicit GEMM
 // D[position][cout] = sum over taps and cin of A[position][cin]
 // B[cin][cout] per block of 288 threads: two consumer warpgroups and a
-// producer warp, as many blocks as the card holds at once, each walking
-// its share of the tiles (persistent: the producer loads the next tile's
-// box and weights while the consumers finish this one). A tile is TR
-// output rows x 32 lanes [32 x, 32 x + 32) of those rows (TR = 4, a
-// warpgroup two rows; the
-// adjoint 8, whose four parities hold 64 super positions each, warpgroup 0
-// computing parities (0, 0) and (1, 1), warpgroup 1 (0, 1) and (1, 0))
-// and the N output channels of its channel block (N = 8-64, the wgmma
-// width; the adjoint 8-32). A thread then keeps at most 32 accumulators,
-// and two blocks fit a multiprocessor (96 registers a thread; a block of
-// 128 channels ran one an SM and lost more than its input's second read
-// from L2 costs); the channel blocks of a tile are neighbours in the grid.
+// producer warp. A block owns a tile of TR output rows x the 32 lanes
+// [32 x, 32 x + 32) of those rows (TR = 4, a warpgroup two rows; 8, two
+// 64-row blocks a warpgroup, where N <= 32 at 1x1 and at 3x3 s1 with
+// chunks up to 32 channels; the adjoint 8, whose four parities hold 64
+// super positions each, warpgroup 0 computing parities (0, 0) and (1, 1),
+// warpgroup 1 (0, 1) and (1, 0)) and the N output channels of its
+// channel block (N = 8-64, the wgmma width; the adjoint 8-32). A thread
+// then keeps at most 32 accumulators, and two blocks fit a multiprocessor
+// (96 registers a thread; a block of 128 channels ran one an SM and lost
+// more than its input's second read from L2 costs); the channel blocks of
+// a tile are neighbours in the grid.
 //  - Input: the producer's lane 0 loads each channel chunk (KC = 16 NS
 //    channels, NS 16-deep steps: 1 at stride 2 or for a depth up to 16, 2
-//    up to 32, else 4) as one TMA box of the planar input (IH
-//    rows x KC channels x BL lanes, rows, lanes and channels outside the
-//    tensor arriving as zeros) into a landing buffer under a full / empty
+//    up to 32, else 4) as one TMA box of the planar input (IH rows x KC
+//    channels x BL lanes, rows, lanes and channels outside the tensor
+//    arriving as zeros) into a landing buffer under a full / empty
 //    mbarrier pair. The consumers transpose it into the staged tile
 //    [position][KC] (ldmatrix.trans then stmatrix, 8 x 8 at a time: what
 //    is left of the transposition, a shared-memory pass of 2 bytes read
 //    and written an element), zeroing the columns outside the image, and
 //    free the landing buffer: the next chunk's box is in flight under this
-//    chunk's MMAs. There every tap is a row offset for ldmatrix (a
+//    chunk's MMAs (two more landing buffers at stride 2 and in the adjoint
+//    measured no faster). There every tap is a row offset for ldmatrix (a
 //    stride-2 conv reads every second position), as in mma_conv. The 1x1
 //    conv needs no transposition: its A comes by ldmatrix.trans from the
 //    landing buffers (two, so both chunks of a 128-channel input load at
@@ -72,21 +72,24 @@
 //    empty: every consumer warp's wgmmas on it completed).
 //  - MMAs: per 64-deep weight chunk each warpgroup issues its (up to) four
 //    wgmma.m64nNk16 steps, A from registers (ldmatrix from the staged tile,
-//    the next chunk's fragments loaded under this chunk's wgmmas), one
-//    commit group, waits for it and frees the slot.
-//    The sum runs over channel chunks, then taps, then 16-deep steps from a
+//    the next chunk's fragments loaded under this chunk's wgmmas where a
+//    step feeds one 64-row block), one commit group, waits for it and
+//    frees the slot. The sum runs over channel chunks, then taps, then
+//    16-deep steps from a
 //    zero float32 accumulator: at stride 1 with 64-channel chunks the
 //    order of the mma.sync kernel it replaced (a wgmma k16 step rounds as
 //    an mma.sync one), so bf16 K6a still equals the planar stage route bit
 //    for bit. Stride 2 takes 16-channel chunks.
 //  - Epilogue: 8-32 channels at a time, the accumulators + bias, leaky and
 //    the stride-2 rounding are staged float32 channel-major in shared
-//    memory (where the staged tile was: the landing buffers meanwhile take
-//    the next tile's boxes); then a thread takes 8 lanes (16 bytes) of a
-//    line, adds res,
-//    applies the gate, rounds once and writes whole aligned 64-byte runs,
-//    zero outside [0, Wo). A tile entirely past the image only writes
-//    zeros.
+//    memory (the landing buffers and staged tile; the block's biases staged
+//    once), the piece's res and gate loads in flight meanwhile; then a thread takes 8 lanes (16 bytes) of
+//    a line, adds res, applies the gate, rounds once and writes whole
+//    aligned 64-byte runs, zero outside [0, Wo). A tile entirely past the
+//    image only writes zeros.
+//  - One tile a block, two or more blocks a multiprocessor: a persistent
+//    form (blocks walking tiles, the next tile's box loading under this
+//    one's MMAs and epilogue) measured slower at every variant.
 // Every wait is an asm loop and every arrival predicated: ptxas serializes
 // wgmmas around a branch of the program's own inside their pipeline.
 //
@@ -406,22 +409,23 @@ constexpr int TC = 32;  // output lanes a tile
 // the variants (apfp_planar_conv_info's numbering)
 enum { V1X1 = 0, V3S1 = 1, V3S2 = 2, VT2 = 3 };
 
-// A variant's tile and stages at NS 16-deep steps a channel chunk
-template <int V, int NS>
+// A variant's tile and stages at NS 16-deep steps a channel chunk and MT
+// 64-row blocks a warpgroup
+template <int V, int NS, int MT>
 struct Geo {
-  static constexpr int KC = 16 * NS;            // channels a chunk
+  static constexpr int KC = 16 * NS;                 // channels a chunk
   static constexpr int S = V == V3S2 ? 2 : 1;
-  static constexpr int TR = V == VT2 ? 8 : 4;   // output rows a tile
-  static constexpr int M = TR * TC;             // outputs a tile
-  static constexpr int NI = V == VT2 ? 2 : 1;   // accumulator sets
-  static constexpr int T = V == V1X1 ? 1 : 9;   // taps
+  static constexpr int TR = V == VT2 ? 8 : 4 * MT;   // output rows a tile
+  static constexpr int M = TR * TC;                  // outputs a tile
+  static constexpr int NI = V == VT2 ? 2 : MT;       // accumulator sets
+  static constexpr int T = V == V1X1 ? 1 : 9;        // taps
   static constexpr int WPC = (T * NS + 3) / 4;  // weight chunks a chunk
   // the box: IH rows x KC channels x BL lanes (an odd multiple of 8, so
   // the eight channel rows a transposing ldmatrix reads fall in distinct
   // bank groups), from lane 8 below the tile's first input lane (1x1: at
   // it), row P below its first input row (adjoint: super row r0 / 2)
-  static constexpr int IH = V == V1X1 ? 4 : V == V3S1 ? 6 : V == V3S2 ? 9
-                                                                      : 5;
+  static constexpr int IH = V == V1X1 ? TR : V == V3S1 ? TR + 2
+                                      : V == V3S2 ? 2 * TR + 1 : 5;
   static constexpr int BL = V == V1X1 ? 40 : V == V3S1 ? 56 : V == V3S2 ? 72
                                                                       : 40;
   static constexpr int LB = V == V1X1 ? 2 : 1;  // landing buffers
@@ -447,32 +451,38 @@ struct RingOf {
 
 // the channels an epilogue piece stages: the most of 32, 16 and 8 (at
 // most N) whose float32 stage [PC][M + 4] fits the landing buffers and
-// staged tile
+// staged tile, and whose lines (32 lanes of a row and channel) a consumer
+// thread's quarter takes two at most
 __host__ __device__ constexpr int piece(int n, int m, int room) {
-  return n >= 32 && 32 * (m + 4) * 4 <= room   ? 32
-         : n >= 16 && 16 * (m + 4) * 4 <= room ? 16
-                                                : 8;
+  return n >= 32 && m <= 128 && 32 * (m + 4) * 4 <= room ? 32
+         : n >= 16 && m <= 256 && 16 * (m + 4) * 4 <= room ? 16
+                                                            : 8;
+}
+
+// 64-row blocks a warpgroup: two (tiles of 8 rows, halving the weights and
+// the box rows streamed an output) where N <= 32 keeps them in 32
+// accumulators and the stages in two blocks' shared memory
+template <int V, int NS, int N>
+__host__ __device__ constexpr int mt_of() {
+  return (V == V1X1 || (V == V3S1 && NS <= 2)) && N <= 32 ? 2 : 1;
 }
 
 // shared memory from a 1024-aligned base: the ring, the landing buffers,
-// the staged tile, the barriers; the epilogue's stage [PC][OP] float32
-// reuses the staged tile (made at least as large; the 1x1 conv's holds 32
-// channels), which the producer never writes: the next tile's boxes land
-// meanwhile
+// the staged tile, the barriers, the block's N biases; the epilogue's
+// stage [PC][OP] float32 reuses the landing buffers and staged tile
 template <int V, int NS, int N>
 struct Lay {
-  using G = Geo<V, NS>;
+  using G = Geo<V, NS, mt_of<V, NS, N>()>;
   using R = RingOf<N>;
+  static constexpr int PC = piece(N, G::M, G::LB * G::LAND + G::POS);
   static constexpr int OP = G::M + 4;  // the stage's pitch (floats)
-  static constexpr int ROOM = G::POS > (V == V1X1 ? 32 : 8) * OP * 4
-                                  ? G::POS
-                                  : (V == V1X1 ? 32 : 8) * OP * 4;
-  static constexpr int PC = piece(N, G::M, ROOM);
   static constexpr int LAND_AT = R::ST * R::SLOT;
   static constexpr int POS_AT = LAND_AT + G::LB * G::LAND;
-  static constexpr int BAR_AT = POS_AT + ROOM;
+  static constexpr int BAR_AT = POS_AT + G::POS;
   static constexpr int NBAR = 2 * R::ST + 2 * G::LB;
-  static constexpr int SMEM = 1024 + BAR_AT + 8 * NBAR;
+  static constexpr int BIAS_AT = BAR_AT + 8 * NBAR;
+  static constexpr int SMEM = 1024 + BIAS_AT + 4 * N;
+  static_assert(PC * OP * 4 <= G::LB * G::LAND + G::POS, "epilogue stage");
   static_assert(SMEM <= 232448, "shared memory");
 };
 
@@ -501,26 +511,19 @@ struct Args {
   EpiArgs ea;
   bf16* out;
   int w_in, Ho, Wo, wl_out, cout, n_cb, nck;
-  int ntx, nty, ntiles;  // lane tiles a row, tile rows, tiles
 };
 
-// Tile t of a launch: image b, TR output rows from r0, the lanes [l0, l0 +
-// 32) and the N channels of channel block cb (fastest: the channel blocks
-// of a tile are neighbours, so they share its input in L2; then lanes,
-// rows, images)
-struct Tile {
-  int b, r0, l0, cb;
-};
-template <int TR>
-__device__ __forceinline__ Tile tile_of(const Args& a, int t) {
-  Tile u;
-  u.cb = t % a.n_cb;
-  t /= a.n_cb;
-  u.l0 = t % a.ntx * TC;
-  t /= a.ntx;
-  u.r0 = t % a.nty * TR;
-  u.b = t / a.nty;
-  return u;
+// the first lane (a multiple of 8) and row of the box of the tile at
+// output lane l0 and row r0
+template <int V>
+__device__ __forceinline__ int box_lane(int l0) {
+  return V == V1X1 ? l0 : V == V3S1 ? l0 - 8 : V == V3S2 ? 2 * l0 - 8
+                                                         : l0 / 2 - 8;
+}
+template <int V>
+__device__ __forceinline__ int box_row(int r0) {
+  return V == V1X1 ? r0 : V == V3S1 ? r0 - 1 : V == V3S2 ? 2 * r0 - 1
+                                                         : r0 / 2;
 }
 
 // ldmatrix / stmatrix on shared addresses
@@ -622,33 +625,36 @@ __host__ __device__ constexpr int par(int wgi, int i) {
 }
 
 // The A side of a consumer thread: its rows' staged positions (1x1:
-// landing offsets) at tap 0 for each accumulator set, and step g of a
-// chunk (tap g / NS, channels 16 (g % NS) ...): whether its warpgroup
-// computes it (the adjoint's: warpgroup WGI's parities), into which set,
-// and its A fragment
-template <int V, int NS, int WGI>
+// landing offsets) at tap 0 for each accumulator set (a forward conv's
+// set i is the warpgroup's 64-row block i: output rows 2 (MT wgi + i) and
+// the next), and step g of a chunk (tap g / NS, channels 16 (g % NS) ...):
+// whether its warpgroup computes it (the adjoint's: warpgroup WGI's
+// parities), into which sets, and its A fragments
+template <class G, int V, int WGI>
 struct ARows {
-  using G = Geo<V, NS>;
+  static constexpr int NS = G::KC / 16;
+  static constexpr int NA = V == VT2 ? 1 : G::NI;  // sets a step feeds
   int p0[G::NI];
   __device__ ARows() {
     const int t = threadIdx.x, lane = t & 31, w4 = (t >> 5) & 3;
     const int wgi = t >> 7;
-    if constexpr (V == V1X1) {
-      // ldmatrix.trans from [row][channel][lane]: matrix lane >> 3 is
-      // channels 8 (lane >> 4) + (lane & 7) at lanes 8 ((lane >> 3) & 1)
-      // of the warp's 16 positions
-      const int oy = 2 * wgi + (w4 >> 1);
-      p0[0] = (oy * G::KC + (lane & 7) + 8 * (lane >> 4)) * G::BL +
-              16 * (w4 & 1) + 8 * ((lane >> 3) & 1);
-    } else if constexpr (V == VT2) {
-      // super position (w4, lane & 15) of the set's parity, staged at lane
-      // j + 9 - px
 #pragma unroll
-      for (int i = 0; i < 2; ++i)
+    for (int i = 0; i < G::NI; ++i) {
+      const int oy = 2 * (G::NI * wgi + i) + (w4 >> 1);
+      if constexpr (V == V1X1) {
+        // ldmatrix.trans from [row][channel][lane]: matrix lane >> 3 is
+        // channels 8 (lane >> 4) + (lane & 7) at lanes 8 ((lane >> 3) & 1)
+        // of the warp's 16 positions
+        p0[i] = (oy * G::KC + (lane & 7) + 8 * (lane >> 4)) * G::BL +
+                16 * (w4 & 1) + 8 * ((lane >> 3) & 1);
+      } else if constexpr (V == VT2) {
+        // super position (w4, lane & 15) of the set's parity, staged at
+        // lane j + 9 - px
         p0[i] = w4 * G::PL + (lane & 15) + 9 - (par(WGI, i) & 1);
-    } else {
-      const int oy = 2 * wgi + (w4 >> 1), ox = 16 * (w4 & 1) + (lane & 15);
-      p0[0] = G::S * oy * G::PL + G::S * ox + G::OFF;
+      } else {
+        const int ox = 16 * (w4 & 1) + (lane & 15);
+        p0[i] = G::S * oy * G::PL + G::S * ox + G::OFF;
+      }
     }
   }
   __host__ __device__ static constexpr int tap(int g) { return g / NS; }
@@ -659,21 +665,24 @@ struct ARows {
     return g < G::T * NS &&
            (V != VT2 || (parity(g) == 0 || parity(g) == 3) == (WGI == 0));
   }
-  __host__ __device__ static constexpr int set(int g) {
-    return V == VT2 ? parity(g) >> 1 : 0;
+  // the accumulator set of step g's k-th A fragment
+  __host__ __device__ static constexpr int set(int g, int k) {
+    return V == VT2 ? parity(g) >> 1 : k;
   }
   __host__ __device__ static constexpr int delta(int g) {
     return V == VT2 ? (tap(g) / 3 == 2) * G::PL + (tap(g) % 3 == 2)
                     : (tap(g) / 3) * G::PL + tap(g) % 3;
   }
-  __device__ __forceinline__ void load(uint32_t (&a)[4], uint32_t src,
+  __device__ __forceinline__ void load(uint32_t (&a)[NA][4], uint32_t src,
                                        int g) const {
     const int lane = threadIdx.x & 31;
-    if constexpr (V == V1X1) {
-      ldsm4t(a, src + (p0[0] + 16 * (g % NS) * G::BL) * 2);
-    } else {
-      ldsm4(a, src + pos_off<G>(p0[set(g)] + delta(g),
-                                2 * (g % NS) + (lane >> 4)));
+#pragma unroll
+    for (int k = 0; k < NA; ++k) {
+      if constexpr (V == V1X1)
+        ldsm4t(a[k], src + (p0[k] + 16 * (g % NS) * G::BL) * 2);
+      else
+        ldsm4(a[k], src + pos_off<G>(p0[set(g, k)] + delta(g),
+                                     2 * (g % NS) + (lane >> 4)));
     }
   }
 };
@@ -682,17 +691,18 @@ struct ARows {
 // waited for, the warpgroup's steps of it issued as one wgmma group on the
 // slot's descriptor, completed, and the slot freed (by every consumer
 // warp, whether its warpgroup used it or not); the next weight chunk's A
-// fragments loaded under this one's wgmmas
-template <int V, int NS, int N, int WGI>
-__device__ __forceinline__ void chunk_mma(float (&acc)[Geo<V, NS>::NI][N / 2],
+// fragments loaded under this one's wgmmas (one set of registers where a
+// step feeds two blocks)
+template <class G, int V, int N, int WGI>
+__device__ __forceinline__ void chunk_mma(float (&acc)[G::NI][N / 2],
                                           uint32_t src, uint32_t ring,
                                           uint32_t wfull, uint32_t wempty,
                                           int c, wg::Lap& lap) {
-  using G = Geo<V, NS>;
   using R = RingOf<N>;
-  using A = ARows<V, NS, WGI>;
+  using A = ARows<G, V, WGI>;
+  constexpr int DB = A::NA == 1 ? 2 : 1;
   const A rows;
-  uint32_t a[2][4][4];
+  uint32_t a[DB][4][A::NA][4];
 #pragma unroll
   for (int j = 0; j < 4; ++j)
     if (A::mine(j)) rows.load(a[0][j], src, j);
@@ -708,15 +718,23 @@ __device__ __forceinline__ void chunk_mma(float (&acc)[Geo<V, NS>::NI][N / 2],
 #pragma unroll
     for (int j = 0; j < 4; ++j)
       if (A::mine(4 * w + j))
-        wg::mma_async<N>(acc[A::set(4 * w + j)], a[w & 1][j], desc + 2 * j);
+#pragma unroll
+        for (int k = 0; k < A::NA; ++k)
+          wg::mma_async<N>(acc[A::set(4 * w + j, k)], a[w % DB][j][k],
+                           desc + 2 * j);
     wg::commit();
-    if (w + 1 < G::WPC)
+    if (DB == 2 && w + 1 < G::WPC)
 #pragma unroll
       for (int j = 0; j < 4; ++j)
         if (A::mine(4 * (w + 1) + j))
-          rows.load(a[(w + 1) & 1][j], src, 4 * (w + 1) + j);
+          rows.load(a[(w + 1) % DB][j], src, 4 * (w + 1) + j);
     wg::wait<0>();
     arrive(wempty + 8 * sl);
+    if (DB == 1 && w + 1 < G::WPC)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (A::mine(4 * (w + 1) + j))
+          rows.load(a[0][j], src, 4 * (w + 1) + j);
   }
   lap(wg::P_MMA);
 }
@@ -746,11 +764,11 @@ __device__ __forceinline__ long long out_at(const Args& a, int b, int r,
 }
 
 // A tile entirely past the image: its TR rows x N channels of the lanes
-// [l0, l0 + 32) written as zeros, 16 bytes a thread, by the consumers
+// [l0, l0 + 32) written as zeros, 16 bytes a thread, by the whole block
 template <int TR, int N>
 __device__ void zero_tile(const Args& a, int b, int r0, int l0, int cob) {
   const int nco = min(N, a.cout - cob);
-  for (int i = threadIdx.x; i < TR * nco * 4; i += NC) {
+  for (int i = threadIdx.x; i < TR * nco * 4; i += NTH) {
     const int line = i >> 2, oy = line / nco, cl = line - oy * nco;
     if (r0 + oy < a.Ho)
       *reinterpret_cast<uint4*>(
@@ -759,20 +777,20 @@ __device__ void zero_tile(const Args& a, int b, int r0, int l0, int cob) {
   }
 }
 
-// The epilogue, 16 channels at a time: + bias, leaky and the stride-2
-// rounding into the stage os [PC][OP] (tile position oy * 32 + ox), then
-// the planar write-back: a thread takes 8 lanes (16 bytes) of a line (a
-// row and a channel), + res, the gate, one rounding at the store, zero at
-// columns outside [0, Wo)
-template <int V, int NS, int N>
-__device__ __forceinline__ void epilogue(const float (&acc)[Geo<V, NS>::NI]
-                                                           [N / 2],
+// The epilogue, PC channels at a time: the piece's res and gate vectors
+// loaded first (in flight under the staging), + bias (the block's, staged
+// in shared memory, zero past cout), leaky and the
+// stride-2 rounding into the stage os [PC][OP] (tile position oy * 32 +
+// ox), then the planar write-back: a thread takes 8 lanes (16 bytes) of a
+// line (a row and a channel), + res, the gate, one rounding at the store,
+// zero at columns outside [0, Wo)
+template <class G, int V, int N, int PC, int OP>
+__device__ __forceinline__ void epilogue(const float (&acc)[G::NI][N / 2],
                                          float* __restrict__ os,
+                                         const float* __restrict__ bias,
                                          const Args& a, int b, int r0, int l0,
                                          int cob, wg::Lap& lap) {
-  using G = Geo<V, NS>;
-  using L = Lay<V, NS, N>;
-  constexpr int PC = L::PC, OP = L::OP;
+  constexpr int U = (G::TR * PC + NC / 4 - 1) / (NC / 4);  // lines a thread
   const int t = threadIdx.x, lane = t & 31, w4 = (t >> 5) & 3, wgi = t >> 7;
   const int g8 = lane >> 2, q4 = lane & 3;
   const bf16* res = static_cast<const bf16*>(a.ea.res);
@@ -783,24 +801,38 @@ __device__ __forceinline__ void epilogue(const float (&acc)[Geo<V, NS>::NI]
   const bool all = c0 >= 0 && c0 + 7 < a.Wo;
 #pragma unroll
   for (int n0 = 0; n0 < N; n0 += PC) {
+    long long o[U];
+    uint4 rv[U], gv[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int line = (t >> 2) + u * (NC / 4);
+      const int oy = line / PC, cl = line - oy * PC;
+      const int r = r0 + oy, co = cob + n0 + cl;
+      o[u] = line < G::TR * PC && r < a.Ho && co < a.cout
+                 ? out_at(a, b, r, co, l0 + 8 * q)
+                 : -1;
+      if (o[u] >= 0 && any && res != nullptr)
+        rv[u] = __ldg(reinterpret_cast<const uint4*>(res + o[u]));
+      if (o[u] >= 0 && any && gate != nullptr)
+        gv[u] = __ldg(reinterpret_cast<const uint4*>(gate + o[u]));
+    }
 #pragma unroll
     for (int s = 0; s < G::NI; ++s)
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         int pos;  // the tile position of row 16 w4 + g8 + 8 h of set s
         if constexpr (V == VT2) {
-          const int q = wgi == 0 ? 3 * s : 1 + s, j = g8 + 8 * h;
+          const int q = par(wgi, s), j = g8 + 8 * h;
           pos = (2 * w4 + (q >> 1)) * TC + 2 * j + 1 - (q & 1);
         } else {
-          pos = 64 * wgi + 16 * w4 + g8 + 8 * h;
+          pos = 64 * (G::NI * wgi + s) + 16 * w4 + g8 + 8 * h;
         }
 #pragma unroll
         for (int jj = 0; jj < PC / 8; ++jj)
 #pragma unroll
           for (int cc = 0; cc < 2; ++cc) {
             const int n = n0 + 8 * jj + 2 * q4 + cc;
-            float y = acc[s][4 * (n0 / 8 + jj) + 2 * h + cc];
-            if (cob + n < a.cout) y += a.bias[cob + n];
+            float y = acc[s][4 * (n0 / 8 + jj) + 2 * h + cc] + bias[n];
             if (a.ea.has_slope) y = fmaxf(y, y * a.ea.slope);
             if (G::S == 2) y = round_t<bf16>(y);
             os[(n - n0) * OP + pos] = y;
@@ -809,11 +841,11 @@ __device__ __forceinline__ void epilogue(const float (&acc)[Geo<V, NS>::NI]
     lap(wg::P_EPI);
     wg::sync_consumers();
     lap(wg::P_SYNC);
-    for (int line = t >> 2; line < G::TR * PC; line += NC / 4) {
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (o[u] < 0) continue;
+      const int line = (t >> 2) + u * (NC / 4);
       const int oy = line / PC, cl = line - oy * PC;
-      const int r = r0 + oy, co = cob + n0 + cl;
-      if (r >= a.Ho || co >= a.cout) continue;
-      const long long o = out_at(a, b, r, co, l0 + 8 * q);
       float y[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
       if (any) {
         const float4* sp =
@@ -822,10 +854,8 @@ __device__ __forceinline__ void epilogue(const float (&acc)[Geo<V, NS>::NI]
         y[0] = f0.x; y[1] = f0.y; y[2] = f0.z; y[3] = f0.w;
         y[4] = f1.x; y[5] = f1.y; y[6] = f1.z; y[7] = f1.w;
         float rf[8], gf[8];
-        if (res != nullptr)
-          unpack8(__ldg(reinterpret_cast<const uint4*>(res + o)), rf);
-        if (gate != nullptr)
-          unpack8(__ldg(reinterpret_cast<const uint4*>(gate + o)), gf);
+        if (res != nullptr) unpack8(rv[u], rf);
+        if (gate != nullptr) unpack8(gv[u], gf);
 #pragma unroll
         for (int k = 0; k < 8; ++k) {
           float v = y[k];
@@ -835,7 +865,7 @@ __device__ __forceinline__ void epilogue(const float (&acc)[Geo<V, NS>::NI]
           y[k] = v;
         }
       }
-      *reinterpret_cast<uint4*>(a.out + o) = pack8(y);
+      *reinterpret_cast<uint4*>(a.out + o[u]) = pack8(y);
     }
     lap(wg::P_STORE);
     wg::sync_consumers();
@@ -843,15 +873,16 @@ __device__ __forceinline__ void epilogue(const float (&acc)[Geo<V, NS>::NI]
   }
 }
 
-// Variant V on its tiles: block x takes tiles x, x + gridDim.x, ...
-// (persistent: the producer loads the next tile's boxes and weights while
-// the consumers finish this one)
+// One tile of variant V: TR output rows from r0 (blockIdx.y), the lanes
+// [l0, l0 + 32) and the N output channels from cob (blockIdx.x: lane tile
+// and channel block, the channel blocks of a tile neighbours, so they
+// share its input in L2) of image blockIdx.z
 template <int V, int NS, int N>
 __global__ void __launch_bounds__(NTH, 2)
     planar_conv_wg_kernel(const __grid_constant__ CUtensorMap tmx,
                           const Args a) {
-  using G = Geo<V, NS>;
   using L = Lay<V, NS, N>;
+  using G = typename L::G;
   using R = RingOf<N>;
   static_assert(valid<V, NS, N>(), "instantiation");
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -860,6 +891,18 @@ __global__ void __launch_bounds__(NTH, 2)
   const uint32_t s0 = wg::smem_u32(sm);
   const uint32_t wfull = s0 + L::BAR_AT, wempty = wfull + 8 * R::ST;
   const uint32_t lfull = wempty + 8 * R::ST, lempty = lfull + 8 * G::LB;
+  const int cb = blockIdx.x % a.n_cb, b = blockIdx.z;
+  const int l0 = blockIdx.x / a.n_cb * TC, r0 = blockIdx.y * G::TR;
+  const int cob = cb * N;
+  if (l0 > a.Wo) {  // every column of the tile is past the image
+    zero_tile<G::TR, N>(a, b, r0, l0, cob);
+    return;
+  }
+  const int lx = box_lane<V>(l0), ly = box_row<V>(r0);
+  float* bs = reinterpret_cast<float*>(sm + L::BIAS_AT);
+  if (threadIdx.x < N)
+    bs[threadIdx.x] = cob + threadIdx.x < a.cout ? a.bias[cob + threadIdx.x]
+                                                 : 0.f;
   if (threadIdx.x == 0) {
     for (int i = 0; i < R::ST; ++i) {
       wg::mbar_init(wfull + 8 * i, 1);
@@ -872,91 +915,63 @@ __global__ void __launch_bounds__(NTH, 2)
     wg::fence_barrier_init();
   }
   __syncthreads();
-  // a tile's box: its first lane (a multiple of 8) and row
-  auto box_lane = [](const Tile& u) {
-    return V == V1X1 ? u.l0 : V == V3S1 ? u.l0 - 8 : V == V3S2 ? 2 * u.l0 - 8
-                                                               : u.l0 / 2 - 8;
-  };
-  auto box_row = [](const Tile& u) {
-    return V == V1X1 ? u.r0 : V == V3S1 ? u.r0 - 1 : V == V3S2 ? 2 * u.r0 - 1
-                                                               : u.r0 / 2;
-  };
   if (threadIdx.x >= NC) {
-    // the producer warp: lane 0 the input boxes, lane 1 the weights, for
-    // every tile with a column in the image
+    // the producer warp: lane 0 the input boxes, lane 1 the weights
     const int lane = threadIdx.x & 31;
     if (lane == 0) {
-      int lc = 0;  // boxes issued
-      for (int t = blockIdx.x; t < a.ntiles; t += gridDim.x) {
-        const Tile u = tile_of<G::TR>(a, t);
-        if (u.l0 > a.Wo) continue;
-        for (int c = 0; c < a.nck; ++c, ++lc) {
-          const int sl = lc % G::LB;
-          wg::mbar_wait(lempty + 8 * sl, ((lc / G::LB) & 1) ^ 1);
-          wg::mbar_expect_tx(lfull + 8 * sl, G::LAND);
-          wg::tma_load_4d(s0 + L::LAND_AT + sl * G::LAND, &tmx, box_lane(u),
-                          c * G::KC, box_row(u), u.b, lfull + 8 * sl);
-        }
+      for (int c = 0; c < a.nck; ++c) {
+        const int sl = c % G::LB;
+        wg::mbar_wait(lempty + 8 * sl, ((c / G::LB) & 1) ^ 1);
+        wg::mbar_expect_tx(lfull + 8 * sl, G::LAND);
+        wg::tma_load_4d(s0 + L::LAND_AT + sl * G::LAND, &tmx, lx, c * G::KC,
+                        ly, b, lfull + 8 * sl);
       }
     } else if (lane == 1) {
-      int gw = 0;  // weight chunks issued
-      for (int t = blockIdx.x; t < a.ntiles; t += gridDim.x) {
-        const Tile u = tile_of<G::TR>(a, t);
-        if (u.l0 > a.Wo) continue;
-        const unsigned char* wp =
-            a.w + (size_t)u.cb * a.nck * G::WPC * R::SLOT;
-        for (int k = 0; k < a.nck * G::WPC; ++k, ++gw) {
-          const int sl = gw % R::ST;
-          wg::mbar_wait(wempty + 8 * sl, ((gw / R::ST) & 1) ^ 1);
-          wg::mbar_expect_tx(wfull + 8 * sl, R::SLOT);
-          wg::bulk_load(s0 + sl * R::SLOT, wp + (size_t)k * R::SLOT,
-                        R::SLOT, wfull + 8 * sl);
-        }
+      const unsigned char* wp =
+          a.w + (size_t)cb * a.nck * G::WPC * R::SLOT;
+      for (int gw = 0; gw < a.nck * G::WPC; ++gw) {
+        const int sl = gw % R::ST;
+        wg::mbar_wait(wempty + 8 * sl, ((gw / R::ST) & 1) ^ 1);
+        wg::mbar_expect_tx(wfull + 8 * sl, R::SLOT);
+        wg::bulk_load(s0 + sl * R::SLOT, wp + (size_t)gw * R::SLOT, R::SLOT,
+                      wfull + 8 * sl);
       }
     }
     return;
   }
 
   wg::Lap lap;
-  int gc = 0;  // channel chunks consumed (boxes and weight chunk groups)
-  for (int t = blockIdx.x; t < a.ntiles; t += gridDim.x) {
-    const Tile u = tile_of<G::TR>(a, t);
-    if (u.l0 > a.Wo) {  // every column of the tile is past the image
-      zero_tile<G::TR, N>(a, u.b, u.r0, u.l0, u.cb * N);
-      lap(wg::P_STORE);
-      continue;
-    }
-    float acc[G::NI][N / 2];
+  float acc[G::NI][N / 2];
 #pragma unroll
-    for (int s = 0; s < G::NI; ++s)
+  for (int s = 0; s < G::NI; ++s)
 #pragma unroll
-      for (int e = 0; e < N / 2; ++e) acc[s][e] = 0.f;
-    for (int c = 0; c < a.nck; ++c, ++gc) {
-      const int sl = gc % G::LB;
-      const uint32_t land = s0 + L::LAND_AT + sl * G::LAND;
-      wg::mbar_wait(lfull + 8 * sl, (gc / G::LB) & 1);
-      lap(wg::P_INPUT);
-      uint32_t src = land;
-      if constexpr (V != V1X1) {
-        src = s0 + L::POS_AT;
-        transpose<G>(land, src, box_lane(u), a.w_in);
-        lap(wg::P_LOAD);
-        arrive(lempty + 8 * sl);
-        wg::sync_consumers();
-        lap(wg::P_SYNC);
-      }
-      // the warpgroups' steps differ only in the adjoint (their parities)
-      if (V != VT2 || threadIdx.x < 128)
-        chunk_mma<V, NS, N, 0>(acc, src, s0, wfull, wempty, gc, lap);
-      else
-        chunk_mma<V, NS, N, 1>(acc, src, s0, wfull, wempty, gc, lap);
-      if constexpr (V == V1X1) arrive(lempty + 8 * sl);
-      wg::sync_consumers();  // the staged tile (or landing buffer) is free
+    for (int e = 0; e < N / 2; ++e) acc[s][e] = 0.f;
+  for (int c = 0; c < a.nck; ++c) {
+    const int sl = c % G::LB;
+    const uint32_t land = s0 + L::LAND_AT + sl * G::LAND;
+    wg::mbar_wait(lfull + 8 * sl, (c / G::LB) & 1);
+    lap(wg::P_INPUT);
+    uint32_t src = land;
+    if constexpr (V != V1X1) {
+      src = s0 + L::POS_AT;
+      transpose<G>(land, src, lx, a.w_in);
+      lap(wg::P_LOAD);
+      arrive(lempty + 8 * sl);
+      wg::sync_consumers();
       lap(wg::P_SYNC);
     }
-    epilogue<V, NS, N>(acc, reinterpret_cast<float*>(sm + L::POS_AT), a,
-                       u.b, u.r0, u.l0, u.cb * N, lap);
+    // the warpgroups' steps differ only in the adjoint (their parities)
+    if (V != VT2 || threadIdx.x < 128)
+      chunk_mma<G, V, N, 0>(acc, src, s0, wfull, wempty, c, lap);
+    else
+      chunk_mma<G, V, N, 1>(acc, src, s0, wfull, wempty, c, lap);
+    if constexpr (V == V1X1) arrive(lempty + 8 * sl);
+    wg::sync_consumers();  // the staged tile (or landing buffer) is free
+    lap(wg::P_SYNC);
   }
+  epilogue<G, V, N, L::PC, L::OP>(
+      acc, reinterpret_cast<float*>(sm + L::LAND_AT), bs, a, b, r0, l0, cob,
+      lap);
 }
 
 template <int V, int NS, int N>
@@ -966,8 +981,8 @@ int launch(const void* x, const void* w, const float* bias, EpiArgs ea,
   if constexpr (!valid<V, NS, N>()) {
     return (int)cudaErrorInvalidValue;
   } else {
-    using G = Geo<V, NS>;
     using L = Lay<V, NS, N>;
+    using G = typename L::G;
     auto kern = planar_conv_wg_kernel<V, NS, N>;
     cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, L::SMEM);
@@ -988,22 +1003,8 @@ int launch(const void* x, const void* w, const float* bias, EpiArgs ea,
     a.cout = cout;
     a.n_cb = n_cb;
     a.nck = (K + G::KC - 1) / G::KC;
-    a.ntx = a.wl_out / TC;
-    a.nty = (a.Ho + G::TR - 1) / G::TR;
-    a.ntiles = a.ntx * a.nty * B * n_cb;
-    // as many blocks as the card holds at once, at most one a tile
-    static int per_sm = 0;
-    if (per_sm == 0) {
-      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, NTH,
-                                                        L::SMEM);
-      if (e != cudaSuccess || per_sm == 0) return e ? (int)e : 1;
-    }
-    int dev = 0, sms = 0;
-    e = cudaGetDevice(&dev);
-    if (e == cudaSuccess)
-      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (e != cudaSuccess) return (int)e;
-    kern<<<min(a.ntiles, per_sm * sms), NTH, L::SMEM, s>>>(tm, a);
+    dim3 grid(a.wl_out / TC * n_cb, (a.Ho + G::TR - 1) / G::TR, B);
+    kern<<<grid, NTH, L::SMEM, s>>>(tm, a);
     return (int)cudaGetLastError();
   }
 }
