@@ -1146,18 +1146,6 @@ extern "C" int apfp_planar_conv_t2(const void* g, const void* w,
   return (int)cudaGetLastError();
 }
 
-#ifdef APFP_PROFILE
-// The cycle accounts (stem_common.cuh: wg::Lap) into out[PROF_N], then
-// zeroed
-extern "C" int apfp_prof_take(unsigned long long* out) {
-  cudaError_t e = cudaMemcpyFromSymbol(out, wg::prof_cycles,
-                                       sizeof(wg::prof_cycles));
-  if (e != cudaSuccess) return (int)e;
-  static const unsigned long long zero[wg::PROF_N] = {};
-  return (int)cudaMemcpyToSymbol(wg::prof_cycles, zero, sizeof(zero));
-}
-#endif
-
 // A bfloat16 instantiation as the card sees it: variant 0 = 1x1, 1 = 3x3
 // stride 1, 2 = 3x3 stride 2, 3 = the stride-2 adjoint; ns 16-deep steps a
 // channel chunk (1, 2 or 4; stride 2: 1), n output channels a block (8,

@@ -42,28 +42,42 @@
 // owns a tile of one image and computes over its receptive field in shared
 // memory, so no intermediate touches device memory.
 //
-// bfloat16 runs on the tensor cores, on the code K1, K2 and K5 run. K8a is
-// K1's five mma_conv stages (the same CIN walk, tap order, fragment-order
-// weights and epilogue, stem_common.cuh: EpiConv) over an 8 x 8 sparse
-// (8 x 16 dense) y5 tile with K1's halos, conv5 at stride (2, 1)
+// bfloat16 runs on the tensor cores. K8a is K1's five convs on mma.sync
+// (mma_conv; the same CIN walk, tap order, fragment-order weights and
+// epilogue as K1's wgmma GEMMs, stem_common.cuh: EpiConv) over an 8 x 8
+// sparse (8 x 16 dense) y5 tile with K1's halos, conv5 at stride (2, 1)
 // (RowsConv21) with K1's conv5's taps; every sum is then the sum K1 forms
-// for the same position (the warp tiling differs, which moves no sum), so
-// the even lanes of y5 are K1's y5 bit for bit and the activations' signs
-// are K1's masks. With save_acts, y3 is stored on its own and the shortcut
-// sum s4 = T(y3 + y1) formed in place after (K1's epilogue forms it in the
-// same rounding). Shared memory 182,640 bytes, one block a multiprocessor:
-// y0 [39 x 41][40], then y2 [19 x 20][40] and s4 [17 x 18][72]; y1
-// [19 x 20][72], holding x [41 x 43 + 1][8] before conv1 and the dense y5
-// tile [8 x 16][136] after the shortcut sum. K8b is K2's chain
-// (stem_common.cuh: bwd_tc::chain) on its 16 x 16 gx tile: gp5 comes from
-// gp5dd's data positions alone (one 4-byte load of a lane pair a value), so
-// conv5^T runs as K2's four parity GEMMs (K = 1, 2, 2 or 4 taps x 128) and
-// not over the interleaved zeros (4x the multiply-adds); the gates are the
-// signs of the saved values, staged into K2's window layout (bwd_tc::
-// stage_signs, read by bwd_tc::StagedMask); gx goes to the batched
-// segment. Given the bfloat16 K1's y5 and masks, every value equals K2's:
-// the same gp5, the same chain, the same gates. 115,264 bytes of shared
-// memory, two blocks a multiprocessor, as K2.
+// for the same position (the tiling differs, which moves no sum; a wgmma
+// k16 step rounds as an mma.sync one), so the even lanes of y5 are K1's y5
+// bit for bit and the activations' signs are K1's masks. With save_acts,
+// y3 is stored on its own and the shortcut sum s4 = T(y3 + y1) formed in
+// place after (K1's epilogue forms it in the same rounding). Shared memory
+// 182,640 bytes, one block a multiprocessor: y0 [39 x 41][40], then y2
+// [19 x 20][40] and s4 [17 x 18][72]; y1 [19 x 20][72], holding x
+// [41 x 43 + 1][8] before conv1 and the dense y5 tile [8 x 16][136] after
+// the shortcut sum.
+//
+// K8b (fused_stem_bwd_b_wg_kernel) is K2's wgmma kernel (stem_common.cuh:
+// wgc::chain, the same eleven GEMMs on K2's packed adjoints, ring and
+// epilogues) on its 16 x 16 gx tile, with two other loads, both TMA boxes
+// of the batch-on-lanes tensors issued by the producer warp: gp5 from
+// gp5dd's data positions alone (a tensor map whose row stride is two rows
+// brings the data rows, the consumers pick the odd lanes; no gate and no
+// rounding, gp5dd is gated), so conv5^T runs as K2's four parity GEMMs
+// (K = 1, 2, 2 or 4 taps x 128) and not over the interleaved zeros (4x the
+// multiply-adds); the gates from boxes of the saved bfloat16 activations,
+// which the consumers turn into K2's int8 window layout (1 where the
+// stored value is > 0) before the epilogues that read them: y3's (24
+// lanes) lands in the chain's X and Y regions, free until conv5^T's
+// epilogue, and becomes a window of its own; y2's, y1's and y0's (16
+// lanes: a 32-byte line, an int8 window line) become their windows in
+// place, y0 and y1 in the region gp5dd's box held. So K8b holds K2's
+// shared-memory plan, 224,128 bytes, one block a multiprocessor, and
+// reads twice K2's gate bytes. Given the bfloat16 K1's y5 and masks, every
+// value equals K2's: the same gp5, the same chain, the same gates. gx goes
+// to the batched segment; the last tile may reach past the image (H a
+// multiple of 8): its rows and lanes arrive as zeros or belong to the
+// segment's slack, and gx drops the positions past the image.
 //
 // float32 keeps the first design on CUDA-core FMAs (TF32 would not hold
 // the float32 gradient checks): K8a's convs are stem_common.cuh's
@@ -569,35 +583,8 @@ int launch_bwd(const void* gp5dd, const void* const* a, const void* const* v,
 }
 
 // ---------------------------------------------------------------------------
-// K8b in bfloat16: K2's tensor-core chain
+// K8b in bfloat16: K2's chain on wgmma
 // ---------------------------------------------------------------------------
-
-// The chain's gp5 (Z [N5^2][P5], bwd_tc::load_gp5's layout) of the block's
-// gx tile from one image's gp5dd [H/2, 128, lanes] (at the image's lane 0):
-// gp5 (r, c) is the value at row 2r, lane 2c + 1; the zeros between are
-// not read. One 4-byte load of the lane pair (2c, 2c + 1) a value, lanes
-// fastest; zero outside the image
-__device__ void load_gp5dd(bf16* __restrict__ Z,
-                           const bf16* __restrict__ gp5dd, int H,
-                           long long pitch) {
-  using K = Chain;
-  const int R0 = blockIdx.y * K::TX, C0 = blockIdx.x * K::TX;
-  const int H5 = H / 4;
-  const int o5r = R0 / 4 - 1, o5c = C0 / 4 - 1;
-  for (int idx = threadIdx.x; idx < K::N5 * K::N5 * 128; idx += NT) {
-    const int k = idx % K::N5;
-    const int rest = idx / K::N5;
-    const int co = rest % 128, r = rest / 128;
-    const int gr = o5r + r, gc = o5c + k;
-    uint32_t v = 0;
-    if (gr >= 0 && gr < H5 && gc >= 0 && gc < H5)
-      v = __ldg(reinterpret_cast<const uint32_t*>(
-              gp5dd + ((long long)(2 * gr) * 128 + co) * pitch + 2 * gc)) >>
-          16;
-    Z[(r * K::N5 + k) * bwd_tc::P5 + co] = __ushort_as_bfloat16(
-        static_cast<unsigned short>(v));
-  }
-}
 
 // The chain's gx epilogue into one image's segment of the batch-on-lanes
 // phases [H, 8, B*seg] (gxe, gxo at its lane 0; row pitch 8 pitch, channel
@@ -622,81 +609,251 @@ struct GxBatched {
   }
 };
 
-// The bfloat16 K8b: K2's kernel with gp5 from gp5dd and the gates from the
-// saved activations. u0 .. u5 K2's fragment-order weights.
-__global__ void __launch_bounds__(NT, 2)
-    fused_stem_bwd_b_tc_kernel(const bf16* __restrict__ gp5dd,
-                               const bf16* __restrict__ y0e,
-                               const bf16* __restrict__ y0o,
-                               const bf16* __restrict__ y1,
-                               const bf16* __restrict__ y2,
-                               const bf16* __restrict__ y3,
-                               const uint2* __restrict__ u0,
-                               const uint2* __restrict__ u1,
-                               const uint2* __restrict__ u2,
-                               const uint2* __restrict__ u3,
-                               const uint2* __restrict__ u5,
-                               bf16* __restrict__ gxe, bf16* __restrict__ gxo,
-                               int H, int seg, long long pitch) {
-  using K = Chain;
-  using bwd_tc::StagedMask;
-  using bwd_tc::W12;
-  using bwd_tc::W3;
+namespace k8b {
+
+using K = Chain;
+// The boxes (bfloat16; a box's first lane on a 16-byte boundary, 8 lanes,
+// at or below the first lane read, and inside the image's segment): gp5dd
+// and y3 24 lanes, y0, y1 and y2 16. Shared memory from a 1024-aligned
+// base (bytes), K2's plan: the chain's X, Y, Z (the y3 box lands in X and
+// Y, which the chain first writes in conv5^T's epilogue); region R1 holds
+// gp5dd's box [N5][128][24] until gp5 is formed, then the y0 boxes (both
+// phases) and y1's, each [row][channel][16 lanes]; region R2 y3's sign
+// window (int8, [row][64][WL]) and y2's box; four barriers (gp5dd, the y3
+// and y2 boxes, the y0 and y1 boxes, R1 free); the ring. A 16-lane bf16
+// line is 32 bytes, an int8 window line's WL: the y0, y1 and y2 boxes turn
+// into their sign windows in place.
+constexpr int LB = 24, LW = 16;
+constexpr int R1_AT = (2 * bwd_tc::ELEMS + 127) / 128 * 128;
+constexpr int G5_B = K::N5 * 128 * LB * 2;
+constexpr int M0_B = K::N0 * 32 * LW * 2;  // a phase
+constexpr int M1_B = K::N1 * 64 * LW * 2;
+constexpr int M0_AT = R1_AT, M1_AT = M0_AT + 2 * M0_B;
+constexpr int R1_B = G5_B > 2 * M0_B + M1_B ? G5_B : 2 * M0_B + M1_B;
+constexpr int R2_AT = R1_AT + R1_B;
+constexpr int Y3_B = K::N4 * 64 * LB * 2;
+constexpr int M3_B = K::N4 * 64 * wgc::WL, M2_B = K::N1 * 32 * LW * 2;
+constexpr int M3_AT = R2_AT, M2_AT = M3_AT + M3_B;
+constexpr int BAR_AT = M2_AT + M2_B;
+constexpr int RING_AT = BAR_AT + 32;
+constexpr int SMEM =
+    1024 + RING_AT + wg::ring_bytes(wgc::STAGES, wgc::SLOT);
+static_assert(SMEM <= 232448 && 2 * LW == wgc::WL && LB <= wgc::WL &&
+                  Y3_B <= 2 * (bwd_tc::SZ_X + bwd_tc::SZ_Y) &&
+                  M0_B % 128 == 0 && M1_B % 128 == 0 && M3_B % 128 == 0 &&
+                  M2_B % 128 == 0 && G5_B % 128 == 0 && R1_B % 128 == 0,
+              "shared memory");
+static_assert(K::N5 == 8 && K::TX == 16, "the boxes cover the windows");
+
+// lines lines of LANES bfloat16 values at src into sign bytes (1 where the
+// value is > 0) at dst, a line of wgc::WL bytes each: a consumer thread a
+// line, read whole before its signs are stored, so dst may be src where
+// LANES * 2 == WL (a line in place)
+template <int LANES>
+__device__ __forceinline__ void signs(unsigned char* dst,
+                                      const unsigned char* src, int lines) {
+  static_assert(LANES % 8 == 0 && LANES <= wgc::WL, "whole 16-byte units");
+  for (int i = threadIdx.x; i < lines; i += wg::NC) {
+    const uint4* s = reinterpret_cast<const uint4*>(src + i * LANES * 2);
+    uint32_t w[LANES / 4];
+#pragma unroll
+    for (int q = 0; q < LANES / 8; ++q) {
+      const uint4 v = s[q];
+      const uint32_t h[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        uint32_t word = 0;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const uint32_t u = h[2 * j + e / 2];
+          const float f = __uint_as_float(e & 1 ? u & 0xffff0000u : u << 16);
+          if (f > 0.f) word |= 1u << (8 * e);
+        }
+        w[2 * q + j] = word;
+      }
+    }
+    uint32_t* d = reinterpret_cast<uint32_t*>(dst + i * wgc::WL);
+#pragma unroll
+    for (int q = 0; q < LANES / 16; ++q)
+      reinterpret_cast<uint4*>(d)[q] =
+          make_uint4(w[4 * q], w[4 * q + 1], w[4 * q + 2], w[4 * q + 3]);
+    if (LANES % 16)
+      reinterpret_cast<uint2*>(d)[LANES / 8 - 1] =
+          make_uint2(w[LANES / 4 - 2], w[LANES / 4 - 1]);
+  }
+}
+
+// The gate windows: first(), before conv5^T, y3's box (in X and Y) into
+// its sign window in R2 and y2's box in place; second(), before conv2^T,
+// the y0 and y1 boxes in place; each then a consumers' barrier
+struct Gates {
+  unsigned char* sm;
+  uint32_t m32, m01;
+  __device__ void first(wg::Lap& lap) const {
+    wg::mbar_wait(m32, 0);
+    lap(wg::P_INPUT);
+    signs<LB>(sm + M3_AT, sm, K::N4 * 64);
+    signs<LW>(sm + M2_AT, sm + M2_AT, K::N1 * 32);
+    wg::sync_consumers();
+    lap(wg::P_MASK);
+  }
+  __device__ void second(wg::Lap& lap) const {
+    wg::mbar_wait(m01, 0);
+    lap(wg::P_INPUT);
+    signs<LW>(sm + M0_AT, sm + M0_AT, 2 * K::N0 * 32 + K::N1 * 64);
+    wg::sync_consumers();
+    lap(wg::P_MASK);
+  }
+};
+
+}  // namespace k8b
+
+// The bfloat16 K8b: K2's kernel with gp5 read from gp5dd's data positions
+// (no gate, no rounding: gp5dd is gated) and the gates from the saved
+// activations' signs, every load issued by the producer warp through the
+// tensor maps of the batch-on-lanes tensors (one image's boxes: its lanes
+// from b seg): gp5dd's data rows (a row stride of two rows: 24 lanes x 128
+// x 8 rows), y3 (24 lanes x 64 x 14 rows), y2 (16 x 32 x 11), y1 (16 x 64
+// x 11), y0's phases (16 x 32 x 20). uw: K2's packed adjoints.
+__global__ void __launch_bounds__(wg::NTH, 1)
+    fused_stem_bwd_b_wg_kernel(const __grid_constant__ CUtensorMap tg5,
+                               const __grid_constant__ CUtensorMap ty0e,
+                               const __grid_constant__ CUtensorMap ty0o,
+                               const __grid_constant__ CUtensorMap ty1,
+                               const __grid_constant__ CUtensorMap ty2,
+                               const __grid_constant__ CUtensorMap ty3,
+                               wgc::Weights uw, bf16* __restrict__ gxe,
+                               bf16* __restrict__ gxo, int H, int seg,
+                               long long pitch) {
+  using namespace k8b;
+  using wgc::BoxMask;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sm = reinterpret_cast<bf16*>(smem_raw);  // the chain's X, Y, Z
-  bf16* Z = sm + bwd_tc::SZ_X + bwd_tc::SZ_Y;
-  unsigned char* s3 = reinterpret_cast<unsigned char*>(sm + bwd_tc::ELEMS);
-  unsigned char* s1 = s3 + bwd_tc::M3_BYTES;
-  unsigned char* s2 = s1 + bwd_tc::M1_BYTES;
-  unsigned char* s0 = s2 + bwd_tc::M2_BYTES;
-  const long long lb = (long long)blockIdx.z * seg;
+  const uint32_t raw = wg::smem_u32(smem_raw);
+  unsigned char* sm = smem_raw + (((raw + 1023) & ~1023u) - raw);
+  const uint32_t s0 = wg::smem_u32(sm);
+  const uint32_t bar_in = s0 + BAR_AT, bar_m32 = bar_in + 8;
+  const uint32_t bar_m01 = bar_in + 16, bar_r1 = bar_in + 24;
+  auto ring = wg::make_ring<wgc::STAGES, wgc::SLOT>(s0 + RING_AT);
+  if (threadIdx.x == 0) {
+    wg::mbar_init(bar_in, 1);
+    wg::mbar_init(bar_m32, 1);
+    wg::mbar_init(bar_m01, 1);
+    wg::mbar_init(bar_r1, wg::CONSUMER_WARPS);
+    wg::fence_barrier_init();
+  }
+  __syncthreads();
+  const int lb = blockIdx.z * seg;  // the image's first lane
   const int R0 = blockIdx.y * K::TX, C0 = blockIdx.x * K::TX;
-  const int H1 = H / 2;
-  // K2's tile origins and gate windows (rows; columns alike)
+  const int H5 = H / 4;
+  // K2's tile origins (rows; columns alike)
+  const int o5r = R0 / 4 - 1, o5c = C0 / 4 - 1;  // gp5, N5
   const int o4r = R0 / 2 - 2, o4c = C0 / 2 - 2;  // gs4 / gp3, N4
   const int o1r = R0 / 2 - 1, o1c = C0 / 2 - 1;  // gp2 / gp1, N1
   const int o0r = R0 - 2, o0c = C0 - 2;          // gp0, N0
-  const int l3 = (o4c + 1) & ~3, l12 = (o1c + 1) & ~3;
-  const int l0 = ((o0c >> 1) + 1) & ~3;
-  bwd_tc::stage_signs<K::N4, 64, 1, W3>(s3, y3 + lb, nullptr, o4r, l3, H1,
-                                         pitch, seg);
-  bwd_tc::stage_signs<K::N1, 64, 1, W12>(s1, y1 + lb, nullptr, o1r, l12, H1,
-                                          pitch, seg);
-  bwd_tc::stage_signs<K::N1, 32, 1, W12>(s2, y2 + lb, nullptr, o1r, l12, H1,
-                                          pitch, seg);
-  bwd_tc::stage_signs<K::N0, 32, 2, W12>(s0, y0e + lb, y0o + lb, o0r, l0, H,
-                                          pitch, seg);
-  load_gp5dd(Z, gp5dd + lb, H, pitch);
-  __syncthreads();
-  bwd_tc::chain(sm, u0, u1, u2, u3, u5, StagedMask<32, W12, true>{s0, l0},
-                StagedMask<64, W12, false>{s1, l12},
-                StagedMask<32, W12, false>{s2, l12},
-                StagedMask<64, W3, false>{s3, l3},
-                GxBatched{gxe + lb, gxo + lb, R0, C0, H, seg, pitch}, H);
+  // each box's first lane in the segment: the 16-byte boundary at or below
+  // the first lane read, from the segment's lane 0 at least (gp5dd: gp5
+  // column c at lane 2c + 1, from o5c; y3 from lane o4c + 1, y1 and y2
+  // from o1c + 1, y0 from (o0c >> 1) + 1)
+  const int l5 = max((2 * o5c + 1) & ~7, 0), l3 = max((o4c + 1) & ~7, 0);
+  const int l12 = (o1c + 1) & ~7, l0 = ((o0c >> 1) + 1) & ~7;
+  if (threadIdx.x >= wg::NC) {
+    // the producer warp: one thread issues every load, in the order the
+    // consumers need them
+    if (threadIdx.x == wg::NC) {
+      wg::mbar_expect_tx(bar_in, G5_B);
+      wg::tma_load_4d(s0 + R1_AT, &tg5, lb + l5, 0, o5r, 0, bar_in);
+      wg::mbar_expect_tx(bar_m32, Y3_B + M2_B);
+      wg::tma_load_4d(s0, &ty3, lb + l3, 0, o4r, 0, bar_m32);
+      wg::tma_load_4d(s0 + M2_AT, &ty2, lb + l12, 0, o1r, 0, bar_m32);
+      // R1 is free once gp5 is formed: the y0 and y1 boxes into it
+      wgc::produce(ring, uw, [&] {
+        wg::mbar_wait(bar_r1, 0);
+        wg::mbar_expect_tx(bar_m01, 2 * M0_B + M1_B);
+        wg::tma_load_4d(s0 + M0_AT, &ty0e, lb + l0, 0, o0r, 0, bar_m01);
+        wg::tma_load_4d(s0 + M0_AT + M0_B, &ty0o, lb + l0, 0, o0r, 0,
+                        bar_m01);
+        wg::tma_load_4d(s0 + M1_AT, &ty1, lb + l12, 0, o1r, 0, bar_m01);
+      });
+    }
+    return;
+  }
+
+  bf16* Z = reinterpret_cast<bf16*>(sm) + bwd_tc::SZ_X + bwd_tc::SZ_Y;
+  // gp5 into Z [N5^2][P5]: the box's odd lanes, zero outside the image; a
+  // consumer thread one (row, channel) line's N5 columns. Then R1 is handed
+  // back to the producer
+  wg::Lap lap;
+  wg::mbar_wait(bar_in, 0);
+  lap(wg::P_INPUT);
+  {
+    const bf16* gb = reinterpret_cast<const bf16*>(sm + R1_AT);
+    for (int idx = threadIdx.x; idx < K::N5 * 128; idx += wg::NC) {
+      const int co = idx % 128, r = idx / 128;
+      const int gr = o5r + r;
+      const bool row_in = gr >= 0 && gr < H5;
+#pragma unroll
+      for (int k = 0; k < K::N5; ++k) {
+        const int gc = o5c + k;
+        bf16 v = __float2bfloat16_rn(0.f);
+        if (row_in && gc >= 0 && gc < H5) v = gb[idx * LB + 2 * gc + 1 - l5];
+        Z[(r * K::N5 + k) * bwd_tc::P5 + co] = v;
+      }
+    }
+  }
+  // the box's reads done (generic proxy) before the tensor unit rewrites
+  // R1 (async proxy)
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  lap(wg::P_LOAD);
+  wg::sync_consumers();
+  if ((threadIdx.x & 31) == 0) wg::mbar_arrive(bar_r1);
+  lap(wg::P_SYNC);
+  wgc::chain(ring, sm, BoxMask<32, K::N0, true>{sm + M0_AT, l0},
+             BoxMask<64, K::N1, false>{sm + M1_AT, l12},
+             BoxMask<32, K::N1, false>{sm + M2_AT, l12},
+             BoxMask<64, K::N4, false>{sm + M3_AT, l3},
+             GxBatched{gxe + lb, gxo + lb, R0, C0, H, seg, pitch},
+             Gates{sm, bar_m32, bar_m01}, H, lap);
 }
 
-constexpr int BWD_TC_SMEM = 2 * bwd_tc::ELEMS + bwd_tc::GATE_BYTES;
-
-int launch_bwd_tc(const void* gp5dd, const void* const* a,
+int launch_bwd_wg(const void* gp5dd, const void* const* a,
                   const void* const* u, void* gxe, void* gxo, int B, int H,
                   int seg, cudaStream_t s) {
+  using K = Chain;
+  using k8b::LB;
+  using k8b::LW;
+  const int H1 = H / 2, tot = B * seg;
+  // the batch-on-lanes tensors [rows, C, B seg] as planar [1, rows, C,
+  // B seg]; gp5dd's data rows (the even ones) at a row stride of two rows
+  CUtensorMap tm[6];
+  int err = wg::planar_map(&tm[0], gp5dd, true, 1, H / 4, 128, tot, LB,
+                           K::N5, 0, 2);
+  err = err ? err : wg::planar_map(&tm[1], a[0], true, 1, H, 32, tot, LW,
+                                   K::N0);
+  err = err ? err : wg::planar_map(&tm[2], a[1], true, 1, H, 32, tot, LW,
+                                   K::N0);
+  err = err ? err : wg::planar_map(&tm[3], a[2], true, 1, H1, 64, tot, LW,
+                                   K::N1);
+  err = err ? err : wg::planar_map(&tm[4], a[3], true, 1, H1, 32, tot, LW,
+                                   K::N1);
+  err = err ? err : wg::planar_map(&tm[5], a[4], true, 1, H1, 64, tot, LB,
+                                   K::N4);
+  if (err) return err;
   cudaError_t e = cudaFuncSetAttribute(
-      fused_stem_bwd_b_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      BWD_TC_SMEM);
+      fused_stem_bwd_b_wg_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      k8b::SMEM);
   if (e != cudaSuccess) return (int)e;
-  const int nt = (H + Chain::TX - 1) / Chain::TX;
+  const wgc::Weights uw = {{static_cast<const unsigned char*>(u[0]),
+                            static_cast<const unsigned char*>(u[1]),
+                            static_cast<const unsigned char*>(u[2]),
+                            static_cast<const unsigned char*>(u[3]),
+                            static_cast<const unsigned char*>(u[4])}};
+  const int nt = (H + K::TX - 1) / K::TX;
   dim3 grid(nt, nt, B);
-  fused_stem_bwd_b_tc_kernel<<<grid, NT, BWD_TC_SMEM, s>>>(
-      static_cast<const bf16*>(gp5dd), static_cast<const bf16*>(a[0]),
-      static_cast<const bf16*>(a[1]), static_cast<const bf16*>(a[2]),
-      static_cast<const bf16*>(a[3]), static_cast<const bf16*>(a[4]),
-      static_cast<const uint2*>(u[0]), static_cast<const uint2*>(u[1]),
-      static_cast<const uint2*>(u[2]), static_cast<const uint2*>(u[3]),
-      static_cast<const uint2*>(u[4]), static_cast<bf16*>(gxe),
-      static_cast<bf16*>(gxo), H, seg, (long long)B * seg);
+  fused_stem_bwd_b_wg_kernel<<<grid, wg::NTH, k8b::SMEM, s>>>(
+      tm[0], tm[1], tm[2], tm[3], tm[4], tm[5], uw, static_cast<bf16*>(gxe),
+      static_cast<bf16*>(gxo), H, seg, (long long)tot);
   return (int)cudaGetLastError();
 }
-
 
 }  // namespace
 
@@ -736,13 +893,14 @@ extern "C" int apfp_fused_stem_fwd_b(
   return launch_fwd_any<float, 4>(xe, xo, w, bias, y5, a, B, H, seg, s);
 }
 
-// K8b. dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores).
+// K8b. dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (wgmma).
 // gp5dd [H/2, 128, B*seg], gated and zero-interleaved (the contract in the
 // note above: the bfloat16 kernel reads its data positions only); y0e, y0o
 // [H, 32, B*seg], y1, y3 [H/2, 64, .], y2 [H/2, 32, .]; v0 .. v5 K2's
 // swapped-channel weights of convs 0, 1, 2, 3, 5 (read in float32), u0 ..
-// u5 the same in fragment order (read in bfloat16, null in float32); gxe,
-// gxo [H, 8, B*seg]. H a multiple of 8. Returns cudaGetLastError().
+// u5 the same packed for wgmma (K2's wg_weights; read in bfloat16, null in
+// float32); gxe, gxo [H, 8, B*seg]. H a multiple of 8. Returns
+// cudaGetLastError() (or a tensor map's error).
 extern "C" int apfp_fused_stem_bwd_b(
     const void* gp5dd, const void* y0e, const void* y0o, const void* y1,
     const void* y2, const void* y3, const void* v0, const void* v1,
@@ -753,7 +911,7 @@ extern "C" int apfp_fused_stem_bwd_b(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
     const void* u[5] = {u0, u1, u2, u3, u5};
-    return launch_bwd_tc(gp5dd, a, u, gxe, gxo, B, H, seg, s);
+    return launch_bwd_wg(gp5dd, a, u, gxe, gxo, B, H, seg, s);
   }
   const void* v[5] = {v0, v1, v2, v3, v5};
   return launch_bwd<float>(gp5dd, a, v, gxe, gxo, B, H, seg, s);
@@ -775,7 +933,8 @@ extern "C" int apfp_fused_stem_fwd_b_info(int dtype, int save, int* info) {
 
 // The K8b kernel of dtype as the card sees it (info as above)
 extern "C" int apfp_fused_stem_bwd_b_info(int dtype, int* info) {
-  if (dtype == 1) return info_of(fused_stem_bwd_b_tc_kernel, BWD_TC_SMEM, info);
+  if (dtype == 1)
+    return info_of(fused_stem_bwd_b_wg_kernel, k8b::SMEM, info, wg::NTH);
   return info_of(fused_stem_bwd_b_kernel<float>,
                  sizeof(float) * (size_t)ChainB::ELEMS, info);
 }

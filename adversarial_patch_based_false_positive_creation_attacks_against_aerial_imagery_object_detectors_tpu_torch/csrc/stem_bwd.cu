@@ -41,7 +41,9 @@
 // wgmma.mma_async issued by two consumer warpgroups (conv5^T and conv1^T
 // as four GEMMs, one per output parity, with K = 1, 2, 2 or 4 taps x CIN;
 // conv0^T's N = 8 is one m64n8k16), with bwd_tc's epilogues, so the FMA
-// chain's rounding points and K2's tile origins stay. A producer warp
+// chain's rounding points and K2's tile origins stay. Its consumer side
+// from gp5 on and the weights' producer side are stem_common.cuh's
+// wgc::chain and wgc::produce, which K5 and K8b run too. A producer warp
 // keeps every load in flight by TMA and bulk copies: first y5's and g5's
 // boxes (8 rows x 128 channels x 16 lanes; gp5 = T(g5 m(y5)) is formed
 // from them in shared memory), then the y3 and y2 mask windows, boxes
@@ -108,38 +110,18 @@ __global__ void __launch_bounds__(NT, 1)
 namespace k2 {
 
 using K = Chain;
-// the ring: six 8 KB slots (a conv5^T chunk; two conv3^T or conv1^T
-// chunks; all of conv0^T's)
-constexpr int STAGES = 6, SLOT = 8192;
-// one parity (PY, PX) of a stride-2 adjoint as a GEMM over NS^2 super
-// positions: taps, depth a tap, N, channel groups
-template <int PY, int PX, int KT, int N, int NG, int NS>
-using T2 =
-    wg::Gemm<(PY + 1) * (PX + 1), KT, N, NG, 1, NS * NS, SLOT, STAGES>;
-// the chain's GEMMs in order: conv5^T's parities, conv3^T, conv2^T,
-// conv1^T's parities, conv0^T
-using U5a = T2<0, 0, 128, 64, 2, K::N4 / 2>;
-using U5b = T2<0, 1, 128, 64, 2, K::N4 / 2>;
-using U5c = T2<1, 0, 128, 64, 2, K::N4 / 2>;
-using U5d = T2<1, 1, 128, 64, 2, K::N4 / 2>;
-using U3 = wg::Gemm<9, 64, 32, 1, 1, K::N1 * K::N1, SLOT, STAGES>;
-using U2 = wg::Gemm<1, 32, 64, 1, 1, K::N1 * K::N1, SLOT, STAGES>;
-using U1a = T2<0, 0, 64, 32, 1, K::N0 / 2>;
-using U1b = T2<0, 1, 64, 32, 1, K::N0 / 2>;
-using U1c = T2<1, 0, 64, 32, 1, K::N0 / 2>;
-using U1d = T2<1, 1, 64, 32, 1, K::N0 / 2>;
-using U0 = wg::Gemm<9, 32, 8, 1, 2, K::TX * K::TX, SLOT, STAGES>;
 // A box's first lane must lie on a 16-byte boundary (the tensor unit
-// refuses others), so the windows are 32 lanes (int8) and 16 lanes
-// (bfloat16) from the boundary at or below the first lane read. Shared
-// memory from a 1024-aligned base (bytes): the chain's X, Y, Z; region R1
-// holds y5's and g5's boxes [N5][128][16] until gp5 is formed, then the
-// y0 windows (both phases) and y1's; region R2 the y3 and y2 windows
-// (windows [row][channel][32 lanes]); four barriers (the inputs, the y3 /
-// y2 windows, the y0 / y1 windows, R1 free); the ring
-constexpr int WL = 32, WL5 = 16;
+// refuses others), so the mask windows are wgc::WL = 32 lanes (int8) and
+// y5's and g5's boxes wgc::WL5 = 16 lanes (bfloat16) from the boundary at
+// or below the first lane read. Shared memory from a 1024-aligned base
+// (bytes): the chain's X, Y, Z; region R1 holds y5's and g5's boxes
+// [N5][128][16] until gp5 is formed, then the y0 windows (both phases) and
+// y1's; region R2 the y3 and y2 windows (windows [row][channel][32
+// lanes]); four barriers (the inputs, the y3 / y2 windows, the y0 / y1
+// windows, R1 free); the ring
+using wgc::WL;
+using wgc::Y5_B;
 constexpr int R1_AT = (2 * bwd_tc::ELEMS + 127) / 128 * 128;
-constexpr int Y5_B = K::N5 * 128 * WL5 * 2;
 constexpr int M0_B = K::N0 * 32 * WL;  // a phase
 constexpr int M1_B = K::N1 * 64 * WL;
 constexpr int M0_AT = R1_AT, M1_AT = M0_AT + 2 * M0_B;
@@ -148,39 +130,34 @@ constexpr int M3_B = K::N4 * 64 * WL, M2_B = K::N1 * 32 * WL;
 constexpr int M3_AT = R2_AT, M2_AT = M3_AT + M3_B;
 constexpr int BAR_AT = M2_AT + M2_B;
 constexpr int RING_AT = BAR_AT + 32;
-constexpr int SMEM = 1024 + RING_AT + wg::ring_bytes(STAGES, SLOT);
+constexpr int SMEM =
+    1024 + RING_AT + wg::ring_bytes(wgc::STAGES, wgc::SLOT);
 static_assert(SMEM <= 232448 && 2 * M0_B + M1_B <= 2 * Y5_B &&
                   M3_B % 128 == 0 && M2_B % 128 == 0 && M0_B % 128 == 0 &&
                   M1_B % 128 == 0 && Y5_B % 128 == 0,
               "shared memory");
 static_assert(K::N5 == 8 && K::TX == 16, "the boxes cover the windows");
 
-// The packed adjoint weights (wg_weights): conv0^T, conv1^T (its four
-// parities' chunks back to back), conv2^T, conv3^T, conv5^T (the same)
-struct Weights {
-  const unsigned char* u[5];
-};
-
-// A gate's sign from a staged window [ph][r][ch][WL lanes] (window row r
-// at tile row oy = r, lanes from l0), at tile row oy and image column gc;
-// PHASE: y0's column phases
-template <int C, int R, bool PHASE>
-struct BoxMask {
-  const unsigned char* s;
-  int l0;
-  __device__ int8_t operator()(int oy, int, int, int gc, int ch) const {
-    const int ph = PHASE ? (gc & 1) : 0;
-    const int lane = PHASE ? (gc >> 1) + 1 : gc + 1;
-    return s[((ph * R + oy) * C + ch) * WL + lane - l0];
+// The mask windows' barriers: the y3 and y2 windows before conv5^T, the y0
+// and y1 windows before conv2^T
+struct Gates {
+  uint32_t m32, m01;
+  __device__ void first(wg::Lap& lap) const {
+    wg::mbar_wait(m32, 0);
+    lap(wg::P_INPUT);
+  }
+  __device__ void second(wg::Lap& lap) const {
+    wg::mbar_wait(m01, 0);
+    lap(wg::P_INPUT);
   }
 };
 
 }  // namespace k2
 
 // The bfloat16 K2: grad_chain's stages, regions and tile origins, with the
-// adjoints on wgmma and every load issued by the producer warp. The tensor
-// maps: the masks (boxes of 32 lanes x C channels x the window's rows), y5
-// and g5 (16 lanes x 128 x 8 rows).
+// adjoints on wgmma (stem_common.cuh: wgc::chain) and every load issued by
+// the producer warp. The tensor maps: the masks (boxes of 32 lanes x C
+// channels x the window's rows), y5 and g5 (16 lanes x 128 x 8 rows).
 __global__ void __launch_bounds__(wg::NTH, 1)
     fused_stem_bwd_wg_kernel(const __grid_constant__ CUtensorMap tm0e,
                              const __grid_constant__ CUtensorMap tm0o,
@@ -189,16 +166,17 @@ __global__ void __launch_bounds__(wg::NTH, 1)
                              const __grid_constant__ CUtensorMap tm3,
                              const __grid_constant__ CUtensorMap ty5,
                              const __grid_constant__ CUtensorMap tg5,
-                             k2::Weights ww, bf16* __restrict__ gxe,
+                             wgc::Weights ww, bf16* __restrict__ gxe,
                              bf16* __restrict__ gxo, int H, int wlh) {
   using namespace k2;
+  using wgc::BoxMask;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const uint32_t raw = wg::smem_u32(smem_raw);
   unsigned char* sm = smem_raw + (((raw + 1023) & ~1023u) - raw);
   const uint32_t s0 = wg::smem_u32(sm);
   const uint32_t bar_in = s0 + BAR_AT, bar_m32 = bar_in + 8;
   const uint32_t bar_m01 = bar_in + 16, bar_r1 = bar_in + 24;
-  auto ring = wg::make_ring<STAGES, SLOT>(s0 + RING_AT);
+  auto ring = wg::make_ring<wgc::STAGES, wgc::SLOT>(s0 + RING_AT);
   if (threadIdx.x == 0) {
     wg::mbar_init(bar_in, 1);
     wg::mbar_init(bar_m32, 1);
@@ -209,7 +187,7 @@ __global__ void __launch_bounds__(wg::NTH, 1)
   __syncthreads();
   const int b = blockIdx.z;
   const int R0 = blockIdx.y * K::TX, C0 = blockIdx.x * K::TX;
-  const int H1 = H / 2, H5 = H / 4;
+  const int H5 = H / 4;
   // tile origins in image coordinates (rows; columns alike)
   const int o5r = R0 / 4 - 1, o5c = C0 / 4 - 1;  // gp5, N5
   const int o4r = R0 / 2 - 2, o4c = C0 / 2 - 2;  // gs4 / gp3, N4
@@ -230,70 +208,27 @@ __global__ void __launch_bounds__(wg::NTH, 1)
       wg::mbar_expect_tx(bar_m32, M3_B + M2_B);
       wg::tma_load_4d(s0 + M3_AT, &tm3, l3, 0, o4r, b, bar_m32);
       wg::tma_load_4d(s0 + M2_AT, &tm2, l12, 0, o1r, b, bar_m32);
-      const unsigned char* u5 = ww.u[4];
-      wg::produce<U5a>(ring, u5);
-      wg::produce<U5b>(ring, u5 + U5a::BYTES);
-      wg::produce<U5c>(ring, u5 + U5a::BYTES + U5b::BYTES);
-      wg::produce<U5d>(ring, u5 + U5a::BYTES + U5b::BYTES + U5c::BYTES);
       // R1 is free once gp5 is formed: the y0 and y1 windows into it
-      wg::mbar_wait(bar_r1, 0);
-      wg::mbar_expect_tx(bar_m01, 2 * M0_B + M1_B);
-      wg::tma_load_4d(s0 + M0_AT, &tm0e, l0, 0, o0r, b, bar_m01);
-      wg::tma_load_4d(s0 + M0_AT + M0_B, &tm0o, l0, 0, o0r, b, bar_m01);
-      wg::tma_load_4d(s0 + M1_AT, &tm1, l12, 0, o1r, b, bar_m01);
-      wg::produce<U3>(ring, ww.u[3]);
-      wg::produce<U2>(ring, ww.u[2]);
-      const unsigned char* u1 = ww.u[1];
-      wg::produce<U1a>(ring, u1);
-      wg::produce<U1b>(ring, u1 + U1a::BYTES);
-      wg::produce<U1c>(ring, u1 + U1a::BYTES + U1b::BYTES);
-      wg::produce<U1d>(ring, u1 + U1a::BYTES + U1b::BYTES + U1c::BYTES);
-      wg::produce<U0>(ring, ww.u[0]);
+      wgc::produce(ring, ww, [&] {
+        wg::mbar_wait(bar_r1, 0);
+        wg::mbar_expect_tx(bar_m01, 2 * M0_B + M1_B);
+        wg::tma_load_4d(s0 + M0_AT, &tm0e, l0, 0, o0r, b, bar_m01);
+        wg::tma_load_4d(s0 + M0_AT + M0_B, &tm0o, l0, 0, o0r, b, bar_m01);
+        wg::tma_load_4d(s0 + M1_AT, &tm1, l12, 0, o1r, b, bar_m01);
+      });
     }
     return;
   }
 
-  using bwd_tc::P0;
-  using bwd_tc::P2;
-  using bwd_tc::P4;
-  using bwd_tc::P5;
-  bf16* X = reinterpret_cast<bf16*>(sm);  // gs4 window
-  bf16* Y = X + bwd_tc::SZ_X;             // gp3, then gp1
-  bf16* Z = Y + bwd_tc::SZ_Y;             // gp5, then gp2, then gp0
-  // gp5 = T(g5 m(y5)) from the boxes into Z [N5^2][P5], zero outside the
-  // image; then R1 is handed back to the producer
+  bf16* Z = reinterpret_cast<bf16*>(sm) + bwd_tc::SZ_X + bwd_tc::SZ_Y;
+  // gp5 = T(g5 m(y5)) from the boxes into Z, zero outside the image; then
+  // R1 is handed back to the producer
   wg::Lap lap;
   wg::mbar_wait(bar_in, 0);
   lap(wg::P_INPUT);
-  {
-    const bf16* yb = reinterpret_cast<const bf16*>(sm + R1_AT);
-    const bf16* gb = reinterpret_cast<const bf16*>(sm + R1_AT + Y5_B);
-    const int k0 = o5c + 1 - l5;  // the box lane of tile column 0
-    // a thread takes one (row, channel) line's 8 columns: 4-byte reads of
-    // the boxes, 2-byte stores of neighbouring channels
-    for (int idx = threadIdx.x; idx < K::N5 * 128; idx += wg::NC) {
-      const int co = idx % 128, r = idx / 128;
-      const int gr = o5r + r;
-      const uint32_t* y4 =
-          reinterpret_cast<const uint32_t*>(yb + idx * WL5 + k0);
-      const uint32_t* g4 =
-          reinterpret_cast<const uint32_t*>(gb + idx * WL5 + k0);
-#pragma unroll
-      for (int k2 = 0; k2 < K::N5 / 2; ++k2) {
-        const uint32_t yv = y4[k2], gv = g4[k2];
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int k = 2 * k2 + h, gc = o5c + k;
-          const float y = __uint_as_float((h ? yv >> 16 : yv) << 16);
-          const float g = __uint_as_float((h ? gv >> 16 : gv) << 16);
-          float v = 0.f;
-          if (gr >= 0 && gr < H5 && gc >= 0 && gc < H5)
-            v = g * (y > 0.f ? 1.f : LEAKY);
-          Z[(r * K::N5 + k) * P5 + co] = __float2bfloat16_rn(v);
-        }
-      }
-    }
-  }
+  wgc::gp5_from_boxes(Z, reinterpret_cast<const bf16*>(sm + R1_AT),
+                      reinterpret_cast<const bf16*>(sm + R1_AT + Y5_B), o5r,
+                      o5c, l5, H5);
   // the boxes' reads done (generic proxy) before the tensor unit rewrites
   // R1 (async proxy)
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
@@ -301,58 +236,13 @@ __global__ void __launch_bounds__(wg::NTH, 1)
   wg::sync_consumers();
   if ((threadIdx.x & 31) == 0) wg::mbar_arrive(bar_r1);
   lap(wg::P_SYNC);
-  wg::mbar_wait(bar_m32, 0);
-  lap(wg::P_INPUT);
-  const BoxMask<64, K::N4, false> m3{sm + M3_AT, l3};
-  const BoxMask<32, K::N1, false> m2{sm + M2_AT, l12};
-  const BoxMask<64, K::N1, false> m1{sm + M1_AT, l12};
-  const BoxMask<32, K::N0, true> m0{sm + M0_AT, l0};
-  // gs4 (X) and gp3 (Y) from gp5 (Z)
-  {
-    const bwd_tc::EpiGs4<BoxMask<64, K::N4, false>> epi{X, Y, m3, o4r, o4c,
-                                                        H1};
-    constexpr int NS = K::N4 / 2;
-    wg::conv<U5a, P5>(ring, Z, RowsT2<0, 0>{NS, K::N5}, epi, lap);
-    wg::conv<U5b, P5>(ring, Z, RowsT2<0, 1>{NS, K::N5}, epi, lap);
-    wg::conv<U5c, P5>(ring, Z, RowsT2<1, 0>{NS, K::N5}, epi, lap);
-    wg::conv<U5d, P5>(ring, Z, RowsT2<1, 1>{NS, K::N5}, epi, lap);
-  }
-  wg::sync_consumers();
-  lap(wg::P_SYNC);
-  // gp2 (Z) from gp3 (Y)
-  wg::conv<U3, P4>(ring, Y, RowsT1<3, 2>{K::N1, K::N4},
-                   bwd_tc::EpiGate<P2, false, BoxMask<32, K::N1, false>>{
-                       Z, K::N1, m2, o1r, o1c, H1, nullptr},
-                   lap);
-  wg::sync_consumers();
-  lap(wg::P_SYNC);
-  wg::mbar_wait(bar_m01, 0);
-  lap(wg::P_INPUT);
-  // gp1 (Y) from gp2 (Z) and gs4 (X)
-  wg::conv<U2, P2>(ring, Z, RowsT1<1, 0>{K::N1, K::N1},
-                   bwd_tc::EpiGate<P4, true, BoxMask<64, K::N1, false>>{
-                       Y, K::N1, m1, o1r, o1c, H1, X},
-                   lap);
-  wg::sync_consumers();
-  lap(wg::P_SYNC);
-  // gp0 (Z) from gp1 (Y)
-  {
-    const bwd_tc::EpiGate<P0, false, BoxMask<32, K::N0, true>> epi{
-        Z, K::N0, m0, o0r, o0c, H, nullptr};
-    constexpr int NS = K::N0 / 2;
-    wg::conv<U1a, P4>(ring, Y, RowsT2<0, 0>{NS, K::N1}, epi, lap);
-    wg::conv<U1b, P4>(ring, Y, RowsT2<0, 1>{NS, K::N1}, epi, lap);
-    wg::conv<U1c, P4>(ring, Y, RowsT2<1, 0>{NS, K::N1}, epi, lap);
-    wg::conv<U1d, P4>(ring, Y, RowsT2<1, 1>{NS, K::N1}, epi, lap);
-  }
-  wg::sync_consumers();
-  lap(wg::P_SYNC);
-  // gx from gp0 (Z)
   const long long gb = (long long)b * H * 8 * wlh;
-  const bwd_tc::EpiGx gx{gxe + gb, gxo + gb, R0, C0, wlh, H};
-  wg::conv<U0, P0>(ring, Z, RowsT1<3, 3>{K::TX, K::N0}, gx, lap);
-  gx.zero_borders();
-  lap(wg::P_STORE);
+  wgc::chain(ring, sm, BoxMask<32, K::N0, true>{sm + M0_AT, l0},
+             BoxMask<64, K::N1, false>{sm + M1_AT, l12},
+             BoxMask<32, K::N1, false>{sm + M2_AT, l12},
+             BoxMask<64, K::N4, false>{sm + M3_AT, l3},
+             bwd_tc::EpiGx{gxe + gb, gxo + gb, R0, C0, wlh, H},
+             Gates{bar_m32, bar_m01}, H, lap);
 }
 
 using wg::planar_map;
@@ -384,8 +274,8 @@ int launch_wg(const void* const* m, const void* y5, const void* g5,
   const int H1 = H / 2, H5 = H / 4;
   CUtensorMap tm[7];
   int err = 0;
-  using k2::WL;
-  using k2::WL5;
+  using wgc::WL;
+  using wgc::WL5;
   err = err ? err : planar_map(&tm[0], m[0], false, B, H, 32, wlh, WL, K::N0);
   err = err ? err : planar_map(&tm[1], m[1], false, B, H, 32, wlh, WL, K::N0);
   err = err ? err : planar_map(&tm[2], m[2], false, B, H1, 64, wlh, WL, K::N1);
@@ -398,7 +288,7 @@ int launch_wg(const void* const* m, const void* y5, const void* g5,
       fused_stem_bwd_wg_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       k2::SMEM);
   if (e != cudaSuccess) return (int)e;
-  const k2::Weights ww = {{static_cast<const unsigned char*>(u[0]),
+  const wgc::Weights ww = {{static_cast<const unsigned char*>(u[0]),
                            static_cast<const unsigned char*>(u[1]),
                            static_cast<const unsigned char*>(u[2]),
                            static_cast<const unsigned char*>(u[3]),
@@ -411,18 +301,6 @@ int launch_wg(const void* const* m, const void* y5, const void* g5,
 }
 
 }  // namespace
-
-#ifdef APFP_PROFILE
-// The cycle accounts (stem_common.cuh: wg::Lap) into out[PROF_N], then
-// zeroed
-extern "C" int apfp_prof_take(unsigned long long* out) {
-  cudaError_t e = cudaMemcpyFromSymbol(out, wg::prof_cycles,
-                                       sizeof(wg::prof_cycles));
-  if (e != cudaSuccess) return (int)e;
-  static const unsigned long long zero[wg::PROF_N] = {};
-  return (int)cudaMemcpyToSymbol(wg::prof_cycles, zero, sizeof(zero));
-}
-#endif
 
 // dtype: 0 = float32, 1 = bfloat16 (y5, g5, weights and gx). Masks int8;
 // v0 .. v5 the swapped-channel weights of convs 0, 1, 2, 3, 5 (read in

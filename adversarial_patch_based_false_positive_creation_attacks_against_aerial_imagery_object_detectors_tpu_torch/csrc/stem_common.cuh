@@ -7,13 +7,14 @@
 // on CUDA-core FMAs (grad_chain, chain_tail: float32 K2, K5 and, past its
 // first stage, the float32 batch-on-lanes backward); the tensor-core
 // implicit GEMM on mma.sync (mma_conv) with K1's epilogue (EpiConv), which
-// the bfloat16 K5 and batch-on-lanes forward run, and the bfloat16 chain
-// (bwd_tc) that K5 and the batch-on-lanes backward share; and the same
-// GEMMs built for Hopper's own units (wg: wgmma with the weights streamed
-// into shared memory by bulk copies, a producer warp, mbarriers), which the
-// bfloat16 K1 and K2 run with EpiConv and bwd_tc's epilogues. A wgmma k16
-// step sums as an mma.sync one, bit for bit (checked on the card), so the
-// two families agree exactly where they sum alike.
+// the bfloat16 batch-on-lanes forward (K8a) and the stage kernels (K6) run;
+// the bfloat16 chain's epilogues (bwd_tc); and the same GEMMs built for
+// Hopper's own units (wg: wgmma with the weights streamed into shared
+// memory by bulk copies, a producer warp, mbarriers), which the bfloat16
+// K1, K5's recompute and K4 run, with K2's chain on them (wgc) that K2, K5
+// and the batch-on-lanes backward (K8b) share. A wgmma k16 step sums as an
+// mma.sync one, bit for bit (checked on the card), so the two families
+// agree exactly where they sum alike.
 #pragma once
 
 #include <cuda.h>
@@ -591,7 +592,7 @@ __device__ void grad_chain(T* sm, const T* __restrict__ y5,
 }
 
 // ---------------------------------------------------------------------------
-// Tensor-core convs (the bfloat16 K1 and K2): implicit GEMMs on mma.sync
+// Tensor-core convs on mma.sync (the bfloat16 K8a and K6): implicit GEMMs
 // ---------------------------------------------------------------------------
 // A conv (or an adjoint) between shared-memory tiles laid out [pos][pitch]
 // is the product D[m][n] = sum_i sum_k A_i[m][k] B_i[k][n]: m an output
@@ -899,16 +900,15 @@ __device__ __forceinline__ void mma_conv(const bf16* __restrict__ in, int M,
 }
 
 // ---------------------------------------------------------------------------
-// The bfloat16 input-cotangent chain on the tensor cores (K2, K5)
+// The bfloat16 input-cotangent chain's regions and epilogues (K2, K5, K8b)
 // ---------------------------------------------------------------------------
-// grad_chain's stages, regions and tile origins with the adjoints on
-// mma_conv (conv5^T and conv1^T as four GEMMs, one per output parity, with
-// K = 1, 2, 2 or 4 taps x CIN; conv0^T's N = 8 is one m16n8k16 column),
-// the epilogues keeping the FMA chain's rounding points. The gates come
-// from mask readers m(oy, ox, gr, gc, ch): K2's staged mask windows, K5's
-// recomputed sign bits. Row pitches of the tiles an ldmatrix reads are
-// padded by 16 bytes (gp5 136, gp3/gp1 72, gp2 40) but gp0's (32: two-way
-// conflicts), to keep two K2 blocks a multiprocessor.
+// grad_chain's regions and tile origins for the chain on the tensor cores
+// (wgc below), with epilogues that keep the FMA chain's rounding points.
+// The gates come from mask readers m(oy, ox, gr, gc, ch): K2's mask
+// windows, K5's recomputed sign bits, K8b's windows of the signs of its
+// saved activations. Row pitches of the tiles an ldmatrix reads are padded
+// by 16 bytes (gp5 136, gp3/gp1 72, gp2 40) but gp0's (32: two-way
+// conflicts), which keeps the regions at 69,312 bytes.
 
 namespace bwd_tc {
 
@@ -1010,185 +1010,10 @@ struct EpiGx {
   }
 };
 
-// The four parities of a stride-2 adjoint, each a GEMM over the NS^2 super
-// positions. Where a parity has fewer items than warps, the 1-tap and
-// 4-tap parities go to one half of the warps and the two 2-tap ones to
-// the other
-template <int CIN, int IP, int COUT, int NW, int MT, class Epi>
-__device__ __forceinline__ void convt_s2(const bf16* in, int IW, int NS,
-                                         const uint2* wf, const Epi& epi) {
-  constexpr int H = NT / 64;  // half the warps
-  mma_conv<CIN, IP, COUT, NW, MT>(in, NS * NS, wf, RowsT2<0, 0>{NS, IW}, epi);
-  mma_conv<CIN, IP, COUT, NW, MT>(in, NS * NS, wf, RowsT2<0, 1>{NS, IW}, epi,
-                                  H);
-  mma_conv<CIN, IP, COUT, NW, MT>(in, NS * NS, wf, RowsT2<1, 0>{NS, IW}, epi,
-                                  H);
-  mma_conv<CIN, IP, COUT, NW, MT>(in, NS * NS, wf, RowsT2<1, 1>{NS, IW}, epi);
-}
-
-// gp5 = T(g5 m(y5)) of image b for the block's gx tile into Z [N5^2][P5],
-// four lanes (8 bytes) a load: a row's N5 lanes start at lane o5c + 1 =
-// C0 / 4, a multiple of 4, and end inside the row (wl5 a multiple of 128,
-// H5 of 4)
-__device__ __forceinline__ void load_gp5(bf16* __restrict__ Z,
-                                         const bf16* __restrict__ y5,
-                                         const bf16* __restrict__ g5,
-                                         long long b, int H, int wl5) {
-  static_assert(K::N5 % 4 == 0, "gp5 rows in 4-lane loads");
-  const int R0 = blockIdx.y * K::TX, C0 = blockIdx.x * K::TX;
-  const int H5 = H / 4;
-  const int o5r = R0 / 4 - 1, o5c = C0 / 4 - 1;
-  for (int idx = threadIdx.x; idx < K::N5 * K::N5 * 128 / 4; idx += NT) {
-    const int q = idx % (K::N5 / 4);
-    const int rest = idx / (K::N5 / 4);
-    const int co = rest % 128, r = rest / 128;
-    const int gr = o5r + r;
-    float v[4] = {0.f, 0.f, 0.f, 0.f};
-    if (gr >= 0 && gr < H5) {
-      const long long o =
-          ((b * H5 + gr) * 128 + co) * wl5 + o5c + 1 + 4 * q;
-      const uint2 yv = __ldg(reinterpret_cast<const uint2*>(y5 + o));
-      const uint2 gv = __ldg(reinterpret_cast<const uint2*>(g5 + o));
-      const bf16* yb = reinterpret_cast<const bf16*>(&yv);
-      const bf16* gb = reinterpret_cast<const bf16*>(&gv);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int gc = o5c + 4 * q + i;
-        if (gc >= 0 && gc < H5)
-          v[i] = to_f(gb[i]) * (to_f(yb[i]) > 0.f ? 1.f : LEAKY);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      Z[(r * K::N5 + 4 * q + i) * P5 + co] = __float2bfloat16_rn(v[i]);
-  }
-}
-
-// The chain from gp5 (in Z, load_gp5's) to gx for the block's gx tile
-// (blockIdx.y, blockIdx.x) of one image: sm holds ELEMS elements (X, Y, Z);
-// u0 .. u5 the swapped-channel weights in fragment order; the mask readers
-// m0 (y0), m1 (y1), m2 (y2), m3 (y3) index this image; gx the epilogue of
-// the last adjoint (each pair of gx channels, then gx.zero_borders():
-// every lane of the tile's rows written, borders and padding zero)
-template <class M0, class M1, class M2, class M3, class Gx>
-__device__ __forceinline__ void chain(
-    bf16* __restrict__ sm, const uint2* __restrict__ u0,
-    const uint2* __restrict__ u1, const uint2* __restrict__ u2,
-    const uint2* __restrict__ u3, const uint2* __restrict__ u5, const M0& m0,
-    const M1& m1, const M2& m2, const M3& m3, const Gx& gx, int H) {
-  bf16* X = sm;         // gs4 window
-  bf16* Y = X + SZ_X;   // gp3, then gp1
-  bf16* Z = Y + SZ_Y;   // gp5, then gp2, then gp0
-  const int R0 = blockIdx.y * K::TX, C0 = blockIdx.x * K::TX;
-  const int H1 = H / 2;
-  // tile origins in image coordinates (rows; columns alike)
-  const int o4r = R0 / 2 - 2, o4c = C0 / 2 - 2;  // gs4 / gp3, N4
-  const int o1r = R0 / 2 - 1, o1c = C0 / 2 - 1;  // gp2 / gp1, N1
-  const int o0r = R0 - 2, o0c = C0 - 2;          // gp0, N0
-  // gs4 (X) and gp3 (Y) from gp5 (Z)
-  convt_s2<128, P5, 64, 2, 4>(Z, K::N5, K::N4 / 2, u5,
-                              EpiGs4<M3>{X, Y, m3, o4r, o4c, H1});
-  __syncthreads();
-  // gp2 (Z) from gp3 (Y)
-  mma_conv<64, P4, 32, 2, 2>(
-      Y, K::N1 * K::N1, u3, RowsT1<3, 2>{K::N1, K::N4},
-      EpiGate<P2, false, M2>{Z, K::N1, m2, o1r, o1c, H1, nullptr});
-  __syncthreads();
-  // gp1 (Y) from gp2 (Z) and gs4 (X)
-  mma_conv<32, P2, 64, 8>(Z, K::N1 * K::N1, u2, RowsT1<1, 0>{K::N1, K::N1},
-                          EpiGate<P4, true, M1>{Y, K::N1, m1, o1r, o1c, H1, X});
-  __syncthreads();
-  // gp0 (Z) from gp1 (Y)
-  convt_s2<64, P4, 32, 2, 2>(
-      Y, K::N1, K::N0 / 2, u1,
-      EpiGate<P0, false, M0>{Z, K::N0, m0, o0r, o0c, H, nullptr});
-  __syncthreads();
-  // gx from gp0 (Z)
-  mma_conv<32, P0, 8, 1, 2>(Z, K::TX * K::TX, u0, RowsT1<3, 3>{K::TX, K::N0},
-                            gx);
-  gx.zero_borders();
-}
-
-// K2's and K5's chain: gx of image b into gxe, gxo planar [B, H, 8, wlh]
-template <class M0, class M1, class M2, class M3>
-__device__ __forceinline__ void chain(
-    bf16* __restrict__ sm, const uint2* __restrict__ u0,
-    const uint2* __restrict__ u1, const uint2* __restrict__ u2,
-    const uint2* __restrict__ u3, const uint2* __restrict__ u5, const M0& m0,
-    const M1& m1, const M2& m2, const M3& m3, bf16* __restrict__ gxe,
-    bf16* __restrict__ gxo, long long b, int H, int wlh) {
-  const long long gb = b * H * 8 * wlh;
-  chain(sm, u0, u1, u2, u3, u5, m0, m1, m2, m3,
-        EpiGx{gxe + gb, gxo + gb, (int)blockIdx.y * K::TX,
-              (int)blockIdx.x * K::TX, wlh, H},
-        H);
-}
-
-// The gate windows of K2 and the batch-on-lanes backward, lanes of one
-// (row, channel) line kept in shared memory as sign bytes. With the gx tile
-// at a multiple of 16, y1's, y2's and both y0 phases' first lanes are
-// multiples of 4 (11 or 10 lanes: 12 bytes); y3's first lane is 3 past one
-// (14 lanes from 3 bytes in: 20)
-constexpr int W3 = 20, W12 = 12;
-static_assert(K::TX % 16 == 0, "the gate windows assume 16-aligned tiles");
-// the windows' bytes: y3 over gs4's N4 rows, y1 and y2 over N1, y0 over N0
-// (both phases)
-constexpr int M3_BYTES = K::N4 * 64 * W3;
-constexpr int M1_BYTES = K::N1 * 64 * W12;
-constexpr int M2_BYTES = K::N1 * 32 * W12;
-constexpr int M0_BYTES = K::N0 * 32 * 2 * W12;
-constexpr int GATE_BYTES = M3_BYTES + M1_BYTES + M2_BYTES + M0_BYTES;
-
-// A gate's sign from a staged window of sign bytes, laid out [r][ch][ph][W]
-// (row r of the window at tile row oy = r, lanes from l0), at tile row oy
-// and image column gc; PHASE: y0's column phases
-template <int C, int W, bool PHASE>
-struct StagedMask {
-  const unsigned char* s;
-  int l0;
-  __device__ int8_t operator()(int oy, int, int, int gc, int ch) const {
-    const int ph = PHASE ? (gc & 1) : 0;
-    const int lane = PHASE ? (gc >> 1) + 1 : gc + 1;
-    return s[((oy * C + ch) * (PHASE ? 2 : 1) + ph) * W + lane - l0];
-  }
-};
-
-// A window of saved bfloat16 activations into StagedMask's layout as their
-// signs (1 where the stored value is > 0): tile rows r < R at image rows
-// org_r + r, C channels, NPH column phases (a, ao), lanes [l0, l0 + W) of
-// each line (line (row, ch) at (row C + ch) pitch; a, ao at the image's
-// first lane; seg its lanes). 8-byte loads of 4 lanes, one 4-byte store of
-// their 4 signs. Rows outside the image and chunks outside [0, seg) are
-// skipped: the epilogues read no gate there.
-template <int R, int C, int NPH, int W>
-__device__ void stage_signs(unsigned char* __restrict__ s,
-                            const bf16* __restrict__ a,
-                            const bf16* __restrict__ ao, int org_r, int l0,
-                            int img, long long pitch, int seg) {
-  constexpr int NQ = W / 4;
-  for (int idx = threadIdx.x; idx < R * C * NPH * NQ; idx += NT) {
-    const int q = idx % NQ;
-    int rest = idx / NQ;
-    const int ph = rest % NPH;
-    rest /= NPH;
-    const int ch = rest % C, r = rest / C;
-    const int gr = org_r + r, lane = l0 + 4 * q;
-    if (gr < 0 || gr >= img || lane < 0 || lane + 4 > seg) continue;
-    const uint2 v = __ldg(reinterpret_cast<const uint2*>(
-        (ph ? ao : a) + ((long long)gr * C + ch) * pitch + lane));
-    const bf16* h = reinterpret_cast<const bf16*>(&v);
-    uint32_t word = 0;
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      if (to_f(h[i]) > 0.f) word |= 1u << (8 * i);
-    reinterpret_cast<uint32_t*>(s)[idx] = word;
-  }
-}
-
 }  // namespace bwd_tc
 
 // ---------------------------------------------------------------------------
-// Hopper's own units (the bfloat16 K1 and K2): wgmma, bulk copies, TMA
+// Hopper's own units (bfloat16 K1, K2, K5, K8b, K4): wgmma, bulk copies, TMA
 // ---------------------------------------------------------------------------
 // A conv (or adjoint) stage is the implicit GEMM of mma_conv, run by
 // warpgroups: wgmma.mma_async.m64nNk16 (bfloat16 in, float32 accumulate)
@@ -1310,17 +1135,20 @@ inline EncodeTiled encoder() {
 
 // The tensor map of a planar [B, rows, C, wl] tensor (int8, or bfloat16
 // with bf16) with boxes of bw lanes x bc channels (0: all C) x br rows of
-// one image; positions outside the tensor arrive as zeros. Returns 0, or
-// an error code past the runtime's (1000 + the driver's).
+// one image; positions outside the tensor arrive as zeros. rstep: the
+// tensor's rows lie rstep rows of C x wl apart (K8b's gp5dd: its even
+// rows). Returns 0, or an error code past the runtime's (1000 +
+// cuTensorMapEncodeTiled's).
 inline int planar_map(CUtensorMap* m, const void* p, bool bf16, int B,
-                      int rows, int C, int wl, int bw, int br, int bc = 0) {
+                      int rows, int C, int wl, int bw, int br, int bc = 0,
+                      int rstep = 1) {
   EncodeTiled f = encoder();
   if (f == nullptr) return 999;
   const cuuint64_t es = bf16 ? 2 : 1;
   const cuuint64_t dims[4] = {(cuuint64_t)wl, (cuuint64_t)C,
                               (cuuint64_t)rows, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {wl * es, (cuuint64_t)C * wl * es,
-                                 (cuuint64_t)rows * C * wl * es};
+  const cuuint64_t row = (cuuint64_t)rstep * C * wl * es;
+  const cuuint64_t strides[3] = {wl * es, row, rows * row};
   const cuuint32_t box[4] = {(cuuint32_t)bw, (cuuint32_t)(bc ? bc : C),
                              (cuuint32_t)br, 1};
   const cuuint32_t el[4] = {1, 1, 1, 1};
@@ -1439,12 +1267,15 @@ __device__ __forceinline__ void mma_async<16>(float (&d)[8],
 // (powers of two times 1 KB): CPS chunks a slot, or a chunk over SPC slots
 // (each channel group's part in one). Where a GEMM of several passes fits
 // the ring (RES), the producer loads it once and every pass reads the same
-// slots; otherwise each pass streams it again.
+// slots; otherwise each pass streams it again. CALLS: the conv calls that
+// run it on other tiles of rows with the same weights (K5's recompute runs
+// conv0 and conv1 once a y0 chunk); their passes count as its own, so such
+// a GEMM must be resident.
 template <int NTAP_, int KT_, int N_, int NG_, int MT_, int M_, int SLOT_,
-          int STAGES_>
+          int STAGES_, int CALLS_ = 1>
 struct Gemm {
   static constexpr int NTAP = NTAP_, KT = KT_, N = N_, NG = NG_, MT = MT_,
-                       M = M_, SLOT = SLOT_;
+                       M = M_, SLOT = SLOT_, CALLS = CALLS_;
   static constexpr int NN = N / NG;           // channels an item
   static constexpr int NSTEP = NTAP * KT / 16;  // 16-deep steps
   static constexpr int NCH = (NSTEP + 3) / 4;   // 64-deep chunks
@@ -1456,10 +1287,11 @@ struct Gemm {
   static constexpr int CPS = CHUNK < SLOT ? SLOT / CHUNK : 1;
   static constexpr int SPC = CHUNK > SLOT ? CHUNK / SLOT : 1;
   static constexpr int NSL = (BYTES + SLOT - 1) / SLOT;  // slots a pass
-  static constexpr bool RES = NPASS > 1 && NSL <= STAGES_;
+  static constexpr bool RES = NPASS * CALLS > 1 && NSL <= STAGES_;
   static_assert(KT % 16 == 0 && N % 8 == 0 && NN % 8 == 0 && NN <= 64 &&
                     NN * 128 <= SLOT && CHUNK % SLOT * (SLOT % CHUNK) == 0,
                 "wgmma tiling");
+  static_assert(CALLS == 1 || RES, "a GEMM of several calls is resident");
   // chunk c's first slot (counted from the GEMM's first), and the slot and
   // byte offset of its channel group ng
   static __device__ int first_slot(int c) {
@@ -1584,6 +1416,17 @@ struct Lap {
 };
 #endif
 
+// An epilogue that takes a thread's values row by row (ROWS = true: K5's
+// sign epilogue) rather than pair by pair
+template <class E, class = void>
+struct RowEpi {
+  static constexpr bool value = false;
+};
+template <class E>
+struct RowEpi<E, decltype(void(E::ROWS))> {
+  static constexpr bool value = E::ROWS;
+};
+
 // An item of GEMM G for a consumer thread: its 64-row blocks' A rows at tap
 // 0 (rows past M repeat the last; their sums are dropped; a tap shifts
 // every row by the same offset), its channel group, and the epilogue of
@@ -1622,7 +1465,11 @@ struct Item {
     }
   }
   // accumulator (b, e): row (mg MT + b) 64 + 16 w + lane/4 (+8 for
-  // e % 4 >= 2), channels ng NN + 8 (e / 4) + 2 (lane % 4) (+1)
+  // e % 4 >= 2), channels ng NN + 8 (e / 4) + 2 (lane % 4) (+1): the four
+  // lanes of a quad hold a row's NN channels. A row epilogue
+  // (RowEpi) gets each row whole, epi.row(valid, oy, ox, n0, acc[b], h),
+  // from every lane (rows past M with valid false), so that a quad may
+  // exchange values by shuffles
   template <class Epi>
   __device__ void epilogue(const float (&acc)[MT][NN / 2], const Rows& rows,
                            const Epi& epi) const {
@@ -1634,13 +1481,18 @@ struct Item {
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int m = (mg * MT + b) * 64 + 16 * w + g + 8 * h;
-        if (m >= G::M) continue;
         int oy, ox;
-        rows.out(m, oy, ox);
+        if constexpr (RowEpi<Epi>::value) {
+          rows.out(min(m, G::M - 1), oy, ox);
+          epi.template row<NN>(m < G::M, oy, ox, n0, acc[b], h);
+        } else {
+          if (m >= G::M) continue;
+          rows.out(m, oy, ox);
 #pragma unroll
-        for (int j = 0; j < NN / 8; ++j)
-          epi(oy, ox, n0 + 8 * j, acc[b][4 * j + 2 * h],
-              acc[b][4 * j + 2 * h + 1]);
+          for (int j = 0; j < NN / 8; ++j)
+            epi(oy, ox, n0 + 8 * j, acc[b][4 * j + 2 * h],
+                acc[b][4 * j + 2 * h + 1]);
+        }
       }
   }
 };
@@ -1685,9 +1537,11 @@ __device__ __forceinline__ void wait_chunk(const R& r, int c, Lap& lap) {
 // A chunk's steps are one wgmma group; while it runs, the warpgroup loads
 // the next chunk's A fragments (two register sets). A streamed GEMM's
 // slots are freed as the group of their last chunk completes; a resident
-// one waits for its slots in the first pass only and frees them after the
-// last.
-template <class G, int IP, class R, class Rows, class Epi>
+// one waits for its slots in the first pass of its first call (CALL 0)
+// only and frees them after the last pass of its last. Each call advances
+// r past the GEMM's slots: a later call of a GEMM of several calls takes a
+// copy of the ring as it stood before the first.
+template <class G, int IP, int CALL = 0, class R, class Rows, class Epi>
 __device__ __forceinline__ void conv(R& r, const bf16* __restrict__ in,
                                      const Rows& rows, const Epi& epi,
                                      Lap& lap) {
@@ -1705,7 +1559,7 @@ __device__ __forceinline__ void conv(R& r, const bf16* __restrict__ in,
     item.load(a[0], rows, 0);
 #pragma unroll
     for (int c = 0; c < G::NCH; ++c) {
-      if (!G::RES || p == 0) wait_chunk<G>(r, c, lap);
+      if (!G::RES || (p == 0 && CALL == 0)) wait_chunk<G>(r, c, lap);
       issue<G>(acc, a[c & 1], r, c, item.ng);
       if (c > 0) {
         wait<1>();  // chunk c - 1's group has completed
@@ -1728,12 +1582,238 @@ __device__ __forceinline__ void conv(R& r, const bf16* __restrict__ in,
     lap(P_EPI);
   }
   if (G::RES) {
+    if (CALL == G::CALLS - 1)
 #pragma unroll
-    for (int si = 0; si < G::NSL; ++si) release(r, r.ahead(si).slot);
+      for (int si = 0; si < G::NSL; ++si) release(r, r.ahead(si).slot);
     r = r.ahead(G::NSL);
   }
 }
 
 }  // namespace wg
 
+// ---------------------------------------------------------------------------
+// K2's chain on wgmma, shared by K2 (stem_bwd.cu), K5 (stem_remat.cu) and
+// K8b (stem_batched.cu)
+// ---------------------------------------------------------------------------
+// grad_chain's stages, regions (bwd_tc's X, Y, Z) and tile origins, the five
+// adjoints as eleven wgmma GEMMs on the ring (conv5^T and conv1^T as four
+// GEMMs, one per output parity, with K = 1, 2, 2 or 4 taps x CIN; conv0^T's
+// N = 8 one m64n8k16), with bwd_tc's epilogues. The weights are
+// wg_weights' packing of the swapped-channel adjoints (conv5^T's and
+// conv1^T's per parity in RowsT2's tap order), streamed through a ring of
+// six 8 KB slots (a conv5^T or conv2^T chunk, two conv3^T or conv1^T
+// chunks, all of conv0^T's): 18 + 5 + 1 + 9 + 1 slot loads, 229 KB a tile.
+// The kernels differ in where gp5 and the gates come from: K2 forms gp5
+// from y5's and g5's boxes and reads its int8 mask windows; K5 the same
+// gp5, its gates from the signs it recomputed; K8b reads gp5 from gp5dd's
+// data positions and its gates from windows of its saved activations
+// turned into sign bytes. A kernel hands chain() its gp5 formed in Z, its
+// four mask readers, its gx epilogue and its gates' barriers (Gates:
+// first() before conv5^T, whose epilogue reads y3's gates; second() before
+// conv2^T, the first to read y1's, conv1^T y0's).
+
+namespace wgc {
+
+using K = Chain;
+constexpr int STAGES = 6, SLOT = 8192;
+// one parity (PY, PX) of a stride-2 adjoint as a GEMM over NS^2 super
+// positions: taps, depth a tap, N, channel groups
+template <int PY, int PX, int KT, int N, int NG, int NS>
+using T2 =
+    wg::Gemm<(PY + 1) * (PX + 1), KT, N, NG, 1, NS * NS, SLOT, STAGES>;
+// the chain's GEMMs in order: conv5^T's parities, conv3^T, conv2^T,
+// conv1^T's parities, conv0^T
+using U5a = T2<0, 0, 128, 64, 2, K::N4 / 2>;
+using U5b = T2<0, 1, 128, 64, 2, K::N4 / 2>;
+using U5c = T2<1, 0, 128, 64, 2, K::N4 / 2>;
+using U5d = T2<1, 1, 128, 64, 2, K::N4 / 2>;
+using U3 = wg::Gemm<9, 64, 32, 1, 1, K::N1 * K::N1, SLOT, STAGES>;
+using U2 = wg::Gemm<1, 32, 64, 1, 1, K::N1 * K::N1, SLOT, STAGES>;
+using U1a = T2<0, 0, 64, 32, 1, K::N0 / 2>;
+using U1b = T2<0, 1, 64, 32, 1, K::N0 / 2>;
+using U1c = T2<1, 0, 64, 32, 1, K::N0 / 2>;
+using U1d = T2<1, 1, 64, 32, 1, K::N0 / 2>;
+using U0 = wg::Gemm<9, 32, 8, 1, 2, K::TX * K::TX, SLOT, STAGES>;
+static_assert(!U5a::RES && !U5b::RES && !U5c::RES && !U5d::RES &&
+                  !U3::RES && !U2::RES && !U1a::RES && !U1b::RES &&
+                  !U1c::RES && !U1d::RES && !U0::RES,
+              "every GEMM of the chain streams");
+
+// The packed adjoint weights (wg_weights): conv0^T, conv1^T (its four
+// parities' chunks back to back), conv2^T, conv3^T, conv5^T (the same)
+struct Weights {
+  const unsigned char* u[5];
+};
+
+// An int8 gate window's line: WL lanes (bytes) of one (row, channel, phase)
+constexpr int WL = 32;
+
+// A gate's sign from a window of sign bytes [ph][r][ch][WL] in shared
+// memory (window row r at tile row oy = r, lanes from l0), at tile row oy
+// and image column gc; PHASE: y0's column phases
+template <int C, int R, bool PHASE>
+struct BoxMask {
+  const unsigned char* s;
+  int l0;
+  __device__ int8_t operator()(int oy, int, int, int gc, int ch) const {
+    const int ph = PHASE ? (gc & 1) : 0;
+    const int lane = PHASE ? (gc >> 1) + 1 : gc + 1;
+    return s[((ph * R + oy) * C + ch) * WL + lane - l0];
+  }
+};
+
+// gates that are in shared memory before the chain starts (K5's)
+struct Ready {
+  __device__ void first(wg::Lap&) const {}
+  __device__ void second(wg::Lap&) const {}
+};
+
+// y5's and g5's boxes: WL5 lanes x 128 channels x N5 rows of a planar
+// [B, H/4, 128, wl5] tensor, bfloat16 (K2, K5)
+constexpr int WL5 = 16;
+constexpr int Y5_B = K::N5 * 128 * WL5 * 2;  // bytes a box
+
+// gp5 = T(g5 m(y5)) for the block's gx tile into Z [N5^2][P5] from y5's and
+// g5's boxes (box lane 0 at image lane l5), zero outside the image (H5
+// rows and columns): a consumer thread takes one (row, channel) line's N5
+// columns, 4-byte reads of the boxes, 2-byte stores of neighbouring
+// channels
+__device__ __forceinline__ void gp5_from_boxes(bf16* __restrict__ Z,
+                                               const bf16* __restrict__ yb,
+                                               const bf16* __restrict__ gb,
+                                               int o5r, int o5c, int l5,
+                                               int H5) {
+  const int k0 = o5c + 1 - l5;  // the box lane of tile column 0
+  for (int idx = threadIdx.x; idx < K::N5 * 128; idx += wg::NC) {
+    const int co = idx % 128, r = idx / 128;
+    const int gr = o5r + r;
+    const uint32_t* y4 =
+        reinterpret_cast<const uint32_t*>(yb + idx * WL5 + k0);
+    const uint32_t* g4 =
+        reinterpret_cast<const uint32_t*>(gb + idx * WL5 + k0);
+#pragma unroll
+    for (int k2 = 0; k2 < K::N5 / 2; ++k2) {
+      const uint32_t yv = y4[k2], gv = g4[k2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int k = 2 * k2 + h, gc = o5c + k;
+        const float y = __uint_as_float((h ? yv >> 16 : yv) << 16);
+        const float g = __uint_as_float((h ? gv >> 16 : gv) << 16);
+        float v = 0.f;
+        if (gr >= 0 && gr < H5 && gc >= 0 && gc < H5)
+          v = g * (y > 0.f ? 1.f : LEAKY);
+        Z[(r * K::N5 + k) * bwd_tc::P5 + co] = __float2bfloat16_rn(v);
+      }
+    }
+  }
+}
+
+// The producer's part (one thread): the chain's packed weights in the
+// consumers' order, slot by slot; mid() runs between conv5^T's and
+// conv3^T's (K2, K8b: once the consumers freed the region gp5 came from,
+// the y0 and y1 windows into it)
+template <class R, class Mid>
+__device__ __forceinline__ void produce(R& ring, const Weights& ww,
+                                        const Mid& mid) {
+  const unsigned char* u5 = ww.u[4];
+  wg::produce<U5a>(ring, u5);
+  wg::produce<U5b>(ring, u5 + U5a::BYTES);
+  wg::produce<U5c>(ring, u5 + U5a::BYTES + U5b::BYTES);
+  wg::produce<U5d>(ring, u5 + U5a::BYTES + U5b::BYTES + U5c::BYTES);
+  mid();
+  wg::produce<U3>(ring, ww.u[3]);
+  wg::produce<U2>(ring, ww.u[2]);
+  const unsigned char* u1 = ww.u[1];
+  wg::produce<U1a>(ring, u1);
+  wg::produce<U1b>(ring, u1 + U1a::BYTES);
+  wg::produce<U1c>(ring, u1 + U1a::BYTES + U1b::BYTES);
+  wg::produce<U1d>(ring, u1 + U1a::BYTES + U1b::BYTES + U1c::BYTES);
+  wg::produce<U0>(ring, ww.u[0]);
+}
+
+// The consumers' part, from gp5 (formed in Z of sm's regions, visible to
+// all consumers) to gx for the block's gx tile (blockIdx.y, blockIdx.x):
+// gs4 (X) and gp3 (Y) from gp5 (Z), gp2 (Z) from gp3, gp1 (Y) from gp2 and
+// gs4, gp0 (Z) from gp1, then gx, each pair of gx channels to gx(oy, ox,
+// n, v0, v1) and finally gx.zero_borders(). The mask readers m0 (y0), m1
+// (y1), m2 (y2), m3 (y3) index this image.
+template <class R, class M0, class M1, class M2, class M3, class Gx,
+          class Gates>
+__device__ __forceinline__ void chain(R& ring, unsigned char* sm,
+                                      const M0& m0, const M1& m1,
+                                      const M2& m2, const M3& m3,
+                                      const Gx& gx, const Gates& gates,
+                                      int H, wg::Lap& lap) {
+  using bwd_tc::P0;
+  using bwd_tc::P2;
+  using bwd_tc::P4;
+  using bwd_tc::P5;
+  bf16* X = reinterpret_cast<bf16*>(sm);  // gs4 window
+  bf16* Y = X + bwd_tc::SZ_X;             // gp3, then gp1
+  bf16* Z = Y + bwd_tc::SZ_Y;             // gp5, then gp2, then gp0
+  const int R0 = blockIdx.y * K::TX, C0 = blockIdx.x * K::TX;
+  const int H1 = H / 2;
+  // tile origins in image coordinates (rows; columns alike)
+  const int o4r = R0 / 2 - 2, o4c = C0 / 2 - 2;  // gs4 / gp3, N4
+  const int o1r = R0 / 2 - 1, o1c = C0 / 2 - 1;  // gp2 / gp1, N1
+  const int o0r = R0 - 2, o0c = C0 - 2;          // gp0, N0
+  gates.first(lap);
+  // gs4 (X) and gp3 (Y) from gp5 (Z)
+  {
+    const bwd_tc::EpiGs4<M3> epi{X, Y, m3, o4r, o4c, H1};
+    constexpr int NS = K::N4 / 2;
+    wg::conv<U5a, P5>(ring, Z, RowsT2<0, 0>{NS, K::N5}, epi, lap);
+    wg::conv<U5b, P5>(ring, Z, RowsT2<0, 1>{NS, K::N5}, epi, lap);
+    wg::conv<U5c, P5>(ring, Z, RowsT2<1, 0>{NS, K::N5}, epi, lap);
+    wg::conv<U5d, P5>(ring, Z, RowsT2<1, 1>{NS, K::N5}, epi, lap);
+  }
+  wg::sync_consumers();
+  lap(wg::P_SYNC);
+  // gp2 (Z) from gp3 (Y)
+  wg::conv<U3, P4>(ring, Y, RowsT1<3, 2>{K::N1, K::N4},
+                   bwd_tc::EpiGate<P2, false, M2>{Z, K::N1, m2, o1r, o1c,
+                                                  H1, nullptr},
+                   lap);
+  wg::sync_consumers();
+  lap(wg::P_SYNC);
+  gates.second(lap);
+  // gp1 (Y) from gp2 (Z) and gs4 (X)
+  wg::conv<U2, P2>(ring, Z, RowsT1<1, 0>{K::N1, K::N1},
+                   bwd_tc::EpiGate<P4, true, M1>{Y, K::N1, m1, o1r, o1c, H1,
+                                                 X},
+                   lap);
+  wg::sync_consumers();
+  lap(wg::P_SYNC);
+  // gp0 (Z) from gp1 (Y)
+  {
+    const bwd_tc::EpiGate<P0, false, M0> epi{Z, K::N0, m0, o0r, o0c, H,
+                                             nullptr};
+    constexpr int NS = K::N0 / 2;
+    wg::conv<U1a, P4>(ring, Y, RowsT2<0, 0>{NS, K::N1}, epi, lap);
+    wg::conv<U1b, P4>(ring, Y, RowsT2<0, 1>{NS, K::N1}, epi, lap);
+    wg::conv<U1c, P4>(ring, Y, RowsT2<1, 0>{NS, K::N1}, epi, lap);
+    wg::conv<U1d, P4>(ring, Y, RowsT2<1, 1>{NS, K::N1}, epi, lap);
+  }
+  wg::sync_consumers();
+  lap(wg::P_SYNC);
+  // gx from gp0 (Z)
+  wg::conv<U0, P0>(ring, Z, RowsT1<3, 3>{K::TX, K::N0}, gx, lap);
+  gx.zero_borders();
+  lap(wg::P_STORE);
+}
+
+}  // namespace wgc
+
 }  // namespace stem
+
+#ifdef APFP_PROFILE
+// The cycle accounts (stem_common.cuh: wg::Lap) into out[PROF_N], then
+// zeroed: one entry point a library (each library is one source)
+extern "C" int apfp_prof_take(unsigned long long* out) {
+  cudaError_t e = cudaMemcpyFromSymbol(out, stem::wg::prof_cycles,
+                                       sizeof(stem::wg::prof_cycles));
+  if (e != cudaSuccess) return (int)e;
+  static const unsigned long long zero[stem::wg::PROF_N] = {};
+  return (int)cudaMemcpyToSymbol(stem::wg::prof_cycles, zero, sizeof(zero));
+}
+#endif

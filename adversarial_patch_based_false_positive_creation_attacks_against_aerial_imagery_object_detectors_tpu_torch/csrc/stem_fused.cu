@@ -676,18 +676,6 @@ extern "C" int apfp_fused_stem_fwd_info(int dtype, int save, int* info) {
                         info);
 }
 
-#ifdef APFP_PROFILE
-// The cycle accounts (stem_common.cuh: wg::Lap) into out[PROF_N], then
-// zeroed
-extern "C" int apfp_prof_take(unsigned long long* out) {
-  cudaError_t e = cudaMemcpyFromSymbol(out, wg::prof_cycles,
-                                       sizeof(wg::prof_cycles));
-  if (e != cudaSuccess) return (int)e;
-  static const unsigned long long zero[wg::PROF_N] = {};
-  return (int)cudaMemcpyToSymbol(wg::prof_cycles, zero, sizeof(zero));
-}
-#endif
-
 // wgmma_bitcheck_kernel on a [64][K] (bfloat16), bf (mma_weights of B as
 // [1, 1, K, 64]) and bp (wg_weights of the same): the two [64][64] float32
 // results into dm and dw. K a multiple of 64 up to 768. Returns the CUDA

@@ -16,8 +16,9 @@
 // Inputs: the even/odd column phases of x, planar [B, H, 8, wlh]; y5 and g5
 // planar [B, H/4, 128, wl5]; the forward's HWIO weights and float32 biases
 // of convs 0-3 and the backward's swapped-channel weights (K2's), in
-// bfloat16 also both in mma.sync's fragment order (K1's and K2's). Output:
-// gx as even/odd column phases [B, H, 8, wlh], every lane written.
+// bfloat16 also both packed for wgmma (K1's and K2's: ops/stem_fused.py:
+// wg_weights). Output: gx as even/odd column phases [B, H, 8, wlh], every
+// lane written.
 //
 // Tile geometry, rows (columns alike), for the gx tile at R0 (a multiple of
 // 16): the chain's gates need y3 over 14^2 (origin R0/2 - 2), y1 and y2
@@ -34,25 +35,40 @@
 // useful). So K5 does ~47 GFLOP an image where K1 save_acts + K2 do ~34;
 // it trades that for device memory (no masks across the step).
 //
-// bfloat16 runs on the tensor cores: the recompute is K1's mma_conv calls
-// (RowsConv0 with conv0's 3 channels padded to 8 and two taps of a row in
-// one 16-deep step, RowsConv<3, 2>, RowsConv<1, 1>, RowsConv<3, 1>; the
-// same CIN and weights in fragment order, the same epilogue arithmetic), and
-// the chain is K2's (stem_common.cuh: bwd_tc::chain) with its gates read
-// from the recomputed signs, bit-packed in shared memory (y0 33^2 x 32,
-// y1 16^2 x 64, y2 16^2 x 32, y3 14^2 x 64 bits: 8,996 bytes; set with
-// shared-memory atomicOr, as the two channels of an epilogue call share a
-// word with 30 others). The warp tiling (MT, NW) differs from K1's, which
-// moves no sum: each output's products run over the same taps and 16-deep
-// steps in the same order. Shared memory, 110,368 bytes, two blocks a
-// multiprocessor: the signs, then one work region holding x [35^2 + 1][8],
-// a y0 chunk [17 x 33][40] and y1 [16^2][72] (pitches padded by 16 bytes
-// as K1's), then y2 [16^2][40] over x and the y0 chunk; the chain's three
-// regions (69,312 bytes) over the whole work region once the recompute is
-// done. float32 keeps stem_common.cuh's conv_stage + grad_chain on
-// CUDA-core FMAs (the float32 K1's and K2's code, so it too equals K2 on
-// K1's masks bit for bit): sign bytes 71,968, work 38,016 elements,
-// 224,032 bytes, one block a multiprocessor.
+// bfloat16 (fused_stem_remat_wg_kernel) is built for Hopper's units as K1
+// and K2 are (stem_common.cuh: wg), one block a multiprocessor: two
+// consumer warpgroups and a producer warp. The recompute is K1's four
+// convs as wg::conv GEMMs on K1's packed weights (RowsConv0 with conv0's 3
+// channels padded to 8 and two taps of a row a 16-deep step, RowsConv<3,
+// 2>, <1, 1>, <3, 1>; K1's chunks, tap order and 16-deep steps, so every
+// recomputed value is K1's bit for bit; the row tiling differs, which
+// moves no sum); each epilogue is K1's arithmetic and keeps the sign
+// (inside the image and > 0) in bit tiles (y0 33^2 x 32, y1 16^2 x 64, y2
+// 16^2 x 32, y3 14^2 x 64 bits: 8,996 bytes), a position's words
+// assembled by the quad of lanes that holds its row (shuffles) and stored
+// whole: a shared-memory atomicOr a channel pair took 55% of the blocks'
+// cycles (epilogues) and made K5 slower than its mma.sync form. Then K2's
+// chain (stem_common.cuh: wgc::chain) runs with its gates read from the
+// bits. The weights stream through K2's ring of six 8 KB slots: conv0's
+// 8 KB and conv1's 40 KB stay in it across both y0 chunks (together the
+// six slots; streamed twice they would add 48 KB of L2 reads to the
+// tile's 322), conv2 (4 KB) and conv3 (40 KB) are resident across their
+// passes, then the chain's GEMMs stream (229 KB). The producer issues
+// y5's and g5's TMA boxes first (K2's maps, 8 rows x 128 x 16 lanes), so
+// they land during the recompute, then every GEMM's chunks in order. The x
+// tile comes in 16-byte loads of 8 lanes by the consumers. Shared memory
+// (227,312 bytes): one work region holding x [35^2 + 1][8], a y0 chunk
+// [17 x 33][40] and y1 [16^2][72] (pitches padded by 16 bytes as K1's),
+// then y2 [16^2][40] over x and the y0 chunk; the chain's three regions
+// (69,312 bytes) over the work region once the recompute is done; the
+// bits; y5's and g5's boxes (65,536); the ring. What bounds this design:
+// one block a multiprocessor, whose serial parts (the x loads, the
+// epilogues, the gp5 pass, the chain's epilogues) leave
+// the tensor cores idle, and the halo recompute. float32 keeps
+// stem_common.cuh's conv_stage + grad_chain on CUDA-core FMAs (the float32
+// K1's and K2's code, so it too equals K2 on K1's masks bit for bit): sign
+// bytes 71,968, work 38,016 elements, 224,032 bytes, one block a
+// multiprocessor.
 
 #include "stem_common.cuh"
 
@@ -157,10 +173,10 @@ __global__ void __launch_bounds__(NT, 1)
 }
 
 // ---------------------------------------------------------------------------
-// bfloat16: K1's tensor-core stages, then K2's tensor-core chain
+// bfloat16: K1's convs and K2's chain on wgmma
 // ---------------------------------------------------------------------------
 
-namespace tcr {
+namespace k5 {
 
 constexpr int P32 = 32 + 8, P64 = 64 + 8;  // row pitches (K1's)
 constexpr int XPOS = NX * NX + 1;  // x positions (the last zero, RowsConv0)
@@ -168,41 +184,97 @@ constexpr int XE = XPOS * 8;       // x elements, 8 channels a position
 constexpr int Y0E = Y0_ROWS * NY0 * P32;
 constexpr int Y1E = N2 * N2 * P64;
 constexpr int Y2E = N2 * N2 * P32;
-constexpr int WORK = XE + Y0E + Y1E;  // bfloat16 elements
+constexpr int WORK_B = 2 * (XE + Y0E + Y1E);  // the work region, bytes
 // sign words (32 channels a word): y0, y1, y2, y3
 constexpr int W0 = NY0 * NY0, W1 = N2 * N2 * 2, W2 = N2 * N2, W3 = N3 * N3 * 2;
-constexpr int SIGN_WORDS = (W0 + W1 + W2 + W3 + 3) / 4 * 4;
-constexpr int SMEM = SIGN_WORDS * 4 + WORK * 2;
-static_assert(Y2E <= XE + Y0E && bwd_tc::ELEMS <= WORK, "regions");
-static_assert(XE % 8 == 0 && Y0E % 8 == 0, "16-byte aligned regions");
+constexpr int SIGN_WORDS = W0 + W1 + W2 + W3;
+// shared memory from a 1024-aligned base (bytes): the work region (the
+// chain's regions once the recompute is done), the bits, the biases of
+// convs 0-3 (read from shared memory: ptxas hoists an epilogue's loads
+// from device memory into the GEMM before it, where their registers
+// spill), y5's and g5's boxes, one barrier (the boxes), the ring
+constexpr int BITS_AT = (WORK_B + 127) / 128 * 128;
+constexpr int NBIAS = 32 + 64 + 32 + 64;
+constexpr int BIAS_AT = (BITS_AT + 4 * SIGN_WORDS + 15) / 16 * 16;
+constexpr int BOX_AT = (BIAS_AT + 4 * NBIAS + 127) / 128 * 128;
+constexpr int BAR_AT = BOX_AT + 2 * wgc::Y5_B;
+constexpr int RING_AT = BAR_AT + 16;
+constexpr int SMEM =
+    1024 + RING_AT + wg::ring_bytes(wgc::STAGES, wgc::SLOT);
+static_assert(SMEM <= 232448 && 2 * bwd_tc::ELEMS <= WORK_B, "regions");
+static_assert(Y2E <= XE + Y0E && XE % 8 == 0 && Y0E % 8 == 0,
+              "16-byte aligned regions");
+// K1's four convs (its chunks, taps and 16-deep steps) over this tile's
+// rows; conv0 and conv1 run once a y0 chunk (CALLS 2) and stay resident.
+// conv0 takes one 64-row block an item (K1's two would pad a chunk's 561
+// rows to 768, and hold 48 more registers a thread)
+using wgc::SLOT;
+using wgc::STAGES;
+using Conv0 = wg::Gemm<6, 16, 32, 1, 1, Y0_ROWS * NY0, SLOT, STAGES, 2>;
+using Conv1 = wg::Gemm<9, 32, 64, 1, 1, Y1_ROWS * N2, SLOT, STAGES, 2>;
+using Conv2 = wg::Gemm<1, 64, 32, 1, 1, N2 * N2, SLOT, STAGES>;
+using Conv3 = wg::Gemm<9, 32, 64, 1, 1, N3 * N3, SLOT, STAGES>;
+static_assert(Conv0::RES && Conv1::RES && Conv2::RES && Conv3::RES &&
+                  Conv0::NSL + Conv1::NSL <= STAGES,
+              "the ring's plan");
+
+// K1's packed weights of convs 0-3 (wg_weights)
+struct Weights {
+  const unsigned char* w[4];
+};
 
 // K1's EpiConv arithmetic (y = acc + bias, T(leaky), zero outside
-// [0, img)^2), the value stored to out [pos][OP] of row width OW (unless
-// out is null) and its sign (inside and > 0) OR-ed into bits [pos][C/32]
-template <int OP, int C>
+// [0, img)^2) a row at a time (wg's row epilogue): the values stored to
+// out [pos][OP] of row width OW (STORE), and the row's signs (inside and
+// > 0) as bits [pos][C/32]: the four lanes of a quad hold the item's NN
+// channels of the row (a multiple of 32, from n0 & ~31), so each ORs its
+// channels' bits into their words, the quad combines them by shuffles and
+// its lanes 0 (and 1) store the words
+template <int OP, int C, bool STORE>
 struct EpiSign {
+  static constexpr bool ROWS = true;
   bf16* out;
   int OW;
   const float* bias;
   int org_r, org_c, img;
   uint32_t* bits;
-  __device__ void operator()(int oy, int ox, int n, float v0,
-                             float v1) const {
+  template <int NN>
+  __device__ __forceinline__ void row(bool valid, int oy, int ox, int n0,
+                                      const float (&acc)[NN / 2],
+                                      int h) const {
+    static_assert(NN % 32 == 0 && C % NN == 0, "whole words in one quad");
+    constexpr int NW = NN / 32;  // the item's words of the row
     const int gr = org_r + oy, gc = org_c + ox;
     const bool inside = gr >= 0 && gr < img && gc >= 0 && gc < img;
     const int p = oy * OW + ox;
-    const float v[2] = {v0, v1};
-    float r[2];
-    uint32_t sg = 0;
+    const __nv_bfloat162 zero = __floats2bfloat162_rn(0.f, 0.f);
+    uint32_t w[NW] = {};
 #pragma unroll
-    for (int c = 0; c < 2; ++c) {
-      const float y = v[c] + bias[n + c];
-      const float yt = round_t<bf16>(fmaxf(y, y * LEAKY));
-      r[c] = inside ? yt : 0.f;
-      if (r[c] > 0.f) sg |= 1u << ((n + c) & 31);
+    for (int j = 0; j < NN / 8; ++j) {
+      const int n = n0 + 8 * j;
+      float y[2];
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        y[c] = acc[4 * j + 2 * h + c] + bias[n + c];
+        y[c] = fmaxf(y[c], y[c] * LEAKY);
+      }
+      // the pair rounded once; its signs by one bfloat16x2 compare (the
+      // stored values' > 0, as K1's masks)
+      const __nv_bfloat162 v =
+          inside ? __floats2bfloat162_rn(y[0], y[1]) : zero;
+      if (STORE && valid)
+        *reinterpret_cast<__nv_bfloat162*>(out + p * OP + n) = v;
+      const uint32_t m = __hgt2_mask(v, zero);
+      w[j / 4] |= ((m & 1u) | ((m >> 15) & 2u)) << (n & 31);
     }
-    if (out != nullptr) store2(out + p * OP + n, r[0], r[1]);
-    if (sg) atomicOr(bits + p * (C / 32) + (n >> 5), sg);
+    const int t = threadIdx.x & 3;
+#pragma unroll
+    for (int k = 0; k < NW; ++k) {
+      w[k] |= __shfl_xor_sync(0xffffffffu, w[k], 1);
+      w[k] |= __shfl_xor_sync(0xffffffffu, w[k], 2);
+    }
+    if (valid && t < NW)
+      bits[p * (C / 32) + (n0 >> 5) + t] = t ? w[NW - 1] : w[0];
   }
 };
 
@@ -218,119 +290,210 @@ struct BitMask {
   }
 };
 
-}  // namespace tcr
+// y0 chunk CALL (rows [16 CALL, 16 CALL + 17) of the y0 tile) from x,
+// then the y1 rows [8 CALL, 8 CALL + 8) it feeds; r at conv0's slots
+// (chunk 1: a copy of the ring as it stood for chunk 0), past conv1's
+// after
+template <int CALL, class R>
+__device__ __forceinline__ void y0_chunk(R& r, const bf16* xs, bf16* y0,
+                                         bf16* y1, const float* b0,
+                                         const float* b1, uint32_t* s0,
+                                         uint32_t* s1, int x_r, int x_c,
+                                         int y1_r, int y1_c, int H,
+                                         wg::Lap& lap) {
+  constexpr int r0 = CALL * (Y0_ROWS - 1);  // the chunk's first y0 row
+  wg::conv<Conv0, 8, CALL>(
+      r, xs + r0 * NX * 8, RowsConv0{NY0, NX},
+      EpiSign<P32, 32, true>{y0, NY0, b0, x_r + 1 + r0, x_c + 1, H,
+                             s0 + r0 * NY0},
+      lap);
+  wg::sync_consumers();
+  lap(wg::P_SYNC);
+  wg::conv<Conv1, P32, CALL>(
+      r, y0, RowsConv<3, 2>{N2, NY0},
+      EpiSign<P64, 64, true>{y1 + CALL * Y1_ROWS * N2 * P64, N2, b1,
+                             y1_r + CALL * Y1_ROWS, y1_c, H / 2,
+                             s1 + CALL * Y1_ROWS * N2 * 2},
+      lap);
+  wg::sync_consumers();
+  lap(wg::P_SYNC);
+}
 
-// The bfloat16 K5. f0 .. f3: K1's fragment-order weights of convs 0-3
-// (conv0 as RowsConv0 reads it); u0 .. u5: K2's.
-__global__ void __launch_bounds__(NT, 2)
-    fused_stem_remat_tc_kernel(const bf16* __restrict__ xe,
+}  // namespace k5
+
+// The bfloat16 K5: y5's and g5's tensor maps (K2's: 16 lanes x 128 x 8
+// rows), K1's packed weights of convs 0-3 and its biases, K2's packed
+// adjoints.
+__global__ void __launch_bounds__(wg::NTH, 1)
+    fused_stem_remat_wg_kernel(const bf16* __restrict__ xe,
                                const bf16* __restrict__ xo,
-                               const uint2* __restrict__ f0,
-                               const uint2* __restrict__ f1,
-                               const uint2* __restrict__ f2,
-                               const uint2* __restrict__ f3,
                                const float* __restrict__ b0,
                                const float* __restrict__ b1,
                                const float* __restrict__ b2,
                                const float* __restrict__ b3,
-                               const bf16* __restrict__ y5,
-                               const bf16* __restrict__ g5,
-                               const uint2* __restrict__ u0,
-                               const uint2* __restrict__ u1,
-                               const uint2* __restrict__ u2,
-                               const uint2* __restrict__ u3,
-                               const uint2* __restrict__ u5,
+                               const __grid_constant__ CUtensorMap ty5,
+                               const __grid_constant__ CUtensorMap tg5,
+                               k5::Weights fw, wgc::Weights uw,
                                bf16* __restrict__ gxe, bf16* __restrict__ gxo,
-                               int H, int wlh, int wl5) {
-  using namespace tcr;
+                               int H, int wlh) {
+  using namespace k5;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  uint32_t* s0 = reinterpret_cast<uint32_t*>(smem_raw);  // y0 [NY0^2][1]
-  uint32_t* s1 = s0 + W0;                                // y1 [N2^2][2]
-  uint32_t* s2 = s1 + W1;                                // y2 [N2^2][1]
-  uint32_t* s3 = s2 + W2;                                // y3 [N3^2][2]
-  bf16* W = reinterpret_cast<bf16*>(smem_raw + SIGN_WORDS * 4);
-  bf16* xs = W;           // x [XPOS][8]
-  bf16* y0 = W + XE;      // one chunk of y0 [Y0_ROWS * NY0][P32]
-  bf16* y1 = y0 + Y0E;    // y1 [N2^2][P64]
-  bf16* y2 = W;           // y2 [N2^2][P32], once conv1 is done
-
+  const uint32_t raw = wg::smem_u32(smem_raw);
+  unsigned char* sm = smem_raw + (((raw + 1023) & ~1023u) - raw);
+  const uint32_t sa = wg::smem_u32(sm);
+  const uint32_t bar_in = sa + BAR_AT;
+  auto ring = wg::make_ring<STAGES, SLOT>(sa + RING_AT);
+  if (threadIdx.x == 0) {
+    wg::mbar_init(bar_in, 1);
+    wg::fence_barrier_init();
+  }
+  __syncthreads();
   const int b = blockIdx.z;
   const int R0 = blockIdx.y * TX, C0 = blockIdx.x * TX;
-  const int H1 = H / 2;
+  const int H1 = H / 2, H5 = H / 4;
+  const int o5r = R0 / 4 - 1, o5c = C0 / 4 - 1;  // gp5 tile origin
+  const int l5 = (o5c + 1) & ~7;                 // y5's and g5's boxes
+  if (threadIdx.x >= wg::NC) {
+    // the producer warp: y5's and g5's boxes first (they land during the
+    // recompute), then K1's convs' chunks and the chain's, in order
+    if (threadIdx.x == wg::NC) {
+      wg::mbar_expect_tx(bar_in, 2 * wgc::Y5_B);
+      wg::tma_load_4d(sa + BOX_AT, &ty5, l5, 0, o5r, b, bar_in);
+      wg::tma_load_4d(sa + BOX_AT + wgc::Y5_B, &tg5, l5, 0, o5r, b, bar_in);
+      wg::produce<Conv0>(ring, fw.w[0]);
+      wg::produce<Conv1>(ring, fw.w[1]);
+      wg::produce<Conv2>(ring, fw.w[2]);
+      wg::produce<Conv3>(ring, fw.w[3]);
+      wgc::produce(ring, uw, [] {});
+    }
+    return;
+  }
+
+  uint32_t* s0 = reinterpret_cast<uint32_t*>(sm + BITS_AT);  // y0 [NY0^2]
+  uint32_t* s1 = s0 + W0;                                     // y1 [N2^2][2]
+  uint32_t* s2 = s1 + W1;                                     // y2 [N2^2]
+  uint32_t* s3 = s2 + W2;                                     // y3 [N3^2][2]
+  bf16* W = reinterpret_cast<bf16*>(sm);
+  bf16* xs = W;         // x [XPOS][8]
+  bf16* y0 = W + XE;    // one chunk of y0 [Y0_ROWS * NY0][P32]
+  bf16* y1 = y0 + Y0E;  // y1 [N2^2][P64]
+  bf16* y2 = W;         // y2 [N2^2][P32], once conv1 is done
+  float* sb = reinterpret_cast<float*>(sm + BIAS_AT);  // the biases
   const int x_r = R0 - 8, x_c = C0 - 8;            // x tile origin
   const int y1_r = R0 / 2 - 3, y1_c = C0 / 2 - 3;  // y1 / y2 tile origin
 
-  for (int i = threadIdx.x; i < SIGN_WORDS; i += NT) s0[i] = 0u;
-  // x tile, columns fastest (a warp reads neighbouring lanes of both
-  // phases); channels 3..7 and the last position zero
-  for (int idx = threadIdx.x; idx < NX * NX * 8; idx += NT) {
-    const int col = idx % NX;
-    const int rest = idx / NX;
-    const int ci = rest % 8, r = rest / 8;
-    const int gr = x_r + r, gc = x_c + col;
-    bf16 v = __float2bfloat16_rn(0.f);
-    if (ci < 3 && gr >= 0 && gr < H && gc >= 0 && gc < H) {
-      const bf16* src = (gc & 1) ? xo : xe;
-      v = src[(((long long)b * H + gr) * 8 + ci) * wlh + (gc >> 1) + 1];
+  wg::Lap lap;
+  if (threadIdx.x < NBIAS) {
+    const int i = threadIdx.x;
+    sb[i] = i < 32 ? b0[i] : i < 96 ? b1[i - 32] : i < 128 ? b2[i - 96]
+                                                     : b3[i - 128];
+  }
+  // x tile [XPOS][8]; column c of x is lane c/2 + 1 of the even (c even)
+  // or odd phase. A thread takes 8 lanes of one row and phase, 16 bytes
+  // from each of the three channels, from the 16-byte boundary 8 lanes
+  // below the tile's block (three such runs a row and phase cover its 18
+  // lanes), and writes each column's whole 16-byte position (channels
+  // 3..7 zero); the last position is zero (read by conv0's paired taps
+  // with zero weights)
+  const int lv0 = 8 * blockIdx.x - 8;  // ((x_c >> 1) + 1) rounded down to 8
+  for (int idx = threadIdx.x; idx < NX * 2 * 3; idx += wg::NC) {
+    const int v = idx % 3, ph = (idx / 3) % 2, r = idx / 6;
+    const int gr = x_r + r, l = lv0 + 8 * v;
+    uint4 ch[3] = {};
+    if (gr >= 0 && gr < H && l >= 0 && l + 8 <= wlh) {
+      const bf16* src = (ph ? xo : xe) + ((long long)b * H + gr) * 8 * wlh + l;
+#pragma unroll
+      for (int c = 0; c < 3; ++c)
+        ch[c] = __ldg(reinterpret_cast<const uint4*>(src + c * wlh));
     }
-    xs[(r * NX + col) * 8 + ci] = v;
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const int gc = 2 * (l + k - 1) + ph, col = gc - x_c;
+      if (col < 0 || col >= NX) continue;
+      const bool in = gc >= 0 && gc < H;
+      uint32_t u[3];
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        const uint32_t w = reinterpret_cast<const uint32_t*>(&ch[c])[k / 2];
+        u[c] = in ? (k & 1 ? w >> 16 : w & 0xffffu) : 0u;
+      }
+      *reinterpret_cast<uint4*>(xs + (r * NX + col) * 8) =
+          make_uint4(u[0] | (u[1] << 16), u[2], 0u, 0u);
+    }
   }
   if (threadIdx.x < 8) xs[NX * NX * 8 + threadIdx.x] = __float2bfloat16_rn(0.f);
-  __syncthreads();
-  // y0 in two chunks of rows [16k, 16k + 17), each then feeding y1 rows
-  // [8k, 8k + 8); K1's convs, so every sum is the bfloat16 K1's
-  for (int k = 0; k < 2; ++k) {
-    const int r0 = k * (Y0_ROWS - 1);
-    mma_conv<16, 8, 32, 4, 1>(
-        xs + r0 * NX * 8, Y0_ROWS * NY0, f0, RowsConv0{NY0, NX},
-        EpiSign<P32, 32>{y0, NY0, b0, x_r + 1 + r0, x_c + 1, H,
-                         s0 + r0 * NY0});
-    __syncthreads();
-    mma_conv<32, P32, 64, 4, 1>(
-        y0, Y1_ROWS * N2, f1, RowsConv<3, 2>{N2, NY0},
-        EpiSign<P64, 64>{y1 + k * Y1_ROWS * N2 * P64, N2, b1,
-                         y1_r + k * Y1_ROWS, y1_c, H1,
-                         s1 + k * Y1_ROWS * N2 * 2});
-    __syncthreads();
-  }
-  mma_conv<64, P64, 32, 4, 2>(
-      y1, N2 * N2, f2, RowsConv<1, 1>{N2, N2},
-      EpiSign<P32, 32>{y2, N2, b2, y1_r, y1_c, H1, s2});
-  __syncthreads();
+  lap(wg::P_LOAD);
+  wg::sync_consumers();
+  lap(wg::P_SYNC);
+  // y0 in two chunks, each then feeding its y1 rows (K1's convs: every sum
+  // is the bfloat16 K1's)
+  auto r01 = ring;  // conv0's and conv1's slots, for chunk 1
+  y0_chunk<0>(ring, xs, y0, y1, sb, sb + 32, s0, s1, x_r, x_c, y1_r, y1_c,
+              H, lap);
+  y0_chunk<1>(r01, xs, y0, y1, sb, sb + 32, s0, s1, x_r, x_c, y1_r, y1_c,
+              H, lap);
+  wg::conv<Conv2, P64>(ring, y1, RowsConv<1, 1>{N2, N2},
+                    EpiSign<P32, 32, true>{y2, N2, sb + 96, y1_r, y1_c, H1,
+                                           s2},
+                    lap);
+  wg::sync_consumers();
+  lap(wg::P_SYNC);
   // y3's sign is that of its own value, before the shortcut sum (K1's
   // save_acts mask): only the sign is kept
-  mma_conv<32, P32, 64, 8, 1>(
-      y2, N3 * N3, f3, RowsConv<3, 1>{N3, N2},
-      EpiSign<P32, 64>{nullptr, N3, b3, y1_r + 1, y1_c + 1, H1, s3});
-  __syncthreads();
-  // K2's chain over the work region, its gates from the signs: gp0 at tile
-  // origin R0 - 2 (y0's + 5), gp2 / gp1 at R0/2 - 1 (y1's + 2), gs4 at
-  // R0/2 - 2 (y3's own)
-  bwd_tc::load_gp5(W + bwd_tc::SZ_X + bwd_tc::SZ_Y, y5, g5, b, H, wl5);
-  __syncthreads();
-  bwd_tc::chain(W, u0, u1, u2, u3, u5, BitMask<32>{s0, NY0, 5},
-                BitMask<64>{s1, N2, 2}, BitMask<32>{s2, N2, 2},
-                BitMask<64>{s3, N3, 0}, gxe, gxo, b, H, wlh);
+  wg::conv<Conv3, P32>(ring, y2, RowsConv<3, 1>{N3, N2},
+                    EpiSign<P32, 64, false>{nullptr, N3, sb + 128,
+                                            y1_r + 1, y1_c + 1, H1, s3},
+                    lap);
+  wg::sync_consumers();
+  lap(wg::P_SYNC);
+  // gp5 = T(g5 m(y5)) from the boxes into Z (the work region is free)
+  wg::mbar_wait(bar_in, 0);
+  lap(wg::P_INPUT);
+  bf16* Z = W + bwd_tc::SZ_X + bwd_tc::SZ_Y;
+  wgc::gp5_from_boxes(Z, reinterpret_cast<const bf16*>(sm + BOX_AT),
+                      reinterpret_cast<const bf16*>(sm + BOX_AT + wgc::Y5_B),
+                      o5r, o5c, l5, H5);
+  lap(wg::P_LOAD);
+  wg::sync_consumers();
+  lap(wg::P_SYNC);
+  // K2's chain, its gates from the bits: gp0 at tile origin R0 - 2 (y0's
+  // + 5), gp2 / gp1 at R0/2 - 1 (y1's + 2), gs4 at R0/2 - 2 (y3's own)
+  const long long gb = (long long)b * H * 8 * wlh;
+  wgc::chain(ring, sm, BitMask<32>{s0, NY0, 5}, BitMask<64>{s1, N2, 2},
+             BitMask<32>{s2, N2, 2}, BitMask<64>{s3, N3, 0},
+             bwd_tc::EpiGx{gxe + gb, gxo + gb, R0, C0, wlh, H}, wgc::Ready{},
+             H, lap);
 }
 
-int launch_tc(const void* xe, const void* xo, const void* const* f,
+int launch_wg(const void* xe, const void* xo, const void* const* f,
               const float* const* bias, const void* y5, const void* g5,
               const void* const* u, void* gxe, void* gxo, int B, int H,
               int wlh, int wl5, cudaStream_t s) {
+  using K = Chain;
+  CUtensorMap tm[2];
+  int err = wg::planar_map(&tm[0], y5, true, B, H / 4, 128, wl5, wgc::WL5,
+                           K::N5);
+  err = err ? err : wg::planar_map(&tm[1], g5, true, B, H / 4, 128, wl5,
+                                   wgc::WL5, K::N5);
+  if (err) return err;
   cudaError_t e = cudaFuncSetAttribute(
-      fused_stem_remat_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      tcr::SMEM);
+      fused_stem_remat_wg_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      k5::SMEM);
   if (e != cudaSuccess) return (int)e;
+  const k5::Weights fw = {{static_cast<const unsigned char*>(f[0]),
+                           static_cast<const unsigned char*>(f[1]),
+                           static_cast<const unsigned char*>(f[2]),
+                           static_cast<const unsigned char*>(f[3])}};
+  const wgc::Weights uw = {{static_cast<const unsigned char*>(u[0]),
+                            static_cast<const unsigned char*>(u[1]),
+                            static_cast<const unsigned char*>(u[2]),
+                            static_cast<const unsigned char*>(u[3]),
+                            static_cast<const unsigned char*>(u[4])}};
   dim3 grid(H / TX, H / TX, B);
-  fused_stem_remat_tc_kernel<<<grid, NT, tcr::SMEM, s>>>(
-      static_cast<const bf16*>(xe), static_cast<const bf16*>(xo),
-      static_cast<const uint2*>(f[0]), static_cast<const uint2*>(f[1]),
-      static_cast<const uint2*>(f[2]), static_cast<const uint2*>(f[3]),
-      bias[0], bias[1], bias[2], bias[3], static_cast<const bf16*>(y5),
-      static_cast<const bf16*>(g5), static_cast<const uint2*>(u[0]),
-      static_cast<const uint2*>(u[1]), static_cast<const uint2*>(u[2]),
-      static_cast<const uint2*>(u[3]), static_cast<const uint2*>(u[4]),
-      static_cast<bf16*>(gxe), static_cast<bf16*>(gxo), H, wlh, wl5);
+  fused_stem_remat_wg_kernel<<<grid, wg::NTH, k5::SMEM, s>>>(
+      static_cast<const bf16*>(xe), static_cast<const bf16*>(xo), bias[0],
+      bias[1], bias[2], bias[3], tm[0], tm[1], fw, uw,
+      static_cast<bf16*>(gxe), static_cast<bf16*>(gxo), H, wlh);
   return (int)cudaGetLastError();
 }
 
@@ -362,9 +525,10 @@ int launch(const void* xe, const void* xo, const void* const* w,
 // dtype: 0 = float32, 1 = bfloat16 (x, y5, g5, weights and gx). w0 .. w3
 // the forward's HWIO weights of convs 0-3, b0 .. b3 their float32 biases;
 // v0 .. v5 K2's swapped-channel weights of convs 0, 1, 2, 3, 5 (read in
-// float32); f0 .. f3 and u0 .. u5 the same forward and backward weights in
-// mma.sync's fragment order (K1's and K2's; read in bfloat16, null in
-// float32). H must be a multiple of 16. Returns cudaGetLastError().
+// float32); f0 .. f3 and u0 .. u5 the same forward and backward weights
+// packed for wgmma (K1's and K2's wg_weights; read in bfloat16, null in
+// float32). H must be a multiple of 16. Returns cudaGetLastError() (or a
+// tensor map's error).
 extern "C" int apfp_fused_stem_remat(
     const void* xe, const void* xo, const void* w0, const void* w1,
     const void* w2, const void* w3, const void* b0, const void* b1,
@@ -381,7 +545,7 @@ extern "C" int apfp_fused_stem_remat(
   if (dtype == 1) {
     const void* f[4] = {f0, f1, f2, f3};
     const void* u[5] = {u0, u1, u2, u3, u5};
-    return launch_tc(xe, xo, f, bias, y5, g5, u, gxe, gxo, B, H, wlh, wl5, s);
+    return launch_wg(xe, xo, f, bias, y5, g5, u, gxe, gxo, B, H, wlh, wl5, s);
   }
   const void* w[4] = {w0, w1, w2, w3};
   const void* v[5] = {v0, v1, v2, v3, v5};
@@ -394,7 +558,7 @@ extern "C" int apfp_fused_stem_remat(
 // one multiprocessor holds. Returns the CUDA error.
 extern "C" int apfp_fused_stem_remat_info(int dtype, int* info) {
   if (dtype == 1)
-    return info_of(fused_stem_remat_tc_kernel, tcr::SMEM, info);
+    return info_of(fused_stem_remat_wg_kernel, k5::SMEM, info, wg::NTH);
   return info_of(fused_stem_remat_kernel<float>,
                  SIGN_BYTES + sizeof(float) * (size_t)WORK, info);
 }

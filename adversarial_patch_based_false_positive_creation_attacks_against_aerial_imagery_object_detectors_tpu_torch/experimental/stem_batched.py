@@ -18,9 +18,10 @@ lanes, so its conv5 adjoint is a plain stride-1 transposed conv.
   hand-written kernels of ``csrc/stem_batched.cu`` on CUDA tensors and run
   their plain versions (``F.conv2d`` / ``F.conv_transpose2d`` chains with
   the kernels' rounding points) on CPU tensors; anything else raises.
-  In bfloat16 both run on the tensor cores, on the fused stem's code (K1's
-  ``mma_conv`` stages, K2's chain) and its fragment-order weights; float32
-  keeps the CUDA-core kernels. Launch counts: ``fused_stem_fwd_b.launches``
+  In bfloat16 both run on the tensor cores, on the fused stem's code: K8a
+  K1's convs on ``mma.sync`` (``mma_conv``, K1's fragment-order weights),
+  K8b K2's ``wgmma`` chain on K2's packed adjoints (``k2_packed``) with its
+  inputs brought by TMA; float32 keeps the CUDA-core kernels. Launch counts: ``fused_stem_fwd_b.launches``
   and ``.save_acts_launches``, ``fused_stem_bwd_b.launches``.
 - ``fused_stem_batched`` / ``FusedStemBatched``: NHWC in, NHWC
   ``[B, H/4, W/4, 128]`` out; the backward returns the input cotangent
@@ -40,7 +41,7 @@ from ..ops import _cuda
 from ..ops.planar_conv import _mma_cached, _round_up
 from ..ops.stem_fused import (LEAKY, StemBwdParams, StemParams, _needs_grad,
                               _check_stem_bwd_params, _check_stem_params,
-                              mma_weights_conv0)
+                              k2_packed, mma_weights_conv0)
 
 
 # ---------------------------------------------------------------------------
@@ -261,8 +262,9 @@ def fused_stem_bwd_b(gp5dd: torch.Tensor, acts, sbp: StemBwdParams,
     leaky-gated by y5's sign and zero-interleaved in rows and lanes, as
     ``FusedStemBatched.backward`` builds it: gp5 (r, c) at row 2r, lane
     2c + 1 of its image's segment, zero elsewhere. The bfloat16 kernel
-    reads only those data positions and runs conv5's adjoint as K2's four
-    stride-2 parity GEMMs on them (the plain version's dense stride-1
+    reads only those data positions (a tensor map over the even rows; the
+    odd lanes of its boxes) and runs conv5's adjoint as K2's four stride-2
+    parity GEMMs on them (the plain version's dense stride-1
     ``conv_transpose2d`` over the interleaved tensor is the same function
     there); the float32 kernel reads the whole tensor."""
     _, y0e, y0o, y1, y2, y3 = acts
@@ -285,13 +287,12 @@ def fused_stem_bwd_b(gp5dd: torch.Tensor, acts, sbp: StemBwdParams,
     # the kernel writes every lane, borders and slack included
     gxe = torch.empty((h, 8, tot), dtype=dt, device=y0e.device)
     gxo = torch.empty_like(gxe)
-    # bfloat16 on the tensor cores (K2's fragment order), float32 on sbp
-    frags = ([_mma_cached(v).data_ptr() for v in sbp]
-             if dt == torch.bfloat16 else [None] * 5)
+    # bfloat16 on wgmma (K2's packed adjoints), float32 on sbp
+    packed = k2_packed(sbp) if dt == torch.bfloat16 else [None] * 5
     _cuda.launch(
         "fused_stem_bwd_b", "stem_batched", "apfp_fused_stem_bwd_b", y0e,
         gp5dd.data_ptr(), y0e.data_ptr(), y0o.data_ptr(), y1.data_ptr(),
-        y2.data_ptr(), y3.data_ptr(), *[v.data_ptr() for v in sbp], *frags,
+        y2.data_ptr(), y3.data_ptr(), *[v.data_ptr() for v in sbp], *packed,
         gxe.data_ptr(), gxo.data_ptr(), _cuda.DTYPE_CODES[dt], bsz, h,
         tot // bsz)
     fused_stem_bwd_b.launches += 1

@@ -84,8 +84,9 @@ SIGNATURES = {
     },
     "stem_remat": {
         # xe, xo, w0, w1, w2, w3, b0, b1, b2, b3, y5, g5, v0, v1, v2, v3,
-        # v5, f0, f1, f2, f3, u0, u1, u2, u3, u5 (bfloat16 fragment-order
-        # weights or null), gxe, gxo, dtype, B, H, wlh, wl5, stream
+        # v5, f0, f1, f2, f3, u0, u1, u2, u3, u5 (bfloat16 weights packed
+        # for wgmma, K1's and K2's, or null), gxe, gxo, dtype, B, H, wlh,
+        # wl5, stream
         "apfp_fused_stem_remat": [_P] * 28 + [_I] * 5 + [_P],
         # dtype, info[3]
         "apfp_fused_stem_remat_info": [_I, _P],
@@ -132,8 +133,8 @@ SIGNATURES = {
         # dtype, save, info[3]
         "apfp_fused_stem_fwd_b_info": [_I, _I, _P],
         # gp5dd, y0e, y0o, y1, y2, y3, v0, v1, v2, v3, v5, u0, u1, u2, u3,
-        # u5 (bfloat16 fragment-order weights or null), gxe, gxo, dtype, B,
-        # H, seg, stream
+        # u5 (bfloat16 weights packed for wgmma, K2's, or null), gxe, gxo,
+        # dtype, B, H, seg, stream
         "apfp_fused_stem_bwd_b": [_P] * 18 + [_I] * 4 + [_P],
         # dtype, info[3]
         "apfp_fused_stem_bwd_b_info": [_I, _P],

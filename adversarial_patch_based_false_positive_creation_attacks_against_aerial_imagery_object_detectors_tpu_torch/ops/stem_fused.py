@@ -17,13 +17,13 @@ on a CPU tensor it runs its plain version, the same function as
 ``F.conv2d`` / ``F.conv_transpose2d`` chains with the kernel's rounding
 points (float32 accumulation; the compute dtype where the Pallas kernel
 stores). The kernels are bound by operations on the H100 (11.2 GFLOP per
-608^2 image each way); see the sources. In bfloat16, K1 and K2 run their
-convs on ``wgmma`` with the weights streamed into shared memory by bulk
-copies, packed on the host in the descriptor's swizzled chunks
-(``wg_weights``, built once per weight tensor). K5 runs ``mma.sync`` on
-weights in its fragment order (``mma_weights``): K1's sums to recompute
-the masks and K2's chain, in the order of K1's and K2's ``wgmma`` ones, so
-in either dtype its result equals K2's on K1's masks bit for bit.
+608^2 image each way); see the sources. In bfloat16, K1, K2 and K5 run
+their convs on ``wgmma`` with the weights streamed into shared memory by
+bulk copies, packed on the host in the descriptor's swizzled chunks
+(``wg_weights``; ``k1_packed`` and ``k2_packed``, built once per weight
+tensor). K5 runs K1's GEMMs on K1's packing to recompute the masks and
+K2's chain on K2's, so in either dtype its result equals K2's on K1's
+masks bit for bit.
 
 Three autograd Functions around them, the JAX package's three custom
 VJPs of the stem; each returns the input cotangent only (the victim's
@@ -114,7 +114,7 @@ def stem_bwd_params(sp: StemParams) -> list:
 
 
 def mma_weights_conv0(w: torch.Tensor) -> torch.Tensor:
-    """conv0's HWIO ``[3, 3, 3, 32]`` as K1's tensor-core conv0 reads it
+    """conv0's HWIO ``[3, 3, 3, 32]`` as K8a's ``mma.sync`` conv0 reads it
     (``stem_common.cuh: RowsConv0``): input channels padded 3 -> 8 and a
     zero fourth column, each 16-deep step the taps kx = 2 pair, 2 pair + 1
     of one row: ``mma_weights`` of ``[3, 2, 16, 32]``."""
@@ -162,6 +162,30 @@ def wg_weights_t2(v: torch.Tensor) -> torch.Tensor:
                       for taps in T2_PARITY_TAPS])
 
 
+def k1_packed(sp: StemParams, n: int = 5) -> list:
+    """The data pointers of K1's convs 0, 1, 2, 3, 5 (the first ``n``)
+    packed for ``wgmma`` (``wg_weights_conv0``, ``wg_weights_conv``),
+    each built once per weight tensor: the bfloat16 K1 reads all five, K5's
+    recompute convs 0-3."""
+    builds = (wg_weights_conv0,) + (wg_weights_conv,) * 4
+    return [_mma_cached(w, build).data_ptr()
+            for (w, _), build in zip(sp[:n], builds)]
+
+
+# K2's adjoints as its wgmma chain runs them: conv1^T and conv5^T per
+# output parity
+K2_BUILDS = (wg_weights_conv, wg_weights_t2, wg_weights_conv,
+             wg_weights_conv, wg_weights_t2)
+
+
+def k2_packed(sbp: StemBwdParams) -> list:
+    """The data pointers of K2's five swapped-channel adjoints packed for
+    its ``wgmma`` chain (``K2_BUILDS``), each built once per weight tensor:
+    the chain K2, K5 and K8b share reads them."""
+    return [_mma_cached(v, build).data_ptr()
+            for v, build in zip(sbp, K2_BUILDS)]
+
+
 def wgmma_bitcheck(a: torch.Tensor, b: torch.Tensor):
     """``a`` [64, K] and ``b`` [K, 64] bfloat16 on a card (K a multiple of
     64, at most 768) -> ``(d_mma, d_wgmma)``, each [64, 64] float32: the
@@ -169,7 +193,8 @@ def wgmma_bitcheck(a: torch.Tensor, b: torch.Tensor):
     ``mma.sync.m16n8k16`` and by ``wgmma.m64n64k16`` (A from the same
     ``ldmatrix`` registers), in one launch of a check kernel
     (``csrc/stem_fused.cu: wgmma_bitcheck_kernel``). Equal bits say that
-    K5 and K8 (``mma_conv``) and the ``wgmma`` K1 and K2 sum alike."""
+    K8a (``mma_conv``) and the ``wgmma`` K1 sum alike: the exact check
+    K8a = K1 rests on it."""
     _cuda.require_cuda("wgmma_bitcheck", a, b)
     k = a.shape[1]
     if (a.dtype != torch.bfloat16 or b.dtype != torch.bfloat16
@@ -293,10 +318,7 @@ def fused_stem_fwd(xe: torch.Tensor, xo: torch.Tensor, sp: StemParams,
                                  (h1, 64))]
     mask_ptrs = [m.data_ptr() for m in masks] or [None] * 5
     # bfloat16 on wgmma (packed chunks), float32 on sp
-    packed = ([_mma_cached(sp[0][0], wg_weights_conv0).data_ptr()]
-              + [_mma_cached(w, wg_weights_conv).data_ptr()
-                 for w, _ in sp[1:]]
-              if dt == torch.bfloat16 else [None] * 5)
+    packed = k1_packed(sp) if dt == torch.bfloat16 else [None] * 5
     _cuda.launch(
         "fused_stem_fwd", "stem_fused", "apfp_fused_stem_fwd", xe,
         xe.data_ptr(), xo.data_ptr(), *[w.data_ptr() for w, _ in sp],
@@ -385,11 +407,7 @@ def fused_stem_bwd_saved(acts, g5p: torch.Tensor, sbp: StemBwdParams):
     gxo = torch.empty_like(gxe)
     # bfloat16 on wgmma (packed chunks; conv1^T and conv5^T per output
     # parity), float32 on sbp
-    builds = (wg_weights_conv, wg_weights_t2, wg_weights_conv,
-              wg_weights_conv, wg_weights_t2)
-    packed = ([_mma_cached(v, build).data_ptr()
-               for v, build in zip(sbp, builds)]
-              if dt == torch.bfloat16 else [None] * 5)
+    packed = k2_packed(sbp) if dt == torch.bfloat16 else [None] * 5
     _cuda.launch(
         "fused_stem_bwd_saved", "stem_bwd", "apfp_fused_stem_bwd", y5p,
         y0e.data_ptr(), y0o.data_ptr(), y1m.data_ptr(), y2m.data_ptr(),
@@ -443,16 +461,15 @@ def fused_stem_bwd(xe: torch.Tensor, xo: torch.Tensor, y5p: torch.Tensor,
     # the kernel writes every lane, borders and padding included
     gxe = torch.empty((bsz, h, 8, wlh), dtype=dt, device=xe.device)
     gxo = torch.empty_like(gxe)
-    # bfloat16 on the tensor cores: K1's and K2's fragment-order weights
-    frags = ([_mma_cached(sp[0][0], mma_weights_conv0).data_ptr()]
-             + [_mma_cached(w).data_ptr() for w, _ in sp[1:4]]
-             + [_mma_cached(v).data_ptr() for v in sbp]
-             if dt == torch.bfloat16 else [None] * 9)
+    # bfloat16 on wgmma: K1's packed convs 0-3 (the recompute) and K2's
+    # packed adjoints (the chain); float32 on sp and sbp
+    packed = (k1_packed(sp, 4) + k2_packed(sbp)
+              if dt == torch.bfloat16 else [None] * 9)
     _cuda.launch(
         "fused_stem_bwd", "stem_remat", "apfp_fused_stem_remat", xe,
         xe.data_ptr(), xo.data_ptr(), *[w.data_ptr() for w, _ in sp[:4]],
         *[bias.data_ptr() for _, bias in sp[:4]], y5p.data_ptr(),
-        g5p.data_ptr(), *[v.data_ptr() for v in sbp], *frags,
+        g5p.data_ptr(), *[v.data_ptr() for v in sbp], *packed,
         gxe.data_ptr(), gxo.data_ptr(), _cuda.DTYPE_CODES[dt], bsz, h, wlh,
         wl5)
     fused_stem_bwd.launches += 1

@@ -12,8 +12,10 @@ Phases, each fatal on failure:
    K8b, K6a (with and without ``save``), K6b and K6c kernel and of every
    bfloat16 K4 instantiation (1x1, 3x3 s1, 3x3 s2 and the k3t2 adjoint,
    each block width), with its registers, shared memory, blocks per
-   multiprocessor and spilled bytes, and fail if one has none (or if K8a,
-   K8b or a K6 kernel spills); the same resource records (static shared
+   multiprocessor and spilled bytes, and fail if one has none, if one
+   spills, or if one of the wgmma kernels (K1, K2, K5, K8b, K4) has an
+   HMMA, no HGMMA or neither a TMA load nor a bulk copy; the same
+   resource records (static shared
    memory) for the layout kernels K3a and K3b, each form and dtype, and
    for K7 (the network form at k = 1..8 and the rank-counting form, each
    dtype), none of which may spill.
@@ -51,7 +53,9 @@ Phases, each fatal on failure:
    on K1's masks of the same x (bit for bit: K5 recomputes them with K1's
    arithmetic and runs K2's chain) and the plain chain on those masks,
    and its own plain version (which recomputes the masks in cuDNN's
-   order: checked where no gate flipped).
+   order: checked where no gate flipped). The wgmma stem kernels (K1,
+   K2, K5, K8b) are timed by device time at b8 and b24 and their b24
+   cycles split by category (a ``-DAPFP_PROFILE`` build).
 6. Training (the second main path; counted launches): the training CLI
    in-process, ``paper_obj`` on the full-width YOLOv3 with random weights
    over 48 synthetic tiles (one epoch of 2 steps at batch 24), then warm-up
@@ -266,6 +270,13 @@ counts plus ``entry()``'s call's). The last two lines are the kernels JSON objec
 ``{"ok": true, "device": {...}}``; the card's name and power limit are
 printed before them. Exits non-zero, printing no result, without a card
 or without the port beside this script.
+
+    python3 chip_smoke.py --k4-ab DIR     # K4, DIR's tree against this one
+    python3 chip_smoke.py --stem-ab DIR   # K5, K8b and K2 alike
+
+run the A/Bs of ``ab_turns`` on one card instead: the checkout at DIR (a
+parent commit unpacked by ``git archive``) and this one in turns
+(parent, this, this, parent).
 """
 
 import contextlib
@@ -472,14 +483,14 @@ TC_KERNELS = {
     "fused_stem_bwd_saved": [("", "stem_bwd", "apfp_fused_stem_bwd_info",
                               (1,), "fused_stem_bwd_wg_kernel")],
     "fused_stem_bwd": [("", "stem_remat", "apfp_fused_stem_remat_info", (1,),
-                        "fused_stem_remat_tc_kernel")],
+                        "fused_stem_remat_wg_kernel")],
     "fused_stem_fwd_b": [("", "stem_batched", "apfp_fused_stem_fwd_b_info",
                           (1, 0), "fused_stem_fwd_b_tc_kernelILb0E")],
     "fused_stem_fwd_b_save_acts": [(
         "", "stem_batched", "apfp_fused_stem_fwd_b_info", (1, 1),
         "fused_stem_fwd_b_tc_kernelILb1E")],
     "fused_stem_bwd_b": [("", "stem_batched", "apfp_fused_stem_bwd_b_info",
-                          (1,), "fused_stem_bwd_b_tc_kernel")],
+                          (1,), "fused_stem_bwd_b_wg_kernel")],
     "res152_fused": [("", "res_fused", "apfp_res152_fused_info", (1, 0),
                       "res152_fwd_tc_kernelILb0E")],
     "res152_fused_save": [("", "res_fused", "apfp_res152_fused_info", (1, 1),
@@ -496,20 +507,21 @@ TC_KERNELS = {
 K4_NAMES = tuple(name for name, *_ in _K4_KEYS)
 
 
-# the kernels whose bfloat16 instantiation must not spill (K1, K1
-# save_acts, K2, K8a, K8b, K6a, K6a save, K6b, K6c, K4), and K7, whose
-# float32 and bfloat16 instantiations (each k of the network form, and the
-# rank form) must not either
+# the kernels whose bfloat16 instantiation must not spill (every one of
+# TC_KERNELS: K1, K1 save_acts, K2, K5, K8a, K8b, K6a, K6a save, K6b, K6c,
+# K4), and K7, whose float32 and bfloat16 instantiations (each k of the
+# network form, and the rank form) must not either
 NO_SPILL = ("fused_stem_fwd", "fused_stem_fwd_save_acts",
-            "fused_stem_bwd_saved", "fused_stem_fwd_b",
+            "fused_stem_bwd_saved", "fused_stem_bwd", "fused_stem_fwd_b",
             "fused_stem_fwd_b_save_acts", "fused_stem_bwd_b", "res152_fused",
             "res152_fused_save", "res152_fused_grad", "res152_fused_grad12",
             "median_pool_2d_pallas", *K4_NAMES)
-# the kernels built for Hopper's own units (K1, K1 save_acts, K2, K4):
-# wgmma and no mma.sync, and their weights (K2: also masks, y5, g5; K4:
-# its input) by bulk copies or the tensor unit
+# the kernels built for Hopper's own units (K1, K1 save_acts, K2, K5, K8b,
+# K4): wgmma and no mma.sync, and their weights (K2, K5, K8b: also their
+# boxes; K4: its input) by bulk copies or the tensor unit
 WGMMA_KERNELS = ("fused_stem_fwd", "fused_stem_fwd_save_acts",
-                 "fused_stem_bwd_saved", *K4_NAMES)
+                 "fused_stem_bwd_saved", "fused_stem_bwd", "fused_stem_bwd_b",
+                 *K4_NAMES)
 SASS_OPS = ("HGMMA", "HMMA", "UTMALDG", "UBLKCP")
 
 
@@ -545,9 +557,10 @@ def tensor_core_check(_cuda, info) -> dict:
     bytes (``-Xptxas -v``), its note where it serialized a kernel's wgmmas,
     and the card's own account of registers, dynamic shared memory and
     blocks per multiprocessor (``apfp_*_info``). Fails if one has no
-    tensor-core instruction, if one of ``NO_SPILL`` (K1, K2, K8, K6, K4)
-    spills, or if one of ``WGMMA_KERNELS`` (K1, K1 ``save_acts``, K2, K4)
-    has an HMMA, no HGMMA or neither a UTMALDG nor a UBLKCP. Returns
+    tensor-core instruction, if one of ``NO_SPILL`` (K1, K2, K5, K8, K6,
+    K4) spills, or if one of ``WGMMA_KERNELS`` (K1, K1 ``save_acts``, K2,
+    K5, K8b, K4) has an HMMA, no HGMMA or neither a UTMALDG nor a UBLKCP.
+    Returns
     {entry name: record}; an entry of several instantiations holds them
     under ``sass``."""
     import ctypes
@@ -788,10 +801,10 @@ def k2_read_bytes(acts, g5p) -> int:
 
 
 def wgmma_bitcheck(dev, sp) -> list:
-    """The bfloat16 K1 and K2 sum on wgmma, K5 and K8 on mma.sync
-    (``mma_conv``), one 16-deep step after another from a zero float32
-    accumulator; the exact checks K5 = K2, K8a = K1 and K8b = K2 hold only
-    if a wgmma k16 step rounds as an mma.sync one. On the stem's operands
+    """The bfloat16 K1 sums on wgmma, K8a on mma.sync (``mma_conv``), one
+    16-deep step after another from a zero float32 accumulator; the exact
+    check K8a = K1 holds only if a wgmma k16 step rounds as an mma.sync
+    one. On the stem's operands
     (conv5's weights in tap order, its first 64 channels; leaky
     activations of the stem's scale, numpy-seeded) at depths 64 and 576:
     ``ops/stem_fused.py: wgmma_bitcheck`` runs both in one launch and
@@ -814,57 +827,66 @@ def wgmma_bitcheck(dev, sp) -> list:
     return recs
 
 
-def wgmma_device_times(dev, sp, sbp, b: int) -> dict:
-    """Device ms (``device_ms``: a CUDA graph of 20 calls) of the bfloat16
-    K1 (forward alone and with ``save_acts``) and K2 at batch b, 608^2."""
+def wgmma_calls(dev, sp, sbp, b: int) -> dict:
+    """The bfloat16 wgmma stem kernels at batch b, 608^2, on seeded inputs:
+    entry name -> (library, a call). K1 (forward alone and with
+    ``save_acts``), K2 on K1's masks, K5 on the same x, y5 and g5, K8b on
+    K8a's activations of the same x (its gp5dd from g5 gated by K8a's y5,
+    as ``FusedStemBatched.backward`` builds it)."""
     SF = import_port("ops.stem_fused")
+    SB = import_port("experimental.stem_batched")
     PC = import_port("ops.planar_conv")
-    bf16 = torch.bfloat16
-    h5 = SIZE // 4
+    bf16, h1, h5 = torch.bfloat16, SIZE // 2, SIZE // 4
     gen = torch.Generator(device=dev).manual_seed(SEED + 18)
     x = torch.rand(b, SIZE, SIZE, 3, generator=gen, device=dev).to(bf16)
+    g5 = torch.randn(b, h5, h5, 128, generator=gen, device=dev).to(bf16)
     xe, xo = SF.split_phases(x)
     acts = SF.fused_stem_fwd(xe, xo, sp, save_acts=True)
-    g5p = PC.to_planar(torch.randn(b, h5, h5, 128, generator=gen,
-                                   device=dev).to(bf16))
-    out = {"fused_stem_fwd": device_ms(lambda: SF.fused_stem_fwd(xe, xo, sp)),
-           "fused_stem_fwd_save_acts": device_ms(
-               lambda: SF.fused_stem_fwd(xe, xo, sp, save_acts=True)),
-           "fused_stem_bwd_saved": device_ms(
-               lambda: SF.fused_stem_bwd_saved(acts, g5p, sbp))}
-    del acts, g5p, xe, xo, x
+    g5p = PC.to_planar(g5)
+    seg = SB._seg(h1)
+    bacts = SB.fused_stem_fwd_b(*SB.split_phases_b(x, seg), sp, b,
+                                save_acts=True)
+    y5n = SB.batched_to_nhwc(bacts[0], b, h5, 128, lane0=1, stride=2)
+    gp5dd = SB.nhwc_to_batched(SB.interleave_zero_rows(
+        SB.interleave_zero_cols((g5.float() * torch.where(
+            y5n > 0, 1.0, 0.1)).to(bf16))), seg)
+    return {"fused_stem_fwd": ("stem_fused",
+                               lambda: SF.fused_stem_fwd(xe, xo, sp)),
+            "fused_stem_fwd_save_acts": ("stem_fused", lambda: SF.
+                                         fused_stem_fwd(xe, xo, sp, True)),
+            "fused_stem_bwd_saved": ("stem_bwd", lambda: SF.
+                                     fused_stem_bwd_saved(acts, g5p, sbp)),
+            "fused_stem_bwd": ("stem_remat", lambda: SF.fused_stem_bwd(
+                xe, xo, acts[0], g5p, sp, sbp)),
+            "fused_stem_bwd_b": ("stem_batched", lambda: SB.
+                                 fused_stem_bwd_b(gp5dd, bacts, sbp, b))}
+
+
+def wgmma_device_times(dev, sp, sbp, b: int) -> dict:
+    """Device ms (``device_ms``: a CUDA graph of 20 calls) of the bfloat16
+    wgmma stem kernels (``wgmma_calls``: K1 alone and with ``save_acts``,
+    K2, K5, K8b) at batch b, 608^2."""
+    out = {name: device_ms(fn)
+           for name, (_, fn) in wgmma_calls(dev, sp, sbp, b).items()}
     torch.cuda.empty_cache()
     return out
 
 
 def wgmma_split(dev, sp, sbp, dev_ms: dict) -> dict:
-    """Where the bfloat16 K1's (both forms) and K2's time goes at b24: the
-    kernels rebuilt with ``-DAPFP_PROFILE`` (``ops/_cuda.py: profiled``),
-    in which thread 0 of each block (a consumer of the first warpgroup)
-    adds the clock64 cycles between its laps to a category
-    (``csrc/stem_common.cuh: wg::Lap``: loads, input waits, weight waits,
-    MMAs, epilogues, mask stores, output stores, the consumers' barriers).
-    Shares are of the summed cycles; ``split_ms`` applies them to the
-    normal build's device time (``dev_ms``, by entry name); the profiled
-    build's own time is beside it (the laps cost a little)."""
+    """Where the bfloat16 wgmma stem kernels' time goes at b24 (K1 both
+    forms, K2, K5, K8b): the kernels rebuilt with ``-DAPFP_PROFILE``
+    (``ops/_cuda.py: profiled``), in which thread 0 of each block (a
+    consumer of the first warpgroup) adds the clock64 cycles between its
+    laps to a category (``csrc/stem_common.cuh: wg::Lap``: loads, input
+    waits, weight waits, MMAs, epilogues, mask stores or conversions,
+    output stores, the consumers' barriers). Shares are of the summed
+    cycles; ``split_ms`` applies them to the normal build's device time
+    (``dev_ms``, by entry name); the profiled build's own time is beside
+    it (the laps cost a little)."""
     _cuda = import_port("ops._cuda")
-    SF = import_port("ops.stem_fused")
-    PC = import_port("ops.planar_conv")
-    bf16, b, h5 = torch.bfloat16, TRAIN_BATCH, SIZE // 4
-    gen = torch.Generator(device=dev).manual_seed(SEED + 18)
-    x = torch.rand(b, SIZE, SIZE, 3, generator=gen, device=dev).to(bf16)
-    xe, xo = SF.split_phases(x)
-    acts = SF.fused_stem_fwd(xe, xo, sp, save_acts=True)
-    g5p = PC.to_planar(torch.randn(b, h5, h5, 128, generator=gen,
-                                   device=dev).to(bf16))
-    fns = {"fused_stem_fwd": ("stem_fused",
-                              lambda: SF.fused_stem_fwd(xe, xo, sp)),
-           "fused_stem_fwd_save_acts": ("stem_fused", lambda: SF.
-                                        fused_stem_fwd(xe, xo, sp, True)),
-           "fused_stem_bwd_saved": ("stem_bwd", lambda: SF.
-                                    fused_stem_bwd_saved(acts, g5p, sbp))}
+    fns = wgmma_calls(dev, sp, sbp, TRAIN_BATCH)
     out = {}
-    with _cuda.profiled("stem_fused", "stem_bwd"):
+    with _cuda.profiled(*sorted({lib for lib, _ in fns.values()})):
         for name, (lib, fn) in fns.items():
             fn()
             torch.cuda.synchronize()
@@ -879,7 +901,7 @@ def wgmma_split(dev, sp, sbp, dev_ms: dict) -> dict:
                          "split_ms": {k: v * dev_ms[name]
                                       for k, v in share.items()},
                          "profiled_dev_ms": device_ms(fn)}
-    del acts, g5p, xe, xo, x
+    del fns
     torch.cuda.empty_cache()
     return out
 
@@ -889,13 +911,14 @@ def training_kernels(dev, sp, sbp, card, tc_info) -> tuple:
     versions at batch 24, 608^2, bfloat16 (K2 and K3a also float32), K1
     and K2 beside the stem on cuDNN (``stem_yardstick``), the wgmma k16
     step against mma.sync's bits (``wgmma_bitcheck``), the device times
-    of K1 (both forms) and K2 at b8 and b24 (``wgmma_device_times``) and
-    their b24 split by cycle accounts (``wgmma_split``);
-    returns their entries of the kernels line (launches filled in by the
-    training phase), with phase 1's tensor-core records, and the b24
-    records of ``split_phases`` and K3b (y5) by entry name, with K1's
-    serving device times and split under ``fused_stem_fwd`` and
-    ``fused_stem_fwd_split_b24``."""
+    of K1 (both forms), K2, K5 and K8b at b8 and b24
+    (``wgmma_device_times``) and their b24 split by cycle accounts
+    (``wgmma_split``); returns their entries of the kernels line (launches
+    filled in by the training phase), with phase 1's tensor-core records,
+    and the b24 records of ``split_phases`` and K3b (y5) by entry name,
+    with K1's serving device times and split under ``fused_stem_fwd`` and
+    ``fused_stem_fwd_split_b24``, K5's and K8b's under ``<name>_dev_ms``
+    and ``<name>_split_b24``."""
     PC = import_port("ops.planar_conv")
     SF = import_port("ops.stem_fused")
     _cuda = import_port("ops._cuda")
@@ -1078,12 +1101,15 @@ def training_kernels(dev, sp, sbp, card, tc_info) -> tuple:
         if k["name"] in split:
             k["split_b24"] = split[k["name"]]
     b24["fused_stem_fwd_split_b24"] = split["fused_stem_fwd"]
+    # K5's and K8b's, for their entries (phases 5 and 9)
+    for name in ("fused_stem_bwd", "fused_stem_bwd_b"):
+        b24[f"{name}_dev_ms"] = {f"b{b}": t[name] for b, t in dev_ms.items()}
+        b24[f"{name}_split_b24"] = split[name]
     for name, rec in split.items():
         log(f"[wgmma] {name} b24 split: "
             f"{json.dumps({k: round(v, 4) for k, v in rec['share'].items()})}"
             f"; profiled build {rec['profiled_dev_ms']:.4f} ms ({card})")
-    for name in ("fused_stem_fwd", "fused_stem_fwd_save_acts",
-                 "fused_stem_bwd_saved"):
+    for name in dev_ms[24]:
         rec = tc_info[name]
         log(f"[wgmma] {name}: dev ms "
             f"{json.dumps({f'b{b}': t[name] for b, t in dev_ms.items()})}; "
@@ -2699,9 +2725,9 @@ def batched_kernels(dev, sp, sbp, card, tc_info) -> list:
     built as ``FusedStemBatched.backward`` builds it) with K1's and K2's
     tolerances, every border and slack lane zero though the blocks were
     dirty; then against K1 / K2 on the same x. bfloat16, where K8a runs
-    K1's mma_conv stages and K8b K2's chain: K8a's decimated y5 and its
-    activations' signs equal K1's y5 and masks, and K8b's merged gx K2's on
-    K1's masks, bit for bit. float32: K8a's y5 against K1's, K8b's gx
+    K1's convs on mma_conv and K8b K2's wgmma chain: K8a's decimated y5
+    and its activations' signs equal K1's y5 and masks, and K8b's merged
+    gx K2's on K1's masks, bit for bit. float32: K8a's y5 against K1's, K8b's gx
     (its FMA adjoint sums in another order) against K2's outside the
     12-pixel zone of any sign that differs. Timed beside their bounds and
     K1 ``save_acts`` + K2 at the same shape. Returns the three entries,
@@ -2818,7 +2844,7 @@ def batched_kernels(dev, sp, sbp, card, tc_info) -> list:
               "sign_flips_vs_k1_masks": flips,
               "y5_sign_flips_vs_k1": y5_flips}
         if dt == bf16:
-            # K1's mma_conv stages and K2's chain: the same sums, bit for bit
+            # K1's convs (mma_conv) and K2's chain: the same sums, bit for bit
             assert torch.equal(y5n, k1y5) and flips == 0, ("K8a vs K1", d_y5,
                                                           flips)
             assert torch.equal(gxm, k2m), ("K8b vs K2", e.max().item())
@@ -5141,6 +5167,11 @@ def main() -> int:
             k["b24"] = layout_b24[k["name"]]
     k5 = remat_kernel(dev, sp, det.model.stem_bwd_params(), card,
                       train_kernels[-1]["library_fwd_bwd_ms"], tc_info)
+    # the wgmma records of K5 (here) and K8b (phase 9): device ms, split
+    wg_recs = {n: {"dev_ms": layout_b24.pop(f"{n}_dev_ms"),
+                   "split_b24": layout_b24.pop(f"{n}_split_b24")}
+               for n in ("fused_stem_bwd", "fused_stem_bwd_b")}
+    k5.update(wg_recs["fused_stem_bwd"])
     del det, svc
     torch.cuda.empty_cache()
 
@@ -5277,6 +5308,7 @@ def main() -> int:
     phase("9 experimental package")
     k7 = median_kernel(dev, card, k7_info)
     k8 = batched_kernels(dev, sp, model_sbp, card, tc_info)
+    k8[-1].update(wg_recs["fused_stem_bwd_b"])
     erec = experimental_path(dev, net, params, card, rec["breakdown_ms"])
     for k in [k7] + k8:
         k["launches"] = erec["launches"][k["name"]]
@@ -5377,32 +5409,42 @@ print("K4AB " + json.dumps({"geometries": recs,
 """
 
 
-def k4_ab(parent: str) -> int:
-    """``python3 chip_smoke.py --k4-ab DIR``: K4 in the checkout at DIR
-    (a parent commit, e.g. unpacked by ``git archive``) and in this one,
-    on one card in one call, in turns (parent, this, this, parent), each
-    in its own process: phase 7's geometries (``planar_kernels``) and the
-    cycle split (``k4_split``). Prints a ``[k4-ab]`` line a variant (the
-    bfloat16 b24 sums of ms, cuDNN's and the bound) and one JSON record
-    last."""
-    card = card_line()
+def ab_turns(parent: str, child: str, tag: str) -> list:
+    """Run ``child`` (Python source, run from a tree's root: it imports
+    that tree's chip_smoke.py and kernels) in the checkout at ``parent``
+    and in this one, in turns (parent, this, this, parent), each in its
+    own process on the one card, and return the record each printed last
+    on a line starting with ``tag`` (JSON), with its ``tree``."""
     runs = []
     for label, tree in (("parent", parent), ("this", ROOT), ("this", ROOT),
                         ("parent", parent)):
-        out = subprocess.run([sys.executable, "-c", K4_AB_CHILD], cwd=tree,
+        out = subprocess.run([sys.executable, "-c", child], cwd=tree,
                              capture_output=True, text=True, timeout=1500)
         sys.stderr.write(out.stderr[-4000:])
         lines = [ln for ln in out.stdout.splitlines()
-                 if ln.startswith("K4AB ")]
+                 if ln.startswith(tag + " ")]
         assert out.returncode == 0 and lines, (label, out.stdout[-4000:])
-        rec = json.loads(lines[-1][5:])
+        rec = json.loads(lines[-1][len(tag) + 1:])
         rec["tree"] = label
         runs.append(rec)
+    return runs
+
+
+def k4_ab(parent: str) -> int:
+    """``python3 chip_smoke.py --k4-ab DIR``: K4 in the checkout at DIR
+    (a parent commit, e.g. unpacked by ``git archive``) and in this one,
+    on one card in one call, in turns (``ab_turns``): phase 7's geometries
+    (``planar_kernels``) and the cycle split (``k4_split``). Prints a
+    ``[k4-ab]`` line a variant (the bfloat16 b24 sums of ms, cuDNN's and
+    the bound) and one JSON record last."""
+    card = card_line()
+    runs = ab_turns(parent, K4_AB_CHILD, "K4AB")
+    for rec in runs:
         for r in rec["geometries"]:
             if r["dtype"] == "bfloat16":
-                log(f"[k4-ab] {label} {r['conv']}: {r['ms']:.4f} ms, cuDNN "
-                    f"{r['library_ms']:.4f}, bound {r['bound_ms']:.4f} "
-                    f"({card})")
+                log(f"[k4-ab] {rec['tree']} {r['conv']}: {r['ms']:.4f} ms, "
+                    f"cuDNN {r['library_ms']:.4f}, bound "
+                    f"{r['bound_ms']:.4f} ({card})")
     sums = {}
     for i, rec in enumerate(runs):
         for r in rec["geometries"]:
@@ -5422,7 +5464,95 @@ def k4_ab(parent: str) -> int:
     return 0
 
 
+# One tree's stem backward readings for ``stem_ab``, from that tree's own
+# chip_smoke.py and kernels (what a parent commit already has): K5 as
+# phase 5 times it (b24 bfloat16, ``time_ms`` over 5 calls), K8b as phase
+# 9 does (over 3, on K8a's activations of the same x), K2 beside them, the
+# device times and cycle split of the tree's wgmma stem kernels
+# (``wgmma_device_times``, ``wgmma_split``), and K2's gx digest with the
+# exact checks K5 = K2 and K8b = K2
+STEM_AB_CHILD = r"""
+import hashlib, json, sys, torch
+sys.path.insert(0, ".")
+import chip_smoke as C
+C.import_port("ops._cuda").build_all()
+M = C.import_port("models")
+darknet = C.import_port("models.darknet")
+SF = C.import_port("ops.stem_fused")
+SB = C.import_port("experimental.stem_batched")
+PC = C.import_port("ops.planar_conv")
+net = M.build_network(M.yolov3_blocks(width=C.SIZE, height=C.SIZE))
+dev, bf16 = torch.device("cuda"), torch.bfloat16
+model = darknet.Darknet(net, M.init_params(net, C.SEED), bf16, device=dev)
+sp, sbp = model.stem_params(), model.stem_bwd_params()
+b, h1, h5 = C.TRAIN_BATCH, C.SIZE // 2, C.SIZE // 4
+gen = torch.Generator(device=dev).manual_seed(C.SEED + 6)
+x = torch.rand(b, C.SIZE, C.SIZE, 3, generator=gen, device=dev).to(bf16)
+g5 = torch.randn(b, h5, h5, 128, generator=gen, device=dev).to(bf16)
+xe, xo = SF.split_phases(x)
+g5p = PC.to_planar(g5)
+acts = SF.fused_stem_fwd(xe, xo, sp, save_acts=True)
+k2 = SF.fused_stem_bwd_saved(acts, g5p, sbp)
+k5 = SF.fused_stem_bwd(xe, xo, acts[0], g5p, sp, sbp)
+seg = SB._seg(h1)
+bacts = SB.fused_stem_fwd_b(*SB.split_phases_b(x, seg), sp, b,
+                            save_acts=True)
+y5n = SB.batched_to_nhwc(bacts[0], b, h5, 128, lane0=1, stride=2)
+gp5dd = SB.nhwc_to_batched(SB.interleave_zero_rows(SB.interleave_zero_cols(
+    (g5.float() * torch.where(y5n > 0, 1.0, 0.1)).to(bf16))), seg)
+k8b = SB.fused_stem_bwd_b(gp5dd, bacts, sbp, b)
+torch.cuda.synchronize()
+bits = torch.cat([t.reshape(-1) for t in k2]).view(torch.int16)
+rec = {"k2_gx_sha256": hashlib.sha256(bits.cpu().numpy().tobytes()
+                                      ).hexdigest(),
+       "k5_equals_k2": all(torch.equal(p, q) for p, q in zip(k5, k2)),
+       "k8b_equals_k2": torch.equal(SB.merge_phases_b(*k8b, b, h1, 3),
+                                    SF.merge_phases(*k2, h1, 3)),
+       "k5_ms": C.time_ms(lambda: SF.fused_stem_bwd(xe, xo, acts[0], g5p,
+                                                    sp, sbp), 5),
+       "k8b_ms": C.time_ms(lambda: SB.fused_stem_bwd_b(gp5dd, bacts, sbp,
+                                                       b), 3, 2),
+       "k2_ms": C.time_ms(lambda: SF.fused_stem_bwd_saved(acts, g5p, sbp),
+                          5)}
+del k2, k5, k8b, acts, bacts, gp5dd
+torch.cuda.empty_cache()
+rec["dev_ms"] = C.wgmma_device_times(dev, sp, sbp, C.TRAIN_BATCH)
+rec["split"] = C.wgmma_split(dev, sp, sbp, rec["dev_ms"])
+print("STEMAB " + json.dumps(rec))
+"""
+
+
+def stem_ab(parent: str) -> int:
+    """``python3 chip_smoke.py --stem-ab DIR``: the stem's backward
+    kernels K5, K8b and K2 in the checkout at DIR (a parent commit) and in
+    this one, on one card in one call, in turns (``ab_turns``): phase 5's
+    K5 reading, phase 9's K8b reading and K2's time, the device times and
+    cycle splits of each tree's wgmma stem kernels, K2's gx digest (this
+    tree's must equal the parent's) and the exact checks K5 = K2 and
+    K8b = K2. Prints a ``[stem-ab]`` line a turn and one JSON record
+    last."""
+    card = card_line()
+    runs = ab_turns(parent, STEM_AB_CHILD, "STEMAB")
+    for rec in runs:
+        log(f"[stem-ab] {rec['tree']}: K5 {rec['k5_ms']:.4f} ms, K8b "
+            f"{rec['k8b_ms']:.4f}, K2 {rec['k2_ms']:.4f}; dev "
+            f"{json.dumps(rec['dev_ms'])}; K5 = K2 {rec['k5_equals_k2']}, "
+            f"K8b = K2 {rec['k8b_equals_k2']} ({card})")
+        for name, r in rec["split"].items():
+            log(f"[stem-ab] {rec['tree']} {name} b24 split: " + json.dumps(
+                {k: round(v, 4) for k, v in r["share"].items()}))
+    digests = {rec["k2_gx_sha256"] for rec in runs}
+    log(f"[stem-ab] K2's gx digests agree across the trees: "
+        f"{len(digests) == 1}")
+    assert len(digests) == 1, "K2's gx moved"
+    assert all(rec["k5_equals_k2"] and rec["k8b_equals_k2"] for rec in runs)
+    log(json.dumps({"stem_ab": runs, "card": card}))
+    return 0
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--k4-ab"]:
         sys.exit(k4_ab(os.path.abspath(sys.argv[2])))
+    if sys.argv[1:2] == ["--stem-ab"]:
+        sys.exit(stem_ab(os.path.abspath(sys.argv[2])))
     sys.exit(main())

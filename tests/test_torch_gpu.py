@@ -249,11 +249,11 @@ def _bitcheck_operands(k, kind, seed):
 @pytest.mark.parametrize("k", [64, 576, 768])
 @pytest.mark.parametrize("kind", ["stem", "wide"])
 def test_wgmma_k16_step_matches_mma_sync_bits(cuda, k, kind):
-    """The bfloat16 K1 and K2 sum on wgmma.m64nNk16, K5 and K8 on
-    mma.sync.m16n8k16 (stem_common.cuh: mma_conv), one 16-deep step after
-    another into one float32 accumulator from zero: the exact checks K5 =
-    K2, K8a = K1 and K8b = K2 need both instructions to round each step
-    alike. Every bit of the two products must agree."""
+    """The bfloat16 K1 sums on wgmma.m64nNk16, K8a on mma.sync.m16n8k16
+    (stem_common.cuh: mma_conv), one 16-deep step after another into one
+    float32 accumulator from zero: the exact check K8a = K1 needs both
+    instructions to round each step alike. Every bit of the two products
+    must agree."""
     a, b = _bitcheck_operands(k, kind, 11)
     a = torch.tensor(a, dtype=torch.bfloat16, device=cuda)
     b = torch.tensor(b, dtype=torch.bfloat16, device=cuda)
@@ -356,8 +356,9 @@ def test_fused_stem_bwd_kernel_matches_plain(cuda, dtype, b, h):
 def test_fused_stem_remat_kernel_matches_plain_and_k2(cuda, dtype, b, h):
     """K5 against K2 on K1's save_acts masks of the same x. In either dtype
     K5 recomputes the masks with K1's own arithmetic (float32: the CUDA-core
-    conv_stage; bfloat16: K1's tensor-core stages, the same sums in the same
-    order) and runs K2's chain on them, so it equals K2 bit for bit; with
+    conv_stage; bfloat16: K1's wgmma GEMMs on K1's packed weights, the same
+    sums in the same order) and runs K2's chain on them, so it equals K2
+    bit for bit; with
     the plain chain on those masks it agrees at K2's tolerances. Against
     its own plain version, whose recompute sums in cuDNN's order, K5
     differs only where that order flips a gate: K2's tolerances where no
@@ -808,7 +809,7 @@ def test_batched_stem_kernels_match_plain(cuda, dtype, b, h):
     against their plain versions; every border and slack lane is zero
     though the output blocks were dirty; in both dtypes K8a's even dense
     lanes equal K1's y5 and its y0 signs K1's masks (K8a runs K1's conv
-    code: conv_stage in float32, K1's mma_conv stages in bfloat16)."""
+    code: conv_stage in float32, K1's convs on mma_conv in bfloat16)."""
     SB = _experimental("stem_batched")
     sp = _stem_params(dtype, cuda)
     sbp = SF.stem_bwd_params(sp)
@@ -876,9 +877,9 @@ def test_batched_stem_grad_matches_fused_stem_on_card(cuda):
 
 def test_batched_stem_grad_equals_fused_stem_on_card_bf16(cuda):
     """bfloat16: the batch-on-lanes route runs the fused stem's
-    tensor-core code (K1's mma_conv stages in K8a, K2's chain in K8b, its
-    gp5 read from gp5dd's data positions and its gates from the saved
-    values' signs), so its y5 and its input gradient equal the fused
+    tensor-core code (K1's convs on mma_conv in K8a, K2's wgmma chain in
+    K8b, its gp5 read from gp5dd's data positions and its gates from the
+    saved values' signs), so its y5 and its input gradient equal the fused
     stem's (K1 save_acts + K2) bit for bit."""
     SB = _experimental("stem_batched")
     bf16 = torch.bfloat16
@@ -899,6 +900,57 @@ def test_batched_stem_grad_equals_fused_stem_on_card_bf16(cuda):
     assert outs[1][1].abs().max().item() > 0
     assert torch.equal(outs[0][0], outs[1][0])
     assert torch.equal(outs[0][1], outs[1][1])
+
+
+def test_batched_stem_bwd_partial_tile_equals_k2_bf16(cuda):
+    """bfloat16 K8b at H = 72 (its last 16 x 16 gx tile half past the
+    image: boxes past the tensor, rows and lanes dropped) against K2 at
+    H = 80 on the same chain inputs: K2's masks the signs of K8a's saved
+    activations, zero past 72; its g5 K8b's gated gp5 (zero past 18) and a
+    y5 of ones (gate 1). gp5's rows and columns 17 are zero too, so every
+    cotangent past the 72 image is zero in K2 as well (the chain's support
+    ends at gx row and column 70) and the two agree bit for bit: K2's gx
+    over the 72^2 image equals K8b's, zero beyond."""
+    SB = _experimental("stem_batched")
+    bf16, b, h, h2 = torch.bfloat16, 2, 72, 80
+    h1, h5 = h // 2, h // 4
+    sp = _stem_params(bf16, cuda)
+    sbp = SF.stem_bwd_params(sp)
+    g = torch.Generator().manual_seed(18)
+    x = torch.rand(b, h, h, 3, generator=g).to(cuda, bf16)
+    seg = SB._seg(h1)
+    acts = SB.fused_stem_fwd_b(*SB.split_phases_b(x, seg), sp, b,
+                               save_acts=True)
+    g5 = torch.randn(b, h5, h5, 128, generator=g).to(cuda, bf16)
+    g5[:, h5 - 1:] = 0
+    g5[:, :, h5 - 1:] = 0
+    gp5dd = SB.nhwc_to_batched(SB.interleave_zero_rows(
+        SB.interleave_zero_cols(g5)), seg)
+    n = SB.fused_stem_bwd_b.launches
+    gx8 = SB.merge_phases_b(*SB.fused_stem_bwd_b(gp5dd, acts, sbp, b), b,
+                            h1, 3)
+    torch.cuda.synchronize()
+    assert SB.fused_stem_bwd_b.launches == n + 1
+    assert gx8.abs().max().item() > 0
+
+    def pad(t, side):
+        return torch.nn.functional.pad(
+            t, (0, 0, 0, side - t.shape[2], 0, side - t.shape[1]))
+
+    m0 = pad((SB.merge_phases_b(acts[1], acts[2], b, h1, 32) > 0).to(
+        torch.int8), h2)
+    masks = [PC.to_planar_plain(m0, step=2, offset=0),
+             PC.to_planar_plain(m0, step=2, offset=1)]
+    masks += [PC.to_planar_plain(pad((SB.batched_to_nhwc(
+        a, b, h1, a.shape[1]) > 0).to(torch.int8), h2 // 2))
+        for a in acts[3:]]
+    y5p = PC.to_planar_plain(torch.ones(b, h2 // 4, h2 // 4, 128,
+                                        dtype=bf16, device=cuda))
+    g5p = PC.to_planar_plain(pad(g5, h2 // 4))
+    gx2 = SF.merge_phases(*SF.fused_stem_bwd_saved(
+        (y5p, *masks), g5p, sbp), h2 // 2, 3)
+    assert torch.equal(gx2[:, :h, :h], gx8)
+    assert not gx2[:, h:].any() and not gx2[:, :, h:].any()
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

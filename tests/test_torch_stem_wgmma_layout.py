@@ -160,8 +160,8 @@ def test_k2_stride2_adjoints_pack_per_parity(conv):
 def test_packed_copies_built_once_per_weight_tensor():
     """``_mma_cached`` keeps one packed copy per weight tensor and build
     function: the ``wgmma`` packings and the ``mma.sync`` fragment order
-    (K5's) of one tensor live side by side, and an in-place change of the
-    tensor rebuilds them."""
+    (``mma_weights``, K8a's and K6's) of one tensor live side by side, and
+    an in-place change of the tensor rebuilds them."""
     sp = _stem_params()
     sbp = SF.stem_bwd_params(sp)
     w1, v5 = sp[1][0], sbp[4]

@@ -394,16 +394,17 @@ def test_port_import_leaves_experimental_unloaded():
 
 
 def test_bf16_stem_kernels_run_on_tensor_cores():
-    """The bfloat16 K1 and K2 run their convs on ``wgmma`` through
-    stem_common.cuh's ``wg::conv`` (K1's five convs; K2's adjoints: two
-    parity groups of four and three single GEMMs), their weights streamed
-    by ``cp.async.bulk`` and K2's masks, y5 and g5 by tensor maps; the
-    bfloat16 K5, K8a and K8b reach ``mma.sync`` through ``mma_conv`` (K5's
-    four recompute convs and K2's former chain, ``bwd_tc::chain``, which K5
-    and K8b share; K8a's five convs), the bfloat16 K4 through its own
-    ``ldmatrix`` / ``mma.sync`` loop, the float32 paths keep the CUDA-core
-    helpers, and no kernel source includes a library's kernels (cuDNN,
-    cuBLAS, CUTLASS's device-level GEMMs)."""
+    """The bfloat16 K1, K2, K5 and K8b run their convs on ``wgmma`` through
+    stem_common.cuh's ``wg::conv`` (K1's five convs; K2's chain,
+    ``wgc::chain``, which K2, K5 and K8b share: its adjoints two parity
+    groups of four and three single GEMMs; K5's four recompute convs),
+    their weights streamed by ``cp.async.bulk`` and their boxes by tensor
+    maps; the ``mma.sync`` chain (``bwd_tc::chain``) and its staging
+    helpers are gone; the bfloat16 K8a reaches ``mma.sync`` through
+    ``mma_conv`` (its five convs), the bfloat16 K4 runs ``wgmma`` with no
+    ``mma.sync`` left, the float32 paths keep the CUDA-core helpers, and
+    no kernel source includes a library's kernels (cuDNN, cuBLAS,
+    CUTLASS's device-level GEMMs)."""
     import re
     csrc = os.path.join(ROOT, PORT, "csrc")
     src = {f: open(os.path.join(csrc, f)).read() for f in os.listdir(csrc)
@@ -429,31 +430,46 @@ def test_bf16_stem_kernels_run_on_tensor_cores():
     assert len(re.findall(r"\bwg::produce<", k1)) == 5
     assert "mma_conv<" not in fwd
     assert len(re.findall(r"\bconv_stage<", fwd)) == 5
-    # K2: eleven GEMMs on wg::conv, its loads by tensor maps; float32 the
-    # FMA grad_chain
+    # the chain K2, K5 and K8b share: eleven GEMMs on wg::conv (two
+    # parity groups of four, three single), their producer side eleven
+    # wg::produce
+    wgc = common[common.index("namespace wgc {"):]
+    assert len(re.findall(r"\bwg::conv<", body(wgc, " void chain("))) == 11
+    assert len(re.findall(r"\bwg::produce<",
+                          body(wgc, " void produce("))) == 11
+    for gone in ("bwd_tc::chain", "convt_s2<128", "stage_signs",
+                 "StagedMask", "load_gp5", "_tc_kernel(const bf16* "
+                 "__restrict__ gp5dd", "fused_stem_remat_tc_kernel"):
+        assert not any(gone in text for text in src.values()), gone
+    # K2: the shared chain, its loads by tensor maps; float32 the FMA
+    # grad_chain
     k2 = body(bwd, "fused_stem_bwd_wg_kernel(")
-    assert len(re.findall(r"\bwg::conv<", k2)) == 11
-    assert len(re.findall(r"\bwg::produce<", k2)) == 11
+    assert "wgc::chain(" in k2 and "wgc::produce(" in k2
     assert len(re.findall(r"\bwg::tma_load_4d\(", k2)) == 7
-    assert "mma_conv<" not in bwd and "bwd_tc::chain(" not in bwd
+    assert "mma_conv<" not in bwd
     assert "grad_chain<T>" in bwd and "launch_wg" in bwd
-    # the chain K5 and K8b share: two parity groups of four in
-    # bwd_tc::convt_s2, three single GEMMs on mma_conv
-    chain = common[common.index("namespace bwd_tc {"):]
-    chain = chain[chain.index("void chain("):]
-    assert len(re.findall(r"\bmma_conv<", chain)) == 3
-    assert len(re.findall(r"\bconvt_s2<", chain)) == 2
-    # K5: K1's four recompute convs on mma_conv, then the shared chain
+    # K5: K1's four recompute convs on wg::conv (conv0 and conv1 once a y0
+    # chunk), y5's and g5's boxes by tensor maps, then the shared chain;
+    # float32 conv_stage + grad_chain
     remat = src["stem_remat.cu"]
-    rtc = remat[remat.index("fused_stem_remat_tc_kernel("):]
-    assert len(re.findall(r"\bmma_conv<", rtc)) == 4
-    assert "bwd_tc::chain(" in rtc and "grad_chain<T>" in remat
-    # K8a and K8b: the bfloat16 kernels on K1's five mma_conv stages and on
-    # the shared chain; float32 keeps conv_stage and chain_tail
+    k5 = body(remat, "fused_stem_remat_wg_kernel(")
+    chunk = body(remat, " void y0_chunk(")
+    assert len(re.findall(r"\bwg::conv<", chunk)) == 2
+    assert len(re.findall(r"\bwg::conv<", k5)) == 2
+    assert len(re.findall(r"\by0_chunk<", k5)) == 2
+    assert len(re.findall(r"\bwg::produce<", k5)) == 4
+    assert len(re.findall(r"\bwg::tma_load_4d\(", k5)) == 2
+    assert "wgc::chain(" in k5 and "wgc::produce(" in k5
+    assert "mma_conv<" not in remat and "grad_chain<T>" in remat
+    # K8a: the bfloat16 kernel on K1's five convs on mma_conv; K8b: the
+    # shared chain, its gp5dd and activations' boxes by tensor maps;
+    # float32 keeps conv_stage and chain_tail
     k8 = src["stem_batched.cu"]
     assert len(re.findall(r"\bmma_conv<",
                           body(k8, "fused_stem_fwd_b_tc_kernel("))) == 5
-    assert "bwd_tc::chain(" in body(k8, "fused_stem_bwd_b_tc_kernel(")
+    k8b = body(k8, "fused_stem_bwd_b_wg_kernel(")
+    assert "wgc::chain(" in k8b and "wgc::produce(" in k8b
+    assert len(re.findall(r"\bwg::tma_load_4d\(", k8b)) == 6
     assert len(re.findall(r"\bconv_stage<",
                           body(k8, "fused_stem_fwd_b_kernel("))) == 5
     assert "chain_tail<T>(" in body(k8, "fused_stem_bwd_b_kernel(")
