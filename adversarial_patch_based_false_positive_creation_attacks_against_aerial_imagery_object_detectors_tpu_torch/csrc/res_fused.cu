@@ -1040,38 +1040,54 @@ __global__ void __launch_bounds__(NT, 1)
   const Org o10 = {R0 - 1, oc - 1, H, W};
   const Org o8 = {R0, oc, H, W};
 
+  wg::Lap lap;
   stage_tile<R12, L12, 6, C, PC>(X, g.x + img * C * wl, R0 - 2, oc - 2, H,
                                  W, wl);
+  lap(wg::P_LOAD);
   __syncthreads();
+  lap(wg::P_SYNC);
   // a over 12 x 20
   mma_conv<C, PC, M, 4, 2>(X, R12 * L12, f.w6, RowsConv<1, 1>{L12, L12},
-                           EpiActTC<SAVE>{A, L12, g.b6, o12, sa, 2});
+                           EpiActTC<SAVE>{A, L12, g.b6, o12, sa, 2}, 0,
+                           &lap);
   __syncthreads();
+  lap(wg::P_SYNC);
   if (SAVE) put_signs<M>(sa, g.am + img * M * wl, R0, C0, H, wl);
+  lap(wg::P_MASK);
   // post7, then y8, over 10 x 18
   mma_conv<M, PM, C, 4, 3, true>(A, R10 * L10, f.w7,
                                  RowsConv<3, 1>{L10, L12},
-                                 EpiPost7TC<SAVE>{P, X, g.b7, o10, sp7});
+                                 EpiPost7TC<SAVE>{P, X, g.b7, o10, sp7}, 0,
+                                 &lap);
   __syncthreads();
+  lap(wg::P_SYNC);
   if (SAVE) put_signs<C>(sp7, g.p7m + img * C * wl, R0, C0, H, wl);
+  lap(wg::P_MASK);
   // c over 10 x 18 into the x region (x is dead once y8 exists)
   mma_conv<C, PC, M, 4, 3>(P, R10 * L10, f.w9, RowsConv<1, 1>{L10, L10},
-                           EpiActTC<SAVE>{X, L10, g.b9, o10, sc, 1});
+                           EpiActTC<SAVE>{X, L10, g.b9, o10, sc, 1}, 0,
+                           &lap);
   __syncthreads();
+  lap(wg::P_SYNC);
   if (SAVE) put_signs<M>(sc, g.cm + img * M * wl, R0, C0, H, wl);
+  lap(wg::P_MASK);
   // post10 and y11 = post10 + y8 over the own 8 x 16 into A's stage
   mma_conv<M, PM, C, 4, 2, true>(X, TR * TL, f.w10,
                                  RowsConv<3, 1>{TL, L10},
-                                 EpiY11TC<SAVE>{A, P, g.b10, o8, sp10});
+                                 EpiY11TC<SAVE>{A, P, g.b10, o8, sp10}, 0,
+                                 &lap);
   __syncthreads();
+  lap(wg::P_SYNC);
   put_tile<C>(A, g.y11 + img * C * wl, R0, C0, H, wl);
   zero_right(g.y11 + img * C * wl, C, R0, C0, H, wl);
+  lap(wg::P_STORE);
   if (SAVE) {
     put_signs<C>(sp10, g.p10m + img * C * wl, R0, C0, H, wl);
     zero_right(g.am + img * M * wl, M, R0, C0, H, wl);
     zero_right(g.p7m + img * C * wl, C, R0, C0, H, wl);
     zero_right(g.cm + img * M * wl, M, R0, C0, H, wl);
     zero_right(g.p10m + img * C * wl, C, R0, C0, H, wl);
+    lap(wg::P_MASK);
   }
 }
 
@@ -1097,10 +1113,12 @@ __global__ void __launch_bounds__(NT, 1)
   const Org o8 = {R0, oc, H, W};
 
   // the gates of c and post7 over 10 x 18, of a over the own 8 x 16
+  wg::Lap lap;
   stage_mask<R10, L10, 7, M>(mc, g.cm + img * M * wl, R0 - 1, oc - 1, H, wl);
   stage_mask<R10, L10, 7, C>(mp7, g.p7m + img * C * wl, R0 - 1, oc - 1, H,
                              wl);
   stage_mask<TR, TL, 0, M>(ma, g.am + img * M * wl, R0, oc, H, wl);
+  lap(wg::P_MASK);
   if constexpr (W12) {
     // gp12's super positions (a, b) from (R0/2 - 1, C0/2 - 2): output
     // (2a + py, 2b + px) of the parity GEMMs is image (R0 - 2 + 2a + py,
@@ -1109,44 +1127,57 @@ __global__ void __launch_bounds__(NT, 1)
     stage_tile<NSR + 1, NSC + 1, 7, 2 * C, P12>(
         GP12, g.gp12 + (long long)blockIdx.z * H12 * 2 * C * wl12,
         R0 / 2 - 1, C0 / 2 - 2, H12, W12c, wl12);
+    lap(wg::P_LOAD);
     __syncthreads();
+    lap(wg::P_SYNC);
     const EpiG11TC e{A, o12};
     constexpr int NS = NSR * NSC;
     mma_conv<2 * C, P12, C, 2, 5>(GP12, NS, f.w12t,
-                                  RowsT2<0, 0>{NSC, NSC + 1}, e);
+                                  RowsT2<0, 0>{NSC, NSC + 1}, e, 0, &lap);
     mma_conv<2 * C, P12, C, 2, 5>(GP12, NS, f.w12t,
-                                  RowsT2<0, 1>{NSC, NSC + 1}, e, NT / 64);
+                                  RowsT2<0, 1>{NSC, NSC + 1}, e, NT / 64,
+                                  &lap);
     mma_conv<2 * C, P12, C, 2, 5>(GP12, NS, f.w12t,
-                                  RowsT2<1, 0>{NSC, NSC + 1}, e, NT / 64);
+                                  RowsT2<1, 0>{NSC, NSC + 1}, e, NT / 64,
+                                  &lap);
     mma_conv<2 * C, P12, C, 2, 5>(GP12, NS, f.w12t,
-                                  RowsT2<1, 1>{NSC, NSC + 1}, e);
+                                  RowsT2<1, 1>{NSC, NSC + 1}, e, 0, &lap);
   } else {
     stage_tile<R12, L12, 6, C, PC>(A, g.g11 + img * C * wl, R0 - 2, oc - 2,
                                    H, W, wl);
+    lap(wg::P_LOAD);
   }
   __syncthreads();
+  lap(wg::P_SYNC);
   gate_g11(A, G8, g.p10m + img * C * wl, R0 - 2, oc - 2, H, wl);
+  lap(wg::P_MASK);
   __syncthreads();
+  lap(wg::P_SYNC);
   // gp9 over 10 x 18
   mma_conv<C, PC, M, 2, 3, true>(A, R10 * L10, f.w10t,
                                  RowsConv<3, 1>{L10, L12},
-                                 EpiGateTC{B, L10, o10, mc});
+                                 EpiGateTC{B, L10, o10, mc}, 0, &lap);
   __syncthreads();
+  lap(wg::P_SYNC);
   // g8 (in place of g11) and gp7 (into A) over 10 x 18
   mma_conv<M, PM, C, 4, 3>(B, R10 * L10, f.w9t, RowsConv<1, 1>{L10, L10},
-                           EpiG8TC{G8, A, o10, mp7});
+                           EpiG8TC{G8, A, o10, mp7}, 0, &lap);
   __syncthreads();
+  lap(wg::P_SYNC);
   // gp6 over the own 8 x 16
   mma_conv<C, PC, M, 2, 2, true>(A, TR * TL, f.w7t,
                                  RowsConv<3, 1>{TL, L10},
-                                 EpiGateTC{B, TL, o8, ma});
+                                 EpiGateTC{B, TL, o8, ma}, 0, &lap);
   __syncthreads();
+  lap(wg::P_SYNC);
   // g5 = T(W6^T gp6 + g8) into A's stage
   mma_conv<M, PM, C, 4, 2>(B, TR * TL, f.w6t, RowsConv<1, 1>{TL, TL},
-                           EpiG5TC{A, G8, o8});
+                           EpiG5TC{A, G8, o8}, 0, &lap);
   __syncthreads();
+  lap(wg::P_SYNC);
   put_tile<C>(A, g.g5 + img * C * wl, R0, C0, H, wl);
   zero_right(g.g5 + img * C * wl, C, R0, C0, H, wl);
+  lap(wg::P_STORE);
 }
 
 // float32: 8 x 8 column tiles on the FMA kernels

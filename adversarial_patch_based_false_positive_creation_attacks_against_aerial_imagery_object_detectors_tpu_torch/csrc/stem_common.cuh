@@ -591,6 +591,38 @@ __device__ void grad_chain(T* sm, const T* __restrict__ y5,
   }
 }
 
+namespace wg {
+
+// Cycle accounting of the wgmma kernels, compiled in only with
+// -DAPFP_PROFILE (ops/_cuda.py: profiled builds such a copy, chip_smoke.py
+// phase 5 reads it): thread 0 of each block adds the clock64 cycles since
+// its previous lap to the category a lap names (by a predicated
+// reduction, no branch). Otherwise every lap is empty.
+enum Prof { P_LOAD, P_INPUT, P_WAIT, P_MMA, P_EPI, P_MASK, P_STORE, P_SYNC,
+            PROF_N };
+#ifdef APFP_PROFILE
+__device__ unsigned long long prof_cycles[PROF_N];
+struct Lap {
+  long long t;
+  __device__ Lap() { t = clock64(); }
+  __device__ void operator()(int cat) {
+    const long long n = clock64();
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.eq.u32 p, %2, 0;\n"
+        "@p red.global.add.u64 [%0], %1;\n}\n" ::"l"(&prof_cycles[cat]),
+        "l"(n - t), "r"(threadIdx.x)
+        : "memory");
+    t = n;
+  }
+};
+#else
+struct Lap {
+  __device__ void operator()(int) const {}
+};
+#endif
+
+}  // namespace wg
+
 // ---------------------------------------------------------------------------
 // Tensor-core convs on mma.sync (the bfloat16 K8a and K6): implicit GEMMs
 // ---------------------------------------------------------------------------
@@ -814,13 +846,15 @@ __device__ __forceinline__ void mma_tap(float (&acc)[MT][NW][4],
 // to warps (a caller running several small GEMMs back to back spreads the
 // idle warps). PF loads the next tap's B fragments while the current tap's
 // MMAs run (the taps unrolled, twice the fragment registers: for a kernel
-// of one block a multiprocessor).
+// of one block a multiprocessor). lap (the K6 kernels' cycle accounts):
+// each item's MMAs, then its epilogue.
 template <int CIN, int IP, int COUT, int NW, int MT = 1, bool PF = false,
           class Rows, class Epi>
 __device__ __forceinline__ void mma_conv(const bf16* __restrict__ in, int M,
                                          const uint2* __restrict__ wf,
                                          const Rows& rows, const Epi& epi,
-                                         int rot = 0) {
+                                         int rot = 0,
+                                         wg::Lap* lap = nullptr) {
   constexpr int KSTEPS = CIN / 16;
   constexpr int NT8 = COUT / 8;
   constexpr int NG = NT8 / NW;
@@ -881,6 +915,7 @@ __device__ __forceinline__ void mma_conv(const bf16* __restrict__ in, int M,
         mma_tap<KSTEPS, NW, MT>(acc, a, b);
       }
     }
+    if (lap != nullptr) (*lap)(wg::P_MMA);
     // accumulator (t, j, e): row (mg MT + t) 16 + lane/4 (+8 for e >= 2),
     // channels 8 (ng NW + j) + 2 (lane % 4) (+1)
     const int g = lane >> 2, n0 = ng * NW * 8 + 2 * (lane & 3);
@@ -896,6 +931,7 @@ __device__ __forceinline__ void mma_conv(const bf16* __restrict__ in, int M,
         for (int j = 0; j < NW; ++j)
           epi(oy, ox, n0 + 8 * j, acc[t][j][2 * h], acc[t][j][2 * h + 1]);
       }
+    if (lap != nullptr) (*lap)(wg::P_EPI);
   }
 }
 
@@ -1387,34 +1423,6 @@ __device__ __forceinline__ void release(const R& r, int s) {
       "r"(threadIdx.x & 31)
       : "memory");
 }
-
-// Cycle accounting of the wgmma kernels, compiled in only with
-// -DAPFP_PROFILE (ops/_cuda.py: profiled builds such a copy, chip_smoke.py
-// phase 5 reads it): thread 0 of each block adds the clock64 cycles since
-// its previous lap to the category a lap names (by a predicated
-// reduction, no branch). Otherwise every lap is empty.
-enum Prof { P_LOAD, P_INPUT, P_WAIT, P_MMA, P_EPI, P_MASK, P_STORE, P_SYNC,
-            PROF_N };
-#ifdef APFP_PROFILE
-__device__ unsigned long long prof_cycles[PROF_N];
-struct Lap {
-  long long t;
-  __device__ Lap() { t = clock64(); }
-  __device__ void operator()(int cat) {
-    const long long n = clock64();
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.eq.u32 p, %2, 0;\n"
-        "@p red.global.add.u64 [%0], %1;\n}\n" ::"l"(&prof_cycles[cat]),
-        "l"(n - t), "r"(threadIdx.x)
-        : "memory");
-    t = n;
-  }
-};
-#else
-struct Lap {
-  __device__ void operator()(int) const {}
-};
-#endif
 
 // An epilogue that takes a thread's values row by row (ROWS = true: K5's
 // sign epilogue) rather than pair by pair

@@ -273,6 +273,7 @@ or without the port beside this script.
 
     python3 chip_smoke.py --k4-ab DIR     # K4, DIR's tree against this one
     python3 chip_smoke.py --stem-ab DIR   # K5, K8b and K2 alike
+    python3 chip_smoke.py --k6-ab DIR     # K6a, K6a save, K6b, K6c alike
 
 run the A/Bs of ``ab_turns`` on one card instead: the checkout at DIR (a
 parent commit unpacked by ``git archive``) and this one in turns
@@ -2103,6 +2104,129 @@ def grad12_kernel(dev, model, card, tc_info) -> dict:
             ent["f32"] = r
         del g5, masks, xp, gp12, g11p
     return ent
+
+
+# the K6 rows (entry names of the kernels line), timed at b24 608^2
+K6_ROWS = ("res152_fused", "res152_fused_save", "res152_fused_grad",
+           "res152_fused_grad12")
+
+
+def k6_calls(dev, model) -> tuple:
+    """The bfloat16 K6 kernels at b24 608^2 (the 152^2 stage) on seeded
+    inputs: ({entry name: a call}, {entry name: its output}). K6a alone
+    and with ``save``, K6b on K6a's masks, K6c on the same masks and a
+    seeded gp12."""
+    PC = import_port("ops.planar_conv")
+    RF = import_port("ops.res_fused")
+    bf16, b, h = torch.bfloat16, TRAIN_BATCH, SIZE // 4
+    gen = torch.Generator(device=dev).manual_seed(SEED + 21)
+    rfwd, rbwd, _ = model.res_params()
+    xp = PC.to_planar(torch.randn(b, h, h, 128, generator=gen,
+                                  device=dev).to(bf16))
+    gp = PC.to_planar(torch.randn(b, h, h, 128, generator=gen,
+                                  device=dev).to(bf16))
+    gp12 = PC.to_planar(torch.randn(b, h // 2, h // 2, 256, generator=gen,
+                                    device=dev).to(bf16))
+    y11, *masks = RF.res152_fused(xp, rfwd, save=True)
+    calls = {
+        "res152_fused": lambda: RF.res152_fused(xp, rfwd),
+        "res152_fused_save": lambda: RF.res152_fused(xp, rfwd, save=True),
+        "res152_fused_grad": lambda: RF.res152_fused_grad(gp, masks, rbwd),
+        "res152_fused_grad12": lambda: RF.res152_fused_grad12(
+            gp12, masks, rbwd, model.w12t)}
+    outs = {"res152_fused": [calls["res152_fused"]()],
+            "res152_fused_save": [y11, *masks],
+            "res152_fused_grad": [calls["res152_fused_grad"]()],
+            "res152_fused_grad12": [calls["res152_fused_grad12"]()]}
+    return calls, outs
+
+
+def digest(ts) -> str:
+    """sha256 of the tensors' bytes, in order (a tree's outputs against
+    another's, bit for bit)."""
+    import hashlib
+    h = hashlib.sha256()
+    for t in ts:
+        h.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def k6_split(dev, model, dev_ms: dict) -> dict:
+    """Where the bfloat16 K6 kernels' time goes at b24 (``k6_calls``): the
+    stage library rebuilt with ``-DAPFP_PROFILE`` (``ops/_cuda.py:
+    profiled``), in which thread 0 of each block adds the clock64 cycles
+    between its laps to a category (``csrc/stem_common.cuh: wg::Lap``:
+    tile loads, input waits, weight waits, MMAs, epilogues, mask staging
+    and sign stores, output stores, barriers). Shares are of the summed
+    cycles; ``split_ms`` applies them to the normal build's device time
+    (``dev_ms``); the profiled build's own time is beside it."""
+    _cuda = import_port("ops._cuda")
+    out = {}
+    with _cuda.profiled("res_fused"):
+        calls, _ = k6_calls(dev, model)
+        for name, fn in calls.items():
+            fn()
+            torch.cuda.synchronize()
+            _cuda.prof_take("res_fused")
+            for _ in range(3):
+                fn()
+            torch.cuda.synchronize()
+            cycles = _cuda.prof_take("res_fused")
+            total = sum(cycles.values())
+            share = {k: v / total for k, v in cycles.items() if v}
+            out[name] = {"share": share,
+                         "split_ms": {k: v * dev_ms[name]
+                                      for k, v in share.items()},
+                         "profiled_dev_ms": device_ms(fn)}
+            log(f"[k6-split] {name} b24: dev {dev_ms[name]:.4f} ms; "
+                f"{json.dumps({k: round(v, 4) for k, v in share.items()})}"
+                f"; profiled build {out[name]['profiled_dev_ms']:.4f} ms")
+        del calls
+    torch.cuda.empty_cache()
+    return out
+
+
+def k6_readings(dev, model) -> dict:
+    """The four K6 rows at b24 (``k6_calls``): CUDA-event ms over 5 calls
+    (as phase 7 times them), device ms (``device_ms``: a CUDA graph of 20)
+    and a digest of each output (``digest``)."""
+    calls, outs = k6_calls(dev, model)
+    rec = {"ms": {n: time_ms(fn, 5) for n, fn in calls.items()},
+           "dev_ms": {n: device_ms(fn) for n, fn in calls.items()},
+           "digest": {n: digest(outs[n]) for n in calls}}
+    del calls, outs
+    torch.cuda.empty_cache()
+    return rec
+
+
+def k6_route_steps(dev, steps: int = 10) -> dict:
+    """The b24 training step (``tools/step_profile.build_step``: the
+    default step's victim and inputs) on the c12 route (K6a ``save`` +
+    K6c) and the fused-stage route (K6a ``save`` + K6b): CUDA-event ms a
+    step over ``steps`` after 3 warm-up steps, and the K6 launches of the
+    timed steps."""
+    SP = import_port("tools.step_profile")
+    out = {}
+    for route in ("c12", "fused"):
+        run, _ = SP.build_step(TRAIN_BATCH, dev, res152=route)
+        for _ in range(3):
+            run()
+        torch.cuda.synchronize()
+        reset_counts()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(steps):
+            run()
+        end.record()
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in read_counts().items()
+                    if k in K6_ROWS and v}
+        out[route] = {"ms": start.elapsed_time(end) / steps,
+                      "launches": launches}
+        del run
+        torch.cuda.empty_cache()
+    return out
 
 
 def route_forward(x, kw, sp, pf, rf, c12=None):
@@ -5196,6 +5320,11 @@ def main() -> int:
             k["split_b24"] = {"stem_fwd_conv1": split["stem_fwd_conv1"]}
     k6 = stage_kernels(dev, model16, card, tc_info)
     k6c = grad12_kernel(dev, model16, card, tc_info)
+    # the K6 rows' device times and cycle split at b24
+    k6_dev = k6_readings(dev, model16)["dev_ms"]
+    k6_sp = k6_split(dev, model16, k6_dev)
+    for k in (*k6, k6c):
+        k["dev_ms"], k["split_b24"] = k6_dev[k["name"]], k6_sp[k["name"]]
     del model16
     torch.cuda.empty_cache()
     # K3b's narrow form at the planar stem's input cotangent gx0
@@ -5522,6 +5651,55 @@ print("STEMAB " + json.dumps(rec))
 """
 
 
+# One tree's K6 readings for ``k6_ab``, from that tree's own chip_smoke.py
+# and kernels (what a parent commit already has): the four K6 rows' times
+# and output digests (``k6_readings``), their cycle split (``k6_split``)
+# and the c12 and fused-stage b24 steps (``k6_route_steps``)
+K6_AB_CHILD = r"""
+import json, sys, torch
+sys.path.insert(0, ".")
+import chip_smoke as C
+C.import_port("ops._cuda").build_all()
+M = C.import_port("models")
+darknet = C.import_port("models.darknet")
+net = M.build_network(M.yolov3_blocks(width=C.SIZE, height=C.SIZE))
+dev = torch.device("cuda")
+model = darknet.Darknet(net, M.init_params(net, C.SEED), torch.bfloat16,
+                        device=dev)
+rec = C.k6_readings(dev, model)
+rec["split"] = C.k6_split(dev, model, rec["dev_ms"])
+del model
+torch.cuda.empty_cache()
+rec["steps"] = C.k6_route_steps(dev)
+print("K6AB " + json.dumps(rec))
+"""
+
+
+def k6_ab(parent: str) -> int:
+    """``python3 chip_smoke.py --k6-ab DIR``: the K6 kernels in the
+    checkout at DIR (a parent commit) and in this one, on one card in one
+    call, in turns (``ab_turns``): the four rows' CUDA-event and device
+    times and cycle splits, the c12 and fused-stage b24 steps, and a
+    digest of each output. Prints a ``[k6-ab]`` line a turn, whether each
+    output's digest agrees across the trees, and one JSON record last."""
+    card = card_line()
+    runs = ab_turns(parent, K6_AB_CHILD, "K6AB")
+    for rec in runs:
+        log(f"[k6-ab] {rec['tree']}: " + "; ".join(
+            f"{n} {rec['ms'][n]:.4f} ms (dev {rec['dev_ms'][n]:.4f})"
+            for n in K6_ROWS) + "; steps " + ", ".join(
+            f"{r} {v['ms']:.2f} ms {v['launches']}"
+            for r, v in rec["steps"].items()) + f" ({card})")
+        for name, r in rec["split"].items():
+            log(f"[k6-ab] {rec['tree']} {name} b24 split: " + json.dumps(
+                {k: round(v, 4) for k, v in r["share"].items()}))
+    agree = {n: len({rec["digest"][n] for rec in runs}) == 1
+             for n in K6_ROWS}
+    log(f"[k6-ab] outputs bit for bit the parent's: {json.dumps(agree)}")
+    log(json.dumps({"k6_ab": runs, "digests_agree": agree, "card": card}))
+    return 0
+
+
 def stem_ab(parent: str) -> int:
     """``python3 chip_smoke.py --stem-ab DIR``: the stem's backward
     kernels K5, K8b and K2 in the checkout at DIR (a parent commit) and in
@@ -5555,4 +5733,6 @@ if __name__ == "__main__":
         sys.exit(k4_ab(os.path.abspath(sys.argv[2])))
     if sys.argv[1:2] == ["--stem-ab"]:
         sys.exit(stem_ab(os.path.abspath(sys.argv[2])))
+    if sys.argv[1:2] == ["--k6-ab"]:
+        sys.exit(k6_ab(os.path.abspath(sys.argv[2])))
     sys.exit(main())
