@@ -533,40 +533,16 @@ __device__ __forceinline__ void ldsm4(uint32_t (&r)[4], uint32_t a) {
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(a));
 }
-__device__ __forceinline__ void ldsm4t(uint32_t (&r)[4], uint32_t a) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
-}
 __device__ __forceinline__ void ldsm2t(uint32_t (&r)[2], uint32_t a) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
       : "=r"(r[0]), "=r"(r[1])
       : "r"(a));
 }
-__device__ __forceinline__ void stsm4(uint32_t a, const uint32_t (&r)[4]) {
-  asm volatile(
-      "stmatrix.sync.aligned.m8n8.x4.shared.b16 [%0], {%1, %2, %3, %4};\n" ::
-          "r"(a),
-      "r"(r[0]), "r"(r[1]), "r"(r[2]), "r"(r[3])
-      : "memory");
-}
 __device__ __forceinline__ void stsm2(uint32_t a, const uint32_t (&r)[2]) {
   asm volatile(
       "stmatrix.sync.aligned.m8n8.x2.shared.b16 [%0], {%1, %2};\n" ::"r"(a),
       "r"(r[0]), "r"(r[1])
-      : "memory");
-}
-
-// a consumer warp is done with what barrier bar guards: its lane 0 arrives
-// (by a predicated arrive, not a branch)
-__device__ __forceinline__ void arrive(uint32_t bar) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.eq.u32 p, %1, 0;\n"
-      "@p mbarrier.arrive.shared::cta.b64 _, [%0];\n}\n" ::"r"(bar),
-      "r"(threadIdx.x & 31)
       : "memory");
 }
 
@@ -729,7 +705,7 @@ __device__ __forceinline__ void chunk_mma(float (&acc)[G::NI][N / 2],
         if (A::mine(4 * (w + 1) + j))
           rows.load(a[(w + 1) % DB][j], src, 4 * (w + 1) + j);
     wg::wait<0>();
-    arrive(wempty + 8 * sl);
+    wg::arrive(wempty + 8 * sl);
     if (DB == 1 && w + 1 < G::WPC)
 #pragma unroll
       for (int j = 0; j < 4; ++j)
@@ -956,7 +932,7 @@ __global__ void __launch_bounds__(NTH, 2)
       src = s0 + L::POS_AT;
       transpose<G>(land, src, lx, a.w_in);
       lap(wg::P_LOAD);
-      arrive(lempty + 8 * sl);
+      wg::arrive(lempty + 8 * sl);
       wg::sync_consumers();
       lap(wg::P_SYNC);
     }
@@ -965,7 +941,7 @@ __global__ void __launch_bounds__(NTH, 2)
       chunk_mma<G, V, N, 0>(acc, src, s0, wfull, wempty, c, lap);
     else
       chunk_mma<G, V, N, 1>(acc, src, s0, wfull, wempty, c, lap);
-    if constexpr (V == V1X1) arrive(lempty + 8 * sl);
+    if constexpr (V == V1X1) wg::arrive(lempty + 8 * sl);
     wg::sync_consumers();  // the staged tile (or landing buffer) is free
     lap(wg::P_SYNC);
   }

@@ -44,55 +44,70 @@
 // A 152-wide stripe of rows does not fit a block (8 rows of bfloat16 x
 // alone are ~470 KB against 227 KB), so each block owns a tile of
 // positions for all 128 channels and works over its receptive field in
-// shared memory; no intermediate touches device memory.
+// shared memory; no intermediate touches device memory. The halos and the
+// 64-row wgmma blocks make a block's GEMMs 54.5 MFLOP (1.37x its own
+// positions' 39.8), 0.25 TFLOP a launch over the 10 x 19 x 24 = 4,560
+// blocks, 0.25 ms at the card's peak; each block also reads the stage's
+// 327,680 bytes of packed weights from L2 once (1.49 GB a launch; K6c's
+// conv12^T 589,824 more, 2.69 GB).
 //
-// bfloat16 (res152_fwd_tc_kernel, res152_bwd_tc_kernel) runs every conv on
-// the tensor cores as an implicit GEMM (stem_common.cuh: mma_conv,
-// mma.sync.m16n8k16, float32 accumulation): M the tile's positions, N the
-// output channels, K the input channels x taps. W6, W7, W9, W10 and their
-// flipped transposes are stride-1 row maps (RowsConv<1 | 3, 1>) over
-// [pos][pitch] tiles; K6c's prologue is four parity GEMMs (RowsT2, K = 1,
-// 2, 2 or 4 taps x 256) over the unexpanded gp12 tile, so no multiply-add
-// meets a zero. The weights come in mma.sync's fragment order
-// (ops/planar_conv.py: mma_weights, built once per weight tensor), one
-// 8-byte __ldg per lane and 8 channels, read through L1/L2: no per-tap
-// staging and no barrier inside a conv. Tiles' row pitches are C + 8
-// elements (16-byte rows: the eight rows of an ldmatrix phase fall in
-// distinct bank groups).
+// bfloat16 (res152_fwd_wg_kernel, res152_bwd_wg_kernel) is built for
+// Hopper's units (stem_common.cuh: wg), as K1 and K2 are: every conv is an
+// implicit GEMM (M the tile's positions in 64-row blocks, N the output
+// channels, K the input channels x taps) on wgmma.mma_async, A from the
+// [pos][pitch] tiles by ldmatrix into registers (a tap shift is an address
+// offset), B from shared memory. A block is 288 threads: two consumer
+// warpgroups and a producer warp, whose lane 0 streams each GEMM's packed
+// weights (ops/res_fused.py: stage_packed, conv12_packed: wg_weights'
+// 64-deep, 128-byte-swizzled chunks, taps in the kernel's order) by
+// cp.async.bulk into a ring of 8 KB slots (nine in K6a, seven with SAVE,
+// five in K6b / K6c) under full / empty mbarriers, once a block: every
+// GEMM is one pass of two warpgroup items, so the next GEMM's first chunks
+// are in flight under the current one's epilogue. Its lane 1 loads the
+// block's tile (x, g11 or gp12) as TMA boxes of 32 channels
+// (wg::planar_map) through two landing buffers over regions not yet live;
+// a box starts on a 16-byte boundary, 8 lanes left of the tile's first
+// (x and g11 40 lanes, gp12 24), and the consumers transpose it into the
+// [pos][pitch] tile by ldmatrix.trans / stmatrix (land_tile), zeroing the
+// columns outside the image. The GEMMs (a warpgroup's item: 64-row blocks
+// x channels):
+//   K6a: W6 over 12 x 20 (2 x 64), W7 over 10 x 18 (3 x 64, its A one
+//        16-deep step at a time), W9 over 10 x 18 (3 x 32), W10 over the
+//        own 8 x 16 (2 x 64)
+//   K6b: W10^T over 10 x 18 (3 x 32), W9^T over 10 x 18 as two GEMMs of
+//        64 channels (3 x 32 each: one of 128 spilled), W7^T and W6^T over
+//        8 x 16 (2 x 32, 2 x 64)
+//   K6c: first conv12^T's four output parities (RowsT2, K = 1, 2, 2 or 4
+//        taps x 256) over 6 x 10 super positions each (1 x 64): the
+//        odd-column parities' grid from the gp12 tile's first column, the
+//        even-column ones' one column right, so each parity covers the
+//        12 x 20 halo and nothing past it; then K6b's chain.
+// Registers: ptxas allots 168 a thread to a block of 288; these plans run
+// without a spill. The steps run as K4's forward does (taps, then 16-deep
+// steps from a zero float32 accumulator: a wgmma k16 step sums as an
+// mma.sync one), so bf16 K6a's y11 and its four masks equal the planar
+// stage route's (models/res_planar.py: _forward, K4 x 4) bit for bit. The
+// epilogues keep the FMA kernel's arithmetic (EpiAct, EpiPost7, EpiY11,
+// EpiGp9, EpiG8, EpiGp6, EpiG5 below), so a kernel differs from its plain
+// version by summation order alone.
 //   The tile is 8 rows x 16 planar lanes (columns C0 - 1 .. C0 + 14 for
 // C0 = 16 blockIdx.x), so every (row, channel) line a block writes is one
 // aligned 32-byte sector of bfloat16 (16 bytes of int8), and lane 0 is a
-// column outside the image of the first tile column. a over 12 x 20, post7
-// and c over 10 x 18 and post10 over the own 8 x 16 cost 1.25x the FLOPs
-// of the own positions (8 x 8 tiles: 1.34x); K6c's prologue computes
-// 6 x 11 super positions a parity for the tile's 4 x 8 (2.06x conv12's
-// dgrad; the tile's odd first column puts one more super column in the
-// grid). Forward regions: x [12 x 20][136],
-// then c [10 x 18][72]; a [12 x 20][72], then y11's write-back stage
-// [128][136]; post7, then y8 [10 x 18][136]; with SAVE four sign stages
-// [64 | 128 | 64 | 128][144] bytes: 149,056 / 204,352 bytes. Backward:
-// g11, gp10 [12 x 20][136], then gp7 [10 x 18][136], then g5's stage
-// [128][136]; gp9 [10 x 18][72], then gp6 [8 x 16][72]; g11's inner
-// 10 x 18, then g8 [10 x 18][136]; the three gates' sign bytes staged once
-// ([10 x 18][68], [10 x 18][132], [8 x 16][68]): 184,864 bytes, K6c's gp12
-// tile [7 x 12][264] over gp9's and g8's regions, dead until conv10^T's
-// epilogue. One block a multiprocessor either way (8 warps); two blocks
-// would need the x tile or y8 out of shared memory.
-//   Tile fills (x, g11, gp12) read 16-byte vectors of 8 lanes along the
-// planar rows, 4 channels an item, and store 8 bytes a position; the masks
-// are read as 8-byte vectors of 8 lanes. The epilogues stage y11 / g5 and
-// the signs channel-major in shared memory, and each line goes back to
-// device memory whole (K4's write-back, planar_conv.cu), a warp 16 lines.
-// The epilogues keep the FMA kernel's arithmetic (EpiAct, EpiPost7,
-// EpiY11, EpiGp9, EpiG8, EpiGp6, EpiG5 below), so a kernel differs from
-// its plain version by summation order alone. The forward walks each
-// sum as K4's bfloat16 forward (planar_conv.cu) does: taps, then 16-deep
-// steps (cin 64: one chunk; cin 128: K4's two 64-channel chunks of one
-// tap are the same eight steps in order), on the same fragment-order
-// weights, and rounds where K4 and the planar route's two bfloat16 adds
-// do; so its y11 and its four masks equal the planar stage route's
-// (models/res_planar.py: _forward) bit for bit.
-//
+// column outside the image of the first tile column. Forward regions: x
+// [12 x 20][136], then c [10 x 18][72]; a [12 x 20][72], then y11's
+// write-back stage [128][136]; post7, then y8 [10 x 18][136]; with SAVE
+// post7's, then post10's signs staged [128][144] bytes (a's and c's are
+// read back from their stored tiles, put_tile_signs); 223,984 bytes,
+// 226,000 with SAVE, the ring and barriers included. Backward: g11, gp10
+// [12 x 20][136], then gp7 [10 x 18][136], then g5's stage [128][136];
+// gp9 [10 x 18][72], then gp6 [8 x 16][72]; g11's inner 10 x 18, then g8
+// [10 x 18][136]; the three gates' sign bytes staged once ([10 x 18][68],
+// [10 x 18][132], [8 x 16][68]); K6c's gp12 tile [7 x 12][264] over gp9's
+// and g8's regions, dead until conv10^T's epilogue: 226,960 bytes. One
+// block a multiprocessor. The epilogues stage y11 / g5 and the signs
+// channel-major, and each line goes back to device memory whole (K4's
+// write-back, planar_conv.cu), a warp 16 lines.
+
 // float32 (res152_fwd_kernel, res152_bwd_kernel) keeps the CUDA-core FMA
 // kernels (TF32 would not hold the float32 gradient checks): 8 x 8 column
 // tiles, [position][channel] tiles padded by one 32-bit word, each thread
@@ -593,24 +608,8 @@ __global__ void __launch_bounds__(NT, 2)
 }
 
 // ---------------------------------------------------------------------------
-// bfloat16: tensor cores
+// bfloat16: wgmma on weights streamed into shared memory
 // ---------------------------------------------------------------------------
-
-// The bfloat16 kernels' weights in mma.sync's fragment order
-// (ops/planar_conv.py: mma_weights of the HWIO kernels)
-struct FwdFrags {
-  const uint2* w6;
-  const uint2* w7;
-  const uint2* w9;
-  const uint2* w10;
-};
-struct BwdFrags {
-  const uint2* w6t;
-  const uint2* w7t;
-  const uint2* w9t;
-  const uint2* w10t;
-  const uint2* w12t;  // K6c
-};
 
 namespace tc {
 
@@ -620,9 +619,9 @@ constexpr int R10 = TR + 2, L10 = TL + 2;     // the 10 x 18 halo
 constexpr int PC = C + 8, PM = M + 8;         // row pitches (elements)
 constexpr int OP = TR * TL + 8;               // output stage, a channel
 constexpr int SP = TR * TL + 16;              // sign stage: a channel's bytes
-// K6c: NSR x NSC super positions a parity, over the gp12 tile of
-// (NSR + 1) x (NSC + 1) positions at pitch P12
-constexpr int NSR = R12 / 2, NSC = L12 / 2 + 1;
+// K6c: NSR x NSC super positions a parity over the gp12 tile of
+// (NSR + 1) x GW positions at pitch P12
+constexpr int NSR = R12 / 2, NSC = L12 / 2, GW = NSC + 2;
 constexpr int P12 = 2 * C + 8;
 // element counts of the regions
 constexpr int N12C = R12 * L12 * PC;          // x, g11, gp10
@@ -632,23 +631,101 @@ constexpr int N10M = R10 * L10 * PM;          // c, gp9
 constexpr int NOUT = C * OP;                  // y11's or g5's stage
 constexpr int FWD_A = N12M > NOUT ? N12M : NOUT;
 constexpr int FWD_BYTES = 2 * (N12C + FWD_A + N10C);
-constexpr int SIGN_BYTES = 2 * (M + C) * SP;
+constexpr int SIGN_BYTES = C * SP;            // SAVE: post7's, then post10's
 // the backward's staged gate bytes: c and post7 over 10 x 18, a over 8 x 16
 constexpr int MC = R10 * L10 * (M + 4), MP7 = R10 * L10 * (C + 4);
 constexpr int MA = TR * TL * (M + 4);
 constexpr int BWD_BYTES = 2 * (N12C + N10M + N10C) + MC + MP7 + MA;
 static_assert(N10C <= N12C && NOUT <= N12C && TR * TL * PM <= N10M,
               "backward regions");
-static_assert((NSR + 1) * (NSC + 1) * P12 <= N10M + N10C, "gp12 tile");
+static_assert((NSR + 1) * GW * P12 <= N10M + N10C, "gp12 tile");
 static_assert(FWD_BYTES % 16 == 0 && (2 * N12C) % 16 == 0 &&
                   (2 * FWD_A) % 16 == 0 && (2 * N10M) % 16 == 0 &&
-                  MC % 16 == 0 && MP7 % 16 == 0 && (M * SP) % 16 == 0,
+                  MC % 16 == 0 && MP7 % 16 == 0,
               "16-byte aligned regions");
 
+// The tile boxes (the tensor unit): BC channels of a planar tensor, their
+// lanes from the 16-byte boundary 8 lanes below the tile's first lane (x
+// and g11: XBL lanes from C0 - 8, 80-byte lines, so that the eight channel
+// lines a transposing ldmatrix reads fall in distinct bank groups; gp12:
+// GBL lanes from C0/2 - 8, 48-byte lines). Two landing buffers: x's over a
+// and post7, g11's over gp9 and g8, gp12's over gp10.
+constexpr int BC = 32, XBL = 40, GBL = 24;
+constexpr int XBOX = R12 * BC * XBL * 2;         // bytes a box
+constexpr int GBOX = (NSR + 1) * BC * GBL * 2;
+static_assert(2 * XBOX <= 2 * (FWD_A + N10C) &&
+                  2 * XBOX <= 2 * (N10M + N10C) && 2 * GBOX <= 2 * N12C &&
+                  XBOX % 128 == 0 && GBOX % 128 == 0 && (2 * N12C) % 128 == 0,
+              "landing buffers");
+
+// The weight ring: 8 KB slots, nine beside the forward's regions (seven
+// beside them and the sign stage with SAVE), five beside the backward's;
+// then the landing buffers' full and empty barriers
+constexpr int SLOT = 8192, BWD_STAGES = 5, LBAR_BYTES = 32;
 template <bool SAVE>
-constexpr int fwd_bytes() {
-  return FWD_BYTES + (SAVE ? SIGN_BYTES : 0);
+__host__ __device__ constexpr int fwd_stages() {
+  return SAVE ? 7 : 9;
 }
+template <bool SAVE>
+__host__ __device__ constexpr int fwd_smem() {
+  return FWD_BYTES + (SAVE ? SIGN_BYTES : 0) +
+         wg::ring_bytes(fwd_stages<SAVE>(), SLOT) + LBAR_BYTES;
+}
+constexpr int BWD_SMEM =
+    BWD_BYTES + wg::ring_bytes(BWD_STAGES, SLOT) + LBAR_BYTES;
+static_assert(fwd_smem<false>() <= 232448 && fwd_smem<true>() <= 232448 &&
+                  BWD_SMEM <= 232448,
+              "shared memory");
+
+// One GEMM of the stage: taps, depth a tap, N, channel groups, 64-row
+// blocks an item, rows, the steps of a wgmma group; one pass, so its chunks
+// stream through the ring once (no ring holds it resident: stages 0)
+template <int NTAP, int KT, int N, int NG, int MT, int ROWS, int GS>
+using Gemm = wg::Gemm<NTAP, KT, N, NG, MT, ROWS, SLOT, 0, 1, GS>;
+// ptxas allots 168 registers a thread to a block of 288. A warpgroup's
+// item of three 64-row blocks x 64 channels (W7 over the 10 x 18 halo: 96
+// accumulators) fits with its A fragments loaded a step at a time (GS 1);
+// the backward's W9^T of that shape spilled, so it runs as two GEMMs of 64
+// output channels (B9h), each half's weights streamed once.
+using F6 = Gemm<1, C, M, 1, 2, R12 * L12, 2>;
+using F7 = Gemm<9, M, C, 2, 3, R10 * L10, 1>;
+using F9 = Gemm<1, C, M, 2, 3, R10 * L10, 2>;
+using F10 = Gemm<9, M, C, 2, 2, TR * TL, 2>;
+// the backward: W10^T and W9^T over 10 x 18, W7^T and W6^T over 8 x 16
+using B10 = Gemm<9, C, M, 2, 3, R10 * L10, 2>;
+using B9h = Gemm<1, M, M, 2, 3, R10 * L10, 2>;
+using B7 = Gemm<9, C, M, 2, 2, TR * TL, 4>;
+using B6 = Gemm<1, M, C, 2, 2, TR * TL, 2>;
+// K6c's prologue: conv12^T's output parity (PY, PX) over NSR x NSC super
+// positions, K = 1, 2, 2 or 4 taps x 256
+template <int PY, int PX>
+using U12 = Gemm<(PY + 1) * (PX + 1), 2 * C, C, 2, 1, NSR * NSC, 4>;
+template <class... G>
+constexpr bool one_pass() {
+  return ((G::NPASS == 1 && !G::RES) && ...);
+}
+static_assert(one_pass<F6, F7, F9, F10, B10, B9h, B7, B6, U12<0, 0>,
+                       U12<0, 1>, U12<1, 0>, U12<1, 1>>(),
+              "every GEMM in one pass: its weights read once a block");
+
+// The bfloat16 kernels' weights packed for wgmma (ops/res_fused.py:
+// stage_packed, conv12_packed): the forward's W6, W7, W9, W10, or the
+// backward's W6^T, W7^T, W9^T (its two halves), W10^T and K6c's conv12^T
+// by parity
+struct Packed {
+  const unsigned char* w[5];
+};
+
+// An epilogue for the output channels from n0 (a half's GEMM)
+template <class E>
+struct From {
+  E e;
+  int n0;
+  __device__ void operator()(int oy, int ox, int n, float v0,
+                             float v1) const {
+    e(oy, ox, n0 + n, v0, v1);
+  }
+};
 
 // A tile's origin in the image: tile position (oy, ox) is image (r0 + oy,
 // c0 + ox)
@@ -659,61 +736,6 @@ struct Org {
     return r >= 0 && r < H && c >= 0 && c < W;
   }
 };
-
-// Stage a window of one image's planar rows (src: [H][CH][wl]) into dst
-// [pos][P], pos = r NC + col: rows ir0 .. ir0 + R - 1, columns col0 ..
-// col0 + NC - 1 (column c at lane c + 1), zero outside [0, H) x [0, W).
-// The window's first lane lies OFF lanes past a multiple of 8, so its
-// lanes come in NV aligned 16-byte vectors; an item is 4 channels of one
-// vector: four 16-byte loads along W, then an 8-byte store of the 4
-// channels at each of its positions (channel quads fastest, so that a
-// warp's stores fill whole bank rows).
-template <int R, int NC, int OFF, int CH, int P>
-__device__ void stage_tile(bf16* __restrict__ dst,
-                           const bf16* __restrict__ src, int ir0, int col0,
-                           int H, int W, int wl) {
-  constexpr int NV = (OFF + NC + 7) / 8;
-  constexpr int NQ = CH / 4;
-  static_assert(CH % 4 == 0 && P % 4 == 0, "8-byte stores");
-  const int l0 = col0 + 1 - OFF;  // vector 0's first lane, a multiple of 8
-  for (int idx = threadIdx.x; idx < R * NV * NQ; idx += NT) {
-    const int p = idx % NQ;
-    const int rest = idx / NQ;
-    const int v = rest % NV, r = rest / NV;
-    const int gr = ir0 + r, l = l0 + 8 * v;
-    uint4 e[4];
-#pragma unroll
-    for (int t = 0; t < 4; ++t) e[t] = make_uint4(0, 0, 0, 0);
-    // lanes l .. l + 7 hold columns l - 1 .. l + 6
-    if (gr >= 0 && gr < H && l >= 0 && l < wl && l <= W) {
-      const bf16* s = src + ((long long)gr * CH + 4 * p) * wl + l;
-#pragma unroll
-      for (int t = 0; t < 4; ++t)
-        e[t] = __ldg(reinterpret_cast<const uint4*>(s + (long long)t * wl));
-    }
-    const bool edge = l < 1 || l + 7 > W;
-    const bf16* e0 = reinterpret_cast<const bf16*>(&e[0]);
-    const bf16* e1 = reinterpret_cast<const bf16*>(&e[1]);
-    const bf16* e2 = reinterpret_cast<const bf16*>(&e[2]);
-    const bf16* e3 = reinterpret_cast<const bf16*>(&e[3]);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int col = 8 * v + j - OFF;
-      if (col < 0 || col >= NC) continue;
-      __nv_bfloat162 lo, hi;
-      lo.x = e0[j];
-      lo.y = e1[j];
-      hi.x = e2[j];
-      hi.y = e3[j];
-      uint2 w;
-      w.x = *reinterpret_cast<const uint32_t*>(&lo);
-      w.y = *reinterpret_cast<const uint32_t*>(&hi);
-      const int c = l + j - 1;
-      if (edge && (c < 0 || c >= W)) w = make_uint2(0, 0);
-      *reinterpret_cast<uint2*>(dst + (r * NC + col) * P + 4 * p) = w;
-    }
-  }
-}
 
 // 4 channels' mask bytes of one vector of 8 lanes (zero where the row or
 // the vector lies outside the tensor): m the image's [H][CH][wl] int8
@@ -822,7 +844,9 @@ __device__ void put_tile(const bf16* __restrict__ st, bf16* __restrict__ dst,
   }
 }
 
-// The same for a sign stage s [CH][SP] bytes: one 16-byte store a line
+// The block's own 8 x 16 lanes of a sign stage s [CH][SP] bytes into a
+// planar int8 mask (dst: the image's [H][CH][wl]): one 16-byte store a
+// line
 template <int CH>
 __device__ void put_signs(const unsigned char* __restrict__ s,
                           int8_t* __restrict__ dst, int R0, int C0, int H,
@@ -843,42 +867,139 @@ __device__ void zero_right(U* __restrict__ dst, int CH, int R0, int C0,
                            int H, int wl) {
   if (blockIdx.x != gridDim.x - 1) return;
   zero_tail(dst + (long long)R0 * CH * wl, min(TR, H - R0) * CH, C0 + TL,
-            wl);
+            wl, NT);
+}
+
+
+// One box of BC channels (landed at shared address land: [R rows][BC][BL
+// lanes], box lane 0 at the image's lane l0) -> channels ch0 .. ch0 + BC - 1
+// of the tile dst [pos][P] (pos = r NC + col; tile column col at box lane
+// col + OFF), zero at image columns outside [0, W): 8 lanes x 8 channels a
+// matrix, ldmatrix.trans then stmatrix (K4's transpose); a matrix row that
+// falls outside the tile goes to the padding unit of its row's first
+// position
+template <int R, int NC, int OFF, int BL, int P>
+__device__ __forceinline__ void land_tile(uint32_t land, bf16* dst, int ch0,
+                                          int l0, int W) {
+  constexpr int NV = (OFF + NC + 7) / 8;  // 8-lane groups holding the tile
+  static_assert(NV * 8 <= BL && P % 8 == 0, "box geometry");
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int mi = lane >> 3, rr = lane & 7;
+  for (int i = warp; i < R * NV; i += NT / 32) {
+    const int v = i % NV, iy = i / NV;
+    uint32_t x[4];
+    ldsm4t(x, land + ((iy * BC + 8 * mi + rr) * BL + 8 * v) * 2);
+    // this thread's values: box lane 8 v + lane / 4, image column gc
+    const int gc = l0 + 8 * v + (lane >> 2) - 1;
+    const bool in = gc >= 0 && gc < W;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) x[k] = in ? x[k] : 0u;
+    // the row this lane addresses: matrix mi's row rr, tile column col
+    const int col = 8 * v + rr - OFF;
+    const bool ok = col >= 0 && col < NC;
+    stsm4(wg::smem_u32(dst + (iy * NC + (ok ? col : 0)) * P +
+                       (ok ? ch0 + 8 * mi : P - 8)),
+          x);
+  }
+}
+
+// The landing buffers' barriers at shared address b: full[2] (the box
+// landed), then empty[2] (every consumer warp transposed it); initialised
+// by thread 0 (a __syncthreads must follow)
+__device__ __forceinline__ void init_landing(uint32_t b) {
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 2; ++i) {
+      wg::mbar_init(b + 8 * i, 1);
+      wg::mbar_init(b + 16 + 8 * i, wg::CONSUMER_WARPS);
+    }
+    wg::fence_barrier_init();
+  }
+}
+
+// The producer's part of a tile (one thread): N boxes of BOX bytes, box k
+// the channels from BC k of the tensor map at (lane l, row r, image b),
+// through the two landing buffers at land
+template <int N, int BOX>
+__device__ __forceinline__ void produce_boxes(const CUtensorMap* map,
+                                              uint32_t land, uint32_t bar,
+                                              int l, int r, int b) {
+  for (int k = 0; k < N; ++k) {
+    const int sl = k & 1;
+    if (k >= 2) wg::mbar_wait(bar + 16 + 8 * sl, ((k >> 1) - 1) & 1);
+    wg::mbar_expect_tx(bar + 8 * sl, BOX);
+    wg::tma_load_4d(land + sl * BOX, map, l, BC * k, r, b, bar + 8 * sl);
+  }
+}
+
+// The consumers' part: each box waited for, transposed into the tile
+// (land_tile) and its buffer freed
+template <int N, int BOX, int R, int NC, int OFF, int BL, int P>
+__device__ __forceinline__ void consume_boxes(uint32_t land, uint32_t bar,
+                                              bf16* dst, int l0, int W,
+                                              wg::Lap& lap) {
+  for (int k = 0; k < N; ++k) {
+    const int sl = k & 1;
+    wg::mbar_wait(bar + 8 * sl, (k >> 1) & 1);
+    lap(wg::P_INPUT);
+    land_tile<R, NC, OFF, BL, P>(land + sl * BOX, dst, BC * k, l0, W);
+    wg::arrive(bar + 16 + 8 * sl);
+    lap(wg::P_LOAD);
+  }
+}
+
+// The signs (stored value > 0) of a [pos][PM] tile t of row width TW at the
+// block's own 8 x 16 positions (tile offset off) into a planar int8 mask
+// (dst: the image's [H][CH][wl]): a thread takes 8 positions x 4 channels
+// of a row (8-byte reads) and writes 4 lines' 8 lanes (8-byte stores)
+template <int CH>
+__device__ void put_tile_signs(const bf16* __restrict__ t, int TW, int off,
+                               int8_t* __restrict__ dst, int R0, int C0,
+                               int H, int wl) {
+  constexpr int NQ = CH / 4;
+  for (int idx = threadIdx.x; idx < TR * 2 * NQ; idx += NT) {
+    const int q = idx % NQ;
+    const int rest = idx / NQ;
+    const int h = rest & 1, r = rest >> 1;
+    if (R0 + r >= H) continue;
+    uint32_t word[4][2] = {};
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const uint2 v = *reinterpret_cast<const uint2*>(
+          t + ((r + off) * TW + off + 8 * h + i) * PM + 4 * q);
+      const bf16* e = reinterpret_cast<const bf16*>(&v);
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        if (to_f(e[c]) > 0.f) word[c][i / 4] |= 1u << (8 * (i % 4));
+    }
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      *reinterpret_cast<uint2*>(
+          dst + ((long long)(R0 + r) * CH + 4 * q + c) * wl + C0 + 8 * h) =
+          make_uint2(word[c][0], word[c][1]);
+  }
 }
 
 // a or c: T(leaky(acc + b)) into out [pos][PM] of row width OW, zero
-// outside the image; with SAVE its sign at the own positions (tile offset
-// own) into sg [ch][SP] (EpiAct's arithmetic)
-template <bool SAVE>
+// outside the image (EpiAct's arithmetic; the signs are read back from the
+// stored values, put_tile_signs)
 struct EpiActTC {
   bf16* out;
   int OW;
   const float* bias;
   Org o;
-  unsigned char* sg;
-  int own;
   __device__ void operator()(int oy, int ox, int n, float v0,
                              float v1) const {
     const bool in = o.inside(oy, ox);
-    const float v[2] = {v0, v1};
-    float y[2];
-#pragma unroll
-    for (int c = 0; c < 2; ++c)
-      y[c] = in ? round_t<bf16>(leaky(v[c] + bias[n + c])) : 0.f;
-    store2(out + (oy * OW + ox) * PM + n, y[0], y[1]);
-    if (SAVE) {
-      const int ry = oy - own, rx = ox - own;
-      if (ry >= 0 && ry < TR && rx >= 0 && rx < TL)
-#pragma unroll
-        for (int c = 0; c < 2; ++c)
-          sg[(n + c) * SP + ry * TL + rx] = y[c] > 0.f ? 1 : 0;
-    }
+    const float y0 = in ? round_t<bf16>(leaky(v0 + bias[n])) : 0.f;
+    const float y1 = in ? round_t<bf16>(leaky(v1 + bias[n + 1])) : 0.f;
+    store2(out + (oy * OW + ox) * PM + n, y0, y1);
   }
 };
 
-// post7 = T(leaky(acc + b7)), its sign at the own positions, and
-// y8 = T(post7 + x) into y8 [pos][PC] (10 x 18; x [12 x 20][PC] read at
-// tile offset +1) (EpiPost7's arithmetic)
+// post7 = T(leaky(acc + b7)), its sign at the own positions into the sign
+// stage sg [ch][SP] (SAVE), and y8 = T(post7 + x) into y8 [pos][PC]
+// (10 x 18; x [12 x 20][PC] read at tile offset +1) (EpiPost7's
+// arithmetic)
 template <bool SAVE>
 struct EpiPost7TC {
   bf16* y8;
@@ -907,9 +1028,9 @@ struct EpiPost7TC {
   }
 };
 
-// post10 = T(leaky(acc + b10)), its sign, and y11 = T(post10 + y8) into
-// the output stage [C][OP] (y8 [10 x 18][PC] read at tile offset +1), zero
-// outside the image (EpiY11's arithmetic)
+// post10 = T(leaky(acc + b10)), its sign into the sign stage sg (SAVE),
+// and y11 = T(post10 + y8) into the output stage [C][OP] (y8 [10 x 18][PC]
+// read at tile offset +1), zero outside the image (EpiY11's arithmetic)
 template <bool SAVE>
 struct EpiY11TC {
   bf16* st;
@@ -1001,17 +1122,20 @@ struct EpiG5TC {
   }
 };
 
-// K6c's prologue epilogue: g11 = T(acc) into t [12 x 20][PC]. The parity
-// GEMMs' super grid starts one column left of the tile (the tile's first
-// column, C0 - 3, is odd), so output (oy, ox) of RowsT2 is tile position
-// (oy, ox - 1); the grid's extra first and last columns are dropped.
+
+// K6c's prologue epilogue: g11 = T(acc) into t [12 x 20][PC], zero outside
+// the image. Output (oy, ox) of a parity GEMM (RowsT2) is tile position
+// (oy, ox + sh): the odd-column parities' super grid starts at the gp12
+// tile's first column, tile column -1 (sh = -1), the even-column ones' one
+// super column later (sh = +1), so the 6 x 10 super positions of each
+// parity cover the tile's 12 x 20 and nothing outside it.
 struct EpiG11TC {
   bf16* t;
   Org o;
+  int sh;
   __device__ void operator()(int oy, int ox, int n, float v0,
                              float v1) const {
-    const int tx = ox - 1;
-    if (tx < 0 || tx >= L12) return;
+    const int tx = ox + sh;
     const bool in = o.inside(oy, tx);
     store2(t + (oy * L12 + tx) * PC + n, in ? v0 : 0.f, in ? v1 : 0.f);
   }
@@ -1020,69 +1144,82 @@ struct EpiG11TC {
 }  // namespace tc
 
 // K6a in bfloat16: the block's 8 x 16 lanes (rows R0 .., columns C0 - 1 ..)
-// of y11 and, with SAVE, of the four masks
+// of y11 and, with SAVE, of the four masks. 288 threads: two consumer
+// warpgroups and the producer warp, which streams W6, W7, W9 and W10's
+// packed chunks into the ring once each.
 template <bool SAVE>
-__global__ void __launch_bounds__(NT, 1)
-    res152_fwd_tc_kernel(FwdArgs<bf16> g, FwdFrags f, int H, int W, int wl) {
+__global__ void __launch_bounds__(wg::NTH, 1)
+    res152_fwd_wg_kernel(const __grid_constant__ CUtensorMap tmx,
+                         FwdArgs<bf16> g, tc::Packed pk, int H, int W,
+                         int wl) {
   using namespace tc;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* X = reinterpret_cast<bf16*>(smem_raw);  // x, then c
   bf16* A = X + N12C;                           // a, then y11's stage
   bf16* P = A + FWD_A;                          // post7, then y8
-  unsigned char* sa = smem_raw + FWD_BYTES;     // signs (SAVE)
-  unsigned char* sp7 = sa + M * SP;
-  unsigned char* sc = sp7 + C * SP;
-  unsigned char* sp10 = sc + M * SP;
-
+  unsigned char* sg = smem_raw + FWD_BYTES;     // SAVE: post7's, post10's
+  auto ring = wg::make_ring<fwd_stages<SAVE>(), SLOT>(wg::smem_u32(
+      smem_raw + FWD_BYTES + (SAVE ? SIGN_BYTES : 0)));
+  const uint32_t land = wg::smem_u32(A);  // x's boxes, over a and post7
+  const uint32_t lbar = ring.empty + 8 * fwd_stages<SAVE>();
+  init_landing(lbar);
+  __syncthreads();
   const int R0 = blockIdx.y * TR, C0 = blockIdx.x * TL, oc = C0 - 1;
+  if (threadIdx.x >= wg::NC) {
+    // the producer warp: lane 0 the weights, lane 1 x's boxes
+    if (threadIdx.x == wg::NC) {
+      wg::produce<F6>(ring, pk.w[0]);
+      wg::produce<F7>(ring, pk.w[1]);
+      wg::produce<F9>(ring, pk.w[2]);
+      wg::produce<F10>(ring, pk.w[3]);
+    } else if (threadIdx.x == wg::NC + 1) {
+      produce_boxes<C / BC, XBOX>(&tmx, land, lbar, C0 - 8, R0 - 2,
+                                  blockIdx.z);
+    }
+    return;
+  }
+
   const long long img = (long long)blockIdx.z * H;
   const Org o12 = {R0 - 2, oc - 2, H, W};
   const Org o10 = {R0 - 1, oc - 1, H, W};
   const Org o8 = {R0, oc, H, W};
 
   wg::Lap lap;
-  stage_tile<R12, L12, 6, C, PC>(X, g.x + img * C * wl, R0 - 2, oc - 2, H,
-                                 W, wl);
-  lap(wg::P_LOAD);
-  __syncthreads();
+  consume_boxes<C / BC, XBOX, R12, L12, 6, XBL, PC>(land, lbar, X, C0 - 8, W,
+                                                    lap);
+  wg::sync_consumers();
   lap(wg::P_SYNC);
   // a over 12 x 20
-  mma_conv<C, PC, M, 4, 2>(X, R12 * L12, f.w6, RowsConv<1, 1>{L12, L12},
-                           EpiActTC<SAVE>{A, L12, g.b6, o12, sa, 2}, 0,
-                           &lap);
-  __syncthreads();
+  wg::conv<F6, PC>(ring, X, RowsConv<1, 1>{L12, L12},
+                   EpiActTC{A, L12, g.b6, o12}, lap);
+  wg::sync_consumers();
   lap(wg::P_SYNC);
-  if (SAVE) put_signs<M>(sa, g.am + img * M * wl, R0, C0, H, wl);
+  if (SAVE) put_tile_signs<M>(A, L12, 2, g.am + img * M * wl, R0, C0, H, wl);
   lap(wg::P_MASK);
   // post7, then y8, over 10 x 18
-  mma_conv<M, PM, C, 4, 3, true>(A, R10 * L10, f.w7,
-                                 RowsConv<3, 1>{L10, L12},
-                                 EpiPost7TC<SAVE>{P, X, g.b7, o10, sp7}, 0,
-                                 &lap);
-  __syncthreads();
+  wg::conv<F7, PM>(ring, A, RowsConv<3, 1>{L10, L12},
+                   EpiPost7TC<SAVE>{P, X, g.b7, o10, sg}, lap);
+  wg::sync_consumers();
   lap(wg::P_SYNC);
-  if (SAVE) put_signs<C>(sp7, g.p7m + img * C * wl, R0, C0, H, wl);
+  if (SAVE) put_signs<C>(sg, g.p7m + img * C * wl, R0, C0, H, wl);
   lap(wg::P_MASK);
   // c over 10 x 18 into the x region (x is dead once y8 exists)
-  mma_conv<C, PC, M, 4, 3>(P, R10 * L10, f.w9, RowsConv<1, 1>{L10, L10},
-                           EpiActTC<SAVE>{X, L10, g.b9, o10, sc, 1}, 0,
-                           &lap);
-  __syncthreads();
+  wg::conv<F9, PC>(ring, P, RowsConv<1, 1>{L10, L10},
+                   EpiActTC{X, L10, g.b9, o10}, lap);
+  wg::sync_consumers();
   lap(wg::P_SYNC);
-  if (SAVE) put_signs<M>(sc, g.cm + img * M * wl, R0, C0, H, wl);
+  if (SAVE) put_tile_signs<M>(X, L10, 1, g.cm + img * M * wl, R0, C0, H, wl);
   lap(wg::P_MASK);
   // post10 and y11 = post10 + y8 over the own 8 x 16 into A's stage
-  mma_conv<M, PM, C, 4, 2, true>(X, TR * TL, f.w10,
-                                 RowsConv<3, 1>{TL, L10},
-                                 EpiY11TC<SAVE>{A, P, g.b10, o8, sp10}, 0,
-                                 &lap);
-  __syncthreads();
+  wg::conv<F10, PM>(ring, X, RowsConv<3, 1>{TL, L10},
+                    EpiY11TC<SAVE>{A, P, g.b10, o8, sg}, lap);
+  wg::sync_consumers();
   lap(wg::P_SYNC);
   put_tile<C>(A, g.y11 + img * C * wl, R0, C0, H, wl);
   zero_right(g.y11 + img * C * wl, C, R0, C0, H, wl);
   lap(wg::P_STORE);
   if (SAVE) {
-    put_signs<C>(sp10, g.p10m + img * C * wl, R0, C0, H, wl);
+    put_signs<C>(sg, g.p10m + img * C * wl, R0, C0, H, wl);
     zero_right(g.am + img * M * wl, M, R0, C0, H, wl);
     zero_right(g.p7m + img * C * wl, C, R0, C0, H, wl);
     zero_right(g.cm + img * M * wl, M, R0, C0, H, wl);
@@ -1091,12 +1228,19 @@ __global__ void __launch_bounds__(NT, 1)
   }
 }
 
-// K6b (K6c with W12) in bfloat16: the block's 8 x 16 lanes of g5
+// K6b (K6c with W12) in bfloat16: the block's 8 x 16 lanes of g5; the
+// producer warp streams (K6c: conv12^T's four parities, then) W10^T, W9^T,
+// W7^T and W6^T's packed chunks once each
 template <bool W12>
-__global__ void __launch_bounds__(NT, 1)
-    res152_bwd_tc_kernel(BwdArgs<bf16> g, BwdFrags f, int H, int W, int wl,
-                         int wl12) {
+__global__ void __launch_bounds__(wg::NTH, 1)
+    res152_bwd_wg_kernel(const __grid_constant__ CUtensorMap tmg,
+                         BwdArgs<bf16> g, tc::Packed pk, int H, int W,
+                         int wl, int wl12) {
   using namespace tc;
+  using U00 = U12<0, 0>;
+  using U01 = U12<0, 1>;
+  using U10 = U12<1, 0>;
+  using U11 = U12<1, 1>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* A = reinterpret_cast<bf16*>(smem_raw);  // g11, gp10; gp7; g5's stage
   bf16* B = A + N12C;                           // gp9, then gp6
@@ -1105,8 +1249,41 @@ __global__ void __launch_bounds__(NT, 1)
   unsigned char* mc = reinterpret_cast<unsigned char*>(G8 + N10C);
   unsigned char* mp7 = mc + MC;
   unsigned char* ma = mp7 + MP7;
-
+  auto ring = wg::make_ring<BWD_STAGES, SLOT>(
+      wg::smem_u32(smem_raw + BWD_BYTES));
+  // the boxes land over gp10 (gp12's) or over gp9 and g8 (g11's)
+  const uint32_t land = wg::smem_u32(W12 ? A : B);
+  const uint32_t lbar = ring.empty + 8 * BWD_STAGES;
+  init_landing(lbar);
+  __syncthreads();
   const int R0 = blockIdx.y * TR, C0 = blockIdx.x * TL, oc = C0 - 1;
+  if (threadIdx.x >= wg::NC) {
+    // the producer warp: lane 0 the weights, lane 1 the tile's boxes
+    if (threadIdx.x == wg::NC + 1) {
+      if constexpr (W12)
+        produce_boxes<2 * C / BC, GBOX>(&tmg, land, lbar, C0 / 2 - 8,
+                                        R0 / 2 - 1, blockIdx.z);
+      else
+        produce_boxes<C / BC, XBOX>(&tmg, land, lbar, C0 - 8, R0 - 2,
+                                    blockIdx.z);
+    }
+    if (threadIdx.x == wg::NC) {
+      if constexpr (W12) {
+        const unsigned char* u = pk.w[4];
+        wg::produce<U00>(ring, u);
+        wg::produce<U01>(ring, u + U00::BYTES);
+        wg::produce<U10>(ring, u + U00::BYTES + U01::BYTES);
+        wg::produce<U11>(ring, u + U00::BYTES + U01::BYTES + U10::BYTES);
+      }
+      wg::produce<B10>(ring, pk.w[3]);
+      wg::produce<B9h>(ring, pk.w[2]);
+      wg::produce<B9h>(ring, pk.w[2] + B9h::BYTES);
+      wg::produce<B7>(ring, pk.w[1]);
+      wg::produce<B6>(ring, pk.w[0]);
+    }
+    return;
+  }
+
   const long long img = (long long)blockIdx.z * H;
   const Org o12 = {R0 - 2, oc - 2, H, W};
   const Org o10 = {R0 - 1, oc - 1, H, W};
@@ -1120,60 +1297,55 @@ __global__ void __launch_bounds__(NT, 1)
   stage_mask<TR, TL, 0, M>(ma, g.am + img * M * wl, R0, oc, H, wl);
   lap(wg::P_MASK);
   if constexpr (W12) {
-    // gp12's super positions (a, b) from (R0/2 - 1, C0/2 - 2): output
-    // (2a + py, 2b + px) of the parity GEMMs is image (R0 - 2 + 2a + py,
-    // C0 - 4 + 2b + px), tile position (2a + py, 2b + px - 1)
-    const int H12 = H / 2, W12c = W / 2;
-    stage_tile<NSR + 1, NSC + 1, 7, 2 * C, P12>(
-        GP12, g.gp12 + (long long)blockIdx.z * H12 * 2 * C * wl12,
-        R0 / 2 - 1, C0 / 2 - 2, H12, W12c, wl12);
-    lap(wg::P_LOAD);
-    __syncthreads();
+    // the gp12 tile from (R0/2 - 1, C0/2 - 2); super position (a, b) of
+    // parity (py, px) reads it from column b + (px ? 0 : 1), and its output
+    // (2a + py, 2b + px) is tile position (2a + py, 2b + px + (px ? -1 : 1))
+    consume_boxes<2 * C / BC, GBOX, NSR + 1, GW, 7, GBL, P12>(
+        land, lbar, GP12, C0 / 2 - 8, W / 2, lap);
+    wg::sync_consumers();
     lap(wg::P_SYNC);
-    const EpiG11TC e{A, o12};
-    constexpr int NS = NSR * NSC;
-    mma_conv<2 * C, P12, C, 2, 5>(GP12, NS, f.w12t,
-                                  RowsT2<0, 0>{NSC, NSC + 1}, e, 0, &lap);
-    mma_conv<2 * C, P12, C, 2, 5>(GP12, NS, f.w12t,
-                                  RowsT2<0, 1>{NSC, NSC + 1}, e, NT / 64,
-                                  &lap);
-    mma_conv<2 * C, P12, C, 2, 5>(GP12, NS, f.w12t,
-                                  RowsT2<1, 0>{NSC, NSC + 1}, e, NT / 64,
-                                  &lap);
-    mma_conv<2 * C, P12, C, 2, 5>(GP12, NS, f.w12t,
-                                  RowsT2<1, 1>{NSC, NSC + 1}, e, 0, &lap);
+    wg::conv<U00, P12>(ring, GP12 + P12, RowsT2<0, 0>{NSC, GW},
+                       EpiG11TC{A, o12, 1}, lap);
+    wg::conv<U01, P12>(ring, GP12, RowsT2<0, 1>{NSC, GW},
+                       EpiG11TC{A, o12, -1}, lap);
+    wg::conv<U10, P12>(ring, GP12 + P12, RowsT2<1, 0>{NSC, GW},
+                       EpiG11TC{A, o12, 1}, lap);
+    wg::conv<U11, P12>(ring, GP12, RowsT2<1, 1>{NSC, GW},
+                       EpiG11TC{A, o12, -1}, lap);
   } else {
-    stage_tile<R12, L12, 6, C, PC>(A, g.g11 + img * C * wl, R0 - 2, oc - 2,
-                                   H, W, wl);
-    lap(wg::P_LOAD);
+    consume_boxes<C / BC, XBOX, R12, L12, 6, XBL, PC>(land, lbar, A, C0 - 8,
+                                                      W, lap);
   }
-  __syncthreads();
+  wg::sync_consumers();
   lap(wg::P_SYNC);
   gate_g11(A, G8, g.p10m + img * C * wl, R0 - 2, oc - 2, H, wl);
   lap(wg::P_MASK);
-  __syncthreads();
+  wg::sync_consumers();
   lap(wg::P_SYNC);
   // gp9 over 10 x 18
-  mma_conv<C, PC, M, 2, 3, true>(A, R10 * L10, f.w10t,
-                                 RowsConv<3, 1>{L10, L12},
-                                 EpiGateTC{B, L10, o10, mc}, 0, &lap);
-  __syncthreads();
+  wg::conv<B10, PC>(ring, A, RowsConv<3, 1>{L10, L12},
+                    EpiGateTC{B, L10, o10, mc}, lap);
+  wg::sync_consumers();
   lap(wg::P_SYNC);
-  // g8 (in place of g11) and gp7 (into A) over 10 x 18
-  mma_conv<M, PM, C, 4, 3>(B, R10 * L10, f.w9t, RowsConv<1, 1>{L10, L10},
-                           EpiG8TC{G8, A, o10, mp7}, 0, &lap);
-  __syncthreads();
+  // g8 (in place of g11) and gp7 (into A) over 10 x 18, a half of the
+  // channels at a time
+  {
+    const EpiG8TC epi{G8, A, o10, mp7};
+    wg::conv<B9h, PM>(ring, B, RowsConv<1, 1>{L10, L10},
+                      From<EpiG8TC>{epi, 0}, lap);
+    wg::conv<B9h, PM>(ring, B, RowsConv<1, 1>{L10, L10},
+                      From<EpiG8TC>{epi, M}, lap);
+  }
+  wg::sync_consumers();
   lap(wg::P_SYNC);
   // gp6 over the own 8 x 16
-  mma_conv<C, PC, M, 2, 2, true>(A, TR * TL, f.w7t,
-                                 RowsConv<3, 1>{TL, L10},
-                                 EpiGateTC{B, TL, o8, ma}, 0, &lap);
-  __syncthreads();
+  wg::conv<B7, PC>(ring, A, RowsConv<3, 1>{TL, L10},
+                   EpiGateTC{B, TL, o8, ma}, lap);
+  wg::sync_consumers();
   lap(wg::P_SYNC);
   // g5 = T(W6^T gp6 + g8) into A's stage
-  mma_conv<M, PM, C, 4, 2>(B, TR * TL, f.w6t, RowsConv<1, 1>{TL, TL},
-                           EpiG5TC{A, G8, o8}, 0, &lap);
-  __syncthreads();
+  wg::conv<B6, PM>(ring, B, RowsConv<1, 1>{TL, TL}, EpiG5TC{A, G8, o8}, lap);
+  wg::sync_consumers();
   lap(wg::P_SYNC);
   put_tile<C>(A, g.g5 + img * C * wl, R0, C0, H, wl);
   zero_right(g.g5 + img * C * wl, C, R0, C0, H, wl);
@@ -1213,28 +1385,38 @@ inline dim3 tc_grid(int B, int H, int W) {
 }
 
 template <bool SAVE>
-int launch_fwd_tc(const FwdArgs<bf16>& a, const FwdFrags& f, int B, int H,
+int launch_fwd_wg(const FwdArgs<bf16>& a, const tc::Packed& pk, int B, int H,
                   int W, int wl, cudaStream_t s) {
-  const size_t smem = tc::fwd_bytes<SAVE>();
+  constexpr int smem = tc::fwd_smem<SAVE>();
   cudaError_t e = cudaFuncSetAttribute(
-      res152_fwd_tc_kernel<SAVE>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      res152_fwd_wg_kernel<SAVE>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
-  res152_fwd_tc_kernel<SAVE><<<tc_grid(B, H, W), NT, smem, s>>>(a, f, H, W,
-                                                                 wl);
+  CUtensorMap tm;
+  const int err = wg::planar_map(&tm, a.x, true, B, H, C, wl, tc::XBL,
+                                 tc::R12, tc::BC);
+  if (err != 0) return err;
+  res152_fwd_wg_kernel<SAVE><<<tc_grid(B, H, W), wg::NTH, smem, s>>>(
+      tm, a, pk, H, W, wl);
   return (int)cudaGetLastError();
 }
 
 template <bool W12>
-int launch_bwd_tc(const BwdArgs<bf16>& a, const BwdFrags& f, int B, int H,
+int launch_bwd_wg(const BwdArgs<bf16>& a, const tc::Packed& pk, int B, int H,
                   int W, int wl, int wl12, cudaStream_t s) {
-  const size_t smem = tc::BWD_BYTES;
   cudaError_t e = cudaFuncSetAttribute(
-      res152_bwd_tc_kernel<W12>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      res152_bwd_wg_kernel<W12>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, tc::BWD_SMEM);
   if (e != cudaSuccess) return (int)e;
-  res152_bwd_tc_kernel<W12><<<tc_grid(B, H, W), NT, smem, s>>>(a, f, H, W,
-                                                                wl, wl12);
+  CUtensorMap tm;
+  const int err =
+      W12 ? wg::planar_map(&tm, a.gp12, true, B, H / 2, 2 * C, wl12,
+                           tc::GBL, tc::NSR + 1, tc::BC)
+          : wg::planar_map(&tm, a.g11, true, B, H, C, wl, tc::XBL, tc::R12,
+                           tc::BC);
+  if (err != 0) return err;
+  res152_bwd_wg_kernel<W12><<<tc_grid(B, H, W), wg::NTH, tc::BWD_SMEM, s>>>(
+      tm, a, pk, H, W, wl, wl12);
   return (int)cudaGetLastError();
 }
 
@@ -1252,12 +1434,11 @@ int fwd_any(const void* x, const void* const* w, const void* const* bias,
       static_cast<int8_t*>(m[2]),      static_cast<int8_t*>(m[3])};
   const bool save = m[0] != nullptr;
   if constexpr (sizeof(T) == 2) {
-    const FwdFrags f = {static_cast<const uint2*>(fr[0]),
-                        static_cast<const uint2*>(fr[1]),
-                        static_cast<const uint2*>(fr[2]),
-                        static_cast<const uint2*>(fr[3])};
-    return save ? launch_fwd_tc<true>(a, f, B, H, W, wl, s)
-                : launch_fwd_tc<false>(a, f, B, H, W, wl, s);
+    tc::Packed pk = {};
+    for (int i = 0; i < 4; ++i)
+      pk.w[i] = static_cast<const unsigned char*>(fr[i]);
+    return save ? launch_fwd_wg<true>(a, pk, B, H, W, wl, s)
+                : launch_fwd_wg<false>(a, pk, B, H, W, wl, s);
   } else {
     return save ? launch_fwd<true>(a, B, H, W, wl, s)
                 : launch_fwd<false>(a, B, H, W, wl, s);
@@ -1278,12 +1459,11 @@ int bwd_any(const void* g11, const void* gp12, const void* w12t,
       static_cast<const T*>(wt[3]),     static_cast<T*>(g5)};
   const bool w12 = gp12 != nullptr;
   if constexpr (sizeof(T) == 2) {
-    const BwdFrags f = {
-        static_cast<const uint2*>(fr[0]), static_cast<const uint2*>(fr[1]),
-        static_cast<const uint2*>(fr[2]), static_cast<const uint2*>(fr[3]),
-        static_cast<const uint2*>(fr[4])};
-    return w12 ? launch_bwd_tc<true>(a, f, B, H, W, wl, wl12, s)
-               : launch_bwd_tc<false>(a, f, B, H, W, wl, wl12, s);
+    tc::Packed pk;
+    for (int i = 0; i < 5; ++i)
+      pk.w[i] = static_cast<const unsigned char*>(fr[i]);
+    return w12 ? launch_bwd_wg<true>(a, pk, B, H, W, wl, wl12, s)
+               : launch_bwd_wg<false>(a, pk, B, H, W, wl, wl12, s);
   } else {
     return w12 ? launch_bwd<true>(a, B, H, W, wl, wl12, s)
                : launch_bwd<false>(a, B, H, W, wl, wl12, s);
@@ -1294,8 +1474,8 @@ int bwd_any(const void* g11, const void* gp12, const void* w12t,
 
 // K6a. dtype: 0 = float32, 1 = bfloat16 (x, weights, y11); biases float32.
 // Weights HWIO, contiguous: w6 and w9 [1][1][128][64], w7 and w10
-// [3][3][64][128]; f6 .. f10 the same in mma.sync's fragment order
-// (bfloat16; null in float32). am, p7m, cm, p10m: the int8 masks [B, H,
+// [3][3][64][128]; f6 .. f10 the same packed for wgmma (bfloat16:
+// ops/res_fused.py stage_packed; null in float32). am, p7m, cm, p10m: the int8 masks [B, H,
 // 64 | 128 | 64 | 128, wl], all null for the forward alone (which then runs
 // the kernel instantiated without mask code). Returns cudaGetLastError().
 extern "C" int apfp_res152_fused(const void* x, const void* w6,
@@ -1320,7 +1500,7 @@ extern "C" int apfp_res152_fused(const void* x, const void* w6,
 // K6b. g11 and g5 planar [B, H, 128, wl] in the compute dtype; the masks
 // of K6a; the flipped, channel-swapped weights, contiguous HWIO:
 // w6t and w9t [1][1][64][128], w7t and w10t [3][3][128][64]; f6t .. f10t
-// the same in fragment order (bfloat16; null in float32).
+// the same packed for wgmma (bfloat16; null in float32).
 extern "C" int apfp_res152_fused_grad(const void* g11, const void* am,
                                       const void* p7m, const void* cm,
                                       const void* p10m, const void* w6t,
@@ -1343,8 +1523,9 @@ extern "C" int apfp_res152_fused_grad(const void* g11, const void* am,
 
 // K6c. gp12 the pre-gated conv12 cotangent, planar [B, H/2, 256, wl12]
 // (H and W even); w12t conv12's HWIO weight with its channel axes swapped,
-// contiguous [3][3][256][128], f12t the same in fragment order (bfloat16;
-// null in float32); the rest as K6b's. g5 [B, H, 128, wl].
+// contiguous [3][3][256][128], f12t the same packed for wgmma by output
+// parity (bfloat16: ops/res_fused.py conv12_packed; null in float32); the
+// rest as K6b's. g5 [B, H, 128, wl].
 extern "C" int apfp_res152_fused_grad12(
     const void* gp12, const void* am, const void* p7m, const void* cm,
     const void* p10m, const void* w12t, const void* w6t, const void* w7t,
@@ -1367,10 +1548,10 @@ extern "C" int apfp_res152_fused_grad12(
 // info[2] the blocks one multiprocessor holds. Returns the CUDA error.
 extern "C" int apfp_res152_fused_info(int dtype, int save, int* info) {
   if (dtype == 1)
-    return save ? info_of(res152_fwd_tc_kernel<true>, tc::fwd_bytes<true>(),
-                          info)
-                : info_of(res152_fwd_tc_kernel<false>,
-                          tc::fwd_bytes<false>(), info);
+    return save ? info_of(res152_fwd_wg_kernel<true>, tc::fwd_smem<true>(),
+                          info, wg::NTH)
+                : info_of(res152_fwd_wg_kernel<false>, tc::fwd_smem<false>(),
+                          info, wg::NTH);
   const size_t smem = sizeof(float) * (size_t)Smem<float>::FWD;
   return save ? info_of(res152_fwd_kernel<float, true>, smem, info)
               : info_of(res152_fwd_kernel<float, false>, smem, info);
@@ -1379,8 +1560,10 @@ extern "C" int apfp_res152_fused_info(int dtype, int save, int* info) {
 // The same for K6b (w12 = 0) and K6c (w12 = 1)
 extern "C" int apfp_res152_fused_grad_info(int dtype, int w12, int* info) {
   if (dtype == 1)
-    return w12 ? info_of(res152_bwd_tc_kernel<true>, tc::BWD_BYTES, info)
-               : info_of(res152_bwd_tc_kernel<false>, tc::BWD_BYTES, info);
+    return w12 ? info_of(res152_bwd_wg_kernel<true>, tc::BWD_SMEM, info,
+                         wg::NTH)
+               : info_of(res152_bwd_wg_kernel<false>, tc::BWD_SMEM, info,
+                         wg::NTH);
   const size_t smem = sizeof(float) * (size_t)Smem<float>::BWD;
   return w12 ? info_of(res152_bwd_kernel<float, true>, smem, info)
              : info_of(res152_bwd_kernel<float, false>, smem, info);

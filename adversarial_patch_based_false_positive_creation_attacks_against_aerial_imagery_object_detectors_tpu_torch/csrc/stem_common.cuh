@@ -591,38 +591,6 @@ __device__ void grad_chain(T* sm, const T* __restrict__ y5,
   }
 }
 
-namespace wg {
-
-// Cycle accounting of the wgmma kernels, compiled in only with
-// -DAPFP_PROFILE (ops/_cuda.py: profiled builds such a copy, chip_smoke.py
-// phase 5 reads it): thread 0 of each block adds the clock64 cycles since
-// its previous lap to the category a lap names (by a predicated
-// reduction, no branch). Otherwise every lap is empty.
-enum Prof { P_LOAD, P_INPUT, P_WAIT, P_MMA, P_EPI, P_MASK, P_STORE, P_SYNC,
-            PROF_N };
-#ifdef APFP_PROFILE
-__device__ unsigned long long prof_cycles[PROF_N];
-struct Lap {
-  long long t;
-  __device__ Lap() { t = clock64(); }
-  __device__ void operator()(int cat) {
-    const long long n = clock64();
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.eq.u32 p, %2, 0;\n"
-        "@p red.global.add.u64 [%0], %1;\n}\n" ::"l"(&prof_cycles[cat]),
-        "l"(n - t), "r"(threadIdx.x)
-        : "memory");
-    t = n;
-  }
-};
-#else
-struct Lap {
-  __device__ void operator()(int) const {}
-};
-#endif
-
-}  // namespace wg
-
 // ---------------------------------------------------------------------------
 // Tensor-core convs on mma.sync (the bfloat16 K8a and K6): implicit GEMMs
 // ---------------------------------------------------------------------------
@@ -649,6 +617,24 @@ __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(a));
+}
+
+// the same from a shared address, transposed (each 8 x 8 matrix's rows are
+// its columns' values: K4's and K6's box transposes), and its store
+// counterpart (stmatrix)
+__device__ __forceinline__ void ldsm4t(uint32_t (&r)[4], uint32_t a) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+__device__ __forceinline__ void stsm4(uint32_t a, const uint32_t (&r)[4]) {
+  asm volatile(
+      "stmatrix.sync.aligned.m8n8.x4.shared.b16 [%0], {%1, %2, %3, %4};\n" ::
+          "r"(a),
+      "r"(r[0]), "r"(r[1]), "r"(r[2]), "r"(r[3])
+      : "memory");
 }
 
 __device__ __forceinline__ void mma_bf16(float (&c)[4],
@@ -846,15 +832,13 @@ __device__ __forceinline__ void mma_tap(float (&acc)[MT][NW][4],
 // to warps (a caller running several small GEMMs back to back spreads the
 // idle warps). PF loads the next tap's B fragments while the current tap's
 // MMAs run (the taps unrolled, twice the fragment registers: for a kernel
-// of one block a multiprocessor). lap (the K6 kernels' cycle accounts):
-// each item's MMAs, then its epilogue.
+// of one block a multiprocessor).
 template <int CIN, int IP, int COUT, int NW, int MT = 1, bool PF = false,
           class Rows, class Epi>
 __device__ __forceinline__ void mma_conv(const bf16* __restrict__ in, int M,
                                          const uint2* __restrict__ wf,
                                          const Rows& rows, const Epi& epi,
-                                         int rot = 0,
-                                         wg::Lap* lap = nullptr) {
+                                         int rot = 0) {
   constexpr int KSTEPS = CIN / 16;
   constexpr int NT8 = COUT / 8;
   constexpr int NG = NT8 / NW;
@@ -915,7 +899,6 @@ __device__ __forceinline__ void mma_conv(const bf16* __restrict__ in, int M,
         mma_tap<KSTEPS, NW, MT>(acc, a, b);
       }
     }
-    if (lap != nullptr) (*lap)(wg::P_MMA);
     // accumulator (t, j, e): row (mg MT + t) 16 + lane/4 (+8 for e >= 2),
     // channels 8 (ng NW + j) + 2 (lane % 4) (+1)
     const int g = lane >> 2, n0 = ng * NW * 8 + 2 * (lane & 3);
@@ -931,7 +914,6 @@ __device__ __forceinline__ void mma_conv(const bf16* __restrict__ in, int M,
         for (int j = 0; j < NW; ++j)
           epi(oy, ox, n0 + 8 * j, acc[t][j][2 * h], acc[t][j][2 * h + 1]);
       }
-    if (lap != nullptr) (*lap)(wg::P_EPI);
   }
 }
 
@@ -1306,15 +1288,18 @@ __device__ __forceinline__ void mma_async<16>(float (&d)[8],
 // slots; otherwise each pass streams it again. CALLS: the conv calls that
 // run it on other tiles of rows with the same weights (K5's recompute runs
 // conv0 and conv1 once a y0 chunk); their passes count as its own, so such
-// a GEMM must be resident.
+// a GEMM must be resident. GS: the 16-deep steps of one wgmma group (4, a
+// chunk's; 2 or 1 for an item of many accumulators, whose A fragments are
+// then loaded a group at a time: K6's items of 2 or 3 blocks x 64 channels).
 template <int NTAP_, int KT_, int N_, int NG_, int MT_, int M_, int SLOT_,
-          int STAGES_, int CALLS_ = 1>
+          int STAGES_, int CALLS_ = 1, int GS_ = 4>
 struct Gemm {
   static constexpr int NTAP = NTAP_, KT = KT_, N = N_, NG = NG_, MT = MT_,
-                       M = M_, SLOT = SLOT_, CALLS = CALLS_;
+                       M = M_, SLOT = SLOT_, CALLS = CALLS_, GS = GS_;
   static constexpr int NN = N / NG;           // channels an item
   static constexpr int NSTEP = NTAP * KT / 16;  // 16-deep steps
   static constexpr int NCH = (NSTEP + 3) / 4;   // 64-deep chunks
+  static constexpr int NGRP = (NSTEP + GS - 1) / GS;  // wgmma groups
   static constexpr int CHUNK = N * 128;         // bytes a chunk
   static constexpr int ITEMS0 = ((M + 63) / 64 + MT - 1) / MT * NG;
   static constexpr int ITEMS = ITEMS0 + ITEMS0 % 2;
@@ -1328,6 +1313,7 @@ struct Gemm {
                     NN * 128 <= SLOT && CHUNK % SLOT * (SLOT % CHUNK) == 0,
                 "wgmma tiling");
   static_assert(CALLS == 1 || RES, "a GEMM of several calls is resident");
+  static_assert(GS == 1 || GS == 2 || GS == 4, "a group within a chunk");
   // chunk c's first slot (counted from the GEMM's first), and the slot and
   // byte offset of its channel group ng
   static __device__ int first_slot(int c) {
@@ -1424,6 +1410,44 @@ __device__ __forceinline__ void release(const R& r, int s) {
       : "memory");
 }
 
+// a consumer warp is done with what barrier bar guards: its lane 0 arrives
+// (by a predicated arrive, not a branch)
+__device__ __forceinline__ void arrive(uint32_t bar) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.eq.u32 p, %1, 0;\n"
+      "@p mbarrier.arrive.shared::cta.b64 _, [%0];\n}\n" ::"r"(bar),
+      "r"(threadIdx.x & 31)
+      : "memory");
+}
+
+// Cycle accounting of the wgmma kernels, compiled in only with
+// -DAPFP_PROFILE (ops/_cuda.py: profiled builds such a copy, chip_smoke.py
+// phase 5 reads it): thread 0 of each block adds the clock64 cycles since
+// its previous lap to the category a lap names (by a predicated
+// reduction, no branch). Otherwise every lap is empty.
+enum Prof { P_LOAD, P_INPUT, P_WAIT, P_MMA, P_EPI, P_MASK, P_STORE, P_SYNC,
+            PROF_N };
+#ifdef APFP_PROFILE
+__device__ unsigned long long prof_cycles[PROF_N];
+struct Lap {
+  long long t;
+  __device__ Lap() { t = clock64(); }
+  __device__ void operator()(int cat) {
+    const long long n = clock64();
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.eq.u32 p, %2, 0;\n"
+        "@p red.global.add.u64 [%0], %1;\n}\n" ::"l"(&prof_cycles[cat]),
+        "l"(n - t), "r"(threadIdx.x)
+        : "memory");
+    t = n;
+  }
+};
+#else
+struct Lap {
+  __device__ void operator()(int) const {}
+};
+#endif
+
 // An epilogue that takes a thread's values row by row (ROWS = true: K5's
 // sign epilogue) rather than pair by pair
 template <class E, class = void>
@@ -1458,13 +1482,13 @@ struct Item {
     }
     d00 = rows(0, 0, tap);
   }
-  // the A fragments of chunk c's (up to) four steps
-  __device__ void load(uint32_t (&a)[4][MT][4], const Rows& rows,
-                       int c) const {
+  // the A fragments of wgmma group q's (up to) GS steps
+  __device__ void load(uint32_t (&a)[G::GS][MT][4], const Rows& rows,
+                       int q) const {
     int tap;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int s = 4 * c + j;
+    for (int j = 0; j < G::GS; ++j) {
+      const int s = G::GS * q + j;
       if (s < G::NSTEP) {
         const int d = (rows(0, s / KS, tap) - d00) * IP + (s % KS) * 16;
 #pragma unroll
@@ -1505,21 +1529,24 @@ struct Item {
   }
 };
 
-// chunk c's wgmmas for one item: its (up to) four steps x MT blocks on the
-// descriptor of its channel group's part of the chunk, as one group
+// group q's wgmmas for one item: its (up to) GS steps x MT blocks on the
+// descriptor of its channel group's part of their chunk, as one group
 template <class G, class R>
 __device__ __forceinline__ void issue(float (&acc)[G::MT][G::NN / 2],
-                                      const uint32_t (&a)[4][G::MT][4],
-                                      const R& r, int c, int ng) {
+                                      const uint32_t (&a)[G::GS][G::MT][4],
+                                      const R& r, int q, int ng) {
   fence();
+  const int c = G::GS * q / 4;
   const uint64_t desc =
       desc_sw128(r.ahead(G::slot_of(c, ng)).at() + G::offset_of(c, ng));
 #pragma unroll
-  for (int j = 0; j < 4; ++j)
-    if (4 * c + j < G::NSTEP)
+  for (int j = 0; j < G::GS; ++j) {
+    const int s = G::GS * q + j;
+    if (s < G::NSTEP)
 #pragma unroll
       for (int b = 0; b < G::MT; ++b)
-        mma_async<G::NN>(acc[b], a[j][b], desc + 2 * j);  // +32 bytes
+        mma_async<G::NN>(acc[b], a[j][b], desc + 2 * (s % 4));  // +32 B
+  }
   commit();
 }
 
@@ -1542,18 +1569,18 @@ __device__ __forceinline__ void wait_chunk(const R& r, int c, Lap& lap) {
 // them; each result pair (channels n, n+1 of one position) to
 // epi(oy, ox, n, v0, v1). Called by the consumer threads; passes unrolled
 // (a loop around the divergent epilogue makes ptxas serialize the wgmmas).
-// A chunk's steps are one wgmma group; while it runs, the warpgroup loads
-// the next chunk's A fragments (two register sets). A streamed GEMM's
-// slots are freed as the group of their last chunk completes; a resident
-// one waits for its slots in the first pass of its first call (CALL 0)
-// only and frees them after the last pass of its last. Each call advances
-// r past the GEMM's slots: a later call of a GEMM of several calls takes a
-// copy of the ring as it stood before the first.
+// A group's steps (GS = 4: a chunk's) are one wgmma group; while it runs,
+// the warpgroup loads the next group's A fragments (two register sets). A
+// streamed GEMM's slots are freed as the group of their last chunk's last
+// step completes; a resident one waits for its slots in the first pass of
+// its first call (CALL 0) only and frees them after the last pass of its
+// last. Each call advances r past the GEMM's slots: a later call of a GEMM
+// of several calls takes a copy of the ring as it stood before the first.
 template <class G, int IP, int CALL = 0, class R, class Rows, class Epi>
 __device__ __forceinline__ void conv(R& r, const bf16* __restrict__ in,
                                      const Rows& rows, const Epi& epi,
                                      Lap& lap) {
-  constexpr int MT = G::MT, NN = G::NN;
+  constexpr int MT = G::MT, NN = G::NN, GS = G::GS;
   static_assert(IP % 8 == 0 && Rows::NTAP == G::NTAP, "GEMM shape");
 #pragma unroll
   for (int p = 0; p < G::NPASS; ++p) {
@@ -1563,20 +1590,24 @@ __device__ __forceinline__ void conv(R& r, const bf16* __restrict__ in,
     for (int b = 0; b < MT; ++b)
 #pragma unroll
       for (int e = 0; e < NN / 2; ++e) acc[b][e] = 0.f;
-    uint32_t a[2][4][MT][4];  // chunk c's A fragments in set c & 1
+    uint32_t a[2][GS][MT][4];  // group q's A fragments in set q & 1
     item.load(a[0], rows, 0);
 #pragma unroll
-    for (int c = 0; c < G::NCH; ++c) {
-      if (!G::RES || (p == 0 && CALL == 0)) wait_chunk<G>(r, c, lap);
-      issue<G>(acc, a[c & 1], r, c, item.ng);
-      if (c > 0) {
-        wait<1>();  // chunk c - 1's group has completed
-        if (!G::RES && G::closes(c - 1))
+    for (int q = 0; q < G::NGRP; ++q) {
+      // group q opens chunk c where its first step is the chunk's first
+      const int c = GS * q / 4;
+      const bool opens = GS * q % 4 == 0;
+      if (opens && (!G::RES || (p == 0 && CALL == 0)))
+        wait_chunk<G>(r, c, lap);
+      issue<G>(acc, a[q & 1], r, q, item.ng);
+      if (q > 0) {
+        wait<1>();  // group q - 1 has completed
+        if (opens && !G::RES && G::closes(c - 1))
 #pragma unroll
           for (int k = 0; k < G::SPC; ++k)
             release(r, r.ahead(G::first_slot(c - 1) + k).slot);
       }
-      if (c + 1 < G::NCH) item.load(a[(c + 1) & 1], rows, c + 1);
+      if (q + 1 < G::NGRP) item.load(a[(q + 1) & 1], rows, q + 1);
     }
     wait<0>();
     if (!G::RES) {

@@ -17,10 +17,12 @@ store. The kernels' weights come from ``res_weights``, built once by the
 model: the BN-folded HWIO kernels as they are for the forward, and their
 flipped, channel-swapped transposes for the backward (the Pallas
 kernels' pair and block-diagonal matrices are TPU blocking and are not
-ported). In bfloat16 the kernels run on the tensor cores and also read
-each of those weights (and K6c's ``res12_weights``) in ``mma.sync``'s
-fragment order (``stage_frags``: ``mma_weights``, built once per weight
-tensor by ``_mma_cached``); float32 reads the HWIO weights alone.
+ported). In bfloat16 the kernels run on ``wgmma`` and read each of those
+weights packed into the 64-deep swizzled chunks their producer warp
+streams into shared memory (``stage_packed``: ``wg_weights_conv``, taps in
+row-major order, W9's adjoint in halves of 64 output channels; K6c's ``res12_weights`` by output parity,
+``conv12_packed``: ``wg_weights_t2``), built once per weight tensor by
+``_mma_cached``; float32 reads the HWIO weights alone.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ import torch.nn.functional as F
 
 from . import _cuda
 from .planar_conv import _mma_cached, _round_up, flip_t, to_planar_plain
+from .stem_fused import wg_weights_conv, wg_weights_t2
 
 CIN = 128      # stage width (yolov3); MID = CIN // 2
 MID = CIN // 2
@@ -69,13 +72,42 @@ def res12_weights(w12: torch.Tensor) -> torch.Tensor:
     return w12.permute(0, 1, 3, 2).contiguous()
 
 
-def stage_frags(ws, dt) -> list:
-    """The bfloat16 kernels' fragment-order copies of the stage's HWIO
-    weights ``ws`` (``mma_weights``, built once per weight tensor), as
-    pointers; null pointers in float32, whose kernels read ``ws``."""
+def wg_weights_halves(w: torch.Tensor) -> torch.Tensor:
+    """A 1x1 64 -> 128 adjoint's ``[1, 1, K, N]`` weights (W9's, over the
+    10 x 18 halo) as the bfloat16 K6b runs it: two GEMMs of N/2 output
+    channels (``wg_weights_conv`` of each half), back to back."""
+    half = w.shape[-1] // 2
+    return torch.cat([wg_weights_conv(w[..., :half].contiguous()),
+                      wg_weights_conv(w[..., half:].contiguous())])
+
+
+# how the bfloat16 kernels run each of the stage's weights: the forward's
+# W6, W7, W9, W10 and the backward's W6^T, W7^T, W10^T one GEMM each, W9^T
+# in two halves
+FWD_BUILDS = (wg_weights_conv,) * 4
+BWD_BUILDS = (wg_weights_conv, wg_weights_conv, wg_weights_halves,
+              wg_weights_conv)
+
+
+def stage_packed(ws, builds, dt) -> list:
+    """The bfloat16 kernels' ``wgmma`` copies of the stage's HWIO weights
+    ``ws`` (the forward's convs or their ``flip_t`` adjoints) packed by
+    ``builds`` (``FWD_BUILDS``, ``BWD_BUILDS``: each GEMM's taps in
+    row-major order), built once per weight tensor, as pointers; null
+    pointers in float32, whose kernels read ``ws``."""
     if dt != torch.bfloat16:
         return [None] * len(ws)
-    return [_mma_cached(w).data_ptr() for w in ws]
+    return [_mma_cached(w, build).data_ptr() for w, build in zip(ws, builds)]
+
+
+def conv12_packed(w12t: torch.Tensor, dt):
+    """K6c's conv12^T (``res12_weights``) as its prologue's four parity
+    GEMMs run it (``wg_weights_t2``: each output parity's taps in
+    ``RowsT2``'s order, the four back to back), built once per weight
+    tensor, as a pointer; null in float32."""
+    if dt != torch.bfloat16:
+        return None
+    return _mma_cached(w12t, wg_weights_t2).data_ptr()
 
 
 def _body(xp: torch.Tensor, w_img: int) -> torch.Tensor:
@@ -203,7 +235,8 @@ def res152_fused(xp: torch.Tensor, fwd: ResFwd, *, save: bool = False,
         "res152_fused", "res_fused", "apfp_res152_fused", xp,
         xp.data_ptr(), *[w.data_ptr() for w, _ in fwd],
         *[bias.data_ptr() for _, bias in fwd],
-        *stage_frags([w for w, _ in fwd], dt), y11.data_ptr(), *mask_ptrs,
+        *stage_packed([w for w, _ in fwd], FWD_BUILDS, dt), y11.data_ptr(),
+        *mask_ptrs,
         _cuda.DTYPE_CODES[dt], bsz, h, w_img, wl)
     if save:
         res152_fused.save_launches += 1
@@ -239,7 +272,8 @@ def res152_fused_grad(g11p: torch.Tensor, masks, bwd: ResBwd, *,
     _cuda.launch(
         "res152_fused_grad", "res_fused", "apfp_res152_fused_grad", g11p,
         g11p.data_ptr(), *[m.data_ptr() for m in masks],
-        *[w.data_ptr() for w in bwd], *stage_frags(bwd, dt), g5.data_ptr(),
+        *[w.data_ptr() for w in bwd], *stage_packed(bwd, BWD_BUILDS, dt),
+        g5.data_ptr(),
         _cuda.DTYPE_CODES[dt], bsz, h, w_img, wl)
     res152_fused_grad.launches += 1
     return g5
@@ -302,7 +336,8 @@ def res152_fused_grad12(gp12p: torch.Tensor, masks, bwd: ResBwd,
         "res152_fused_grad12", "res_fused", "apfp_res152_fused_grad12",
         gp12p, gp12p.data_ptr(), *[m.data_ptr() for m in masks],
         w12t.data_ptr(), *[w.data_ptr() for w in bwd],
-        *stage_frags([w12t, *bwd], dt), g5.data_ptr(),
+        conv12_packed(w12t, dt), *stage_packed(bwd, BWD_BUILDS, dt),
+        g5.data_ptr(),
         _cuda.DTYPE_CODES[dt], bsz, h, w_img, wl, wl12)
     res152_fused_grad12.launches += 1
     return g5

@@ -13,8 +13,8 @@ Phases, each fatal on failure:
    bfloat16 K4 instantiation (1x1, 3x3 s1, 3x3 s2 and the k3t2 adjoint,
    each block width), with its registers, shared memory, blocks per
    multiprocessor and spilled bytes, and fail if one has none, if one
-   spills, or if one of the wgmma kernels (K1, K2, K5, K8b, K4) has an
-   HMMA, no HGMMA or neither a TMA load nor a bulk copy; the same
+   spills, or if one of the wgmma kernels (K1, K2, K5, K8b, K6a, K6a
+   ``save``, K6b, K6c, K4) has an HMMA, no HGMMA or neither a TMA load nor a bulk copy; the same
    resource records (static shared
    memory) for the layout kernels K3a and K3b, each form and dtype, and
    for K7 (the network form at k = 1..8 and the rank-counting form, each
@@ -154,7 +154,10 @@ Phases, each fatal on failure:
     driven through the eval CLIs in-process over 16 ``smooth_tile``s:
     ``images_filter`` (conf 0.01, b8), ``test_patch`` (a seeded 224
     patch, ``--save-images``), ``test_patch_metrics --json``,
-    ``clean_img_pre`` (conf 0.2), ``paste_patch`` in both modes and
+    ``clean_img_pre`` (conf 0.2), ``paste_patch`` in both modes (EOT
+    placement from finite labels, one box a tile: its first composite,
+    computed again in float32, must be finite, the CLI's PNG its
+    quantization, the box's pixels changed) and
     ``dataset_tools stats``; one label file per kept image, every report
     value finite but the M2s that are NaN or inf by definition; img/s of
     ``images_filter`` and ``test_patch``, the latter's per-image time
@@ -493,13 +496,13 @@ TC_KERNELS = {
     "fused_stem_bwd_b": [("", "stem_batched", "apfp_fused_stem_bwd_b_info",
                           (1,), "fused_stem_bwd_b_wg_kernel")],
     "res152_fused": [("", "res_fused", "apfp_res152_fused_info", (1, 0),
-                      "res152_fwd_tc_kernelILb0E")],
+                      "res152_fwd_wg_kernelILb0E")],
     "res152_fused_save": [("", "res_fused", "apfp_res152_fused_info", (1, 1),
-                           "res152_fwd_tc_kernelILb1E")],
+                           "res152_fwd_wg_kernelILb1E")],
     "res152_fused_grad": [("", "res_fused", "apfp_res152_fused_grad_info",
-                           (1, 0), "res152_bwd_tc_kernelILb0E")],
+                           (1, 0), "res152_bwd_wg_kernelILb0E")],
     "res152_fused_grad12": [("", "res_fused", "apfp_res152_fused_grad_info",
-                             (1, 1), "res152_bwd_tc_kernelILb1E")],
+                             (1, 1), "res152_bwd_wg_kernelILb1E")],
     **{name: [(f"NS{ns}N{n}", "planar_conv", "apfp_planar_conv_info",
                (variant, ns, n),
                f"planar_conv_wg_kernelILi{variant}ELi{ns}ELi{n}EE")
@@ -518,11 +521,13 @@ NO_SPILL = ("fused_stem_fwd", "fused_stem_fwd_save_acts",
             "res152_fused_save", "res152_fused_grad", "res152_fused_grad12",
             "median_pool_2d_pallas", *K4_NAMES)
 # the kernels built for Hopper's own units (K1, K1 save_acts, K2, K5, K8b,
-# K4): wgmma and no mma.sync, and their weights (K2, K5, K8b: also their
-# boxes; K4: its input) by bulk copies or the tensor unit
+# K6a, K6a save, K6b, K6c, K4): wgmma and no mma.sync, and their weights
+# (K2, K5, K8b: also their boxes; K4: its input) by bulk copies or the
+# tensor unit
 WGMMA_KERNELS = ("fused_stem_fwd", "fused_stem_fwd_save_acts",
                  "fused_stem_bwd_saved", "fused_stem_bwd", "fused_stem_bwd_b",
-                 *K4_NAMES)
+                 "res152_fused", "res152_fused_save", "res152_fused_grad",
+                 "res152_fused_grad12", *K4_NAMES)
 SASS_OPS = ("HGMMA", "HMMA", "UTMALDG", "UBLKCP")
 
 
@@ -560,7 +565,8 @@ def tensor_core_check(_cuda, info) -> dict:
     blocks per multiprocessor (``apfp_*_info``). Fails if one has no
     tensor-core instruction, if one of ``NO_SPILL`` (K1, K2, K5, K8, K6,
     K4) spills, or if one of ``WGMMA_KERNELS`` (K1, K1 ``save_acts``, K2,
-    K5, K8b, K4) has an HMMA, no HGMMA or neither a UTMALDG nor a UBLKCP.
+    K5, K8b, K6a, K6a ``save``, K6b, K6c, K4) has an HMMA, no HGMMA or
+    neither a UTMALDG nor a UBLKCP.
     Returns
     {entry name: record}; an entry of several instantiations holds them
     under ``sass``."""
@@ -3898,6 +3904,38 @@ def eval_pipeline(cli, model_args, raw, root, patch_png, patch_size, conf,
     return rec
 
 
+def eot_composite_check(attack, patch_png, raw, labs, out, dev) -> dict:
+    """Phase 13: ``paste_patch``'s first EOT composite computed again in
+    float32 as the CLI computes it (the first draw of a generator seeded
+    SEED on the card, the first image's label from ``labs``): every value
+    finite, the PNG the CLI wrote its 8-bit quantization, and pixels of
+    the image changed. Returns the image and the changed pixels."""
+    from PIL import Image
+    CC = import_port("cli.common")
+    labels_mod = import_port("data.labels")
+    ckpt = import_port("utils.checkpoint")
+    name = CC.list_images(raw)[0]
+    stem = os.path.splitext(name)[0]
+    patch = torch.from_numpy(ckpt.load_patch_png(patch_png, PATCH)).to(dev)
+    arr = torch.from_numpy(CC.load_scaled(os.path.join(raw, name),
+                                          SIZE)).to(dev)
+    labels = labels_mod.pad_labels(labels_mod.read_label_file(
+        os.path.join(labs, stem + ".txt"), 5), 1)[None]
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    cfg = attack.EOTConfig(img_size=SIZE)
+    draws = attack.draw_eot(gen, 1, PATCH, cfg)
+    adv, _, _ = attack.transform_patch(
+        patch, torch.from_numpy(labels).to(dev), draws, cfg)
+    comp = attack.paste_patch(arr[None], adv)[0].cpu().numpy()
+    assert np.isfinite(comp).all(), "a non-finite EOT composite"
+    png = np.asarray(Image.open(os.path.join(out, stem + ".png")))
+    assert np.array_equal(png, (comp * 255).astype(np.uint8)), \
+        "the EOT composite PNG is not the CLI's composite"
+    changed = int((comp != arr.cpu().numpy()).any(-1).sum())
+    assert changed > 0, "the EOT patch left the image as it was"
+    return {"image": name, "changed_pixels": changed}
+
+
 def slim_stem_gates(model, x):
     """The slim victim's stem (convs 0, 1, 2, 3, 5, any widths) on the
     planar route and on the conv walk (float32, TF32 off, no grad): each
@@ -3990,11 +4028,20 @@ def eval_path(dev, card) -> dict:
         full["clean_img_pre_s"] = time.perf_counter() - t0
         assert len(os.listdir(os.path.join(root, "clean", "yolo-labels"))) \
             == EVAL_TILES
+        # EOT placement from finite labels: one box a tile, at its center
+        # (the random victim's own labels have inf heights, and a patch
+        # scaled from them is not finite)
+        eot_labs = os.path.join(root, "eot_labels")
+        os.makedirs(eot_labs)
+        for n in os.listdir(raw):
+            with open(os.path.join(eot_labs, os.path.splitext(n)[0]
+                                   + ".txt"), "w") as f:
+                f.write("0 0.5 0.5 0.25 0.25\n")
+        box = slice(3 * SIZE // 8, 5 * SIZE // 8)  # the label's box
         for mode, extra in (("fixed", ["--fixed-center", "0.5", "0.5",
                                        "--fixed-scale", "0.4"]),
-                            ("eot", ["--lab-dir", os.path.join(
-                                full["gt"], "yolo-labels"), "--seed",
-                                str(SEED)])):
+                            ("eot", ["--lab-dir", eot_labs, "--seed",
+                                     str(SEED)])):
             out = os.path.join(root, f"paste_{mode}")
             t0 = time.perf_counter()
             cli["paste_patch"].main(["--patch", patch_png, "--patch-size",
@@ -4007,9 +4054,13 @@ def eval_path(dev, card) -> dict:
             for n in names[:4]:
                 got = np.asarray(Image.open(os.path.join(out, n)))
                 src = np.asarray(Image.open(os.path.join(raw, n)))
-                assert not np.array_equal(got, src), (mode, n)
+                assert not np.array_equal(got[box, box], src[box, box]), \
+                    (mode, n)
                 if mode == "fixed":   # the patch spans rows 0.3-0.7
                     assert np.array_equal(got[:SIZE // 4], src[:SIZE // 4])
+            if mode == "eot":
+                full["paste_patch_eot_composite"] = eot_composite_check(
+                    attack, patch_png, raw, eot_labs, out, dev)
         stats = io.StringIO()
         with contextlib.redirect_stdout(stats):
             # the 7-column dir: ``instances_per_class`` reads the class

@@ -628,6 +628,14 @@ def test_res152_kernels_match_plain_rect(cuda, dtype):
     _res152_fwd_bwd(cuda, dtype, 1, 24, 36)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_res152_kernels_match_plain_w72(cuda, dtype):
+    """``_res152_fwd_bwd`` at b2, 24 x 72: the last 16-lane tile column
+    (lanes 64-79) is partial, its image columns end at 71, so the wgmma
+    kernels' x and g11 boxes there run past the image."""
+    _res152_fwd_bwd(cuda, dtype, 2, 24, 72)
+
+
 @pytest.mark.parametrize("b,h", [(2, 16), (1, 40)])
 def test_res152_bf16_forward_equals_k4_route(cuda, b, h):
     """bfloat16 K6a walks each sum as K4's forward does and rounds where
@@ -681,6 +689,13 @@ def test_res152_grad12_kernel_matches_plain(cuda, dtype, b, h):
 def test_res152_grad12_kernel_matches_plain_rect(cuda, dtype):
     """``_res152_grad12`` at 24 x 36 (conv12's 12 x 18)."""
     _res152_grad12(cuda, dtype, 1, 24, 36)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_res152_grad12_kernel_matches_plain_w72(cuda, dtype):
+    """``_res152_grad12`` at b2, 24 x 72 (conv12's 12 x 36): K6c's gp12
+    boxes and parity grids in a partial last tile column."""
+    _res152_grad12(cuda, dtype, 2, 24, 72)
 
 
 def _route_grad_vs_walk(cuda, kw):

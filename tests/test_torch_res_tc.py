@@ -1,20 +1,25 @@
-"""The bfloat16 152^2 stage kernels' tensor-core design, checked on the
-CPU (the kernels themselves run only on a card: ``tests/test_torch_gpu.py``
+"""The bfloat16 152^2 stage kernels' ``wgmma`` design, checked on the CPU
+(the kernels themselves run only on a card: ``tests/test_torch_gpu.py``
 and ``chip_smoke.py`` hold them against their plain versions there).
 
-- The fragment-order weights the wrappers hand the bfloat16 kernels
-  (``res_fused.stage_frags``: ``mma_weights`` through ``_mma_cached``) for
+- The packed weights the wrappers hand the bfloat16 kernels
+  (``res_fused.stage_packed`` with ``FWD_BUILDS`` / ``BWD_BUILDS``,
+  ``conv12_packed``; built once per weight tensor by ``_mma_cached``) for
   the forward's four HWIO kernels, the backward's four ``flip_t`` kernels
-  and K6c's ``res12_weights`` invert to their HWIO source through
-  ``mma_weights``' documented index map.
+  and K6c's ``res12_weights`` are the GEMMs the kernels' producer warp
+  streams: [chunks, N, 64] a GEMM, back to back, each GEMM's 64-deep
+  chunks of its taps in the kernel's order, and invert to their HWIO
+  source through ``wg_weights``' documented index map.
 - K6c's prologue: g11 = conv12^T gp12 as four parity GEMMs over each
-  block's unexpanded gp12 tile, with the kernel's tile origins and
-  ``RowsT2``'s tap map, equals ``F.conv_transpose2d`` (stride 2, padding 1,
-  output_padding 1) in float32, at sizes whose last 16-lane tile column is
-  partial.
+  block's unexpanded gp12 tile, with the kernel's tile origins, its 6 x 10
+  super positions a parity (the even-column parities' grid one column
+  right) and ``RowsT2``'s tap map, equals ``F.conv_transpose2d`` (stride
+  2, padding 1, output_padding 1) in float32, at sizes whose last 16-lane
+  tile column is partial.
 - The sources: the bfloat16 K6a / K6b / K6c kernels run their convs
-  through ``mma_conv``, the float32 kernels keep ``conv_tile``, and the
-  dtype is dispatched at compile time with no fallback.
+  through ``wg::conv`` (no ``mma_conv``), the float32 kernels keep
+  ``conv_tile``, and the dtype is dispatched at compile time with no
+  fallback.
 """
 
 import os
@@ -58,73 +63,104 @@ def _stage_tensors(seed=0):
 WEIGHTS = ("w6", "w7", "w9", "w10", "w6t", "w7t", "w9t", "w10t", "w12t")
 
 
+def _gemms(name, w):
+    """The GEMMs a weight runs as, [T, K, N] each in the kernel's tap
+    order: one (row-major taps) for the forward convs and the adjoints but
+    W9's, whose two halves of 64 output channels are two; conv12^T's four
+    output parities in ``RowsT2``'s order."""
+    from adversarial_patch_based_false_positive_creation_attacks_against_aerial_imagery_object_detectors_tpu_torch.ops import stem_fused as SF
+    kh, kw, k, n = w.shape
+    if name == "w12t":
+        return [torch.stack([w[dy, dx] for dy, dx in taps])
+                for taps in SF.T2_PARITY_TAPS]
+    if name == "w9t":
+        return [w[..., :n // 2].reshape(1, k, n // 2),
+                w[..., n // 2:].reshape(1, k, n // 2)]
+    return [w.reshape(kh * kw, k, n)]
+
+
 @pytest.mark.parametrize("name", WEIGHTS)
 def test_stage_frags_invert_to_hwio(name):
-    """Lane 4g + t of the 16-deep step s and 8-wide block j of tap i holds
-    B[k][8j + g] at k = 16s + 2t + (0, 1, 8, 9): the wrappers' fragment
-    copy of each weight, read back through that map, is the HWIO tensor;
-    it is built once per tensor, and float32 passes none."""
+    """The packed copy the wrapper passes for each weight (its pointer the
+    cached copy's, built once per tensor; none in float32) holds the
+    weight's GEMMs back to back, each ``ceil(T K / 64)`` chunks of N rows
+    of 64 bfloat16 values (the byte counts the producer walks: 128 N a
+    chunk), and element (k, n) of a GEMM lies in its chunk k // 64, row n,
+    at the 16-byte unit ((k % 64) // 8) ^ (n % 8), element k % 8."""
     w = _stage_tensors()[name]
-    ptrs = RF.stage_frags([w], torch.bfloat16)
-    frag = PC._mma_cached(w)
-    assert ptrs == [frag.data_ptr()]
-    assert RF.stage_frags([w.float()], torch.float32) == [None]
-    kh, kw, k, n = w.shape
-    assert tuple(frag.shape) == (kh * kw, k // 16, n // 8, 32, 4)
-    assert frag.dtype == torch.bfloat16
-    tap, s, j, lane, e = np.meshgrid(
-        np.arange(kh * kw), np.arange(k // 16), np.arange(n // 8),
-        np.arange(32), np.arange(4), indexing="ij")
-    g, t = lane // 4, lane % 4
-    kk = 16 * s + 2 * t + np.array([0, 1, 8, 9])[e]
-    back = w.reshape(kh * kw, k, n)[tap, kk, 8 * j + g]
-    assert torch.equal(frag, back)
-    # every element of w appears exactly once
-    assert frag.numel() == w.numel()
+    if name == "w12t":
+        ptr, build = RF.conv12_packed(w, torch.bfloat16), None
+        assert RF.conv12_packed(w.float(), torch.float32) is None
+    else:
+        builds = RF.BWD_BUILDS if name.endswith("t") else RF.FWD_BUILDS
+        build = builds[("w6", "w7", "w9", "w10").index(name.rstrip("t"))]
+        ptr = RF.stage_packed([w], [build], torch.bfloat16)[0]
+        assert RF.stage_packed([w.float()], [build], torch.float32) == [None]
+    from adversarial_patch_based_false_positive_creation_attacks_against_aerial_imagery_object_detectors_tpu_torch.ops import stem_fused as SF
+    packed = PC._mma_cached(w, build or SF.wg_weights_t2)
+    assert ptr == packed.data_ptr() and packed.dtype == torch.bfloat16
+    rows = packed.reshape(-1, 64)
+    at = 0
+    for g in _gemms(name, w):
+        t, k, n = g.shape
+        nch = -(-(t * k) // 64)
+        kk = torch.arange(t * k)[:, None]
+        nn = torch.arange(n)[None, :]
+        back = rows[at + (kk // 64) * n + nn,
+                    (((kk % 64) // 8) ^ (nn % 8)) * 8 + kk % 8]
+        assert torch.equal(back, g.reshape(t * k, n))
+        at += nch * n
+    assert at * 64 == packed.numel()
 
 
 def _prologue(gp12: torch.Tensor, w12t: torch.Tensor, h: int, w: int):
     """K6c's prologue as the bfloat16 kernel tiles it, in float32: per
     block (R0, C0) = (8 blockIdx.y, 16 blockIdx.x), the gp12 tile of 7 x 12
-    super positions from (R0/2 - 1, C0/2 - 2) (zero outside), then per
-    output parity (PY, PX) the dense products of ``RowsT2``'s taps over
-    the 6 x 11 super positions (a, b): tap i = (iy, ix), dy = PY ? 2 iy : 1,
+    positions from (R0/2 - 1, C0/2 - 2) (zero outside), then per output
+    parity (PY, PX) the dense products of ``RowsT2``'s taps over 6 x 10
+    super positions (a, b): tap i = (iy, ix), dy = PY ? 2 iy : 1,
     ey = PY ? 1 - iy : 0 (columns alike), tap index dy 3 + dx, input at
-    (a + ey, b + ex); output (2a + PY, 2b + PX) is tile position
-    (2a + PY, 2b + PX - 1) of the 12 x 20 halo from image (R0 - 2,
-    C0 - 3), kept inside the tile and the image. Returns each block's
-    halo as (image rows, image columns, [rows, cols, 128] values)."""
+    (a + ey, b + ex + (PX ? 0 : 1)) (the even-column parities' grid one
+    column right); output (2a + PY, 2b + PX) is tile position
+    (2a + PY, 2b + PX + (PX ? -1 : 1)) of the 12 x 20 halo from image
+    (R0 - 2, C0 - 3). Returns each block's halo as (image rows, image
+    columns, [rows, cols, 128] values) and whether every halo position
+    was written exactly once."""
     g = gp12.float()
     wt = w12t.float().reshape(9, *w12t.shape[2:])  # [tap][cin][cout]
     h12, w12 = h // 2, w // 2
-    nsr, nsc = 6, 11
+    nsr, nsc = 6, 10
     out = []
     for r0 in range(0, h, TR):
         for c0 in range(0, w + 1, TL):
             ir0, ic0 = r0 // 2 - 1, c0 // 2 - 2
-            tile = torch.zeros(nsr + 1, nsc + 1, g.shape[-1])
+            tile = torch.zeros(nsr + 1, nsc + 2, g.shape[-1])
             for r in range(nsr + 1):
-                for c in range(nsc + 1):
+                for c in range(nsc + 2):
                     if 0 <= ir0 + r < h12 and 0 <= ic0 + c < w12:
                         tile[r, c] = g[ir0 + r, ic0 + c]
             halo = torch.zeros(12, 20, wt.shape[-1])
+            writes = torch.zeros(12, 20, dtype=torch.int32)
             for py in (0, 1):
                 for px in (0, 1):
+                    sh = 0 if px else 1
                     acc = torch.zeros(nsr, nsc, wt.shape[-1])
                     for iy in range(py + 1):
                         for ix in range(px + 1):
                             dy, ey = (2 * iy, 1 - iy) if py else (1, 0)
                             dx, ex = (2 * ix, 1 - ix) if px else (1, 0)
-                            acc += tile[ey:ey + nsr, ex:ex + nsc] @ \
+                            acc += tile[ey:ey + nsr,
+                                        ex + sh:ex + sh + nsc] @ \
                                 wt[dy * 3 + dx]
                     for a in range(nsr):
                         for b in range(nsc):
-                            ty, tx = 2 * a + py, 2 * b + px - 1
-                            if 0 <= tx < 20:
-                                halo[ty, tx] = acc[a, b]
+                            ty = 2 * a + py
+                            tx = 2 * b + px + (-1 if px else 1)
+                            halo[ty, tx] = acc[a, b]
+                            writes[ty, tx] += 1
             rows = torch.arange(r0 - 2, r0 + 10)
             cols = torch.arange(c0 - 3, c0 + 17)
-            out.append((rows, cols, halo))
+            out.append((rows, cols, halo, bool((writes == 1).all())))
     return out
 
 
@@ -145,7 +181,8 @@ def test_prologue_parity_gemms_equal_conv_transpose(h, w):
     assert tuple(want.shape) == (h, w, RF.CIN)
     scale = want.abs().max().item()
     seen = torch.zeros(h, w, dtype=torch.bool)
-    for rows, cols, halo in _prologue(gp12, w12t, h, w):
+    for rows, cols, halo, once in _prologue(gp12, w12t, h, w):
+        assert once
         ri = (rows >= 0) & (rows < h)
         ci = (cols >= 0) & (cols < w)
         got = halo[ri][:, ci]
@@ -161,33 +198,43 @@ def _body(src: str, kern: str) -> str:
 
 
 def test_bf16_stage_kernels_run_on_tensor_cores():
-    """bfloat16 K6a runs its four convs through ``mma_conv``, the bfloat16
-    K6b / K6c kernel its four adjoints, plus four parity GEMMs (``RowsT2``)
-    under ``W12``; the float32 kernels keep ``conv_tile`` (four convs each)
-    and K6c's ``conv12_adjoint``; the launchers pick the kernel by dtype at
-    compile time (``if constexpr``), the bfloat16 path reaches no FMA
-    kernel, and nothing reads an environment switch."""
+    """bfloat16 K6a runs its four convs through ``wg::conv`` (``wgmma``,
+    weights streamed by its producer warp: ``wg::produce``, once a GEMM),
+    the bfloat16 K6b / K6c kernel its four adjoints (W9^T in two halves),
+    plus four parity GEMMs (``RowsT2``) under ``W12``; their tiles come as
+    tensor-map boxes; no ``mma_conv`` is left in the file; the float32
+    kernels keep ``conv_tile`` (four convs each) and K6c's
+    ``conv12_adjoint``; the launchers pick the kernel by dtype at compile
+    time (``if constexpr``), the bfloat16 path reaches no FMA kernel, and
+    nothing reads an environment switch."""
     src = open(os.path.join(CSRC, "res_fused.cu")).read()
-    fwd = _body(src, "res152_fwd_tc_kernel(")
-    bwd = _body(src, "res152_bwd_tc_kernel(")
-    assert len(re.findall(r"\bmma_conv<", fwd)) == 4
-    assert len(re.findall(r"\bmma_conv<", bwd)) == 8
-    w12 = bwd[bwd.index("if constexpr (W12)"):bwd.index("} else {")]
-    assert len(re.findall(r"\bmma_conv<", w12)) == 4
+    fwd = _body(src, "res152_fwd_wg_kernel(")
+    bwd = _body(src, "res152_bwd_wg_kernel(")
+    assert len(re.findall(r"\bwg::conv<", fwd)) == 4
+    assert len(re.findall(r"\bwg::produce<", fwd)) == 4
+    assert len(re.findall(r"\bwg::conv<", bwd)) == 9
+    assert len(re.findall(r"\bwg::produce<", bwd)) == 9
+    w12 = bwd[bwd.index("if constexpr (W12) {\n    // the gp12 tile"):
+              bwd.index("} else {\n    consume")]
+    assert len(re.findall(r"\bwg::conv<", w12)) == 4
     assert sorted(re.findall(r"RowsT2<(\d), (\d)>", w12)) == [
         ("0", "0"), ("0", "1"), ("1", "0"), ("1", "1")]
-    assert "conv_tile" not in fwd and "conv_tile" not in bwd
+    for body in (fwd, bwd):
+        assert "produce_boxes<" in body and "consume_boxes<" in body
+        assert "conv_tile" not in body
+    assert "mma_conv" not in src and "mma_bf16" not in src
+    assert "wg::tma_load_4d(" in src and "wg::planar_map(" in src
     assert len(re.findall(r"\bconv_tile<",
                           _body(src, "res152_fwd_kernel("))) == 4
     f32_bwd = _body(src, "res152_bwd_kernel(")
     assert len(re.findall(r"\bconv_tile<", f32_bwd)) == 4
     assert "conv12_adjoint<T>(" in f32_bwd
-    # dispatch: bfloat16 always to the tensor-core kernels
+    # dispatch: bfloat16 always to the wgmma kernels
     for fn in ("int fwd_any(", "int bwd_any("):
         body = _body(src, fn)
         assert "if constexpr (sizeof(T) == 2)" in body
         tc = body[body.index("if constexpr"):body.index("} else {")]
-        assert "_tc<" in tc and "launch_fwd<" not in tc \
+        assert "_wg<" in tc and "launch_fwd<" not in tc \
             and "launch_bwd<" not in tc
     assert not re.search(r"res152_(fwd|bwd)_kernel<\s*(bf16|__nv_bfloat16)",
                          src)

@@ -400,11 +400,13 @@ def test_bf16_stem_kernels_run_on_tensor_cores():
     groups of four and three single GEMMs; K5's four recompute convs),
     their weights streamed by ``cp.async.bulk`` and their boxes by tensor
     maps; the ``mma.sync`` chain (``bwd_tc::chain``) and its staging
-    helpers are gone; the bfloat16 K8a reaches ``mma.sync`` through
-    ``mma_conv`` (its five convs), the bfloat16 K4 runs ``wgmma`` with no
-    ``mma.sync`` left, the float32 paths keep the CUDA-core helpers, and
-    no kernel source includes a library's kernels (cuDNN, cuBLAS,
-    CUTLASS's device-level GEMMs)."""
+    helpers are gone; the bfloat16 K6a and K6b / K6c run their convs on
+    ``wg::conv`` too (their tiles by tensor maps); the bfloat16 K8a is the
+    last kernel that reaches ``mma.sync`` through ``mma_conv`` (its five
+    convs), the bfloat16 K4 runs ``wgmma`` with no ``mma.sync`` left, the
+    float32 paths keep the CUDA-core helpers, and no kernel source
+    includes a library's kernels (cuDNN, cuBLAS, CUTLASS's device-level
+    GEMMs)."""
     import re
     csrc = os.path.join(ROOT, PORT, "csrc")
     src = {f: open(os.path.join(csrc, f)).read() for f in os.listdir(csrc)
@@ -461,12 +463,26 @@ def test_bf16_stem_kernels_run_on_tensor_cores():
     assert len(re.findall(r"\bwg::tma_load_4d\(", k5)) == 2
     assert "wgc::chain(" in k5 and "wgc::produce(" in k5
     assert "mma_conv<" not in remat and "grad_chain<T>" in remat
-    # K8a: the bfloat16 kernel on K1's five convs on mma_conv; K8b: the
-    # shared chain, its gp5dd and activations' boxes by tensor maps;
-    # float32 keeps conv_stage and chain_tail
+    # K6a, K6b / K6c: the bfloat16 kernels on wg::conv (K6a four convs,
+    # K6b five GEMMs, K6c four parity GEMMs more), their tiles by tensor
+    # maps; float32 keeps conv_tile
+    k6 = src["res_fused.cu"]
+    k6f = body(k6, "res152_fwd_wg_kernel(")
+    k6b = body(k6, "res152_bwd_wg_kernel(")
+    assert len(re.findall(r"\bwg::conv<", k6f)) == 4
+    assert len(re.findall(r"\bwg::conv<", k6b)) == 9
+    assert "produce_boxes<" in k6f and "produce_boxes<" in k6b
+    assert "wg::tma_load_4d(" in k6 and len(re.findall(r"\bconv_tile<",
+                                                        k6)) == 8
+    # K8a: the last mma_conv user, the bfloat16 kernel on K1's five convs;
+    # K8b: the shared chain, its gp5dd and activations' boxes by tensor
+    # maps; float32 keeps conv_stage and chain_tail
     k8 = src["stem_batched.cu"]
     assert len(re.findall(r"\bmma_conv<",
                           body(k8, "fused_stem_fwd_b_tc_kernel("))) == 5
+    assert [f for f, text in src.items()
+            if f != "stem_common.cuh" and "mma_conv<" in text] == [
+        "stem_batched.cu"]
     k8b = body(k8, "fused_stem_bwd_b_wg_kernel(")
     assert "wgc::chain(" in k8b and "wgc::produce(" in k8b
     assert len(re.findall(r"\bwg::tma_load_4d\(", k8b)) == 6
