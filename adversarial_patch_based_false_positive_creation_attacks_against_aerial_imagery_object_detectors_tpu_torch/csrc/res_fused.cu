@@ -1158,12 +1158,12 @@ __global__ void __launch_bounds__(wg::NTH, 1)
   bf16* A = X + N12C;                           // a, then y11's stage
   bf16* P = A + FWD_A;                          // post7, then y8
   unsigned char* sg = smem_raw + FWD_BYTES;     // SAVE: post7's, post10's
-  auto ring = wg::make_ring<fwd_stages<SAVE>(), SLOT, true>(wg::smem_u32(
+  auto ring = wg::make_ring<fwd_stages<SAVE>(), SLOT>(wg::smem_u32(
       smem_raw + FWD_BYTES + (SAVE ? SIGN_BYTES : 0)));
   const uint32_t land = wg::smem_u32(A);  // x's boxes, over a and post7
   const uint32_t lbar = ring.empty + 8 * fwd_stages<SAVE>();
   init_landing(lbar);
-  wg::cluster_sync();
+  __syncthreads();
   const int R0 = blockIdx.y * TR, C0 = blockIdx.x * TL, oc = C0 - 1;
   if (threadIdx.x >= wg::NC) {
     // the producer warp: lane 0 the weights, lane 1 x's boxes
@@ -1176,8 +1176,6 @@ __global__ void __launch_bounds__(wg::NTH, 1)
       produce_boxes<C / BC, XBOX>(&tmx, land, lbar, C0 - 8, R0 - 2,
                                   blockIdx.z);
     }
-    __syncwarp();
-    wg::cluster_sync();
     return;
   }
 
@@ -1228,7 +1226,6 @@ __global__ void __launch_bounds__(wg::NTH, 1)
     zero_right(g.p10m + img * C * wl, C, R0, C0, H, wl);
     lap(wg::P_MASK);
   }
-  wg::cluster_sync();  // the other CTA is done with this one's barriers
 }
 
 // K6b (K6c with W12) in bfloat16: the block's 8 x 16 lanes of g5; the
@@ -1252,13 +1249,13 @@ __global__ void __launch_bounds__(wg::NTH, 1)
   unsigned char* mc = reinterpret_cast<unsigned char*>(G8 + N10C);
   unsigned char* mp7 = mc + MC;
   unsigned char* ma = mp7 + MP7;
-  auto ring = wg::make_ring<BWD_STAGES, SLOT, true>(
+  auto ring = wg::make_ring<BWD_STAGES, SLOT>(
       wg::smem_u32(smem_raw + BWD_BYTES));
   // the boxes land over gp10 (gp12's) or over gp9 and g8 (g11's)
   const uint32_t land = wg::smem_u32(W12 ? A : B);
   const uint32_t lbar = ring.empty + 8 * BWD_STAGES;
   init_landing(lbar);
-  wg::cluster_sync();
+  __syncthreads();
   const int R0 = blockIdx.y * TR, C0 = blockIdx.x * TL, oc = C0 - 1;
   if (threadIdx.x >= wg::NC) {
     // the producer warp: lane 0 the weights, lane 1 the tile's boxes
@@ -1284,8 +1281,6 @@ __global__ void __launch_bounds__(wg::NTH, 1)
       wg::produce<B7>(ring, pk.w[1]);
       wg::produce<B6>(ring, pk.w[0]);
     }
-    __syncwarp();
-    wg::cluster_sync();
     return;
   }
 
@@ -1355,7 +1350,6 @@ __global__ void __launch_bounds__(wg::NTH, 1)
   put_tile<C>(A, g.g5 + img * C * wl, R0, C0, H, wl);
   zero_right(g.g5 + img * C * wl, C, R0, C0, H, wl);
   lap(wg::P_STORE);
-  wg::cluster_sync();  // the other CTA is done with this one's barriers
 }
 
 // float32: 8 x 8 column tiles on the FMA kernels
@@ -1385,31 +1379,9 @@ int launch_bwd(const BwdArgs<float>& a, int B, int H, int W, int wl,
   return (int)cudaGetLastError();
 }
 
-// bfloat16: 8 x 16-lane tiles over lanes 0 .. W (column -1 .. W - 1), an
-// even count of them (clusters of two neighbours; a last tile past the
-// image writes zeros into padding lanes, all of them within wl, whose 16-lane
-// tiles come in eights)
+// bfloat16: 8 x 16-lane tiles over lanes 0 .. W (column -1 .. W - 1)
 inline dim3 tc_grid(int B, int H, int W) {
-  const int n = (W + 1 + tc::TL - 1) / tc::TL;
-  return dim3(n + (n & 1), (H + tc::TR - 1) / tc::TR, B);
-}
-
-// a launch of kernel as clusters of 2 blocks along x
-template <class K, class... A>
-int launch_pairs(K kernel, dim3 grid, int smem, cudaStream_t s, A... args) {
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = grid;
-  cfg.blockDim = dim3(wg::NTH);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = s;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = 2;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return (int)cudaLaunchKernelEx(&cfg, kernel, args...);
+  return dim3((W + 1 + tc::TL - 1) / tc::TL, (H + tc::TR - 1) / tc::TR, B);
 }
 
 template <bool SAVE>
@@ -1424,8 +1396,9 @@ int launch_fwd_wg(const FwdArgs<bf16>& a, const tc::Packed& pk, int B, int H,
   const int err = wg::planar_map(&tm, a.x, true, B, H, C, wl, tc::XBL,
                                  tc::R12, tc::BC);
   if (err != 0) return err;
-  return launch_pairs(res152_fwd_wg_kernel<SAVE>, tc_grid(B, H, W), smem, s,
-                      tm, a, pk, H, W, wl);
+  res152_fwd_wg_kernel<SAVE><<<tc_grid(B, H, W), wg::NTH, smem, s>>>(
+      tm, a, pk, H, W, wl);
+  return (int)cudaGetLastError();
 }
 
 template <bool W12>
@@ -1442,8 +1415,9 @@ int launch_bwd_wg(const BwdArgs<bf16>& a, const tc::Packed& pk, int B, int H,
           : wg::planar_map(&tm, a.g11, true, B, H, C, wl, tc::XBL, tc::R12,
                            tc::BC);
   if (err != 0) return err;
-  return launch_pairs(res152_bwd_wg_kernel<W12>, tc_grid(B, H, W),
-                      tc::BWD_SMEM, s, tm, a, pk, H, W, wl, wl12);
+  res152_bwd_wg_kernel<W12><<<tc_grid(B, H, W), wg::NTH, tc::BWD_SMEM, s>>>(
+      tm, a, pk, H, W, wl, wl12);
+  return (int)cudaGetLastError();
 }
 
 template <typename T>

@@ -1117,33 +1117,6 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
       "l"(src), "r"(bytes), "r"(bar)
       : "memory");
 }
-// the same into the same shared address of each CTA of the cluster in
-// mask, each completing on its own barrier at bar's address
-// (.multicast::cluster)
-__device__ __forceinline__ void bulk_load_mc(uint32_t dst, const void* src,
-                                             uint32_t bytes, uint32_t bar,
-                                             uint16_t mask) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
-      ".multicast::cluster [%0], [%1], %2, [%3], %4;\n" ::"r"(dst),
-      "l"(src), "r"(bytes), "r"(bar), "h"(mask)
-      : "memory");
-}
-// this CTA's rank in its cluster, and a barrier of every thread of the
-// cluster (release / acquire: shared memory written before it is visible
-// to the cluster after it)
-__device__ __forceinline__ uint32_t cluster_rank() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
-  return r;
-}
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile(
-      "barrier.cluster.arrive.release.aligned;\n"
-      "barrier.cluster.wait.acquire.aligned;\n" ::
-          : "memory");
-}
-
 // one box of a 4-d tensor map (innermost coordinate first) into shared
 // memory, completing on bar (cp.async.bulk.tensor: SASS UTMALDG); positions
 // outside the tensor arrive as zeros
@@ -1360,14 +1333,10 @@ struct Gemm {
 };
 
 // The ring of weight stages: N slots of SB bytes (1024-aligned), a full and
-// an empty barrier each; a role's position in it (slot, phase). MC: the
-// ring of each of a cluster's two CTAs at the same shared address, every
-// slot load multicast by one of them into both (the CTA of rank si % 2 for
-// a GEMM's slot si) and freed by both CTAs' consumers
-template <int N_, int SB_, bool MC_ = false>
+// an empty barrier each; a role's position in it (slot, phase)
+template <int N_, int SB_>
 struct Ring {
   static constexpr int N = N_, SB = SB_;
-  static constexpr bool MC = MC_;
   uint32_t slots, full, empty;  // shared addresses
   int slot, phase;
   __device__ void advance() {
@@ -1394,11 +1363,10 @@ constexpr int ring_bytes(int n, int sb) { return 1024 + n * sb + 16 * n; }
 
 // The ring at shared address base (rounded up to 1024 bytes): N slots of
 // SB bytes, then the 2 N barriers; initialised by thread 0, visible to the
-// whole block after the __syncthreads that must follow (MC: to the cluster
-// after a cluster_sync)
-template <int N, int SB, bool MC = false>
-__device__ __forceinline__ Ring<N, SB, MC> make_ring(uint32_t base) {
-  Ring<N, SB, MC> r;
+// whole block after the __syncthreads that must follow
+template <int N, int SB>
+__device__ __forceinline__ Ring<N, SB> make_ring(uint32_t base) {
+  Ring<N, SB> r;
   r.slots = (base + 1023) & ~1023u;
   r.full = r.slots + N * SB;
   r.empty = r.full + 8 * N;
@@ -1407,7 +1375,7 @@ __device__ __forceinline__ Ring<N, SB, MC> make_ring(uint32_t base) {
   if (threadIdx.x == 0) {
     for (int i = 0; i < N; ++i) {
       mbar_init(r.full + 8 * i, 1);
-      mbar_init(r.empty + 8 * i, CONSUMER_WARPS * (MC ? 2 : 1));
+      mbar_init(r.empty + 8 * i, CONSUMER_WARPS);
     }
     fence_barrier_init();
   }
@@ -1424,12 +1392,7 @@ __device__ __forceinline__ void produce(R& r, const unsigned char* w) {
       const int bytes = min(G::SLOT, G::BYTES - si * G::SLOT);
       mbar_wait(r.empty_bar(r.slot), r.phase ^ 1);
       mbar_expect_tx(r.full_bar(), bytes);
-      if constexpr (R::MC) {
-        if ((uint32_t)(si & 1) == cluster_rank())
-          bulk_load_mc(r.at(), w + si * G::SLOT, bytes, r.full_bar(), 3);
-      } else {
-        bulk_load(r.at(), w + si * G::SLOT, bytes, r.full_bar());
-      }
+      bulk_load(r.at(), w + si * G::SLOT, bytes, r.full_bar());
       r.advance();
     }
 }
@@ -1445,14 +1408,6 @@ __device__ __forceinline__ void release(const R& r, int s) {
           r.empty_bar(s)),
       "r"(threadIdx.x & 31)
       : "memory");
-  if constexpr (R::MC)  // and on the other CTA's barrier of the slot
-    asm volatile(
-        "{\n.reg .pred p;\n.reg .b32 a;\nsetp.eq.u32 p, %1, 0;\n"
-        "mapa.shared::cluster.u32 a, %0, %2;\n"
-        "@p mbarrier.arrive.release.cluster.shared::cluster.b64 _, [a];\n"
-        "}\n" ::"r"(r.empty_bar(s)),
-        "r"(threadIdx.x & 31), "r"(cluster_rank() ^ 1)
-        : "memory");
 }
 
 // a consumer warp is done with what barrier bar guards: its lane 0 arrives
