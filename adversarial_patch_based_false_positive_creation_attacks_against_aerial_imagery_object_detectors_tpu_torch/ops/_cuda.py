@@ -104,16 +104,16 @@ SIGNATURES = {
     },
     "res_fused": {
         # x, w6, w7, w9, w10, b6, b7, b9, b10, f6, f7, f9, f10 (bfloat16
-        # fragment-order weights or null), y11, am, p7m, cm, p10m (masks
+        # weights packed for wgmma or null), y11, am, p7m, cm, p10m (masks
         # null without save), dtype, B, H, W, wl, stream
         "apfp_res152_fused": [_P] * 18 + [_I] * 5 + [_P],
         # dtype, save, info[3]
         "apfp_res152_fused_info": [_I, _I, _P],
         # g11, am, p7m, cm, p10m, w6t, w7t, w9t, w10t, f6t, f7t, f9t, f10t
-        # (fragment order or null), g5, dtype, B, H, W, wl, stream
+        # (packed for wgmma or null), g5, dtype, B, H, W, wl, stream
         "apfp_res152_fused_grad": [_P] * 14 + [_I] * 5 + [_P],
         # gp12, am, p7m, cm, p10m, w12t, w6t, w7t, w9t, w10t, f12t, f6t,
-        # f7t, f9t, f10t (fragment order or null), g5, dtype, B, H, W, wl,
+        # f7t, f9t, f10t (packed for wgmma or null), g5, dtype, B, H, W, wl,
         # wl12, stream
         "apfp_res152_fused_grad12": [_P] * 16 + [_I] * 6 + [_P],
         # dtype, w12, info[3]
