@@ -14,7 +14,8 @@ Phases, each fatal on failure:
    each block width), with its registers, shared memory, blocks per
    multiprocessor and spilled bytes, and fail if one has none, if one
    spills, or if one of the wgmma kernels (K1, K2, K5, K8b, K6a, K6a
-   ``save``, K6b, K6c, K4) has an HMMA, no HGMMA or neither a TMA load nor a bulk copy; the same
+   ``save``, K6b, K6c, K4) has an HMMA, no HGMMA or neither a TMA load
+   nor a bulk copy; the same
    resource records (static shared
    memory) for the layout kernels K3a and K3b, each form and dtype, and
    for K7 (the network form at k = 1..8 and the rank-counting form, each
@@ -81,7 +82,9 @@ Phases, each fatal on failure:
    bound and a cuDNN yardstick (K4: the conv alone,
    ``F.conv_transpose2d`` for k3t2; K6:
    the stage's four convs on the conv walk, forward and forward +
-   backward; K6c: that plus conv12's dgrad on cuDNN).
+   backward; K6c: that plus conv12's dgrad on cuDNN); K4's and the four
+   K6 rows' cycle splits (``[k4-split]``, ``[k6-split]`` lines: the
+   ``-DAPFP_PROFILE`` builds) and the K6 rows' device times.
 8. Training on the other routes (counted launches): ``PatchTrainer`` with
    ``res152="fused"`` (routes fused/fused: one K6a ``save`` and one K6b a
    step) and a train step with ``fused_stem=False, planar_stem=True,
@@ -157,7 +160,8 @@ Phases, each fatal on failure:
     ``clean_img_pre`` (conf 0.2), ``paste_patch`` in both modes (EOT
     placement from finite labels, one box a tile: its first composite,
     computed again in float32, must be finite, the CLI's PNG its
-    quantization, the box's pixels changed) and
+    quantization and different from the source inside the pasted box)
+    and
     ``dataset_tools stats``; one label file per kept image, every report
     value finite but the M2s that are NaN or inf by definition; img/s of
     ``images_filter`` and ``test_patch``, the latter's per-image time
@@ -2113,8 +2117,7 @@ def grad12_kernel(dev, model, card, tc_info) -> dict:
 
 
 # the K6 rows (entry names of the kernels line), timed at b24 608^2
-K6_ROWS = ("res152_fused", "res152_fused_save", "res152_fused_grad",
-           "res152_fused_grad12")
+K6_ROWS = (*K6_KERNELS, "res152_fused_grad12")
 
 
 def k6_calls(dev, model) -> tuple:
@@ -3908,8 +3911,10 @@ def eot_composite_check(attack, patch_png, raw, labs, out, dev) -> dict:
     """Phase 13: ``paste_patch``'s first EOT composite computed again in
     float32 as the CLI computes it (the first draw of a generator seeded
     SEED on the card, the first image's label from ``labs``): every value
-    finite, the PNG the CLI wrote its 8-bit quantization, and pixels of
-    the image changed. Returns the image and the changed pixels."""
+    finite, the PNG the CLI wrote its 8-bit quantization, and the PNG
+    different from the source inside the pasted box (the bounding box of
+    the pixels the patch changed). Returns the image, the changed pixels
+    and the box."""
     from PIL import Image
     CC = import_port("cli.common")
     labels_mod = import_port("data.labels")
@@ -3931,9 +3936,17 @@ def eot_composite_check(attack, patch_png, raw, labs, out, dev) -> dict:
     png = np.asarray(Image.open(os.path.join(out, stem + ".png")))
     assert np.array_equal(png, (comp * 255).astype(np.uint8)), \
         "the EOT composite PNG is not the CLI's composite"
-    changed = int((comp != arr.cpu().numpy()).any(-1).sum())
-    assert changed > 0, "the EOT patch left the image as it was"
-    return {"image": name, "changed_pixels": changed}
+    pasted = (comp != arr.cpu().numpy()).any(-1)
+    assert pasted.any(), "the EOT patch left the image as it was"
+    rows, cols = np.nonzero(pasted)
+    box = (slice(rows.min(), rows.max() + 1),
+           slice(cols.min(), cols.max() + 1))
+    src = np.asarray(Image.open(os.path.join(raw, name)))
+    assert not np.array_equal(png[box], src[box]), \
+        "the EOT composite PNG shows no patch in the pasted box"
+    return {"image": name, "changed_pixels": int(pasted.sum()),
+            "box_rows": [int(rows.min()), int(rows.max())],
+            "box_cols": [int(cols.min()), int(cols.max())]}
 
 
 def slim_stem_gates(model, x):
@@ -4037,7 +4050,6 @@ def eval_path(dev, card) -> dict:
             with open(os.path.join(eot_labs, os.path.splitext(n)[0]
                                    + ".txt"), "w") as f:
                 f.write("0 0.5 0.5 0.25 0.25\n")
-        box = slice(3 * SIZE // 8, 5 * SIZE // 8)  # the label's box
         for mode, extra in (("fixed", ["--fixed-center", "0.5", "0.5",
                                        "--fixed-scale", "0.4"]),
                             ("eot", ["--lab-dir", eot_labs, "--seed",
@@ -4054,8 +4066,7 @@ def eval_path(dev, card) -> dict:
             for n in names[:4]:
                 got = np.asarray(Image.open(os.path.join(out, n)))
                 src = np.asarray(Image.open(os.path.join(raw, n)))
-                assert not np.array_equal(got[box, box], src[box, box]), \
-                    (mode, n)
+                assert not np.array_equal(got, src), (mode, n)
                 if mode == "fixed":   # the patch spans rows 0.3-0.7
                     assert np.array_equal(got[:SIZE // 4], src[:SIZE // 4])
             if mode == "eot":
