@@ -355,6 +355,7 @@ __global__ void __launch_bounds__(NT, 1)
   // x tile from image row 4 R5 - 6 and column 4 C5 - 6; column c of x is
   // lane c/2 + 1 of the even (c even) or odd phase. Columns run fastest, so
   // that a warp reads neighbouring lanes of both phases
+  wg::Lap lap;
   const int xr0 = 4 * R5 - 6, xc0 = 4 * C5 - 6;
   for (int idx = threadIdx.x; idx < G::XN * G::XW * 8; idx += NT) {
     const int col = idx % G::XW;
@@ -369,12 +370,16 @@ __global__ void __launch_bounds__(NT, 1)
   }
   if (threadIdx.x < 8)
     xs[G::XN * G::XW * 8 + threadIdx.x] = __float2bfloat16_rn(0.f);
+  lap(wg::P_LOAD);
   __syncthreads();
+  lap(wg::P_SYNC);
   mma_conv<16, 8, 32, 4, 4, PF>(
       xs, G::Y0N * G::Y0W, fr.w0, RowsConv0{G::Y0W, G::XW},
       EpiConv<Q::P32, false, false>{y0, G::Y0W, b0, 4 * R5 - 5, 4 * C5 - 5,
                                     H, nullptr, 0, nullptr});
+  lap(wg::P_MMA);
   __syncthreads();
+  lap(wg::P_SYNC);
   // own regions: y0 rows/columns [4 R5, 4 R5 + 4 TILE) at tile offset 5, y1
   // and y2 [2 R5, 2 R5 + 2 TILE) at offset 2, y3 at offset 1; the tiles of
   // all blocks partition the image
@@ -382,24 +387,31 @@ __global__ void __launch_bounds__(NT, 1)
     store_own<bf16, 32, true, Q::P32>(y0, G::Y0W, 5, 4 * TILE, 4 * TILE,
                                       4 * R5, 4 * C5, ac.y0e, ac.y0o, H, H,
                                       pitch, lb, seg, first, last);
+  lap(wg::P_STORE);
   mma_conv<32, Q::P32, 64, 4, 3, PF>(
       y0, G::Y1N * G::Y1W, fr.w1, RowsConv<3, 2>{G::Y1W, G::Y0W},
       EpiConv<Q::P64, false, false>{y1, G::Y1W, b1, 2 * R5 - 2, 2 * C5 - 2,
                                     H1, nullptr, 0, nullptr});
+  lap(wg::P_MMA);
   __syncthreads();
+  lap(wg::P_SYNC);
   if (SAVE)
     store_own<bf16, 64, false, Q::P64>(y1, G::Y1W, 2, 2 * TILE, 2 * TILE,
                                        2 * R5, 2 * C5, ac.y1, nullptr, H1,
                                        H1, pitch, lb, seg, first, last);
+  lap(wg::P_STORE);
   mma_conv<64, Q::P64, 32, 4, 3, PF>(
       y1, G::Y1N * G::Y1W, fr.w2, RowsConv<1, 1>{G::Y1W, G::Y1W},
       EpiConv<Q::P32, false, false>{y2, G::Y1W, b2, 2 * R5 - 2, 2 * C5 - 2,
                                     H1, nullptr, 0, nullptr});
+  lap(wg::P_MMA);
   __syncthreads();
+  lap(wg::P_SYNC);
   if (SAVE)
     store_own<bf16, 32, false, Q::P32>(y2, G::Y1W, 2, 2 * TILE, 2 * TILE,
                                        2 * R5, 2 * C5, ac.y2, nullptr, H1,
                                        H1, pitch, lb, seg, first, last);
+  lap(wg::P_STORE);
   // conv3: without SAVE K1's epilogue with the shortcut sum; with SAVE y3
   // alone (its own value is saved), the sum below
   mma_conv<32, Q::P32, 64, 4, 3, PF>(
@@ -407,12 +419,16 @@ __global__ void __launch_bounds__(NT, 1)
       EpiConv<Q::P64, false, !SAVE, Q::P64>{s4, G::S4W, b3, 2 * R5 - 1,
                                             2 * C5 - 1, H1, y1, G::Y1W,
                                             nullptr});
+  lap(wg::P_MMA);
   __syncthreads();
+  lap(wg::P_SYNC);
   if (SAVE) {
     store_own<bf16, 64, false, Q::P64>(s4, G::S4W, 1, 2 * TILE, 2 * TILE,
                                        2 * R5, 2 * C5, ac.y3, nullptr, H1,
                                        H1, pitch, lb, seg, first, last);
+    lap(wg::P_STORE);
     __syncthreads();
+    lap(wg::P_SYNC);
     // s4 = T(y3 + y1) in place, y1 at its tile position (oy + 1, ox + 1):
     // EpiConv's RES sum (outside the image both are zero, and so is s4)
     for (int idx = threadIdx.x; idx < G::S4N * G::S4W * 64; idx += NT) {
@@ -423,7 +439,9 @@ __global__ void __launch_bounds__(NT, 1)
       *d = __float2bfloat16_rn(
           to_f(*d) + to_f(y1[((oy + 1) * G::Y1W + ox + 1) * Q::P64 + ch]));
     }
+    lap(wg::P_EPI);
     __syncthreads();
+    lap(wg::P_SYNC);
   }
   // conv5 at stride (2, 1): dense y5 (R5 + oy, 2 C5 + ox) reads s4 at tile
   // (2 oy + ky, ox + kx)
@@ -431,10 +449,13 @@ __global__ void __launch_bounds__(NT, 1)
       s4, TILE * 2 * TILE, fr.w5, RowsConv21<3>{2 * TILE, G::S4W},
       EpiConv<Q::P128, false, false>{ys, 2 * TILE, b5, 0, 0, 0x7fffffff,
                                      nullptr, 0, nullptr});
+  lap(wg::P_MMA);
   __syncthreads();
+  lap(wg::P_SYNC);
   store_own<bf16, 128, false, Q::P128>(ys, 2 * TILE, 0, TILE, 2 * TILE, R5,
                                        2 * C5, y5, nullptr, H5, H1, pitch, lb,
                                        seg, first, last);
+  lap(wg::P_STORE);
 }
 
 template <bool SAVE>

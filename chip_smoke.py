@@ -917,6 +917,57 @@ def wgmma_split(dev, sp, sbp, dev_ms: dict) -> dict:
     return out
 
 
+K8A_ROWS = ("fused_stem_fwd_b", "fused_stem_fwd_b_save_acts")
+K8A_OUTPUTS = ("y5", "y0e", "y0o", "y1", "y2", "y3")
+
+
+def k8a_calls(dev, sp, b: int) -> dict:
+    """The bfloat16 K8a at batch b, 608^2, on a seeded x (phase 9's seed):
+    entry name -> a call, the forward alone and with ``save_acts``."""
+    SB = import_port("experimental.stem_batched")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 21)
+    x = torch.rand(b, SIZE, SIZE, 3, generator=gen, device=dev)
+    xe, xo = SB.split_phases_b(x.to(torch.bfloat16), SB._seg(SIZE // 2))
+    return {"fused_stem_fwd_b": lambda: SB.fused_stem_fwd_b(xe, xo, sp, b),
+            "fused_stem_fwd_b_save_acts": lambda: SB.fused_stem_fwd_b(
+                xe, xo, sp, b, save_acts=True)}
+
+
+def k8a_split(dev, sp, dev_ms: dict) -> dict:
+    """Where the bfloat16 K8a's time goes at b24 (``k8a_calls``, both
+    forms): the batched library rebuilt with ``-DAPFP_PROFILE``
+    (``ops/_cuda.py: profiled``), in which thread 0 of each block adds the
+    clock64 cycles between its laps to a category (``csrc/stem_common.cuh:
+    wg::Lap``: the x load, weight waits, MMAs, epilogues, activation
+    stores, barriers). Shares are of the summed cycles; ``split_ms``
+    applies them to the normal build's device time (``dev_ms``); the
+    profiled build's own time is beside it."""
+    _cuda = import_port("ops._cuda")
+    out = {}
+    with _cuda.profiled("stem_batched"):
+        calls = k8a_calls(dev, sp, TRAIN_BATCH)
+        for name, fn in calls.items():
+            fn()
+            torch.cuda.synchronize()
+            _cuda.prof_take("stem_batched")
+            for _ in range(3):
+                fn()
+            torch.cuda.synchronize()
+            cycles = _cuda.prof_take("stem_batched")
+            total = sum(cycles.values())
+            share = {k: v / total for k, v in cycles.items() if v}
+            out[name] = {"share": share,
+                         "split_ms": {k: v * dev_ms[name]
+                                      for k, v in share.items()},
+                         "profiled_dev_ms": device_ms(fn)}
+            log(f"[k8a-split] {name} b24: dev {dev_ms[name]:.4f} ms; "
+                f"{json.dumps({k: round(v, 4) for k, v in share.items()})}"
+                f"; profiled build {out[name]['profiled_dev_ms']:.4f} ms")
+        del calls
+    torch.cuda.empty_cache()
+    return out
+
+
 def training_kernels(dev, sp, sbp, card, tc_info) -> tuple:
     """Phase 5: K1 save_acts, K2 and K3a (g5, gp12) against their plain
     versions at batch 24, 608^2, bfloat16 (K2 and K3a also float32), K1
@@ -5709,6 +5760,25 @@ del k2, k5, k8b, acts, bacts, gp5dd
 torch.cuda.empty_cache()
 rec["dev_ms"] = C.wgmma_device_times(dev, sp, sbp, C.TRAIN_BATCH)
 rec["split"] = C.wgmma_split(dev, sp, sbp, rec["dev_ms"])
+# K8a, both forms, as phase 9 times them (over 3 calls), device ms, and a
+# digest of each of its six outputs; its split where the tree keeps one
+gen = torch.Generator(device=dev).manual_seed(C.SEED + 21)
+x = torch.rand(b, C.SIZE, C.SIZE, 3, generator=gen, device=dev).to(bf16)
+xe, xo = SB.split_phases_b(x, seg)
+k8a = {"fused_stem_fwd_b": lambda: SB.fused_stem_fwd_b(xe, xo, sp, b),
+       "fused_stem_fwd_b_save_acts": lambda: SB.fused_stem_fwd_b(
+           xe, xo, sp, b, save_acts=True)}
+outs = k8a["fused_stem_fwd_b_save_acts"]()
+rec["k8a_y5_equal"] = torch.equal(k8a["fused_stem_fwd_b"](), outs[0])
+rec["k8a_digest"] = {n: C.digest([t]) for n, t in
+                     zip(("y5", "y0e", "y0o", "y1", "y2", "y3"), outs)}
+del outs
+rec["k8a_ms"] = {n: C.time_ms(fn, 3, 2) for n, fn in k8a.items()}
+rec["k8a_dev_ms"] = {n: C.device_ms(fn) for n, fn in k8a.items()}
+del k8a, x, xe, xo
+torch.cuda.empty_cache()
+if hasattr(C, "k8a_split"):
+    rec["k8a_split"] = C.k8a_split(dev, sp, rec["k8a_dev_ms"])
 print("STEMAB " + json.dumps(rec))
 """
 
@@ -5778,14 +5848,23 @@ def stem_ab(parent: str) -> int:
             f"{rec['k8b_ms']:.4f}, K2 {rec['k2_ms']:.4f}; dev "
             f"{json.dumps(rec['dev_ms'])}; K5 = K2 {rec['k5_equals_k2']}, "
             f"K8b = K2 {rec['k8b_equals_k2']} ({card})")
-        for name, r in rec["split"].items():
+        log(f"[stem-ab] {rec['tree']}: " + "; ".join(
+            f"{n} {rec['k8a_ms'][n]:.4f} ms (dev {rec['k8a_dev_ms'][n]:.4f})"
+            for n in K8A_ROWS) + f" ({card})")
+        for name, r in {**rec["split"], **rec.get("k8a_split", {})}.items():
             log(f"[stem-ab] {rec['tree']} {name} b24 split: " + json.dumps(
                 {k: round(v, 4) for k, v in r["share"].items()}))
     digests = {rec["k2_gx_sha256"] for rec in runs}
     log(f"[stem-ab] K2's gx digests agree across the trees: "
         f"{len(digests) == 1}")
+    k8a_agree = {n: len({rec["k8a_digest"][n] for rec in runs}) == 1
+                 for n in K8A_OUTPUTS}
+    log(f"[stem-ab] K8a's outputs bit for bit the parent's: "
+        f"{json.dumps(k8a_agree)}")
     assert len(digests) == 1, "K2's gx moved"
-    assert all(rec["k5_equals_k2"] and rec["k8b_equals_k2"] for rec in runs)
+    assert all(k8a_agree.values()), ("K8a's outputs moved", k8a_agree)
+    assert all(rec["k5_equals_k2"] and rec["k8b_equals_k2"]
+               and rec["k8a_y5_equal"] for rec in runs)
     log(json.dumps({"stem_ab": runs, "card": card}))
     return 0
 
