@@ -61,7 +61,7 @@
 //    free the landing buffer: the next chunk's box is in flight under this
 //    chunk's MMAs (two more landing buffers at stride 2 and in the adjoint
 //    measured no faster). There every tap is a row offset for ldmatrix (a
-//    stride-2 conv reads every second position), as in mma_conv. The 1x1
+//    stride-2 conv reads every second position), as in wg::conv. The 1x1
 //    conv needs no transposition: its A comes by ldmatrix.trans from the
 //    landing buffers (two, so both chunks of a 128-channel input load at
 //    once).

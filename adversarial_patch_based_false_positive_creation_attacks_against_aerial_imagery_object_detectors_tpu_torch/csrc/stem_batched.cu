@@ -42,20 +42,26 @@
 // owns a tile of one image and computes over its receptive field in shared
 // memory, so no intermediate touches device memory.
 //
-// bfloat16 runs on the tensor cores. K8a is K1's five convs on mma.sync
-// (mma_conv; the same CIN walk, tap order, fragment-order weights and
-// epilogue as K1's wgmma GEMMs, stem_common.cuh: EpiConv) over an 8 x 8
-// sparse (8 x 16 dense) y5 tile with K1's halos, conv5 at stride (2, 1)
-// (RowsConv21) with K1's conv5's taps; every sum is then the sum K1 forms
-// for the same position (the tiling differs, which moves no sum; a wgmma
-// k16 step rounds as an mma.sync one), so the even lanes of y5 are K1's y5
-// bit for bit and the activations' signs are K1's masks. With save_acts,
-// y3 is stored on its own and the shortcut sum s4 = T(y3 + y1) formed in
-// place after (K1's epilogue forms it in the same rounding). Shared memory
-// 182,640 bytes, one block a multiprocessor: y0 [39 x 41][40], then y2
+// bfloat16 runs on Hopper's units. K8a is K1's wgmma kernel
+// (stem_fused.cu: fused_stem_fwd_wg_kernel: the five convs as wg::conv
+// GEMMs on K1's packed weights, ops/stem_fused.py: k1_packed, streamed by a
+// producer warp into an mbarrier ring; the same CIN walk, tap order and
+// epilogue, stem_common.cuh: EpiConv) over an 8 x 8 sparse (8 x 16 dense)
+// y5 tile with K1's halos, conv5 at stride (2, 1) (RowsConv21, M = 128:
+// two 64-row blocks) with K1's conv5's taps; every sum is then the sum K1
+// forms for the same position (the tiling differs, which moves no sum), so
+// the even lanes of y5 are K1's y5 bit for bit and the activations' signs
+// are K1's masks. Its tiles (182,640 bytes: y0 [39 x 41][40], then y2
 // [19 x 20][40] and s4 [17 x 18][72]; y1 [19 x 20][72], holding x
 // [41 x 43 + 1][8] before conv1 and the dense y5 tile [8 x 16][136] after
-// the shortcut sum.
+// the shortcut sum) leave room for a ring of five 8 KB slots (K1 has seven):
+// convs 0-3 resident, conv1's and conv3's five slots the whole ring, so the
+// next conv's first chunk is loaded once the previous conv is done; conv5
+// one pass, streamed once. 224,704 bytes, one block a multiprocessor. The
+// stores leave the tile by ldmatrix.trans (positions to lanes) and 4-byte
+// words, a line's 32-byte sector a block: with save_acts, y3 is stored on
+// its own and the shortcut sum s4 = T(y3 + y1) formed in place after (K1's
+// epilogue forms it in the same rounding).
 //
 // K8b (fused_stem_bwd_b_wg_kernel) is K2's wgmma kernel (stem_common.cuh:
 // wgc::chain, the same eleven GEMMs on K2's packed adjoints, ring and
@@ -299,7 +305,7 @@ int launch_fwd_any(const void* xe, const void* xo, const void* const* w,
 }
 
 // ---------------------------------------------------------------------------
-// K8a in bfloat16: K1's tensor-core stages
+// K8a in bfloat16: K1's convs on wgmma
 // ---------------------------------------------------------------------------
 
 // The tiles of GeomB<8> with K1's padded row pitches (stem_fused.cu: Geom)
@@ -322,157 +328,366 @@ struct GeomTC {
 };
 static_assert(GeomTC::Y2 % 8 == 0 && GeomTC::B % 8 == 0,
               "16-byte aligned regions");
-static_assert(sizeof(bf16) * GeomTC::ELEMS <= 232448, "one block's share");
 
+namespace k8a {
+using G = GeomB<8>;
+using Q = GeomTC;
+constexpr int TILE = Q::TILE;
+// K1's five GEMMs at this tile (wg::Gemm: taps, depth a tap, COUT, channel
+// groups, 64-row blocks an item, rows) on a ring of five 8 KB slots: convs
+// 0-3 resident (conv1's and conv3's five slots the whole ring), conv5 one
+// pass of two items, each a warpgroup's 64 channels over the dense 8 x 16
+// tile's two 64-row blocks, streamed once (a 16 KB chunk over two slots; a
+// wgmma group two 16-deep steps)
+constexpr int STAGES = 5, SLOT = 8192;
+using C0 = wg::Gemm<6, 16, 32, 1, 2, G::Y0N * G::Y0W, SLOT, STAGES>;
+using C1 = wg::Gemm<9, 32, 64, 1, 1, G::Y1N * G::Y1W, SLOT, STAGES>;
+using C2 = wg::Gemm<1, 64, 32, 1, 1, G::Y1N * G::Y1W, SLOT, STAGES>;
+using C3 = wg::Gemm<9, 32, 64, 1, 1, G::S4N * G::S4W, SLOT, STAGES>;
+using C5 = wg::Gemm<9, 64, 128, 2, 2, TILE * 2 * TILE, SLOT, STAGES, 1, 2>;
+static_assert(C0::RES && C1::RES && C2::RES && C3::RES && !C5::RES &&
+                  C5::NPASS == 1,
+              "the ring's plan");
+constexpr int TILE_BYTES = 2 * Q::ELEMS;
+constexpr int SMEM = TILE_BYTES + wg::ring_bytes(STAGES, SLOT);
+static_assert(SMEM <= 232448, "shared memory");
+// K1's packed weights of convs 0, 1, 2, 3, 5 (ops/stem_fused.py: k1_packed)
+struct Weights {
+  const unsigned char* w[5];
+};
+
+// lanes [from, to) of one line zero (to a multiple of 8): single elements
+// up to the first 16-byte boundary, 16-byte stores past it
+__device__ __forceinline__ void zero_lanes(bf16* __restrict__ p, int from,
+                                           int to) {
+  int l = from;
+  for (; l < to && (l & 7); ++l) p[l] = __float2bfloat16_rn(0.f);
+  for (; l < to; l += 8)
+    *reinterpret_cast<uint4*>(p + l) = make_uint4(0, 0, 0, 0);
+}
+
+// save_acts' store of one activation: the own NR x 16 region (16 columns,
+// or with PHASE 32 columns as 16 lanes a phase) of a [pos][P] tile of row
+// width TW (C channels) whose own first position is (off, off) in the tile
+// and (r0, c0) in the image, into a batch-on-lanes tensor [rows, C, pitch]
+// (d0, d1 at the image's segment lane 0; PHASE: the even columns into d0,
+// the odd into d1). A block writes lanes [l0, l0 + 16) of its rows' lines
+// (l0 = c0, or c0 / 2 with PHASE: a 32-byte sector), lane l0 + i holding
+// own column i - 1 of its phase: lane l0 from the tile's halo, zero left of
+// the image, else the left neighbour's last own column with its bits (the
+// same sums); columns past the image are zero in the tile. A warp takes a
+// unit of 16 lanes x 16 channels of one row and phase: one
+// ldmatrix.x4.trans turns the 16 positions' rows into 4 lane pairs of 8
+// channels a thread, stored as 4-byte words (a line's 32 bytes by four
+// threads and two stores). The block of the last tile column writes lane
+// l0 + 16 (own column 15) and zeroes the rest of its rows' lines. Rows past
+// the image are skipped. Run by the NC consumer threads.
+template <int C, int P, int NR, bool PHASE>
+__device__ void store_act(const bf16* __restrict__ tile, int TW, int off,
+                          int r0, int c0, bf16* __restrict__ d0,
+                          bf16* __restrict__ d1, int rows, long long pitch,
+                          int seg, bool last) {
+  constexpr int NPH = PHASE ? 2 : 1, CG = C / 16;
+  static_assert(C % 16 == 0 && P % 8 == 0, "16-channel units");
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int l0 = PHASE ? c0 / 2 : c0;
+  // this lane's matrix row: unit lane L (own column L - 1 of its phase)
+  // and the matrix's channels
+  const int L = 8 * ((lane >> 3) & 1) + (lane & 7);
+  const int col = off + (PHASE ? 2 * (L - 1) : L - 1);
+  const int ch8 = 8 * (lane >> 4);
+  for (int u = warp; u < NR * NPH * CG; u += wg::CONSUMER_WARPS) {
+    const int cg = u % CG, ph = (u / CG) % NPH, rr = u / (CG * NPH);
+    if (r0 + rr >= rows) continue;
+    uint32_t v[4];
+    ldsm4t(v, wg::smem_u32(tile + ((rr + off) * TW + col + ph) * P +
+                           16 * cg + ch8));
+    // register k: channel 16 cg + 8 (k / 2) + lane / 4, lanes
+    // l0 + 8 (k % 2) + 2 (lane % 4) and the next
+    bf16* d = (ph ? d1 : d0) +
+              ((long long)(r0 + rr) * C + 16 * cg + (lane >> 2)) * pitch +
+              l0 + 2 * (lane & 3);
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      *reinterpret_cast<uint32_t*>(d + (k >> 1) * 8 * pitch + (k & 1) * 8) =
+          v[k];
+  }
+  if (last) {
+    const int nr = min(NR, rows - r0);
+    for (int idx = threadIdx.x; idx < nr * C * NPH; idx += wg::NC) {
+      const int ch = idx % C, ph = (idx / C) % NPH, rr = idx / (C * NPH);
+      bf16* d = (ph ? d1 : d0) + ((long long)(r0 + rr) * C + ch) * pitch;
+      d[l0 + 16] =
+          tile[((rr + off) * TW + off + (PHASE ? 30 + ph : 15)) * P + ch];
+      zero_lanes(d, l0 + 17, seg);
+    }
+  }
+}
+
+// y5's store: the dense 8 x 16 tile [8][16][P128] (dense columns 2 C5 ..
+// 2 C5 + 15 of rows R5 ..) into lanes l0 + 1 .. l0 + 16 (l0 = 2 C5) of its
+// rows' lines of y5 [H5, 128, pitch] (d at the image's segment lane 0). The
+// tile has no column left of its own, so a lane pair (l0 + 2k, l0 + 2k + 1)
+// (columns 2k - 1, 2k) is formed from two threads' ldmatrix.trans words by
+// a shuffle inside the quad; lanes l0 + 1 and l0 + 16 are single elements.
+// Columns past the image's H1 are zero; rows past H5 are skipped. The block
+// of the first tile column zeroes lane 0, that of the last the lanes past
+// l0 + 16.
+__device__ void store_y5(const bf16* __restrict__ ys, int R5, int l0,
+                         bf16* __restrict__ d, int H5, int H1,
+                         long long pitch, int seg, bool first, bool last) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int q = lane & 3;
+  const int L = 8 * ((lane >> 3) & 1) + (lane & 7);
+  const int ch8 = 8 * (lane >> 4);
+  const int nv = H1 - l0;  // the tile's columns inside the image
+  for (int u = warp; u < TILE * 8; u += wg::CONSUMER_WARPS) {
+    const int cg = u % 8, rr = u / 8;
+    if (R5 + rr >= H5) continue;
+    uint32_t v[4];
+    ldsm4t(v, wg::smem_u32(ys + (rr * 2 * TILE + L) * Q::P128 + 16 * cg +
+                           ch8));
+    // register k: columns 8 (k % 2) + 2 q and the next
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int c = 8 * (k & 1) + 2 * q;
+      v[k] &= (c < nv ? 0xffffu : 0u) | (c + 1 < nv ? 0xffff0000u : 0u);
+    }
+#pragma unroll
+    for (int g = 0; g < 2; ++g) {
+      const uint32_t w0 = v[2 * g], w1 = v[2 * g + 1];
+      // the quad's previous thread's words; thread 3's first (columns 6, 7)
+      const uint32_t u0 = __shfl_up_sync(0xffffffffu, w0, 1, 4);
+      const uint32_t u1 = __shfl_up_sync(0xffffffffu, w1, 1, 4);
+      const uint32_t t3 = __shfl_sync(0xffffffffu, w0, 3, 4);
+      bf16* p = d + ((long long)(R5 + rr) * 128 + 16 * cg + 8 * g +
+                     (lane >> 2)) * pitch + l0;
+      if (q)
+        *reinterpret_cast<uint32_t*>(p + 2 * q) = (u0 >> 16) | (w0 << 16);
+      else
+        reinterpret_cast<uint16_t*>(p)[1] = (uint16_t)w0;
+      *reinterpret_cast<uint32_t*>(p + 8 + 2 * q) =
+          ((q ? u1 : t3) >> 16) | (w1 << 16);
+      if (q == 3) reinterpret_cast<uint16_t*>(p)[16] = (uint16_t)(w1 >> 16);
+    }
+  }
+  if (first || last) {
+    const int n = min(TILE, H5 - R5) * 128;  // the own rows' lines
+    for (int line = threadIdx.x; line < n; line += wg::NC) {
+      bf16* p = d + ((long long)R5 * 128 + line) * pitch;
+      if (first) p[0] = __float2bfloat16_rn(0.f);
+      if (last) zero_lanes(p, l0 + 17, seg);
+    }
+  }
+}
+
+// s4 = T(y3 + y1) in place over the s4 tile, y1 at its tile position
+// (oy + 1, ox + 1): EpiConv's RES sum, 8 channels a thread (outside the
+// image both are zero, and so is s4)
+__device__ __forceinline__ void shortcut_sum(bf16* __restrict__ s4,
+                                             const bf16* __restrict__ y1) {
+  for (int idx = threadIdx.x; idx < G::S4N * G::S4W * 8; idx += wg::NC) {
+    const int u = idx % 8, p = idx / 8;
+    const int oy = p / G::S4W, ox = p - oy * G::S4W;
+    uint4* d = reinterpret_cast<uint4*>(s4 + p * Q::P64 + 8 * u);
+    const uint4 r = *reinterpret_cast<const uint4*>(
+        y1 + ((oy + 1) * G::Y1W + ox + 1) * Q::P64 + 8 * u);
+    uint4 a = *d;
+    uint32_t* av = reinterpret_cast<uint32_t*>(&a);
+    const uint32_t* rv = reinterpret_cast<const uint32_t*>(&r);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 x = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(av + i));
+      const float2 y = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(rv + i));
+      const __nv_bfloat162 s = __floats2bfloat162_rn(x.x + y.x, x.y + y.y);
+      av[i] = *reinterpret_cast<const uint32_t*>(&s);
+    }
+    *d = a;
+  }
+}
+
+}  // namespace k8a
+
+// The bfloat16 K8a: K1's wgmma kernel (stem_fused.cu:
+// fused_stem_fwd_wg_kernel) over GeomB<8>'s tiles, conv5 at stride (2, 1)
+// (RowsConv21 over the dense 8 x 16 y5 tile, M = 128), the batch-on-lanes
+// x tile by K1's 16-byte loads, the activations (SAVE) and y5 by store_act
+// and store_y5. Shared memory: the tiles (GeomTC, 182,640 bytes: y0, then
+// y2 and s4, in region B; x, then y1, then the y5 tile in region C), then
+// the ring (five 8 KB slots and their barriers, 42,064 bytes with the
+// alignment slack): 224,704 bytes, one block a multiprocessor. ww: K1's
+// packed weights.
 template <bool SAVE>
-__global__ void __launch_bounds__(NT, 1)
-    fused_stem_fwd_b_tc_kernel(const bf16* __restrict__ xe,
-                               const bf16* __restrict__ xo, Frags fr,
+__global__ void __launch_bounds__(wg::NTH, 1)
+    fused_stem_fwd_b_wg_kernel(const bf16* __restrict__ xe,
+                               const bf16* __restrict__ xo,
                                const float* __restrict__ b0,
                                const float* __restrict__ b1,
                                const float* __restrict__ b2,
                                const float* __restrict__ b3,
-                               const float* __restrict__ b5,
+                               const float* __restrict__ b5, k8a::Weights ww,
                                bf16* __restrict__ y5, Acts<bf16> ac, int H,
                                int seg, long long pitch) {
-  using G = GeomB<8>;
-  using Q = GeomTC;
-  constexpr int TILE = Q::TILE;
-  constexpr bool PF = true;  // one block a multiprocessor: registers to spare
+  using namespace k8a;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* y0 = reinterpret_cast<bf16*>(smem_raw);  // [Y0N Y0W][P32]
-  bf16* y2 = y0;         // [Y1N Y1W][P32], after conv1
+  bf16* y2 = y0;          // [Y1N Y1W][P32], after conv1
   bf16* s4 = y0 + Q::Y2;  // [S4N S4W][P64]: y3, then s4
   bf16* y1 = y0 + Q::B;   // [Y1N Y1W][P64]
   bf16* xs = y1;          // [XN XW + 1][8], before conv1 writes y1
   bf16* ys = y1;          // [TILE 2 TILE][P128], after the shortcut sum
+  auto ring = wg::make_ring<STAGES, SLOT>(wg::smem_u32(smem_raw + TILE_BYTES));
+  __syncthreads();
+  if (threadIdx.x >= wg::NC) {
+    // the producer warp: one thread streams every GEMM's chunks in order
+    if (threadIdx.x == wg::NC) {
+      wg::produce<C0>(ring, ww.w[0]);
+      wg::produce<C1>(ring, ww.w[1]);
+      wg::produce<C2>(ring, ww.w[2]);
+      wg::produce<C3>(ring, ww.w[3]);
+      wg::produce<C5>(ring, ww.w[4]);
+    }
+    return;
+  }
 
   const long long lb = (long long)blockIdx.z * seg;
-  const int R5 = blockIdx.y * TILE, C5 = blockIdx.x * TILE;
+  const int R5 = blockIdx.y * TILE, C5r = blockIdx.x * TILE;
   const int H1 = H / 2, H5 = H / 4;
   const bool first = blockIdx.x == 0, last = blockIdx.x == gridDim.x - 1;
 
-  // x tile from image row 4 R5 - 6 and column 4 C5 - 6; column c of x is
-  // lane c/2 + 1 of the even (c even) or odd phase. Columns run fastest, so
-  // that a warp reads neighbouring lanes of both phases
+  // x tile [XN XW + 1][8] from image row 4 R5 - 6 and column 4 C5 - 6;
+  // column c of x is lane c/2 + 1 of the even (c even) or odd phase. K1's
+  // loads: a thread takes 8 lanes of one row and phase, 16 bytes from each
+  // of the three channels, from the 16-byte boundary 8 lanes below the
+  // tile's first (four such runs a row and phase cover its 22 lanes), and
+  // writes each column's whole 16-byte position (channels 3..7 zero); the
+  // last position is zero (read by conv0's paired taps with zero weights)
   wg::Lap lap;
-  const int xr0 = 4 * R5 - 6, xc0 = 4 * C5 - 6;
-  for (int idx = threadIdx.x; idx < G::XN * G::XW * 8; idx += NT) {
-    const int col = idx % G::XW;
-    const int rest = idx / G::XW;
-    const int ci = rest % 8, r = rest / 8;
-    const int gr = xr0 + r, gc = xc0 + col;
-    bf16 v = __float2bfloat16_rn(0.f);
-    if (ci < 3 && gr >= 0 && gr < H && gc >= 0 && gc < H)
-      v = ((gc & 1) ? xo : xe)[((long long)gr * 8 + ci) * pitch + lb +
-                               (gc >> 1) + 1];
-    xs[(r * G::XW + col) * 8 + ci] = v;
+  const int xr0 = 4 * R5 - 6, xc0 = 4 * C5r - 6;
+  const int lv0 = 16 * blockIdx.x - 8;  // = (xc0 >> 1) + 1 rounded down
+  for (int idx = threadIdx.x; idx < G::XN * 2 * 4; idx += wg::NC) {
+    const int v = idx % 4, ph = (idx / 4) % 2, r = idx / 8;
+    const int gr = xr0 + r, l = lv0 + 8 * v;
+    uint4 ch[3] = {};
+    if (gr >= 0 && gr < H && l >= 0 && l + 8 <= seg) {
+      const bf16* src = (ph ? xo : xe) + (long long)gr * 8 * pitch + lb + l;
+#pragma unroll
+      for (int c = 0; c < 3; ++c)
+        ch[c] = __ldg(reinterpret_cast<const uint4*>(src + c * pitch));
+    }
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const int gc = 2 * (l + k - 1) + ph, col = gc - xc0;
+      if (col < 0 || col >= G::XW) continue;
+      const bool in = gc >= 0 && gc < H;
+      uint32_t u[3];
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        const uint32_t w = reinterpret_cast<const uint32_t*>(&ch[c])[k / 2];
+        u[c] = in ? (k & 1 ? w >> 16 : w & 0xffffu) : 0u;
+      }
+      *reinterpret_cast<uint4*>(xs + (r * G::XW + col) * 8) =
+          make_uint4(u[0] | (u[1] << 16), u[2], 0u, 0u);
+    }
   }
   if (threadIdx.x < 8)
     xs[G::XN * G::XW * 8 + threadIdx.x] = __float2bfloat16_rn(0.f);
   lap(wg::P_LOAD);
-  __syncthreads();
+  wg::sync_consumers();
   lap(wg::P_SYNC);
-  mma_conv<16, 8, 32, 4, 4, PF>(
-      xs, G::Y0N * G::Y0W, fr.w0, RowsConv0{G::Y0W, G::XW},
-      EpiConv<Q::P32, false, false>{y0, G::Y0W, b0, 4 * R5 - 5, 4 * C5 - 5,
-                                    H, nullptr, 0, nullptr});
-  lap(wg::P_MMA);
-  __syncthreads();
+  wg::conv<C0, 8>(ring, xs, RowsConv0{G::Y0W, G::XW},
+                  EpiConv<Q::P32, false, false>{y0, G::Y0W, b0, 4 * R5 - 5,
+                                                4 * C5r - 5, H, nullptr, 0,
+                                                nullptr},
+                  lap);
+  wg::sync_consumers();
   lap(wg::P_SYNC);
   // own regions: y0 rows/columns [4 R5, 4 R5 + 4 TILE) at tile offset 5, y1
   // and y2 [2 R5, 2 R5 + 2 TILE) at offset 2, y3 at offset 1; the tiles of
   // all blocks partition the image
-  if (SAVE)
-    store_own<bf16, 32, true, Q::P32>(y0, G::Y0W, 5, 4 * TILE, 4 * TILE,
-                                      4 * R5, 4 * C5, ac.y0e, ac.y0o, H, H,
-                                      pitch, lb, seg, first, last);
-  lap(wg::P_STORE);
-  mma_conv<32, Q::P32, 64, 4, 3, PF>(
-      y0, G::Y1N * G::Y1W, fr.w1, RowsConv<3, 2>{G::Y1W, G::Y0W},
-      EpiConv<Q::P64, false, false>{y1, G::Y1W, b1, 2 * R5 - 2, 2 * C5 - 2,
-                                    H1, nullptr, 0, nullptr});
-  lap(wg::P_MMA);
-  __syncthreads();
-  lap(wg::P_SYNC);
-  if (SAVE)
-    store_own<bf16, 64, false, Q::P64>(y1, G::Y1W, 2, 2 * TILE, 2 * TILE,
-                                       2 * R5, 2 * C5, ac.y1, nullptr, H1,
-                                       H1, pitch, lb, seg, first, last);
-  lap(wg::P_STORE);
-  mma_conv<64, Q::P64, 32, 4, 3, PF>(
-      y1, G::Y1N * G::Y1W, fr.w2, RowsConv<1, 1>{G::Y1W, G::Y1W},
-      EpiConv<Q::P32, false, false>{y2, G::Y1W, b2, 2 * R5 - 2, 2 * C5 - 2,
-                                    H1, nullptr, 0, nullptr});
-  lap(wg::P_MMA);
-  __syncthreads();
-  lap(wg::P_SYNC);
-  if (SAVE)
-    store_own<bf16, 32, false, Q::P32>(y2, G::Y1W, 2, 2 * TILE, 2 * TILE,
-                                       2 * R5, 2 * C5, ac.y2, nullptr, H1,
-                                       H1, pitch, lb, seg, first, last);
-  lap(wg::P_STORE);
-  // conv3: without SAVE K1's epilogue with the shortcut sum; with SAVE y3
-  // alone (its own value is saved), the sum below
-  mma_conv<32, Q::P32, 64, 4, 3, PF>(
-      y2, G::S4N * G::S4W, fr.w3, RowsConv<3, 1>{G::S4W, G::Y1W},
-      EpiConv<Q::P64, false, !SAVE, Q::P64>{s4, G::S4W, b3, 2 * R5 - 1,
-                                            2 * C5 - 1, H1, y1, G::Y1W,
-                                            nullptr});
-  lap(wg::P_MMA);
-  __syncthreads();
+  if (SAVE) {
+    store_act<32, Q::P32, 4 * TILE, true>(y0, G::Y0W, 5, 4 * R5, 4 * C5r,
+                                          ac.y0e + lb, ac.y0o + lb, H, pitch,
+                                          seg, last);
+    lap(wg::P_STORE);
+  }
+  wg::conv<C1, Q::P32>(
+      ring, y0, RowsConv<3, 2>{G::Y1W, G::Y0W},
+      EpiConv<Q::P64, false, false>{y1, G::Y1W, b1, 2 * R5 - 2, 2 * C5r - 2,
+                                    H1, nullptr, 0, nullptr},
+      lap);
+  wg::sync_consumers();
   lap(wg::P_SYNC);
   if (SAVE) {
-    store_own<bf16, 64, false, Q::P64>(s4, G::S4W, 1, 2 * TILE, 2 * TILE,
-                                       2 * R5, 2 * C5, ac.y3, nullptr, H1,
-                                       H1, pitch, lb, seg, first, last);
+    store_act<64, Q::P64, 2 * TILE, false>(y1, G::Y1W, 2, 2 * R5, 2 * C5r,
+                                           ac.y1 + lb, nullptr, H1, pitch,
+                                           seg, last);
     lap(wg::P_STORE);
-    __syncthreads();
+  }
+  wg::conv<C2, Q::P64>(
+      ring, y1, RowsConv<1, 1>{G::Y1W, G::Y1W},
+      EpiConv<Q::P32, false, false>{y2, G::Y1W, b2, 2 * R5 - 2, 2 * C5r - 2,
+                                    H1, nullptr, 0, nullptr},
+      lap);
+  wg::sync_consumers();
+  lap(wg::P_SYNC);
+  if (SAVE) {
+    store_act<32, Q::P32, 2 * TILE, false>(y2, G::Y1W, 2, 2 * R5, 2 * C5r,
+                                           ac.y2 + lb, nullptr, H1, pitch,
+                                           seg, last);
+    lap(wg::P_STORE);
+  }
+  // conv3: without SAVE K1's epilogue with the shortcut sum; with SAVE y3
+  // alone (its own value is saved), the sum after its store
+  wg::conv<C3, Q::P32>(
+      ring, y2, RowsConv<3, 1>{G::S4W, G::Y1W},
+      EpiConv<Q::P64, false, !SAVE, Q::P64>{s4, G::S4W, b3, 2 * R5 - 1,
+                                            2 * C5r - 1, H1, y1, G::Y1W,
+                                            nullptr},
+      lap);
+  wg::sync_consumers();
+  lap(wg::P_SYNC);
+  if (SAVE) {
+    store_act<64, Q::P64, 2 * TILE, false>(s4, G::S4W, 1, 2 * R5, 2 * C5r,
+                                           ac.y3 + lb, nullptr, H1, pitch,
+                                           seg, last);
+    lap(wg::P_STORE);
+    wg::sync_consumers();
     lap(wg::P_SYNC);
-    // s4 = T(y3 + y1) in place, y1 at its tile position (oy + 1, ox + 1):
-    // EpiConv's RES sum (outside the image both are zero, and so is s4)
-    for (int idx = threadIdx.x; idx < G::S4N * G::S4W * 64; idx += NT) {
-      const int ch = idx % 64;
-      const int p = idx / 64;
-      const int oy = p / G::S4W, ox = p - oy * G::S4W;
-      bf16* d = s4 + p * Q::P64 + ch;
-      *d = __float2bfloat16_rn(
-          to_f(*d) + to_f(y1[((oy + 1) * G::Y1W + ox + 1) * Q::P64 + ch]));
-    }
+    shortcut_sum(s4, y1);
     lap(wg::P_EPI);
-    __syncthreads();
+    wg::sync_consumers();
     lap(wg::P_SYNC);
   }
   // conv5 at stride (2, 1): dense y5 (R5 + oy, 2 C5 + ox) reads s4 at tile
   // (2 oy + ky, ox + kx)
-  mma_conv<64, Q::P64, 128, 4, 2, PF>(
-      s4, TILE * 2 * TILE, fr.w5, RowsConv21<3>{2 * TILE, G::S4W},
+  wg::conv<C5, Q::P64>(
+      ring, s4, RowsConv21<3>{2 * TILE, G::S4W},
       EpiConv<Q::P128, false, false>{ys, 2 * TILE, b5, 0, 0, 0x7fffffff,
-                                     nullptr, 0, nullptr});
-  lap(wg::P_MMA);
-  __syncthreads();
+                                     nullptr, 0, nullptr},
+      lap);
+  wg::sync_consumers();
   lap(wg::P_SYNC);
-  store_own<bf16, 128, false, Q::P128>(ys, 2 * TILE, 0, TILE, 2 * TILE, R5,
-                                       2 * C5, y5, nullptr, H5, H1, pitch, lb,
-                                       seg, first, last);
+  store_y5(ys, R5, 2 * C5r, y5 + lb, H5, H1, pitch, seg, first, last);
   lap(wg::P_STORE);
 }
 
 template <bool SAVE>
-int launch_fwd_tc(const void* xe, const void* xo, Frags fr,
-                  const float* const* bias, void* y5, Acts<bf16> ac, int B,
-                  int H, int seg, cudaStream_t s) {
-  constexpr size_t smem = sizeof(bf16) * (size_t)GeomTC::ELEMS;
+int launch_fwd_wg(const void* xe, const void* xo, const float* const* bias,
+                  k8a::Weights ww, void* y5, Acts<bf16> ac, int B, int H,
+                  int seg, cudaStream_t s) {
   cudaError_t e = cudaFuncSetAttribute(
-      fused_stem_fwd_b_tc_kernel<SAVE>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      fused_stem_fwd_b_wg_kernel<SAVE>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, k8a::SMEM);
   if (e != cudaSuccess) return (int)e;
-  const int nt = (H / 4 + GeomTC::TILE - 1) / GeomTC::TILE;
-  dim3 grid(nt, nt, B);
-  fused_stem_fwd_b_tc_kernel<SAVE><<<grid, NT, smem, s>>>(
-      static_cast<const bf16*>(xe), static_cast<const bf16*>(xo), fr,
-      bias[0], bias[1], bias[2], bias[3], bias[4], static_cast<bf16*>(y5),
-      ac, H, seg, (long long)B * seg);
+  const int nt = (H / 4 + k8a::TILE - 1) / k8a::TILE;
+  fused_stem_fwd_b_wg_kernel<SAVE><<<dim3(nt, nt, B), wg::NTH, k8a::SMEM,
+                                     s>>>(
+      static_cast<const bf16*>(xe), static_cast<const bf16*>(xo), bias[0],
+      bias[1], bias[2], bias[3], bias[4], ww, static_cast<bf16*>(y5), ac, H,
+      seg, (long long)B * seg);
   return (int)cudaGetLastError();
 }
 
@@ -879,9 +1094,9 @@ int launch_bwd_wg(const void* gp5dd, const void* const* a,
 }  // namespace
 
 // K8a. dtype: 0 = float32 (TILE 4, CUDA cores), 1 = bfloat16 (TILE 8,
-// tensor cores). xe, xo the batch-on-lanes phases [H, 8, B*seg]; weights
+// wgmma). xe, xo the batch-on-lanes phases [H, 8, B*seg]; weights
 // HWIO in the compute dtype (read in float32), biases float32; f0 .. f5
-// K1's fragment-order weights of convs 0, 1, 2, 3, 5 (read in bfloat16,
+// K1's packed weights of convs 0, 1, 2, 3, 5 (k1_packed; read in bfloat16,
 // null in float32); y5 dense [H/4, 128, B*seg]; a0e .. a3 save_acts'
 // outputs, all null for the forward alone. H a multiple of 8. Returns
 // cudaGetLastError().
@@ -899,16 +1114,17 @@ extern "C" int apfp_fused_stem_fwd_b(
   void* const a[5] = {a0e, a0o, a1, a2, a3};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
-    const Frags fr = {
-        static_cast<const uint2*>(f0), static_cast<const uint2*>(f1),
-        static_cast<const uint2*>(f2), static_cast<const uint2*>(f3),
-        static_cast<const uint2*>(f5)};
+    const k8a::Weights ww = {{static_cast<const unsigned char*>(f0),
+                              static_cast<const unsigned char*>(f1),
+                              static_cast<const unsigned char*>(f2),
+                              static_cast<const unsigned char*>(f3),
+                              static_cast<const unsigned char*>(f5)}};
     const Acts<bf16> ac = {static_cast<bf16*>(a0e), static_cast<bf16*>(a0o),
                            static_cast<bf16*>(a1), static_cast<bf16*>(a2),
                            static_cast<bf16*>(a3)};
     if (a0e != nullptr)
-      return launch_fwd_tc<true>(xe, xo, fr, bias, y5, ac, B, H, seg, s);
-    return launch_fwd_tc<false>(xe, xo, fr, bias, y5, ac, B, H, seg, s);
+      return launch_fwd_wg<true>(xe, xo, bias, ww, y5, ac, B, H, seg, s);
+    return launch_fwd_wg<false>(xe, xo, bias, ww, y5, ac, B, H, seg, s);
   }
   const void* w[5] = {w0, w1, w2, w3, w5};
   return launch_fwd_any<float, 4>(xe, xo, w, bias, y5, a, B, H, seg, s);
@@ -942,11 +1158,11 @@ extern "C" int apfp_fused_stem_bwd_b(
 // thread, info[1] the dynamic shared memory bytes of a launch, info[2] the
 // blocks one multiprocessor holds. Returns the CUDA error.
 extern "C" int apfp_fused_stem_fwd_b_info(int dtype, int save, int* info) {
-  if (dtype == 1) {
-    const size_t smem = sizeof(bf16) * (size_t)GeomTC::ELEMS;
-    return save ? info_of(fused_stem_fwd_b_tc_kernel<true>, smem, info)
-                : info_of(fused_stem_fwd_b_tc_kernel<false>, smem, info);
-  }
+  if (dtype == 1)
+    return save ? info_of(fused_stem_fwd_b_wg_kernel<true>, k8a::SMEM, info,
+                          wg::NTH)
+                : info_of(fused_stem_fwd_b_wg_kernel<false>, k8a::SMEM, info,
+                          wg::NTH);
   const size_t smem = sizeof(float) * (size_t)GeomB<4>::ELEMS;
   return save ? info_of(fused_stem_fwd_b_kernel<float, 4, true>, smem, info)
               : info_of(fused_stem_fwd_b_kernel<float, 4, false>, smem, info);

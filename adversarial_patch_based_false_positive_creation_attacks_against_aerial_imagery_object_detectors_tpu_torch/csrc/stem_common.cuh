@@ -6,15 +6,15 @@
 // recompute and the batch-on-lanes forward) and its input-cotangent chain
 // on CUDA-core FMAs (grad_chain, chain_tail: float32 K2, K5 and, past its
 // first stage, the float32 batch-on-lanes backward); the tensor-core
-// implicit GEMM on mma.sync (mma_conv) with K1's epilogue (EpiConv), which
-// the bfloat16 batch-on-lanes forward (K8a) and the stage kernels (K6) run;
-// the bfloat16 chain's epilogues (bwd_tc); and the same GEMMs built for
-// Hopper's own units (wg: wgmma with the weights streamed into shared
-// memory by bulk copies, a producer warp, mbarriers), which the bfloat16
-// K1, K5's recompute and K4 run, with K2's chain on them (wgc) that K2, K5
-// and the batch-on-lanes backward (K8b) share. A wgmma k16 step sums as an
-// mma.sync one, bit for bit (checked on the card), so the two families
-// agree exactly where they sum alike.
+// implicit GEMMs' shared pieces (ldmatrix, K1's epilogue EpiConv, the row
+// maps) and the bfloat16 chain's epilogues (bwd_tc); and the GEMMs built
+// for Hopper's own units (wg: wgmma with the weights streamed into shared
+// memory by bulk copies, a producer warp, mbarriers), which every bfloat16
+// conv kernel runs (K1, K5's recompute, the batch-on-lanes forward K8a, K4,
+// K6), with K2's chain on them (wgc) that K2, K5 and the batch-on-lanes
+// backward (K8b) share. A wgmma k16 step sums as an mma.sync one, bit for
+// bit (checked on the card), so the wgmma kernels equal the mma.sync ones
+// they replaced.
 #pragma once
 
 #include <cuda.h>
@@ -592,22 +592,18 @@ __device__ void grad_chain(T* sm, const T* __restrict__ y5,
 }
 
 // ---------------------------------------------------------------------------
-// Tensor-core convs on mma.sync (the bfloat16 K8a and K6): implicit GEMMs
+// Tensor-core implicit GEMMs: shared pieces
 // ---------------------------------------------------------------------------
 // A conv (or an adjoint) between shared-memory tiles laid out [pos][pitch]
 // is the product D[m][n] = sum_i sum_k A_i[m][k] B_i[k][n]: m an output
 // position of the tile, n an output channel, i a tap, k an input channel.
-// mma_conv runs it as mma.sync.m16n8k16 (bfloat16 in, float32 accumulate):
-// each warp takes items of 16 positions x 8*NW channels in turn; per tap
-// and 16 input channels one ldmatrix.x4 loads the A fragment, each lane
+// wg::conv below runs it on wgmma; what it shares with the mma.sync form of
+// the same step (kept for the k16 step's bit check, stem_fused.cu:
+// wgmma_bitcheck_kernel) is here: the A fragments by ldmatrix, each lane
 // giving the address of its own position's row (so a stride-2 gather needs
-// no im2col buffer), and one 8-byte __ldg per 8 channels loads the B
-// fragment from weights in fragment order ([tap][K/16][N/8][lane][4],
-// ops/stem_fused.py: mma_weights; L1/L2-resident, the same for every
-// block). Sums run over taps, then 16-channel steps, then the MMA's own
-// order: not conv_stage's, so a result may differ from it by a rounding.
-// Each result pair (channels n, n+1 of one position) goes to the epilogue
-// as epi(oy, ox, n, v0, v1).
+// no im2col buffer), the forward convs' epilogue (EpiConv) and the row maps
+// (Rows*). Each result pair (channels n, n+1 of one position) goes to the
+// epilogue as epi(oy, ox, n, v0, v1).
 
 using bf16 = __nv_bfloat16;
 
@@ -686,18 +682,7 @@ struct EpiConv {
   }
 };
 
-// The bfloat16 forward convs' weights in mma.sync's fragment order (K1's:
-// conv0 as RowsConv0 pairs its taps, convs 1, 2, 3, 5); unused (null) in
-// float32
-struct Frags {
-  const uint2* w0;
-  const uint2* w1;
-  const uint2* w2;
-  const uint2* w3;
-  const uint2* w5;
-};
-
-// Row maps of mma_conv: for output row m, the input position its tap i
+// Row maps of a GEMM: for output row m, the input position its tap i
 // reads (and the tap's index in the weights), and the output position.
 // A forward conv: output (oy, ox) of an OW-wide tile reads the input of row
 // width IW at (S oy + ky, S ox + kx).
@@ -795,127 +780,6 @@ struct RowsT2 {
     ox = 2 * (m - a * NS) + PX;
   }
 };
-
-// One tap's B fragments (KSTEPS x NW, from w = the tap's first), and its
-// products for MT row blocks (a[t]: block t's A rows at this tap): per
-// 16-deep step the MT A fragments, then MT x NW MMAs
-template <int KSTEPS, int NW, int NT8>
-__device__ __forceinline__ void load_b(uint2 (&b)[KSTEPS][NW],
-                                       const uint2* __restrict__ w) {
-#pragma unroll
-  for (int ks = 0; ks < KSTEPS; ++ks)
-#pragma unroll
-    for (int j = 0; j < NW; ++j) b[ks][j] = __ldg(w + (ks * NT8 + j) * 32);
-}
-template <int KSTEPS, int NW, int MT>
-__device__ __forceinline__ void mma_tap(float (&acc)[MT][NW][4],
-                                        const bf16* const (&a)[MT],
-                                        const uint2 (&b)[KSTEPS][NW]) {
-#pragma unroll
-  for (int ks = 0; ks < KSTEPS; ++ks) {
-    uint32_t af[MT][4];
-#pragma unroll
-    for (int t = 0; t < MT; ++t) ldsm_x4(af[t], a[t] + ks * 16);
-#pragma unroll
-    for (int t = 0; t < MT; ++t)
-#pragma unroll
-      for (int j = 0; j < NW; ++j) mma_bf16(acc[t][j], af[t], b[ks][j]);
-  }
-}
-
-// The implicit GEMM: in [pos][IP] bfloat16 (IP * 2 bytes a multiple of 16,
-// in 16-byte aligned), M output rows, CIN input and COUT output channels,
-// wf the fragment-ordered weights (uint2 per lane and 8 channels). A warp's
-// item is MT blocks of 16 rows x NW blocks of 8 channels: each B fragment
-// it loads serves MT MMAs, so the weights' traffic through L1/L2 (the same
-// weights for every block) falls as 1/MT. rot turns the items' assignment
-// to warps (a caller running several small GEMMs back to back spreads the
-// idle warps). PF loads the next tap's B fragments while the current tap's
-// MMAs run (the taps unrolled, twice the fragment registers: for a kernel
-// of one block a multiprocessor).
-template <int CIN, int IP, int COUT, int NW, int MT = 1, bool PF = false,
-          class Rows, class Epi>
-__device__ __forceinline__ void mma_conv(const bf16* __restrict__ in, int M,
-                                         const uint2* __restrict__ wf,
-                                         const Rows& rows, const Epi& epi,
-                                         int rot = 0) {
-  constexpr int KSTEPS = CIN / 16;
-  constexpr int NT8 = COUT / 8;
-  constexpr int NG = NT8 / NW;
-  constexpr int NWARP = NT / 32;
-  constexpr int TAPW = KSTEPS * NT8 * 32;  // one tap's uint2s
-  static_assert(CIN % 16 == 0 && NT8 % NW == 0 && IP % 8 == 0,
-                "mma tiling");
-  const int lane = threadIdx.x & 31;
-  const int items = ((M + 15) / 16 + MT - 1) / MT * NG;
-  for (int it = (threadIdx.x / 32 + rot) % NWARP; it < items; it += NWARP) {
-    const int mg = it / NG, ng = it - mg * NG;
-    // this lane's A row in each row block (rows past M repeat the last;
-    // their sums are dropped) and 8-channel half of each 16-channel step
-    int mrow[MT];
-#pragma unroll
-    for (int t = 0; t < MT; ++t)
-      mrow[t] = min((mg * MT + t) * 16 + (lane & 15), M - 1);
-    const bf16* ap = in + (lane >> 4) * 8;
-    const uint2* wg = wf + ng * NW * 32 + lane;
-    float acc[MT][NW][4];
-#pragma unroll
-    for (int t = 0; t < MT; ++t)
-#pragma unroll
-      for (int j = 0; j < NW; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[t][j][e] = 0.f;
-    if constexpr (PF) {
-      uint2 b[2][KSTEPS][NW];
-      int tap;
-      const bf16* a[MT];
-#pragma unroll
-      for (int t = 0; t < MT; ++t) a[t] = ap + rows(mrow[t], 0, tap) * IP;
-      load_b<KSTEPS, NW, NT8>(b[0], wg + tap * TAPW);
-#pragma unroll
-      for (int i = 0; i < Rows::NTAP; ++i) {
-        const bf16* an[MT];
-#pragma unroll
-        for (int t = 0; t < MT; ++t) an[t] = a[t];
-        if (i + 1 < Rows::NTAP) {
-#pragma unroll
-          for (int t = 0; t < MT; ++t)
-            an[t] = ap + rows(mrow[t], i + 1, tap) * IP;
-          load_b<KSTEPS, NW, NT8>(b[(i + 1) & 1], wg + tap * TAPW);
-        }
-        mma_tap<KSTEPS, NW, MT>(acc, a, b[i & 1]);
-#pragma unroll
-        for (int t = 0; t < MT; ++t) a[t] = an[t];
-      }
-    } else {
-#pragma unroll 1
-      for (int i = 0; i < Rows::NTAP; ++i) {
-        int tap;
-        const bf16* a[MT];
-#pragma unroll
-        for (int t = 0; t < MT; ++t) a[t] = ap + rows(mrow[t], i, tap) * IP;
-        uint2 b[KSTEPS][NW];
-        load_b<KSTEPS, NW, NT8>(b, wg + tap * TAPW);
-        mma_tap<KSTEPS, NW, MT>(acc, a, b);
-      }
-    }
-    // accumulator (t, j, e): row (mg MT + t) 16 + lane/4 (+8 for e >= 2),
-    // channels 8 (ng NW + j) + 2 (lane % 4) (+1)
-    const int g = lane >> 2, n0 = ng * NW * 8 + 2 * (lane & 3);
-#pragma unroll
-    for (int t = 0; t < MT; ++t)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int m = (mg * MT + t) * 16 + g + 8 * h;
-        if (m >= M) continue;
-        int oy, ox;
-        rows.out(m, oy, ox);
-#pragma unroll
-        for (int j = 0; j < NW; ++j)
-          epi(oy, ox, n0 + 8 * j, acc[t][j][2 * h], acc[t][j][2 * h + 1]);
-      }
-  }
-}
 
 // ---------------------------------------------------------------------------
 // The bfloat16 input-cotangent chain's regions and epilogues (K2, K5, K8b)
@@ -1031,21 +895,22 @@ struct EpiGx {
 }  // namespace bwd_tc
 
 // ---------------------------------------------------------------------------
-// Hopper's own units (bfloat16 K1, K2, K5, K8b, K4): wgmma, bulk copies, TMA
+// Hopper's own units (bfloat16 K1, K2, K5, K8a, K8b, K4, K6): wgmma, bulk
+// copies, TMA
 // ---------------------------------------------------------------------------
-// A conv (or adjoint) stage is the implicit GEMM of mma_conv, run by
-// warpgroups: wgmma.mma_async.m64nNk16 (bfloat16 in, float32 accumulate)
-// with A from registers, loaded by ldmatrix from the [pos][pitch]
-// activation tile exactly as mma_conv loads it (each lane the address of
-// its own position's row: tap shifts and stride-2 gathers stay address
-// arithmetic), and B from shared memory. Each warpgroup item is MT blocks
-// of 64 rows x N/NG channels; per 16-deep step its warps load their 16
-// rows of each block and the warpgroup issues MT wgmmas on one
-// descriptor. The step order is mma_conv's (taps outer, 16-channel steps
-// inner, one float32 accumulator an output starting from zero, bias and
-// leaky in the epilogue), so a result differs from mma_conv's only if a
-// wgmma k16 step rounds otherwise than an mma.sync one (tested on the
-// card: tests/test_torch_gpu.py, chip_smoke.py phase 5).
+// A conv (or adjoint) stage is the implicit GEMM above, run by warpgroups:
+// wgmma.mma_async.m64nNk16 (bfloat16 in, float32 accumulate) with A from
+// registers, loaded by ldmatrix from the [pos][pitch] activation tile
+// (each lane the address of its own position's row: tap shifts and
+// stride-2 gathers stay address arithmetic), and B from shared memory.
+// Each warpgroup item is MT blocks of 64 rows x N/NG channels; per 16-deep
+// step its warps load their 16 rows of each block and the warpgroup issues
+// MT wgmmas on one descriptor. The step order is the mma.sync kernels' that
+// these replaced (taps outer, 16-channel steps inner, one float32
+// accumulator an output starting from zero, bias and leaky in the
+// epilogue), so a result differs from theirs only if a wgmma k16 step
+// rounds otherwise than an mma.sync one (tested on the card:
+// tests/test_torch_gpu.py, chip_smoke.py phase 5).
 //
 // The weights are packed on the host (ops/stem_fused.py: wg_weights) per
 // GEMM as [chunk][N][64] bfloat16: the GEMM's depth (taps x K, in step
@@ -1565,7 +1430,7 @@ __device__ __forceinline__ void wait_chunk(const R& r, int c, Lap& lap) {
 }
 
 // The consumers' part of GEMM G over in [pos][IP] (bfloat16, rows of IP * 2
-// bytes, a multiple of 16, 16-byte aligned), rows as mma_conv's Rows maps
+// bytes, a multiple of 16, 16-byte aligned), rows as the Rows maps map
 // them; each result pair (channels n, n+1 of one position) to
 // epi(oy, ox, n, v0, v1). Called by the consumer threads; passes unrolled
 // (a loop around the divergent epilogue makes ptxas serialize the wgmmas).

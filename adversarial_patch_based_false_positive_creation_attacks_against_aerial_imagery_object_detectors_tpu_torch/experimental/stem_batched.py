@@ -18,11 +18,12 @@ lanes, so its conv5 adjoint is a plain stride-1 transposed conv.
   hand-written kernels of ``csrc/stem_batched.cu`` on CUDA tensors and run
   their plain versions (``F.conv2d`` / ``F.conv_transpose2d`` chains with
   the kernels' rounding points) on CPU tensors; anything else raises.
-  In bfloat16 both run on the tensor cores, on the fused stem's code: K8a
-  K1's convs on ``mma.sync`` (``mma_conv``, K1's fragment-order weights),
-  K8b K2's ``wgmma`` chain on K2's packed adjoints (``k2_packed``) with its
-  inputs brought by TMA; float32 keeps the CUDA-core kernels. Launch counts: ``fused_stem_fwd_b.launches``
-  and ``.save_acts_launches``, ``fused_stem_bwd_b.launches``.
+  In bfloat16 both run on Hopper's ``wgmma``, on the fused stem's code:
+  K8a K1's convs on K1's packed weights (``k1_packed``), K8b K2's chain on
+  K2's packed adjoints (``k2_packed``) with its inputs brought by TMA;
+  float32 keeps the CUDA-core kernels. Launch counts:
+  ``fused_stem_fwd_b.launches`` and ``.save_acts_launches``,
+  ``fused_stem_bwd_b.launches``.
 - ``fused_stem_batched`` / ``FusedStemBatched``: NHWC in, NHWC
   ``[B, H/4, W/4, 128]`` out; the backward returns the input cotangent
   only. The JAX module's tiling knobs (``s5``, ``interpret``) are gone: the
@@ -38,10 +39,10 @@ import torch
 import torch.nn.functional as F
 
 from ..ops import _cuda
-from ..ops.planar_conv import _mma_cached, _round_up
+from ..ops.planar_conv import _round_up
 from ..ops.stem_fused import (LEAKY, StemBwdParams, StemParams, _needs_grad,
                               _check_stem_bwd_params, _check_stem_params,
-                              k2_packed, mma_weights_conv0)
+                              k1_packed, k2_packed)
 
 
 # ---------------------------------------------------------------------------
@@ -163,10 +164,10 @@ def fused_stem_fwd_b(xe: torch.Tensor, xo: torch.Tensor, sp: StemParams,
     ``save_acts``; see the plain version). ``sp``: the fused stem's
     (HWIO weight in the compute dtype, float32 bias) pairs
     (``Darknet.stem_params()``). In bfloat16 the kernel runs K1's
-    tensor-core convs on K1's fragment-order weights, so its decimated y5
-    and its activations' signs are K1's. The two instantiations count
-    their own launches: ``fused_stem_fwd_b.launches`` and
-    ``.save_acts_launches``."""
+    ``wgmma`` convs on K1's packed weights (``k1_packed``), so its
+    decimated y5 and its activations' signs are K1's. The two
+    instantiations count their own launches: ``fused_stem_fwd_b.launches``
+    and ``.save_acts_launches``."""
     if xe.device.type == "cpu":
         return fused_stem_fwd_b_plain(xe, xo, sp, bsz, save_acts)
     _cuda.require_cuda("fused_stem_fwd_b", xe, xo)
@@ -186,14 +187,12 @@ def fused_stem_fwd_b(xe: torch.Tensor, xo: torch.Tensor, sp: StemParams,
                 for rows, c in ((h, 32), (h, 32), (h1, 64), (h1, 32),
                                 (h1, 64))]
     act_ptrs = [a.data_ptr() for a in acts] or [None] * 5
-    # bfloat16 on the tensor cores (K1's fragment order), float32 on sp
-    frags = ([_mma_cached(sp[0][0], mma_weights_conv0).data_ptr()]
-             + [_mma_cached(w).data_ptr() for w, _ in sp[1:]]
-             if dt == torch.bfloat16 else [None] * 5)
+    # bfloat16 on wgmma (K1's packed weights), float32 on sp
+    packed = k1_packed(sp) if dt == torch.bfloat16 else [None] * 5
     _cuda.launch(
         "fused_stem_fwd_b", "stem_batched", "apfp_fused_stem_fwd_b", xe,
         xe.data_ptr(), xo.data_ptr(), *[w.data_ptr() for w, _ in sp],
-        *[b.data_ptr() for _, b in sp], *frags, y5.data_ptr(), *act_ptrs,
+        *[b.data_ptr() for _, b in sp], *packed, y5.data_ptr(), *act_ptrs,
         _cuda.DTYPE_CODES[dt], bsz, h, tot // bsz)
     if save_acts:
         fused_stem_fwd_b.save_acts_launches += 1

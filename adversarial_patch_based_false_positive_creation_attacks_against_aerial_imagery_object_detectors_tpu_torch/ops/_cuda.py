@@ -127,7 +127,7 @@ SIGNATURES = {
     },
     "stem_batched": {
         # xe, xo, w0, w1, w2, w3, w5, b0, b1, b2, b3, b5, f0, f1, f2, f3,
-        # f5 (bfloat16 fragment-order weights or null), y5, a0e, a0o, a1,
+        # f5 (bfloat16 packed weights or null), y5, a0e, a0o, a1,
         # a2, a3 (save_acts outputs or null), dtype, B, H, seg, stream
         "apfp_fused_stem_fwd_b": [_P] * 23 + [_I] * 4 + [_P],
         # dtype, save, info[3]

@@ -199,8 +199,8 @@ from_planar.narrow_launches = 0
 
 
 # ---------------------------------------------------------------------------
-# Weights as the bfloat16 tensor-core kernels read them: mma.sync's
-# fragment order, or wgmma's swizzled chunks
+# Weights as the bfloat16 tensor-core kernels read them: wgmma's swizzled
+# chunks, or mma.sync's fragment order (the k16 step's bit check)
 # ---------------------------------------------------------------------------
 
 def mma_weights(w: torch.Tensor) -> torch.Tensor:

@@ -113,16 +113,6 @@ def stem_bwd_params(sp: StemParams) -> list:
     return out
 
 
-def mma_weights_conv0(w: torch.Tensor) -> torch.Tensor:
-    """conv0's HWIO ``[3, 3, 3, 32]`` as K8a's ``mma.sync`` conv0 reads it
-    (``stem_common.cuh: RowsConv0``): input channels padded 3 -> 8 and a
-    zero fourth column, each 16-deep step the taps kx = 2 pair, 2 pair + 1
-    of one row: ``mma_weights`` of ``[3, 2, 16, 32]``."""
-    kh, kw, cin, cout = w.shape
-    v = F.pad(w, (0, 0, 0, 8 - cin, 0, 4 - kw))
-    return mma_weights(v.reshape(kh, 2, 16, cout))
-
-
 # ---------------------------------------------------------------------------
 # Weights packed for the wgmma kernels (the bfloat16 K1 and K2)
 # ---------------------------------------------------------------------------
@@ -193,8 +183,8 @@ def wgmma_bitcheck(a: torch.Tensor, b: torch.Tensor):
     ``mma.sync.m16n8k16`` and by ``wgmma.m64n64k16`` (A from the same
     ``ldmatrix`` registers), in one launch of a check kernel
     (``csrc/stem_fused.cu: wgmma_bitcheck_kernel``). Equal bits say that
-    K8a (``mma_conv``) and the ``wgmma`` K1 sum alike: the exact check
-    K8a = K1 rests on it."""
+    a ``wgmma`` k16 step sums as an ``mma.sync`` one: the ``wgmma`` kernels
+    equal the ``mma.sync`` ones they replaced, bit for bit."""
     _cuda.require_cuda("wgmma_bitcheck", a, b)
     k = a.shape[1]
     if (a.dtype != torch.bfloat16 or b.dtype != torch.bfloat16

@@ -493,10 +493,10 @@ TC_KERNELS = {
     "fused_stem_bwd": [("", "stem_remat", "apfp_fused_stem_remat_info", (1,),
                         "fused_stem_remat_wg_kernel")],
     "fused_stem_fwd_b": [("", "stem_batched", "apfp_fused_stem_fwd_b_info",
-                          (1, 0), "fused_stem_fwd_b_tc_kernelILb0E")],
+                          (1, 0), "fused_stem_fwd_b_wg_kernelILb0E")],
     "fused_stem_fwd_b_save_acts": [(
         "", "stem_batched", "apfp_fused_stem_fwd_b_info", (1, 1),
-        "fused_stem_fwd_b_tc_kernelILb1E")],
+        "fused_stem_fwd_b_wg_kernelILb1E")],
     "fused_stem_bwd_b": [("", "stem_batched", "apfp_fused_stem_bwd_b_info",
                           (1,), "fused_stem_bwd_b_wg_kernel")],
     "res152_fused": [("", "res_fused", "apfp_res152_fused_info", (1, 0),
@@ -524,12 +524,13 @@ NO_SPILL = ("fused_stem_fwd", "fused_stem_fwd_save_acts",
             "fused_stem_fwd_b_save_acts", "fused_stem_bwd_b", "res152_fused",
             "res152_fused_save", "res152_fused_grad", "res152_fused_grad12",
             "median_pool_2d_pallas", *K4_NAMES)
-# the kernels built for Hopper's own units (K1, K1 save_acts, K2, K5, K8b,
-# K6a, K6a save, K6b, K6c, K4): wgmma and no mma.sync, and their weights
-# (K2, K5, K8b: also their boxes; K4: its input) by bulk copies or the
-# tensor unit
+# the kernels built for Hopper's own units (K1, K1 save_acts, K2, K5, K8a,
+# K8a save_acts, K8b, K6a, K6a save, K6b, K6c, K4): wgmma and no mma.sync,
+# and their weights (K2, K5, K8b: also their boxes; K4: its input) by bulk
+# copies or the tensor unit: every kernel of TC_KERNELS
 WGMMA_KERNELS = ("fused_stem_fwd", "fused_stem_fwd_save_acts",
-                 "fused_stem_bwd_saved", "fused_stem_bwd", "fused_stem_bwd_b",
+                 "fused_stem_bwd_saved", "fused_stem_bwd", "fused_stem_fwd_b",
+                 "fused_stem_fwd_b_save_acts", "fused_stem_bwd_b",
                  "res152_fused", "res152_fused_save", "res152_fused_grad",
                  "res152_fused_grad12", *K4_NAMES)
 SASS_OPS = ("HGMMA", "HMMA", "UTMALDG", "UBLKCP")
@@ -568,9 +569,8 @@ def tensor_core_check(_cuda, info) -> dict:
     and the card's own account of registers, dynamic shared memory and
     blocks per multiprocessor (``apfp_*_info``). Fails if one has no
     tensor-core instruction, if one of ``NO_SPILL`` (K1, K2, K5, K8, K6,
-    K4) spills, or if one of ``WGMMA_KERNELS`` (K1, K1 ``save_acts``, K2,
-    K5, K8b, K6a, K6a ``save``, K6b, K6c, K4) has an HMMA, no HGMMA or
-    neither a UTMALDG nor a UBLKCP.
+    K4) spills, or if one of ``WGMMA_KERNELS`` (all of them) has an HMMA,
+    no HGMMA or neither a UTMALDG nor a UBLKCP.
     Returns
     {entry name: record}; an entry of several instantiations holds them
     under ``sass``."""
@@ -812,10 +812,10 @@ def k2_read_bytes(acts, g5p) -> int:
 
 
 def wgmma_bitcheck(dev, sp) -> list:
-    """The bfloat16 K1 sums on wgmma, K8a on mma.sync (``mma_conv``), one
-    16-deep step after another from a zero float32 accumulator; the exact
-    check K8a = K1 holds only if a wgmma k16 step rounds as an mma.sync
-    one. On the stem's operands
+    """The wgmma kernels sum one 16-deep step after another from a zero
+    float32 accumulator, as the mma.sync kernels they replaced did; their
+    outputs equal those kernels' bit for bit only if a wgmma k16 step
+    rounds as an mma.sync one. On the stem's operands
     (conv5's weights in tap order, its first 64 channels; leaky
     activations of the stem's scale, numpy-seeded) at depths 64 and 576:
     ``ops/stem_fused.py: wgmma_bitcheck`` runs both in one launch and
@@ -2909,9 +2909,9 @@ def batched_kernels(dev, sp, sbp, card, tc_info) -> list:
     built as ``FusedStemBatched.backward`` builds it) with K1's and K2's
     tolerances, every border and slack lane zero though the blocks were
     dirty; then against K1 / K2 on the same x. bfloat16, where K8a runs
-    K1's convs on mma_conv and K8b K2's wgmma chain: K8a's decimated y5
-    and its activations' signs equal K1's y5 and masks, and K8b's merged
-    gx K2's on K1's masks, bit for bit. float32: K8a's y5 against K1's, K8b's gx
+    K1's wgmma convs and K8b K2's wgmma chain: K8a's decimated y5 and its
+    activations' signs equal K1's y5 and masks, and K8b's merged gx K2's
+    on K1's masks, bit for bit. float32: K8a's y5 against K1's, K8b's gx
     (its FMA adjoint sums in another order) against K2's outside the
     12-pixel zone of any sign that differs. Timed beside their bounds and
     K1 ``save_acts`` + K2 at the same shape. Returns the three entries,
@@ -3028,7 +3028,8 @@ def batched_kernels(dev, sp, sbp, card, tc_info) -> list:
               "sign_flips_vs_k1_masks": flips,
               "y5_sign_flips_vs_k1": y5_flips}
         if dt == bf16:
-            # K1's convs (mma_conv) and K2's chain: the same sums, bit for bit
+            # K1's convs and K2's chain, all on wgmma: the same sums, bit
+            # for bit
             assert torch.equal(y5n, k1y5) and flips == 0, ("K8a vs K1", d_y5,
                                                           flips)
             assert torch.equal(gxm, k2m), ("K8b vs K2", e.max().item())

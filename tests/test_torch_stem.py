@@ -199,27 +199,3 @@ def test_mma_weights_built_once_per_weight_tensor():
         wi = torch.ones(1, 1, 16, 8)
     fi = SF._mma_cached(wi)
     assert SF._mma_cached(wi) is fi
-
-
-def test_mma_weights_conv0_pairs_the_taps_of_a_row():
-    """K1's tensor-core conv0 reads step 2 ky + pair as the taps kx = 2 pair
-    (k < 8) and 2 pair + 1 (k >= 8) of row ky, channels padded 3 -> 8 and
-    a zero fourth column: its B, rebuilt from the fragments, is the HWIO
-    kernel laid out so."""
-    w = torch.randn(3, 3, 3, 32, generator=torch.Generator().manual_seed(3))
-    f = SF.mma_weights_conv0(w)
-    assert f.shape == (6, 1, 4, 32, 4)
-    lane = torch.arange(32)
-    gi, ti = lane // 4, lane % 4
-    b = torch.zeros(6, 16, 32)
-    for e, dk in enumerate((0, 1, 8, 9)):
-        for j in range(4):
-            b[:, 2 * ti + dk, 8 * j + gi] = f[:, 0, j, :, e]
-    for ky in range(3):
-        for kx in range(4):
-            step, half = 2 * ky + kx // 2, kx % 2
-            got = b[step, 8 * half:8 * half + 8]
-            want = torch.zeros(8, 32)
-            if kx < 3:
-                want[:3] = w[ky, kx]
-            torch.testing.assert_close(got, want, rtol=0, atol=0)

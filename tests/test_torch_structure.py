@@ -401,12 +401,12 @@ def test_bf16_stem_kernels_run_on_tensor_cores():
     their weights streamed by ``cp.async.bulk`` and their boxes by tensor
     maps; the ``mma.sync`` chain (``bwd_tc::chain``) and its staging
     helpers are gone; the bfloat16 K6a and K6b / K6c run their convs on
-    ``wg::conv`` too (their tiles by tensor maps); the bfloat16 K8a is the
-    last kernel that reaches ``mma.sync`` through ``mma_conv`` (its five
-    convs), the bfloat16 K4 runs ``wgmma`` with no ``mma.sync`` left, the
-    float32 paths keep the CUDA-core helpers, and no kernel source
-    includes a library's kernels (cuDNN, cuBLAS, CUTLASS's device-level
-    GEMMs)."""
+    ``wg::conv`` too (their tiles by tensor maps), and so does the
+    bfloat16 K8a (K1's five convs); ``mma_conv`` is gone and ``mma.sync``
+    is left only in the k16 step's bit check (``wgmma_bitcheck_kernel``),
+    the bfloat16 K4 runs ``wgmma``, the float32 paths keep the CUDA-core
+    helpers, and no kernel source includes a library's kernels (cuDNN,
+    cuBLAS, CUTLASS's device-level GEMMs)."""
     import re
     csrc = os.path.join(ROOT, PORT, "csrc")
     src = {f: open(os.path.join(csrc, f)).read() for f in os.listdir(csrc)
@@ -414,7 +414,8 @@ def test_bf16_stem_kernels_run_on_tensor_cores():
     common = src["stem_common.cuh"]
     assert re.search(r"mma\.sync\.aligned\.m16n8k16\.row\.col\.f32\.bf16"
                      r"\.bf16\.f32", common)
-    assert "ldmatrix.sync.aligned" in common and "mma_conv" in common
+    assert "ldmatrix.sync.aligned" in common
+    assert not any("mma_conv" in text for text in src.values())
     for n in (8, 32, 64):
         assert f"wgmma.mma_async.sync.aligned.m64n{n}k16.f32.bf16.bf16" \
             in common
@@ -425,6 +426,11 @@ def test_bf16_stem_kernels_run_on_tensor_cores():
     def body(text, kern):
         b = text[text.index(kern):]
         return b[:b.index("\n}\n")]
+    # mma.sync: the k16 step's bit check alone calls it
+    assert sorted(f for f, text in src.items() if "mma_bf16(" in text) == [
+        "stem_common.cuh", "stem_fused.cu"]
+    assert fwd.count("mma_bf16(") == 1
+    assert "mma_bf16(" in body(fwd, "wgmma_bitcheck_kernel(")
     # K1: the bfloat16 kernel takes wg::conv for its five convs and no
     # mma_conv; float32 conv_stage
     k1 = body(fwd, "fused_stem_fwd_wg_kernel(")
@@ -474,15 +480,15 @@ def test_bf16_stem_kernels_run_on_tensor_cores():
     assert "produce_boxes<" in k6f and "produce_boxes<" in k6b
     assert "wg::tma_load_4d(" in k6 and len(re.findall(r"\bconv_tile<",
                                                         k6)) == 8
-    # K8a: the last mma_conv user, the bfloat16 kernel on K1's five convs;
-    # K8b: the shared chain, its gp5dd and activations' boxes by tensor
-    # maps; float32 keeps conv_stage and chain_tail
+    # K8a: the bfloat16 kernel on K1's five convs (wg::conv, their packed
+    # weights streamed by wg::produce); K8b: the shared chain, its gp5dd and
+    # activations' boxes by tensor maps; float32 keeps conv_stage and
+    # chain_tail
     k8 = src["stem_batched.cu"]
-    assert len(re.findall(r"\bmma_conv<",
-                          body(k8, "fused_stem_fwd_b_tc_kernel("))) == 5
-    assert [f for f, text in src.items()
-            if f != "stem_common.cuh" and "mma_conv<" in text] == [
-        "stem_batched.cu"]
+    k8a = body(k8, "fused_stem_fwd_b_wg_kernel(")
+    assert len(re.findall(r"\bwg::conv<", k8a)) == 5
+    assert len(re.findall(r"\bwg::produce<", k8a)) == 5
+    assert "fused_stem_fwd_b_tc_kernel" not in k8
     k8b = body(k8, "fused_stem_bwd_b_wg_kernel(")
     assert "wgc::chain(" in k8b and "wgc::produce(" in k8b
     assert len(re.findall(r"\bwg::tma_load_4d\(", k8b)) == 6
