@@ -349,7 +349,9 @@ static_assert(C0::RES && C1::RES && C2::RES && C3::RES && !C5::RES &&
                   C5::NPASS == 1,
               "the ring's plan");
 constexpr int TILE_BYTES = 2 * Q::ELEMS;
-constexpr int SMEM = TILE_BYTES + wg::ring_bytes(STAGES, SLOT);
+constexpr int STAGE_AT = TILE_BYTES;  // the warps' transposing stages
+constexpr int RING_AT = STAGE_AT + wg::CONSUMER_WARPS * 512;
+constexpr int SMEM = RING_AT + wg::ring_bytes(STAGES, SLOT);
 static_assert(SMEM <= 232448, "shared memory");
 // K1's packed weights of convs 0, 1, 2, 3, 5 (ops/stem_fused.py: k1_packed)
 struct Weights {
@@ -366,6 +368,48 @@ __device__ __forceinline__ void zero_lanes(bf16* __restrict__ p, int from,
     *reinterpret_cast<uint4*>(p + l) = make_uint4(0, 0, 0, 0);
 }
 
+// A warp's transposing stage (Stage::BYTES a warp, past the tiles): one
+// unit of 16 positions x 16 channels of a [pos][P] tile, read by one
+// ldmatrix.x4.trans (matrix k: positions 8 (k % 2) .., channels
+// 8 (k / 2) ..), written back by stmatrix as 16 channel lines of 16 lanes
+// (32 bytes), the line's two 16-byte units at (2 line + half) XOR bit 2 of
+// the line: the eight rows of an stmatrix phase, and the eight units a
+// quarter-warp reads, fall in distinct bank groups
+struct Stage {
+  static constexpr int BYTES = 512;
+  unsigned char* base;  // this warp's
+  uint32_t st;          // the stmatrix row address of this lane
+  __device__ explicit Stage(unsigned char* all) {
+    const int lane = threadIdx.x & 31;
+    base = all + (threadIdx.x >> 5) * BYTES;
+    const int line = 8 * (lane >> 4) + (lane & 7), half = (lane >> 3) & 1;
+    st = wg::smem_u32(base) + 16 * unit(line, half);
+  }
+  static __device__ int unit(int line, int half) {
+    return (2 * line + half) ^ ((line >> 2) & 1);
+  }
+  // the unit whose position rows this lane addresses (a: its first
+  // channel's element of position L = 8 ((lane / 8) % 2) + lane % 8) into
+  // the stage
+  __device__ void put(const bf16* a) const {
+    uint32_t v[4];
+    ldsm4t(v, wg::smem_u32(a));
+    put(v);
+  }
+  __device__ void put(const uint32_t (&v)[4]) const {
+    stsm4(st, v);
+    __syncwarp();
+  }
+  // 8 lanes (16 bytes) of a line
+  __device__ uint4 get(int line, int half) const {
+    return *reinterpret_cast<const uint4*>(base + 16 * unit(line, half));
+  }
+  __device__ bf16 at(int line, int lane16) const {
+    return reinterpret_cast<const bf16*>(
+        base + 16 * unit(line, lane16 >> 3))[lane16 & 7];
+  }
+};
+
 // save_acts' store of one activation: the own NR x 16 region (16 columns,
 // or with PHASE 32 columns as 16 lanes a phase) of a [pos][P] tile of row
 // width TW (C channels) whose own first position is (off, off) in the tile
@@ -376,17 +420,16 @@ __device__ __forceinline__ void zero_lanes(bf16* __restrict__ p, int from,
 // own column i - 1 of its phase: lane l0 from the tile's halo, zero left of
 // the image, else the left neighbour's last own column with its bits (the
 // same sums); columns past the image are zero in the tile. A warp takes a
-// unit of 16 lanes x 16 channels of one row and phase: one
-// ldmatrix.x4.trans turns the 16 positions' rows into 4 lane pairs of 8
-// channels a thread, stored as 4-byte words (a line's 32 bytes by four
-// threads and two stores). The block of the last tile column writes lane
-// l0 + 16 (own column 15) and zeroes the rest of its rows' lines. Rows past
-// the image are skipped. Run by the NC consumer threads.
+// unit of 16 lanes x 16 channels of one row and phase through its Stage,
+// then each thread stores 16 bytes, two threads a line's sector. The block
+// of the last tile column writes lane l0 + 16 (own column 15) and zeroes
+// the rest of its rows' lines. Rows past the image are skipped. Run by the
+// NC consumer threads.
 template <int C, int P, int NR, bool PHASE>
 __device__ void store_act(const bf16* __restrict__ tile, int TW, int off,
                           int r0, int c0, bf16* __restrict__ d0,
                           bf16* __restrict__ d1, int rows, long long pitch,
-                          int seg, bool last) {
+                          int seg, bool last, const Stage& sg) {
   constexpr int NPH = PHASE ? 2 : 1, CG = C / 16;
   static_assert(C % 16 == 0 && P % 8 == 0, "16-channel units");
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -399,18 +442,13 @@ __device__ void store_act(const bf16* __restrict__ tile, int TW, int off,
   for (int u = warp; u < NR * NPH * CG; u += wg::CONSUMER_WARPS) {
     const int cg = u % CG, ph = (u / CG) % NPH, rr = u / (CG * NPH);
     if (r0 + rr >= rows) continue;
-    uint32_t v[4];
-    ldsm4t(v, wg::smem_u32(tile + ((rr + off) * TW + col + ph) * P +
-                           16 * cg + ch8));
-    // register k: channel 16 cg + 8 (k / 2) + lane / 4, lanes
-    // l0 + 8 (k % 2) + 2 (lane % 4) and the next
-    bf16* d = (ph ? d1 : d0) +
-              ((long long)(r0 + rr) * C + 16 * cg + (lane >> 2)) * pitch +
-              l0 + 2 * (lane & 3);
-#pragma unroll
-    for (int k = 0; k < 4; ++k)
-      *reinterpret_cast<uint32_t*>(d + (k >> 1) * 8 * pitch + (k & 1) * 8) =
-          v[k];
+    sg.put(tile + ((rr + off) * TW + col + ph) * P + 16 * cg + ch8);
+    const uint4 w = sg.get(lane >> 1, lane & 1);
+    __syncwarp();
+    *reinterpret_cast<uint4*>(
+        (ph ? d1 : d0) +
+        ((long long)(r0 + rr) * C + 16 * cg + (lane >> 1)) * pitch + l0 +
+        8 * (lane & 1)) = w;
   }
   if (last) {
     const int nr = min(NR, rows - r0);
@@ -427,17 +465,18 @@ __device__ void store_act(const bf16* __restrict__ tile, int TW, int off,
 // y5's store: the dense 8 x 16 tile [8][16][P128] (dense columns 2 C5 ..
 // 2 C5 + 15 of rows R5 ..) into lanes l0 + 1 .. l0 + 16 (l0 = 2 C5) of its
 // rows' lines of y5 [H5, 128, pitch] (d at the image's segment lane 0). The
-// tile has no column left of its own, so a lane pair (l0 + 2k, l0 + 2k + 1)
-// (columns 2k - 1, 2k) is formed from two threads' ldmatrix.trans words by
-// a shuffle inside the quad; lanes l0 + 1 and l0 + 16 are single elements.
-// Columns past the image's H1 are zero; rows past H5 are skipped. The block
-// of the first tile column zeroes lane 0, that of the last the lanes past
-// l0 + 16.
+// tile has no column left of its own, so a line's 16 values straddle two
+// 32-byte sectors (lane l0 is the left neighbour's): a unit of 16 lines
+// goes through the warp's Stage, then each thread stores one value, half
+// a warp a line (two sectors a line, the fewest). Columns past the image's
+// H1 are zero; rows past H5 are skipped. The block of the first tile
+// column zeroes lane 0, that of the last the lanes past l0 + 16.
 __device__ void store_y5(const bf16* __restrict__ ys, int R5, int l0,
                          bf16* __restrict__ d, int H5, int H1,
-                         long long pitch, int seg, bool first, bool last) {
+                         long long pitch, int seg, bool first, bool last,
+                         const Stage& sg) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int q = lane & 3;
+  const int q = lane & 3, e = lane & 15;
   const int L = 8 * ((lane >> 3) & 1) + (lane & 7);
   const int ch8 = 8 * (lane >> 4);
   const int nv = H1 - l0;  // the tile's columns inside the image
@@ -453,23 +492,15 @@ __device__ void store_y5(const bf16* __restrict__ ys, int R5, int l0,
       const int c = 8 * (k & 1) + 2 * q;
       v[k] &= (c < nv ? 0xffffu : 0u) | (c + 1 < nv ? 0xffff0000u : 0u);
     }
+    sg.put(v);
+    bf16* p = d + ((long long)(R5 + rr) * 128 + 16 * cg) * pitch + l0 + 1 +
+              e;
 #pragma unroll
-    for (int g = 0; g < 2; ++g) {
-      const uint32_t w0 = v[2 * g], w1 = v[2 * g + 1];
-      // the quad's previous thread's words; thread 3's first (columns 6, 7)
-      const uint32_t u0 = __shfl_up_sync(0xffffffffu, w0, 1, 4);
-      const uint32_t u1 = __shfl_up_sync(0xffffffffu, w1, 1, 4);
-      const uint32_t t3 = __shfl_sync(0xffffffffu, w0, 3, 4);
-      bf16* p = d + ((long long)(R5 + rr) * 128 + 16 * cg + 8 * g +
-                     (lane >> 2)) * pitch + l0;
-      if (q)
-        *reinterpret_cast<uint32_t*>(p + 2 * q) = (u0 >> 16) | (w0 << 16);
-      else
-        reinterpret_cast<uint16_t*>(p)[1] = (uint16_t)w0;
-      *reinterpret_cast<uint32_t*>(p + 8 + 2 * q) =
-          ((q ? u1 : t3) >> 16) | (w1 << 16);
-      if (q == 3) reinterpret_cast<uint16_t*>(p)[16] = (uint16_t)(w1 >> 16);
+    for (int i = 0; i < 8; ++i) {
+      const int line = 2 * i + (lane >> 4);
+      p[line * pitch] = sg.at(line, e);
     }
+    __syncwarp();
   }
   if (first || last) {
     const int n = min(TILE, H5 - R5) * 128;  // the own rows' lines
@@ -538,7 +569,7 @@ __global__ void __launch_bounds__(wg::NTH, 1)
   bf16* y1 = y0 + Q::B;   // [Y1N Y1W][P64]
   bf16* xs = y1;          // [XN XW + 1][8], before conv1 writes y1
   bf16* ys = y1;          // [TILE 2 TILE][P128], after the shortcut sum
-  auto ring = wg::make_ring<STAGES, SLOT>(wg::smem_u32(smem_raw + TILE_BYTES));
+  auto ring = wg::make_ring<STAGES, SLOT>(wg::smem_u32(smem_raw + RING_AT));
   __syncthreads();
   if (threadIdx.x >= wg::NC) {
     // the producer warp: one thread streams every GEMM's chunks in order
@@ -556,6 +587,7 @@ __global__ void __launch_bounds__(wg::NTH, 1)
   const int R5 = blockIdx.y * TILE, C5r = blockIdx.x * TILE;
   const int H1 = H / 2, H5 = H / 4;
   const bool first = blockIdx.x == 0, last = blockIdx.x == gridDim.x - 1;
+  const Stage sg(smem_raw + STAGE_AT);
 
   // x tile [XN XW + 1][8] from image row 4 R5 - 6 and column 4 C5 - 6;
   // column c of x is lane c/2 + 1 of the even (c even) or odd phase. K1's
@@ -610,7 +642,7 @@ __global__ void __launch_bounds__(wg::NTH, 1)
   if (SAVE) {
     store_act<32, Q::P32, 4 * TILE, true>(y0, G::Y0W, 5, 4 * R5, 4 * C5r,
                                           ac.y0e + lb, ac.y0o + lb, H, pitch,
-                                          seg, last);
+                                          seg, last, sg);
     lap(wg::P_STORE);
   }
   wg::conv<C1, Q::P32>(
@@ -623,7 +655,7 @@ __global__ void __launch_bounds__(wg::NTH, 1)
   if (SAVE) {
     store_act<64, Q::P64, 2 * TILE, false>(y1, G::Y1W, 2, 2 * R5, 2 * C5r,
                                            ac.y1 + lb, nullptr, H1, pitch,
-                                           seg, last);
+                                           seg, last, sg);
     lap(wg::P_STORE);
   }
   wg::conv<C2, Q::P64>(
@@ -636,7 +668,7 @@ __global__ void __launch_bounds__(wg::NTH, 1)
   if (SAVE) {
     store_act<32, Q::P32, 2 * TILE, false>(y2, G::Y1W, 2, 2 * R5, 2 * C5r,
                                            ac.y2 + lb, nullptr, H1, pitch,
-                                           seg, last);
+                                           seg, last, sg);
     lap(wg::P_STORE);
   }
   // conv3: without SAVE K1's epilogue with the shortcut sum; with SAVE y3
@@ -652,7 +684,7 @@ __global__ void __launch_bounds__(wg::NTH, 1)
   if (SAVE) {
     store_act<64, Q::P64, 2 * TILE, false>(s4, G::S4W, 1, 2 * R5, 2 * C5r,
                                            ac.y3 + lb, nullptr, H1, pitch,
-                                           seg, last);
+                                           seg, last, sg);
     lap(wg::P_STORE);
     wg::sync_consumers();
     lap(wg::P_SYNC);
@@ -670,7 +702,7 @@ __global__ void __launch_bounds__(wg::NTH, 1)
       lap);
   wg::sync_consumers();
   lap(wg::P_SYNC);
-  store_y5(ys, R5, 2 * C5r, y5 + lb, H5, H1, pitch, seg, first, last);
+  store_y5(ys, R5, 2 * C5r, y5 + lb, H5, H1, pitch, seg, first, last, sg);
   lap(wg::P_STORE);
 }
 

@@ -15,7 +15,8 @@ version and K1 there).
   constants (its ``GeomB<8>``, ``GeomTC`` and the five ``wg::Gemm``s of
   ``namespace k8a``), stays within a block's 232,448 bytes; convs 0-3 are
   resident and conv5 is one pass.
-- The stores' lane maps (``store_act`` for the y0 phases, y1, y2 and y3;
+- The warps' transposing stage (``Stage``) is bank-conflict free, and the
+  stores' lane maps (``store_act`` for the y0 phases, y1, y2 and y3;
   ``store_y5``) write each lane of every output row exactly once, lane
   j + 1 with column j's value and lane 0 and the slack zero, only the
   first and last tile columns touching lane 0 and the slack, at 608^2 and
@@ -187,8 +188,9 @@ def _gemm_plan(ntap, kt, n, ng, mt, m, slot, stages, calls=1, gs=4):
 
 def test_shared_memory_plan_fits_one_block():
     """The tiles (GeomTC: y0 then y2 and s4 in one region; x, then y1, then
-    the y5 tile in the other) and the ring of ``namespace k8a`` (its
-    STAGES slots of SLOT bytes, the alignment slack, two barriers a slot),
+    the y5 tile in the other), the warps' transposing stages and the ring
+    of ``namespace k8a`` (its STAGES slots of SLOT bytes, the alignment
+    slack, two barriers a slot),
     mirrored from the source, fit a block's 232,448 bytes; the five GEMMs
     parsed from the source plan convs 0-3 resident (their slots within the
     ring) and conv5 as one streamed pass."""
@@ -202,8 +204,10 @@ def test_shared_memory_plan_fits_one_block():
     region_c = max(xe, Y1N * Y1W * p64, TILE * 2 * TILE * p128)
     tiles = 2 * (region_b + region_c)
     assert tiles == 182640
-    smem = tiles + 1024 + stages * slot + 16 * stages
-    assert smem == 224704 and smem <= 232448
+    # the eight consumer warps' transposing stages, 512 bytes each
+    assert "RING_AT = STAGE_AT + wg::CONSUMER_WARPS * 512" in src
+    smem = tiles + 8 * 512 + 1024 + stages * slot + 16 * stages
+    assert smem == 228800 and smem <= 232448
     # one more slot would not fit beside the tiles
     assert smem + slot > 232448
     env = {"G::Y0N": Y0N, "G::Y0W": Y0W, "G::Y1N": Y1N, "G::Y1W": Y1W,
@@ -221,16 +225,36 @@ def test_shared_memory_plan_fits_one_block():
     assert plans["C5"] == {"npass": 1, "nsl": 18, "res": False}
 
 
+def _unit(line, half):
+    """Stage::unit: a staged line's 16-byte unit (csrc/stem_batched.cu)."""
+    return (2 * line + half) ^ ((line >> 2) & 1)
+
+
+def test_stage_units_are_conflict_free():
+    """The warp's transposing stage holds 16 lines x 32 bytes in 32
+    distinct 16-byte units; the eight rows each stmatrix phase writes
+    (lane l of matrix k: line 8 (k // 2) + l % 8, half k % 2) and the eight
+    units each quarter-warp reads (thread t: line t // 2, half t % 2) fall
+    in eight distinct bank groups (unit % 8)."""
+    units = {_unit(line, half) for line in range(16) for half in (0, 1)}
+    assert units == set(range(32))
+    for k in range(4):
+        rows = [_unit(8 * (k // 2) + r, k % 2) % 8 for r in range(8)]
+        assert len(set(rows)) == 8, k
+    for qw in range(4):
+        reads = [_unit(t // 2, t % 2) % 8 for t in range(8 * qw, 8 * qw + 8)]
+        assert len(set(reads)) == 8, qw
+
+
 def _act_writes(l0, last, seg):
     """store_act's (lane, value index j of the phase) pairs for one line
-    of a block's row: a thread (quad position q) of a unit holds, in the
-    registers k of the line's channel (k % 2 = h), matrix rows
-    L = 8 h + 2 q and L + 1 (the ldmatrix.trans layout), stored at lanes
-    l0 + L; lane l0 + L holds own value L - 1, i.e. value index
-    l0 + L - 1 of its phase. The last tile column adds lane l0 + 16 (value
-    l0 + 15) and zeroes the rest."""
-    out = [(l0 + 8 * h + 2 * q + e, l0 + 8 * h + 2 * q + e - 1)
-           for h in range(2) for q in range(4) for e in range(2)]
+    of a block's row: the unit's positions L (the stage's lanes of a line)
+    are own columns L - 1, thread t of the warp stores the 8 lanes of half
+    t % 2 of line t // 2 at lanes l0 + 8 (t % 2) ..; lane l0 + L holds
+    value index l0 + L - 1 of its phase. The last tile column adds lane
+    l0 + 16 (value l0 + 15) and zeroes the rest."""
+    out = [(l0 + 8 * half + i, l0 + 8 * half + i - 1)
+           for half in range(2) for i in range(8)]
     if last:
         out.append((l0 + 16, l0 + 15))
         out += [(lane, None) for lane in range(l0 + 17, seg)]
@@ -238,21 +262,10 @@ def _act_writes(l0, last, seg):
 
 
 def _y5_writes(l0, first, last, seg):
-    """store_y5's (lane, dense column) pairs for one line: the quad's
-    shifted words (lanes l0 + 2q, l0 + 2q + 1 hold columns 2q - 1, 2q; the
-    half of the first thread a single lane l0 + 1), the second half's from
-    l0 + 8, thread 3's last column at l0 + 16; lane 0 (first tile column)
-    and lanes past l0 + 16 (last) zero."""
-    out = []
-    for q in range(4):
-        if q:
-            out += [(l0 + 2 * q, l0 + 2 * q - 1), (l0 + 2 * q + 1, l0 + 2 * q)]
-        else:
-            out.append((l0 + 1, l0))
-        out += [(l0 + 8 + 2 * q, l0 + 8 + 2 * q - 1),
-                (l0 + 9 + 2 * q, l0 + 8 + 2 * q)]
-        if q == 3:
-            out.append((l0 + 16, l0 + 15))
+    """store_y5's (lane, dense column) pairs for one line: thread e of the
+    line's half-warp stores the staged column e at lane l0 + 1 + e; lane 0
+    (first tile column) and lanes past l0 + 16 (last) zero."""
+    out = [(l0 + 1 + e, l0 + e) for e in range(16)]
     if first:
         out.append((0, None))
     if last:
