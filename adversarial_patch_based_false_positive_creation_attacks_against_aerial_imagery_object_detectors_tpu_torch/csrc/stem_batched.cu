@@ -57,18 +57,11 @@
 // the shortcut sum) leave room for a ring of five 8 KB slots (K1 has seven):
 // convs 0-3 resident, conv1's and conv3's five slots the whole ring, so the
 // next conv's first chunk is loaded once the previous conv is done; conv5
-// one pass, streamed once. 228,800 bytes with the warps' 512-byte stages,
-// one block a multiprocessor. The outputs are lane-minor and the tiles
-// channel-minor, so every store transposes by ldmatrix.trans (positions to
-// lanes): with save_acts each activation's own region, a line's 32-byte
-// sector a block, is written by stmatrix as boxes [row][C][16 lanes] into
-// shared memory its tile no longer needs and leaves by TMA stores while the
-// next conv runs (y0's four boxes in x's region before conv1, y1's, y2's
-// and then y3's past s4); y3 is stored on its own and the shortcut sum
-// s4 = T(y3 + y1) formed in place after (K1's epilogue forms it in the same
-// rounding). y5's lanes straddle two sectors a line (the tile has no
-// column left of its own), so it goes through a warp's stage and leaves
-// one value a thread, half a warp a line.
+// one pass, streamed once. 224,704 bytes, one block a multiprocessor. The
+// stores leave the tile by ldmatrix.trans (positions to lanes) and 4-byte
+// words, a line's 32-byte sector a block: with save_acts, y3 is stored on
+// its own and the shortcut sum s4 = T(y3 + y1) formed in place after (K1's
+// epilogue forms it in the same rounding).
 //
 // K8b (fused_stem_bwd_b_wg_kernel) is K2's wgmma kernel (stem_common.cuh:
 // wgc::chain, the same eleven GEMMs on K2's packed adjoints, ring and
@@ -364,17 +357,6 @@ static_assert(SMEM <= 232448, "shared memory");
 struct Weights {
   const unsigned char* w[5];
 };
-// save_acts' outputs as tensor maps (wg::planar_map of [rows, C, B seg],
-// boxes of 16 lanes x C x 16 rows), and the boxes' bytes
-struct Maps {
-  CUtensorMap y0e, y0o, y1, y2, y3;
-};
-constexpr int Y0BOX = 16 * 32 * 16 * 2, Y1BOX = 16 * 64 * 16 * 2;
-static_assert(3 * Y0BOX + 127 <= 2 * Q::C &&
-                  2 * (Q::Y2 + G::S4N * G::S4W * Q::P64) + 127 + Y1BOX +
-                          Y0BOX <=
-                      2 * Q::B,
-              "the boxes' regions");
 
 // lanes [from, to) of one line zero (to a multiple of 8): single elements
 // up to the first 16-byte boundary, 16-byte stores past it
@@ -428,66 +410,57 @@ struct Stage {
   }
 };
 
-// save_acts' activations leave as TMA boxes of 16 lanes x C channels x 16
-// rows (bfloat16 tensor maps of the batch-on-lanes outputs, box [row][C]
-// [16 lanes], 32 bytes a line): a block writes lanes [l0, l0 + 16) of its
-// own rows' lines (l0 = c0, or c0 / 2 with PHASE: a 32-byte sector), lane
-// l0 + i holding own column i - 1 of its phase: lane l0 from the tile's
-// halo, zero left of the image, else the left neighbour's last own column
-// with its bits (the same sums); columns past the image are zero in the
-// tile, rows past it are clipped by the tensor unit. stage_box fills one
-// box at box (a shared address, 128-byte aligned) from rows rr0 ..
-// rr0 + 15 of the own region of a [pos][P] tile of row width TW whose own
-// first position is (off, off), phase ph: a warp a unit of 16 positions x
-// 16 channels of a row, one ldmatrix.x4.trans and one stmatrix into the
-// box's 16 lines. Run by the NC consumer threads, each then fences its
-// writes for the tensor unit.
-template <int C, int P, bool PHASE>
-__device__ void stage_box(const bf16* __restrict__ tile, int TW, int off,
-                          int rr0, int ph, uint32_t box) {
-  constexpr int CG = C / 16;
+// save_acts' store of one activation: the own NR x 16 region (16 columns,
+// or with PHASE 32 columns as 16 lanes a phase) of a [pos][P] tile of row
+// width TW (C channels) whose own first position is (off, off) in the tile
+// and (r0, c0) in the image, into a batch-on-lanes tensor [rows, C, pitch]
+// (d0, d1 at the image's segment lane 0; PHASE: the even columns into d0,
+// the odd into d1). A block writes lanes [l0, l0 + 16) of its rows' lines
+// (l0 = c0, or c0 / 2 with PHASE: a 32-byte sector), lane l0 + i holding
+// own column i - 1 of its phase: lane l0 from the tile's halo, zero left of
+// the image, else the left neighbour's last own column with its bits (the
+// same sums); columns past the image are zero in the tile. A warp takes a
+// unit of 16 lanes x 16 channels of one row and phase through its Stage,
+// then each thread stores 16 bytes, two threads a line's sector. The block
+// of the last tile column writes lane l0 + 16 (own column 15) and zeroes
+// the rest of its rows' lines. Rows past the image are skipped. Run by the
+// NC consumer threads.
+template <int C, int P, int NR, bool PHASE>
+__device__ void store_act(const bf16* __restrict__ tile, int TW, int off,
+                          int r0, int c0, bf16* __restrict__ d0,
+                          bf16* __restrict__ d1, int rows, long long pitch,
+                          int seg, bool last, const Stage& sg) {
+  constexpr int NPH = PHASE ? 2 : 1, CG = C / 16;
   static_assert(C % 16 == 0 && P % 8 == 0, "16-channel units");
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  // this lane's ldmatrix row: unit lane L (own column L - 1 of its
-  // phase) and the matrix's channels; its stmatrix row: the line's
-  // channel and half
-  const int L = 8 * ((lane >> 3) & 1) + (lane & 7);
-  const int col = off + (PHASE ? 2 * (L - 1) + ph : L - 1);
-  const int ch8 = 8 * (lane >> 4);
-  const int line = 8 * (lane >> 4) + (lane & 7), half = (lane >> 3) & 1;
-  for (int u = warp; u < 16 * CG; u += wg::CONSUMER_WARPS) {
-    const int cg = u % CG, rr = u / CG;
-    uint32_t v[4];
-    ldsm4t(v, wg::smem_u32(tile + ((rr0 + rr + off) * TW + col) * P +
-                           16 * cg + ch8));
-    stsm4(box + ((rr * C + 16 * cg + line) * 2 + half) * 16, v);
-  }
-  wg::fence_async();
-}
-
-// The last tile column's part of an activation's store: lane l0 + 16 (own
-// column 15 of the phase, the image's last or zero) and zeros to the
-// segment's end, for the block's own rows (NR) inside the image
-template <int C, int P, int NR, bool PHASE>
-__device__ void store_tail(const bf16* __restrict__ tile, int TW, int off,
-                           int r0, int c0, bf16* __restrict__ d0,
-                           bf16* __restrict__ d1, int rows, long long pitch,
-                           int seg) {
-  constexpr int NPH = PHASE ? 2 : 1;
   const int l0 = PHASE ? c0 / 2 : c0;
-  const int nr = min(NR, rows - r0);
-  for (int idx = threadIdx.x; idx < nr * C * NPH; idx += wg::NC) {
-    const int ch = idx % C, ph = (idx / C) % NPH, rr = idx / (C * NPH);
-    bf16* d = (ph ? d1 : d0) + ((long long)(r0 + rr) * C + ch) * pitch;
-    d[l0 + 16] =
-        tile[((rr + off) * TW + off + (PHASE ? 30 + ph : 15)) * P + ch];
-    zero_lanes(d, l0 + 17, seg);
+  // this lane's matrix row: unit lane L (own column L - 1 of its phase)
+  // and the matrix's channels
+  const int L = 8 * ((lane >> 3) & 1) + (lane & 7);
+  const int col = off + (PHASE ? 2 * (L - 1) : L - 1);
+  const int ch8 = 8 * (lane >> 4);
+  for (int u = warp; u < NR * NPH * CG; u += wg::CONSUMER_WARPS) {
+    const int cg = u % CG, ph = (u / CG) % NPH, rr = u / (CG * NPH);
+    if (r0 + rr >= rows) continue;
+    sg.put(tile + ((rr + off) * TW + col + ph) * P + 16 * cg + ch8);
+    const uint4 w = sg.get(lane >> 1, lane & 1);
+    __syncwarp();
+    *reinterpret_cast<uint4*>(
+        (ph ? d1 : d0) +
+        ((long long)(r0 + rr) * C + 16 * cg + (lane >> 1)) * pitch + l0 +
+        8 * (lane & 1)) = w;
+  }
+  if (last) {
+    const int nr = min(NR, rows - r0);
+    for (int idx = threadIdx.x; idx < nr * C * NPH; idx += wg::NC) {
+      const int ch = idx % C, ph = (idx / C) % NPH, rr = idx / (C * NPH);
+      bf16* d = (ph ? d1 : d0) + ((long long)(r0 + rr) * C + ch) * pitch;
+      d[l0 + 16] =
+          tile[((rr + off) * TW + off + (PHASE ? 30 + ph : 15)) * P + ch];
+      zero_lanes(d, l0 + 17, seg);
+    }
   }
 }
-
-// thread 0 (a consumer) issues the block's bulk stores and waits for their
-// reads of shared memory
-__device__ __forceinline__ bool issuer() { return threadIdx.x == 0; }
 
 // y5's store: the dense 8 x 16 tile [8][16][P128] (dense columns 2 C5 ..
 // 2 C5 + 15 of rows R5 ..) into lanes l0 + 1 .. l0 + 16 (l0 = 2 C5) of its
@@ -571,13 +544,12 @@ __device__ __forceinline__ void shortcut_sum(bf16* __restrict__ s4,
 // The bfloat16 K8a: K1's wgmma kernel (stem_fused.cu:
 // fused_stem_fwd_wg_kernel) over GeomB<8>'s tiles, conv5 at stride (2, 1)
 // (RowsConv21 over the dense 8 x 16 y5 tile, M = 128), the batch-on-lanes
-// x tile by K1's 16-byte loads, the activations (SAVE) by stage_box and
-// TMA box stores (tm), y5 by store_y5. Shared memory: the tiles (GeomTC,
-// 182,640 bytes: y0, then y2 and s4, in region B; x, then y1, then the y5
-// tile in region C; the activations' boxes in what is free of them), the
-// warps' stages (4,096), then the ring (five 8 KB slots and their
-// barriers, 42,064 bytes with the alignment slack): 228,800 bytes, one
-// block a multiprocessor. ww: K1's packed weights.
+// x tile by K1's 16-byte loads, the activations (SAVE) and y5 by store_act
+// and store_y5. Shared memory: the tiles (GeomTC, 182,640 bytes: y0, then
+// y2 and s4, in region B; x, then y1, then the y5 tile in region C), then
+// the ring (five 8 KB slots and their barriers, 42,064 bytes with the
+// alignment slack): 224,704 bytes, one block a multiprocessor. ww: K1's
+// packed weights.
 template <bool SAVE>
 __global__ void __launch_bounds__(wg::NTH, 1)
     fused_stem_fwd_b_wg_kernel(const bf16* __restrict__ xe,
@@ -587,8 +559,7 @@ __global__ void __launch_bounds__(wg::NTH, 1)
                                const float* __restrict__ b2,
                                const float* __restrict__ b3,
                                const float* __restrict__ b5, k8a::Weights ww,
-                               bf16* __restrict__ y5, Acts<bf16> ac,
-                               const __grid_constant__ k8a::Maps tm, int H,
+                               bf16* __restrict__ y5, Acts<bf16> ac, int H,
                                int seg, long long pitch) {
   using namespace k8a;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -667,41 +638,11 @@ __global__ void __launch_bounds__(wg::NTH, 1)
   lap(wg::P_SYNC);
   // own regions: y0 rows/columns [4 R5, 4 R5 + 4 TILE) at tile offset 5, y1
   // and y2 [2 R5, 2 R5 + 2 TILE) at offset 2, y3 at offset 1; the tiles of
-  // all blocks partition the image. A box's first lane: l0 of its segment
-  const int l0 = lb + 2 * C5r;
-  const uint32_t base = wg::smem_u32(smem_raw);
-  // region C (x's until conv1) holds y0's boxes: three 16 KB slots, the
-  // fourth box once the first three are read
-  const uint32_t cb = (base + 2 * Q::B + 127) & ~127u;
-  // region B past s4 holds y1's box (32 KB, y3's later) and y2's (16 KB)
-  const uint32_t bb = (base + 2 * (Q::Y2 + G::S4N * G::S4W * Q::P64) + 127) &
-                      ~127u;
+  // all blocks partition the image
   if (SAVE) {
-    stage_box<32, Q::P32, true>(y0, G::Y0W, 5, 0, 0, cb);
-    stage_box<32, Q::P32, true>(y0, G::Y0W, 5, 0, 1, cb + Y0BOX);
-    stage_box<32, Q::P32, true>(y0, G::Y0W, 5, 16, 0, cb + 2 * Y0BOX);
-    wg::sync_consumers();
-    if (issuer()) {
-      wg::tma_store_4d(&tm.y0e, cb, l0, 0, 4 * R5, 0);
-      wg::tma_store_4d(&tm.y0o, cb + Y0BOX, l0, 0, 4 * R5, 0);
-      wg::tma_store_4d(&tm.y0e, cb + 2 * Y0BOX, l0, 0, 4 * R5 + 16, 0);
-      wg::bulk_commit();
-      wg::bulk_wait_read();
-    }
-    wg::sync_consumers();
-    stage_box<32, Q::P32, true>(y0, G::Y0W, 5, 16, 1, cb);
-    wg::sync_consumers();
-    if (issuer()) {
-      wg::tma_store_4d(&tm.y0o, cb, l0, 0, 4 * R5 + 16, 0);
-      wg::bulk_commit();
-    }
-    if (last)
-      store_tail<32, Q::P32, 4 * TILE, true>(y0, G::Y0W, 5, 4 * R5, 4 * C5r,
-                                             ac.y0e + lb, ac.y0o + lb, H,
-                                             pitch, seg);
-    // conv1's epilogues write y1 over the boxes
-    if (issuer()) wg::bulk_wait_read();
-    wg::sync_consumers();
+    store_act<32, Q::P32, 4 * TILE, true>(y0, G::Y0W, 5, 4 * R5, 4 * C5r,
+                                          ac.y0e + lb, ac.y0o + lb, H, pitch,
+                                          seg, last, sg);
     lap(wg::P_STORE);
   }
   wg::conv<C1, Q::P32>(
@@ -712,16 +653,9 @@ __global__ void __launch_bounds__(wg::NTH, 1)
   wg::sync_consumers();
   lap(wg::P_SYNC);
   if (SAVE) {
-    stage_box<64, Q::P64, false>(y1, G::Y1W, 2, 0, 0, bb);
-    wg::sync_consumers();
-    if (issuer()) {
-      wg::tma_store_4d(&tm.y1, bb, l0, 0, 2 * R5, 0);
-      wg::bulk_commit();
-    }
-    if (last)
-      store_tail<64, Q::P64, 2 * TILE, false>(y1, G::Y1W, 2, 2 * R5, 2 * C5r,
-                                              ac.y1 + lb, nullptr, H1, pitch,
-                                              seg);
+    store_act<64, Q::P64, 2 * TILE, false>(y1, G::Y1W, 2, 2 * R5, 2 * C5r,
+                                           ac.y1 + lb, nullptr, H1, pitch,
+                                           seg, last, sg);
     lap(wg::P_STORE);
   }
   wg::conv<C2, Q::P64>(
@@ -732,16 +666,9 @@ __global__ void __launch_bounds__(wg::NTH, 1)
   wg::sync_consumers();
   lap(wg::P_SYNC);
   if (SAVE) {
-    stage_box<32, Q::P32, false>(y2, G::Y1W, 2, 0, 0, bb + Y1BOX);
-    wg::sync_consumers();
-    if (issuer()) {
-      wg::tma_store_4d(&tm.y2, bb + Y1BOX, l0, 0, 2 * R5, 0);
-      wg::bulk_commit();
-    }
-    if (last)
-      store_tail<32, Q::P32, 2 * TILE, false>(y2, G::Y1W, 2, 2 * R5, 2 * C5r,
-                                              ac.y2 + lb, nullptr, H1, pitch,
-                                              seg);
+    store_act<32, Q::P32, 2 * TILE, false>(y2, G::Y1W, 2, 2 * R5, 2 * C5r,
+                                           ac.y2 + lb, nullptr, H1, pitch,
+                                           seg, last, sg);
     lap(wg::P_STORE);
   }
   // conv3: without SAVE K1's epilogue with the shortcut sum; with SAVE y3
@@ -752,22 +679,15 @@ __global__ void __launch_bounds__(wg::NTH, 1)
                                             2 * C5r - 1, H1, y1, G::Y1W,
                                             nullptr},
       lap);
-  // y3's box takes y1's place: y1's and y2's boxes read
-  if (SAVE && issuer()) wg::bulk_wait_read();
   wg::sync_consumers();
   lap(wg::P_SYNC);
   if (SAVE) {
-    stage_box<64, Q::P64, false>(s4, G::S4W, 1, 0, 0, bb);
-    wg::sync_consumers();
-    if (issuer()) {
-      wg::tma_store_4d(&tm.y3, bb, l0, 0, 2 * R5, 0);
-      wg::bulk_commit();
-    }
-    if (last)
-      store_tail<64, Q::P64, 2 * TILE, false>(s4, G::S4W, 1, 2 * R5, 2 * C5r,
-                                              ac.y3 + lb, nullptr, H1, pitch,
-                                              seg);
+    store_act<64, Q::P64, 2 * TILE, false>(s4, G::S4W, 1, 2 * R5, 2 * C5r,
+                                           ac.y3 + lb, nullptr, H1, pitch,
+                                           seg, last, sg);
     lap(wg::P_STORE);
+    wg::sync_consumers();
+    lap(wg::P_SYNC);
     shortcut_sum(s4, y1);
     lap(wg::P_EPI);
     wg::sync_consumers();
@@ -783,8 +703,6 @@ __global__ void __launch_bounds__(wg::NTH, 1)
   wg::sync_consumers();
   lap(wg::P_SYNC);
   store_y5(ys, R5, 2 * C5r, y5 + lb, H5, H1, pitch, seg, first, last, sg);
-  // the block's shared memory outlives y3's box's reads
-  if (SAVE && issuer()) wg::bulk_wait_read();
   lap(wg::P_STORE);
 }
 
@@ -792,21 +710,6 @@ template <bool SAVE>
 int launch_fwd_wg(const void* xe, const void* xo, const float* const* bias,
                   k8a::Weights ww, void* y5, Acts<bf16> ac, int B, int H,
                   int seg, cudaStream_t s) {
-  const int H1 = H / 2, tot = B * seg;
-  // save_acts' outputs [rows, C, B seg] as planar [1, rows, C, B seg]
-  k8a::Maps tm = {};
-  if (SAVE) {
-    int err = wg::planar_map(&tm.y0e, ac.y0e, true, 1, H, 32, tot, 16, 16);
-    err = err ? err : wg::planar_map(&tm.y0o, ac.y0o, true, 1, H, 32, tot,
-                                     16, 16);
-    err = err ? err : wg::planar_map(&tm.y1, ac.y1, true, 1, H1, 64, tot,
-                                     16, 16);
-    err = err ? err : wg::planar_map(&tm.y2, ac.y2, true, 1, H1, 32, tot,
-                                     16, 16);
-    err = err ? err : wg::planar_map(&tm.y3, ac.y3, true, 1, H1, 64, tot,
-                                     16, 16);
-    if (err) return err;
-  }
   cudaError_t e = cudaFuncSetAttribute(
       fused_stem_fwd_b_wg_kernel<SAVE>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, k8a::SMEM);
@@ -815,8 +718,8 @@ int launch_fwd_wg(const void* xe, const void* xo, const float* const* bias,
   fused_stem_fwd_b_wg_kernel<SAVE><<<dim3(nt, nt, B), wg::NTH, k8a::SMEM,
                                      s>>>(
       static_cast<const bf16*>(xe), static_cast<const bf16*>(xo), bias[0],
-      bias[1], bias[2], bias[3], bias[4], ww, static_cast<bf16*>(y5), ac, tm,
-      H, seg, (long long)tot);
+      bias[1], bias[2], bias[3], bias[4], ww, static_cast<bf16*>(y5), ac, H,
+      seg, (long long)B * seg);
   return (int)cudaGetLastError();
 }
 
@@ -1228,7 +1131,7 @@ int launch_bwd_wg(const void* gp5dd, const void* const* a,
 // K1's packed weights of convs 0, 1, 2, 3, 5 (k1_packed; read in bfloat16,
 // null in float32); y5 dense [H/4, 128, B*seg]; a0e .. a3 save_acts'
 // outputs, all null for the forward alone. H a multiple of 8. Returns
-// cudaGetLastError() (or a tensor map's error).
+// cudaGetLastError().
 extern "C" int apfp_fused_stem_fwd_b(
     const void* xe, const void* xo, const void* w0, const void* w1,
     const void* w2, const void* w3, const void* w5, const void* b0,

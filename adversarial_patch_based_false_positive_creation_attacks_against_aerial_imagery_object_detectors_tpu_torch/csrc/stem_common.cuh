@@ -996,32 +996,6 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const void* map,
       : "memory");
 }
 
-// one box of shared memory into a 4-d tensor map's tensor (innermost
-// coordinate first; positions outside the tensor are not written), in the
-// calling thread's bulk async-group (cp.async.bulk.tensor: SASS UTMASTG).
-// The box's writers first make it visible to the tensor unit
-// (fence_async), and the region is reused only after bulk_wait_read
-__device__ __forceinline__ void tma_store_4d(const void* map, uint32_t src,
-                                             int c0, int c1, int c2,
-                                             int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, "
-      "%4, %5}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
-      "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-__device__ __forceinline__ void bulk_commit() {
-  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-}
-// the calling thread's bulk stores have read their shared memory
-__device__ __forceinline__ void bulk_wait_read() {
-  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
-}
-// this thread's shared-memory writes made visible to the async proxy
-__device__ __forceinline__ void fence_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
 // cuTensorMapEncodeTiled from the driver (looked up at run time: the
 // libraries link no driver stub)
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,

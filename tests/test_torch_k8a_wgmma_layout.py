@@ -14,12 +14,10 @@ version and K1 there).
 - The tile and ring plan, mirrored from ``csrc/stem_batched.cu``'s
   constants (its ``GeomB<8>``, ``GeomTC`` and the five ``wg::Gemm``s of
   ``namespace k8a``), stays within a block's 232,448 bytes; convs 0-3 are
-  resident and conv5 is one pass; save_acts' TMA boxes fit the regions
-  the tiles no longer need.
+  resident and conv5 is one pass.
 - The warps' transposing stage (``Stage``) is bank-conflict free, and the
-  stores' lane maps (``stage_box`` and ``store_tail`` for the y0 phases,
-  y1, y2 and y3; ``store_y5``) write each lane of every output row exactly
-  once, lane
+  stores' lane maps (``store_act`` for the y0 phases, y1, y2 and y3;
+  ``store_y5``) write each lane of every output row exactly once, lane
   j + 1 with column j's value and lane 0 and the slack zero, only the
   first and last tile columns touching lane 0 and the slack, at 608^2 and
   at a size whose last tile is partial.
@@ -210,14 +208,6 @@ def test_shared_memory_plan_fits_one_block():
     assert "RING_AT = STAGE_AT + wg::CONSUMER_WARPS * 512" in src
     smem = tiles + 8 * 512 + 1024 + stages * slot + 16 * stages
     assert smem == 228800 and smem <= 232448
-    # save_acts' boxes (16 lanes x C x 16 rows, bfloat16, 128-byte aligned)
-    # in what the tiles no longer need: y0's three 16 KB slots in region C
-    # before conv1, y1's (then y3's) 32 KB and y2's 16 KB in region B past
-    # s4 once conv1 has read y0
-    y0box, y1box = 16 * 32 * 16 * 2, 16 * 64 * 16 * 2
-    assert "Y0BOX = 16 * 32 * 16 * 2, Y1BOX = 16 * 64 * 16 * 2" in src
-    assert 3 * y0box + 127 <= 2 * region_c
-    assert 2 * (y2 + S4N * S4W * p64) + 127 + y1box + y0box <= 2 * region_b
     # one more slot would not fit beside the tiles
     assert smem + slot > 232448
     env = {"G::Y0N": Y0N, "G::Y0W": Y0W, "G::Y1N": Y1N, "G::Y1W": Y1W,
@@ -257,12 +247,12 @@ def test_stage_units_are_conflict_free():
 
 
 def _act_writes(l0, last, seg):
-    """An activation's (lane, value index j of the phase) pairs for one
-    line of a block's row: ``stage_box`` puts unit position L (own column
-    L - 1) at lane L of the box's line, and the box lands at lane l0; lane
-    l0 + L holds value index l0 + L - 1 of its phase. The last tile
-    column's ``store_tail`` adds lane l0 + 16 (value l0 + 15) and zeroes
-    the rest."""
+    """store_act's (lane, value index j of the phase) pairs for one line
+    of a block's row: the unit's positions L (the stage's lanes of a line)
+    are own columns L - 1, thread t of the warp stores the 8 lanes of half
+    t % 2 of line t // 2 at lanes l0 + 8 (t % 2) ..; lane l0 + L holds
+    value index l0 + L - 1 of its phase. The last tile column adds lane
+    l0 + 16 (value l0 + 15) and zeroes the rest."""
     out = [(l0 + 8 * half + i, l0 + 8 * half + i - 1)
            for half in range(2) for i in range(8)]
     if last:
@@ -286,8 +276,7 @@ def _y5_writes(l0, first, last, seg):
 @pytest.mark.parametrize("h", [608, 40, 72, 96])
 def test_store_lanes_cover_each_output_lane_once(h):
     """Over all blocks of one image, the y0 phases', y1's, y2's, y3's and
-    y5's stores (16-row boxes: a block's own 32 or 16 rows) write each
-    lane of each output row exactly once: lane
+    y5's stores write each lane of each output row exactly once: lane
     j + 1 the value of column j (of the phase), zero where that column is
     outside the image (the tile holds zero there; y5 masks it), lane 0 and
     the slack past the values zero, and only the first and last tile
