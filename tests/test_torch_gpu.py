@@ -249,11 +249,10 @@ def _bitcheck_operands(k, kind, seed):
 @pytest.mark.parametrize("k", [64, 576, 768])
 @pytest.mark.parametrize("kind", ["stem", "wide"])
 def test_wgmma_k16_step_matches_mma_sync_bits(cuda, k, kind):
-    """The bfloat16 K1 sums on wgmma.m64nNk16, K8a on mma.sync.m16n8k16
-    (stem_common.cuh: mma_conv), one 16-deep step after another into one
-    float32 accumulator from zero: the exact check K8a = K1 needs both
-    instructions to round each step alike. Every bit of the two products
-    must agree."""
+    """wgmma.m64nNk16 and mma.sync.m16n8k16, one 16-deep step after
+    another into one float32 accumulator from zero: the wgmma kernels equal
+    the mma.sync ones they replaced bit for bit only if both instructions
+    round each step alike. Every bit of the two products must agree."""
     a, b = _bitcheck_operands(k, kind, 11)
     a = torch.tensor(a, dtype=torch.bfloat16, device=cuda)
     b = torch.tensor(b, dtype=torch.bfloat16, device=cuda)
@@ -824,7 +823,7 @@ def test_batched_stem_kernels_match_plain(cuda, dtype, b, h):
     against their plain versions; every border and slack lane is zero
     though the output blocks were dirty; in both dtypes K8a's even dense
     lanes equal K1's y5 and its y0 signs K1's masks (K8a runs K1's conv
-    code: conv_stage in float32, K1's convs on mma_conv in bfloat16)."""
+    code: conv_stage in float32, K1's wgmma convs in bfloat16)."""
     SB = _experimental("stem_batched")
     sp = _stem_params(dtype, cuda)
     sbp = SF.stem_bwd_params(sp)
@@ -892,7 +891,7 @@ def test_batched_stem_grad_matches_fused_stem_on_card(cuda):
 
 def test_batched_stem_grad_equals_fused_stem_on_card_bf16(cuda):
     """bfloat16: the batch-on-lanes route runs the fused stem's
-    tensor-core code (K1's convs on mma_conv in K8a, K2's wgmma chain in
+    tensor-core code (K1's wgmma convs in K8a, K2's wgmma chain in
     K8b, its gp5 read from gp5dd's data positions and its gates from the
     saved values' signs), so its y5 and its input gradient equal the fused
     stem's (K1 save_acts + K2) bit for bit."""
