@@ -5552,6 +5552,12 @@ def main() -> int:
     k7 = median_kernel(dev, card, k7_info)
     k8 = batched_kernels(dev, sp, model_sbp, card, tc_info)
     k8[-1].update(wg_recs["fused_stem_bwd_b"])
+    # K8a's device times and cycle split at b24, both forms
+    k8a_dev = {n: device_ms(fn) for n, fn in k8a_calls(
+        dev, sp, TRAIN_BATCH).items()}
+    k8a_sp = k8a_split(dev, sp, k8a_dev)
+    for k in k8[:2]:
+        k["dev_ms"], k["split_b24"] = k8a_dev[k["name"]], k8a_sp[k["name"]]
     erec = experimental_path(dev, net, params, card, rec["breakdown_ms"])
     for k in [k7] + k8:
         k["launches"] = erec["launches"][k["name"]]
@@ -5707,13 +5713,13 @@ def k4_ab(parent: str) -> int:
     return 0
 
 
-# One tree's stem backward readings for ``stem_ab``, from that tree's own
+# One tree's stem readings for ``stem_ab``, from that tree's own
 # chip_smoke.py and kernels (what a parent commit already has): K5 as
 # phase 5 times it (b24 bfloat16, ``time_ms`` over 5 calls), K8b as phase
 # 9 does (over 3, on K8a's activations of the same x), K2 beside them, the
 # device times and cycle split of the tree's wgmma stem kernels
 # (``wgmma_device_times``, ``wgmma_split``), and K2's gx digest with the
-# exact checks K5 = K2 and K8b = K2
+# exact checks K5 = K2 and K8b = K2; then K8a, both forms, on phase 9's x
 STEM_AB_CHILD = r"""
 import hashlib, json, sys, torch
 sys.path.insert(0, ".")
@@ -5834,14 +5840,15 @@ def k6_ab(parent: str) -> int:
 
 
 def stem_ab(parent: str) -> int:
-    """``python3 chip_smoke.py --stem-ab DIR``: the stem's backward
-    kernels K5, K8b and K2 in the checkout at DIR (a parent commit) and in
+    """``python3 chip_smoke.py --stem-ab DIR``: the stem kernels K5, K8b,
+    K2 and K8a (both forms) in the checkout at DIR (a parent commit) and in
     this one, on one card in one call, in turns (``ab_turns``): phase 5's
-    K5 reading, phase 9's K8b reading and K2's time, the device times and
-    cycle splits of each tree's wgmma stem kernels, K2's gx digest (this
-    tree's must equal the parent's) and the exact checks K5 = K2 and
-    K8b = K2. Prints a ``[stem-ab]`` line a turn and one JSON record
-    last."""
+    K5 reading, phase 9's K8b and K8a readings and K2's time, the device
+    times and cycle splits of each tree's wgmma stem kernels and of K8a
+    (where the tree keeps its cycle accounts), K2's gx digest and a digest
+    of each of K8a's six outputs (this tree's must equal the parent's),
+    and the exact checks K5 = K2, K8b = K2 and K8a's y5 alike in both
+    forms. Prints a ``[stem-ab]`` line a turn and one JSON record last."""
     card = card_line()
     runs = ab_turns(parent, STEM_AB_CHILD, "STEMAB")
     for rec in runs:
