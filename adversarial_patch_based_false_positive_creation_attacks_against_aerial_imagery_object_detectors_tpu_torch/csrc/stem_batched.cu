@@ -349,22 +349,10 @@ static_assert(C0::RES && C1::RES && C2::RES && C3::RES && !C5::RES &&
                   C5::NPASS == 1,
               "the ring's plan");
 constexpr int TILE_BYTES = 2 * Q::ELEMS;
-// the transposing stages: the consumer warps' (y5), the store warp's two
-constexpr int STAGE_AT = TILE_BYTES;
-constexpr int BAR_AT = STAGE_AT + (wg::CONSUMER_WARPS + 2) * 512;
-// save_acts' barriers: y0 .. y3 ready (consumers), y0 and y1 read (the
-// store warp)
-constexpr int RING_AT = BAR_AT + 6 * 8;
+constexpr int STAGE_AT = TILE_BYTES;  // the warps' transposing stages
+constexpr int RING_AT = STAGE_AT + wg::CONSUMER_WARPS * 512;
 constexpr int SMEM = RING_AT + wg::ring_bytes(STAGES, SLOT);
-// save_acts: y3 beside s4 in region B, for the store warp
-constexpr int Y3_AT = Q::Y2 + G::S4N * G::S4W * Q::P64;
-static_assert(Y3_AT + G::S4N * G::S4W * Q::P64 <= Q::B, "y3's copy");
 static_assert(SMEM <= 232448, "shared memory");
-// a block: two consumer warpgroups and the producer warp, and with
-// save_acts a store warp
-constexpr int threads(bool save) { return wg::NTH + (save ? 32 : 0); }
-// thread 0 (a consumer) signals the store warp
-__device__ __forceinline__ bool issuer() { return threadIdx.x == 0; }
 // K1's packed weights of convs 0, 1, 2, 3, 5 (ops/stem_fused.py: k1_packed)
 struct Weights {
   const unsigned char* w[5];
@@ -391,10 +379,9 @@ struct Stage {
   static constexpr int BYTES = 512;
   unsigned char* base;  // this warp's
   uint32_t st;          // the stmatrix row address of this lane
-  // slot: the warp's own (consumers), or the store warp's two
-  __device__ Stage(unsigned char* all, int slot) {
+  __device__ explicit Stage(unsigned char* all) {
     const int lane = threadIdx.x & 31;
-    base = all + slot * BYTES;
+    base = all + (threadIdx.x >> 5) * BYTES;
     const int line = 8 * (lane >> 4) + (lane & 7), half = (lane >> 3) & 1;
     st = wg::smem_u32(base) + 16 * unit(line, half);
   }
@@ -423,76 +410,55 @@ struct Stage {
   }
 };
 
-// save_acts' store of one activation by the store warp: the own NR x 16
-// region (16 columns, or with PHASE 32 columns as 16 lanes a phase) of a
-// [pos][P] tile of row width TW (C channels) whose own first position is
-// (off, off) in the tile and (r0, c0) in the image, into a batch-on-lanes
-// tensor [rows, C, pitch] (d0, d1 at the image's segment lane 0; PHASE:
-// the even columns into d0, the odd into d1). A block writes lanes
-// [l0, l0 + 16) of its rows' lines (l0 = c0, or c0 / 2 with PHASE: a
-// 32-byte sector), lane l0 + i holding own column i - 1 of its phase: lane
-// l0 from the tile's halo, zero left of the image, else the left
-// neighbour's last own column with its bits (the same sums); columns past
-// the image are zero in the tile. Units of 16 lanes x 16 channels of one
-// row and phase go two at a time through the warp's two Stages, then each
-// thread stores 16 bytes of each, two threads a line's sector. Rows past
-// the image are not stored.
+// save_acts' store of one activation: the own NR x 16 region (16 columns,
+// or with PHASE 32 columns as 16 lanes a phase) of a [pos][P] tile of row
+// width TW (C channels) whose own first position is (off, off) in the tile
+// and (r0, c0) in the image, into a batch-on-lanes tensor [rows, C, pitch]
+// (d0, d1 at the image's segment lane 0; PHASE: the even columns into d0,
+// the odd into d1). A block writes lanes [l0, l0 + 16) of its rows' lines
+// (l0 = c0, or c0 / 2 with PHASE: a 32-byte sector), lane l0 + i holding
+// own column i - 1 of its phase: lane l0 from the tile's halo, zero left of
+// the image, else the left neighbour's last own column with its bits (the
+// same sums); columns past the image are zero in the tile. A warp takes a
+// unit of 16 lanes x 16 channels of one row and phase through its Stage,
+// then each thread stores 16 bytes, two threads a line's sector. The block
+// of the last tile column writes lane l0 + 16 (own column 15) and zeroes
+// the rest of its rows' lines. Rows past the image are skipped. Run by the
+// NC consumer threads.
 template <int C, int P, int NR, bool PHASE>
 __device__ void store_act(const bf16* __restrict__ tile, int TW, int off,
                           int r0, int c0, bf16* __restrict__ d0,
                           bf16* __restrict__ d1, int rows, long long pitch,
-                          const Stage (&sg)[2]) {
-  constexpr int NPH = PHASE ? 2 : 1, CG = C / 16, NU = NR * NPH * CG;
-  static_assert(C % 16 == 0 && P % 8 == 0 && NU % 2 == 0, "16-channel units");
-  const int lane = threadIdx.x & 31;
+                          int seg, bool last, const Stage& sg) {
+  constexpr int NPH = PHASE ? 2 : 1, CG = C / 16;
+  static_assert(C % 16 == 0 && P % 8 == 0, "16-channel units");
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int l0 = PHASE ? c0 / 2 : c0;
   // this lane's matrix row: unit lane L (own column L - 1 of its phase)
   // and the matrix's channels
   const int L = 8 * ((lane >> 3) & 1) + (lane & 7);
   const int col = off + (PHASE ? 2 * (L - 1) : L - 1);
   const int ch8 = 8 * (lane >> 4);
-  for (int u = 0; u < NU; u += 2) {
-    uint4 w[2];
-#pragma unroll
-    for (int k = 0; k < 2; ++k) {
-      const int cg = (u + k) % CG, ph = ((u + k) / CG) % NPH;
-      const int rr = (u + k) / (CG * NPH);
-      sg[k].put(tile + ((rr + off) * TW + col + ph) * P + 16 * cg + ch8);
-    }
-#pragma unroll
-    for (int k = 0; k < 2; ++k) w[k] = sg[k].get(lane >> 1, lane & 1);
+  for (int u = warp; u < NR * NPH * CG; u += wg::CONSUMER_WARPS) {
+    const int cg = u % CG, ph = (u / CG) % NPH, rr = u / (CG * NPH);
+    if (r0 + rr >= rows) continue;
+    sg.put(tile + ((rr + off) * TW + col + ph) * P + 16 * cg + ch8);
+    const uint4 w = sg.get(lane >> 1, lane & 1);
     __syncwarp();
-#pragma unroll
-    for (int k = 0; k < 2; ++k) {
-      const int cg = (u + k) % CG, ph = ((u + k) / CG) % NPH;
-      const int rr = (u + k) / (CG * NPH);
-      if (r0 + rr < rows)
-        *reinterpret_cast<uint4*>(
-            (ph ? d1 : d0) +
-            ((long long)(r0 + rr) * C + 16 * cg + (lane >> 1)) * pitch +
-            l0 + 8 * (lane & 1)) = w[k];
-    }
+    *reinterpret_cast<uint4*>(
+        (ph ? d1 : d0) +
+        ((long long)(r0 + rr) * C + 16 * cg + (lane >> 1)) * pitch + l0 +
+        8 * (lane & 1)) = w;
   }
-}
-
-// The last tile column's part of an activation's store (store_act's
-// arguments): lane l0 + 16 (own column 15 of the phase, the image's last
-// or zero) and zeros to the segment's end, for the block's own rows inside
-// the image. Run by the NC consumer threads.
-template <int C, int P, int NR, bool PHASE>
-__device__ void store_tail(const bf16* __restrict__ tile, int TW, int off,
-                           int r0, int c0, bf16* __restrict__ d0,
-                           bf16* __restrict__ d1, int rows, long long pitch,
-                           int seg) {
-  constexpr int NPH = PHASE ? 2 : 1;
-  const int l0 = PHASE ? c0 / 2 : c0;
-  const int nr = min(NR, rows - r0);
-  for (int idx = threadIdx.x; idx < nr * C * NPH; idx += wg::NC) {
-    const int ch = idx % C, ph = (idx / C) % NPH, rr = idx / (C * NPH);
-    bf16* d = (ph ? d1 : d0) + ((long long)(r0 + rr) * C + ch) * pitch;
-    d[l0 + 16] =
-        tile[((rr + off) * TW + off + (PHASE ? 30 + ph : 15)) * P + ch];
-    zero_lanes(d, l0 + 17, seg);
+  if (last) {
+    const int nr = min(NR, rows - r0);
+    for (int idx = threadIdx.x; idx < nr * C * NPH; idx += wg::NC) {
+      const int ch = idx % C, ph = (idx / C) % NPH, rr = idx / (C * NPH);
+      bf16* d = (ph ? d1 : d0) + ((long long)(r0 + rr) * C + ch) * pitch;
+      d[l0 + 16] =
+          tile[((rr + off) * TW + off + (PHASE ? 30 + ph : 15)) * P + ch];
+      zero_lanes(d, l0 + 17, seg);
+    }
   }
 }
 
@@ -546,35 +512,32 @@ __device__ void store_y5(const bf16* __restrict__ ys, int R5, int l0,
   }
 }
 
-// conv3's epilogue with save_acts: EpiConv's with the shortcut sum
-// (s4 = T(T(leaky) + y1), y1 at its tile position (oy + 1, ox + 1)), the
-// rounded T(leaky) kept beside it in y3 [pos][P64] for the store warp;
-// both zero outside the image
-struct EpiY3 {
-  bf16* s4;
-  bf16* y3;
-  const float* bias;
-  int org_r, org_c, img;
-  const bf16* y1;
-  __device__ void operator()(int oy, int ox, int n, float v0,
-                             float v1) const {
-    const int gr = org_r + oy, gc = org_c + ox;
-    const bool inside = gr >= 0 && gr < img && gc >= 0 && gc < img;
-    const int p = oy * G::S4W + ox;
-    const bf16* r = y1 + ((oy + 1) * G::Y1W + ox + 1) * Q::P64 + n;
-    const float v[2] = {v0, v1};
-    float t[2], u[2];
+// s4 = T(y3 + y1) in place over the s4 tile, y1 at its tile position
+// (oy + 1, ox + 1): EpiConv's RES sum, 8 channels a thread (outside the
+// image both are zero, and so is s4)
+__device__ __forceinline__ void shortcut_sum(bf16* __restrict__ s4,
+                                             const bf16* __restrict__ y1) {
+  for (int idx = threadIdx.x; idx < G::S4N * G::S4W * 8; idx += wg::NC) {
+    const int u = idx % 8, p = idx / 8;
+    const int oy = p / G::S4W, ox = p - oy * G::S4W;
+    uint4* d = reinterpret_cast<uint4*>(s4 + p * Q::P64 + 8 * u);
+    const uint4 r = *reinterpret_cast<const uint4*>(
+        y1 + ((oy + 1) * G::Y1W + ox + 1) * Q::P64 + 8 * u);
+    uint4 a = *d;
+    uint32_t* av = reinterpret_cast<uint32_t*>(&a);
+    const uint32_t* rv = reinterpret_cast<const uint32_t*>(&r);
 #pragma unroll
-    for (int c = 0; c < 2; ++c) {
-      const float y = v[c] + bias[n + c];
-      const float yt = round_t<bf16>(fmaxf(y, y * LEAKY));
-      t[c] = inside ? yt : 0.f;
-      u[c] = inside ? round_t<bf16>(yt + to_f(r[c])) : 0.f;
+    for (int i = 0; i < 4; ++i) {
+      const float2 x = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(av + i));
+      const float2 y = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(rv + i));
+      const __nv_bfloat162 s = __floats2bfloat162_rn(x.x + y.x, x.y + y.y);
+      av[i] = *reinterpret_cast<const uint32_t*>(&s);
     }
-    store2(y3 + p * Q::P64 + n, t[0], t[1]);
-    store2(s4 + p * Q::P64 + n, u[0], u[1]);
+    *d = a;
   }
-};
+}
 
 }  // namespace k8a
 
@@ -588,7 +551,7 @@ struct EpiY3 {
 // alignment slack): 224,704 bytes, one block a multiprocessor. ww: K1's
 // packed weights.
 template <bool SAVE>
-__global__ void __launch_bounds__(k8a::threads(SAVE), 1)
+__global__ void __launch_bounds__(wg::NTH, 1)
     fused_stem_fwd_b_wg_kernel(const bf16* __restrict__ xe,
                                const bf16* __restrict__ xo,
                                const float* __restrict__ b0,
@@ -605,60 +568,26 @@ __global__ void __launch_bounds__(k8a::threads(SAVE), 1)
   bf16* s4 = y0 + Q::Y2;  // [S4N S4W][P64]: y3, then s4
   bf16* y1 = y0 + Q::B;   // [Y1N Y1W][P64]
   bf16* xs = y1;          // [XN XW + 1][8], before conv1 writes y1
-  bf16* ys = y1;          // [TILE 2 TILE][P128], after conv3
-  bf16* y3 = y0 + Y3_AT;  // [S4N S4W][P64] (SAVE)
+  bf16* ys = y1;          // [TILE 2 TILE][P128], after the shortcut sum
   auto ring = wg::make_ring<STAGES, SLOT>(wg::smem_u32(smem_raw + RING_AT));
-  // save_acts' barriers: ready(k) once activation k is whole, read(k) once
-  // the store warp has read y0 (k 0) or y1 (k 1)
-  const uint32_t bars = wg::smem_u32(smem_raw + BAR_AT);
-  auto ready = [&](int k) { return bars + 8 * k; };
-  auto read = [&](int k) { return bars + 32 + 8 * k; };
-  if (SAVE && threadIdx.x == 0) {
-    for (int k = 0; k < 6; ++k) wg::mbar_init(bars + 8 * k, 1);
-    wg::fence_barrier_init();
-  }
   __syncthreads();
-  const long long lb = (long long)blockIdx.z * seg;
-  const int R5 = blockIdx.y * TILE, C5r = blockIdx.x * TILE;
-  const int H1 = H / 2, H5 = H / 4;
-  const bool first = blockIdx.x == 0, last = blockIdx.x == gridDim.x - 1;
   if (threadIdx.x >= wg::NC) {
+    // the producer warp: one thread streams every GEMM's chunks in order
     if (threadIdx.x == wg::NC) {
-      // the producer warp: one thread streams every GEMM's chunks in order
       wg::produce<C0>(ring, ww.w[0]);
       wg::produce<C1>(ring, ww.w[1]);
       wg::produce<C2>(ring, ww.w[2]);
       wg::produce<C3>(ring, ww.w[3]);
       wg::produce<C5>(ring, ww.w[4]);
-    } else if (SAVE && threadIdx.x >= wg::NTH) {
-      // the store warp: each activation once it is whole, while the
-      // consumers run the next convs; y0's and y1's regions are handed
-      // back once read
-      const Stage sw[2] = {Stage(smem_raw + STAGE_AT, wg::CONSUMER_WARPS),
-                           Stage(smem_raw + STAGE_AT,
-                                 wg::CONSUMER_WARPS + 1)};
-      wg::mbar_wait(ready(0), 0);
-      store_act<32, Q::P32, 4 * TILE, true>(y0, G::Y0W, 5, 4 * R5, 4 * C5r,
-                                            ac.y0e + lb, ac.y0o + lb, H,
-                                            pitch, sw);
-      wg::arrive(read(0));
-      wg::mbar_wait(ready(1), 0);
-      store_act<64, Q::P64, 2 * TILE, false>(y1, G::Y1W, 2, 2 * R5, 2 * C5r,
-                                             ac.y1 + lb, nullptr, H1, pitch,
-                                             sw);
-      wg::arrive(read(1));
-      wg::mbar_wait(ready(2), 0);
-      store_act<32, Q::P32, 2 * TILE, false>(y2, G::Y1W, 2, 2 * R5, 2 * C5r,
-                                             ac.y2 + lb, nullptr, H1, pitch,
-                                             sw);
-      wg::mbar_wait(ready(3), 0);
-      store_act<64, Q::P64, 2 * TILE, false>(y3, G::S4W, 1, 2 * R5, 2 * C5r,
-                                             ac.y3 + lb, nullptr, H1, pitch,
-                                             sw);
     }
     return;
   }
-  const Stage sg(smem_raw + STAGE_AT, threadIdx.x >> 5);
+
+  const long long lb = (long long)blockIdx.z * seg;
+  const int R5 = blockIdx.y * TILE, C5r = blockIdx.x * TILE;
+  const int H1 = H / 2, H5 = H / 4;
+  const bool first = blockIdx.x == 0, last = blockIdx.x == gridDim.x - 1;
+  const Stage sg(smem_raw + STAGE_AT);
 
   // x tile [XN XW + 1][8] from image row 4 R5 - 6 and column 4 C5 - 6;
   // column c of x is lane c/2 + 1 of the even (c even) or odd phase. K1's
@@ -709,14 +638,11 @@ __global__ void __launch_bounds__(k8a::threads(SAVE), 1)
   lap(wg::P_SYNC);
   // own regions: y0 rows/columns [4 R5, 4 R5 + 4 TILE) at tile offset 5, y1
   // and y2 [2 R5, 2 R5 + 2 TILE) at offset 2, y3 at offset 1; the tiles of
-  // all blocks partition the image. SAVE: each activation handed to the
-  // store warp, the last tile column's lanes past its blocks' written here
+  // all blocks partition the image
   if (SAVE) {
-    if (issuer()) wg::mbar_arrive(ready(0));
-    if (last)
-      store_tail<32, Q::P32, 4 * TILE, true>(y0, G::Y0W, 5, 4 * R5, 4 * C5r,
-                                             ac.y0e + lb, ac.y0o + lb, H,
-                                             pitch, seg);
+    store_act<32, Q::P32, 4 * TILE, true>(y0, G::Y0W, 5, 4 * R5, 4 * C5r,
+                                          ac.y0e + lb, ac.y0o + lb, H, pitch,
+                                          seg, last, sg);
     lap(wg::P_STORE);
   }
   wg::conv<C1, Q::P32>(
@@ -727,13 +653,9 @@ __global__ void __launch_bounds__(k8a::threads(SAVE), 1)
   wg::sync_consumers();
   lap(wg::P_SYNC);
   if (SAVE) {
-    if (issuer()) wg::mbar_arrive(ready(1));
-    if (last)
-      store_tail<64, Q::P64, 2 * TILE, false>(y1, G::Y1W, 2, 2 * R5, 2 * C5r,
-                                              ac.y1 + lb, nullptr, H1, pitch,
-                                              seg);
-    // conv2 writes y2 over y0
-    wg::mbar_wait(read(0), 0);
+    store_act<64, Q::P64, 2 * TILE, false>(y1, G::Y1W, 2, 2 * R5, 2 * C5r,
+                                           ac.y1 + lb, nullptr, H1, pitch,
+                                           seg, last, sg);
     lap(wg::P_STORE);
   }
   wg::conv<C2, Q::P64>(
@@ -744,37 +666,32 @@ __global__ void __launch_bounds__(k8a::threads(SAVE), 1)
   wg::sync_consumers();
   lap(wg::P_SYNC);
   if (SAVE) {
-    if (issuer()) wg::mbar_arrive(ready(2));
-    if (last)
-      store_tail<32, Q::P32, 2 * TILE, false>(y2, G::Y1W, 2, 2 * R5, 2 * C5r,
-                                              ac.y2 + lb, nullptr, H1, pitch,
-                                              seg);
+    store_act<32, Q::P32, 2 * TILE, false>(y2, G::Y1W, 2, 2 * R5, 2 * C5r,
+                                           ac.y2 + lb, nullptr, H1, pitch,
+                                           seg, last, sg);
     lap(wg::P_STORE);
   }
-  // conv3 with K1's epilogue and the shortcut sum; with SAVE y3 (its own
-  // value is saved) beside s4
-  if constexpr (SAVE)
-    wg::conv<C3, Q::P32>(ring, y2, RowsConv<3, 1>{G::S4W, G::Y1W},
-                         EpiY3{s4, y3, b3, 2 * R5 - 1, 2 * C5r - 1, H1, y1},
-                         lap);
-  else
-    wg::conv<C3, Q::P32>(
-        ring, y2, RowsConv<3, 1>{G::S4W, G::Y1W},
-        EpiConv<Q::P64, false, true, Q::P64>{s4, G::S4W, b3, 2 * R5 - 1,
-                                             2 * C5r - 1, H1, y1, G::Y1W,
-                                             nullptr},
-        lap);
+  // conv3: without SAVE K1's epilogue with the shortcut sum; with SAVE y3
+  // alone (its own value is saved), the sum after its store
+  wg::conv<C3, Q::P32>(
+      ring, y2, RowsConv<3, 1>{G::S4W, G::Y1W},
+      EpiConv<Q::P64, false, !SAVE, Q::P64>{s4, G::S4W, b3, 2 * R5 - 1,
+                                            2 * C5r - 1, H1, y1, G::Y1W,
+                                            nullptr},
+      lap);
   wg::sync_consumers();
   lap(wg::P_SYNC);
   if (SAVE) {
-    if (issuer()) wg::mbar_arrive(ready(3));
-    if (last)
-      store_tail<64, Q::P64, 2 * TILE, false>(y3, G::S4W, 1, 2 * R5, 2 * C5r,
-                                              ac.y3 + lb, nullptr, H1, pitch,
-                                              seg);
-    // conv5 writes the y5 tile over y1
-    wg::mbar_wait(read(1), 0);
+    store_act<64, Q::P64, 2 * TILE, false>(s4, G::S4W, 1, 2 * R5, 2 * C5r,
+                                           ac.y3 + lb, nullptr, H1, pitch,
+                                           seg, last, sg);
     lap(wg::P_STORE);
+    wg::sync_consumers();
+    lap(wg::P_SYNC);
+    shortcut_sum(s4, y1);
+    lap(wg::P_EPI);
+    wg::sync_consumers();
+    lap(wg::P_SYNC);
   }
   // conv5 at stride (2, 1): dense y5 (R5 + oy, 2 C5 + ox) reads s4 at tile
   // (2 oy + ky, ox + kx)
@@ -798,8 +715,8 @@ int launch_fwd_wg(const void* xe, const void* xo, const float* const* bias,
       cudaFuncAttributeMaxDynamicSharedMemorySize, k8a::SMEM);
   if (e != cudaSuccess) return (int)e;
   const int nt = (H / 4 + k8a::TILE - 1) / k8a::TILE;
-  fused_stem_fwd_b_wg_kernel<SAVE><<<dim3(nt, nt, B), k8a::threads(SAVE),
-                                     k8a::SMEM, s>>>(
+  fused_stem_fwd_b_wg_kernel<SAVE><<<dim3(nt, nt, B), wg::NTH, k8a::SMEM,
+                                     s>>>(
       static_cast<const bf16*>(xe), static_cast<const bf16*>(xo), bias[0],
       bias[1], bias[2], bias[3], bias[4], ww, static_cast<bf16*>(y5), ac, H,
       seg, (long long)B * seg);
@@ -1275,9 +1192,9 @@ extern "C" int apfp_fused_stem_bwd_b(
 extern "C" int apfp_fused_stem_fwd_b_info(int dtype, int save, int* info) {
   if (dtype == 1)
     return save ? info_of(fused_stem_fwd_b_wg_kernel<true>, k8a::SMEM, info,
-                          k8a::threads(true))
+                          wg::NTH)
                 : info_of(fused_stem_fwd_b_wg_kernel<false>, k8a::SMEM, info,
-                          k8a::threads(false));
+                          wg::NTH);
   const size_t smem = sizeof(float) * (size_t)GeomB<4>::ELEMS;
   return save ? info_of(fused_stem_fwd_b_kernel<float, 4, true>, smem, info)
               : info_of(fused_stem_fwd_b_kernel<float, 4, false>, smem, info);

@@ -16,9 +16,8 @@ version and K1 there).
   ``namespace k8a``), stays within a block's 232,448 bytes; convs 0-3 are
   resident and conv5 is one pass.
 - The warps' transposing stage (``Stage``) is bank-conflict free, and the
-  stores' lane maps (``store_act``, the store warp's, and ``store_tail``
-  for the y0 phases, y1, y2 and y3; ``store_y5``) write each lane of
-  every output row exactly once, lane
+  stores' lane maps (``store_act`` for the y0 phases, y1, y2 and y3;
+  ``store_y5``) write each lane of every output row exactly once, lane
   j + 1 with column j's value and lane 0 and the slack zero, only the
   first and last tile columns touching lane 0 and the slack, at 608^2 and
   at a size whose last tile is partial.
@@ -188,9 +187,8 @@ def _gemm_plan(ntap, kt, n, ng, mt, m, slot, stages, calls=1, gs=4):
 
 
 def test_shared_memory_plan_fits_one_block():
-    """The tiles (GeomTC: y0 then y2, s4 and with save_acts y3 in one
-    region; x, then y1, then the y5 tile in the other), the warps'
-    transposing stages, save_acts' barriers and the ring
+    """The tiles (GeomTC: y0 then y2 and s4 in one region; x, then y1, then
+    the y5 tile in the other), the warps' transposing stages and the ring
     of ``namespace k8a`` (its STAGES slots of SLOT bytes, the alignment
     slack, two barriers a slot),
     mirrored from the source, fit a block's 232,448 bytes; the five GEMMs
@@ -206,14 +204,10 @@ def test_shared_memory_plan_fits_one_block():
     region_c = max(xe, Y1N * Y1W * p64, TILE * 2 * TILE * p128)
     tiles = 2 * (region_b + region_c)
     assert tiles == 182640
-    # the transposing stages, 512 bytes each: the eight consumer warps'
-    # and the store warp's two; save_acts' six barriers
-    assert "BAR_AT = STAGE_AT + (wg::CONSUMER_WARPS + 2) * 512" in src
-    assert "RING_AT = BAR_AT + 6 * 8" in src
-    smem = tiles + 10 * 512 + 6 * 8 + 1024 + stages * slot + 16 * stages
-    assert smem == 229872 and smem <= 232448
-    # save_acts keeps y3 beside s4 in region B for the store warp
-    assert y2 + 2 * S4N * S4W * p64 <= region_b
+    # the eight consumer warps' transposing stages, 512 bytes each
+    assert "RING_AT = STAGE_AT + wg::CONSUMER_WARPS * 512" in src
+    smem = tiles + 8 * 512 + 1024 + stages * slot + 16 * stages
+    assert smem == 228800 and smem <= 232448
     # one more slot would not fit beside the tiles
     assert smem + slot > 232448
     env = {"G::Y0N": Y0N, "G::Y0W": Y0W, "G::Y1N": Y1N, "G::Y1W": Y1W,
@@ -257,8 +251,8 @@ def _act_writes(l0, last, seg):
     of a block's row: the unit's positions L (the stage's lanes of a line)
     are own columns L - 1, thread t of the warp stores the 8 lanes of half
     t % 2 of line t // 2 at lanes l0 + 8 (t % 2) ..; lane l0 + L holds
-    value index l0 + L - 1 of its phase. The last tile column's
-    store_tail adds lane l0 + 16 (value l0 + 15) and zeroes the rest."""
+    value index l0 + L - 1 of its phase. The last tile column adds lane
+    l0 + 16 (value l0 + 15) and zeroes the rest."""
     out = [(l0 + 8 * half + i, l0 + 8 * half + i - 1)
            for half in range(2) for i in range(8)]
     if last:
