@@ -883,22 +883,22 @@ def wgmma_device_times(dev, sp, sbp, b: int) -> dict:
     return out
 
 
-def wgmma_split(dev, sp, sbp, dev_ms: dict) -> dict:
-    """Where the bfloat16 wgmma stem kernels' time goes at b24 (K1 both
-    forms, K2, K5, K8b): the kernels rebuilt with ``-DAPFP_PROFILE``
-    (``ops/_cuda.py: profiled``), in which thread 0 of each block (a
-    consumer of the first warpgroup) adds the clock64 cycles between its
-    laps to a category (``csrc/stem_common.cuh: wg::Lap``: loads, input
-    waits, weight waits, MMAs, epilogues, mask stores or conversions,
-    output stores, the consumers' barriers). Shares are of the summed
-    cycles; ``split_ms`` applies them to the normal build's device time
-    (``dev_ms``, by entry name); the profiled build's own time is beside
-    it (the laps cost a little)."""
+def lap_split(calls: dict, dev_ms: dict, tag: str = "") -> dict:
+    """Where calls' kernel time goes (``calls``: entry name -> (library, a
+    call)): the libraries rebuilt with ``-DAPFP_PROFILE`` (``ops/_cuda.py:
+    profiled``), in which thread 0 of each block (a consumer of the first
+    warpgroup) adds the clock64 cycles between its laps to a category
+    (``csrc/stem_common.cuh: wg::Lap``: loads, input waits, weight waits,
+    MMAs, epilogues, mask stores or conversions, output stores, the
+    consumers' barriers), over 3 calls after one. Shares are of the summed
+    cycles (categories with none left out); ``split_ms`` applies them to
+    the normal build's device time (``dev_ms``, by entry name); the
+    profiled build's own time is beside it (the laps cost a little). With
+    a ``tag``, a ``[tag]`` line a call. Empties ``calls``."""
     _cuda = import_port("ops._cuda")
-    fns = wgmma_calls(dev, sp, sbp, TRAIN_BATCH)
     out = {}
-    with _cuda.profiled(*sorted({lib for lib, _ in fns.values()})):
-        for name, (lib, fn) in fns.items():
+    with _cuda.profiled(*sorted({lib for lib, _ in calls.values()})):
+        for name, (lib, fn) in calls.items():
             fn()
             torch.cuda.synchronize()
             _cuda.prof_take(lib)
@@ -907,14 +907,25 @@ def wgmma_split(dev, sp, sbp, dev_ms: dict) -> dict:
             torch.cuda.synchronize()
             cycles = _cuda.prof_take(lib)
             total = sum(cycles.values())
-            share = {k: v / total for k, v in cycles.items()}
+            share = {k: v / total for k, v in cycles.items() if v}
             out[name] = {"share": share,
                          "split_ms": {k: v * dev_ms[name]
                                       for k, v in share.items()},
                          "profiled_dev_ms": device_ms(fn)}
-    del fns
+            if tag:
+                log(f"[{tag}] {name} b24: dev {dev_ms[name]:.4f} ms; "
+                    + json.dumps({k: round(v, 4) for k, v in share.items()})
+                    + f"; profiled build {out[name]['profiled_dev_ms']:.4f}"
+                    " ms")
+    calls.clear()
     torch.cuda.empty_cache()
     return out
+
+
+def wgmma_split(dev, sp, sbp, dev_ms: dict) -> dict:
+    """Where the bfloat16 wgmma stem kernels' time goes at b24 (K1 both
+    forms, K2, K5, K8b; ``wgmma_calls``): ``lap_split``."""
+    return lap_split(wgmma_calls(dev, sp, sbp, TRAIN_BATCH), dev_ms)
 
 
 K8A_ROWS = ("fused_stem_fwd_b", "fused_stem_fwd_b_save_acts")
@@ -935,37 +946,10 @@ def k8a_calls(dev, sp, b: int) -> dict:
 
 def k8a_split(dev, sp, dev_ms: dict) -> dict:
     """Where the bfloat16 K8a's time goes at b24 (``k8a_calls``, both
-    forms): the batched library rebuilt with ``-DAPFP_PROFILE``
-    (``ops/_cuda.py: profiled``), in which thread 0 of each block adds the
-    clock64 cycles between its laps to a category (``csrc/stem_common.cuh:
-    wg::Lap``: the x load, weight waits, MMAs, epilogues, activation
-    stores, barriers). Shares are of the summed cycles; ``split_ms``
-    applies them to the normal build's device time (``dev_ms``); the
-    profiled build's own time is beside it."""
-    _cuda = import_port("ops._cuda")
-    out = {}
-    with _cuda.profiled("stem_batched"):
-        calls = k8a_calls(dev, sp, TRAIN_BATCH)
-        for name, fn in calls.items():
-            fn()
-            torch.cuda.synchronize()
-            _cuda.prof_take("stem_batched")
-            for _ in range(3):
-                fn()
-            torch.cuda.synchronize()
-            cycles = _cuda.prof_take("stem_batched")
-            total = sum(cycles.values())
-            share = {k: v / total for k, v in cycles.items() if v}
-            out[name] = {"share": share,
-                         "split_ms": {k: v * dev_ms[name]
-                                      for k, v in share.items()},
-                         "profiled_dev_ms": device_ms(fn)}
-            log(f"[k8a-split] {name} b24: dev {dev_ms[name]:.4f} ms; "
-                f"{json.dumps({k: round(v, 4) for k, v in share.items()})}"
-                f"; profiled build {out[name]['profiled_dev_ms']:.4f} ms")
-        del calls
-    torch.cuda.empty_cache()
-    return out
+    forms: the x load, weight waits, MMAs, epilogues, stores, barriers):
+    ``lap_split``, a ``[k8a-split]`` line a form."""
+    return lap_split({n: ("stem_batched", fn) for n, fn in k8a_calls(
+        dev, sp, TRAIN_BATCH).items()}, dev_ms, "k8a-split")
 
 
 def training_kernels(dev, sp, sbp, card, tc_info) -> tuple:
@@ -2212,38 +2196,13 @@ def digest(ts) -> str:
 
 
 def k6_split(dev, model, dev_ms: dict) -> dict:
-    """Where the bfloat16 K6 kernels' time goes at b24 (``k6_calls``): the
-    stage library rebuilt with ``-DAPFP_PROFILE`` (``ops/_cuda.py:
-    profiled``), in which thread 0 of each block adds the clock64 cycles
-    between its laps to a category (``csrc/stem_common.cuh: wg::Lap``:
-    tile loads, input waits, weight waits, MMAs, epilogues, mask staging
-    and sign stores, output stores, barriers). Shares are of the summed
-    cycles; ``split_ms`` applies them to the normal build's device time
-    (``dev_ms``); the profiled build's own time is beside it."""
-    _cuda = import_port("ops._cuda")
-    out = {}
-    with _cuda.profiled("res_fused"):
-        calls, _ = k6_calls(dev, model)
-        for name, fn in calls.items():
-            fn()
-            torch.cuda.synchronize()
-            _cuda.prof_take("res_fused")
-            for _ in range(3):
-                fn()
-            torch.cuda.synchronize()
-            cycles = _cuda.prof_take("res_fused")
-            total = sum(cycles.values())
-            share = {k: v / total for k, v in cycles.items() if v}
-            out[name] = {"share": share,
-                         "split_ms": {k: v * dev_ms[name]
-                                      for k, v in share.items()},
-                         "profiled_dev_ms": device_ms(fn)}
-            log(f"[k6-split] {name} b24: dev {dev_ms[name]:.4f} ms; "
-                f"{json.dumps({k: round(v, 4) for k, v in share.items()})}"
-                f"; profiled build {out[name]['profiled_dev_ms']:.4f} ms")
-        del calls
-    torch.cuda.empty_cache()
-    return out
+    """Where the bfloat16 K6 kernels' time goes at b24 (``k6_calls``: tile
+    loads, input waits, weight waits, MMAs, epilogues, mask staging and
+    sign stores, output stores, barriers): ``lap_split``, a
+    ``[k6-split]`` line a kernel."""
+    calls, _ = k6_calls(dev, model)
+    return lap_split({n: ("res_fused", fn) for n, fn in calls.items()},
+                     dev_ms, "k6-split")
 
 
 def k6_readings(dev, model) -> dict:
