@@ -1,0 +1,48 @@
+"""The parts of the program under test that the benchmark drives: its
+entry points, its counters and its victim built from the benchmark's
+weights. Nothing else of the benchmark imports the program."""
+
+from __future__ import annotations
+
+import importlib
+
+import numpy as np
+
+from .core import PORT
+
+
+def mod(name: str):
+    return importlib.import_module(f"{PORT}.{name}")
+
+
+def network(config: dict):
+    """The program's compiled network for a configuration file."""
+    cfg = mod("models.darknet_cfg")
+    darknet = mod("models.darknet")
+    if config["architecture"] == "yolov3":
+        blocks = cfg.yolov3_blocks(num_classes=config["num_classes"],
+                                   anchors=config["anchors"],
+                                   width=config["img_size"],
+                                   height=config["img_size"])
+    elif config["architecture"] == "tiny":
+        blocks = cfg.tiny_test_blocks(num_classes=config["num_classes"],
+                                      width=config["img_size"],
+                                      height=config["img_size"])
+    else:
+        raise ValueError(f"unknown architecture {config['architecture']!r}")
+    return darknet.build_network(blocks)
+
+
+def params(weights: dict) -> dict:
+    """The benchmark's folded weights in the program's params layout."""
+    return {f"conv_{i}": {"w": w, "b": b} for i, (w, b) in weights.items()}
+
+
+def decode_anchors(config: dict) -> np.ndarray:
+    """[3, 3, 2] anchors (w, h) in head order, as the configuration
+    pairs them with the heads at decode."""
+    return np.asarray(config["decode_anchors"], np.float64).reshape(3, 3, 2)
+
+
+def kernel_launches(reset: bool = False) -> dict:
+    return mod("ops").kernel_launches(reset)
