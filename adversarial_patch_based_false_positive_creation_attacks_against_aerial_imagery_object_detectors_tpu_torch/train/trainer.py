@@ -38,6 +38,23 @@ patch. Without a mesh, or with one of size 1, nothing of this runs.
 
 ``PatchTrainer(device=)`` defaults to ``"cuda"`` and raises where there is
 no card; the CPU is taken only when asked for.
+
+Each step runs under the spans of ``utils/profiling.py`` (``span``), which
+record only while a profiler is on: ``train.step``, and inside it
+``train.inputs`` (``store_batch`` and ``draw_eot``, or the host -> card
+copy of ``PatchTrainer.step``), ``train.eot`` (``apply_eot_patch``),
+``train.victim_fwd``, ``train.loss`` (``extract_cell_scores`` through
+the total), ``train.backward`` and ``train.update`` (the gradient's
+all-reduce, amsgrad and the clip; ``zero_grad(set_to_none=True)``, which
+launches nothing, stays first in the step, outside it, so that the
+patch's gradient outlives the step). While a profiler is on,
+``make_loss_fn`` also hooks the EOT composite (``cut``), so that the
+records split ``train.backward`` where the gradient reaches the victim's
+input: ``train.victim_bwd`` before, ``train.eot_bwd`` after. The
+patch-only terms (nps, tv, colorfulness) are built after the victim, so
+autograd runs their few small kernels first, inside ``train.victim_bwd``.
+With no profiler on, no hook is registered and each span is one flag
+read.
 """
 
 from __future__ import annotations
@@ -64,6 +81,7 @@ from ..models.weights import load_darknet_weights
 from ..ops import _cuda
 from ..parallel.mesh import (Mesh, all_reduce_sum, batch_sharding,
                              gather_rows, replicated)
+from ..utils.profiling import cut, recording, span
 from .config import ExperimentConfig, combine_loss_target
 from .optim import amsgrad_step, make_optimizer
 
@@ -168,11 +186,19 @@ def make_loss_fn(model: darknet.Darknet, exp: ExperimentConfig,
     distributed = mesh is not None and mesh.distributed
 
     def loss_fn(patch, images, labels, weights, draws):
-        patched, centers = apply_eot_patch(patch, images, labels, draws,
-                                           cfg)
-        heads = model(patched, fused_stem=fused_stem,
-                      planar_stem=planar_stem, res152=res152,
-                      stem_remat=stem_remat)
+        with span("train.eot"):
+            patched, centers = apply_eot_patch(patch, images, labels,
+                                               draws, cfg)
+        if recording() and patched.requires_grad:
+            patched.register_hook(cut)
+        with span("train.victim_fwd"):
+            heads = model(patched, fused_stem=fused_stem,
+                          planar_stem=planar_stem, res152=res152,
+                          stem_remat=stem_remat)
+        with span("train.loss"):
+            return losses(patch, heads, centers, weights)
+
+    def losses(patch, heads, centers, weights):
         cell_obj, cell_cls = extract_cell_scores(
             heads, centers, exp.img_size, exp.num_classes,
             swap_xy=exp.cell_swap_xy)
@@ -243,10 +269,13 @@ def make_train_step(model: darknet.Darknet, exp: ExperimentConfig,
         # the step differentiates whatever grad mode its caller is in
         with torch.enable_grad():
             total, aux = loss_fn(patch, images, labels, weights, draws)
-            total.backward()
-        if distributed:
-            all_reduce_sum(mesh, patch.grad)
-        amsgrad_step(optimizer, patch, lr)
+            with span("train.backward",
+                      split=("train.victim_bwd", "train.eot_bwd")):
+                total.backward()
+        with span("train.update"):
+            if distributed:
+                all_reduce_sum(mesh, patch.grad)
+            amsgrad_step(optimizer, patch, lr)
         return {k: v.detach() for k, v in aux.items()}
 
     return step
@@ -304,10 +333,13 @@ def make_epoch_scan_fn(model: darknet.Darknet, exp: ExperimentConfig,
         rows = batch_sharding(mesh, b) if distributed else slice(None)
         aux = []
         for ib, wb in zip(idx[:, rows], weights[:, rows]):
-            images, labels = store_batch(store_images, store_labels, ib)
-            draws = draw_eot(generator, b, exp.patch_size, cfg)
-            aux.append(step(patch, optimizer, images, labels, lr,
-                            local_draws(draws, rows), wb))
+            with span("train.step"):
+                with span("train.inputs"):
+                    images, labels = store_batch(store_images,
+                                                 store_labels, ib)
+                    draws = draw_eot(generator, b, exp.patch_size, cfg)
+                aux.append(step(patch, optimizer, images, labels, lr,
+                                local_draws(draws, rows), wb))
         stacked = torch.stack([torch.stack([a[k] for k in LOSS_KEYS])
                                for a in aux])
         return dict(zip(LOSS_KEYS, stacked.mean(dim=0)))
@@ -389,20 +421,22 @@ class PatchTrainer:
         """One training step on a (global) batch, numpy or tensors;
         returns the loss parts as device scalars (no host sync)."""
         b = images.shape[0]
-        draws = draw_eot(self.generator, b, self.exp.patch_size,
-                         self.eot_cfg)
-        if self.mesh.distributed:
-            rows = batch_sharding(self.mesh, b)
-            images, labels, draws = (images[rows], labels[rows],
-                                     local_draws(draws, rows))
-            if weights is not None:
-                weights = weights[rows]
-        images = self._to_device(images)
-        labels = self._to_device(labels)
-        if weights is not None:
-            weights = self._to_device(weights)
-        return self.step_fn(self.patch, self.optimizer, images, labels,
-                            self.scheduler.lr, draws, weights)
+        with span("train.step"):
+            with span("train.inputs"):
+                draws = draw_eot(self.generator, b, self.exp.patch_size,
+                                 self.eot_cfg)
+                if self.mesh.distributed:
+                    rows = batch_sharding(self.mesh, b)
+                    images, labels, draws = (images[rows], labels[rows],
+                                             local_draws(draws, rows))
+                    if weights is not None:
+                        weights = weights[rows]
+                images = self._to_device(images)
+                labels = self._to_device(labels)
+                if weights is not None:
+                    weights = self._to_device(weights)
+            return self.step_fn(self.patch, self.optimizer, images, labels,
+                                self.scheduler.lr, draws, weights)
 
     # -- single epoch ------------------------------------------------------
 
