@@ -33,6 +33,8 @@ LAUNCH_COUNTERS = {
     "res152_fused_grad": ("res_fused", "res152_fused_grad", "launches"),
     "fused_stem_bwd": ("stem_fused", "fused_stem_bwd", "launches"),
     "res152_fused_grad12": ("res_fused", "res152_fused_grad12", "launches"),
+    "affine_warp_mxu": ("affine_mxu", "affine_warp_mxu", "launches"),
+    "affine_warp_mxu_bwd": ("affine_mxu", "affine_warp_mxu", "bwd_launches"),
 }
 
 

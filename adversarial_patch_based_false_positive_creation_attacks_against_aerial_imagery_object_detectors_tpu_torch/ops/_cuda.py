@@ -139,6 +139,12 @@ SIGNATURES = {
         # dtype, info[3]
         "apfp_fused_stem_bwd_b_info": [_I, _P],
     },
+    "affine_warp": {
+        # src, coef [B, 7], out, dtype, B, n, oh, ow, stream
+        "apfp_affine_warp_fwd": [_P] * 3 + [_I] * 5 + [_P],
+        # g, coef, gsrc, and the rest as the forward's
+        "apfp_affine_warp_bwd": [_P] * 3 + [_I] * 5 + [_P],
+    },
 }
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}

@@ -123,6 +123,11 @@ Phases, each fatal on failure:
    b4 patch-gradient check against the walk carrying the route's own y5
    forward and gates (1e-4 relative L2), and the packed route's float32
    heads against the conv walk (1e-4 of the head scale).
+9b. The EOT warp's kernel pair (``eot_warp_kernels``; also alone with
+   ``python3 chip_smoke.py --warp``) against the plain warp at b24, 224 ->
+   608^2 and 416^2, bfloat16 and float32: errors, each kernel's time
+   beside its byte bound, the pair through autograd beside the plain
+   warp, peak memory; its entries carry phase 6's training launches.
 
 10. The device-store training path (counted launches): the training CLI
     with ``--device-store`` over 58 synthetic 608^2 PNG tiles (2 epochs of
@@ -327,6 +332,10 @@ EXP_KERNELS = ("median_pool_2d_pallas", "median_pool_2d_pallas_network",
                "fused_stem_fwd_b", "fused_stem_fwd_b_save_acts",
                "fused_stem_bwd_b")
 ROUTE_STEPS = 20   # timed steps of each of the other routes
+# the EOT warp's kernel pair (launched once each a training step on every
+# route) and its canvases at b24 from a 224 patch: (side, offset)
+EOT_WARP = ("affine_warp_mxu", "affine_warp_mxu_bwd")
+WARP_SHAPES = ((608, 192), (416, 96))
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and dense FLOP/s by type
 PEAK_BYTES = 3.35e12
@@ -1458,7 +1467,7 @@ def training(dev, card) -> dict:
         assert darknet.last_routes()["res152"] == "conv"
         assert all(launches[k] == 0 for k in K4_VARIANTS + K6_KERNELS
                    + NEW_KERNELS + EXP_KERNELS), launches
-        for k in TRAIN_PATH:
+        for k in TRAIN_PATH + EOT_WARP:
             assert launches[k] > 0, f"kernel {k} did not launch in training"
         # split_phases: one K3a launch (both column phases) a stem forward
         assert launches["to_planar_phases"] == (
@@ -3449,7 +3458,7 @@ def store_path(dev, card) -> dict:
         steps = n_batches * STORE_EPOCHS
         # the default training kernels, each once a step, as on the
         # per-step path; nothing else
-        want = {k: steps for k in TRAIN_PATH}
+        want = {k: steps for k in TRAIN_PATH + EOT_WARP}
         assert launches == {k: want.get(k, 0) for k in launches}, launches
         assert darknet.last_routes() == {"stem": "fused", "res152": "conv"}
         rec.update({"launches": launches, "steps": steps,
@@ -4949,6 +4958,135 @@ def entry_path(dev, card) -> dict:
     return rec
 
 
+def eot_warp_kernels(dev, card) -> tuple:
+    """The EOT warp's kernel pair (``csrc/affine_warp.cu``; no Pallas
+    counterpart: XLA's batched products in the JAX package) at b24, 224 ->
+    608^2 and 416^2, bfloat16 (the step's) and float32. Each is checked
+    against the plain warp on the card (forward and mask within one bf16
+    ulp of each value / 2e-6, the gradient within 2^-7 / 1e-5 of its
+    largest magnitude), then timed beside it: each kernel by CUDA events
+    (``ms``) and by a CUDA graph of 20 calls (``device_ms``), against its
+    byte bound (forward: the patch read and the [B, s, s, 4] buffer
+    written; backward: the cotangent read inside each sample's footprint,
+    the output pixels whose mask is not 0, and the patch's gradient
+    written); the pair through autograd as the step runs it (forward, a
+    product with a cotangent, backward: ``pair_ms``) beside the plain
+    warp's (``plain_pair_ms``, ``plain_ms`` its forward alone), with each
+    one's peak memory. The geometry is the card tests' (``warp_theta``).
+    Returns the two kernels' entries and the launches their calls here
+    counted (``launches_here``)."""
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from test_torch_affine_warp_taps import warp_theta
+    AM = import_port("ops.affine_mxu")
+    b, p = TRAIN_BATCH, PATCH
+    before = read_counts()
+    fwd = {"name": "affine_warp_mxu", "route": "cuda",
+           "source": f"{PORT}/csrc/affine_warp.cu",
+           "replaces": "none (XLA's batched products in the JAX package's "
+                       "ops/affine_mxu.py)", "readings": {}}
+    bwd = dict(fwd, name="affine_warp_mxu_bwd", readings={})
+    for s, pad in WARP_SHAPES:
+        for dt in (torch.bfloat16, torch.float32):
+            tag = f"b{b} {p}->{s} {str(dt).split('.')[-1]}"
+            gen = torch.Generator().manual_seed(s)
+            img = torch.rand(b, p, p, 3, generator=gen).to(dev, dt)
+            theta = warp_theta(p, s, b=b, seed=s).to(dev)
+            g = torch.randn(b, s, s, 3, generator=gen).to(dev)
+            kw = dict(src_hw=(s, s), offset=(pad, pad))
+
+            def pair(fn):
+                it = img.clone().requires_grad_(True)
+                out, mask = fn(it, theta, (s, s), **kw)
+                (gi,) = torch.autograd.grad((out.float() * g).sum(), it)
+                return out.detach(), mask.detach(), gi
+
+            def peak(fn):
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+                pair(fn)
+                torch.cuda.synchronize()
+                return (torch.cuda.max_memory_allocated() - base) / 1e9
+
+            got, want = pair(AM.affine_warp_mxu), pair(AM.affine_warp_mxu_plain)
+            errs = {}
+            for name, k, w in zip(("out", "mask", "grad"), got, want):
+                k, w = k.float(), w.float()
+                err = (k - w).abs().max().item()
+                if name == "grad":
+                    tol = (2.0 ** -7 if dt == torch.bfloat16 else 1e-5) * \
+                        w.abs().max().item()
+                    assert err <= tol, (tag, name, err, tol)
+                elif dt == torch.bfloat16:
+                    ulp = torch.exp2(torch.floor(torch.log2(
+                        w.abs().clamp_min(1e-30))) - 7)
+                    assert ((k - w).abs() <= ulp).all(), (tag, name, err)
+                else:
+                    assert err <= 2e-6, (tag, name, err)
+                errs[name] = {"max_abs_err": err,
+                              "equal_share": (k == w).float().mean().item()}
+            coef = AM._kernel_coeffs(theta, (s, s), (s, s), (pad, pad))
+            gd = g.to(dt)
+            out4 = AM._warp_fwd(img, coef, (s, s))
+            src_bytes = nbytes(img)
+            footprint = int((out4[..., 3] != 0).sum().item())
+            f_ms, f_by = bound(src_bytes + nbytes(out4), 0.0, dt)
+            b_ms, b_by = bound(footprint * 3 * gd.element_size()
+                               + src_bytes, 0.0, dt)
+            common = {
+                "errors": errs,
+                "pair_ms": time_ms(lambda: pair(AM.affine_warp_mxu), 10),
+                "plain_pair_ms": time_ms(
+                    lambda: pair(AM.affine_warp_mxu_plain), 3, 1),
+                "plain_ms": time_ms(lambda: AM.affine_warp_mxu_plain(
+                    img, theta, (s, s), **kw), 3, 1),
+                "pair_peak_gb": peak(AM.affine_warp_mxu),
+                "plain_pair_peak_gb": peak(AM.affine_warp_mxu_plain)}
+            fwd["readings"][tag] = {
+                "ms": time_ms(lambda: AM._warp_fwd(img, coef, (s, s))),
+                "device_ms": device_ms(lambda: AM._warp_fwd(
+                    img, coef, (s, s))),
+                "bound_ms": f_ms, "bound_by": f_by, **common}
+            bwd["readings"][tag] = {
+                "ms": time_ms(lambda: AM._warp_bwd(gd, coef, img.shape)),
+                "device_ms": device_ms(lambda: AM._warp_bwd(
+                    gd, coef, img.shape)),
+                "bound_ms": b_ms, "bound_by": b_by,
+                "footprint_share": footprint / (b * s * s)}
+            r, rb = fwd["readings"][tag], bwd["readings"][tag]
+            log(f"[warp] {tag}: fwd {r['ms']:.4f} ms (dev "
+                f"{r['device_ms']:.4f}, bound {f_ms:.4f}), bwd "
+                f"{rb['ms']:.4f} (dev {rb['device_ms']:.4f}, bound "
+                f"{b_ms:.4f}, footprint {rb['footprint_share']:.3f} of "
+                f"the canvas); pair through autograd {r['pair_ms']:.3f} ms, "
+                f"{r['pair_peak_gb']:.2f} GB, against the plain warp's "
+                f"{r['plain_pair_ms']:.3f} ms (forward "
+                f"{r['plain_ms']:.3f}), {r['plain_pair_peak_gb']:.2f} GB; "
+                f"errors {json.dumps(errs)} ({card})")
+            del got, want, out4, gd, img, g
+            torch.cuda.empty_cache()
+    return [fwd, bwd], launches_since(before)
+
+
+def warp_only() -> int:
+    """``--warp``: the build and ``eot_warp_kernels`` alone."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, ROOT)
+    _cuda = import_port("ops._cuda")
+    card = card_line()
+    log(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}")
+    info = _cuda.build_all()
+    for line in info["affine_warp"]["log"].splitlines():
+        if "Compiling entry" in line or "Used" in line or "spill" in line:
+            log(f"    {line.strip()}")
+    entries, launches = eot_warp_kernels(torch.device("cuda"), card)
+    log(json.dumps({"eot_warp": entries, "launches_here": launches,
+                    "card": card}))
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -5531,6 +5669,17 @@ def main() -> int:
     log(f"[exp] {json.dumps(erec)} ({card})")
     torch.cuda.empty_cache()
 
+    # -- 9b. the EOT warp's kernel pair against the plain warp ----------
+    phase("9b EOT warp")
+    warp, warp_here = eot_warp_kernels(dev, card)
+    for k in warp:
+        # phase 6's training counts, as the other kernels' entries
+        k["launches"] = rec["launches"][k["name"]]
+        k["train_launches_per_step"] = rec["launches_per_step"][k["name"]]
+        k["phase_9b_launches"] = warp_here.get(k["name"], 0)
+        assert k["launches"] > 0 and k["phase_9b_launches"] > 0, k["name"]
+    kernels += warp
+
     # -- 10. the device-store training path (counted launches) ---------
     phase("10 device-store training")
     srec = store_path(dev, card)
@@ -5837,6 +5986,8 @@ def stem_ab(parent: str) -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--warp"]:
+        sys.exit(warp_only())
     if sys.argv[1:2] == ["--k4-ab"]:
         sys.exit(k4_ab(os.path.abspath(sys.argv[2])))
     if sys.argv[1:2] == ["--stem-ab"]:

@@ -19,8 +19,10 @@ import torch
 
 from adversarial_patch_based_false_positive_creation_attacks_against_aerial_imagery_object_detectors_tpu_torch import evals as PE
 from adversarial_patch_based_false_positive_creation_attacks_against_aerial_imagery_object_detectors_tpu_torch import models as PM
+from adversarial_patch_based_false_positive_creation_attacks_against_aerial_imagery_object_detectors_tpu_torch.ops import affine_mxu as AM
 from adversarial_patch_based_false_positive_creation_attacks_against_aerial_imagery_object_detectors_tpu_torch.ops import planar_conv as PC
 from adversarial_patch_based_false_positive_creation_attacks_against_aerial_imagery_object_detectors_tpu_torch.ops import stem_fused as SF
+from test_torch_affine_warp_taps import warp_theta
 
 
 pytestmark = pytest.mark.gpu
@@ -1056,3 +1058,86 @@ def test_pgd_first_gradient_card_equals_cpu(cuda):
         (g_w,) = torch.autograd.grad(PP.fabrication_loss(model(xr)), xr)
     rel = ((g_k - g_w).norm() / g_w.norm()).item()
     assert rel <= 1e-4, rel
+
+
+def _warp_grads(fn, img, theta, s, pad, g, g_mask):
+    """(out, mask, gradient into img) of ``fn`` under the cotangents g
+    and g_mask (the mask's; None leaves the mask out of the loss)."""
+    it = img.clone().requires_grad_(True)
+    out, mask = fn(it, theta, (s, s), src_hw=(s, s), offset=(pad, pad))
+    loss = (out.float() * g).sum()
+    if g_mask is not None:
+        loss = loss + (mask.float() * g_mask).sum()
+    loss.backward()
+    return out.detach().float(), mask.detach().float(), it.grad.float()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,p,s", [(24, 224, 608), (24, 224, 416),
+                                   (6, 13, 40)])
+def test_affine_warp_kernels_match_plain(cuda, dtype, b, p, s):
+    """The kernel pair against the plain warp on the card (the EOT's
+    shapes: 224 -> 608 at offset 192, 224 -> 416 at offset 96; and a
+    small odd one). Forward and mask: bfloat16 within one bf16 ulp of each
+    plain value (bit-equal almost everywhere), float32 within 2e-6.
+    Backward, with the mask's cotangent zero and not: bfloat16 within 2
+    bf16 ulps (2^-7) of the plain gradient's largest magnitude, float32
+    within 1e-5 of it; two runs give the same bits; each call launches one
+    forward and one backward."""
+    pad = (s - p) // 2
+    gen = torch.Generator().manual_seed(p + s)
+    img = torch.rand(b, p, p, 3, generator=gen).to(cuda, dtype)
+    theta = warp_theta(p, s, b=b, seed=s).to(cuda)
+    g = torch.randn(b, s, s, 3, generator=gen).to(cuda)
+    g_mask = torch.randn(b, s, s, 1, generator=gen).to(cuda)
+    fwd, bwd = AM.affine_warp_mxu.launches, AM.affine_warp_mxu.bwd_launches
+    for gm in (None, g_mask):
+        out, mask, grad = _warp_grads(AM.affine_warp_mxu, img, theta, s,
+                                      pad, g, gm)
+        torch.cuda.synchronize()
+        want, want_m, want_g = _warp_grads(AM.affine_warp_mxu_plain, img,
+                                           theta, s, pad, g, gm)
+        for got_v, want_v in ((out, want), (mask, want_m)):
+            err = (got_v - want_v).abs()
+            if dtype == torch.float32:
+                assert err.max().item() <= 2e-6, err.max().item()
+            else:
+                ulp = torch.exp2(torch.floor(torch.log2(
+                    want_v.abs().clamp_min(1e-30))) - 7)
+                assert (err <= ulp).all(), err.max().item()
+                assert (got_v == want_v).float().mean().item() > 0.99
+        assert want_m.max().item() > 0.99 and (want_m == 0).any()
+        scale = want_g.abs().max().item()
+        tol = (1e-5 if dtype == torch.float32 else 2.0 ** -7) * scale
+        gerr = (grad - want_g).abs().max().item()
+        assert gerr <= tol, (gerr, tol)
+        assert (grad != 0).float().mean().item() > 0.3
+        _, _, again = _warp_grads(AM.affine_warp_mxu, img, theta, s, pad,
+                                  g, gm)
+        assert torch.equal(again, grad)
+    assert (AM.affine_warp_mxu.launches,
+            AM.affine_warp_mxu.bwd_launches) == (fwd + 4, bwd + 4)
+
+
+def test_affine_warp_kernel_writes_every_output(cuda):
+    """Every element of the forward's buffer and of the gradient is
+    written: both blocks come from a cache left full of NaN, and odd
+    canvas widths take the forward's scalar stores in bfloat16 (two pixels
+    a thread) as even ones take its vector stores."""
+    for dt, s in ((torch.bfloat16, 41), (torch.bfloat16, 40),
+                  (torch.float32, 41)):
+        img = torch.rand(3, 13, 13, 3, device=cuda).to(dt).requires_grad_()
+        theta = warp_theta(13, s, b=3, seed=s).to(cuda)
+        torch.full((3, s, s, 4), float("nan"), dtype=dt, device=cuda)
+        out, mask = AM.affine_warp_mxu(img, theta, (s, s), src_hw=(s, s),
+                                       offset=(14, 14))
+        assert torch.isfinite(out).all() and torch.isfinite(mask).all()
+        torch.full((3, 13, 13, 3), float("nan"), dtype=dt, device=cuda)
+        out.float().sum().backward()
+        assert torch.isfinite(img.grad).all()
+        want, want_m = AM.affine_warp_mxu_plain(img.detach(), theta, (s, s),
+                                                (s, s), (14, 14))
+        # values in [0, 1]: one bf16 ulp is at most 2^-8
+        tol = 2.0 ** -8 if dt == torch.bfloat16 else 2e-6
+        assert (out - want).abs().max().item() <= tol
+        assert (mask - want_m).abs().max().item() <= tol
