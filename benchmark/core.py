@@ -2,7 +2,8 @@
 sub-seeds, the JAX check, the result line.
 
 A cell names a configuration (``configs`` entry of ``BENCHMARK.json``:
-its ``file``), a traffic mix (``benchmark/traffic/<traffic>.json``,
+its ``file``, which names its victim's darknet cfg, ``cfgfile``, beside
+it), a traffic mix (``benchmark/traffic/<traffic>.json``,
 which names its ``loop``: ``benchmark/loops/<loop>.py``) and, by the
 metrics' ``workloads``, its per-layer metrics
 (``benchmark/metrics/<metric>.py``). Each is looked up under the checkout
@@ -18,6 +19,8 @@ import os
 import sys
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence
+
+from .reference import cfg
 
 PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(PKG_DIR)
@@ -42,6 +45,20 @@ def log(*a) -> None:
     print(*a, file=sys.stderr, flush=True)
 
 
+def read_config(path: str) -> dict:
+    """A configuration file, with the text of the darknet cfg it names
+    (``cfgfile``, a path beside it) under ``cfg_text``: the program and
+    the reference build the victim from these same bytes. Raises where
+    the cfg's input size, classes or head filters disagree with the
+    file's."""
+    with open(path) as f:
+        config = json.load(f)
+    with open(os.path.join(os.path.dirname(path), config["cfgfile"])) as f:
+        config["cfg_text"] = f.read()
+    cfg.check(config, *cfg.parse(config["cfg_text"]))
+    return config
+
+
 class Bench:
     """``BENCHMARK.json`` of a checkout and the files its names point
     at."""
@@ -60,8 +77,7 @@ class Bench:
     def config(self, name: str) -> dict:
         for c in self.spec["configs"]:
             if c["name"] == name:
-                with open(os.path.join(self.root, c["file"])) as f:
-                    return json.load(f)
+                return read_config(os.path.join(self.root, c["file"]))
         raise KeyError(f"no config {name!r} in BENCHMARK.json")
 
     def find(self, kind: str, name: str, ext: str) -> str:

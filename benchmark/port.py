@@ -16,21 +16,9 @@ def mod(name: str):
 
 
 def network(config: dict):
-    """The program's compiled network for a configuration file."""
-    cfg = mod("models.darknet_cfg")
-    darknet = mod("models.darknet")
-    if config["architecture"] == "yolov3":
-        blocks = cfg.yolov3_blocks(num_classes=config["num_classes"],
-                                   anchors=config["anchors"],
-                                   width=config["img_size"],
-                                   height=config["img_size"])
-    elif config["architecture"] == "tiny":
-        blocks = cfg.tiny_test_blocks(num_classes=config["num_classes"],
-                                      width=config["img_size"],
-                                      height=config["img_size"])
-    else:
-        raise ValueError(f"unknown architecture {config['architecture']!r}")
-    return darknet.build_network(blocks)
+    """The program's compiled network for a configuration file: its own
+    parser over the cfg text the configuration carries."""
+    return mod("models.darknet").network_from_cfg(config["cfg_text"])
 
 
 def params(weights: dict) -> dict:

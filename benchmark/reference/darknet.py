@@ -1,12 +1,11 @@
 """Plain float32 darknet forward for the benchmark's configurations.
 
-``yolov3_blocks`` is the layer graph of darknet's cfg/yolov3.cfg (75
-convolutions, 23 shortcuts, 4 routes, 2 upsamples, 3 yolo layers),
-written out again here from the published cfg; ``tiny_blocks`` is the
-small graph the benchmark's CPU tests run. ``forward`` walks a block list
-with ``F.conv2d`` in float32 (TF32 off) and returns the raw heads NHWC.
-Weights are the benchmark's (``benchmark.weights``), folded: per conv an
-OIHW kernel and a bias.
+``blocks_for`` reads a configuration's graph from the darknet cfg text
+it names (``cfg.parse``: conv, shortcut, route, maxpool, upsample and
+yolo layers; leaky, mish and linear activations). ``forward`` walks the
+blocks with ``F.conv2d`` in float32 (TF32 off) and returns the raw heads
+NHWC in cfg order. Weights are the benchmark's (``benchmark.weights``),
+folded: per conv an OIHW kernel and a bias.
 """
 
 from __future__ import annotations
@@ -17,63 +16,16 @@ from typing import Dict, List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from . import cfg
+
 LEAKY = 0.1
 BN_EPS = 1e-5
 
 
-def _conv(filters, size, stride=1, bn=True, act="leaky"):
-    return {"type": "conv", "filters": filters, "size": size,
-            "stride": stride, "bn": bn, "act": act}
-
-
-def yolov3_blocks(num_classes: int) -> List[dict]:
-    """darknet cfg/yolov3.cfg's graph after the [net] block."""
-    head = 3 * (5 + num_classes)
-    b = [_conv(32, 3)]
-    for filters, n_res in ((64, 1), (128, 2), (256, 8), (512, 8), (1024, 4)):
-        b.append(_conv(filters, 3, 2))
-        for _ in range(n_res):
-            b += [_conv(filters // 2, 1), _conv(filters, 3),
-                  {"type": "shortcut", "from": -3}]
-    for scale, (wide, route) in enumerate(((1024, None), (512, 61),
-                                           (256, 36))):
-        if route is not None:
-            b += [{"type": "route", "layers": [-4]}, _conv(wide // 2, 1),
-                  {"type": "upsample", "stride": 2},
-                  {"type": "route", "layers": [-1, route]}]
-        for _ in range(3):
-            b += [_conv(wide // 2, 1), _conv(wide, 3)]
-        b.append(_conv(head, 1, bn=False, act="linear"))
-        b.append({"type": "yolo", "scale": scale})
-    return b
-
-
-def tiny_blocks(num_classes: int) -> List[dict]:
-    """A three-head graph with every block kind, for the CPU tests."""
-    head = 3 * (5 + num_classes)
-    return [
-        _conv(8, 3), _conv(16, 3, 2), _conv(8, 1), _conv(16, 3),
-        {"type": "shortcut", "from": -3}, _conv(32, 3, 2),
-        {"type": "maxpool", "size": 2, "stride": 2}, _conv(32, 3),
-        _conv(64, 3, 2), _conv(64, 3, 2),
-        _conv(32, 1), _conv(head, 1, bn=False, act="linear"),
-        {"type": "yolo", "scale": 0},
-        {"type": "route", "layers": [-3]}, _conv(16, 1),
-        {"type": "upsample", "stride": 2}, {"type": "route", "layers": [-1, 8]},
-        _conv(32, 3), _conv(head, 1, bn=False, act="linear"),
-        {"type": "yolo", "scale": 1},
-        {"type": "route", "layers": [-3]}, _conv(16, 1),
-        {"type": "upsample", "stride": 2}, {"type": "route", "layers": [-1, 7]},
-        _conv(32, 3), _conv(head, 1, bn=False, act="linear"),
-        {"type": "yolo", "scale": 2},
-    ]
-
-
-ARCHITECTURES = {"yolov3": yolov3_blocks, "tiny": tiny_blocks}
-
-
 def blocks_for(config: dict) -> List[dict]:
-    return ARCHITECTURES[config["architecture"]](config["num_classes"])
+    """The layer blocks of the cfg text a configuration carries
+    (``cfg_text``, read beside its file by ``core.read_config``)."""
+    return cfg.parse(config["cfg_text"])[1]
 
 
 def conv_shapes(blocks: List[dict], in_ch: int = 3
@@ -98,7 +50,8 @@ def conv_shapes(blocks: List[dict], in_ch: int = 3
 
 
 def conv_flops_per_image(blocks: List[dict], size: int) -> float:
-    """Forward conv FLOPs (2 x multiply-adds) of one square image."""
+    """Forward conv FLOPs (2 x multiply-adds) of one square image, each
+    layer's side by darknet's output-size rules."""
     hw: List[int] = []
     cur = size
     total = 0.0
@@ -107,10 +60,10 @@ def conv_flops_per_image(blocks: List[dict], size: int) -> float:
         kind = blk["type"]
         if kind == "conv":
             cin, cout, k, stride, _ = shapes[i]
-            cur = -(-cur // stride)
+            cur = (cur + 2 * blk["pad"] - k) // stride + 1
             total += 2.0 * cur * cur * cout * cin * k * k
         elif kind == "maxpool":
-            cur = -(-cur // blk["stride"])
+            cur = (cur + blk["padding"] - blk["size"]) // blk["stride"] + 1
         elif kind == "upsample":
             cur *= blk["stride"]
         elif kind == "route":
@@ -160,15 +113,32 @@ def round_to(x: torch.Tensor, quant: Optional[str]) -> torch.Tensor:
     return x + (q - x).detach()
 
 
+def _activate(y: torch.Tensor, act: str, quant: Optional[str]
+              ) -> torch.Tensor:
+    if act == "leaky":
+        return round_to(torch.where(y > 0, y, y * LEAKY), quant)
+    if act == "mish":
+        return round_to(y * torch.tanh(F.softplus(y)), quant)
+    return y
+
+
 def forward(blocks: List[dict], weights: Dict[int, Tuple[torch.Tensor,
                                                          torch.Tensor]],
             x: torch.Tensor, quant: Optional[str] = None,
             calibrate: Optional[float] = None) -> List[torch.Tensor]:
     """Raw heads [B, S, S, 3*(5+C)] float32 of NHWC ``x`` in [0, 1].
 
+    Activations are darknet's: leaky (slope ``LEAKY``), mish
+    (``y * tanh(softplus(y))`` in float32: darknet's
+    ``activate_array_mish`` up to float32 rounding) and linear. A maxpool
+    pads by darknet's rule: of its total ``padding`` (``size - 1``)
+    ``padding // 2`` on the left and top, the rest on the right and
+    bottom, with -inf.
+
     ``quant`` ("fp8" or "bf16") rounds to that format every value the
     program stores: the input, each kernel and bias, each conv's output,
-    the biased sum, the activation and each shortcut's sum.
+    the biased sum, the output of a leaky or mish activation, and each
+    shortcut's sum (and its activation's output).
     ``calibrate=beta`` folds into each batch-normalised conv of
     ``weights`` (in place) a batch norm whose mean and variance are the
     per-channel statistics of its output over ``x``, with gamma 1 and
@@ -182,7 +152,7 @@ def forward(blocks: List[dict], weights: Dict[int, Tuple[torch.Tensor,
             if kind == "conv":
                 w, bias = weights[i]
                 y = F.conv2d(prev, round_to(w, quant), None, blk["stride"],
-                             (blk["size"] - 1) // 2)
+                             blk["pad"])
                 if calibrate is not None and blk["bn"]:
                     mean = y.mean(dim=(0, 2, 3))
                     scale = torch.rsqrt(y.var(dim=(0, 2, 3), correction=0)
@@ -192,11 +162,11 @@ def forward(blocks: List[dict], weights: Dict[int, Tuple[torch.Tensor,
                     y = y * scale[None, :, None, None]
                 y = round_to(round_to(y, quant)
                            + round_to(bias, quant)[None, :, None, None], quant)
-                if blk["act"] == "leaky":
-                    y = round_to(torch.where(y > 0, y, y * LEAKY), quant)
-                prev = y
+                prev = _activate(y, blk["act"], quant)
             elif kind == "shortcut":
-                prev = round_to(outs[-1] + outs[i + blk["from"]], quant)
+                src = blk["from"]
+                prev = _activate(round_to(outs[-1] + outs[
+                    i + src if src < 0 else src], quant), blk["act"], quant)
             elif kind == "route":
                 prev = torch.cat([outs[i + r if r < 0 else r]
                                   for r in blk["layers"]], dim=1)
@@ -204,8 +174,10 @@ def forward(blocks: List[dict], weights: Dict[int, Tuple[torch.Tensor,
                 prev = F.interpolate(prev, scale_factor=blk["stride"],
                                      mode="nearest")
             elif kind == "maxpool":
-                prev = F.max_pool2d(prev, blk["size"], blk["stride"],
-                                    padding=(blk["size"] - 1) // 2)
+                pad = blk["padding"]
+                prev = F.max_pool2d(
+                    F.pad(prev, (pad // 2, pad - pad // 2) * 2,
+                          value=float("-inf")), blk["size"], blk["stride"])
             elif kind == "yolo":
                 heads.append(prev.permute(0, 2, 3, 1))
             else:

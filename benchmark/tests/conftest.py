@@ -3,17 +3,19 @@ card are marked ``gpu`` and skip here."""
 
 import json
 import os
+import shutil
 import sys
 
 import pytest
 
-ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))))
+HERE = os.path.dirname(os.path.abspath(__file__))
+ROOT = os.path.dirname(os.path.dirname(HERE))
 if ROOT not in sys.path:
     sys.path.insert(0, ROOT)
 
 TINY_CONFIG = {
-    "name": "tiny", "architecture": "tiny", "img_size": 64,
+    "name": "tiny", "cfgfile": "tiny.cfg", "architecture": "tiny",
+    "img_size": 64,
     "num_classes": 15, "head_filters": 60,
     "anchors": "15, 31,  19, 12,  28, 40,  40, 20,  43, 38,  42, 87,  "
                "78, 54,  95, 102,  181, 206",
@@ -32,6 +34,16 @@ TINY_CONFIG = {
                         "cls_grad_row_gap": 0.04, "change_norm_gap": 0.05},
     },
 }
+
+
+def cfg_text(name: str) -> str:
+    """The text of a cfg file kept beside these tests."""
+    with open(os.path.join(HERE, name)) as f:
+        return f.read()
+
+
+# the tiny configuration as ``core.read_config`` hands it on
+TINY = dict(TINY_CONFIG, cfg_text=cfg_text("tiny.cfg"))
 TINY_TRAIN = {"loop": "patch_train", "experiment": "paper_obj",
               "batch": 8, "store_tiles": 40, "max_labels": 12,
               "label_tail": 1.0, "steps_per_call": 2, "trace_seconds": 0.5}
@@ -39,13 +51,14 @@ TINY_TRAIN = {"loop": "patch_train", "experiment": "paper_obj",
 
 def write_root(root, metrics=()):
     """A checkout holding ``BENCHMARK.json`` with a tiny training cell,
-    and its configuration and traffic files; loops and readers come from
-    the benchmark itself."""
+    and its configuration (``tiny.json`` and its ``tiny.cfg``) and
+    traffic files; loops and readers come from the benchmark itself."""
     bdir = os.path.join(root, "benchmark")
     for sub in ("configs", "traffic"):
         os.makedirs(os.path.join(bdir, sub), exist_ok=True)
     with open(os.path.join(bdir, "configs", "tiny.json"), "w") as f:
         json.dump(TINY_CONFIG, f)
+    shutil.copy(os.path.join(HERE, "tiny.cfg"), os.path.join(bdir, "configs"))
     with open(os.path.join(bdir, "traffic", "tiny-train.json"), "w") as f:
         json.dump(TINY_TRAIN, f)
     spec = {

@@ -1,18 +1,19 @@
 """The victim's weights, made from the seed on the device.
 
 He-normal kernels (one ``torch.randn`` call of a generator on the
-device, cut into OIHW views) and zero biases on the three detection
-convs. The batch norm after every other conv takes the per-channel mean
-and variance of the conv's output on a calibration batch of seeded
-tiles, gamma 1 and beta ``BN_BETA``, and is folded into the kernel and
-a bias layer by layer through the reference's float32 forward. With
-identity batch norm the 23 residual additions grow the activations
-until every head saturates its sigmoids, and no gradient reaches the
-patch through the victim; with beta 0 the victim sits at the edge of
-chaos and its bfloat16 rounding grows through the 75 layers to 15-35% of
-the heads. Beta 1 keeps most units on the leaky ReLU's linear side, as
-in a trained detector, and bfloat16 within a few percent. Both the
-program and the reference are handed these float32 tensors.
+device, cut into OIHW views) and zero biases on the convs without batch
+norm (the detection heads). The batch norm after every other conv takes
+the per-channel mean and variance of the conv's output on a calibration
+batch of seeded tiles, gamma 1 and beta ``BN_BETA``, and is folded into
+the kernel and a bias layer by layer through the reference's float32
+forward. The graph is whatever the configuration's cfg holds. On
+YOLOv3, identity batch norm lets the 23 residual additions grow the
+activations until every head saturates its sigmoids, and no gradient
+reaches the patch through the victim; with beta 0 the victim sits at the
+edge of chaos and its bfloat16 rounding grows through the layers to
+15-35% of the heads. Beta 1 keeps most units on the leaky ReLU's linear
+side, as in a trained detector, and bfloat16 within a few percent. Both
+the program and the reference are handed these float32 tensors.
 """
 
 from __future__ import annotations
